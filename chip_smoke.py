@@ -1,33 +1,47 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch/H100 port (``redcliff_tpu_torch``).
 
-Drives the port's main path on one CUDA card and holds every kernel on it
-against its plain PyTorch version. Phases, one JSON line each:
+Drives the port's two main paths on one CUDA card — serving a fitted
+model and fitting one — and holds every kernel on them against its plain
+PyTorch version. Phases, one JSON line each:
 
-1. build: the factor-mix CUDA kernel from ``redcliff_tpu_torch/ops/csrc``
-   (into ``build/torch_kernels/``), timed; the card's name and power limit.
-2. kernel: the kernel against its plain version on the card at the serve
-   path's shapes (forward, the broadcast graph blend, autograd backward),
-   max abs error beside the tolerance, and CUDA-event times of the kernel,
-   the plain version and one library call, beside the memory/compute bound.
+1. build: the factor-mix and GL-prox CUDA kernels from
+   ``redcliff_tpu_torch/ops/csrc`` (into ``build/torch_kernels/``), built
+   at once, each timed; the card's name and power limit.
+2. kernel: each kernel against its plain version on the card — factor mix
+   at the serve shapes and at the training shapes (forward and autograd
+   backward, full and remainder batch), GL prox at the training block,
+   the off-tile shapes and on an all-zero and an at-threshold group — max
+   abs error beside the tolerance, and CUDA-event times of the kernel, the
+   plain version and, where one exists, one library call, beside the bound.
 3. serve: a REDCLIFF-S model at the D4IC headline widths (10 channels,
    gen_lag 4, embed_lag 16, 5 factors, DGCNN embedder with 3 graph-conv
    layers of 100 hidden nodes, 2 sims) from random weights (seed 0), saved
    as an artifact and served through ``ServeService.from_artifact`` with 64
-   slots to 48 streams, one of which turns NaN after warm-up. Launch counts
-   are reset just before and read just after.
-4. check: the card's serve outputs against the port's CPU path on the same
-   weights and samples (finite, expected shapes, within tolerance).
+   slots to 48 streams, one of which turns NaN after warm-up.
+4. check: the card's serve outputs against the port's CPU path.
+5. train: the published D4IC REDCLIFF-S configuration at full width
+   (gen_hidden 25, batch 128, the paper's coefficients rescaled as the
+   driver does, GL prox on) fitted through ``RedcliffTrainer.fit`` on
+   numpy-made D4IC-shaped data from a seed, depth cut to 1 pretrain + 1
+   acclimation + 2 combined epochs. Checks finite losses, no skipped step,
+   no zeroed group, kernel launch counts against the steps and forwards
+   the fit ran, the best epoch, and that the artifact loads.
+6. train_check: the same 8 guarded combined steps from the same weights
+   and batches on the card and on the CPU, losses and params compared.
 
-Then a ``kernels`` line, the ``nvidia-smi`` name/power line, and as the last
-line ``{"ok": true, "device": {...}}``. Any failed check raises: the script
+Launch counts are reset just before each main path (serve, train) and read
+just after; the kernel-phase launches do not count. Then a ``kernels``
+line, the ``nvidia-smi`` name/power line, and as the last line
+``{"ok": true, "device": {...}}``. Any failed check raises: the script
 exits non-zero and prints no ``ok`` line. It also refuses to run without
 CUDA or outside a checkout of the repository.
 
 Usage: ``python3 chip_smoke.py`` from the repository root, on a machine
-with one NVIDIA card. ``--profile`` adds a ``profile`` phase after the
-checks: the kernel's device time alone and a ``torch.profiler`` window of
-serve ticks (device busy time, idle share, top device ops).
+with one NVIDIA card. ``--profile`` adds ``profile`` phases after the
+checks: each kernel's device time alone, a ``torch.profiler`` window of
+serve ticks and one of training steps (device busy time, idle share, top
+device ops).
 """
 from __future__ import annotations
 
@@ -36,6 +50,7 @@ import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -49,6 +64,12 @@ F32_FLOPS_PER_S = 67e12
 RTOL, ATOL = 1e-5, 1e-6
 # card vs CPU through the DGCNN embed and sigmoid(10 x)
 SERVE_RTOL, SERVE_ATOL = 1e-5, 1e-5
+# card vs CPU over 8 training steps: f32 both, another summation order in
+# every reduction (the DGCNN normalization, the GEMMs, the group norms of
+# the prox), drifting through two Adams and the prox step after step — the
+# multi-step bar of the CPU tests against JAX (tests/test_torch_train.py)
+TRAIN_LOSS_RTOL, TRAIN_LOSS_ATOL = 1e-4, 1e-5
+TRAIN_PARAM_ATOL = 1e-4
 
 CONFIG = dict(
     num_chans=10, gen_lag=4, gen_hidden=(32,), embed_lag=16,
@@ -62,6 +83,47 @@ CONFIG = dict(
 CAPACITY = 64
 STREAMS = 48
 ANSWERED = 32
+
+# the published D4IC REDCLIFF-S model (experiments/accuracy_parity_d4ic.py
+# REDCLIFF_ARGS, from the reference's
+# train/REDCLIFF_S_CMLP_d4IC_BSCgs1_cached_args.txt) at full width; loss
+# coefficients rescaled as train/driver.py:62-83 does (cos-sim / sum(1..K-1),
+# adj-L1 / (K sqrt(C^2 - 1)))
+K_TRAIN, C_TRAIN = 5, 10
+TRAIN_CONFIG = dict(
+    num_chans=C_TRAIN, gen_lag=4, gen_hidden=(25,), embed_lag=16,
+    embed_hidden_sizes=(0,), num_factors=K_TRAIN,
+    num_supervised_factors=K_TRAIN, forecast_coeff=10.0,
+    factor_score_coeff=100.0,
+    factor_cos_sim_coeff=1.0 / sum(range(1, K_TRAIN)),
+    factor_weight_l1_coeff=1e-3,
+    adj_l1_reg_coeff=1.0 / K_TRAIN / (C_TRAIN ** 2 - 1.0) ** 0.5,
+    use_sigmoid_restriction=False, sigmoid_eccentricity_coeff=10.0,
+    factor_score_embedder_type="DGCNN", dgcnn_num_graph_conv_layers=3,
+    dgcnn_num_hidden_nodes=100,
+    primary_gc_est_mode="conditional_factor_fixed_embedder",
+    forward_pass_mode="apply_factor_weights_after_sim_completion",
+    num_sims=1,
+    training_mode="pretrain_embedder_then_acclimate_factors_then_combined",
+    # depth cut: 50 -> 1 pretrain, 15 -> 1 acclimation epochs
+    num_pretrain_epochs=1, num_acclimation_epochs=1)
+# a GL threshold lr * lam = 2e-3 per factor step: it shrinks every group
+# but zeroes none within the run (a zeroed group stalls the fit in both
+# packages: ROADMAP queue 3)
+PROX_LAM = 4.0
+TRAIN_KNOBS = dict(
+    batch_size=128, gen_lr=5e-4, gen_eps=1e-4, gen_weight_decay=1e-4,
+    embed_lr=2e-4, embed_eps=1e-4, embed_weight_decay=1e-4,
+    # depth cut: max_iter 1000 -> 4, check_every 10 -> 1
+    max_iter=4, check_every=1, lookback=1,
+    stopping_criteria_forecast_coeff=10.0,
+    stopping_criteria_factor_coeff=100.0,
+    stopping_criteria_cosSim_coeff=1.0,
+    prox_penalty="GL", prox_lam=PROX_LAM, seed=0)
+# D4IC-shaped windows of (embed_lag + 1, 10); neither count divides by the
+# batch, so both streams end in a short remainder batch (80 and 116)
+N_TRAIN, N_VAL = 2000, 500
+TRAIN_CHECK_STEPS = 8
 
 
 class SmokeFailure(RuntimeError):
@@ -85,13 +147,22 @@ def _nvidia_smi():
     return res.stdout.strip().splitlines()[0]
 
 
+def _bound(nbytes, flops):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def _bound_ms(B, K, M, b_prime):
     """Least time for the mix on the card: each input read once, the output
     written once, over HBM bandwidth; 2*B*K*M flops over the f32 rate."""
-    nbytes = 4 * (B * K + K * b_prime * M + B * M)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 2.0 * B * K * M / F32_FLOPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return _bound(4 * (B * K + K * b_prime * M + B * M), 2.0 * B * K * M)
+
+
+def _prox_bound_ms(numel):
+    """Least time for the GL prox: the block read once and written once;
+    per element a square-accumulate, a divide and a multiply (4 flops)."""
+    return _bound(8 * numel, 4.0 * numel)
 
 
 def _time_ms(torch, fn, iters=1000, warmup=100):
@@ -120,63 +191,115 @@ def _check_close(torch, name, got, want, errs, rtol=RTOL, atol=ATOL):
              f"{err}, rtol {rtol}, atol {atol})")
 
 
-def phase_build(torch, FM):
+def phase_build(torch, kernels):
+    """Build every kernel at once, one nvcc per source, each timed."""
+    from redcliff_tpu_torch.ops.cuda_build import BUILD_DIR
+
+    build_s, errors = {}, {}
+
+    def build(name, mod):
+        t0 = time.perf_counter()
+        try:
+            mod.load_kernel()
+        except Exception as e:  # noqa: BLE001 — reported below, then raised
+            errors[name] = repr(e)
+        build_s[name] = time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    FM.load_kernel()
-    build_s = time.perf_counter() - t0
+    threads = [threading.Thread(target=build, args=(n, m))
+               for n, m in kernels.items()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall_s = time.perf_counter() - t0
+    _require(not errors, f"kernel build failed: {errors}")
     smi = _nvidia_smi()
-    _emit({"phase": "build", "kernel": "factor_mix",
-           "source": os.path.relpath(FM.KERNEL_SOURCE, HERE),
-           "build_dir": os.path.relpath(FM.BUILD_DIR, HERE),
-           "build_s": build_s,
+    _emit({"phase": "build",
+           "kernels": {n: os.path.relpath(m.KERNEL_SOURCE, HERE)
+                       for n, m in kernels.items()},
+           "build_dir": os.path.relpath(BUILD_DIR, HERE),
+           "build_s": build_s, "build_wall_s": wall_s,
            "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
            "torch": torch.__version__, "cuda": torch.version.cuda})
     return smi
 
 
-def phase_kernel(torch, FM):
+def _mix_grads(torch, mix, w0, p0):
+    w = w0.clone().requires_grad_(True)
+    p = p0.clone().requires_grad_(True)
+    out = mix(w, p)
+    torch.sin(out).sum().backward()
+    return out.detach(), w.grad, p.grad
+
+
+def phase_kernel(torch, FM, PX):
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
-    errs = {}
+    errs = {"factor_mix": {}, "gl_prox": {}}
+    fm_errs, px_errs = errs["factor_mix"], errs["gl_prox"]
     for B, K, T, C in ((64, 5, 1, 10), (64, 5, 2, 10), (17, 5, 1, 10),
                        (1, 5, 1, 10)):
         w = torch.rand((B, K), generator=gen).to(dev)
         p = torch.randn((K, B, T, C), generator=gen).to(dev)
         _check_close(torch, f"factor_mix{(B, K, T, C)}", FM.factor_mix(w, p),
-                     FM.factor_mix_reference(w, p), errs)
+                     FM.factor_mix_reference(w, p), fm_errs)
     gc = torch.randn((5, 10, 10), generator=gen).to(dev)
     for S in (64, 3):
         w = torch.rand((S, 5), generator=gen).to(dev)
         _check_close(torch, f"graph_mix(S={S})", FM.graph_mix(w, gc),
-                     FM.graph_mix_reference(w, gc), errs)
-    # autograd: kernel forward + einsum backward vs the plain version
-    w0 = torch.rand((64, 5), generator=gen).to(dev)
-    p0 = torch.randn((5, 64, 1, 10), generator=gen).to(dev)
-    grads = []
-    for mix in (FM.factor_mix, FM.factor_mix_reference):
-        w = w0.clone().requires_grad_(True)
-        p = p0.clone().requires_grad_(True)
-        torch.sin(mix(w, p)).sum().backward()
-        grads.append((w.grad, p.grad))
-    _check_close(torch, "backward_dw", grads[0][0], grads[1][0], errs)
-    _check_close(torch, "backward_dp", grads[0][1], grads[1][1], errs)
+                     FM.graph_mix_reference(w, gc), fm_errs)
+    # autograd, kernel forward + einsum backward vs the plain version: the
+    # serve-test shape, the training batch and an odd remainder batch
+    for B in (64, 128, 117):
+        w0 = torch.rand((B, K_TRAIN), generator=gen).to(dev)
+        p0 = torch.randn((K_TRAIN, B, 1, C_TRAIN), generator=gen).to(dev)
+        got = _mix_grads(torch, FM.factor_mix, w0, p0)
+        want = _mix_grads(torch, FM.factor_mix_reference, w0, p0)
+        for what, a, b in zip(("forward", "dw", "dp"), got, want):
+            _check_close(torch, f"factor_mix_{what}(B={B})", a, b, fm_errs)
+
+    # GL prox: the training block, the off-tile shapes of
+    # tests/test_precision_kernels.py:117-121, three thresholds each
+    train_block = (K_TRAIN, C_TRAIN, TRAIN_CONFIG["gen_hidden"][0], C_TRAIN,
+                   TRAIN_CONFIG["gen_lag"])
+    for shape in (train_block, (3, 7, 5, 7, 3), (1, 1, 3, 1, 1),
+                  (5, 12, 32, 12, 4)):
+        W = (0.05 * torch.randn(shape, generator=gen)).to(dev)
+        for lam, lr in ((PROX_LAM, TRAIN_KNOBS["gen_lr"]), (0.013, 0.002),
+                        (50.0, 0.05)):
+            _check_close(torch, f"gl_prox{shape}(lam={lam},lr={lr})",
+                         PX.gl_prox(W, lam, lr),
+                         PX.gl_prox_reference(W, lam, lr), px_errs)
+    # an all-zero group and a group exactly at the threshold
+    W = torch.randn(train_block, generator=gen).to(dev)
+    W[0, 0, :, 1, :] = 0.0
+    thresh = PX.threshold(1.0, 0.25)
+    W[1, 2, :, 0, :] *= thresh / torch.sqrt(torch.sum(W[1, 2, :, 0, :] ** 2))
+    got = PX.gl_prox(W, 1.0, 0.25)
+    _check_close(torch, "gl_prox(zero and at-threshold groups)", got,
+                 PX.gl_prox_reference(W, 1.0, 0.25), px_errs)
+    _require(float(got[0, 0, :, 1, :].abs().max()) == 0.0,
+             "gl_prox: the all-zero group did not stay zero")
+    _require(float(got[1, 2, :, 0, :].abs().max()) <= ATOL,
+             "gl_prox: the at-threshold group did not go to zero")
     torch.cuda.synchronize()
 
-    # times at the main path's two shapes: the per-tick graph blend
-    # (S=64, K=5, M=100, broadcast graphs) and the load-time mix (B=1)
-    timing = {}
+    # times at the main paths' shapes: the per-tick graph blend (S=64, K=5,
+    # M=100, broadcast graphs), the load-time mix (B=1), the training mix
+    # (B=128, K=5, M=10) and the training block's prox
+    timing = {"factor_mix": {}, "gl_prox": {}}
     w = torch.rand((CAPACITY, 5), generator=gen).to(dev)
-    timing["tick"] = {
+    tick = timing["factor_mix"]["tick"] = {
         "shape": "S=64 K=5 M=100 (graph_mix, p broadcast over S)",
         "kernel_ms": _time_ms(torch, lambda: FM.graph_mix(w, gc)),
         "plain_ms": _time_ms(torch, lambda: FM.graph_mix_reference(w, gc)),
         "library_ms": _time_ms(torch, lambda: torch.mm(w, gc.view(5, -1))),
     }
-    timing["tick"]["bound_ms"], timing["tick"]["bound_by"] = _bound_ms(
-        CAPACITY, 5, 100, 1)
+    tick["bound_ms"], tick["bound_by"] = _bound_ms(CAPACITY, 5, 100, 1)
     w1 = torch.rand((1, 5), generator=gen).to(dev)
     p1 = torch.randn((5, 1, 1, 10), generator=gen).to(dev)
-    timing["load"] = {
+    load = timing["factor_mix"]["load"] = {
         "shape": "B=1 K=5 M=10 (factor_mix, one sim step)",
         "kernel_ms": _time_ms(torch, lambda: FM.factor_mix(w1, p1)),
         "plain_ms": _time_ms(torch,
@@ -184,12 +307,35 @@ def phase_kernel(torch, FM):
         "library_ms": _time_ms(torch, lambda: torch.bmm(
             w1[:, None, :], p1.reshape(5, 1, 10).transpose(0, 1))),
     }
-    timing["load"]["bound_ms"], timing["load"]["bound_by"] = _bound_ms(
-        1, 5, 10, 1)
-    max_err = max(errs.values())
-    _emit({"phase": "kernel", "kernel": "factor_mix", "rtol": RTOL,
-           "atol": ATOL, "max_abs_err": max_err, "errors": errs,
-           "timing": timing})
+    load["bound_ms"], load["bound_by"] = _bound_ms(1, 5, 10, 1)
+    B = TRAIN_KNOBS["batch_size"]
+    wt = torch.rand((B, K_TRAIN), generator=gen).to(dev)
+    pt = torch.randn((K_TRAIN, B, 1, C_TRAIN), generator=gen).to(dev)
+    train = timing["factor_mix"]["train"] = {
+        "shape": "B=128 K=5 M=10 (factor_mix forward, training batch)",
+        "kernel_ms": _time_ms(torch, lambda: FM.factor_mix(wt, pt)),
+        "plain_ms": _time_ms(torch,
+                             lambda: FM.factor_mix_reference(wt, pt)),
+        "library_ms": _time_ms(torch, lambda: torch.bmm(
+            wt[:, None, :], pt.reshape(K_TRAIN, B, C_TRAIN).transpose(
+                0, 1))),
+    }
+    train["bound_ms"], train["bound_by"] = _bound_ms(B, K_TRAIN, C_TRAIN, B)
+    Wt = (0.05 * torch.randn(train_block, generator=gen)).to(dev)
+    lam, lr = PROX_LAM, TRAIN_KNOBS["gen_lr"]
+    prox = timing["gl_prox"]["train"] = {
+        "shape": "(K, C_out, H, C_in, L) = (5, 10, 25, 10, 4): 500 groups "
+                 "of 100",
+        "kernel_ms": _time_ms(torch, lambda: PX.gl_prox(Wt, lam, lr)),
+        "plain_ms": _time_ms(torch,
+                             lambda: PX.gl_prox_reference(Wt, lam, lr)),
+        # no single PyTorch call computes the GL prox
+        "library_ms": None,
+    }
+    prox["bound_ms"], prox["bound_by"] = _prox_bound_ms(Wt.numel())
+    max_err = {k: max(v.values()) for k, v in errs.items()}
+    _emit({"phase": "kernel", "rtol": RTOL, "atol": ATOL,
+           "max_abs_err": max_err, "errors": errs, "timing": timing})
     return max_err, timing
 
 
@@ -202,7 +348,7 @@ def _streams(np, n, chans):
     return streams
 
 
-def phase_serve(torch, FM):
+def phase_serve(torch, FM, PX):
     import numpy as np
 
     from redcliff_tpu_torch.models.redcliff import (RedcliffSCMLP,
@@ -224,6 +370,7 @@ def phase_serve(torch, FM):
 
     # ---- the main path: counts at 0 just before, read just after
     FM.factor_mix.launches = 0
+    PX.gl_prox.launches = 0
     t0 = time.perf_counter()
     svc = ServeService.from_artifact(artifact, root=os.path.join(root,
                                                                  "serve"),
@@ -245,6 +392,7 @@ def phase_serve(torch, FM):
             records[sid].extend(svc.poll(sid))
     state_path = svc.drain()
     launches = FM.factor_mix.launches
+    prox_launches = PX.gl_prox.launches
     dispatches = svc.dispatches
 
     _require(load_launches == 2,
@@ -254,6 +402,7 @@ def phase_serve(torch, FM):
              f"{launches} factor-mix launches for {dispatches} dispatched "
              f"ticks + 2 at load")
     _require(dispatches == n, f"{dispatches} dispatches for {n} ticks")
+    _require(prox_launches == 0, "serving launched the prox kernel")
     K, C = CONFIG["num_factors"], CONFIG["num_chans"]
     for sid, recs in records.items():
         if sid == poisoner:
@@ -328,10 +477,15 @@ def phase_check(torch, model, params):
 
 def _device_us(torch, prof, n):
     """Per-call device time (us) of each CUDA op in a profile of ``n``
-    calls, and the total."""
+    calls, and the total. User annotations on the device timeline (e.g.
+    ``Optimizer.step#Adam.step``) span the kernels inside them and are left
+    out, so no time is counted twice."""
     per = {}
     for e in prof.key_averages():
         t = getattr(e, "self_device_time_total", 0.0) or 0.0
+        if getattr(e, "is_user_annotation", False) \
+                or e.key.startswith("Optimizer."):
+            continue
         if t > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
             per[e.key[:60]] = per.get(e.key[:60], 0.0) + t / n
     return per, sum(per.values())
@@ -399,6 +553,305 @@ def phase_profile(torch, FM):
            "top_device_us_per_tick": dict(top)})
 
 
+def _d4ic_like_data(np, n, seed):
+    """``n`` windows of (embed_lag + 1, 10) from a 5-state sparse VAR(4)
+    (one random stable coefficient set per state, a burn-in per window),
+    with one-hot state labels (n, 5, 1)."""
+    rng = np.random.default_rng(seed)
+    K, C, L = K_TRAIN, C_TRAIN, TRAIN_CONFIG["gen_lag"]
+    T = TRAIN_CONFIG["embed_lag"] + TRAIN_CONFIG["num_sims"]
+    burn = 32
+    A = np.zeros((K, L, C, C))
+    for k in range(K):
+        A[k] = (rng.random((L, C, C)) < 0.15) * rng.normal(0.0, 0.4,
+                                                            (L, C, C))
+        A[k, 0] += 0.4 * np.eye(C)
+        comp = np.zeros((L * C, L * C))
+        comp[:C] = np.concatenate(list(A[k]), axis=1)
+        comp[C:, :-C] = np.eye((L - 1) * C)
+        rho = float(np.max(np.abs(np.linalg.eigvals(comp))))
+        if rho > 0.9:  # spectral radius of the companion matrix to 0.9
+            A[k] *= ((0.9 / rho) ** np.arange(1, L + 1))[:, None, None]
+    states = rng.integers(0, K, n)
+    Ak = A[states]
+    x = np.zeros((n, burn + T, C))
+    noise = rng.normal(size=(n, burn + T, C))
+    for t in range(L, burn + T):
+        x[:, t] = noise[:, t] + sum(
+            np.einsum("nij,nj->ni", Ak[:, l], x[:, t - 1 - l])
+            for l in range(L))
+    Y = np.eye(K, dtype=np.float32)[states][:, :, None]
+    return x[:, burn:].astype(np.float32), Y
+
+
+def _train_data(np):
+    from redcliff_tpu_torch.data.datasets import train_val_split
+
+    X, Y = _d4ic_like_data(np, N_TRAIN + N_VAL, seed=0)
+    return train_val_split(X, Y, val_fraction=N_VAL / (N_TRAIN + N_VAL),
+                           rng=np.random.default_rng(1))
+
+
+def _group_norms(np, w):
+    """(K, C_out, C_in) norms of the first-layer (H, L) groups."""
+    return np.sqrt((np.asarray(w, np.float64) ** 2).sum(axis=(-3, -1)))
+
+
+def phase_train(torch, FM, PX):
+    """The full-width fit through ``RedcliffTrainer.fit``: counts at 0 just
+    before, read just after."""
+    import math
+
+    import numpy as np
+
+    from redcliff_tpu_torch import interop
+    from redcliff_tpu_torch.models.redcliff import (RedcliffSCMLP,
+                                                    RedcliffSCMLPConfig)
+    from redcliff_tpu_torch.train.redcliff_trainer import (
+        RedcliffTrainConfig, RedcliffTrainer)
+    from redcliff_tpu_torch.train.trainer import load_model
+
+    root = os.path.join(HERE, "build", "chip_smoke", "train")
+    shutil.rmtree(root, ignore_errors=True)
+    train_ds, val_ds = _train_data(np)
+    model = RedcliffSCMLP(RedcliffSCMLPConfig(**TRAIN_CONFIG))
+    params = model.init(torch.Generator().manual_seed(0))
+    trainer = RedcliffTrainer(model, RedcliffTrainConfig(**TRAIN_KNOBS))
+    _require(trainer.device.type == "cuda", "the trainer is not on the card")
+
+    # ---- the main path: counts at 0 just before, read just after
+    FM.factor_mix.launches = 0
+    PX.gl_prox.launches = 0
+    t0 = time.perf_counter()
+    res = trainer.fit(params, train_ds, val_ds, save_dir=root)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    mix_launches = FM.factor_mix.launches
+    prox_launches = PX.gl_prox.launches
+
+    B = TRAIN_KNOBS["batch_size"]
+    n_tr = -(-len(train_ds) // B)
+    n_val = -(-len(val_ds) // B)
+    phases = [tuple(e["phases"]) for e in res.epochs]
+    _require(phases[:3] == [("embedder_pretrain",), ("factor_pretrain",),
+                            ("combined",)],
+             f"phase schedule {phases}")
+    for k in ("avg_combo_loss", "avg_forecasting_loss", "avg_factor_loss",
+              "avg_adj_penalty", "avg_factor_cos_sim_penalty"):
+        _require(all(math.isfinite(v) for v in res.histories[k]),
+                 f"non-finite {k}: {res.histories[k]}")
+    _require(math.isfinite(res.final_val_loss)
+             and math.isfinite(res.best_loss), "non-finite final losses")
+    _require(res.aborted is None, f"fit aborted: {res.aborted}")
+    _require(res.numerics["skipped"] == 0,
+             f"the guard skipped {res.numerics['skipped']} steps")
+    last = load_model(os.path.join(root, "trainer_checkpoint.pkl"))
+    norms = np.concatenate([
+        _group_norms(np, last["params"]["factors"][0]["w"]).ravel(),
+        _group_norms(np, interop.params_to_jax(res.params)["factors"][0][
+            "w"]).ravel()])
+    _require(bool((norms > 0).all()), "the prox zeroed a group")
+    first_norms = _group_norms(np, interop.params_to_jax(params)[
+        "factors"][0]["w"])
+    factor_steps = sum(e["steps"].get(ph, 0) for e in res.epochs
+                       for ph in ("factor_pretrain", "combined",
+                                  "post_train"))
+    want_factor_steps = sum(n_tr for ph in phases for p in ph
+                            if p != "embedder_pretrain")
+    _require(prox_launches == factor_steps == want_factor_steps > 0,
+             f"{prox_launches} gl_prox launches for {factor_steps} applied "
+             f"factor steps ({want_factor_steps} expected)")
+    # forwards the fit ran: one per step (the loss), one per step of the
+    # phases that track the label confusion, two per validation batch (loss
+    # and confusion) each epoch, one per batch of the final validation
+    forwards = sum(n_tr * (1 + (p in ("embedder_pretrain", "combined")))
+                   for ph in phases for p in ph)
+    forwards += 2 * n_val * len(phases) + n_val
+    _require(mix_launches == forwards,
+             f"{mix_launches} factor_mix launches for {forwards} forwards")
+    past = TRAIN_CONFIG["num_pretrain_epochs"] \
+        + TRAIN_CONFIG["num_acclimation_epochs"]
+    _require(res.best_it >= past and math.isfinite(res.best_loss),
+             f"best_it {res.best_it} was not set past pretraining")
+    art = load_model(root)
+    _require(art["model_class"] == "RedcliffSCMLP", "artifact class")
+    for a, b in zip(_leaves_np(art["params"]),
+                    _leaves_np(interop.params_to_jax(res.params))):
+        _require(a.shape == b.shape and bool((a == b).all()),
+                 "final_best_model.bin does not hold the best params")
+
+    by_phase = {}
+    for e in res.epochs:
+        by_phase.setdefault("+".join(e["phases"]), []).append(e["ms"])
+    steps = sum(n_tr * len(ph) for ph in phases)
+    _emit({"phase": "train", "device": torch.cuda.get_device_name(0),
+           "config": "D4IC REDCLIFF-S, full width (C=10, gen_lag 4, "
+                     "gen_hidden 25, embed_lag 16, K=5, DGCNN 3x100)",
+           "reduced": {"num_pretrain_epochs": "50 -> 1",
+                       "num_acclimation_epochs": "15 -> 1",
+                       "max_iter": "1000 -> 4", "check_every": "10 -> 1"},
+           "train_windows": len(train_ds), "val_windows": len(val_ds),
+           "batch_size": B, "batches_per_epoch": n_tr,
+           "val_batches": n_val, "prox_lam": PROX_LAM,
+           "epochs": len(res.epochs), "steps": steps,
+           "fit_wall_s": fit_s, "steps_per_s": steps / fit_s,
+           "epoch_ms": [e["ms"] for e in res.epochs],
+           "epoch_ms_p50_by_phase": {k: float(np.percentile(v, 50))
+                                     for k, v in by_phase.items()},
+           "factor_mix_launches": mix_launches,
+           "gl_prox_launches": prox_launches, "skipped": 0,
+           "best_it": res.best_it, "best_loss": res.best_loss,
+           "val_combo_loss": res.histories["avg_combo_loss"],
+           "final_val_loss": res.final_val_loss,
+           "group_norm_sum_first_last": [float(first_norms.sum()),
+                                         float(_group_norms(
+                                             np, last["params"]["factors"][
+                                                 0]["w"]).sum())],
+           "min_group_norm": float(norms.min())})
+    return mix_launches, prox_launches, model, params, train_ds
+
+
+def _leaves_np(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves_np(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves_np(v)]
+    return [tree]
+
+
+def _train_steps(torch, np, model, host_params, batches, device):
+    """TRAIN_CHECK_STEPS guarded combined steps on ``device``; returns the
+    losses and the params after them."""
+    from redcliff_tpu_torch import interop
+    from redcliff_tpu_torch.runtime import numerics
+    from redcliff_tpu_torch.train.redcliff_trainer import (
+        RedcliffTrainConfig, RedcliffTrainer)
+
+    trainer = RedcliffTrainer(model, RedcliffTrainConfig(**TRAIN_KNOBS),
+                              device=device)
+    live = trainer.live_params(host_params)
+    optA, optB = trainer.make_optimizers(live)
+    nstate = numerics.init_numerics_state()
+    losses = []
+    for X, Y in batches:
+        combo, _, nstate, ok = trainer.train_step(
+            live, optA, optB, torch.from_numpy(X).to(trainer.device),
+            torch.from_numpy(Y).to(trainer.device), "combined", nstate)
+        _require(ok, f"train_check: a step on {device} was skipped")
+        losses.append(float(combo.detach()))
+    return np.asarray(losses), interop.params_to_jax(live)
+
+
+def phase_train_check(torch, model, params, train_ds):
+    """Card against the port's CPU path: the same weights, the same
+    batches, TRAIN_CHECK_STEPS guarded combined steps with the prox."""
+    import numpy as np
+
+    from redcliff_tpu_torch import interop
+
+    host = interop.params_to_jax(params)
+    batches = [b for _, b in zip(range(TRAIN_CHECK_STEPS), train_ds.batches(
+        TRAIN_KNOBS["batch_size"], rng=np.random.default_rng(2)))]
+    card_l, card_p = _train_steps(torch, np, model, host, batches, "cuda")
+    cpu_l, cpu_p = _train_steps(torch, np, model, host, batches, "cpu")
+    torch.cuda.synchronize()
+    _require(bool(np.isfinite(card_l).all()), "train_check: non-finite loss")
+    _require(bool(np.allclose(card_l, cpu_l, rtol=TRAIN_LOSS_RTOL,
+                              atol=TRAIN_LOSS_ATOL)),
+             f"train_check: losses card {card_l.tolist()} vs CPU "
+             f"{cpu_l.tolist()}")
+    diffs = [float(np.abs(a - b).max())
+             for a, b in zip(_leaves_np(card_p), _leaves_np(cpu_p))]
+    _require(max(diffs) <= TRAIN_PARAM_ATOL,
+             f"train_check: params differ by {max(diffs)} > "
+             f"{TRAIN_PARAM_ATOL}")
+    _emit({"phase": "train_check", "against": "port CPU path, same weights "
+           "and batches", "steps": len(batches),
+           "loss_rtol": TRAIN_LOSS_RTOL, "loss_atol": TRAIN_LOSS_ATOL,
+           "param_atol": TRAIN_PARAM_ATOL,
+           "max_loss_rel_err": float(np.max(np.abs(card_l - cpu_l)
+                                            / np.abs(cpu_l))),
+           "max_param_abs_err": max(diffs), "card_losses": card_l.tolist()})
+
+
+def phase_profile_train(torch, FM, PX, model, params, train_ds):
+    """Where a training step's time goes (``--profile`` only): each
+    kernel's device time alone at the training shapes, then a profiled
+    window of full-width combined steps — host wall per step, device busy
+    per step, the device's idle share, and the top device ops."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from redcliff_tpu_torch import interop
+    from redcliff_tpu_torch.runtime import numerics
+    from redcliff_tpu_torch.train.redcliff_trainer import (
+        RedcliffTrainConfig, RedcliffTrainer)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(3)
+    B = TRAIN_KNOBS["batch_size"]
+    wt = torch.rand((B, K_TRAIN), generator=gen).to(dev)
+    pt = torch.randn((K_TRAIN, B, 1, C_TRAIN), generator=gen).to(dev)
+    Wt = (0.05 * torch.randn((K_TRAIN, C_TRAIN, 25, C_TRAIN, 4),
+                             generator=gen)).to(dev)
+    lam, lr = PROX_LAM, TRAIN_KNOBS["gen_lr"]
+    alone = {}
+    for name, fn in (
+            ("factor_mix_kernel", lambda: FM.factor_mix(wt, pt)),
+            ("torch.bmm", lambda: torch.bmm(
+                wt[:, None, :],
+                pt.reshape(K_TRAIN, B, C_TRAIN).transpose(0, 1))),
+            ("gl_prox_kernel", lambda: PX.gl_prox(Wt, lam, lr)),
+            ("gl_prox_plain", lambda: PX.gl_prox_reference(Wt, lam, lr))):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(200):
+                fn()
+            torch.cuda.synchronize()
+        alone[name] = _device_us(torch, prof, 200)[1]
+
+    trainer = RedcliffTrainer(model, RedcliffTrainConfig(**TRAIN_KNOBS))
+    live = trainer.live_params(interop.params_to_jax(params))
+    optA, optB = trainer.make_optimizers(live)
+    nstate = numerics.init_numerics_state()
+    batches = list(train_ds.batches(B, rng=np.random.default_rng(4),
+                                    device=dev))
+    n_warm, n_prof = 4, len(batches) - 4
+    for X, Y in batches[:n_warm]:
+        _, _, nstate, _ = trainer.train_step(live, optA, optB, X, Y,
+                                             "combined", nstate)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for X, Y in batches[n_warm:]:
+            _, _, nstate, _ = trainer.train_step(live, optA, optB, X, Y,
+                                                 "combined", nstate)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n_prof
+    per, busy_us = _device_us(torch, prof, n_prof)
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:12]
+    _emit({"phase": "profile_train", "device": torch.cuda.get_device_name(0),
+           "device_us_per_call_alone": alone, "steps": n_prof,
+           "step_wall_ms_profiled": wall_ms,
+           "device_busy_us_per_step": busy_us,
+           "device_idle_share": (1.0 - busy_us / 1e3 / wall_ms
+                                 if busy_us else None),
+           "device_ops_per_step": len(per),
+           "top_device_us_per_step": dict(top)})
+
+
+def _kernel_entry(name, mod, replaces, launches, by_path, max_err, t):
+    return {"name": name, "route": "cuda",
+            "source": os.path.relpath(mod.KERNEL_SOURCE, HERE),
+            "replaces": replaces, "launches": launches,
+            "launches_by_path": by_path, "max_abs_err": max_err,
+            "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "shape": t["shape"]}
+
+
 def main():
     import torch
 
@@ -408,32 +861,39 @@ def main():
     sys.path.insert(0, HERE)
     try:
         from redcliff_tpu_torch.ops import factor_mix as FM
+        from redcliff_tpu_torch.ops import pallas_prox as PX
     except ImportError as e:
         print(f"chip_smoke: run from a checkout of the repository ({e})",
               file=sys.stderr)
         return 2
 
-    smi = phase_build(torch, FM)
-    max_err, timing = phase_kernel(torch, FM)
-    launches, model, params = phase_serve(torch, FM)
-    phase_check(torch, model, params)
+    smi = phase_build(torch, {"factor_mix": FM, "gl_prox": PX})
+    max_err, timing = phase_kernel(torch, FM, PX)
+    serve_launches, smodel, sparams = phase_serve(torch, FM, PX)
+    phase_check(torch, smodel, sparams)
+    mix_launches, prox_launches, tmodel, tparams, train_ds = phase_train(
+        torch, FM, PX)
+    phase_train_check(torch, tmodel, tparams, train_ds)
     if "--profile" in sys.argv[1:]:
         phase_profile(torch, FM)
+        phase_profile_train(torch, FM, PX, tmodel, tparams, train_ds)
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.")
                     or m == "redcliff_tpu" or m.startswith("redcliff_tpu."))
     _require(not leaked, f"the port imported {leaked}")
 
-    tick = timing["tick"]
-    _emit({"kernels": [{
-        "name": "factor_mix", "route": "cuda",
-        "source": os.path.relpath(FM.KERNEL_SOURCE, HERE),
-        "replaces": "redcliff_tpu/ops/factor_mix.py:58",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": tick["kernel_ms"], "plain_ms": tick["plain_ms"],
-        "bound_ms": tick["bound_ms"], "bound_by": tick["bound_by"],
-        "library_ms": tick["library_ms"], "shape": tick["shape"]}]})
+    fm = _kernel_entry(
+        "factor_mix", FM, "redcliff_tpu/ops/factor_mix.py:58", mix_launches,
+        {"serve": serve_launches, "train": mix_launches},
+        max_err["factor_mix"], timing["factor_mix"]["train"])
+    fm["by_shape"] = {k: v for k, v in timing["factor_mix"].items()
+                      if k != "train"}
+    px = _kernel_entry(
+        "gl_prox", PX, "redcliff_tpu/ops/pallas_prox.py:47", prox_launches,
+        {"serve": 0, "train": prox_launches}, max_err["gl_prox"],
+        timing["gl_prox"]["train"])
+    _emit({"kernels": [fm, px]})
     print(smi, flush=True)
     _emit({"ok": True, "device": {"platform": "gpu",
                                   "kind": torch.cuda.get_device_name(0),

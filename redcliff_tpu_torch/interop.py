@@ -9,29 +9,46 @@ conversion:
 * :func:`params_from_jax` — a tree of numpy arrays (what the JAX package
   saves, or ``np.asarray`` of its device arrays) -> the same tree of torch
   tensors on ``device``;
-* :func:`params_to_jax` — back to numpy, byte for byte.
+* :func:`params_to_jax` — back to numpy, byte for byte;
+* :func:`tree_map` / :func:`tree_leaves` — the walk over such trees that
+  every module of the port uses (dict order as built; the JAX package's
+  ``jax.tree`` sorts dict keys instead).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-__all__ = ["params_from_jax", "params_to_jax"]
+__all__ = ["params_from_jax", "params_to_jax", "tree_map", "tree_leaves"]
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of ``tree`` (and the matching leaves of the
+    trees in ``rest``), keeping the dict/list/tuple structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree):
+    """The leaves of ``tree`` in :func:`tree_map` order."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
 
 
 def params_from_jax(tree, device="cpu"):
     """Numpy tree -> torch tree on ``device`` (dtypes kept)."""
-    if isinstance(tree, dict):
-        return {k: params_from_jax(v, device) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(params_from_jax(v, device) for v in tree)
-    return torch.from_numpy(np.array(tree, copy=True)).to(device)
+    return tree_map(
+        lambda x: torch.from_numpy(np.array(x, copy=True)).to(device), tree)
 
 
 def params_to_jax(params):
     """Torch tree -> numpy tree (host copies, dtypes kept)."""
-    if isinstance(params, dict):
-        return {k: params_to_jax(v) for k, v in params.items()}
-    if isinstance(params, (list, tuple)):
-        return type(params)(params_to_jax(v) for v in params)
-    return params.detach().cpu().numpy().copy()
+    return tree_map(lambda x: x.detach().cpu().numpy().copy(), params)

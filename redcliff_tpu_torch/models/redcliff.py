@@ -6,10 +6,11 @@ weight norms of each factor are the per-state Granger-causal graph
 estimates. The K factors are one stacked weight block (leading K axis,
 the JAX package's ``vmap`` written out as broadcasting einsums).
 
-This slice ports what serving a fitted model needs: the config with its
-validation, ``init``, both forward modes and all 9 GC readout modes. cLSTM
-factors, the loss, ``apply_prox`` and ``permute_factors`` come with the
-training slice.
+Ported: the config with its validation, ``init``, both forward modes, all
+9 GC readout modes (the serve slice), and the training half — the phase
+schedule, the multi-term loss with its smoothing variant, ``apply_prox``
+(the GL prox kernel on the card), ``permute_factors`` and the validation
+normalization coefficients. cLSTM factors are not ported yet.
 """
 from __future__ import annotations
 
@@ -21,10 +22,12 @@ import torch
 from redcliff_tpu_torch.models import cmlp as cmlp_mod
 from redcliff_tpu_torch.models.embedders import (CEmbedder, DGCNNEmbedder,
                                                  build_embedder)
+from redcliff_tpu_torch.ops import losses as L
 from redcliff_tpu_torch.ops.factor_mix import factor_mix
+from redcliff_tpu_torch.ops.pallas_prox import gl_prox
 
 __all__ = ["RedcliffSCMLPConfig", "RedcliffSCMLP", "TRAINING_MODES",
-           "GC_EST_MODES", "FORWARD_PASS_MODES"]
+           "GC_EST_MODES", "FORWARD_PASS_MODES", "phase_schedule"]
 
 TRAINING_MODES = (
     "pretrain_embedder_then_acclimate_factors_then_combined",
@@ -55,6 +58,36 @@ FORWARD_PASS_MODES = (
     "apply_factor_weights_at_each_sim_step",
     "apply_factor_weights_after_sim_completion",
 )
+
+
+def phase_schedule(cfg, epoch):
+    """Epoch -> tuple of phase names under cfg.training_mode."""
+    mode = cfg.training_mode
+    if epoch <= cfg.num_pretrain_epochs - 1:
+        phases = []
+        if "pretrain_embedder" in mode:
+            phases.append("embedder_pretrain")
+        if "pretrain_factor" in mode:
+            phases.append("factor_pretrain")
+        return tuple(phases)
+    if ("acclimate_factors" in mode
+            and epoch <= cfg.num_pretrain_epochs
+            + cfg.num_acclimation_epochs - 1):
+        return ("factor_pretrain",)
+    if "combined" in mode:
+        return ("combined",)
+    if "post_train_factor" in mode:
+        return ("post_train",)
+    raise NotImplementedError(mode)
+
+
+def _smooth_on(coeff):
+    """True when a coefficient's term is computed: decided by value for a
+    Python number; always on for a tensor coefficient (the JAX package's
+    traced grid-axis coefficients)."""
+    if isinstance(coeff, torch.Tensor):
+        return True
+    return float(coeff) > 0.0
 
 
 def _require(ok, what):
@@ -156,7 +189,7 @@ class RedcliffSCMLP:
     def __init__(self, config: RedcliffSCMLPConfig):
         if config.factor_network_type != "cMLP":
             raise NotImplementedError(
-                "cLSTM factor networks are not ported yet (training slice)")
+                "cLSTM factor networks are not ported yet (ROADMAP queue 1)")
         self.config = config
         cfg = config
         self.embedder = build_embedder(
@@ -370,3 +403,175 @@ class RedcliffSCMLP:
                 return G[..., -lag_clip:] + Ec[..., -lag_clip:]
             return G + Ec
         raise ValueError(f"GC EST MODE == {mode} IS NOT SUPPORTED")
+
+    # -------------------------------------------------------------------- loss
+    def compute_loss(self, params, conditioning_X, preds, targets,
+                     factor_scores, factor_labels, gc_est_mode=None,
+                     embedder_pretrain_loss=False, factor_pretrain_loss=False,
+                     coeffs=None, need_gc=None, need_gc_lagged=None):
+        """The multi-term loss and its parts, as the JAX package's.
+
+        factor_scores: list (num_sims) of (B, n) state-label predictions.
+        factor_labels: Y with shape (B, S, T) | (B, S, 1) | (B, S).
+        coeffs: optional per-call coefficient overrides (numbers or
+        tensors); with tensor coefficients the caller decides
+        ``need_gc``/``need_gc_lagged``, as with JAX's traced ones.
+        """
+        cfg = self.config
+        mode = gc_est_mode or cfg.primary_gc_est_mode
+
+        def C(name):
+            if coeffs is not None and name in coeffs:
+                return coeffs[name]
+            return getattr(cfg, name)
+
+        if need_gc is None:
+            need_gc = _smooth_on(C("factor_cos_sim_coeff"))
+        if need_gc_lagged is None:
+            need_gc_lagged = _smooth_on(C("adj_l1_reg_coeff"))
+        gc = (self.gc(params, mode, X=conditioning_X, threshold=False,
+                      ignore_lag=True) if need_gc else None)
+        gc_lagged = (self.gc(params, mode, X=conditioning_X, threshold=False,
+                             ignore_lag=False) if need_gc_lagged else None)
+
+        zero = torch.zeros((), dtype=preds.dtype, device=preds.device)
+        forecasting_loss = C("forecast_coeff") * L.channelwise_forecast_mse(
+            preds, targets)
+
+        factor_loss = zero
+        S = cfg.num_supervised_factors
+        if factor_scores and factor_scores[0] is not None and S > 0:
+            Y = factor_labels
+            if Y.dim() == 3:
+                if Y.shape[2] > cfg.max_lag:
+                    # per-sim-step supervision from the aligned label trace
+                    for l, yhat in enumerate(factor_scores):
+                        if cfg.max_lag + l >= Y.shape[2]:
+                            break
+                        y = Y[:, :, cfg.max_lag + l]
+                        factor_loss = factor_loss + C("factor_score_coeff") \
+                            * torch.mean((yhat[:, :S] - y[:, :S]) ** 2)
+                else:
+                    # static-label datasets (D4IC): average all sim scores
+                    y = Y[:, :, 0]
+                    yhat = sum(factor_scores) / float(len(factor_scores))
+                    factor_loss = factor_loss + C("factor_score_coeff") \
+                        * torch.mean((yhat[:, :S] - y[:, :S]) ** 2)
+            elif Y.dim() == 2:
+                yhat = sum(factor_scores) / float(len(factor_scores))
+                factor_loss = factor_loss + C("factor_score_coeff") \
+                    * torch.mean((yhat[:, :S] - Y[:, :S]) ** 2)
+            else:
+                raise NotImplementedError(f"labels with ndim {Y.dim()}")
+
+        fw_l1_penalty = C("factor_weight_l1_coeff") * L.factor_weight_l1(
+            factor_scores[0])
+
+        # smoothing penalty on factor scores across sim steps; the masks
+        # carry no gradient (stop_gradient in the JAX package)
+        fw_smoothing_penalty = zero
+        if (_smooth_on(C("factor_weight_smoothing_penalty_coeff"))
+                and cfg.num_sims >= 2):
+            if cfg.num_sims == 2:
+                diff = factor_scores[0] - factor_scores[1]
+                mask = (diff > cfg.state_score_smoothing_epsilon).to(
+                    diff.dtype)
+                fw_smoothing_penalty = torch.sum((diff * mask) ** 2)
+            else:
+                for i in range(cfg.num_sims - 2):
+                    s0, s1, s2 = (factor_scores[i], factor_scores[i + 1],
+                                  factor_scores[i + 2])
+                    full = (s2 - s0).detach().abs()
+                    d21 = s2 - s1
+                    m21 = (d21.detach().abs() > full).to(d21.dtype)
+                    fw_smoothing_penalty = fw_smoothing_penalty \
+                        + torch.sum((d21 * m21) ** 2)
+                    if i == 0:
+                        d10 = s1 - s0
+                        m10 = (d10.detach().abs() > full).to(d10.dtype)
+                        fw_smoothing_penalty = fw_smoothing_penalty \
+                            + torch.sum((d10 * m10) ** 2)
+            fw_smoothing_penalty = (
+                C("factor_weight_smoothing_penalty_coeff")
+                * fw_smoothing_penalty)
+
+        # cosine-similarity penalty between factor graphs, summed over
+        # samples; the lag axis of the unlagged readout has size 1
+        factor_cos_sim_penalty = zero
+        if need_gc and gc.shape[1] > 1:
+            G2 = gc[..., 0] if gc.dim() == 5 else gc
+            factor_cos_sim_penalty = C("factor_cos_sim_coeff") * torch.sum(
+                L.pairwise_cosine_penalty(G2, include_diag=False))
+
+        adj_l1_penalty = zero
+        if need_gc_lagged:
+            adj_l1_penalty = C("adj_l1_reg_coeff") \
+                * L.lag_weighted_adjacency_l1(gc_lagged)
+
+        if embedder_pretrain_loss:
+            if factor_pretrain_loss:
+                raise ValueError("embedder and factor pretrain losses are "
+                                 "exclusive")
+            combo = factor_loss + fw_l1_penalty + fw_smoothing_penalty
+        elif factor_pretrain_loss:
+            combo = (forecasting_loss + fw_l1_penalty + fw_smoothing_penalty
+                     + adj_l1_penalty + factor_cos_sim_penalty)
+        else:
+            combo = (forecasting_loss + factor_loss + fw_l1_penalty
+                     + fw_smoothing_penalty + adj_l1_penalty
+                     + factor_cos_sim_penalty)
+
+        parts = {
+            "forecasting_loss": forecasting_loss,
+            "factor_loss": factor_loss,
+            "factor_cos_sim_penalty": factor_cos_sim_penalty,
+            "fw_l1_penalty": fw_l1_penalty,
+            "fw_smoothing_penalty": fw_smoothing_penalty,
+            "adj_l1_penalty": adj_l1_penalty,
+        }
+        return combo, parts
+
+    def loss_for_phase(self, params, X, Y, phase, coeffs=None, need_gc=None,
+                       need_gc_lagged=None):
+        """One batch's loss under a training phase: 'embedder_pretrain',
+        'factor_pretrain', 'combined' or 'post_train'."""
+        cfg = self.config
+        W = cfg.max_lag
+        x_sims, _, _, label_preds = self.forward(params, X[:, :W, :])
+        targets = X[:, W: W + cfg.num_sims * cfg.output_length, :]
+        conditioning = X[:, : cfg.embed_lag, :]
+        return self.compute_loss(
+            params, conditioning, x_sims, targets, label_preds, Y,
+            embedder_pretrain_loss=(phase == "embedder_pretrain"),
+            factor_pretrain_loss=(phase in ("factor_pretrain", "post_train")),
+            coeffs=coeffs, need_gc=need_gc, need_gc_lagged=need_gc_lagged,
+        )
+
+    # ------------------------------------------------------------------- prox
+    def apply_prox(self, params, lam, lr, penalty="GL"):
+        """GISTA proximal update on the stacked factor first-layer block
+        (K, C_out, H, C_in, L); GL on the card runs the CUDA kernel
+        (ops/pallas_prox.py). Functional: returns a new params tree."""
+        factors = params["factors"]
+        new_w = gl_prox(factors[0]["w"], lam, lr, penalty)
+        new_factors = [dict(factors[0], w=new_w)] + list(factors[1:])
+        return dict(params, factors=new_factors)
+
+    # -------------------------------------------------------- factor alignment
+    def permute_factors(self, params, order):
+        """Reorder the stacked factor params along K."""
+        idx = torch.as_tensor(list(order), dtype=torch.long)
+        factors = [{k: v[idx.to(v.device)] for k, v in layer.items()}
+                   for layer in params["factors"]]
+        return dict(params, factors=factors)
+
+    def normalization_coeffs(self):
+        cfg = self.config
+        return {
+            "forecasting_loss": cfg.forecast_coeff,
+            "factor_loss": cfg.factor_score_coeff,
+            "factor_cos_sim_penalty": cfg.factor_cos_sim_coeff,
+            "fw_l1_penalty": cfg.factor_weight_l1_coeff,
+            "fw_smoothing_penalty": cfg.factor_weight_smoothing_penalty_coeff,
+            "adj_l1_penalty": cfg.adj_l1_reg_coeff,
+        }

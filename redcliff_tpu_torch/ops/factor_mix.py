@@ -16,8 +16,8 @@
 * ``factor_mix.launches`` — a plain int, one per kernel launch.
 
 The kernel is built from the repository's source at first use into
-``build/torch_kernels/`` with ``torch.utils.cpp_extension.load`` (ninja),
-for ``sm_90a``. Its source has a plain C interface and includes no PyTorch
+``build/torch_kernels/redcliff_factor_mix/`` (``ops/cuda_build.py``), for
+``sm_90a``. Its source has a plain C interface and includes no PyTorch
 headers, so the build takes seconds; the wrapper binds it with ctypes and
 checks the ``cudaError_t`` each launch returns. Importing this module builds
 and imports nothing CUDA-specific.
@@ -30,15 +30,14 @@ import threading
 
 import torch
 
+from redcliff_tpu_torch.ops.cuda_build import build_library
+
 __all__ = ["factor_mix", "factor_mix_reference", "graph_mix",
            "graph_mix_reference", "FactorMixFn", "load_kernel",
-           "KERNEL_SOURCE", "BUILD_DIR"]
+           "KERNEL_SOURCE"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 KERNEL_SOURCE = os.path.join(_HERE, "csrc", "factor_mix.cu")
-BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build",
-                         "torch_kernels")
-_CUDA_FLAGS = ["-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a"]
 # the kernel's launch geometry (csrc/factor_mix.cu): 8 rows of w staged in
 # at most 48 KB of static-limit shared memory, 8-row tiles along gridDim.y
 _TILE_B = 8
@@ -66,13 +65,7 @@ def load_kernel():
     with _lib_lock:
         if _lib is not None:
             return _lib
-        from torch.utils.cpp_extension import load
-
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        path = load(name="redcliff_factor_mix", sources=[KERNEL_SOURCE],
-                    build_directory=BUILD_DIR, extra_cuda_cflags=_CUDA_FLAGS,
-                    is_python_module=False)
-        lib = ctypes.CDLL(path)
+        lib = build_library("redcliff_factor_mix", KERNEL_SOURCE)
         fn = lib.redcliff_factor_mix_f32
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_int, ctypes.c_int, ctypes.c_int,

@@ -17,7 +17,11 @@ of builtins, and the REDCLIFF-S config class. The JAX package's config
 class, ``redcliff_tpu.models.redcliff.RedcliffSCMLPConfig``, is mapped to
 the port's own, so a JAX-written ``final_best_model.bin`` loads without
 importing JAX. Any other class raises :class:`ForbiddenClassError` naming
-it; that error is not a corruption and is raised as is.
+it; that error is not a corruption and is raised as is. The port's trainer
+checkpoints (``train/redcliff_trainer.py``) hold only numpy arrays and
+builtins — optimizer ``state_dict`` s converted to numpy, the shuffle rng's
+state dict — so they pass this unpickler; a JAX-written trainer checkpoint
+names optax classes and is refused.
 
 stdlib + numpy only.
 """

@@ -1,0 +1,612 @@
+"""REDCLIFF-S training choreography (port of ``train/redcliff_trainer.py``).
+
+* epoch-scheduled phases (pretrain embedder / pretrain+acclimate factors /
+  combined / post-train); two ``torch.optim.Adam`` with coupled weight
+  decay (optax's ``add_decayed_weights`` + ``adam``), one over the
+  embedder leaves and one over the factor leaves. Every step takes
+  gradients of the whole tree (the guard's global norm covers every leaf)
+  and steps the phase's optimizer(s);
+* the GISTA proximal update after the factor step in every phase but
+  ``embedder_pretrain``, at ``gen_lr`` (never the backed-off rate), through
+  the GL prox kernel on the card;
+* the numerics guard (runtime/numerics.py): a non-finite step skips both
+  optimizers and the prox; one host read of the verdict per step;
+* the Freeze-by-epoch/batch accept/revert choreography (train/freeze.py);
+* Hungarian factor alignment at the pretrain->train transition;
+* validation, confusion histories, GC tracking on the first validation
+  batch, the weighted (factor, forecast, cosSim) stopping criteria with
+  the lookback rule, the divergence monitor's rollback/abort;
+* checkpoints through the durable format (runtime/checkpoint.py):
+  ``final_best_model.bin`` in the shared ``{model_class, config, params}``
+  numpy layout both packages read, the meta histories, and
+  ``trainer_checkpoint.pkl`` in the port's own layout (optimizer
+  ``state_dict`` s as numpy, the batch-shuffle rng state). A resumed fit
+  continues the shuffle stream, so it equals the uninterrupted fit; the
+  JAX trainer restarts the stream from the seed on resume.
+
+The optimizers update the live parameter tensors in place, so every tree
+kept beside them (best, accepted, snapshots) is a copy. Fits run on
+``cuda`` unless ``device=`` says otherwise.
+
+Not ported (ROADMAP): the metrics/event log, watchdog, profiler window,
+memory footprint, compile observability, fault injection, autotune, the
+async checkpoint writer (writes are synchronous), the quality monitor,
+``factor_mesh``, mixed precision and cLSTM factors. A non-default value of
+a knob the port does not honour raises ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import os
+import time
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from redcliff_tpu_torch.data import pipeline
+from redcliff_tpu_torch.interop import params_to_jax, tree_leaves, tree_map
+from redcliff_tpu_torch.models.redcliff import RedcliffSCMLP, phase_schedule
+from redcliff_tpu_torch.runtime import checkpoint as durable_ckpt
+from redcliff_tpu_torch.runtime import numerics
+from redcliff_tpu_torch.runtime.numerics import NumericsPolicy
+from redcliff_tpu_torch.train.freeze import apply_freeze
+from redcliff_tpu_torch.train.tracking import GCProgressTracker
+from redcliff_tpu_torch.utils.misc import factor_alignment_order
+from redcliff_tpu_torch.utils.precision import (check_precision_mode,
+                                                resolve_device)
+
+__all__ = ["RedcliffTrainConfig", "RedcliffTrainer", "RedcliffFitResult"]
+
+@dataclass
+class RedcliffTrainConfig:
+    """The JAX package's per-point knobs, field for field where the port
+    honours them."""
+
+    embed_lr: float = 1e-3
+    embed_eps: float = 1e-8
+    embed_weight_decay: float = 0.0
+    gen_lr: float = 1e-3
+    gen_eps: float = 1e-8
+    gen_weight_decay: float = 0.0
+    max_iter: int = 100
+    lookback: int = 5
+    check_every: int = 50
+    batch_size: int = 32
+    seed: int = 0
+    verbose: int = 0
+    stopping_criteria_forecast_coeff: float = 1.0
+    stopping_criteria_factor_coeff: float = 1.0
+    stopping_criteria_cosSim_coeff: float = 1.0
+    max_factor_prior_batches: int = 10
+    unsupervised_start_index: int = 0
+    max_samples_for_gc_tracking: int = 40
+    # not ported: must stay None
+    profile_dir: str | None = None
+    profile_window: str | None = None
+    matmul_precision: str | None = None
+    # "f32" only ("mixed" raises)
+    precision_mode: str = "f32"
+    # GISTA prox after each factor step: "GL" | "GSGL" | "H" | None
+    prox_penalty: str | None = None
+    prox_lam: float = 0.0
+    # prefetch depth for batch sources that are not device-resident
+    prefetch_batches: int = 2
+    # None disables the guard and the divergence monitor
+    numerics: NumericsPolicy | None = field(default_factory=NumericsPolicy)
+
+    def __post_init__(self):
+        check_precision_mode(self.precision_mode)
+        for knob in ("profile_dir", "profile_window", "matmul_precision"):
+            if getattr(self, knob) is not None:
+                raise NotImplementedError(
+                    f"{knob} is not ported yet (ROADMAP queue 1, "
+                    f"observability and precision of the training path)")
+        if self.prox_penalty not in (None, "GL", "GSGL", "H"):
+            raise ValueError(
+                f"prox_penalty must be one of None/'GL'/'GSGL'/'H', got "
+                f"{self.prox_penalty!r}")
+
+
+@dataclass
+class RedcliffFitResult:
+    params: dict
+    best_it: int
+    best_loss: float
+    histories: dict
+    tracker: GCProgressTracker
+    final_val_loss: float
+    # non-None when the numerics sentinel aborted the fit
+    aborted: str | None = None
+    # per epoch run by this call: {"epoch", "phases", "ms", "steps",
+    # "skipped", "action"}: wall ms, the applied (guard-passed) steps per
+    # phase, the guard's skipped steps, and the divergence monitor's verdict
+    epochs: list = field(default_factory=list)
+    # runtime/numerics.py numerics_summary at the end of the fit
+    numerics: dict | None = None
+
+
+def _copy(tree):
+    """A detached copy of a tensor tree (the trees kept beside the live
+    params, which the optimizers update in place)."""
+    return tree_map(lambda x: x.detach().clone(), tree)
+
+
+def _assign(live, tree):
+    """Copy ``tree``'s values into the live leaves, in place."""
+    with torch.no_grad():
+        for dst, src in zip(tree_leaves(live), tree_leaves(tree)):
+            if dst is not src:
+                dst.copy_(src)
+
+
+class RedcliffTrainer:
+    def __init__(self, model: RedcliffSCMLP, config: RedcliffTrainConfig,
+                 device=None):
+        self.model = model
+        self.config = config
+        self.device = resolve_device(device)
+        self._guard = config.numerics is not None and config.numerics.enabled
+
+    # ------------------------------------------------------------------ phases
+    def phase_for_epoch(self, epoch):
+        return phase_schedule(self.model.config, epoch)
+
+    def _to_device(self, x):
+        return None if x is None else torch.as_tensor(x).to(self.device)
+
+    def _batches(self, ds, rng=None):
+        """(X, Y) tensors on the trainer's device: gathered from the
+        dataset's device-resident copy when it has one, else prefetched."""
+        if getattr(ds, "supports_device_batches", False):
+            return ds.batches(self.config.batch_size, rng=rng,
+                              device=self.device)
+        src = ds.batches(self.config.batch_size, rng=rng)
+        depth = self.config.prefetch_batches
+        if depth > 0:
+            return pipeline.prefetch_batches(src, depth=depth,
+                                             put=self._to_device)
+        return ((self._to_device(X), self._to_device(Y)) for X, Y in src)
+
+    def live_params(self, params):
+        """Fresh leaf tensors on the device (requires_grad) from a numpy or
+        torch params tree."""
+        def leaf(x):
+            t = x.detach() if isinstance(x, torch.Tensor) \
+                else torch.from_numpy(np.array(x))
+            return t.to(self.device).clone().requires_grad_(True)
+        return tree_map(leaf, params)
+
+    def make_optimizers(self, live):
+        """(embedder Adam, factor Adam) over the live leaves."""
+        tc = self.config
+
+        def adam(leaves, lr, eps, wd):
+            # torch.optim.Adam with weight_decay adds wd * p to the gradient
+            # before the moments: optax add_decayed_weights -> adam
+            return torch.optim.Adam(leaves, lr=lr, betas=(0.9, 0.999),
+                                    eps=eps, weight_decay=wd)
+        return (adam(tree_leaves(live["embedder"]), tc.embed_lr, tc.embed_eps,
+                     tc.embed_weight_decay),
+                adam(tree_leaves(live["factors"]), tc.gen_lr, tc.gen_eps,
+                     tc.gen_weight_decay))
+
+    # -------------------------------------------------------------------- step
+    def train_step(self, live, optA, optB, X, Y, phase, nstate):
+        """One guarded training step on the live params. Returns
+        ``(combo, parts, nstate, applied)``."""
+        tc = self.config
+        leaves = tree_leaves(live)
+        combo, parts = self.model.loss_for_phase(live, X, Y, phase)
+        grads = torch.autograd.grad(combo, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for g, p in zip(grads, leaves)]
+
+        def apply():
+            if phase == "embedder_pretrain":
+                opts = (optA,)
+            elif phase in ("factor_pretrain", "post_train"):
+                opts = (optB,)
+            else:
+                opts = (optA, optB)
+            for p, g in zip(leaves, grads):
+                p.grad = g
+            for opt in opts:
+                opt.step()
+            for p in leaves:
+                p.grad = None
+            if tc.prox_penalty is not None and phase != "embedder_pretrain":
+                # GISTA prox after the factor step, at the configured lr
+                with torch.no_grad():
+                    w = live["factors"][0]["w"]
+                    new = self.model.apply_prox(live, tc.prox_lam, tc.gen_lr,
+                                                tc.prox_penalty)
+                    w.copy_(new["factors"][0]["w"])
+
+        if self._guard:
+            nstate, ok = numerics.guarded_update(grads, combo, apply, nstate)
+        else:
+            apply()
+            ok = True
+        return combo, parts, nstate, ok
+
+    # --------------------------------------------------------------- alignment
+    def align_factors_with_labels(self, params, train_ds):
+        """Hungarian-align factor indices to supervised labels using the
+        first predicted factor weighting on up to
+        ``max_factor_prior_batches`` batches."""
+        cfg = self.model.config
+        tc = self.config
+        preds, labels = [], []
+        with torch.no_grad():
+            for b, (X, Y) in enumerate(self._batches(train_ds)):
+                if b >= tc.max_factor_prior_batches:
+                    break
+                _, _, fw, _ = self.model.forward(params, X[:, : cfg.max_lag])
+                preds.append(fw[0].cpu().numpy())
+                Y = Y.cpu().numpy()
+                if Y.ndim == 3:
+                    col = cfg.max_lag if Y.shape[2] > cfg.max_lag else 0
+                    labels.append(Y[:, :, col])
+                else:
+                    labels.append(Y)
+        order = factor_alignment_order(
+            np.vstack(preds), np.vstack(labels), cfg.num_factors,
+            unsupervised_start_index=tc.unsupervised_start_index)
+        return self.model.permute_factors(params, order)
+
+    # --------------------------------------------------------------------- fit
+    def fit(self, params, train_ds, val_ds, true_GC=None, save_dir=None,
+            resume=True, factor_mesh=None) -> RedcliffFitResult:
+        """Fit from ``params`` (a numpy or torch tree in the JAX layout).
+        Returns the best params as tensors on the trainer's device."""
+        if factor_mesh is not None:
+            raise NotImplementedError(
+                "factor_mesh is not ported yet (ROADMAP queue 1, multi-GPU)")
+        cfg = self.model.config
+        tc = self.config
+        self._true_GC = true_GC
+        rng = np.random.default_rng(tc.seed)
+        live = self.live_params(params)
+        optA, optB = self.make_optimizers(live)
+        mode = cfg.training_mode
+        freeze_by_batch = "FreezeByBatch" in mode
+        freeze = "Freeze" in mode
+
+        tracker = GCProgressTracker(
+            num_supervised_factors=cfg.num_supervised_factors,
+            num_chans=cfg.num_chans, num_factors=cfg.num_factors)
+        histories = {
+            "avg_forecasting_loss": [], "avg_factor_loss": [],
+            "avg_factor_cos_sim_penalty": [], "avg_fw_l1_penalty": [],
+            "avg_adj_penalty": [], "avg_fw_smoothing_penalty": [],
+            "avg_combo_loss": [],
+            "factor_score_train_acc_history": [],
+            "factor_score_train_tpr_history": [],
+            "factor_score_train_tnr_history": [],
+            "factor_score_train_fpr_history": [],
+            "factor_score_train_fnr_history": [],
+            "factor_score_val_acc_history": [],
+            "factor_score_val_tpr_history": [],
+            "factor_score_val_tnr_history": [],
+            "factor_score_val_fpr_history": [],
+            "factor_score_val_fnr_history": [],
+        }
+        best_it = None
+        best_loss = np.inf
+        best_params = _copy(live)
+        accepted = _copy(live)  # Freeze-mode accepted tree
+        iter_start = 0
+        aligned = False
+
+        ckpt_path = (os.path.join(save_dir, "trainer_checkpoint.pkl")
+                     if save_dir else None)
+        ck = None
+        if resume and ckpt_path:
+            try:
+                ck, _src = durable_ckpt.load_checkpoint(ckpt_path)
+            except durable_ckpt.ForbiddenClassError as e:
+                raise ValueError(
+                    f"{ckpt_path} is not a trainer checkpoint of the port "
+                    f"(a JAX-written one holds optax state and does not "
+                    f"resume here); pass resume=False or another save_dir"
+                ) from e
+        if ck is not None:
+            to_dev = lambda t: numerics.to_torch(t, self.device)  # noqa: E731
+            _assign(live, to_dev(ck["params"]))
+            best_params = to_dev(ck["best_params"])
+            accepted = to_dev(ck["accepted"])
+            optA.load_state_dict(numerics.to_torch(ck["optA_state"]))
+            optB.load_state_dict(numerics.to_torch(ck["optB_state"]))
+            histories = ck["histories"]
+            best_it, best_loss = ck["best_it"], ck["best_loss"]
+            iter_start = ck["epoch"] + 1
+            aligned = ck.get("aligned", False)
+            if ck.get("tracker_state") is not None:
+                tracker.__dict__.update(ck["tracker_state"])
+            if ck.get("rng_state") is not None:
+                rng.bit_generator.state = ck["rng_state"]
+
+        last_it = iter_start - 1
+        policy = tc.numerics if self._guard else None
+        monitor = (numerics.DivergenceMonitor(policy)
+                   if policy is not None else None)
+        nstate = numerics.init_numerics_state()
+        aborted = None
+        epochs = []
+        for it in range(iter_start, tc.max_iter):
+            t_epoch0 = time.perf_counter()
+            last_it = it
+            if (not aligned and "pretrain_factor" in mode
+                    and it == cfg.num_pretrain_epochs
+                    and cfg.num_supervised_factors > 0):
+                _assign(live, self.align_factors_with_labels(live, train_ds))
+                aligned = True
+
+            phases = self.phase_for_epoch(it)
+            conf_mat = (np.zeros((cfg.num_supervised_factors,) * 2)
+                        if cfg.num_supervised_factors > 0 else None)
+            applied = {p: 0 for p in phases}
+            skipped = 0
+            for X, Y in self._batches(train_ds, rng=rng):
+                for phase in phases:
+                    _, _, nstate, ok = self.train_step(
+                        live, optA, optB, X, Y, phase, nstate)
+                    applied[phase] += int(ok)
+                    skipped += int(not ok)
+                    if conf_mat is not None and phase in (
+                            "embedder_pretrain", "combined"):
+                        conf_mat += self._confusion(live, X, Y)
+                if freeze_by_batch:
+                    accepted = self._apply_freeze(live, accepted)
+
+            if conf_mat is not None and conf_mat.sum() > 0:
+                self._append_conf_stats(conf_mat, histories, "train")
+
+            self._epoch_gc_tracking(live, val_ds, tracker)
+
+            val = self.validate(live, val_ds, histories)
+            histories["avg_forecasting_loss"].append(val["forecasting_loss"])
+            histories["avg_factor_loss"].append(val["factor_loss"])
+            histories["avg_factor_cos_sim_penalty"].append(
+                val["factor_cos_sim_penalty"])
+            histories["avg_fw_l1_penalty"].append(val["fw_l1_penalty"])
+            histories["avg_adj_penalty"].append(val["adj_l1_penalty"])
+            histories["avg_fw_smoothing_penalty"].append(
+                val.get("fw_smoothing_penalty", 0.0))
+            histories["avg_combo_loss"].append(val["combo_loss"])
+
+            criteria = None
+            stop_early = False
+            past_pretrain = (it >= cfg.num_pretrain_epochs
+                             + cfg.num_acclimation_epochs)
+            if past_pretrain:
+                cos_mean = tracker.latest_mean_supervised_cosine()
+                if cfg.num_supervised_factors > 1:
+                    criteria = (tc.stopping_criteria_factor_coeff
+                                * val["factor_loss"]
+                                + tc.stopping_criteria_forecast_coeff
+                                * val["forecasting_loss"]
+                                + tc.stopping_criteria_cosSim_coeff
+                                * cos_mean)
+                elif cfg.num_supervised_factors == 1:
+                    criteria = (tc.stopping_criteria_factor_coeff
+                                * val["factor_loss"]
+                                + tc.stopping_criteria_forecast_coeff
+                                * val["forecasting_loss"])
+                else:
+                    criteria = (tc.stopping_criteria_forecast_coeff
+                                * val["forecasting_loss"])
+
+            rolled_back = False
+            action = None
+            if monitor is not None:
+                action = monitor.check(it, numerics.numerics_summary(nstate),
+                                       criteria)
+                if action.kind == "rollback":
+                    snap = monitor.rollback()
+                    _assign(live, snap["params"])
+                    accepted = tree_map(lambda x: x.to(self.device),
+                                         snap["accepted"])
+                    optA.load_state_dict(snap["optA_state"])
+                    optB.load_state_dict(snap["optB_state"])
+                    nstate = numerics.reset_consecutive(nstate)
+                    rolled_back = True
+                elif action.kind == "abort":
+                    aborted = action.cause
+                elif criteria is None or np.isfinite(criteria):
+                    monitor.note_good(
+                        it, {"params": live, "accepted": accepted,
+                             "optA_state": optA.state_dict(),
+                             "optB_state": optB.state_dict()})
+
+            if not rolled_back and aborted is None:
+                if past_pretrain:
+                    if freeze:
+                        accepted = self._apply_freeze(live, accepted)
+                        if criteria < best_loss:
+                            best_loss = criteria
+                            best_it = it
+                        elif best_it is not None and (it - best_it) == \
+                                tc.lookback * tc.check_every:
+                            # the lookback rule in every mode, Freeze too
+                            stop_early = True
+                        best_params = accepted
+                    else:
+                        if criteria < best_loss:
+                            best_loss = criteria
+                            best_it = it
+                            best_params = _copy(live)
+                        elif best_it is not None and (it - best_it) == \
+                                tc.lookback * tc.check_every:
+                            stop_early = True
+                else:
+                    best_it = it
+                    best_params = _copy(live)
+
+            epochs.append({"epoch": it, "phases": list(phases),
+                           "ms": (time.perf_counter() - t_epoch0) * 1e3,
+                           "steps": applied, "skipped": skipped,
+                           "action": None if action is None
+                           else action.kind})
+            if stop_early and tc.verbose:
+                print("Stopping early")
+            if stop_early or aborted is not None:
+                break
+            if rolled_back:
+                continue
+
+            if it % tc.check_every == 0 and save_dir:
+                self._save_checkpoint(save_dir, it, best_params, accepted,
+                                      live, optA, optB, histories, best_it,
+                                      best_loss, tracker, aligned, rng)
+            if tc.verbose and it % max(1, tc.check_every) == 0:
+                print(f"epoch {it} phases={phases}: "
+                      f"val_combo={val['combo_loss']:.5f}")
+
+        final_val = self.validate(best_params, val_ds, None)
+        if save_dir:
+            self._save_checkpoint(save_dir, last_it, best_params, accepted,
+                                  live, optA, optB, histories, best_it,
+                                  best_loss, tracker, aligned, rng)
+        return RedcliffFitResult(
+            params=best_params,
+            best_it=best_it if best_it is not None else 0,
+            best_loss=float(best_loss), histories=histories, tracker=tracker,
+            final_val_loss=final_val["combo_loss"], aborted=aborted,
+            epochs=epochs, numerics=numerics.numerics_summary(nstate))
+
+    # ----------------------------------------------------------------- helpers
+    def _apply_freeze(self, live, accepted):
+        """Accept/revert per-factor updates: the merged candidate goes back
+        into the live leaves; returns the new accepted tree."""
+        with torch.no_grad():
+            candidate, accepted = apply_freeze(
+                self.model, self.model.config.training_mode, live, accepted)
+        _assign(live, candidate)
+        return accepted
+
+    def _confusion(self, params, X, Y):
+        cfg = self.model.config
+        S = cfg.num_supervised_factors
+        W = cfg.max_lag
+        with torch.no_grad():
+            preds = self.model.forward(params, X[:, :W, :])[3][0]
+        preds = preds.cpu().numpy()
+        Y = Y.cpu().numpy()
+        if Y.ndim == 3:
+            col = cfg.max_lag if Y.shape[2] > cfg.max_lag else 0
+            y = Y[:, :S, col]
+        else:
+            y = Y[:, :S]
+        cm = np.zeros((S, S))
+        for t, p in zip(y.argmax(axis=1), preds[:, :S].argmax(axis=1)):
+            cm[t, p] += 1
+        return cm
+
+    @staticmethod
+    def _append_conf_stats(cm, histories, split):
+        """Multi-class TPR/TNR/FPR/FNR/ACC from a confusion matrix."""
+        TP = np.diag(cm)
+        FP = cm.sum(axis=0) - TP
+        FN = cm.sum(axis=1) - TP
+        TN = cm.sum() - (FP + FN + TP)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            histories[f"factor_score_{split}_acc_history"].append(
+                (TP + TN) / (TP + FP + FN + TN))
+            histories[f"factor_score_{split}_tpr_history"].append(
+                TP / (TP + FN))
+            histories[f"factor_score_{split}_tnr_history"].append(
+                TN / (TN + FP))
+            histories[f"factor_score_{split}_fpr_history"].append(
+                FP / (FP + TN))
+            histories[f"factor_score_{split}_fnr_history"].append(
+                FN / (TP + FN))
+
+    def _epoch_gc_tracking(self, params, val_ds, tracker):
+        """GC metrics on the first validation batch."""
+        cfg = self.model.config
+        tc = self.config
+        for X, _ in self._batches(val_ds):
+            Xw = X[: tc.max_samples_for_gc_tracking, : cfg.max_lag, :]
+            with torch.no_grad():
+                lagged = self.model.gc(
+                    params, cfg.primary_gc_est_mode, X=Xw, threshold=False,
+                    ignore_lag=False, combine_wavelet_representations=True)
+                nolag = self.model.gc(
+                    params, cfg.primary_gc_est_mode, X=Xw, threshold=False,
+                    ignore_lag=True, combine_wavelet_representations=True)
+            lagged = lagged.cpu().numpy()
+            nolag = nolag.cpu().numpy()[..., 0]
+            est_lagged = [[lagged[s, k] for k in range(lagged.shape[1])]
+                          for s in range(lagged.shape[0])]
+            est_nolag = [[nolag[s, k] for k in range(nolag.shape[1])]
+                         for s in range(nolag.shape[0])]
+            tracker.update(true_GC=self._true_GC, est_by_sample=est_lagged,
+                           est_by_sample_lagsummed=est_nolag)
+            break
+
+    def validate(self, params, val_ds, histories):
+        """Mean loss parts over the (unshuffled) validation batches, each
+        part divided by its loss coefficient; ``histories`` also gets the
+        validation confusion statistics."""
+        cfg = self.model.config
+        coeffs = self.model.normalization_coeffs()
+        sums = {}
+        combo_sum = 0.0
+        n = 0
+        conf_mat = (np.zeros((cfg.num_supervised_factors,) * 2)
+                    if cfg.num_supervised_factors > 0
+                    and histories is not None else None)
+        for X, Y in self._batches(val_ds):
+            with torch.no_grad():
+                combo, parts = self.model.loss_for_phase(params, X, Y,
+                                                         "combined")
+            names = list(parts)
+            host = torch.stack([combo] + [parts[k] for k in names]).tolist()
+            combo_sum += host[0]
+            for k, v in zip(names, host[1:]):
+                c = coeffs.get(k, 1.0)
+                sums[k] = sums.get(k, 0.0) + v / (c if c > 0 else 1.0)
+            if conf_mat is not None:
+                conf_mat += self._confusion(params, X, Y)
+            n += 1
+        if n == 0:
+            raise ValueError("validation dataset yielded no batches")
+        out = {k: v / n for k, v in sums.items()}
+        out["combo_loss"] = combo_sum / n
+        if conf_mat is not None and conf_mat.sum() > 0:
+            self._append_conf_stats(conf_mat, histories, "val")
+        return out
+
+    _true_GC = None
+
+    def _save_checkpoint(self, save_dir, it, best_params, accepted, live,
+                         optA, optB, histories, best_it, best_loss, tracker,
+                         aligned, rng):
+        """The three durable files, written synchronously."""
+        os.makedirs(save_dir, exist_ok=True)
+        durable_ckpt.write_checkpoint(
+            os.path.join(save_dir, "final_best_model.bin"),
+            {"model_class": "RedcliffSCMLP", "config": self.model.config,
+             "params": params_to_jax(best_params)})
+        meta = {"epoch": it, "best_loss": float(best_loss),
+                "best_it": best_it, **histories, **tracker.as_dict()}
+        durable_ckpt.write_checkpoint(
+            os.path.join(save_dir,
+                         "training_meta_data_and_hyper_parameters.pkl"), meta)
+        durable_ckpt.write_checkpoint(
+            os.path.join(save_dir, "trainer_checkpoint.pkl"),
+            {
+                "epoch": it,
+                "params": params_to_jax(live),
+                "best_params": params_to_jax(best_params),
+                "accepted": params_to_jax(accepted),
+                "optA_state": numerics.to_host(optA.state_dict()),
+                "optB_state": numerics.to_host(optB.state_dict()),
+                "histories": histories,
+                "best_it": best_it,
+                "best_loss": float(best_loss),
+                "aligned": aligned,
+                "tracker_state": dict(tracker.__dict__),
+                "rng_state": rng.bit_generator.state,
+            })

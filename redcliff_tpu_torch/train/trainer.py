@@ -1,5 +1,7 @@
 """Model artifacts (the ``save_model`` / ``load_model`` half of
-``train/trainer.py``; the trainer itself comes with the training slice).
+``train/trainer.py``). The REDCLIFF-S trainer is
+``train/redcliff_trainer.py``; the generic trainer of the baseline model
+families is not ported yet (ROADMAP queue 1).
 
 An artifact is ``final_best_model.bin`` in the durable checkpoint format,
 holding ``{"model_class", "config", "params"}`` with params as the JAX

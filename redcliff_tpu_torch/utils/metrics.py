@@ -1,0 +1,199 @@
+"""Graph-comparison metrics the training path reads (a copy of what
+``train/tracking.py`` and ``utils/misc.py`` use from the JAX package's
+``utils/metrics.py``; numpy/scipy on the host).
+
+- ROC-AUC (rank statistic), fixed-threshold F1 on positive entries;
+- DeltaCon0, its directed-degree variant, Deltaffinity, path-length MSE;
+- cosine similarity with epsilon-floored norms;
+- Hungarian matching of graph estimates by cosine similarity.
+"""
+from __future__ import annotations
+
+import numpy as np
+from scipy.optimize import linear_sum_assignment
+
+__all__ = [
+    "roc_auc",
+    "matsusita_distance",
+    "deltacon0",
+    "deltacon0_with_directed_degrees",
+    "deltaffinity",
+    "path_length_mse",
+    "solve_linear_sum_assignment_between_graph_options",
+    "compute_cosine_similarity",
+    "get_f1_score",
+]
+
+
+def roc_auc(labels, scores):
+    """ROC-AUC via the rank-statistic (Mann-Whitney) formulation with tie handling.
+
+    Equivalent to sklearn.metrics.roc_auc_score used throughout the reference
+    (e.g. general_utils/model_utils.py:54-67).
+    """
+    labels = np.asarray(labels).ravel().astype(np.float64)
+    scores = np.asarray(scores).ravel().astype(np.float64)
+    n_pos = labels.sum()
+    n_neg = labels.size - n_pos
+    if n_pos == 0 or n_neg == 0:
+        raise ValueError("roc_auc undefined with a single class present")
+    order = np.argsort(scores, kind="mergesort")
+    ranks = np.empty(scores.size, dtype=np.float64)
+    sorted_scores = scores[order]
+    # average ranks for ties
+    i = 0
+    while i < scores.size:
+        j = i
+        while j + 1 < scores.size and sorted_scores[j + 1] == sorted_scores[i]:
+            j += 1
+        ranks[order[i : j + 1]] = 0.5 * (i + j) + 1.0
+        i = j + 1
+    rank_sum_pos = ranks[labels == 1].sum()
+    return float((rank_sum_pos - n_pos * (n_pos + 1) / 2.0) / (n_pos * n_neg))
+
+
+def matsusita_distance(S1, S2):
+    """sqrt(sum((sqrt(S1)-sqrt(S2))^2)) — eq. 7.3 (ref metrics.py:130-134).
+
+    Deliberate deviation from the reference: affinity matrices from signed
+    (negative-valued) graph estimates produce negative entries, where the
+    reference silently emits NaN; we clamp entries at zero before the sqrt
+    so the distance stays finite (negative affinity ~ zero similarity mass).
+    """
+    S1 = np.maximum(np.asarray(S1, dtype=np.float64), 0.0)
+    S2 = np.maximum(np.asarray(S2, dtype=np.float64), 0.0)
+    return float(np.sqrt(np.sum((np.sqrt(S1) - np.sqrt(S2)) ** 2.0)))
+
+
+def _node_affinity(I, D, A, eps):
+    return np.linalg.inv(I + (eps**2.0) * D - eps * A)
+
+
+def deltacon0(A1, A2, eps, make_graphs_undirected=False):
+    """DeltaCon0 similarity 1/(1+d) between adjacency matrices (ref metrics.py:162-189).
+
+    In-degree is taken as the column sum (axis=0 row-sum of the transpose), matching
+    the reference's choice for directed Granger graphs.
+    """
+    G1 = np.array(A1, dtype=np.float64, copy=True)
+    G2 = np.array(A2, dtype=np.float64, copy=True)
+    assert G1.shape == G2.shape and G1.ndim == 2 and G1.shape[0] == G1.shape[1]
+    if make_graphs_undirected:
+        G1 = np.maximum(G1, G1.T)
+        G2 = np.maximum(G2, G2.T)
+    n = G1.shape[0]
+    I = np.eye(n)
+    S1 = _node_affinity(I, np.diag(G1.sum(axis=0)), G1, eps)
+    S2 = _node_affinity(I, np.diag(G2.sum(axis=0)), G2, eps)
+    return 1.0 / (1.0 + matsusita_distance(S1, S2))
+
+
+def deltacon0_with_directed_degrees(A1, A2, eps, in_degree_coeff=1.0, out_degree_coeff=1.0):
+    """Directed DeltaCon0: averages matsusita distances over in- and out-degree
+    affinity matrices (ref metrics.py:191-216)."""
+    A1 = np.asarray(A1, dtype=np.float64)
+    A2 = np.asarray(A2, dtype=np.float64)
+    assert A1.shape == A2.shape and A1.ndim == 2 and A1.shape[0] == A1.shape[1]
+    n = A1.shape[0]
+    I = np.eye(n)
+    d_in = matsusita_distance(
+        _node_affinity(I, np.diag(A1.sum(axis=0)), A1, eps),
+        _node_affinity(I, np.diag(A2.sum(axis=0)), A2, eps),
+    )
+    d_out = matsusita_distance(
+        _node_affinity(I, np.diag(A1.sum(axis=1)), A1, eps),
+        _node_affinity(I, np.diag(A2.sum(axis=1)), A2, eps),
+    )
+    d = (in_degree_coeff * d_in + out_degree_coeff * d_out) / 2.0
+    return 1.0 / (1.0 + d)
+
+
+def _affinity_no_echo(A, eps, max_path_length):
+    n = A.shape[0]
+    S = np.eye(n)
+    Ak = np.eye(n)
+    for k in range(1, max_path_length + 1):
+        Ak = Ak @ A
+        S = S + (eps**k) * Ak
+    return S
+
+
+def deltaffinity(A1, A2, eps, max_path_length=None):
+    """DeltaCon without degree attenuation: power-series affinity (ref metrics.py:218-233)."""
+    A1 = np.asarray(A1, dtype=np.float64)
+    A2 = np.asarray(A2, dtype=np.float64)
+    assert A1.shape == A2.shape and A1.ndim == 2 and A1.shape[0] == A1.shape[1]
+    n = A1.shape[0]
+    if max_path_length is None:
+        max_path_length = n - 1
+    assert 0 < max_path_length < n
+    S1 = _affinity_no_echo(A1, eps, max_path_length)
+    S2 = _affinity_no_echo(A2, eps, max_path_length)
+    return 1.0 / (1.0 + matsusita_distance(S1, S2))
+
+
+def path_length_mse(A1, A2, max_path_length=None):
+    """Per-path-length MSE between A^k powers; returns (sum, per-k list)
+    (ref metrics.py:235-251)."""
+    A1 = np.asarray(A1, dtype=np.float64)
+    A2 = np.asarray(A2, dtype=np.float64)
+    assert A1.shape == A2.shape and A1.ndim == 2 and A1.shape[0] == A1.shape[1]
+    n = A1.shape[0]
+    if max_path_length is None:
+        max_path_length = n - 1
+    mses = []
+    P1 = np.eye(n)
+    P2 = np.eye(n)
+    for _ in range(max_path_length):
+        P1 = P1 @ A1
+        P2 = P2 @ A2
+        mses.append(float(((P1 - P2) ** 2.0).mean()))
+    return float(sum(mses)), mses
+
+
+def solve_linear_sum_assignment_between_graph_options(
+    graph_estimates, true_graphs, cost_criteria="CosineSimilarity", inf_approximation=1e10
+):
+    """Hungarian matching of estimated graphs to ground-truth graphs using cosine
+    similarity as cost (ref metrics.py:274-301). Note: the reference minimizes
+    cosine similarity (scipy's default), matching that exactly."""
+    if cost_criteria != "CosineSimilarity":
+        raise NotImplementedError(cost_criteria)
+    n_w, n_j = len(graph_estimates), len(true_graphs)
+    cost = np.zeros((n_w, n_j))
+    for w in range(n_w):
+        for j in range(n_j):
+            cost[w, j] = compute_cosine_similarity(graph_estimates[w], true_graphs[j])
+    finite = np.isfinite(cost)
+    cost[~finite] = 0.0
+    cost = cost + inf_approximation * (1 - finite)
+    return linear_sum_assignment(cost)
+
+
+def compute_cosine_similarity(A, B, epsilon=1e-8):
+    """Flattened cosine similarity with epsilon-floored norms (ref metrics.py:321-339)."""
+    A = np.asarray(A, dtype=np.float64).ravel()
+    B = np.asarray(B, dtype=np.float64).ravel()
+    a_norm = np.linalg.norm(A)
+    b_norm = np.linalg.norm(B)
+    if not np.isfinite(a_norm):
+        a_norm = -1.0
+    if not np.isfinite(b_norm):
+        b_norm = -1.0
+    return float(A @ B / (max(a_norm, epsilon) * max(b_norm, epsilon)))
+
+
+def get_f1_score(A_hat, A):
+    """F1 treating strictly-positive entries as predicted/true edges (ref metrics.py:396-430)."""
+    A_hat = np.asarray(A_hat)
+    A = np.asarray(A)
+    pos_pred = A_hat > 0.0
+    pos_label = A > 0.0
+    tp = float(np.sum(pos_pred & pos_label))
+    fp = float(np.sum(pos_pred & ~pos_label))
+    fn = float(np.sum(~pos_pred & pos_label))
+    precision = tp / (tp + fp) if (tp + fp) > 0 else np.nan
+    recall = tp / (tp + fn) if (tp + fn) > 0 else np.nan
+    if not np.isfinite(precision) or not np.isfinite(recall) or (precision + recall) == 0.0:
+        return 0.0
+    return float(2.0 * precision * recall / (precision + recall))

@@ -1,0 +1,202 @@
+"""The port's proximal operators (redcliff_tpu_torch/ops/prox.py,
+ops/pallas_prox.py) against the JAX package.
+
+Inputs are made with numpy from a seed. The GL kernel is a CUDA kernel
+with no CPU mode: here the wrapper runs its plain version (CPU tensors),
+held against the JAX Pallas kernel in interpret mode; the ``gpu``-marked
+test holds the kernel against the plain version on a card.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from redcliff_tpu.models import redcliff as jred  # noqa: E402
+from redcliff_tpu.ops import prox as jprox  # noqa: E402
+from redcliff_tpu.ops.pallas_prox import gl_prox_pallas  # noqa: E402
+from redcliff_tpu_torch import interop  # noqa: E402
+from redcliff_tpu_torch.models import redcliff as tred  # noqa: E402
+from redcliff_tpu_torch.ops import pallas_prox as PX  # noqa: E402
+from redcliff_tpu_torch.ops import prox as tprox  # noqa: E402
+
+# f32 in both frameworks, a different summation order of the group norms:
+# the bar of tests/test_precision_kernels.py:129
+TOL = dict(rtol=1e-5, atol=1e-6)
+
+# the off-tile shapes of tests/test_precision_kernels.py:117-121 and the
+# training slice's first-layer block (K, C_out, H, C_in, L)
+SHAPES = [(3, 7, 5, 7, 3), (1, 1, 3, 1, 1), (5, 12, 32, 12, 4),
+          (5, 10, 25, 10, 4)]
+# (lam, lr): small, large enough to zero groups, and zero
+STEPS = [(0.013, 0.002), (50.0, 0.05), (0.0, 1e-3)]
+
+
+def _w(shape, seed=2, scale=1.0):
+    rng = np.random.default_rng(seed)
+    return (scale * rng.normal(size=shape)).astype(np.float32)
+
+
+def _close(got, want):
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("lam,lr", STEPS)
+@pytest.mark.parametrize("penalty", ["GL", "GSGL", "H"])
+@pytest.mark.parametrize("shape", SHAPES[:3] + [(2, 6, 3, 5)])
+def test_plain_prox_matches_jax(shape, penalty, lam, lr):
+    W = _w(shape, scale=0.3)
+    _close(tprox.prox_update(torch.from_numpy(W), lam, lr, penalty),
+           jprox.prox_update(jnp.asarray(W), lam, lr, penalty))
+
+
+def test_h_prox_nested_prefix_order():
+    """H shrinks the nested lag prefixes [:1], [:2], ... in that order:
+    the most-lagged value (index 0) is thresholded L times."""
+    W = _w((2, 4, 3, 5), seed=5, scale=0.2)
+    got = tprox.prox_update(torch.from_numpy(W), 0.5, 0.1, "H")
+    _close(got, jprox.prox_update(jnp.asarray(W), 0.5, 0.1, "H"))
+    # the order matters: the reversed order (longest prefix first) differs
+    rev = torch.from_numpy(W)
+    t = tprox.threshold(0.5, 0.1)
+    for i in reversed(range(W.shape[-1])):
+        pre = rev[..., : i + 1]
+        n = torch.sqrt(torch.sum(pre * pre, dim=(-3, -1), keepdim=True))
+        rev = torch.cat([tprox.soft_threshold_by_group_norm(pre, n, t),
+                         rev[..., i + 1:]], dim=-1)
+    assert not torch.allclose(got, rev, **TOL)
+
+
+@pytest.mark.parametrize("penalty", ["GL", "GSGL", "H"])
+def test_penalties_match_jax(penalty):
+    W = _w((3, 4, 6, 4, 3), seed=3)
+    got = tprox.group_lasso_penalty(torch.from_numpy(W), 0.7, penalty)
+    want = jprox.group_lasso_penalty(jnp.asarray(W), 0.7, penalty)
+    np.testing.assert_allclose(float(got), float(want), **TOL)
+    with pytest.raises(ValueError, match="unsupported"):
+        tprox.group_lasso_penalty(torch.from_numpy(W), 0.7, "L1")
+    with pytest.raises(ValueError, match="unsupported"):
+        tprox.prox_update(torch.from_numpy(W), 0.7, 0.1, "L1")
+
+
+def test_ridge_penalty_matches_jax():
+    leaves = [_w((4, 5), seed=s) for s in (6, 7, 8)]
+    got = tprox.ridge_penalty([torch.from_numpy(x) for x in leaves], 0.03)
+    want = jprox.ridge_penalty([jnp.asarray(x) for x in leaves], 0.03)
+    np.testing.assert_allclose(float(got), float(want), **TOL)
+
+
+@pytest.mark.parametrize("lam,lr", STEPS)
+@pytest.mark.parametrize("shape", SHAPES)
+def test_gl_prox_on_cpu_matches_jax_pallas_interpret(shape, lam, lr):
+    """The wrapper's CPU path against the TPU kernel run in interpret mode,
+    at the off-tile shapes and the slice's shape."""
+    W = _w(shape, scale=0.05)
+    before = PX.gl_prox.launches
+    got = PX.gl_prox(torch.from_numpy(W), lam, lr)
+    want = gl_prox_pallas(jnp.asarray(W), lam, lr, block_rows=7,
+                          interpret=True)
+    _close(got, want)
+    assert PX.gl_prox.launches == before
+
+
+def test_gl_prox_edge_groups_match_jax():
+    """An all-zero group stays zero, a group exactly at the threshold goes
+    to zero, and the groups around them are untouched by either."""
+    W = _w((2, 3, 5, 3, 4), seed=9)
+    lam, lr = 1.0, 0.25
+    t = np.float32(lr * lam)
+    W[0, 0, :, 1, :] = 0.0
+    g = W[1, 2, :, 0, :].astype(np.float64)
+    W[1, 2, :, 0, :] = (g * (float(t) / np.sqrt((g * g).sum()))).astype(
+        np.float32)
+    got = PX.gl_prox(torch.from_numpy(W), lam, lr)
+    _close(got, gl_prox_pallas(jnp.asarray(W), lam, lr, interpret=True))
+    assert float(got[0, 0, :, 1, :].abs().max()) == 0.0
+    assert float(got[1, 2, :, 0, :].abs().max()) < 1e-6
+
+
+def test_cpu_tensors_never_reach_the_kernel(monkeypatch):
+    """GL on a CPU tensor takes the plain version: no build, no launch;
+    the launch path itself refuses CPU tensors and other dtypes."""
+    def no_build():
+        raise AssertionError("CPU tensors must not build the kernel")
+
+    monkeypatch.setattr(PX, "load_kernel", no_build)
+    monkeypatch.setattr(PX, "_lib", None)
+    before = PX.gl_prox.launches
+    W = torch.from_numpy(_w((2, 3, 4, 3, 2)))
+    for pen in ("GL", "GSGL", "H"):
+        PX.gl_prox(W, 0.1, 0.1, pen)
+    assert PX.gl_prox.launches == before
+    with pytest.raises(ValueError, match="CUDA"):
+        PX._launch(W, 0.1, 0.1)
+
+
+def _model():
+    cfg = jred.RedcliffSCMLPConfig(
+        num_chans=4, gen_lag=3, gen_hidden=(5,), embed_lag=4,
+        embed_hidden_sizes=(6,), num_factors=3, num_supervised_factors=2,
+        factor_score_embedder_type="cEmbedder",
+        primary_gc_est_mode="fixed_factor_exclusive", num_sims=1,
+        training_mode="combined")
+    jm = jred.RedcliffSCMLP(cfg)
+    tm = tred.RedcliffSCMLP(
+        tred.RedcliffSCMLPConfig(**dataclasses.asdict(cfg)))
+    jp = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(0)))
+    return jm, jp, tm, interop.params_from_jax(jp, "cpu")
+
+
+@pytest.mark.parametrize("penalty", ["GL", "GSGL", "H"])
+def test_apply_prox_changes_only_the_first_layer(penalty):
+    """apply_prox rewrites factors[0]["w"] and nothing else, and matches
+    the JAX model's apply_prox."""
+    jm, jp, tm, tp = _model()
+    out = tm.apply_prox(tp, lam=0.1, lr=0.5, penalty=penalty)
+    want = jm.apply_prox(jax.tree.map(jnp.asarray, jp), lam=0.1, lr=0.5,
+                         penalty=penalty)
+    _close(out["factors"][0]["w"], want["factors"][0]["w"])
+    assert not torch.equal(out["factors"][0]["w"], tp["factors"][0]["w"])
+    torch.testing.assert_close(out["factors"][0]["b"],
+                               tp["factors"][0]["b"], rtol=0, atol=0)
+    rest_got = jax.tree.leaves(interop.params_to_jax(
+        {"f": out["factors"][1:], "e": out["embedder"]}))
+    rest_want = jax.tree.leaves({"f": jp["factors"][1:],
+                                 "e": jp["embedder"]})
+    for a, b in zip(rest_got, rest_want):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.gpu
+def test_gl_prox_kernel_matches_plain_on_card():
+    """The CUDA kernel against its plain version on the card: the slice's
+    shape, the off-tile shapes, an all-zero and an at-threshold group;
+    non-float32, non-contiguous and rank < 3 CUDA inputs raise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    for shape in SHAPES:
+        for lam, lr in STEPS:
+            W = torch.from_numpy(_w(shape, scale=0.05)).to(dev)
+            before = PX.gl_prox.launches
+            got = PX.gl_prox(W, lam, lr)
+            torch.testing.assert_close(got, PX.gl_prox_reference(W, lam, lr),
+                                       **TOL)
+            assert PX.gl_prox.launches == before + 1
+    W = torch.from_numpy(_w((2, 3, 5, 3, 4), seed=9)).to(dev)
+    W[0, 0, :, 1, :] = 0.0
+    t = tprox.threshold(1.0, 0.25)
+    W[1, 2, :, 0, :] *= t / torch.sqrt(torch.sum(W[1, 2, :, 0, :] ** 2))
+    got = PX.gl_prox(W, 1.0, 0.25)
+    torch.testing.assert_close(got, PX.gl_prox_reference(W, 1.0, 0.25), **TOL)
+    assert float(got[0, 0, :, 1, :].abs().max()) == 0.0
+    with pytest.raises(TypeError):
+        PX.gl_prox(W.double(), 1.0, 0.25)
+    with pytest.raises(ValueError, match="contiguous"):
+        PX.gl_prox(W.transpose(-1, -3), 1.0, 0.25)
+    with pytest.raises(ValueError, match="block"):
+        PX.gl_prox(W[0, 0, 0], 1.0, 0.25)
