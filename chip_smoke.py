@@ -10,10 +10,15 @@ PyTorch version. Phases, one JSON line each:
    at once, each timed; the card's name and power limit.
 2. kernel: each kernel against its plain version on the card — factor mix
    at the serve shapes and at the training shapes (forward and autograd
-   backward, full and remainder batch), GL prox at the training block,
-   the off-tile shapes and on an all-zero and an at-threshold group — max
-   abs error beside the tolerance, and CUDA-event times of the kernel, the
-   plain version and, where one exists, one library call, beside the bound.
+   backward, full and remainder batch, M = 100, 10 and 7, a p offset by
+   one float), GL prox functional and in place (the output aliasing the
+   input) at the training block, the off-tile shapes, slabs walked in
+   chunks, blocks offset by one float, and on an all-zero and an
+   at-threshold group — max abs error beside the tolerance and the launch
+   plan each case took; CUDA-event times of the kernel, one library call
+   where one exists and the plain version, in turns, beside the bound and
+   the launch floor (one ``x.zero_()``); the host cost of each piece of the
+   factor mix's launch path.
 3. serve: a REDCLIFF-S model at the D4IC headline widths (10 channels,
    gen_lag 4, embed_lag 16, 5 factors, DGCNN embedder with 3 graph-conv
    layers of 100 hidden nodes, 2 sims) from random weights (seed 0), saved
@@ -39,9 +44,10 @@ CUDA or outside a checkout of the repository.
 
 Usage: ``python3 chip_smoke.py`` from the repository root, on a machine
 with one NVIDIA card. ``--profile`` adds ``profile`` phases after the
-checks: each kernel's device time alone, a ``torch.profiler`` window of
-serve ticks and one of training steps (device busy time, idle share, top
-device ops).
+checks: each kernel's, each library call's and the floor's device time
+alone, a ``torch.profiler`` window of serve ticks and one of training steps
+(device busy time, idle share, top device ops), and the ops of one prox
+step as the trainer runs it (one kernel, no allocation or copy).
 """
 from __future__ import annotations
 
@@ -179,6 +185,32 @@ def _time_ms(torch, fn, iters=1000, warmup=100):
     return start.elapsed_time(end) / iters
 
 
+def _time_turns(torch, fns):
+    """CUDA-event ms per call of each of ``fns`` (name -> fn), timed in
+    turns — the given order, then reversed (kernel, library, plain, plain,
+    library, kernel) — and the mean of each name's two readings."""
+    names = list(fns)
+    got = {n: [] for n in names}
+    for n in names + names[::-1]:
+        got[n].append(_time_ms(torch, fns[n]))
+    return {n: sum(v) / len(v) for n, v in got.items()}
+
+
+def _host_us(torch, fn, iters=10000):
+    """Host wall us per call of ``fn`` (perf_counter over ``iters`` calls
+    that start on an idle card, then a sync): what the calling thread pays,
+    which is the cost at shapes whose device work is shorter."""
+    for _ in range(100):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / iters * 1e6
+
+
 def _max_err(got, want):
     return float((got.detach() - want.detach()).abs().max())
 
@@ -233,44 +265,113 @@ def _mix_grads(torch, mix, w0, p0):
     return out.detach(), w.grad, p.grad
 
 
-def phase_kernel(torch, FM, PX):
-    dev = torch.device("cuda")
-    gen = torch.Generator().manual_seed(0)
-    errs = {"factor_mix": {}, "gl_prox": {}}
-    fm_errs, px_errs = errs["factor_mix"], errs["gl_prox"]
-    for B, K, T, C in ((64, 5, 1, 10), (64, 5, 2, 10), (17, 5, 1, 10),
-                       (1, 5, 1, 10)):
+def _offset_view(torch, t):
+    """A copy of ``t`` whose storage starts one float past a 16-byte
+    boundary: the same values, a misaligned base pointer."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = flat[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def _mix_checks(torch, FM, gen, dev, errs):
+    """The factor mix against its plain version, and the launch plan each
+    case took (float4, float2 or scalar)."""
+    plans = {}
+
+    def plan(w, p, B, M, sk, sb):
+        vec = FM.mix_plan(B, M, sk if w.shape[1] > 1 else 0,
+                          sb if B > 1 else 0, p.data_ptr() % 16)[0]
+        return {1: "scalar", 2: "float2", 4: "float4"}[vec]
+
+    # M = 10 (the training and load shapes: float2), 20 and 100 (float4),
+    # 7 (scalar), K = 20 with M = 12 (the K loop that is not unrolled); the
+    # last two on a p offset by one float (scalar)
+    cases = [((64, 5, 1, 10), False), ((64, 5, 2, 10), False),
+             ((17, 5, 1, 10), False), ((1, 5, 1, 10), False),
+             ((128, 5, 1, 10), False), ((64, 5, 10, 10), False),
+             ((32, 5, 1, 7), False), ((8, 20, 1, 12), False),
+             ((64, 5, 10, 10), True), ((128, 5, 1, 10), True)]
+    for (B, K, T, C), offset in cases:
         w = torch.rand((B, K), generator=gen).to(dev)
         p = torch.randn((K, B, T, C), generator=gen).to(dev)
-        _check_close(torch, f"factor_mix{(B, K, T, C)}", FM.factor_mix(w, p),
-                     FM.factor_mix_reference(w, p), fm_errs)
+        if offset:
+            p = _offset_view(torch, p)
+        name = f"factor_mix{(B, K, T, C)}" + (" p+1 float" if offset else "")
+        _check_close(torch, name, FM.factor_mix(w, p),
+                     FM.factor_mix_reference(w, p), errs)
+        plans[name] = plan(w, p, B, T * C, p.stride(0), p.stride(1))
     gc = torch.randn((5, 10, 10), generator=gen).to(dev)
-    for S in (64, 3):
+    for S, offset in ((64, False), (3, False), (64, True)):
         w = torch.rand((S, 5), generator=gen).to(dev)
-        _check_close(torch, f"graph_mix(S={S})", FM.graph_mix(w, gc),
-                     FM.graph_mix_reference(w, gc), fm_errs)
+        g = _offset_view(torch, gc) if offset else gc
+        name = f"graph_mix(S={S})" + (" gc+1 float" if offset else "")
+        _check_close(torch, name, FM.graph_mix(w, g),
+                     FM.graph_mix_reference(w, g), errs)
+        plans[name] = plan(w, g, S, 100, g.stride(0), 0)
+    _require(plans["graph_mix(S=64)"] == "float4"
+             and plans["factor_mix(128, 5, 1, 10)"] == "float2"
+             and plans["graph_mix(S=64) gc+1 float"] == "scalar"
+             and plans["factor_mix(64, 5, 10, 10) p+1 float"] == "scalar",
+             f"factor_mix launch plans {plans}")
     # autograd, kernel forward + einsum backward vs the plain version: the
-    # serve-test shape, the training batch and an odd remainder batch
+    # serve-test shape, the training batch and an odd remainder batch; and
+    # the same forward with no gradient wanted (the direct launch)
     for B in (64, 128, 117):
         w0 = torch.rand((B, K_TRAIN), generator=gen).to(dev)
         p0 = torch.randn((K_TRAIN, B, 1, C_TRAIN), generator=gen).to(dev)
         got = _mix_grads(torch, FM.factor_mix, w0, p0)
         want = _mix_grads(torch, FM.factor_mix_reference, w0, p0)
         for what, a, b in zip(("forward", "dw", "dp"), got, want):
-            _check_close(torch, f"factor_mix_{what}(B={B})", a, b, fm_errs)
+            _check_close(torch, f"factor_mix_{what}(B={B})", a, b, errs)
+        with torch.no_grad():
+            direct = FM.factor_mix(w0.requires_grad_(True), p0)
+        _require(bool(torch.equal(direct, got[0])),
+                 f"factor_mix(B={B}): no-grad and autograd forwards differ")
+    return plans
 
-    # GL prox: the training block, the off-tile shapes of
-    # tests/test_precision_kernels.py:117-121, three thresholds each
+
+def _prox_checks(torch, PX, gen, dev, errs):
+    """The GL prox, functional and in place, against its plain version;
+    the plan (chunk, TMA bulk copy or not) each case took."""
+    plans = {}
     train_block = (K_TRAIN, C_TRAIN, TRAIN_CONFIG["gen_hidden"][0], C_TRAIN,
                    TRAIN_CONFIG["gen_lag"])
+    # the training block, the off-tile shapes of
+    # tests/test_precision_kernels.py:117-121, a slab walked in chunks with
+    # and without the bulk copy (16,000 and 15,005 floats); three
+    # thresholds each, on an aligned and on a misaligned block, functional
+    # and in place (the output aliasing the input)
     for shape in (train_block, (3, 7, 5, 7, 3), (1, 1, 3, 1, 1),
-                  (5, 12, 32, 12, 4)):
-        W = (0.05 * torch.randn(shape, generator=gen)).to(dev)
-        for lam, lr in ((PROX_LAM, TRAIN_KNOBS["gen_lr"]), (0.013, 0.002),
-                        (50.0, 0.05)):
-            _check_close(torch, f"gl_prox{shape}(lam={lam},lr={lr})",
-                         PX.gl_prox(W, lam, lr),
-                         PX.gl_prox_reference(W, lam, lr), px_errs)
+                  (5, 12, 32, 12, 4), (2, 3, 200, 10, 8),
+                  (2, 1, 3001, 1, 5)):
+        for offset in (False, True):
+            W = (0.05 * torch.randn(shape, generator=gen)).to(dev)
+            if offset:
+                W = _offset_view(torch, W)
+            *_, H, C, L = shape
+            chunk, bulk, threads = PX.prox_plan(H, C, L,
+                                                W.data_ptr() % 16)
+            tag = f"gl_prox{shape}" + (" +1 float" if offset else "")
+            plans[tag] = {"chunk": chunk, "slab": H * C * L,
+                          "bulk": bool(bulk), "threads": threads}
+            for lam, lr in ((PROX_LAM, TRAIN_KNOBS["gen_lr"]),
+                            (0.013, 0.002), (50.0, 0.05)):
+                want = PX.gl_prox_reference(W, lam, lr)
+                _check_close(torch, f"{tag}(lam={lam},lr={lr})",
+                             PX.gl_prox(W, lam, lr), want, errs)
+                Wi = W.clone() if not offset else _offset_view(torch, W)
+                ptr = Wi.data_ptr()
+                got = PX.gl_prox_(Wi, lam, lr)
+                _require(got is Wi and Wi.data_ptr() == ptr,
+                         f"{tag}: gl_prox_ did not update in place")
+                _check_close(torch, f"{tag}(lam={lam},lr={lr}) in place",
+                             Wi, want, errs)
+    _require(plans[f"gl_prox{train_block}"]["bulk"]
+             and plans[f"gl_prox{train_block}"]["chunk"] == 1000
+             and not plans[f"gl_prox{train_block} +1 float"]["bulk"]
+             and plans["gl_prox(2, 3, 200, 10, 8)"]["chunk"] < 16000,
+             f"gl_prox launch plans {plans}")
     # an all-zero group and a group exactly at the threshold
     W = torch.randn(train_block, generator=gen).to(dev)
     W[0, 0, :, 1, :] = 0.0
@@ -278,64 +379,167 @@ def phase_kernel(torch, FM, PX):
     W[1, 2, :, 0, :] *= thresh / torch.sqrt(torch.sum(W[1, 2, :, 0, :] ** 2))
     got = PX.gl_prox(W, 1.0, 0.25)
     _check_close(torch, "gl_prox(zero and at-threshold groups)", got,
-                 PX.gl_prox_reference(W, 1.0, 0.25), px_errs)
+                 PX.gl_prox_reference(W, 1.0, 0.25), errs)
     _require(float(got[0, 0, :, 1, :].abs().max()) == 0.0,
              "gl_prox: the all-zero group did not stay zero")
     _require(float(got[1, 2, :, 0, :].abs().max()) <= ATOL,
              "gl_prox: the at-threshold group did not go to zero")
+    return plans
+
+
+def _mix_host_breakdown(torch, FM, w, p, gc=None):
+    """Host us per call of each piece of the factor mix's launch path at
+    ``w``, ``p`` (perf_counter over 10,000 calls): the pieces this launch
+    path keeps and those it dropped, beside the whole call, one library
+    call and the floor. With ``gc`` (the serve tick, ``p`` its broadcast)
+    the whole ``graph_mix`` call and the view it no longer builds too."""
+    K, B, T, C = p.shape
+    dev = w.device
+    idx = w.get_device()
+    out = w.new_empty((B, T, C))
+    plan = FM._mix_args(B, K, T * C, p.stride(0), p.stride(1),
+                        p.data_ptr() % 16, idx)
+    args = (w.data_ptr(), p.data_ptr(), out.data_ptr(), plan[1])
+    raw = torch._C._cuda_getCurrentRawStream
+    one = torch.zeros(1, device=dev)
+
+    def device_ctx():
+        with torch.cuda.device(dev):
+            pass
+
+    pieces = {
+        # kept
+        "factor_mix (whole call, no grad)": lambda: FM.factor_mix(w, p),
+        "_launch (checks + launch)": lambda: FM._launch(w, p),
+        "_mix_args (cached plan)": lambda: FM._mix_args(
+            B, K, T * C, p.stride(0), p.stride(1), p.data_ptr() % 16, idx),
+        "new_empty": lambda: w.new_empty((B, T, C)),
+        "raw stream handle": lambda: raw(idx),
+        "ctypes call + launch + raw stream handle":
+            lambda: FM._fn(*args, raw(idx)),
+        "data_ptr x3": lambda: (w.data_ptr(), p.data_ptr(), out.data_ptr()),
+        # dropped
+        "FactorMixFn.apply (whole call)": lambda: FM.FactorMixFn.apply(w, p),
+        "with torch.cuda.device": device_ctx,
+        "torch.cuda.current_stream().cuda_stream":
+            lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "torch.empty(dtype, device)": lambda: torch.empty(
+            (B, T, C), dtype=torch.float32, device=dev),
+        # yardsticks
+        "torch.bmm (whole call)": lambda: torch.bmm(
+            w[:, None, :], p.reshape(K, B, T * C).transpose(0, 1)),
+        "floor: x.zero_()": one.zero_,
+    }
+    if gc is not None:
+        pieces["graph_mix (whole call)"] = lambda: FM.graph_mix(w, gc)
+        pieces["graph_mix expand view (dropped)"] = lambda: gc.contiguous()[
+            :, None].expand((K, B) + tuple(gc.shape[1:]))
+        pieces["torch.mm (whole call)"] = lambda: torch.mm(w, gc.view(K, -1))
+    return {k: _host_us(torch, f) for k, f in pieces.items()}
+
+
+def _prox_host_breakdown(torch, PX, W, lam, lr):
+    """Host us per call of each piece of the GL prox's launch path at the
+    block ``W`` (perf_counter over 10,000 calls), beside the floor."""
+    Wi = W.clone()
+    *_, H, C, L = W.shape
+    idx = W.get_device()
+    lead = W.numel() // (H * C * L)
+    plan = PX._prox_args(lead, H, C, L, Wi.data_ptr() % 16, idx)
+    args = (Wi.data_ptr(), Wi.data_ptr(), plan[1], PX.threshold(lam, lr))
+    raw = torch._C._cuda_getCurrentRawStream
+    one = torch.zeros(1, device=W.device)
+    pieces = {
+        "gl_prox_ (in place, whole call)": lambda: PX.gl_prox_(Wi, lam, lr),
+        "_launch into W (checks + launch)": lambda: PX._launch(
+            Wi, lam, lr, out=Wi),
+        "_prox_args (cached plan)": lambda: PX._prox_args(
+            lead, H, C, L, Wi.data_ptr() % 16, idx),
+        "threshold(lam, lr)": lambda: PX.threshold(lam, lr),
+        "ctypes call + launch + raw stream handle":
+            lambda: PX._fn(*args, raw(idx)),
+        "increment_version": lambda: torch.autograd.graph.increment_version(
+            Wi),
+        "gl_prox (functional, whole call)": lambda: PX.gl_prox(W, lam, lr),
+        "empty_like (functional only)": lambda: torch.empty_like(W),
+        "floor: x.zero_()": one.zero_,
+    }
+    return {k: _host_us(torch, f) for k, f in pieces.items()}
+
+
+def phase_kernel(torch, FM, PX):
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(0)
+    errs = {"factor_mix": {}, "gl_prox": {}}
+    mix_plans = _mix_checks(torch, FM, gen, dev, errs["factor_mix"])
+    prox_plans = _prox_checks(torch, PX, gen, dev, errs["gl_prox"])
     torch.cuda.synchronize()
 
     # times at the main paths' shapes: the per-tick graph blend (S=64, K=5,
     # M=100, broadcast graphs), the load-time mix (B=1), the training mix
-    # (B=128, K=5, M=10) and the training block's prox
+    # (B=128, K=5, M=10) and the training block's prox (in place, as the
+    # trainer runs it); each kernel, its library call and its plain version
+    # in turns; beside them the launch floor, one x.zero_() on a
+    # one-element tensor
+    one = torch.zeros(1, device=dev)
+    floor_ms = _time_ms(torch, one.zero_)
     timing = {"factor_mix": {}, "gl_prox": {}}
+    gc = torch.randn((5, 10, 10), generator=gen).to(dev)
     w = torch.rand((CAPACITY, 5), generator=gen).to(dev)
-    tick = timing["factor_mix"]["tick"] = {
-        "shape": "S=64 K=5 M=100 (graph_mix, p broadcast over S)",
-        "kernel_ms": _time_ms(torch, lambda: FM.graph_mix(w, gc)),
-        "plain_ms": _time_ms(torch, lambda: FM.graph_mix_reference(w, gc)),
-        "library_ms": _time_ms(torch, lambda: torch.mm(w, gc.view(5, -1))),
-    }
-    tick["bound_ms"], tick["bound_by"] = _bound_ms(CAPACITY, 5, 100, 1)
     w1 = torch.rand((1, 5), generator=gen).to(dev)
     p1 = torch.randn((5, 1, 1, 10), generator=gen).to(dev)
-    load = timing["factor_mix"]["load"] = {
-        "shape": "B=1 K=5 M=10 (factor_mix, one sim step)",
-        "kernel_ms": _time_ms(torch, lambda: FM.factor_mix(w1, p1)),
-        "plain_ms": _time_ms(torch,
-                             lambda: FM.factor_mix_reference(w1, p1)),
-        "library_ms": _time_ms(torch, lambda: torch.bmm(
-            w1[:, None, :], p1.reshape(5, 1, 10).transpose(0, 1))),
-    }
-    load["bound_ms"], load["bound_by"] = _bound_ms(1, 5, 10, 1)
     B = TRAIN_KNOBS["batch_size"]
     wt = torch.rand((B, K_TRAIN), generator=gen).to(dev)
     pt = torch.randn((K_TRAIN, B, 1, C_TRAIN), generator=gen).to(dev)
-    train = timing["factor_mix"]["train"] = {
-        "shape": "B=128 K=5 M=10 (factor_mix forward, training batch)",
-        "kernel_ms": _time_ms(torch, lambda: FM.factor_mix(wt, pt)),
-        "plain_ms": _time_ms(torch,
-                             lambda: FM.factor_mix_reference(wt, pt)),
-        "library_ms": _time_ms(torch, lambda: torch.bmm(
-            wt[:, None, :], pt.reshape(K_TRAIN, B, C_TRAIN).transpose(
-                0, 1))),
-    }
-    train["bound_ms"], train["bound_by"] = _bound_ms(B, K_TRAIN, C_TRAIN, B)
+    for key, shape, fns, bound in (
+            ("tick", "S=64 K=5 M=100 (graph_mix, p broadcast over S)",
+             {"kernel_ms": lambda: FM.graph_mix(w, gc),
+              "library_ms": lambda: torch.mm(w, gc.view(5, -1)),
+              "plain_ms": lambda: FM.graph_mix_reference(w, gc)},
+             _bound_ms(CAPACITY, 5, 100, 1)),
+            ("load", "B=1 K=5 M=10 (factor_mix, one sim step)",
+             {"kernel_ms": lambda: FM.factor_mix(w1, p1),
+              "library_ms": lambda: torch.bmm(
+                  w1[:, None, :], p1.reshape(5, 1, 10).transpose(0, 1)),
+              "plain_ms": lambda: FM.factor_mix_reference(w1, p1)},
+             _bound_ms(1, 5, 10, 1)),
+            ("train", "B=128 K=5 M=10 (factor_mix forward, training batch)",
+             {"kernel_ms": lambda: FM.factor_mix(wt, pt),
+              "library_ms": lambda: torch.bmm(
+                  wt[:, None, :], pt.reshape(K_TRAIN, B, C_TRAIN).transpose(
+                      0, 1)),
+              "plain_ms": lambda: FM.factor_mix_reference(wt, pt)},
+             _bound_ms(B, K_TRAIN, C_TRAIN, B))):
+        t = timing["factor_mix"][key] = {"shape": shape,
+                                         **_time_turns(torch, fns)}
+        t["bound_ms"], t["bound_by"] = bound
+        t["floor_ms"] = floor_ms
+    train_block = (K_TRAIN, C_TRAIN, 25, C_TRAIN, 4)
     Wt = (0.05 * torch.randn(train_block, generator=gen)).to(dev)
+    Wi = Wt.clone()
     lam, lr = PROX_LAM, TRAIN_KNOBS["gen_lr"]
     prox = timing["gl_prox"]["train"] = {
         "shape": "(K, C_out, H, C_in, L) = (5, 10, 25, 10, 4): 500 groups "
-                 "of 100",
-        "kernel_ms": _time_ms(torch, lambda: PX.gl_prox(Wt, lam, lr)),
-        "plain_ms": _time_ms(torch,
-                             lambda: PX.gl_prox_reference(Wt, lam, lr)),
+                 "of 100; kernel_ms in place (gl_prox_), as the trainer "
+                 "runs it",
+        **_time_turns(torch, {
+            "kernel_ms": lambda: PX.gl_prox_(Wi, lam, lr),
+            "functional_ms": lambda: PX.gl_prox(Wt, lam, lr),
+            "plain_ms": lambda: PX.gl_prox_reference(Wt, lam, lr)}),
         # no single PyTorch call computes the GL prox
         "library_ms": None,
     }
     prox["bound_ms"], prox["bound_by"] = _prox_bound_ms(Wt.numel())
+    prox["floor_ms"] = floor_ms
+    host_us = {"factor_mix_tick": _mix_host_breakdown(
+        torch, FM, w, gc[:, None].expand(5, CAPACITY, 10, 10), gc),
+        "factor_mix_train": _mix_host_breakdown(torch, FM, wt, pt),
+        "gl_prox_train": _prox_host_breakdown(torch, PX, Wt, lam, lr)}
     max_err = {k: max(v.values()) for k, v in errs.items()}
     _emit({"phase": "kernel", "rtol": RTOL, "atol": ATOL,
-           "max_abs_err": max_err, "errors": errs, "timing": timing})
+           "max_abs_err": max_err, "errors": errs,
+           "plans": {"factor_mix": mix_plans, "gl_prox": prox_plans},
+           "timing": timing, "host_us_per_call": host_us})
     return max_err, timing
 
 
@@ -491,6 +695,23 @@ def _device_us(torch, prof, n):
     return per, sum(per.values())
 
 
+def _alone_us(torch, fns, n=200):
+    """Device us per call of each of ``fns`` (name -> fn) run alone:
+    ``torch.profiler`` device time of ``n`` back-to-back calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    alone = {}
+    for name, fn in fns.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        alone[name] = _device_us(torch, prof, n)[1]
+    return alone
+
+
 def phase_profile(torch, FM):
     """Where a serve tick's time goes (``--profile`` only): device time of
     the kernel and the library call alone, then a profiled window of ticks
@@ -505,16 +726,16 @@ def phase_profile(torch, FM):
     gen = torch.Generator().manual_seed(2)
     gc = torch.randn((5, 10, 10), generator=gen).to(dev)
     w = torch.rand((CAPACITY, 5), generator=gen).to(dev)
-    alone = {}
-    for name, fn in (("factor_mix_kernel", lambda: FM.graph_mix(w, gc)),
-                     ("torch.mm", lambda: torch.mm(w, gc.view(5, -1)))):
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(200):
-                fn()
-            torch.cuda.synchronize()
-        alone[name] = _device_us(torch, prof, 200)[1]
+    w1 = torch.rand((1, 5), generator=gen).to(dev)
+    p1 = torch.randn((5, 1, 1, 10), generator=gen).to(dev)
+    one = torch.zeros(1, device=dev)
+    alone = _alone_us(torch, {
+        "floor: x.zero_()": one.zero_,
+        "factor_mix_kernel (tick)": lambda: FM.graph_mix(w, gc),
+        "torch.mm (tick)": lambda: torch.mm(w, gc.view(5, -1)),
+        "factor_mix_kernel (load)": lambda: FM.factor_mix(w1, p1),
+        "torch.bmm (load)": lambda: torch.bmm(
+            w1[:, None, :], p1.reshape(5, 1, 10).transpose(0, 1))})
 
     artifact = os.path.join(HERE, "build", "chip_smoke", "artifact")
     svc = ServeService.from_artifact(artifact, capacity=CAPACITY,
@@ -795,21 +1016,21 @@ def phase_profile_train(torch, FM, PX, model, params, train_ds):
     Wt = (0.05 * torch.randn((K_TRAIN, C_TRAIN, 25, C_TRAIN, 4),
                              generator=gen)).to(dev)
     lam, lr = PROX_LAM, TRAIN_KNOBS["gen_lr"]
-    alone = {}
-    for name, fn in (
-            ("factor_mix_kernel", lambda: FM.factor_mix(wt, pt)),
-            ("torch.bmm", lambda: torch.bmm(
-                wt[:, None, :],
-                pt.reshape(K_TRAIN, B, C_TRAIN).transpose(0, 1))),
-            ("gl_prox_kernel", lambda: PX.gl_prox(Wt, lam, lr)),
-            ("gl_prox_plain", lambda: PX.gl_prox_reference(Wt, lam, lr))):
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(200):
-                fn()
-            torch.cuda.synchronize()
-        alone[name] = _device_us(torch, prof, 200)[1]
+    Wi = Wt.clone()
+    Wo = _offset_view(torch, Wt)
+    one = torch.zeros(1, device=dev)
+    alone = _alone_us(torch, {
+        "floor: x.zero_()": one.zero_,
+        "factor_mix_kernel": lambda: FM.factor_mix(wt, pt),
+        "torch.bmm": lambda: torch.bmm(
+            wt[:, None, :],
+            pt.reshape(K_TRAIN, B, C_TRAIN).transpose(0, 1)),
+        "gl_prox_kernel (in place)": lambda: PX.gl_prox_(Wi, lam, lr),
+        "gl_prox_kernel (functional)": lambda: PX.gl_prox(Wt, lam, lr),
+        # the same block offset by one float: scalar loads, not the TMA
+        "gl_prox_kernel (in place, +1 float)": lambda: PX.gl_prox_(
+            Wo, lam, lr),
+        "gl_prox_plain": lambda: PX.gl_prox_reference(Wt, lam, lr)})
 
     trainer = RedcliffTrainer(model, RedcliffTrainConfig(**TRAIN_KNOBS))
     live = trainer.live_params(interop.params_to_jax(params))
@@ -832,6 +1053,35 @@ def phase_profile_train(torch, FM, PX, model, params, train_ds):
         wall_ms = (time.perf_counter() - t0) * 1e3 / n_prof
     per, busy_us = _device_us(torch, prof, n_prof)
     top = sorted(per.items(), key=lambda kv: -kv[1])[:12]
+
+    # the prox step as the trainer runs it (in place) beside the functional
+    # update written back (allocation, kernel, copy): the device ops and
+    # the aten ops of one call
+    w_live = live["factors"][0]["w"]
+    prox_step = {}
+    for name, fn in (
+            ("apply_prox_ (in place, the trainer)",
+             lambda: model.apply_prox_(live, lam, lr)),
+            ("apply_prox + copy_", lambda: w_live.copy_(
+                model.apply_prox(live, lam, lr)["factors"][0]["w"]))):
+        with torch.no_grad():
+            fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as p2:
+                for _ in range(20):
+                    fn()
+                torch.cuda.synchronize()
+        prox_step[name] = {
+            "device_us_per_call": _device_us(torch, p2, 20)[0],
+            "aten_ops_per_call": {
+                e.key: e.count / 20 for e in p2.key_averages()
+                if e.key.startswith("aten::")}}
+    inplace = prox_step["apply_prox_ (in place, the trainer)"]
+    _require(len(inplace["device_us_per_call"]) == 1
+             and "gl_prox_kernel" in next(iter(inplace["device_us_per_call"]))
+             and not inplace["aten_ops_per_call"],
+             f"the trainer's prox step is not one kernel launch: {inplace}")
     _emit({"phase": "profile_train", "device": torch.cuda.get_device_name(0),
            "device_us_per_call_alone": alone, "steps": n_prof,
            "step_wall_ms_profiled": wall_ms,
@@ -839,7 +1089,8 @@ def phase_profile_train(torch, FM, PX, model, params, train_ds):
            "device_idle_share": (1.0 - busy_us / 1e3 / wall_ms
                                  if busy_us else None),
            "device_ops_per_step": len(per),
-           "top_device_us_per_step": dict(top)})
+           "top_device_us_per_step": dict(top),
+           "prox_step": prox_step})
 
 
 def _kernel_entry(name, mod, replaces, launches, by_path, max_err, t):
@@ -849,7 +1100,8 @@ def _kernel_entry(name, mod, replaces, launches, by_path, max_err, t):
             "launches_by_path": by_path, "max_abs_err": max_err,
             "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"], "shape": t["shape"]}
+            "library_ms": t["library_ms"], "floor_ms": t["floor_ms"],
+            "shape": t["shape"]}
 
 
 def main():

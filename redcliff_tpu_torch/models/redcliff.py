@@ -9,8 +9,9 @@ the JAX package's ``vmap`` written out as broadcasting einsums).
 Ported: the config with its validation, ``init``, both forward modes, all
 9 GC readout modes (the serve slice), and the training half — the phase
 schedule, the multi-term loss with its smoothing variant, ``apply_prox``
-(the GL prox kernel on the card), ``permute_factors`` and the validation
-normalization coefficients. cLSTM factors are not ported yet.
+and its in-place form ``apply_prox_`` (the GL prox kernel on the card),
+``permute_factors`` and the validation normalization coefficients. cLSTM
+factors are not ported yet.
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ from redcliff_tpu_torch.models.embedders import (CEmbedder, DGCNNEmbedder,
                                                  build_embedder)
 from redcliff_tpu_torch.ops import losses as L
 from redcliff_tpu_torch.ops.factor_mix import factor_mix
-from redcliff_tpu_torch.ops.pallas_prox import gl_prox
+from redcliff_tpu_torch.ops.pallas_prox import gl_prox, gl_prox_
 
 __all__ = ["RedcliffSCMLPConfig", "RedcliffSCMLP", "TRAINING_MODES",
            "GC_EST_MODES", "FORWARD_PASS_MODES", "phase_schedule"]
@@ -556,6 +557,16 @@ class RedcliffSCMLP:
         new_w = gl_prox(factors[0]["w"], lam, lr, penalty)
         new_factors = [dict(factors[0], w=new_w)] + list(factors[1:])
         return dict(params, factors=new_factors)
+
+    def apply_prox_(self, params, lam, lr, penalty="GL"):
+        """:meth:`apply_prox` in place on ``params["factors"][0]["w"]``
+        (ops/pallas_prox.py ``gl_prox_``): on the card, GL is one kernel
+        launch with no allocation or copy. JAX's update is functional; the
+        port updates the live block in place because nothing else holds
+        its storage (the trainer keeps every other tree as a copy). Call
+        under ``torch.no_grad()``. Returns ``params``."""
+        gl_prox_(params["factors"][0]["w"], lam, lr, penalty)
+        return params
 
     # -------------------------------------------------------- factor alignment
     def permute_factors(self, params, order):

@@ -12,19 +12,32 @@
   take raises.
 * :class:`FactorMixFn` — the ``torch.autograd.Function`` around the kernel,
   mirroring the JAX custom VJP: forward is the kernel, backward is the two
-  einsums of ``_mix_bwd`` (plain in the JAX package too).
+  einsums of ``_mix_bwd`` (plain in the JAX package too). The wrappers take
+  it only when a gradient is wanted (grad mode on and an operand that
+  requires grad); otherwise they launch the kernel directly.
+* :func:`mix_plan` — the kernel's launch plan (vector width, threads,
+  blocks), a pure function of the shapes, strides and alignment.
 * ``factor_mix.launches`` — a plain int, one per kernel launch.
+
+The launch path is kept short because at the main path's shapes the launch,
+not the device work, is the cost (PERF.md): one pass of checks, no
+``torch.cuda.device`` context (the C entry takes the device index and
+switches only when it is not the current one), the raw stream handle, and a
+ctypes function bound once with its ``argtypes`` and called with five
+arguments (the shapes, strides and plan travel in one struct made once per
+shape, since ctypes pays per argument). The serve blend passes its graphs
+with ``stride_b = 0`` straight to the launch, without a view.
 
 The kernel is built from the repository's source at first use into
 ``build/torch_kernels/redcliff_factor_mix/`` (``ops/cuda_build.py``), for
 ``sm_90a``. Its source has a plain C interface and includes no PyTorch
-headers, so the build takes seconds; the wrapper binds it with ctypes and
-checks the ``cudaError_t`` each launch returns. Importing this module builds
-and imports nothing CUDA-specific.
+headers, so the build takes seconds. Importing this module builds and
+imports nothing CUDA-specific.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import threading
 
@@ -33,18 +46,20 @@ import torch
 from redcliff_tpu_torch.ops.cuda_build import build_library
 
 __all__ = ["factor_mix", "factor_mix_reference", "graph_mix",
-           "graph_mix_reference", "FactorMixFn", "load_kernel",
+           "graph_mix_reference", "FactorMixFn", "load_kernel", "mix_plan",
            "KERNEL_SOURCE"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 KERNEL_SOURCE = os.path.join(_HERE, "csrc", "factor_mix.cu")
-# the kernel's launch geometry (csrc/factor_mix.cu): 8 rows of w staged in
-# at most 48 KB of static-limit shared memory, 8-row tiles along gridDim.y
-_TILE_B = 8
-_MAX_K = (48 * 1024) // (4 * _TILE_B)
-_MAX_B = 65535 * _TILE_B
+# the kernel indexes the (B, M) output with 32-bit ints
+_MAX_DIM = 2 ** 31 - 1
+# blocks of 128 threads until the grid would cover every SM several times
+_SMALL_BLOCK, _LARGE_BLOCK, _LARGE_FROM = 128, 256, 256 * 132 * 4
 
+_F32 = torch.float32
 _lib = None
+_fn = None
+_raw_stream = None
 _lib_lock = threading.Lock()
 
 
@@ -58,63 +73,150 @@ def graph_mix_reference(weightings, static_gc):
     return torch.einsum("sk,kij->sij", weightings, static_gc)
 
 
+def mix_plan(B, M, stride_k, stride_b, p_offset):
+    """``(vec, threads, blocks)`` for the kernel: each thread computes
+    ``vec`` consecutive outputs of the linear (b, m) index.
+
+    ``p_offset`` is ``p.data_ptr() % 16``. ``vec`` is 4 when M and both
+    element strides of p are multiples of 4 and p's base is 16-byte aligned
+    (float4 loads and stores), 2 at multiples of 2 and 8 bytes (float2),
+    else 1. The launch passes 0 as the stride of an axis of length 1, so
+    such an axis (like the serve broadcast's stride 0) never breaks the
+    alignment. The output is a fresh contiguous ``(B, M)`` tensor, so
+    M % vec == 0 aligns its rows too."""
+    vec = 1
+    for v in (4, 2):
+        if (M % v == 0 and p_offset % (4 * v) == 0 and stride_k % v == 0
+                and stride_b % v == 0):
+            vec = v
+            break
+    n = B * (M // vec)
+    threads = _LARGE_BLOCK if n >= _LARGE_FROM else _SMALL_BLOCK
+    return vec, threads, -(-n // threads)
+
+
+class _MixArgs(ctypes.Structure):
+    """The launch's shapes, strides and plan: ``MixArgs`` of
+    csrc/factor_mix.cu, field for field. One per shape (cached), so a
+    launch converts five ctypes arguments, not thirteen."""
+
+    _fields_ = [("B", ctypes.c_int), ("K", ctypes.c_int),
+                ("M", ctypes.c_int), ("vec", ctypes.c_int),
+                ("threads", ctypes.c_int), ("blocks", ctypes.c_int),
+                ("device", ctypes.c_int), ("stride_k", ctypes.c_longlong),
+                ("stride_b", ctypes.c_longlong)]
+
+
+@functools.lru_cache(maxsize=256)
+def _mix_args(B, K, M, stride_k, stride_b, p_offset, device):
+    """``(_MixArgs, its address)`` for one launch shape on ``device``."""
+    args = _MixArgs(B, K, M, *mix_plan(B, M, stride_k, stride_b, p_offset),
+                    device, stride_k, stride_b)
+    return args, ctypes.addressof(args)
+
+
 def load_kernel():
     """Build (first call in a process; cached by content on disk) and bind
     the CUDA kernel. Returns the ctypes library."""
-    global _lib
+    global _lib, _fn, _raw_stream
     with _lib_lock:
         if _lib is not None:
             return _lib
         lib = build_library("redcliff_factor_mix", KERNEL_SOURCE)
         fn = lib.redcliff_factor_mix_f32
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
+                       ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _lib = lib
+        # the current stream's cudaStream_t of a device, as an int
+        _raw_stream = torch._C._cuda_getCurrentRawStream
+        _fn, _lib = fn, lib
         return _lib
 
 
-def _launch(weightings, preds):
-    """Run the kernel: ``weightings (B, K)``, ``preds (K, B, T, C)`` with
-    the (T, C) block contiguous (any strides on K and B, including a
-    stride-0 broadcast) -> ``(B, T, C)``."""
-    w, p = weightings, preds
-    if not (w.is_cuda and p.is_cuda and w.device == p.device):
-        raise ValueError(f"factor_mix kernel needs both operands on one CUDA "
-                         f"device, got {w.device} and {p.device}")
-    if w.dtype != torch.float32 or p.dtype != torch.float32:
-        raise TypeError(f"factor_mix kernel takes float32, got {w.dtype} "
-                        f"and {p.dtype}")
-    if w.dim() != 2 or p.dim() != 4:
-        raise ValueError(f"factor_mix wants w (B, K) and p (K, B, T, C), got "
-                         f"{tuple(w.shape)} and {tuple(p.shape)}")
-    K, B, T, C = p.shape
-    if tuple(w.shape) != (B, K):
-        raise ValueError(f"factor_mix shape mismatch: w {tuple(w.shape)} vs "
-                         f"p {tuple(p.shape)}")
-    if not w.is_contiguous():
-        raise ValueError("factor_mix kernel needs a contiguous w")
-    if (C > 1 and p.stride(3) != 1) or (T > 1 and p.stride(2) != C):
-        raise ValueError(f"factor_mix kernel needs p's (T, C) block "
-                         f"contiguous, got strides {p.stride()}")
-    if K > _MAX_K or B > _MAX_B:
-        raise ValueError(f"factor_mix kernel takes K <= {_MAX_K} and "
-                         f"B <= {_MAX_B}, got K={K}, B={B}")
-    M = T * C
-    out = torch.empty((B, T, C), dtype=torch.float32, device=w.device)
+def _run(w, p, B, K, M, stride_k, stride_b, out_shape):
+    """Launch on checked operands: ``w (B, K)`` contiguous, element
+    (k, b, m) of p at ``p + k*stride_k + b*stride_b + m`` -> a new
+    ``out_shape`` tensor holding the ``(B, M)`` result."""
+    out = w.new_empty(out_shape)
     if B == 0 or M == 0:
         return out
-    lib = _lib or load_kernel()
-    with torch.cuda.device(w.device):
-        stream = torch.cuda.current_stream(w.device).cuda_stream
-        rc = lib.redcliff_factor_mix_f32(
-            w.data_ptr(), p.data_ptr(), out.data_ptr(), B, K, M,
-            p.stride(0), p.stride(1), stream)
+    if _fn is None:
+        load_kernel()
+    # the stride of an axis of length 1 is never stepped
+    if K == 1:
+        stride_k = 0
+    if B == 1:
+        stride_b = 0
+    p_ptr = p.data_ptr()
+    dev = w.get_device()
+    args = _mix_args(B, K, M, stride_k, stride_b, p_ptr % 16, dev)
+    rc = _fn(w.data_ptr(), p_ptr, out.data_ptr(), args[1], _raw_stream(dev))
     if rc != 0:
         raise RuntimeError(f"factor_mix kernel launch failed: cudaError {rc}")
     factor_mix.launches += 1
     return out
+
+
+def _operands_ok(w, a):
+    """Both on one CUDA device, float32, ``w`` contiguous."""
+    return (w.is_cuda and a.get_device() == w.get_device()
+            and w.dtype is _F32 and a.dtype is _F32 and w.is_contiguous())
+
+
+def _mix_layout(w, p):
+    """``(B, K, M, stride_k, stride_b, out_shape)`` of ``w (B, K)`` and
+    ``p (K, B, T, C)`` for the kernel, or None when the layout is not one
+    it takes: the (T, C) block of p contiguous, any strides on K and B
+    (including a stride-0 broadcast)."""
+    if w.dim() != 2 or p.dim() != 4:
+        return None
+    K, B, T, C = p.shape
+    sk, sb, st, sc = p.stride()
+    M = T * C
+    if (w.shape == (B, K) and (sc == 1 or C == 1) and (st == C or T == 1)
+            and B * M <= _MAX_DIM):
+        return B, K, M, sk, sb, (B, T, C)
+    return None
+
+
+def _graph_layout(w, g):
+    """The same for the serve blend, ``w (S, K)`` and ``g (K, C, C)`` with
+    the (C, C) block contiguous: the graphs broadcast over S with
+    ``stride_b = 0``."""
+    if w.dim() != 2 or g.dim() != 3:
+        return None
+    K, C1, C2 = g.shape
+    sk, s1, s2 = g.stride()
+    S = w.shape[0]
+    if (w.shape[1] == K and (s2 == 1 or C2 == 1) and (s1 == C2 or C1 == 1)
+            and S * C1 * C2 <= _MAX_DIM):
+        return S, K, C1 * C2, sk, 0, (S, C1, C2)
+    return None
+
+
+def _refuse(w, p, what):
+    """Raise the error that says why the kernel does not take ``w``, ``p``
+    (``what`` names the operands' expected layouts)."""
+    if not (w.is_cuda and p.is_cuda and w.device == p.device):
+        raise ValueError(f"factor_mix kernel needs both operands on one CUDA "
+                         f"device, got {w.device} and {p.device}")
+    if w.dtype != _F32 or p.dtype != _F32:
+        raise TypeError(f"factor_mix kernel takes float32, got {w.dtype} "
+                        f"and {p.dtype}")
+    raise ValueError(f"factor_mix kernel wants {what} with w contiguous, the "
+                     f"inner block of p contiguous and dimensions below "
+                     f"2**31, got w {tuple(w.shape)} strides {w.stride()}, "
+                     f"p {tuple(p.shape)} strides {p.stride()}")
+
+
+def _launch(weightings, preds):
+    """Run the kernel: ``weightings (B, K)``, ``preds (K, B, T, C)`` ->
+    ``(B, T, C)`` (layout as :func:`_mix_layout`)."""
+    w, p = weightings, preds
+    args = _mix_layout(w, p) if _operands_ok(w, p) else None
+    if args is None:
+        _refuse(w, p, "w (B, K) and p (K, B, T, C)")
+    return _run(w, p, *args)
 
 
 def _mix_bwd(weightings, preds, g):
@@ -139,11 +241,17 @@ class FactorMixFn(torch.autograd.Function):
         return _mix_bwd(weightings, preds, g)
 
 
+def _wants_grad(a, b):
+    return torch.is_grad_enabled() and (a.requires_grad or b.requires_grad)
+
+
 def factor_mix(weightings, preds):
     """``weightings (B, K)``, ``preds (K, B, T, C)`` -> ``(B, T, C)``: the
     CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
     if weightings.is_cuda or preds.is_cuda:
-        return FactorMixFn.apply(weightings, preds)
+        if _wants_grad(weightings, preds):
+            return FactorMixFn.apply(weightings, preds)
+        return _launch(weightings, preds)
     return factor_mix_reference(weightings, preds)
 
 
@@ -152,11 +260,16 @@ factor_mix.launches = 0
 
 def graph_mix(weightings, static_gc):
     """Serve-path graph blend: ``weightings (S, K)`` x ``static_gc
-    (K, C, C)`` -> ``(S, C, C)``. On CUDA the K graphs reach the kernel as
-    a stride-0 broadcast over S; nothing of size (K, S, C, C) is made."""
-    if weightings.is_cuda or static_gc.is_cuda:
-        K, S = static_gc.shape[0], weightings.shape[0]
-        preds = static_gc.contiguous()[:, None].expand(
-            (K, S) + tuple(static_gc.shape[1:]))
-        return FactorMixFn.apply(weightings, preds)
-    return graph_mix_reference(weightings, static_gc)
+    (K, C, C)`` -> ``(S, C, C)``. On CUDA the K graphs reach the kernel with
+    ``stride_b = 0``; nothing of size (K, S, C, C) is made."""
+    w, g = weightings, static_gc
+    if not (w.is_cuda or g.is_cuda):
+        return graph_mix_reference(w, g)
+    if _wants_grad(w, g):
+        K, S = g.shape[0], w.shape[0]
+        return FactorMixFn.apply(
+            w, g.contiguous()[:, None].expand((K, S) + tuple(g.shape[1:])))
+    args = _graph_layout(w, g) if _operands_ok(w, g) else None
+    if args is None:
+        _refuse(w, g, "w (S, K) and static_gc (K, C, C)")
+    return _run(w, g, *args)

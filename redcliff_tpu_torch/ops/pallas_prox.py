@@ -1,22 +1,30 @@
 """The fused group-lasso proximal update (port of ``ops/pallas_prox.py``;
 the file keeps its counterpart's name).
 
-* :func:`gl_prox` — the dispatch every prox path calls. GL on a CUDA
-  tensor launches the hand-written kernel in ``csrc/gl_prox.cu``; GL on a
-  CPU tensor takes the plain version (:func:`ops.prox.prox_update`); GSGL
-  and H are plain on every device, as in the JAX package. There is no
-  fallback: a CUDA tensor the kernel does not take (not float32, not
-  contiguous, rank < 3) raises.
-* ``gl_prox.launches`` — a plain int, one per kernel launch.
+* :func:`gl_prox` — the functional dispatch, as in JAX: GL on a CUDA
+  tensor launches the hand-written kernel in ``csrc/gl_prox.cu`` into a new
+  tensor; GL on a CPU tensor takes the plain version
+  (:func:`ops.prox.prox_update`); GSGL and H are plain on every device, as
+  in the JAX package.
+* :func:`gl_prox_` — the same update in place, which the training step
+  uses: GL on a CUDA tensor launches the kernel with its output aliasing
+  the input (one launch, no allocation, no copy); otherwise the plain
+  result is written back with ``copy_``.
+* :func:`prox_plan` — the kernel's launch plan (chunk of a slab staged in
+  shared memory, TMA path or not), a pure function of the shape and the
+  alignment.
+* ``gl_prox.launches`` — a plain int, one per kernel launch, from either
+  form.
 
-The result is functional, as in JAX: the kernel writes a new tensor. (The
-kernel itself may run in place; the wrapper does not ask it to.) The
-kernel is built at first use into ``build/torch_kernels/redcliff_gl_prox/``
-(``ops/cuda_build.py``); importing this module builds nothing.
+There is no fallback: a CUDA tensor the kernel does not take (not float32,
+not contiguous, rank < 3) raises. The kernel is built at first use into
+``build/torch_kernels/redcliff_gl_prox/`` (``ops/cuda_build.py``);
+importing this module builds nothing.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import threading
 
@@ -25,12 +33,21 @@ import torch
 from redcliff_tpu_torch.ops.cuda_build import build_library
 from redcliff_tpu_torch.ops.prox import prox_update, threshold
 
-__all__ = ["gl_prox", "gl_prox_reference", "load_kernel", "KERNEL_SOURCE"]
+__all__ = ["gl_prox", "gl_prox_", "gl_prox_reference", "load_kernel",
+           "prox_plan", "KERNEL_SOURCE"]
 
 KERNEL_SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                              "csrc", "gl_prox.cu")
+# shared memory a block may take without opting in is 48 KB in all; less
+# the kernel's 64 bytes of static shared memory (its mbarrier), it holds the
+# staged chunk and two floats per group
+_SMEM_FLOATS = (48 * 1024 - 64) // 4
+# slabs are grid blocks, and in-slab indices are 32-bit
+_MAX_LEAD = _MAX_INDEX = 2 ** 31 - 1
 
 _lib = None
+_fn = None
+_raw_stream = None
 _lib_lock = threading.Lock()
 
 
@@ -39,47 +56,97 @@ def gl_prox_reference(W1, lam, lr):
     return prox_update(W1, lam, lr, "GL")
 
 
+def prox_plan(H, C, L, offset):
+    """``(chunk, bulk, threads)`` for a slab of ``H*C*L`` floats: the
+    kernel stages
+    ``chunk`` floats of a slab in shared memory at a time (the whole slab
+    when it fits beside the ``2*C`` per-group floats in 48 KB, else chunks
+    of the largest multiple of 4 that does); ``bulk`` is the TMA bulk copy
+    and float4 path, taken when ``offset`` (the input's and output's
+    addresses, or-ed, modulo 16) is 0 and the slab is a whole number of
+    16-byte units, so every slab and chunk starts 16-byte aligned;
+    ``threads`` gives the block one warp per group, 4 to 16 warps. Raises
+    when the per-group floats alone leave no room (C_in > 6134) or a slab
+    holds 2**31 floats or more."""
+    S = H * C * L
+    cap = (_SMEM_FLOATS - 2 * C) // 4 * 4
+    if cap < 4:
+        raise ValueError(f"gl_prox kernel takes C_in <= "
+                         f"{(_SMEM_FLOATS - 4) // 2}, got {C}")
+    if S > _MAX_INDEX:
+        raise ValueError(f"gl_prox kernel takes slabs H*C_in*L below 2**31 "
+                         f"floats, got {S}")
+    return (min(S, cap), offset == 0 and S % 4 == 0,
+            32 * min(max(C, 4), 16))
+
+
+class _ProxArgs(ctypes.Structure):
+    """The launch's shape and plan: ``ProxArgs`` of csrc/gl_prox.cu, field
+    for field. One per shape (cached), so a launch converts five ctypes
+    arguments, not twelve."""
+
+    _fields_ = [("lead", ctypes.c_longlong), ("H", ctypes.c_int),
+                ("C", ctypes.c_int), ("L", ctypes.c_int),
+                ("chunk", ctypes.c_int), ("bulk", ctypes.c_int),
+                ("threads", ctypes.c_int), ("device", ctypes.c_int)]
+
+
+@functools.lru_cache(maxsize=256)
+def _prox_args(lead, H, C, L, offset, device):
+    """``(_ProxArgs, its address)`` for one launch shape on ``device``."""
+    chunk, bulk, threads = prox_plan(H, C, L, offset)
+    args = _ProxArgs(lead, H, C, L, chunk, int(bulk), threads, device)
+    return args, ctypes.addressof(args)
+
+
 def load_kernel():
     """Build (first call in a process; cached by content on disk) and bind
     the CUDA kernel. Returns the ctypes library."""
-    global _lib
+    global _lib, _fn, _raw_stream
     with _lib_lock:
         if _lib is None:
             lib = build_library("redcliff_gl_prox", KERNEL_SOURCE)
             fn = lib.redcliff_gl_prox_f32
             fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+                           ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
             fn.restype = ctypes.c_int
-            _lib = lib
+            # the current stream's cudaStream_t of a device, as an int
+            _raw_stream = torch._C._cuda_getCurrentRawStream
+            _fn, _lib = fn, lib
         return _lib
 
 
-def _launch(W1, lam, lr):
+def _launch(W1, lam, lr, out=None):
     """Run the kernel on a contiguous float32 CUDA block
-    ``(lead..., H, C_in, L)`` -> a new tensor of the same shape."""
-    if not W1.is_cuda:
-        raise ValueError(f"gl_prox kernel needs a CUDA tensor, got "
-                         f"{W1.device}")
-    if W1.dtype != torch.float32:
-        raise TypeError(f"gl_prox kernel takes float32, got {W1.dtype}")
-    if W1.dim() < 3:
-        raise ValueError(f"gl_prox wants a (..., H, C_in, L) block, got "
-                         f"shape {tuple(W1.shape)}")
-    if not W1.is_contiguous():
+    ``(lead..., H, C_in, L)`` into ``out`` (a new tensor when None; ``W1``
+    itself for the in-place update). Returns ``out``."""
+    if not (W1.is_cuda and W1.dtype is torch.float32 and W1.dim() >= 3
+            and W1.is_contiguous()):
+        if not W1.is_cuda:
+            raise ValueError(f"gl_prox kernel needs a CUDA tensor, got "
+                             f"{W1.device}")
+        if W1.dtype != torch.float32:
+            raise TypeError(f"gl_prox kernel takes float32, got {W1.dtype}")
+        if W1.dim() < 3:
+            raise ValueError(f"gl_prox wants a (..., H, C_in, L) block, got "
+                             f"shape {tuple(W1.shape)}")
         raise ValueError("gl_prox kernel needs a contiguous block")
-    *lead, H, C, L = W1.shape
-    G = C
-    for d in lead:
-        G *= d
-    out = torch.empty_like(W1)
-    if W1.numel() == 0:
+    if out is None:
+        out = torch.empty_like(W1)
+    numel = W1.numel()
+    if numel == 0:
         return out
-    lib = _lib or load_kernel()
-    with torch.cuda.device(W1.device):
-        stream = torch.cuda.current_stream(W1.device).cuda_stream
-        rc = lib.redcliff_gl_prox_f32(W1.data_ptr(), out.data_ptr(), G, H,
-                                      C, L, threshold(lam, lr), stream)
+    *_, H, C, L = W1.shape
+    lead = numel // (H * C * L)
+    if lead > _MAX_LEAD:
+        raise ValueError(f"gl_prox kernel takes at most {_MAX_LEAD} leading "
+                         f"slabs, got {lead}")
+    if _fn is None:
+        load_kernel()
+    w_ptr, out_ptr = W1.data_ptr(), out.data_ptr()
+    dev = W1.get_device()
+    args = _prox_args(lead, H, C, L, (w_ptr | out_ptr) % 16, dev)
+    rc = _fn(w_ptr, out_ptr, args[1], threshold(lam, lr), _raw_stream(dev))
     if rc != 0:
         raise RuntimeError(f"gl_prox kernel launch failed: cudaError {rc}")
     gl_prox.launches += 1
@@ -87,11 +154,26 @@ def _launch(W1, lam, lr):
 
 
 def gl_prox(W1, lam, lr, penalty="GL"):
-    """Proximal update of a first-layer block ``(..., H, C_in, L)``: the
-    CUDA kernel for GL on CUDA tensors, the plain version otherwise."""
+    """Proximal update of a first-layer block ``(..., H, C_in, L)`` into a
+    new tensor: the CUDA kernel for GL on CUDA tensors, the plain version
+    otherwise."""
     if penalty == "GL" and W1.is_cuda:
         return _launch(W1, lam, lr)
     return prox_update(W1, lam, lr, penalty)
 
 
 gl_prox.launches = 0
+
+
+def gl_prox_(W1, lam, lr, penalty="GL"):
+    """:func:`gl_prox` in place on ``W1``; returns ``W1``. Call it under
+    ``torch.no_grad()`` on a leaf that requires grad, as for any in-place
+    update of a parameter. The kernel writes through the data pointer, so
+    the tensor's version counter is bumped by hand: autograd then refuses a
+    backward through a graph that saved the old values."""
+    if penalty == "GL" and W1.is_cuda:
+        _launch(W1, lam, lr, out=W1)
+        torch.autograd.graph.increment_version(W1)
+    else:
+        W1.copy_(prox_update(W1, lam, lr, penalty))
+    return W1

@@ -7,8 +7,9 @@
   gradients of the whole tree (the guard's global norm covers every leaf)
   and steps the phase's optimizer(s);
 * the GISTA proximal update after the factor step in every phase but
-  ``embedder_pretrain``, at ``gen_lr`` (never the backed-off rate), through
-  the GL prox kernel on the card;
+  ``embedder_pretrain``, at ``gen_lr`` (never the backed-off rate), in
+  place on the live first-layer block through the GL prox kernel on the
+  card (one launch, no allocation or copy);
 * the numerics guard (runtime/numerics.py): a non-finite step skips both
   optimizers and the prox; one host read of the verdict per step;
 * the Freeze-by-epoch/batch accept/revert choreography (train/freeze.py);
@@ -24,9 +25,9 @@
   continues the shuffle stream, so it equals the uninterrupted fit; the
   JAX trainer restarts the stream from the seed on resume.
 
-The optimizers update the live parameter tensors in place, so every tree
-kept beside them (best, accepted, snapshots) is a copy. Fits run on
-``cuda`` unless ``device=`` says otherwise.
+The optimizers and the prox update the live parameter tensors in place,
+so every tree kept beside them (best, accepted, snapshots, checkpoints) is
+a copy. Fits run on ``cuda`` unless ``device=`` says otherwise.
 
 Not ported (ROADMAP): the metrics/event log, watchdog, profiler window,
 memory footprint, compile observability, fault injection, autotune, the
@@ -215,12 +216,11 @@ class RedcliffTrainer:
             for p in leaves:
                 p.grad = None
             if tc.prox_penalty is not None and phase != "embedder_pretrain":
-                # GISTA prox after the factor step, at the configured lr
+                # GISTA prox after the factor step, at the configured lr,
+                # in place on the live first-layer block
                 with torch.no_grad():
-                    w = live["factors"][0]["w"]
-                    new = self.model.apply_prox(live, tc.prox_lam, tc.gen_lr,
-                                                tc.prox_penalty)
-                    w.copy_(new["factors"][0]["w"])
+                    self.model.apply_prox_(live, tc.prox_lam, tc.gen_lr,
+                                           tc.prox_penalty)
 
         if self._guard:
             nstate, ok = numerics.guarded_update(grads, combo, apply, nstate)

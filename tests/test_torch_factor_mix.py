@@ -140,3 +140,148 @@ def test_kernel_matches_plain_on_card():
                                    FM.graph_mix_reference(w, gc),
                                    rtol=RTOL, atol=ATOL)
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------- launch plan
+@pytest.mark.parametrize("B,M,sk,sb,off,vec", [
+    (64, 100, 100, 0, 0, 4),       # the serve tick: graphs broadcast over S
+    (128, 10, 1280, 10, 0, 2),     # the training forward
+    (1, 10, 10, 0, 0, 2),          # the load-time mix (B = 1: stride 0)
+    (32, 7, 224, 7, 0, 1),         # an odd width
+    (64, 100, 100, 0, 4, 1),       # p offset by one float
+    (64, 100, 100, 0, 8, 2),       # offset by two floats: 8-byte aligned
+    (64, 100, 102, 0, 0, 2),       # a K stride that is not a multiple of 4
+    (64, 100, 100, 6402, 0, 2),    # a B stride that is not a multiple of 4
+    (64, 100, 100, 6401, 0, 1),    # an odd B stride
+])
+def test_mix_plan_vector_width(B, M, sk, sb, off, vec):
+    """float4 only at M % 4 == 0 with a 16-byte aligned base and strides,
+    float2 at multiples of 2 and 8 bytes, scalar otherwise."""
+    assert FM.mix_plan(B, M, sk, sb, off)[0] == vec
+
+
+def test_mix_plan_never_float4_when_misaligned():
+    """No offset that is not a multiple of 16 bytes, and no stride that is
+    not a multiple of 4 floats, ever gets float4 (nor float2 below 8 bytes
+    and 2 floats). A float32 tensor's address is a multiple of 4 bytes."""
+    for off in range(0, 16, 4):
+        for sk in (0, 40, 41, 42, 100):
+            for sb in (0, 10, 20, 21, 100):
+                for M in (4, 8, 10, 100):
+                    vec = FM.mix_plan(64, M, sk, sb, off)[0]
+                    assert M % vec == 0
+                    assert off % (4 * vec) == 0
+                    assert sk % vec == 0 and sb % vec == 0
+
+
+@pytest.mark.parametrize("B,M", [(1, 10), (64, 100), (128, 10), (117, 10),
+                                 (32, 7), (4096, 1000), (1, 1)])
+def test_mix_plan_grid_covers_every_output(B, M):
+    """threads * blocks covers the B * M / vec work items with less than one
+    block to spare, in blocks of 128 or 256 threads."""
+    vec, threads, blocks = FM.mix_plan(B, M, M, M, 0)
+    n = B * M // vec
+    assert threads in (128, 256)
+    assert blocks * threads >= n > (blocks - 1) * threads
+
+
+# ------------------------------------------------- the launch's layout, on CPU
+def _emulate(w, p, B, K, M, stride_k, stride_b, out_shape):
+    """The kernel's addressing on the CPU: element (k, b, m) of p at
+    ``k*stride_k + b*stride_b + m`` from p's first element."""
+    view = torch.as_strided(p, (K, B, M), (stride_k, stride_b, 1),
+                            p.storage_offset())
+    return torch.einsum("bk,kbm->bm", w, view).reshape(out_shape)
+
+
+@pytest.mark.parametrize("S,K,C", ((64, 5, 10), (3, 5, 10), (7, 2, 4)))
+def test_graph_mix_layout_without_expand_matches_jax(S, K, C):
+    """What graph_mix hands the kernel — the graphs themselves with
+    stride_b = 0, no expand view — computes the JAX blend."""
+    rng = np.random.default_rng(S * K * C)
+    w = rng.random((S, K)).astype(np.float32)
+    gc = rng.normal(size=(K, C, C)).astype(np.float32)
+    tw, tg = torch.from_numpy(w), torch.from_numpy(gc)
+    args = FM._graph_layout(tw, tg)
+    assert args[4] == 0 and args[5] == (S, C, C)
+    want = np.asarray(jax_graph_mix_reference(jnp.asarray(w),
+                                              jnp.asarray(gc)))
+    np.testing.assert_allclose(_emulate(tw, tg, *args).numpy(), want,
+                               rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("shape", MIX_SHAPES)
+def test_factor_mix_layout_matches_jax_on_views(shape):
+    """The layout the kernel is handed for a contiguous p, a p offset by
+    one float in its storage, and a p whose B axis is a strided slice
+    computes the JAX mix."""
+    w, p = _mix_inputs(4, *shape)
+    want = np.asarray(jax_factor_mix_reference(jnp.asarray(w),
+                                               jnp.asarray(p)))
+    tw = torch.from_numpy(w)
+    base = torch.from_numpy(p)
+    flat = torch.zeros(base.numel() + 1)
+    flat[1:] = base.reshape(-1)
+    wide = torch.zeros((shape[1], 2 * shape[0]) + shape[2:])
+    wide[:, ::2] = base
+    for tp in (base, flat[1:].view(base.shape), wide[:, ::2]):
+        assert torch.equal(tp, base)
+        args = FM._mix_layout(tw, tp)
+        assert args is not None
+        np.testing.assert_allclose(_emulate(tw, tp, *args).numpy(), want,
+                                   rtol=RTOL, atol=ATOL)
+    # a p whose (T, C) block is not contiguous is refused
+    assert FM._mix_layout(tw, base.transpose(2, 3)) is None or shape[2] == 1
+
+
+@pytest.mark.parametrize("grad_mode", [True, False])
+@pytest.mark.parametrize("requires", [(False, False), (True, False),
+                                      (False, True), (True, True)])
+def test_autograd_function_only_when_a_gradient_is_wanted(grad_mode,
+                                                          requires):
+    """The wrappers take FactorMixFn only with grad mode on and an operand
+    that requires grad; the no-grad and grad-enabled CPU results agree."""
+    w, p = _mix_inputs(5, 6, 3, 1, 4)
+    tw = torch.tensor(w, requires_grad=requires[0])
+    tp = torch.tensor(p, requires_grad=requires[1])
+    with torch.set_grad_enabled(grad_mode):
+        assert FM._wants_grad(tw, tp) == (grad_mode and any(requires))
+        got = FM.factor_mix(tw, tp)
+    with torch.no_grad():
+        plain = FM.factor_mix(tw, tp)
+    assert got.requires_grad == (grad_mode and any(requires))
+    assert torch.equal(got.detach(), plain)
+
+
+@pytest.mark.gpu
+def test_misaligned_and_odd_width_launches_on_card():
+    """On the card: p and the graphs offset by one float (the scalar path),
+    M = 100, 10 and 7, K above the unrolled 16, against the plain
+    version; an operand on another device raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+
+    def offset(t):
+        flat = torch.empty(t.numel() + 1, device=dev)
+        view = flat[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    for B, K, T, C in ((64, 5, 10, 10), (128, 5, 1, 10), (32, 5, 1, 7),
+                       (8, 20, 1, 12)):
+        w, p = _mix_inputs(6, B, K, T, C)
+        tw = torch.tensor(w, device=dev)
+        for tp in (torch.tensor(p, device=dev),
+                   offset(torch.tensor(p, device=dev))):
+            torch.testing.assert_close(FM.factor_mix(tw, tp),
+                                       FM.factor_mix_reference(tw, tp),
+                                       rtol=RTOL, atol=ATOL)
+    gc = torch.randn((5, 10, 10), device=dev)
+    w = torch.rand((64, 5), device=dev)
+    torch.testing.assert_close(FM.graph_mix(w, offset(gc)),
+                               FM.graph_mix_reference(w, gc),
+                               rtol=RTOL, atol=ATOL)
+    with pytest.raises(ValueError, match="CUDA"):
+        FM.graph_mix(w, gc.cpu())
+    torch.cuda.synchronize()

@@ -137,6 +137,84 @@ def test_cpu_tensors_never_reach_the_kernel(monkeypatch):
         PX._launch(W, 0.1, 0.1)
 
 
+@pytest.mark.parametrize("lam,lr", STEPS)
+@pytest.mark.parametrize("shape", SHAPES)
+def test_gl_prox_inplace_on_cpu_matches_jax_pallas_interpret(shape, lam,
+                                                              lr):
+    """gl_prox_ on a CPU tensor writes the plain result into the tensor it
+    was given, and that result is the TPU kernel's in interpret mode."""
+    W = _w(shape, scale=0.05)
+    Wt = torch.from_numpy(W.copy())
+    ptr = Wt.data_ptr()
+    before = PX.gl_prox.launches
+    got = PX.gl_prox_(Wt, lam, lr)
+    assert got is Wt and Wt.data_ptr() == ptr
+    _close(Wt, gl_prox_pallas(jnp.asarray(W), lam, lr, block_rows=7,
+                              interpret=True))
+    assert PX.gl_prox.launches == before
+
+
+def test_gl_prox_inplace_edge_groups_match_jax():
+    """In place: an all-zero group stays zero, a group exactly at the
+    threshold goes to zero, as in the TPU kernel."""
+    W = _w((2, 3, 5, 3, 4), seed=9)
+    lam, lr = 1.0, 0.25
+    t = np.float32(lr * lam)
+    W[0, 0, :, 1, :] = 0.0
+    g = W[1, 2, :, 0, :].astype(np.float64)
+    W[1, 2, :, 0, :] = (g * (float(t) / np.sqrt((g * g).sum()))).astype(
+        np.float32)
+    Wt = torch.from_numpy(W.copy())
+    PX.gl_prox_(Wt, lam, lr)
+    _close(Wt, gl_prox_pallas(jnp.asarray(W), lam, lr, interpret=True))
+    assert float(Wt[0, 0, :, 1, :].abs().max()) == 0.0
+    assert float(Wt[1, 2, :, 0, :].abs().max()) < 1e-6
+
+
+@pytest.mark.parametrize("penalty", ["GL", "GSGL", "H"])
+def test_gl_prox_inplace_equals_functional(penalty):
+    """Every penalty: the in-place form leaves exactly the functional
+    result in the tensor."""
+    W = torch.from_numpy(_w((3, 4, 6, 4, 3), seed=4, scale=0.3))
+    want = PX.gl_prox(W, 0.2, 0.1, penalty)
+    got = W.clone()
+    PX.gl_prox_(got, 0.2, 0.1, penalty)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shape,offset,chunk,bulk", [
+    ((5, 10, 25, 10, 4), 0, 1000, True),    # the training block: 4,000 B
+    ((5, 10, 25, 10, 4), 4, 1000, False),   # offset by one float
+    ((5, 10, 25, 10, 4), 8, 1000, False),
+    ((3, 7, 5, 7, 3), 0, 105, False),       # a slab of 420 B, not 16k
+    ((1, 1, 3, 1, 1), 0, 3, False),
+    ((5, 12, 32, 12, 4), 0, 1536, True),
+    ((2, 3, 200, 10, 8), 0, 12252, True),   # 16,000 floats: two chunks
+    ((2, 1, 3001, 1, 5), 0, 12268, False),  # 15,005 floats: two chunks
+])
+def test_prox_plan(shape, offset, chunk, bulk):
+    """The whole slab is staged when it fits beside the per-group floats
+    in 48 KB less the kernel's static 64 bytes, else chunks of a
+    multiple of 4 floats; the TMA path only for
+    a 16-byte aligned block whose slabs are whole 16-byte units."""
+    *_, H, C, L = shape
+    got_chunk, got_bulk, threads = PX.prox_plan(H, C, L, offset)
+    assert (got_chunk, bool(got_bulk)) == (chunk, bulk)
+    assert threads % 32 == 0 and 128 <= threads <= 512
+    assert threads == 32 * C or not 4 <= C <= 16
+    assert 4 * (got_chunk + 2 * C) <= 48 * 1024 - 64
+    if got_chunk < H * C * L:
+        assert got_chunk % 4 == 0
+
+
+def test_prox_plan_refuses_what_shared_memory_cannot_hold():
+    assert PX.prox_plan(1, 6134, 1, 0)[0] == 4
+    with pytest.raises(ValueError, match="C_in"):
+        PX.prox_plan(1, 6135, 1, 0)
+    with pytest.raises(ValueError, match="2\\*\\*31"):
+        PX.prox_plan(2 ** 20, 16, 2 ** 7, 0)
+
+
 def _model():
     cfg = jred.RedcliffSCMLPConfig(
         num_chans=4, gen_lag=3, gen_hidden=(5,), embed_lag=4,
@@ -169,6 +247,51 @@ def test_apply_prox_changes_only_the_first_layer(penalty):
                                  "e": jp["embedder"]})
     for a, b in zip(rest_got, rest_want):
         np.testing.assert_array_equal(a, b)
+
+
+def test_apply_prox_inplace_matches_apply_prox():
+    """apply_prox_ rewrites the first-layer block in its own storage with
+    the functional apply_prox's values, and touches no other leaf."""
+    _, _, tm, tp = _model()
+    want = tm.apply_prox(tp, lam=0.1, lr=0.5)
+    w = tp["factors"][0]["w"]
+    ptr = w.data_ptr()
+    rest = [x.clone() for x in interop.tree_leaves(
+        {"f": tp["factors"][1:], "b": tp["factors"][0]["b"],
+         "e": tp["embedder"]})]
+    with torch.no_grad():
+        out = tm.apply_prox_(tp, lam=0.1, lr=0.5)
+    assert out is tp and tp["factors"][0]["w"] is w
+    assert w.data_ptr() == ptr
+    assert torch.equal(w, want["factors"][0]["w"])
+    after = interop.tree_leaves({"f": tp["factors"][1:],
+                                 "b": tp["factors"][0]["b"],
+                                 "e": tp["embedder"]})
+    for a, b in zip(after, rest):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_gl_prox_inplace_misaligned_and_chunked_on_card():
+    """On the card: gl_prox_ with the output aliasing the input, on the
+    TMA path, on a block offset by one float (scalar loads), and on slabs
+    walked in chunks, against the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    for shape in ((5, 10, 25, 10, 4), (3, 7, 5, 7, 3), (2, 3, 200, 10, 8),
+                  (2, 1, 3001, 1, 5)):
+        W = torch.from_numpy(_w(shape, scale=0.05)).to(dev)
+        flat = torch.empty(W.numel() + 1, device=dev)
+        for Wi in (W.clone(), flat[1:].view(shape).copy_(W)):
+            want = PX.gl_prox_reference(Wi, 0.013, 0.002)
+            ptr = Wi.data_ptr()
+            before = PX.gl_prox.launches
+            assert PX.gl_prox_(Wi, 0.013, 0.002) is Wi
+            assert Wi.data_ptr() == ptr
+            assert PX.gl_prox.launches == before + 1
+            torch.testing.assert_close(Wi, want, **TOL)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.gpu
