@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch/H100 port (``redcliff_tpu_torch``).
 
-Drives the port's two main paths on one CUDA card — serving a fitted
-model and fitting one — and holds every kernel on them against its plain
-PyTorch version. Phases, one JSON line each:
+Drives the port's three main paths on one CUDA card — serving a fitted
+model, fitting one, and fitting a coefficient grid — and holds every
+kernel on them against its plain PyTorch version. Phases, one JSON line
+each:
 
 1. build: the factor-mix and GL-prox CUDA kernels from
    ``redcliff_tpu_torch/ops/csrc`` (into ``build/torch_kernels/``), built
@@ -14,11 +15,17 @@ PyTorch version. Phases, one JSON line each:
    one float), GL prox functional and in place (the output aliasing the
    input) at the training block, the off-tile shapes, slabs walked in
    chunks, blocks offset by one float, and on an all-zero and an
-   at-threshold group — max abs error beside the tolerance and the launch
-   plan each case took; CUDA-event times of the kernel, one library call
-   where one exists and the plain version, in turns, beside the bound and
-   the launch floor (one ``x.zero_()``); the host cost of each piece of the
-   factor mix's launch path.
+   at-threshold group; the lane forms of both at the grid's shapes (27
+   lanes): the mix at the training batch and the remainder batch, on a p
+   offset by one float, the gradients of its vmap rule and of its autograd
+   Function; the prox in
+   place with mixed gates (lanes off, a lane with a zero group), on a
+   block offset by one float and on slabs walked in chunks, one launch
+   per call for all lanes — max abs error beside the tolerance and the
+   launch plan each case took; CUDA-event times of the kernel, one library
+   call where one exists and the plain version, in turns, beside the bound
+   and the launch floor (one ``x.zero_()``); the host cost of each piece of
+   the factor mix's launch path.
 3. serve: a REDCLIFF-S model at the D4IC headline widths (10 channels,
    gen_lag 4, embed_lag 16, 5 factors, DGCNN embedder with 3 graph-conv
    layers of 100 hidden nodes, 2 sims) from random weights (seed 0), saved
@@ -34,9 +41,19 @@ PyTorch version. Phases, one JSON line each:
    the fit ran, the best epoch, and that the artifact loads.
 6. train_check: the same 8 guarded combined steps from the same weights
    and batches on the card and on the CPU, losses and params compared.
+7. grid: the published D4IC coefficient grid (gen_lr x ADJ_L1 x COS_SIM,
+   3 x 3 x 3 = 27 points, rescaled as train/driver.py does) of the train
+   phase's model, data and depth, fitted through ``run_coefficient_grid``
+   from one point's weights replicated over the lanes. Checks finite
+   results, no skipped step or quarantined lane, both kernels' launch
+   counts against the steps and forwards the grid ran, and one lane
+   against the port's per-point ``RedcliffTrainer`` fit of the same point
+   from the same weights on the card.
+8. grid_check: the same 8 grid steps (27 lanes) from the same weights and
+   batches on the card and on the CPU, losses and params compared.
 
-Launch counts are reset just before each main path (serve, train) and read
-just after; the kernel-phase launches do not count. Then a ``kernels``
+Launch counts are reset just before each main path (serve, train, grid)
+and read just after; the kernel-phase launches do not count. Then a ``kernels``
 line, the ``nvidia-smi`` name/power line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises: the script
 exits non-zero and prints no ``ok`` line. It also refuses to run without
@@ -45,9 +62,11 @@ CUDA or outside a checkout of the repository.
 Usage: ``python3 chip_smoke.py`` from the repository root, on a machine
 with one NVIDIA card. ``--profile`` adds ``profile`` phases after the
 checks: each kernel's, each library call's and the floor's device time
-alone, a ``torch.profiler`` window of serve ticks and one of training steps
-(device busy time, idle share, top device ops), and the ops of one prox
-step as the trainer runs it (one kernel, no allocation or copy).
+alone, a ``torch.profiler`` window of serve ticks, one of training steps
+and one of grid steps (device busy time, idle share, top device ops), the
+ops of one prox step as the trainer runs it (one kernel, no allocation or
+copy), and each lane kernel's device time alone beside its library call
+and plain version.
 """
 from __future__ import annotations
 
@@ -130,6 +149,29 @@ TRAIN_KNOBS = dict(
 # batch, so both streams end in a short remainder batch (80 and 116)
 N_TRAIN, N_VAL = 2000, 500
 TRAIN_CHECK_STEPS = 8
+
+# the published D4IC coefficient grid (experiments/d4ic_grid_search.py:70-72)
+# over the train phase's model: raw axes, each point rescaled by the
+# helper of train/driver.py with the stopping cos-sim coefficient
+# mirroring the loss coefficient (the reference's experiment scripts' rule)
+GRID_GEN_LR = (0.0002, 0.0005, 0.002)
+GRID_ADJ_L1 = (1.0, 0.1, 0.01)
+GRID_COS_SIM = (10.0, 1.0, 0.1)
+GRID_LANES = len(GRID_GEN_LR) * len(GRID_ADJ_L1) * len(GRID_COS_SIM)
+# lane 10 = (5e-4, 1.0, 1.0): the published BSCgs1 point itself
+GRID_OWN_LANE = 10
+GRID_CHECK_STEPS = 8
+GRID_CHECK_REL = 1e-3
+# a grid lane against the per-point fit of its point on the card: the same
+# arithmetic in another program (vmapped GEMMs and reductions reorder
+# sums), over the whole 64-step fit; the val losses within the multi-step
+# bar of train_check, the params within 64 steps' drift of it; the best
+# criteria within the JAX package's own grid-vs-trainer bar
+# (tests/test_parallel_grid.py:281): the trainer's GC tracker forms the
+# cosine stopping term on the host in float64
+GRID_LANE_LOSS_RTOL, GRID_LANE_LOSS_ATOL = 1e-4, 1e-5
+GRID_LANE_CRIT_RTOL = 2e-3
+GRID_LANE_PARAM_ATOL = 5e-4
 
 
 class SmokeFailure(RuntimeError):
@@ -387,6 +429,128 @@ def _prox_checks(torch, PX, gen, dev, errs):
     return plans
 
 
+_VEC = {1: "scalar", 2: "float2", 4: "float4"}
+
+
+def _grid_lr(torch, dev):
+    """The grid's per-lane gen_lr, lane order of ``_grid_points``."""
+    return torch.tensor([lr for lr in GRID_GEN_LR
+                         for _ in range(GRID_LANES // len(GRID_GEN_LR))],
+                        dtype=torch.float32, device=dev)
+
+
+def _mix_lane_checks(torch, FM, gen, dev, errs):
+    """The factor mix's lane form against its plain lane version at the
+    grid's shapes (27 lanes, the training batch and the remainder batch),
+    on a p offset by one float, one launch per call; and the gradients of
+    ``FactorMixFn``'s vmap rule (``torch.func.vmap`` of ``torch.func.grad``,
+    as the grid step takes them) against the plain einsum's."""
+    plans = {}
+    G, K, C = GRID_LANES, K_TRAIN, C_TRAIN
+    for B in (TRAIN_KNOBS["batch_size"], N_TRAIN % TRAIN_KNOBS["batch_size"]):
+        w = torch.rand((G, B, K), generator=gen).to(dev)
+        p = torch.randn((G, K, B, 1, C), generator=gen).to(dev)
+        for offset in (False, True):
+            pp = _offset_view(torch, p) if offset else p
+            name = f"factor_mix_lanes(G={G}, B={B})" + (
+                " p+1 float" if offset else "")
+            before = FM.factor_mix.launches
+            got = FM.factor_mix_lanes(w, pp)
+            _require(FM.factor_mix.launches == before + 1,
+                     f"{name}: not one launch for all lanes")
+            _check_close(torch, name, got,
+                         FM.factor_mix_lanes_reference(w, pp), errs)
+            plans[name] = _VEC[FM.mix_plan(B, C, pp.stride(1), pp.stride(2),
+                                           pp.data_ptr() % 16,
+                                           pp.stride(0))[0]]
+        r = torch.randn((G, B, 1, C), generator=gen).to(dev)
+
+        def grads(mix):
+            return torch.func.vmap(torch.func.grad(
+                lambda a, b, c: (c * mix(a, b)).sum(), argnums=(0, 1)))(
+                    w, p, r)
+        for what, a, b in zip(("dw", "dp"), grads(FM.FactorMixFn.apply),
+                              grads(FM.factor_mix_reference)):
+            _check_close(torch, f"factor_mix vmap rule {what} (G={G}, "
+                                f"B={B})", a, b, errs)
+        # ordinary autograd through the lane form (FactorMixLanesFn), with
+        # the fixed cotangent r
+        def lane_grads(mix):
+            wg = w.clone().requires_grad_(True)
+            pg = p.clone().requires_grad_(True)
+            (r * mix(wg, pg)).sum().backward()
+            return wg.grad, pg.grad
+        for what, a, b in zip(("dw", "dp"),
+                              lane_grads(FM.factor_mix_lanes),
+                              lane_grads(FM.factor_mix_lanes_reference)):
+            _check_close(torch, f"factor_mix_lanes autograd {what} (G={G}, "
+                                f"B={B})", a, b, errs)
+    _require(plans[f"factor_mix_lanes(G={G}, B=128)"] == "float2"
+             and plans[f"factor_mix_lanes(G={G}, B=128) p+1 float"]
+             == "scalar", f"factor_mix lane plans {plans}")
+    return plans
+
+
+def _prox_lane_checks(torch, PX, gen, dev, errs):
+    """The GL prox's lane form in place against its plain lane version at
+    27 lanes with the grid's per-lane thresholds and mixed gates (every
+    fourth lane off, a lane with a zero group gated on, one gated off), on
+    the training block, a block offset by one float and slabs walked in
+    chunks; one launch per call; zero groups stay zero and gated-off lanes
+    exactly as they were."""
+    plans = {}
+    G = GRID_LANES
+    lr = _grid_lr(torch, dev)
+    gate = torch.ones(G, dtype=torch.bool)
+    gate[::4] = False
+    gate = gate.to(dev)
+    train_block = (K_TRAIN, C_TRAIN, TRAIN_CONFIG["gen_hidden"][0], C_TRAIN,
+                   TRAIN_CONFIG["gen_lag"])
+    for shape in (train_block, (2, 3, 200, 10, 8)):
+        for offset in (False, True):
+            W = (0.05 * torch.randn((G,) + shape, generator=gen)).to(dev)
+            W[5, 0, 0, :, 1, :] = 0.0   # gated on
+            W[8, 1, 2, :, 0, :] = 0.0   # gated off
+            if offset:
+                W = _offset_view(torch, W)
+            *_, H, C, L = shape
+            chunk, bulk, _ = PX.prox_plan(H, C, L, W.data_ptr() % 16)
+            tag = f"gl_prox_lanes{(G,) + shape}" + (
+                " +1 float" if offset else "")
+            plans[tag] = {"chunk": chunk, "bulk": bool(bulk),
+                          "slabs_per_lane": W.numel() // G // (H * C * L)}
+            for lam in (PROX_LAM, 50.0):
+                t = PX.lane_thresholds(lr, lam)
+                want = PX.gl_prox_lanes_reference(W, t, gate)
+                Wi = W.clone() if not offset else _offset_view(torch, W)
+                ptr = Wi.data_ptr()
+                before = PX.gl_prox.launches
+                got = PX.gl_prox_lanes_(Wi, t, gate)
+                _require(got is Wi and Wi.data_ptr() == ptr
+                         and PX.gl_prox.launches == before + 1,
+                         f"{tag}: not one in-place launch for all lanes")
+                _check_close(torch, f"{tag}(lam={lam})", Wi, want, errs)
+                _require(bool(torch.isfinite(Wi).all())
+                         and float(Wi[5, 0, 0, :, 1, :].abs().max()) == 0.0,
+                         f"{tag}: a zero group did not stay zero")
+                _require(bool(torch.equal(Wi[~gate], W[~gate])),
+                         f"{tag}: a gated-off lane changed")
+    _require(plans[f"gl_prox_lanes{(G,) + train_block}"]["bulk"]
+             and not plans[f"gl_prox_lanes{(G,) + train_block} +1 float"][
+                 "bulk"]
+             and plans[f"gl_prox_lanes{(G, 2, 3, 200, 10, 8)}"]["chunk"]
+             < 16000, f"gl_prox lane plans {plans}")
+    return plans
+
+
+def _mix_lanes_library(torch, w, p):
+    """``torch.matmul`` on the permuted operands: the library call that
+    computes the lane mix, ``(G, B, 1, K) @ (G, B, K, M)``."""
+    G, K, B, T, C = p.shape
+    return torch.matmul(w[:, :, None, :],
+                        p.reshape(G, K, B, T * C).permute(0, 2, 1, 3))
+
+
 def _mix_host_breakdown(torch, FM, w, p, gc=None):
     """Host us per call of each piece of the factor mix's launch path at
     ``w``, ``p`` (perf_counter over 10,000 calls): the pieces this launch
@@ -473,6 +637,10 @@ def phase_kernel(torch, FM, PX):
     errs = {"factor_mix": {}, "gl_prox": {}}
     mix_plans = _mix_checks(torch, FM, gen, dev, errs["factor_mix"])
     prox_plans = _prox_checks(torch, PX, gen, dev, errs["gl_prox"])
+    lane_plans = {"factor_mix": _mix_lane_checks(torch, FM, gen, dev,
+                                                 errs["factor_mix"]),
+                  "gl_prox": _prox_lane_checks(torch, PX, gen, dev,
+                                               errs["gl_prox"])}
     torch.cuda.synchronize()
 
     # times at the main paths' shapes: the per-tick graph blend (S=64, K=5,
@@ -514,6 +682,24 @@ def phase_kernel(torch, FM, PX):
                                          **_time_turns(torch, fns)}
         t["bound_ms"], t["bound_by"] = bound
         t["floor_ms"] = floor_ms
+    # the grid's lane form: 27 lanes at the training batch and at the
+    # remainder batch, one launch each; the library call is torch.matmul on
+    # the permuted operands
+    G = GRID_LANES
+    for key, Bg in (("grid", B), ("grid_rem", N_TRAIN % B)):
+        wg = torch.rand((G, Bg, K_TRAIN), generator=gen).to(dev)
+        pg = torch.randn((G, K_TRAIN, Bg, 1, C_TRAIN), generator=gen).to(dev)
+        t = timing["factor_mix"][key] = {
+            "shape": f"G={G} B={Bg} K={K_TRAIN} M={C_TRAIN} "
+                     f"(factor_mix_lanes, one launch for all lanes); "
+                     f"library_ms: torch.matmul on permuted operands",
+            **_time_turns(torch, {
+                "kernel_ms": lambda: FM.factor_mix_lanes(wg, pg),
+                "library_ms": lambda: _mix_lanes_library(torch, wg, pg),
+                "plain_ms": lambda: FM.factor_mix_lanes_reference(wg, pg)})}
+        t["bound_ms"], t["bound_by"] = _bound_ms(G * Bg, K_TRAIN, C_TRAIN,
+                                                 G * Bg)
+        t["floor_ms"] = floor_ms
     train_block = (K_TRAIN, C_TRAIN, 25, C_TRAIN, 4)
     Wt = (0.05 * torch.randn(train_block, generator=gen)).to(dev)
     Wi = Wt.clone()
@@ -531,6 +717,22 @@ def phase_kernel(torch, FM, PX):
     }
     prox["bound_ms"], prox["bound_by"] = _prox_bound_ms(Wt.numel())
     prox["floor_ms"] = floor_ms
+    # the grid's lane form in place, every lane gated on (the most work)
+    Wg = (0.05 * torch.randn((G,) + train_block, generator=gen)).to(dev)
+    Wgi = Wg.clone()
+    tg = PX.lane_thresholds(_grid_lr(torch, dev), lam)
+    on = torch.ones(G, dtype=torch.bool, device=dev)
+    grid = timing["gl_prox"]["grid"] = {
+        "shape": f"({G}, 5, 10, 25, 10, 4): {G} lanes, {G * 50:,} slabs of "
+                 f"1,000; kernel_ms in place (gl_prox_lanes_), as the grid "
+                 f"runs it",
+        **_time_turns(torch, {
+            "kernel_ms": lambda: PX.gl_prox_lanes_(Wgi, tg, on),
+            "plain_ms": lambda: PX.gl_prox_lanes_reference(Wg, tg, on)}),
+        "library_ms": None,
+    }
+    grid["bound_ms"], grid["bound_by"] = _prox_bound_ms(Wg.numel())
+    grid["floor_ms"] = floor_ms
     host_us = {"factor_mix_tick": _mix_host_breakdown(
         torch, FM, w, gc[:, None].expand(5, CAPACITY, 10, 10), gc),
         "factor_mix_train": _mix_host_breakdown(torch, FM, wt, pt),
@@ -538,7 +740,8 @@ def phase_kernel(torch, FM, PX):
     max_err = {k: max(v.values()) for k, v in errs.items()}
     _emit({"phase": "kernel", "rtol": RTOL, "atol": ATOL,
            "max_abs_err": max_err, "errors": errs,
-           "plans": {"factor_mix": mix_plans, "gl_prox": prox_plans},
+           "plans": {"factor_mix": mix_plans, "gl_prox": prox_plans,
+                     "lanes": lane_plans},
            "timing": timing, "host_us_per_call": host_us})
     return max_err, timing
 
@@ -1093,6 +1296,340 @@ def phase_profile_train(torch, FM, PX, model, params, train_ds):
            "prox_step": prox_step})
 
 
+def _grid_points():
+    """The 27 engine points of the published grid, lane order gen_lr x
+    ADJ_L1 x COS_SIM, and their raw axis values."""
+    from redcliff_tpu_torch.train.driver import (
+        rescale_dataset_dependent_coefficients)
+
+    def rescaled(key, raw):
+        d = {"coeff_dict": {key: raw}, "num_factors": K_TRAIN,
+             "num_channels": C_TRAIN}
+        rescale_dataset_dependent_coefficients(d)
+        return d["coeff_dict"][key]
+
+    points, raw = [], []
+    for lr in GRID_GEN_LR:
+        for adj in GRID_ADJ_L1:
+            for cs in GRID_COS_SIM:
+                c = rescaled("FACTOR_COS_SIM_COEFF", cs)
+                points.append({"gen_lr": lr,
+                               "adj_l1_reg_coeff": rescaled(
+                                   "ADJ_L1_REG_COEFF", adj),
+                               "factor_cos_sim_coeff": c,
+                               "stopping_criteria_cosSim_coeff": c})
+                raw.append({"gen_lr": lr, "ADJ_L1_REG_COEFF": adj,
+                            "FACTOR_COS_SIM_COEFF": cs})
+    return points, raw
+
+
+def _own_lane_fit(model, params, point, train_ds, val_ds):
+    """The port's per-point fit of one grid point on the card, from the
+    grid's weights: the point's coefficients in the model config, its
+    optimizer and stopping values in the train config."""
+    import dataclasses
+
+    from redcliff_tpu_torch.models.redcliff import RedcliffSCMLP
+    from redcliff_tpu_torch.train.redcliff_trainer import (
+        RedcliffTrainConfig, RedcliffTrainer)
+
+    cfg = dataclasses.replace(model.config, **{
+        k: v for k, v in point.items() if hasattr(model.config, k)})
+    tc = RedcliffTrainConfig(**{**TRAIN_KNOBS, **{
+        k: v for k, v in point.items() if not hasattr(model.config, k)}})
+    return RedcliffTrainer(RedcliffSCMLP(cfg), tc).fit(params, train_ds,
+                                                       val_ds)
+
+
+def phase_grid(torch, FM, PX):
+    """The published D4IC grid through ``run_coefficient_grid``: counts
+    at 0 just before, read just after; then one lane against the port's
+    per-point fit of its point on the card."""
+    import math
+
+    import numpy as np
+
+    from redcliff_tpu_torch import interop
+    from redcliff_tpu_torch.models.redcliff import (RedcliffSCMLP,
+                                                    RedcliffSCMLPConfig)
+    from redcliff_tpu_torch.train.driver import run_coefficient_grid
+    from redcliff_tpu_torch.train.redcliff_trainer import RedcliffTrainConfig
+
+    points, raw = _grid_points()
+    train_ds, val_ds = _train_data(np)
+    model = RedcliffSCMLP(RedcliffSCMLPConfig(**TRAIN_CONFIG))
+    params = model.init(torch.Generator().manual_seed(0))
+    tc = RedcliffTrainConfig(**TRAIN_KNOBS)
+    run_dir = os.path.join(HERE, "build", "chip_smoke", "grid")
+    shutil.rmtree(run_dir, ignore_errors=True)
+
+    # ---- the main path: counts at 0 just before, read just after
+    FM.factor_mix.launches = 0
+    PX.gl_prox.launches = 0
+    t0 = time.perf_counter()
+    res = run_coefficient_grid(model, tc, points, train_ds, val_ds,
+                               init_point_params=params, run_dir=run_dir)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    mix_launches = FM.factor_mix.launches
+    prox_launches = PX.gl_prox.launches
+
+    G = GRID_LANES
+    B = TRAIN_KNOBS["batch_size"]
+    n_tr = -(-len(train_ds) // B)
+    n_val = -(-len(val_ds) // B)
+    phases = [tuple(e["phases"]) for e in res.epochs]
+    _require(phases[:3] == [("embedder_pretrain",), ("factor_pretrain",),
+                            ("combined",)], f"grid phase schedule {phases}")
+    _require(res.val_history.shape == (len(phases), G)
+             and bool(np.isfinite(res.val_history).all()),
+             f"grid val history {res.val_history}")
+    _require(bool(np.isfinite(res.best_criteria).all()),
+             f"grid best criteria {res.best_criteria}")
+    skipped = int(sum(res.numerics["skipped"]))
+    _require(skipped == 0, f"the grid's guard skipped {skipped} steps")
+    _require(res.failures == [], f"quarantined lanes: {res.failures}")
+    _require(not os.path.exists(os.path.join(run_dir, "failures.json")),
+             "failures.json written for a grid without failures")
+    for leaf in interop.tree_leaves(res.best_params):
+        _require(leaf.shape[0] == G and bool(np.isfinite(leaf).all()),
+                 "grid best params: shape or non-finite")
+    # forwards: one per step (all lanes at once) and one per validation
+    # batch; prox launches: one per factor step (all lanes at once)
+    forwards = sum(n_tr * len(ph) + n_val for ph in phases)
+    _require(mix_launches == forwards,
+             f"{mix_launches} factor_mix launches for {forwards} grid "
+             f"forwards")
+    factor_steps = sum(n_tr for ph in phases for p in ph
+                       if p != "embedder_pretrain")
+    _require(prox_launches == factor_steps > 0,
+             f"{prox_launches} gl_prox launches for {factor_steps} grid "
+             f"factor steps")
+    past = TRAIN_CONFIG["num_pretrain_epochs"] \
+        + TRAIN_CONFIG["num_acclimation_epochs"]
+    _require(bool((res.best_epoch >= past).all()),
+             f"grid best epochs {res.best_epoch.tolist()} not past "
+             f"pretraining")
+
+    # one lane against the per-point fit of its point, on the card
+    g = GRID_OWN_LANE
+    own = _own_lane_fit(model, params, points[g], train_ds, val_ds)
+    # the per-point fit stops at its early stop; the lane freezes there
+    own_hist = np.asarray(own.histories["avg_combo_loss"])
+    lane_hist = res.val_history[:len(own_hist), g]
+    lane = {"best_epoch": int(res.best_epoch[g]), "best_it": own.best_it,
+            "loss_rtol": GRID_LANE_LOSS_RTOL,
+            "loss_atol": GRID_LANE_LOSS_ATOL,
+            "criteria_rtol": GRID_LANE_CRIT_RTOL,
+            "param_atol": GRID_LANE_PARAM_ATOL,
+            "criteria_rel_err": float(abs(res.best_criteria[g]
+                                          - own.best_loss)
+                                      / abs(own.best_loss)),
+            "max_val_loss_rel_err": float(np.max(
+                np.abs(lane_hist - own_hist) / np.abs(own_hist))),
+            "max_param_abs_err": max(
+                float(np.abs(a[g] - b).max()) for a, b in zip(
+                    _leaves_np(res.best_params),
+                    _leaves_np(interop.params_to_jax(own.params))))}
+    _require(lane["best_epoch"] == own.best_it
+             and math.isclose(res.best_criteria[g], own.best_loss,
+                              rel_tol=GRID_LANE_CRIT_RTOL)
+             and bool(np.allclose(lane_hist, own_hist,
+                                  rtol=GRID_LANE_LOSS_RTOL,
+                                  atol=GRID_LANE_LOSS_ATOL))
+             and lane["max_param_abs_err"] <= GRID_LANE_PARAM_ATOL,
+             f"grid lane {g} vs its per-point fit: {lane}")
+
+    by_phase = {}
+    for e in res.epochs:
+        by_phase.setdefault("+".join(e["phases"]), []).append(e["ms"])
+    steps = sum(n_tr * len(ph) for ph in phases)
+    _emit({"phase": "grid", "device": torch.cuda.get_device_name(0),
+           "config": "the D4IC REDCLIFF-S of the train phase; the published "
+                     "D4IC grid (experiments/d4ic_grid_search.py:70-72)",
+           "axes": {"gen_lr": list(GRID_GEN_LR),
+                    "ADJ_L1_REG_COEFF": list(GRID_ADJ_L1),
+                    "FACTOR_COS_SIM_COEFF": list(GRID_COS_SIM)},
+           "lanes": G,
+           "reduced": {"num_pretrain_epochs": "50 -> 1",
+                       "num_acclimation_epochs": "15 -> 1",
+                       "max_iter": "1000 -> 4", "check_every": "10 -> 1",
+                       "lookback": "5 -> 1"},
+           "stream_mode": "per_batch", "epochs": len(phases),
+           "steps": steps, "fit_wall_s": fit_s,
+           "steps_per_s": steps / fit_s,
+           "lane_steps_per_s": G * steps / fit_s,
+           "epoch_ms": [e["ms"] for e in res.epochs],
+           "epoch_ms_p50_by_phase": {k: float(np.percentile(v, 50))
+                                     for k, v in by_phase.items()},
+           "factor_mix_launches": mix_launches,
+           "gl_prox_launches": prox_launches, "skipped": skipped,
+           "quarantined": len(res.failures),
+           "active_lanes": int(res.active.sum()),
+           "best_epoch": res.best_epoch.tolist(),
+           "val_combo_loss_last": res.val_history[-1].tolist(),
+           "own_lane": g, "own_lane_point": raw[g],
+           "own_lane_vs_per_point": lane})
+    return mix_launches, prox_launches, model, params, train_ds
+
+
+def _grid_steps(torch, np, model, host_params, batches, device):
+    """GRID_CHECK_STEPS combined steps of the 27-lane grid on ``device``
+    from ``host_params`` replicated over the lanes; returns the per-lane
+    losses and the stacked params after them."""
+    from redcliff_tpu_torch import interop
+    from redcliff_tpu_torch.parallel.grid import GridSpec, RedcliffGridRunner
+    from redcliff_tpu_torch.runtime import numerics
+    from redcliff_tpu_torch.train.redcliff_trainer import RedcliffTrainConfig
+
+    runner = RedcliffGridRunner(model, RedcliffTrainConfig(**TRAIN_KNOBS),
+                                GridSpec(_grid_points()[0]), device=device)
+    params, optA, optB = runner.init_grid_from(host_params)
+    nstate = numerics.init_numerics_state(lanes=GRID_LANES,
+                                          device=runner.device)
+    active = torch.ones(GRID_LANES, dtype=torch.bool, device=runner.device)
+    losses = []
+    for X, Y in batches:
+        nstate, combo = runner._step(
+            "combined", params, optA, optB, nstate, active,
+            torch.from_numpy(X).to(runner.device),
+            torch.from_numpy(Y).to(runner.device))
+        losses.append(combo.cpu().numpy())
+    _require(int(nstate["skipped"].sum()) == 0,
+             f"grid_check: a step on {device} was skipped")
+    return np.stack(losses), interop.params_to_jax(params)
+
+
+def phase_grid_check(torch, model, params, train_ds):
+    """Card against the port's CPU path: the same weights, the same
+    batches, GRID_CHECK_STEPS combined grid steps of all 27 lanes."""
+    import numpy as np
+
+    from redcliff_tpu_torch import interop
+
+    host = interop.params_to_jax(params)
+    batches = [b for _, b in zip(range(GRID_CHECK_STEPS), train_ds.batches(
+        TRAIN_KNOBS["batch_size"], rng=np.random.default_rng(5)))]
+    card_l, card_p = _grid_steps(torch, np, model, host, batches, "cuda")
+    cpu_l, cpu_p = _grid_steps(torch, np, model, host, batches, "cpu")
+    torch.cuda.synchronize()
+    _require(bool(np.isfinite(card_l).all()), "grid_check: non-finite loss")
+    _require(bool(np.allclose(card_l, cpu_l, rtol=TRAIN_LOSS_RTOL,
+                              atol=TRAIN_LOSS_ATOL)),
+             f"grid_check: losses card vs CPU differ by "
+             f"{float(np.abs(card_l - cpu_l).max())}")
+    # per lane: the 8 steps' update (params after - before) agrees to a
+    # relative L2 error of GRID_CHECK_REL, and no element differs by more
+    # than the two Adam steps' worth it can reach where a subgradient
+    # switches between the runs (the adjacency-L1 |x| at a GC entry near
+    # zero): 2 * lr * steps, the lane's larger lr
+    G = GRID_LANES
+    lanes_lr = np.asarray([max(p["gen_lr"], TRAIN_KNOBS["embed_lr"])
+                           for p in _grid_points()[0]])
+    flat = lambda tree: np.concatenate([  # noqa: E731
+        np.asarray(x, np.float64).reshape(G, -1) for x in _leaves_np(tree)],
+        axis=1)
+    card_f, cpu_f = flat(card_p), flat(cpu_p)
+    init_f = np.concatenate([np.broadcast_to(
+        np.asarray(x, np.float64).reshape(1, -1), (G, np.size(x)))
+        for x in _leaves_np(host)], axis=1)
+    rel = (np.linalg.norm(card_f - cpu_f, axis=1)
+           / np.linalg.norm(cpu_f - init_f, axis=1))
+    worst = np.abs(card_f - cpu_f).max(axis=1)
+    bound = 2.0 * lanes_lr * len(batches)
+    _require(bool((rel <= GRID_CHECK_REL).all()
+                  and (worst <= bound).all()),
+             f"grid_check: per-lane update rel. err {rel.tolist()} (bar "
+             f"{GRID_CHECK_REL}), max abs err {worst.tolist()} (bars "
+             f"{bound.tolist()})")
+    _emit({"phase": "grid_check", "against": "port CPU path, same weights "
+           "and batches", "lanes": G, "steps": len(batches),
+           "loss_rtol": TRAIN_LOSS_RTOL, "loss_atol": TRAIN_LOSS_ATOL,
+           "update_rel_l2": GRID_CHECK_REL,
+           "param_abs_bar": "2 * lr * steps per lane",
+           "max_loss_rel_err": float(np.max(np.abs(card_l - cpu_l)
+                                            / np.abs(cpu_l))),
+           "max_update_rel_err": float(rel.max()),
+           "max_param_abs_err": float(worst.max()),
+           "lanes_above_1e-4": [int(g) for g in np.flatnonzero(worst > 1e-4)],
+           "max_param_abs_err_by_lane": worst.tolist()})
+
+
+def phase_profile_grid(torch, FM, PX, model, params, train_ds):
+    """Where a grid step's time goes (``--profile`` only): each lane
+    kernel's device time alone beside its library call and plain version,
+    then a profiled window of 27-lane combined steps — host wall per step,
+    device busy per step, the device's idle share, and the top device
+    ops."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from redcliff_tpu_torch import interop
+    from redcliff_tpu_torch.parallel.grid import GridSpec, RedcliffGridRunner
+    from redcliff_tpu_torch.runtime import numerics
+    from redcliff_tpu_torch.train.redcliff_trainer import RedcliffTrainConfig
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(6)
+    G, B = GRID_LANES, TRAIN_KNOBS["batch_size"]
+    wg = torch.rand((G, B, K_TRAIN), generator=gen).to(dev)
+    pg = torch.randn((G, K_TRAIN, B, 1, C_TRAIN), generator=gen).to(dev)
+    Wg = (0.05 * torch.randn((G, K_TRAIN, C_TRAIN, 25, C_TRAIN, 4),
+                             generator=gen)).to(dev)
+    Wgi, Wgo = Wg.clone(), _offset_view(torch, Wg)
+    tg = PX.lane_thresholds(_grid_lr(torch, dev), PROX_LAM)
+    on = torch.ones(G, dtype=torch.bool, device=dev)
+    one = torch.zeros(1, device=dev)
+    alone = _alone_us(torch, {
+        "floor: x.zero_()": one.zero_,
+        "factor_mix_kernel (lanes)": lambda: FM.factor_mix_lanes(wg, pg),
+        "torch.matmul (lanes, permuted operands)":
+            lambda: _mix_lanes_library(torch, wg, pg),
+        "factor_mix_lanes_plain": lambda: FM.factor_mix_lanes_reference(
+            wg, pg),
+        "gl_prox_kernel (lanes, in place)":
+            lambda: PX.gl_prox_lanes_(Wgi, tg, on),
+        "gl_prox_kernel (lanes, in place, +1 float)":
+            lambda: PX.gl_prox_lanes_(Wgo, tg, on),
+        "gl_prox_lanes_plain": lambda: PX.gl_prox_lanes_reference(
+            Wg, tg, on)})
+
+    runner = RedcliffGridRunner(model, RedcliffTrainConfig(**TRAIN_KNOBS),
+                                GridSpec(_grid_points()[0]))
+    gparams, optA, optB = runner.init_grid_from(
+        interop.params_to_jax(params))
+    nstate = numerics.init_numerics_state(lanes=G, device=dev)
+    active = torch.ones(G, dtype=torch.bool, device=dev)
+    batches = list(train_ds.batches(B, rng=np.random.default_rng(7),
+                                    device=dev))
+    n_warm, n_prof = 3, 8
+
+    def step(X, Y):
+        return runner._step("combined", gparams, optA, optB, nstate, active,
+                            X, Y)[0]
+
+    for X, Y in batches[:n_warm]:
+        nstate = step(X, Y)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for X, Y in batches[n_warm:n_warm + n_prof]:
+            nstate = step(X, Y)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n_prof
+    per, busy_us = _device_us(torch, prof, n_prof)
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:12]
+    _emit({"phase": "profile_grid", "device": torch.cuda.get_device_name(0),
+           "device_us_per_call_alone": alone, "lanes": G, "steps": n_prof,
+           "step_wall_ms_profiled": wall_ms,
+           "device_busy_us_per_step": busy_us,
+           "device_idle_share": (1.0 - busy_us / 1e3 / wall_ms
+                                 if busy_us else None),
+           "device_ops_per_step": len(per),
+           "top_device_us_per_step": dict(top)})
+
+
 def _kernel_entry(name, mod, replaces, launches, by_path, max_err, t):
     return {"name": name, "route": "cuda",
             "source": os.path.relpath(mod.KERNEL_SOURCE, HERE),
@@ -1126,25 +1663,33 @@ def main():
     mix_launches, prox_launches, tmodel, tparams, train_ds = phase_train(
         torch, FM, PX)
     phase_train_check(torch, tmodel, tparams, train_ds)
+    grid_mix, grid_prox, gmodel, gparams, gtrain = phase_grid(torch, FM, PX)
+    phase_grid_check(torch, gmodel, gparams, gtrain)
     if "--profile" in sys.argv[1:]:
         phase_profile(torch, FM)
         phase_profile_train(torch, FM, PX, tmodel, tparams, train_ds)
+        phase_profile_grid(torch, FM, PX, gmodel, gparams, gtrain)
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.")
                     or m == "redcliff_tpu" or m.startswith("redcliff_tpu."))
     _require(not leaked, f"the port imported {leaked}")
 
+    mix_paths = {"serve": serve_launches, "train": mix_launches,
+                 "grid": grid_mix}
     fm = _kernel_entry(
-        "factor_mix", FM, "redcliff_tpu/ops/factor_mix.py:58", mix_launches,
-        {"serve": serve_launches, "train": mix_launches},
-        max_err["factor_mix"], timing["factor_mix"]["train"])
+        "factor_mix", FM, "redcliff_tpu/ops/factor_mix.py:58",
+        sum(mix_paths.values()), mix_paths, max_err["factor_mix"],
+        timing["factor_mix"]["train"])
     fm["by_shape"] = {k: v for k, v in timing["factor_mix"].items()
                       if k != "train"}
+    prox_paths = {"serve": 0, "train": prox_launches, "grid": grid_prox}
     px = _kernel_entry(
-        "gl_prox", PX, "redcliff_tpu/ops/pallas_prox.py:47", prox_launches,
-        {"serve": 0, "train": prox_launches}, max_err["gl_prox"],
+        "gl_prox", PX, "redcliff_tpu/ops/pallas_prox.py:47",
+        sum(prox_paths.values()), prox_paths, max_err["gl_prox"],
         timing["gl_prox"]["train"])
+    px["by_shape"] = {k: v for k, v in timing["gl_prox"].items()
+                      if k != "train"}
     _emit({"kernels": [fm, px]})
     print(smi, flush=True)
     _emit({"ok": True, "device": {"platform": "gpu",

@@ -8,11 +8,14 @@ What it needs from the JAX package's backend-free modules it keeps as its
 own copies (``serve/session.py``, ``runtime/admission.py``,
 ``runtime/checkpoint.py``).
 
-Two slices are ported: the serve path (load a fitted REDCLIFF-S artifact
-and serve it to live streams) and the per-point REDCLIFF-S fit
-(``train/redcliff_trainer.py``, with the GISTA group-lasso prox). The two
-TPU kernels on those paths are hand-written CUDA kernels: the factor mix
-(``ops/csrc/factor_mix.cu``) and the GL prox (``ops/csrc/gl_prox.cu``).
+Three slices are ported: the serve path (load a fitted REDCLIFF-S artifact
+and serve it to live streams), the per-point REDCLIFF-S fit
+(``train/redcliff_trainer.py``, with the GISTA group-lasso prox) and the
+coefficient grid (``train/driver.py:run_coefficient_grid`` ->
+``parallel/grid.py:RedcliffGridRunner``, G points as one batched program).
+The two TPU kernels on those paths are hand-written CUDA kernels, each with
+a lane form for the grid: the factor mix (``ops/csrc/factor_mix.cu``) and
+the GL prox (``ops/csrc/gl_prox.cu``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without CUDA and without an explicit device they raise

@@ -10,6 +10,10 @@ conversion:
   saves, or ``np.asarray`` of its device arrays) -> the same tree of torch
   tensors on ``device``;
 * :func:`params_to_jax` — back to numpy, byte for byte;
+* :func:`grid_state_from_jax` — a JAX coefficient grid's stacked state
+  (``(G, ...)`` params and each lane's Adam moments and step counts, from
+  ``RedcliffGridRunner.init_grid``/``init_grid_from``) -> the port
+  runner's ``init_params``, so both grids start from the same state;
 * :func:`tree_map` / :func:`tree_leaves` — the walk over such trees that
   every module of the port uses (dict order as built; the JAX package's
   ``jax.tree`` sorts dict keys instead).
@@ -19,7 +23,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["params_from_jax", "params_to_jax", "tree_map", "tree_leaves"]
+__all__ = ["params_from_jax", "params_to_jax", "grid_state_from_jax",
+           "tree_map", "tree_leaves"]
 
 
 def tree_map(fn, tree, *rest):
@@ -52,3 +57,19 @@ def params_from_jax(tree, device="cpu"):
 def params_to_jax(params):
     """Torch tree -> numpy tree (host copies, dtypes kept)."""
     return tree_map(lambda x: x.detach().cpu().numpy().copy(), params)
+
+
+def grid_state_from_jax(params, embed_adam, factor_adam, device="cpu"):
+    """A JAX grid's stacked state as numpy trees -> ``(params, embedder
+    Adam, factor Adam)`` for the port's ``RedcliffGridRunner.fit
+    (init_params=...)``. The Adam states are optax ``scale_by_adam``
+    states (named tuples, as ``jax.tree.map(np.asarray, ...)`` leaves
+    them): the per-lane ``count`` becomes the lane step count, ``mu`` /
+    ``nu`` the first and second moments."""
+    def adam(state):
+        return {"step": torch.from_numpy(
+                    np.asarray(state.count).astype(np.int64)).to(device),
+                "exp_avg": params_from_jax(state.mu, device),
+                "exp_avg_sq": params_from_jax(state.nu, device)}
+    return (params_from_jax(params, device), adam(embed_adam),
+            adam(factor_adam))

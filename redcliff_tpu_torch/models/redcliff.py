@@ -12,6 +12,14 @@ schedule, the multi-term loss with its smoothing variant, ``apply_prox``
 and its in-place form ``apply_prox_`` (the GL prox kernel on the card),
 ``permute_factors`` and the validation normalization coefficients. cLSTM
 factors are not ported yet.
+
+The coefficient grid runs the loss for G lanes at once under
+``torch.func.vmap(torch.func.grad_and_value(loss_for_phase))`` with the
+parameters and coefficients stacked on a lane axis and the batch shared,
+as the JAX grid vmaps it: every op here is functional and data-independent
+in its control flow (the factor mix reaches the kernel's lane form through
+the vmap rule of ``FactorMixFn``). ``apply_prox_lanes_`` is the grid's
+prox over the stacked block.
 """
 from __future__ import annotations
 
@@ -25,7 +33,7 @@ from redcliff_tpu_torch.models.embedders import (CEmbedder, DGCNNEmbedder,
                                                  build_embedder)
 from redcliff_tpu_torch.ops import losses as L
 from redcliff_tpu_torch.ops.factor_mix import factor_mix
-from redcliff_tpu_torch.ops.pallas_prox import gl_prox, gl_prox_
+from redcliff_tpu_torch.ops.pallas_prox import gl_prox, gl_prox_, gl_prox_lanes_
 
 __all__ = ["RedcliffSCMLPConfig", "RedcliffSCMLP", "TRAINING_MODES",
            "GC_EST_MODES", "FORWARD_PASS_MODES", "phase_schedule"]
@@ -566,6 +574,17 @@ class RedcliffSCMLP:
         its storage (the trainer keeps every other tree as a copy). Call
         under ``torch.no_grad()``. Returns ``params``."""
         gl_prox_(params["factors"][0]["w"], lam, lr, penalty)
+        return params
+
+    def apply_prox_lanes_(self, params, thresholds, gate, penalty="GL"):
+        """The coefficient grid's prox: :meth:`apply_prox_` in place on the
+        stacked block ``params["factors"][0]["w"]`` of shape
+        ``(G, K, C_out, H, C_in, L)``, lane g at threshold
+        ``thresholds[g]`` where ``gate[g]`` and untouched elsewhere
+        (``ops/pallas_prox.py gl_prox_lanes_``: one kernel launch for all
+        lanes on the card). Call under ``torch.no_grad()``. Returns
+        ``params``."""
+        gl_prox_lanes_(params["factors"][0]["w"], thresholds, gate, penalty)
         return params
 
     # -------------------------------------------------------- factor alignment

@@ -1,4 +1,5 @@
-// Factor mix for Hopper (sm_90a): out[b, m] = sum_k w[b, k] * p[k, b, m].
+// Factor mix for Hopper (sm_90a): out[b, m] = sum_k w[b, k] * p[k, b, m],
+// and its lane form out[g, b, m] = sum_k w[g, b, k] * p[g, k, b, m].
 //
 // Replaces the TPU kernel redcliff_tpu/ops/factor_mix.py::_factor_mix_kernel
 // (a Pallas batched mat-vec over batch blocks of block_b rows, contracting
@@ -7,7 +8,11 @@
 //     w (B, K) x p (K, B, T*C);
 //   * the serve engine blends the K static per-factor GC graphs per lane,
 //     w (S, K) x p (K, C*C) broadcast over S, passed as stride_b = 0 so the
-//     (K, S, C, C) broadcast is never materialised.
+//     (K, S, C, C) broadcast is never materialised;
+//   * the coefficient grid runs the training forward for G lanes at once
+//     (the JAX package vmaps the Pallas kernel, whose batching rule adds a
+//     grid axis): the second grid dimension is the lane, and w and p step by
+//     their lane strides (stride_wg, stride_pg), out by B*M.
 //
 // What bounds it: memory. It reads 4*(B*K + K*B'*M) bytes (B' = 1 when the
 // p operand is broadcast, else B) and writes 4*B*M, for 2*B*K*M flops: well
@@ -77,21 +82,24 @@ struct Vec<4> {
   }
 };
 
-// n_vec = B * (M / V) < 2**31 threads do work (the wrapper checks
-// B * M < 2**31, so 32-bit unsigned indices hold it); thread idx owns
-// outputs [idx * V, idx * V + V) of the row-major (B, M) output.
+// Per lane, n_vec = B * (M / V) < 2**31 threads do work (the wrapper
+// checks B * M < 2**31, so 32-bit unsigned indices hold it); thread idx of
+// lane blockIdx.y owns outputs [idx * V, idx * V + V) of that lane's
+// row-major (B, M) output. A launch without lanes has gridDim.y = 1.
 template <int V, bool kSmallK>
 __global__ void __launch_bounds__(256)
     factor_mix_kernel(const float* __restrict__ w, const float* __restrict__ p,
                       float* __restrict__ out, int K, unsigned m_vec,
-                      unsigned n_vec, long long stride_k,
-                      long long stride_b) {
+                      unsigned n_vec, long long stride_k, long long stride_b,
+                      long long stride_wg, long long stride_pg) {
   const unsigned idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= n_vec) return;
+  const long long g = blockIdx.y;
   const unsigned b = idx / m_vec;
   const unsigned m = (idx - b * m_vec) * V;
-  const float* wb = w + (long long)b * K;
-  const float* pb = p + (long long)b * stride_b + m;
+  const float* wb = w + g * stride_wg + (long long)b * K;
+  const float* pb = p + g * stride_pg + (long long)b * stride_b + m;
+  out += g * (long long)n_vec * V;
   float acc[V];
 #pragma unroll
   for (int j = 0; j < V; ++j) acc[j] = 0.0f;
@@ -111,13 +119,16 @@ __global__ void __launch_bounds__(256)
 template <int V>
 void launch(const float* w, const float* p, float* out, int K, int M,
             unsigned n_vec, long long stride_k, long long stride_b,
-            int threads, int blocks, cudaStream_t stream) {
+            long long stride_wg, long long stride_pg, int threads,
+            dim3 blocks, cudaStream_t stream) {
   if (K <= kUnrollK) {
     factor_mix_kernel<V, true><<<blocks, threads, 0, stream>>>(
-        w, p, out, K, M / V, n_vec, stride_k, stride_b);
+        w, p, out, K, M / V, n_vec, stride_k, stride_b, stride_wg,
+        stride_pg);
   } else {
     factor_mix_kernel<V, false><<<blocks, threads, 0, stream>>>(
-        w, p, out, K, M / V, n_vec, stride_k, stride_b);
+        w, p, out, K, M / V, n_vec, stride_k, stride_b, stride_wg,
+        stride_pg);
   }
 }
 
@@ -125,28 +136,34 @@ void launch(const float* w, const float* p, float* out, int K, int M,
 
 // The launch's shapes, strides and plan, made once per shape by the wrapper
 // (ops/factor_mix.py:_MixArgs, field for field), so a call converts five
-// arguments instead of thirteen.
+// arguments instead of sixteen. G = 1 with zero lane strides is the launch
+// without lanes.
 struct MixArgs {
   int B, K, M;
   int vec, threads, blocks;  // the launch plan (ops/factor_mix.py:mix_plan)
   int device;
   long long stride_k, stride_b;
+  int G;
+  long long stride_wg, stride_pg;
 };
 
-// w: (B, K) contiguous; p: element (k, b, m) at p[k*stride_k + b*stride_b + m];
-// out: (B, M) contiguous. The plan has checked that M % vec == 0 and that
-// p, its strides and out are aligned to 4 * vec bytes. Returns a
-// cudaError_t as int (0 = launched).
+// Lane g (0 <= g < G): w (B, K) contiguous at w + g*stride_wg; element
+// (k, b, m) of p at p[g*stride_pg + k*stride_k + b*stride_b + m]; out
+// (G, B, M) contiguous. The plan has checked that M % vec == 0 and that p,
+// its strides and out are aligned to 4 * vec bytes. Returns a cudaError_t
+// as int (0 = launched).
 extern "C" int redcliff_factor_mix_f32(const float* w, const float* p,
                                        float* out, const MixArgs* args,
                                        void* stream) {
   const int B = args->B, K = args->K, M = args->M, vec = args->vec;
   const int threads = args->threads, blocks = args->blocks;
-  const int device = args->device;
+  const int device = args->device, G = args->G;
   const long long stride_k = args->stride_k, stride_b = args->stride_b;
-  if (B <= 0 || M <= 0) return 0;
+  const long long stride_wg = args->stride_wg, stride_pg = args->stride_pg;
+  if (B <= 0 || M <= 0 || G <= 0) return 0;
   if ((vec != 1 && vec != 2 && vec != 4) || M % vec != 0 || threads <= 0 ||
-      threads > 256 || blocks <= 0 || (long long)B * M > 2147483647LL) {
+      threads > 256 || blocks <= 0 || G > 65535 ||
+      (long long)B * M > 2147483647LL) {
     return (int)cudaErrorInvalidValue;
   }
   int current = -1;
@@ -156,13 +173,17 @@ extern "C" int redcliff_factor_mix_f32(const float* w, const float* p,
     return (int)err;
   }
   const unsigned n_vec = (unsigned)B * (unsigned)(M / vec);
+  const dim3 grid((unsigned)blocks, (unsigned)G);
   cudaStream_t s = (cudaStream_t)stream;
   if (vec == 4) {
-    launch<4>(w, p, out, K, M, n_vec, stride_k, stride_b, threads, blocks, s);
+    launch<4>(w, p, out, K, M, n_vec, stride_k, stride_b, stride_wg,
+              stride_pg, threads, grid, s);
   } else if (vec == 2) {
-    launch<2>(w, p, out, K, M, n_vec, stride_k, stride_b, threads, blocks, s);
+    launch<2>(w, p, out, K, M, n_vec, stride_k, stride_b, stride_wg,
+              stride_pg, threads, grid, s);
   } else {
-    launch<1>(w, p, out, K, M, n_vec, stride_k, stride_b, threads, blocks, s);
+    launch<1>(w, p, out, K, M, n_vec, stride_k, stride_b, stride_wg,
+              stride_pg, threads, grid, s);
   }
   err = cudaGetLastError();
   if (current != device) cudaSetDevice(current);

@@ -9,8 +9,18 @@
 // (a Pallas row-block pass over the (G, H*L) matrix that the JAX wrapper
 // first builds with a moveaxis copy of W1). Callers: the REDCLIFF-S
 // trainer's GISTA step after every factor optimizer step, in place on the
-// live block (models/redcliff.py apply_prox_), and the functional
-// apply_prox.
+// live block (models/redcliff.py apply_prox_), the functional apply_prox,
+// and the coefficient grid's step for all G lanes at once
+// (models/redcliff.py apply_prox_lanes_).
+//
+// Lanes: the grid's stacked block is (G, lead..., H, C_in, L), and slab s
+// belongs to lane s / slabs_per_lane. Each lane has its own threshold
+// (the float32 product of the lane's lr and lam, as the JAX grid computes
+// it under vmap) and its own gate, both read from device arrays: a block
+// whose lane is gated off returns before it reads or writes anything, so
+// the lane's slabs are left exactly as they were (a zero threshold would
+// not do: a zero group gives 0 / max(0, 0) = NaN). Nothing is read back to
+// the host.
 //
 // What bounds it: memory. It reads W1 once and writes it once, 8 bytes per
 // element, and does ~4 flops per element. At the training shape
@@ -127,10 +137,20 @@ struct GroupWalk {
 // memory: [chunk] staged floats, then [C] per-group sums (later the
 // denominators) and [C] scales. S = H*C*L < 2**31 (the wrapper checks).
 // bulk != 0 requires w and out 16-byte aligned and S and chunk multiples
-// of 4.
+// of 4. With lane_t != nullptr the threshold of slab s is
+// lane_t[s / slabs_per_lane], and the slab is skipped when that lane's
+// lane_gate byte is 0; with lane_t == nullptr every slab takes t.
 __global__ void __launch_bounds__(kMaxThreads)
     gl_prox_kernel(const float* w, float* out, int H, int C, int L,
-                   int chunk, int bulk, float t) {
+                   int chunk, int bulk, float t,
+                   const float* __restrict__ lane_t,
+                   const unsigned char* __restrict__ lane_gate,
+                   unsigned slabs_per_lane) {
+  if (lane_t != nullptr) {
+    const unsigned g = blockIdx.x / slabs_per_lane;
+    if (lane_gate[g] == 0) return;  // the whole block: no barrier yet
+    t = lane_t[g];
+  }
   extern __shared__ __align__(16) float smem[];
   __shared__ __align__(8) uint64_t bar;
   float* stage = smem;
@@ -260,23 +280,21 @@ __global__ void __launch_bounds__(kMaxThreads)
 
 // The launch's shape and plan, made once per shape by the wrapper
 // (ops/pallas_prox.py:_ProxArgs, field for field), so a call converts five
-// arguments instead of twelve.
+// or six arguments instead of twelve or fourteen. slabs_per_lane is read
+// by the lane entry only.
 struct ProxArgs {
   long long lead;
   int H, C, L;
   int chunk, bulk, threads;  // the launch plan (ops/pallas_prox.py:prox_plan)
   int device;
+  long long slabs_per_lane;
 };
 
-// w, out: (lead, H, C, L) contiguous float32, out may equal w. The plan:
-// chunk floats staged at a time; bulk = the TMA and float4 path, which
-// needs w and out 16-byte aligned and H*C*L and chunk multiples of 4;
-// threads a multiple of 32, at most 512. Dynamic shared memory is
-// 4 * (chunk + 2*C) bytes, at most 48 KB less 64 bytes for the static
-// mbarrier. Returns a cudaError_t as int (0 = launched).
-extern "C" int redcliff_gl_prox_f32(const float* w, float* out,
-                                    const ProxArgs* args, float t,
-                                    void* stream) {
+namespace {
+
+int launch_prox(const float* w, float* out, const ProxArgs* args, float t,
+                const float* lane_t, const unsigned char* lane_gate,
+                void* stream) {
   const long long lead = args->lead;
   const int H = args->H, C = args->C, L = args->L, chunk = args->chunk;
   const int bulk = args->bulk, threads = args->threads;
@@ -291,6 +309,10 @@ extern "C" int redcliff_gl_prox_f32(const float* w, float* out,
                 reinterpret_cast<uintptr_t>(out) % 16 != 0))) {
     return (int)cudaErrorInvalidValue;
   }
+  if (lane_t != nullptr &&
+      (args->slabs_per_lane <= 0 || lead % args->slabs_per_lane != 0)) {
+    return (int)cudaErrorInvalidValue;
+  }
   int current = -1;
   cudaError_t err = cudaGetDevice(&current);
   if (err != cudaSuccess) return (int)err;
@@ -298,8 +320,38 @@ extern "C" int redcliff_gl_prox_f32(const float* w, float* out,
     return (int)err;
   }
   gl_prox_kernel<<<(unsigned int)lead, threads, smem,
-                   (cudaStream_t)stream>>>(w, out, H, C, L, chunk, bulk, t);
+                   (cudaStream_t)stream>>>(
+      w, out, H, C, L, chunk, bulk, t, lane_t, lane_gate,
+      (unsigned)args->slabs_per_lane);
   err = cudaGetLastError();
   if (current != device) cudaSetDevice(current);
   return (int)err;
+}
+
+}  // namespace
+
+// w, out: (lead, H, C, L) contiguous float32, out may equal w. The plan:
+// chunk floats staged at a time; bulk = the TMA and float4 path, which
+// needs w and out 16-byte aligned and H*C*L and chunk multiples of 4;
+// threads a multiple of 32, at most 512. Dynamic shared memory is
+// 4 * (chunk + 2*C) bytes, at most 48 KB less 64 bytes for the static
+// mbarrier. Returns a cudaError_t as int (0 = launched).
+extern "C" int redcliff_gl_prox_f32(const float* w, float* out,
+                                    const ProxArgs* args, float t,
+                                    void* stream) {
+  return launch_prox(w, out, args, t, nullptr, nullptr, stream);
+}
+
+// The lane entry: as above, with lead = G * slabs_per_lane slabs, the
+// threshold of lane g at lane_t[g] and its gate at lane_gate[g] (0 = leave
+// the lane's slabs untouched), both device arrays of G elements.
+extern "C" int redcliff_gl_prox_lanes_f32(const float* w, float* out,
+                                          const ProxArgs* args,
+                                          const float* lane_t,
+                                          const unsigned char* lane_gate,
+                                          void* stream) {
+  if (lane_t == nullptr || lane_gate == nullptr) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return launch_prox(w, out, args, 0.0f, lane_t, lane_gate, stream);
 }

@@ -10,14 +10,23 @@
   hand-written kernel in ``csrc/factor_mix.cu``; on a CPU tensor they call
   the plain version. There is no fallback: a CUDA tensor the kernel does not
   take raises.
+* :func:`factor_mix_lanes` / :func:`factor_mix_lanes_reference` — the lane
+  form for the coefficient grid, ``out[g, b] = sum_k w[g, b, k] p[g, k, b]``:
+  one launch of the same kernel for all G lanes (its second grid dimension)
+  on CUDA tensors, the plain einsum on CPU tensors.
 * :class:`FactorMixFn` — the ``torch.autograd.Function`` around the kernel,
   mirroring the JAX custom VJP: forward is the kernel, backward is the two
-  einsums of ``_mix_bwd`` (plain in the JAX package too). The wrappers take
-  it only when a gradient is wanted (grad mode on and an operand that
-  requires grad); otherwise they launch the kernel directly.
+  einsums of ``_mix_bwd`` (plain in the JAX package too). It has the
+  ``setup_context`` form, so ``torch.func`` transforms take it, and a
+  ``vmap`` rule that runs the lane form on the stacked operands (the JAX
+  package gets the same from ``jax.vmap`` over ``pallas_call``, whose
+  batching rule adds a grid axis). The wrappers take it when a gradient is
+  wanted (grad mode on and an operand that requires grad) or the operands
+  are ``torch.func`` tensors; otherwise they launch the kernel directly.
 * :func:`mix_plan` — the kernel's launch plan (vector width, threads,
   blocks), a pure function of the shapes, strides and alignment.
-* ``factor_mix.launches`` — a plain int, one per kernel launch.
+* ``factor_mix.launches`` — a plain int, one per kernel launch, lane
+  launches included.
 
 The launch path is kept short because at the main path's shapes the launch,
 not the device work, is the cost (PERF.md): one pass of checks, no
@@ -45,14 +54,17 @@ import torch
 
 from redcliff_tpu_torch.ops.cuda_build import build_library
 
-__all__ = ["factor_mix", "factor_mix_reference", "graph_mix",
-           "graph_mix_reference", "FactorMixFn", "load_kernel", "mix_plan",
+__all__ = ["factor_mix", "factor_mix_reference", "factor_mix_lanes",
+           "factor_mix_lanes_reference", "graph_mix", "graph_mix_reference",
+           "FactorMixFn", "FactorMixLanesFn", "load_kernel", "mix_plan",
            "KERNEL_SOURCE"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 KERNEL_SOURCE = os.path.join(_HERE, "csrc", "factor_mix.cu")
-# the kernel indexes the (B, M) output with 32-bit ints
+# the kernel indexes each lane's (B, M) output with 32-bit ints; lanes are
+# the grid's second dimension
 _MAX_DIM = 2 ** 31 - 1
+_MAX_LANES = 65535
 # blocks of 128 threads until the grid would cover every SM several times
 _SMALL_BLOCK, _LARGE_BLOCK, _LARGE_FROM = 128, 256, 256 * 132 * 4
 
@@ -73,21 +85,27 @@ def graph_mix_reference(weightings, static_gc):
     return torch.einsum("sk,kij->sij", weightings, static_gc)
 
 
-def mix_plan(B, M, stride_k, stride_b, p_offset):
-    """``(vec, threads, blocks)`` for the kernel: each thread computes
-    ``vec`` consecutive outputs of the linear (b, m) index.
+def factor_mix_lanes_reference(weightings, preds):
+    """Plain lane version: ``einsum("gbk,gkbtc->gbtc")``."""
+    return torch.einsum("gbk,gkbtc->gbtc", weightings, preds)
 
-    ``p_offset`` is ``p.data_ptr() % 16``. ``vec`` is 4 when M and both
-    element strides of p are multiples of 4 and p's base is 16-byte aligned
-    (float4 loads and stores), 2 at multiples of 2 and 8 bytes (float2),
-    else 1. The launch passes 0 as the stride of an axis of length 1, so
-    such an axis (like the serve broadcast's stride 0) never breaks the
-    alignment. The output is a fresh contiguous ``(B, M)`` tensor, so
-    M % vec == 0 aligns its rows too."""
+
+def mix_plan(B, M, stride_k, stride_b, p_offset, stride_g=0):
+    """``(vec, threads, blocks)`` for the kernel: each thread computes
+    ``vec`` consecutive outputs of a lane's linear (b, m) index; ``blocks``
+    covers one lane (the lanes are the grid's second dimension).
+
+    ``p_offset`` is ``p.data_ptr() % 16``. ``vec`` is 4 when M and every
+    element stride of p (``stride_g`` is its lane stride) are multiples of
+    4 and p's base is 16-byte aligned (float4 loads and stores), 2 at
+    multiples of 2 and 8 bytes (float2), else 1. The launch passes 0 as the
+    stride of an axis of length 1, so such an axis (like the serve
+    broadcast's stride 0) never breaks the alignment. The output is a fresh
+    contiguous ``(G, B, M)`` tensor, so M % vec == 0 aligns its rows too."""
     vec = 1
     for v in (4, 2):
         if (M % v == 0 and p_offset % (4 * v) == 0 and stride_k % v == 0
-                and stride_b % v == 0):
+                and stride_b % v == 0 and stride_g % v == 0):
             vec = v
             break
     n = B * (M // vec)
@@ -98,20 +116,26 @@ def mix_plan(B, M, stride_k, stride_b, p_offset):
 class _MixArgs(ctypes.Structure):
     """The launch's shapes, strides and plan: ``MixArgs`` of
     csrc/factor_mix.cu, field for field. One per shape (cached), so a
-    launch converts five ctypes arguments, not thirteen."""
+    launch converts five ctypes arguments, not sixteen."""
 
     _fields_ = [("B", ctypes.c_int), ("K", ctypes.c_int),
                 ("M", ctypes.c_int), ("vec", ctypes.c_int),
                 ("threads", ctypes.c_int), ("blocks", ctypes.c_int),
                 ("device", ctypes.c_int), ("stride_k", ctypes.c_longlong),
-                ("stride_b", ctypes.c_longlong)]
+                ("stride_b", ctypes.c_longlong), ("G", ctypes.c_int),
+                ("stride_wg", ctypes.c_longlong),
+                ("stride_pg", ctypes.c_longlong)]
 
 
 @functools.lru_cache(maxsize=256)
-def _mix_args(B, K, M, stride_k, stride_b, p_offset, device):
-    """``(_MixArgs, its address)`` for one launch shape on ``device``."""
-    args = _MixArgs(B, K, M, *mix_plan(B, M, stride_k, stride_b, p_offset),
-                    device, stride_k, stride_b)
+def _mix_args(B, K, M, stride_k, stride_b, p_offset, device, G=1,
+              stride_wg=0, stride_pg=0):
+    """``(_MixArgs, its address)`` for one launch shape on ``device``;
+    ``G`` lanes with lane strides ``stride_wg`` (w) and ``stride_pg`` (p),
+    one lane with zero lane strides by default."""
+    args = _MixArgs(B, K, M, *mix_plan(B, M, stride_k, stride_b, p_offset,
+                                       stride_pg),
+                    device, stride_k, stride_b, G, stride_wg, stride_pg)
     return args, ctypes.addressof(args)
 
 
@@ -133,12 +157,14 @@ def load_kernel():
         return _lib
 
 
-def _run(w, p, B, K, M, stride_k, stride_b, out_shape):
-    """Launch on checked operands: ``w (B, K)`` contiguous, element
-    (k, b, m) of p at ``p + k*stride_k + b*stride_b + m`` -> a new
-    ``out_shape`` tensor holding the ``(B, M)`` result."""
+def _run(w, p, B, K, M, stride_k, stride_b, out_shape, G=1, stride_wg=0,
+         stride_pg=0):
+    """Launch on checked operands: lane g's ``w (B, K)`` contiguous at
+    ``w + g*stride_wg``, its element (k, b, m) of p at
+    ``p + g*stride_pg + k*stride_k + b*stride_b + m`` -> a new
+    ``out_shape`` tensor holding the ``(G, B, M)`` result."""
     out = w.new_empty(out_shape)
-    if B == 0 or M == 0:
+    if B == 0 or M == 0 or G == 0:
         return out
     if _fn is None:
         load_kernel()
@@ -147,9 +173,12 @@ def _run(w, p, B, K, M, stride_k, stride_b, out_shape):
         stride_k = 0
     if B == 1:
         stride_b = 0
+    if G == 1:
+        stride_wg = stride_pg = 0
     p_ptr = p.data_ptr()
     dev = w.get_device()
-    args = _mix_args(B, K, M, stride_k, stride_b, p_ptr % 16, dev)
+    args = _mix_args(B, K, M, stride_k, stride_b, p_ptr % 16, dev, G,
+                     stride_wg, stride_pg)
     rc = _fn(w.data_ptr(), p_ptr, out.data_ptr(), args[1], _raw_stream(dev))
     if rc != 0:
         raise RuntimeError(f"factor_mix kernel launch failed: cudaError {rc}")
@@ -176,6 +205,25 @@ def _mix_layout(w, p):
     if (w.shape == (B, K) and (sc == 1 or C == 1) and (st == C or T == 1)
             and B * M <= _MAX_DIM):
         return B, K, M, sk, sb, (B, T, C)
+    return None
+
+
+def _lanes_layout(w, p):
+    """``(B, K, M, stride_k, stride_b, out_shape, G, stride_wg, stride_pg)``
+    of ``w (G, B, K)`` and ``p (G, K, B, T, C)`` for the kernel, or None
+    when the layout is not one it takes: each lane's ``(B, K)`` block of w
+    and the (T, C) block of p contiguous, any strides on G, K and B."""
+    if w.dim() != 3 or p.dim() != 5:
+        return None
+    G, K, B, T, C = p.shape
+    sg, sk, sb, st, sc = p.stride()
+    swg, swb, swk = w.stride()
+    M = T * C
+    if (w.shape == (G, B, K) and (swk == 1 or K == 1)
+            and (swb == K or B == 1) and (sc == 1 or C == 1)
+            and (st == C or T == 1) and B * M <= _MAX_DIM
+            and G <= _MAX_LANES):
+        return B, K, M, sk, sb, (G, B, T, C), G, swg, sg
     return None
 
 
@@ -219,6 +267,18 @@ def _launch(weightings, preds):
     return _run(w, p, *args)
 
 
+def _launch_lanes(weightings, preds):
+    """Run the kernel once for every lane: ``weightings (G, B, K)``,
+    ``preds (G, K, B, T, C)`` -> ``(G, B, T, C)`` (layout as
+    :func:`_lanes_layout`)."""
+    w, p = weightings, preds
+    args = _lanes_layout(w, p) if _operands_ok(w, p) else None
+    if args is None:
+        _refuse(w, p, f"w (G, B, K) and p (G, K, B, T, C) with G <= "
+                      f"{_MAX_LANES}")
+    return _run(w, p, *args)
+
+
 def _mix_bwd(weightings, preds, g):
     """The exact backward of the mix: d w[b,k] = sum_{t,c} g p;
     d p[k,b,t,c] = w[b,k] g[b,t,c]."""
@@ -227,35 +287,101 @@ def _mix_bwd(weightings, preds, g):
     return dw, dp
 
 
+def _mix_lanes_bwd(weightings, preds, g):
+    """:func:`_mix_bwd` for every lane."""
+    dw = torch.einsum("gbtc,gkbtc->gbk", g, preds)
+    dp = torch.einsum("gbk,gbtc->gkbtc", weightings, g)
+    return dw, dp
+
+
+def _lane_operand(x, bdim, size):
+    """A ``torch.func.vmap`` operand with its lane axis first (a broadcast
+    view when the operand has none)."""
+    if bdim is None:
+        return x.unsqueeze(0).expand((size,) + tuple(x.shape))
+    return x.movedim(bdim, 0)
+
+
 class FactorMixFn(torch.autograd.Function):
-    """Kernel forward, plain-einsum backward (the JAX custom VJP)."""
+    """Kernel forward, plain-einsum backward (the JAX custom VJP); under
+    ``torch.func.vmap`` the lane form of the kernel."""
 
     @staticmethod
-    def forward(ctx, weightings, preds):
-        ctx.save_for_backward(weightings, preds)
-        return _launch(weightings, preds)
+    def forward(weightings, preds):
+        if weightings.is_cuda or preds.is_cuda:
+            return _launch(weightings, preds)
+        return factor_mix_reference(weightings, preds)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
 
     @staticmethod
     def backward(ctx, g):
         weightings, preds = ctx.saved_tensors
         return _mix_bwd(weightings, preds, g)
 
+    @staticmethod
+    def vmap(info, in_dims, weightings, preds):
+        w = _lane_operand(weightings, in_dims[0], info.batch_size)
+        p = _lane_operand(preds, in_dims[1], info.batch_size)
+        if w.is_cuda and _lanes_layout(w, p) is None:
+            w, p = w.contiguous(), p.contiguous()
+        return factor_mix_lanes(w, p), 0
+
+
+class FactorMixLanesFn(torch.autograd.Function):
+    """The lane form with autograd: kernel forward, einsum backward."""
+
+    @staticmethod
+    def forward(weightings, preds):
+        if weightings.is_cuda or preds.is_cuda:
+            return _launch_lanes(weightings, preds)
+        return factor_mix_lanes_reference(weightings, preds)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+
+    @staticmethod
+    def backward(ctx, g):
+        weightings, preds = ctx.saved_tensors
+        return _mix_lanes_bwd(weightings, preds, g)
+
 
 def _wants_grad(a, b):
     return torch.is_grad_enabled() and (a.requires_grad or b.requires_grad)
 
 
+_is_transformed = torch._C._functorch.is_functorch_wrapped_tensor
+
+
 def factor_mix(weightings, preds):
     """``weightings (B, K)``, ``preds (K, B, T, C)`` -> ``(B, T, C)``: the
-    CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
+    CUDA kernel for CUDA tensors, the plain version for CPU tensors. Under
+    ``torch.func.vmap`` the lane form of the kernel runs once for all
+    lanes."""
     if weightings.is_cuda or preds.is_cuda:
-        if _wants_grad(weightings, preds):
+        if (_wants_grad(weightings, preds) or _is_transformed(weightings)
+                or _is_transformed(preds)):
             return FactorMixFn.apply(weightings, preds)
         return _launch(weightings, preds)
     return factor_mix_reference(weightings, preds)
 
 
 factor_mix.launches = 0
+
+
+def factor_mix_lanes(weightings, preds):
+    """``weightings (G, B, K)``, ``preds (G, K, B, T, C)`` ->
+    ``(G, B, T, C)``: one launch of the CUDA kernel for every lane on CUDA
+    tensors (counted in ``factor_mix.launches``), the plain lane version
+    on CPU tensors."""
+    if weightings.is_cuda or preds.is_cuda:
+        if _wants_grad(weightings, preds):
+            return FactorMixLanesFn.apply(weightings, preds)
+        return _launch_lanes(weightings, preds)
+    return factor_mix_lanes_reference(weightings, preds)
 
 
 def graph_mix(weightings, static_gc):

@@ -10,10 +10,17 @@ the file keeps its counterpart's name).
   uses: GL on a CUDA tensor launches the kernel with its output aliasing
   the input (one launch, no allocation, no copy); otherwise the plain
   result is written back with ``copy_``.
+* :func:`gl_prox_lanes_` — the coefficient grid's form, in place on the
+  stacked block ``(G, ..., H, C_in, L)`` with a per-lane threshold and a
+  per-lane gate, both device tensors (:func:`lane_thresholds` makes the
+  thresholds as the JAX grid does, a float32 product on the device). GL
+  on a CUDA tensor is one launch of the same kernel for every lane, the
+  gate read on the device; otherwise the plain lane version
+  (:func:`gl_prox_lanes_reference`) is written back.
 * :func:`prox_plan` — the kernel's launch plan (chunk of a slab staged in
   shared memory, TMA path or not), a pure function of the shape and the
   alignment.
-* ``gl_prox.launches`` — a plain int, one per kernel launch, from either
+* ``gl_prox.launches`` — a plain int, one per kernel launch, from any
   form.
 
 There is no fallback: a CUDA tensor the kernel does not take (not float32,
@@ -31,9 +38,10 @@ import threading
 import torch
 
 from redcliff_tpu_torch.ops.cuda_build import build_library
-from redcliff_tpu_torch.ops.prox import prox_update, threshold
+from redcliff_tpu_torch.ops.prox import prox_update, prox_update_at, threshold
 
-__all__ = ["gl_prox", "gl_prox_", "gl_prox_reference", "load_kernel",
+__all__ = ["gl_prox", "gl_prox_", "gl_prox_reference", "gl_prox_lanes_",
+           "gl_prox_lanes_reference", "lane_thresholds", "load_kernel",
            "prox_plan", "KERNEL_SOURCE"]
 
 KERNEL_SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -47,6 +55,7 @@ _MAX_LEAD = _MAX_INDEX = 2 ** 31 - 1
 
 _lib = None
 _fn = None
+_fn_lanes = None
 _raw_stream = None
 _lib_lock = threading.Lock()
 
@@ -82,27 +91,30 @@ def prox_plan(H, C, L, offset):
 
 class _ProxArgs(ctypes.Structure):
     """The launch's shape and plan: ``ProxArgs`` of csrc/gl_prox.cu, field
-    for field. One per shape (cached), so a launch converts five ctypes
-    arguments, not twelve."""
+    for field. One per shape (cached), so a launch converts five or six
+    ctypes arguments, not twelve or fourteen."""
 
     _fields_ = [("lead", ctypes.c_longlong), ("H", ctypes.c_int),
                 ("C", ctypes.c_int), ("L", ctypes.c_int),
                 ("chunk", ctypes.c_int), ("bulk", ctypes.c_int),
-                ("threads", ctypes.c_int), ("device", ctypes.c_int)]
+                ("threads", ctypes.c_int), ("device", ctypes.c_int),
+                ("slabs_per_lane", ctypes.c_longlong)]
 
 
 @functools.lru_cache(maxsize=256)
-def _prox_args(lead, H, C, L, offset, device):
-    """``(_ProxArgs, its address)`` for one launch shape on ``device``."""
+def _prox_args(lead, H, C, L, offset, device, slabs_per_lane=0):
+    """``(_ProxArgs, its address)`` for one launch shape on ``device``;
+    ``slabs_per_lane`` for the lane entry."""
     chunk, bulk, threads = prox_plan(H, C, L, offset)
-    args = _ProxArgs(lead, H, C, L, chunk, int(bulk), threads, device)
+    args = _ProxArgs(lead, H, C, L, chunk, int(bulk), threads, device,
+                     slabs_per_lane)
     return args, ctypes.addressof(args)
 
 
 def load_kernel():
     """Build (first call in a process; cached by content on disk) and bind
     the CUDA kernel. Returns the ctypes library."""
-    global _lib, _fn, _raw_stream
+    global _lib, _fn, _fn_lanes, _raw_stream
     with _lib_lock:
         if _lib is None:
             lib = build_library("redcliff_gl_prox", KERNEL_SOURCE)
@@ -110,16 +122,18 @@ def load_kernel():
             fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                            ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
             fn.restype = ctypes.c_int
+            fn_lanes = lib.redcliff_gl_prox_lanes_f32
+            fn_lanes.argtypes = [ctypes.c_void_p] * 6
+            fn_lanes.restype = ctypes.c_int
             # the current stream's cudaStream_t of a device, as an int
             _raw_stream = torch._C._cuda_getCurrentRawStream
-            _fn, _lib = fn, lib
+            _fn, _fn_lanes, _lib = fn, fn_lanes, lib
         return _lib
 
 
-def _launch(W1, lam, lr, out=None):
-    """Run the kernel on a contiguous float32 CUDA block
-    ``(lead..., H, C_in, L)`` into ``out`` (a new tensor when None; ``W1``
-    itself for the in-place update). Returns ``out``."""
+def _check_block(W1):
+    """Raise unless ``W1`` is a block the kernel takes: a contiguous
+    float32 CUDA tensor of rank 3 or more."""
     if not (W1.is_cuda and W1.dtype is torch.float32 and W1.dim() >= 3
             and W1.is_contiguous()):
         if not W1.is_cuda:
@@ -131,6 +145,13 @@ def _launch(W1, lam, lr, out=None):
             raise ValueError(f"gl_prox wants a (..., H, C_in, L) block, got "
                              f"shape {tuple(W1.shape)}")
         raise ValueError("gl_prox kernel needs a contiguous block")
+
+
+def _launch(W1, lam, lr, out=None):
+    """Run the kernel on a contiguous float32 CUDA block
+    ``(lead..., H, C_in, L)`` into ``out`` (a new tensor when None; ``W1``
+    itself for the in-place update). Returns ``out``."""
+    _check_block(W1)
     if out is None:
         out = torch.empty_like(W1)
     numel = W1.numel()
@@ -177,3 +198,80 @@ def gl_prox_(W1, lam, lr, penalty="GL"):
     else:
         W1.copy_(prox_update(W1, lam, lr, penalty))
     return W1
+
+
+def lane_thresholds(lr, lam):
+    """Per-lane thresholds ``lr * lam`` for the lane learning rates ``lr``
+    (a ``(G,)`` tensor): the float32 product on ``lr``'s device, as the
+    JAX grid computes ``lr * lam`` with a float32 ``lr`` under vmap (the
+    per-point :func:`threshold` rounds a double product instead; the two
+    can differ in the last bit)."""
+    lr = lr.to(torch.float32)
+    return lr * torch.tensor(lam, dtype=torch.float32, device=lr.device)
+
+
+def _lane_view(x, W):
+    """A ``(G,)`` per-lane tensor shaped to broadcast against ``W``."""
+    return x.reshape((-1,) + (1,) * (W.dim() - 1))
+
+
+def gl_prox_lanes_reference(W, t, gate, penalty="GL"):
+    """Plain lane version: each lane of ``W (G, ..., H, C_in, L)`` takes
+    the prox at its threshold ``t[g]`` where ``gate[g]``, and stays as it
+    is elsewhere. Functional: returns a new tensor."""
+    new = prox_update_at(W, _lane_view(t, W), penalty)
+    return torch.where(_lane_view(gate, W), new, W)
+
+
+def gl_prox_lanes_(W, t, gate, penalty="GL"):
+    """:func:`gl_prox_lanes_reference` in place on ``W``; returns ``W``.
+    ``t`` is the ``(G,)`` float32 thresholds (:func:`lane_thresholds`),
+    ``gate`` the ``(G,)`` bool gate, both on ``W``'s device. GL on a CUDA
+    tensor is one kernel launch for all lanes that reads ``t`` and
+    ``gate`` on the device (no host sync); the version counter is bumped
+    as in :func:`gl_prox_`. Call under ``torch.no_grad()``."""
+    if penalty == "GL" and W.is_cuda:
+        _launch_lanes(W, t, gate)
+        torch.autograd.graph.increment_version(W)
+    else:
+        W.copy_(gl_prox_lanes_reference(W, t, gate, penalty))
+    return W
+
+
+def _launch_lanes(W, t, gate):
+    """Run the kernel in place on the stacked block ``W (G, lead...,
+    H, C_in, L)`` with per-lane thresholds ``t`` and gate ``gate``."""
+    _check_block(W)
+    if W.dim() < 4:
+        raise ValueError(f"gl_prox_lanes_ wants a (G, ..., H, C_in, L) "
+                         f"block, got shape {tuple(W.shape)}")
+    G = W.shape[0]
+    if not (t.is_cuda and gate.is_cuda and t.get_device() == W.get_device()
+            and gate.get_device() == W.get_device()
+            and t.dtype is torch.float32 and gate.dtype is torch.bool
+            and t.shape == (G,) and gate.shape == (G,)
+            and t.is_contiguous() and gate.is_contiguous()):
+        raise ValueError(
+            f"gl_prox_lanes_ wants (G,) = ({G},) float32 thresholds and a "
+            f"bool gate, contiguous, on {W.device}; got {t.dtype} "
+            f"{tuple(t.shape)} on {t.device} and {gate.dtype} "
+            f"{tuple(gate.shape)} on {gate.device}")
+    numel = W.numel()
+    if numel == 0:
+        return W
+    *_, H, C, L = W.shape
+    lead = numel // (H * C * L)
+    if lead > _MAX_LEAD:
+        raise ValueError(f"gl_prox kernel takes at most {_MAX_LEAD} leading "
+                         f"slabs, got {lead}")
+    if _fn_lanes is None:
+        load_kernel()
+    w_ptr = W.data_ptr()
+    dev = W.get_device()
+    args = _prox_args(lead, H, C, L, w_ptr % 16, dev, lead // G)
+    rc = _fn_lanes(w_ptr, w_ptr, args[1], t.data_ptr(), gate.data_ptr(),
+                   _raw_stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"gl_prox kernel launch failed: cudaError {rc}")
+    gl_prox.launches += 1
+    return W

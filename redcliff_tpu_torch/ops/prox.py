@@ -20,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["prox_update", "soft_threshold_by_group_norm",
+__all__ = ["prox_update", "prox_update_at", "soft_threshold_by_group_norm",
            "group_lasso_penalty", "ridge_penalty", "threshold"]
 
 
@@ -43,8 +43,14 @@ def soft_threshold_by_group_norm(W, norm, thresh):
 def prox_update(W1, lam, lr, penalty="GL"):
     """Proximal update on a first-layer block ``(..., H, C_in, L)``; any
     leading axes are batched. Functional: returns a new tensor."""
+    return prox_update_at(W1, threshold(lam, lr), penalty)
+
+
+def prox_update_at(W1, t, penalty="GL"):
+    """:func:`prox_update` at the threshold ``t``: a number, or a tensor
+    that broadcasts against ``W1`` (the coefficient grid's per-lane
+    thresholds, shaped ``(G, 1, ..., 1)``)."""
     h_axis, lag_axis = -3, -1
-    t = threshold(lam, lr)
     if penalty == "GL":
         return soft_threshold_by_group_norm(
             W1, _group_norm(W1, (h_axis, lag_axis)), t)

@@ -9,6 +9,11 @@ divergence policy (port of ``runtime/numerics.py``).
   package decides inside the compiled step with ``lax.cond``; eager
   PyTorch needs the verdict on the host, so the guard makes ONE host read
   per step (the loss and the norm in one transfer).
+* The coefficient grid keeps the counters per lane on the device
+  (``init_numerics_state(lanes=G)``, ``update_numerics_state(..., count=
+  active)``, :func:`lane_global_norm`), as the JAX grid does: its step
+  gates each lane with ``torch.where`` and never reads the verdict on the
+  host.
 * :class:`NumericsPolicy` is the declarative knob set, as in JAX.
 * :class:`DivergenceMonitor` snapshots the last known-good state each
   healthy epoch and, on K consecutive skips or a validation-criteria
@@ -17,8 +22,8 @@ divergence policy (port of ``runtime/numerics.py``).
   snapshot or the rollback budget spent it aborts with a recorded cause.
 
 A state tree here is nested dicts/lists/tuples of tensors, numbers and
-optimizer ``state_dict`` s. Counters live on the host as numpy scalars, the
-grad-norm sums in float32 as the JAX package keeps them.
+optimizer ``state_dict`` s. The per-point counters live on the host as
+numpy scalars, the grad-norm sums in float32 as the JAX package keeps them.
 """
 from __future__ import annotations
 
@@ -33,9 +38,21 @@ from redcliff_tpu_torch.interop import tree_leaves, tree_map
 __all__ = [
     "NumericsPolicy", "NumericsAction", "DivergenceMonitor",
     "init_numerics_state", "update_numerics_state", "guarded_update",
-    "global_norm", "numerics_summary", "reset_consecutive",
+    "global_norm", "lane_global_norm", "numerics_summary",
+    "reset_consecutive", "CAUSE_NONFINITE_GRAD", "CAUSE_NONFINITE_VAL",
+    "CAUSE_DEADLINE", "QUARANTINE_CAUSES",
     "scale_learning_rate", "current_learning_rates", "to_host", "to_torch",
 ]
+
+
+# quarantine cause codes of the grid's per-lane failures (GridResult.failures
+# records). The deadline cause belongs to lane deadlines, not yet ported.
+CAUSE_NONFINITE_GRAD = 1
+CAUSE_NONFINITE_VAL = 2
+CAUSE_DEADLINE = 3
+QUARANTINE_CAUSES = {CAUSE_NONFINITE_GRAD: "nonfinite_grad",
+                     CAUSE_NONFINITE_VAL: "nonfinite_val",
+                     CAUSE_DEADLINE: "deadline"}
 
 
 @dataclass(frozen=True)
@@ -64,8 +81,17 @@ class NumericsAction:
 # ---------------------------------------------------------------------------
 # the step guard and its counters
 # ---------------------------------------------------------------------------
-def init_numerics_state():
-    """Fresh sentinel counters (host scalars)."""
+def init_numerics_state(lanes=None, device="cpu"):
+    """Fresh sentinel counters: host scalars, or with ``lanes=G`` one
+    ``(G,)`` tensor per field on ``device`` (the grid's layout)."""
+    if lanes is not None:
+        z = lambda: torch.zeros((int(lanes),), dtype=torch.int32,  # noqa
+                                device=device)
+        f = lambda: torch.zeros((int(lanes),), dtype=torch.float32,  # noqa
+                                device=device)
+        return {"skipped": z(), "consecutive": z(), "checked": z(),
+                "grad_norm_last": f(), "grad_norm_sum": f(),
+                "grad_norm_sq_sum": f(), "grad_norm_max": f()}
     z = np.float32(0.0)
     return {"skipped": 0, "consecutive": 0, "checked": 0,
             "grad_norm_last": z, "grad_norm_sum": z,
@@ -81,9 +107,51 @@ def global_norm(tree):
     return torch.sqrt(total)
 
 
-def update_numerics_state(state, ok, grad_norm):
-    """Advance the counters for one guarded step; ``grad_norm`` is the
-    host value of the step's global norm (may be inf/NaN)."""
+def lane_global_norm(tree):
+    """Per-lane global L2 norm of a gradient tree whose leaves carry a
+    leading lane axis: ``(G,)`` float32 on the leaves' device."""
+    total = sum(torch.sum(torch.square(g.float()).reshape(g.shape[0], -1),
+                          dim=1)
+                for g in tree_leaves(tree))
+    return torch.sqrt(total)
+
+
+def _update_lanes(state, ok, grad_norm, count):
+    """The device half of :func:`update_numerics_state` (the JAX
+    package's, op for op): ``ok``, ``grad_norm`` and ``count`` are ``(G,)``
+    tensors; lanes outside ``count`` neither count skips nor reset their
+    streak, and the norm statistics cover the applied steps only."""
+    count = torch.ones_like(ok) if count is None else count.to(torch.bool)
+    counted_skip = count & ~ok
+    finite_norm = torch.where(torch.isfinite(grad_norm), grad_norm,
+                              torch.zeros_like(grad_norm))
+    seen = count & ok
+    seen_norm = torch.where(seen, finite_norm, torch.zeros_like(finite_norm))
+    return {
+        "skipped": state["skipped"] + counted_skip.to(torch.int32),
+        "consecutive": torch.where(
+            count, torch.where(ok, torch.zeros_like(state["consecutive"]),
+                               state["consecutive"] + 1),
+            state["consecutive"]),
+        "checked": state["checked"] + count.to(torch.int32),
+        "grad_norm_last": torch.where(count, grad_norm,
+                                      state["grad_norm_last"]),
+        "grad_norm_sum": state["grad_norm_sum"] + seen_norm,
+        "grad_norm_sq_sum": state["grad_norm_sq_sum"]
+        + torch.square(seen_norm),
+        "grad_norm_max": torch.maximum(state["grad_norm_max"], seen_norm),
+    }
+
+
+def update_numerics_state(state, ok, grad_norm, count=None):
+    """Advance the counters for one guarded step. Host counters: ``ok`` a
+    bool and ``grad_norm`` the host value of the step's global norm (may
+    be inf/NaN). Lane counters (tensors of :func:`init_numerics_state`
+    with ``lanes``): ``ok`` and ``grad_norm`` ``(G,)`` tensors and
+    ``count`` the lanes that trained this step (the grid's active mask),
+    all on the device."""
+    if isinstance(ok, torch.Tensor):
+        return _update_lanes(state, ok, grad_norm, count)
     gn = np.float32(grad_norm)
     finite = np.float32(gn if math.isfinite(float(gn)) else 0.0)
     seen = np.float32(finite if ok else 0.0)

@@ -5,6 +5,8 @@ factor network; after each batch (FreezeByBatch) or epoch (FreezeByEpoch)
 a per-factor decision statistic chooses, factor by factor, whether the
 candidate update is kept or reverted. Two params trees merged with
 per-factor ``torch.where`` masks, as in the JAX package.
+:func:`apply_freeze_lanes` runs the round for every lane of the coefficient
+grid's stacked trees (``torch.func.vmap``, as the JAX grid vmaps it).
 """
 from __future__ import annotations
 
@@ -13,7 +15,7 @@ import torch
 from redcliff_tpu_torch.interop import tree_map
 
 __all__ = ["factor_decision_stats", "freeze_accept_vector", "swap_factors",
-           "apply_freeze"]
+           "apply_freeze", "apply_freeze_lanes"]
 
 
 def factor_decision_stats(model, params):
@@ -71,3 +73,10 @@ def apply_freeze(model, mode, candidate, accepted):
         factor_decision_stats(model, candidate),
         factor_decision_stats(model, accepted))
     return swap_factors(candidate, accepted, accept)
+
+
+def apply_freeze_lanes(model, mode, candidate, accepted):
+    """:func:`apply_freeze` for every lane of stacked ``(G, ...)`` trees:
+    returns the merged candidates and the new accepted trees, stacked."""
+    return torch.func.vmap(
+        lambda c, a: apply_freeze(model, mode, c, a))(candidate, accepted)

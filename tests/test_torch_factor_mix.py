@@ -285,3 +285,184 @@ def test_misaligned_and_odd_width_launches_on_card():
     with pytest.raises(ValueError, match="CUDA"):
         FM.graph_mix(w, gc.cpu())
     torch.cuda.synchronize()
+
+
+# ------------------------------------------------------------ the lane form
+LANE_SHAPES = ((4, 17, 5, 1, 10), (3, 6, 2, 2, 4), (2, 3, 4, 1, 7))
+
+
+def _lane_inputs(seed, G, B, K, T, C):
+    rng = np.random.default_rng(seed)
+    return (rng.random((G, B, K)).astype(np.float32),
+            rng.normal(size=(G, K, B, T, C)).astype(np.float32))
+
+
+@pytest.mark.parametrize("shape", LANE_SHAPES)
+def test_factor_mix_lanes_plain_matches_jax_vmap_of_pallas(shape):
+    """The plain lane version, ``factor_mix_lanes`` on CPU tensors, and
+    FactorMixFn under ``torch.func.vmap`` (its vmap rule) against
+    ``jax.vmap`` of the Pallas kernel in interpret mode, as the JAX grid
+    batches it."""
+    w, p = _lane_inputs(7, *shape)
+    want = np.asarray(jax.vmap(
+        lambda a, b: factor_mix_pallas(a, b, block_b=8, interpret=True))(
+            jnp.asarray(w), jnp.asarray(p)))
+    tw, tp = torch.from_numpy(w), torch.from_numpy(p)
+    before = FM.factor_mix.launches
+    for got in (FM.factor_mix_lanes_reference(tw, tp),
+                FM.factor_mix_lanes(tw, tp),
+                torch.func.vmap(FM.FactorMixFn.apply)(tw, tp),
+                torch.func.vmap(FM.factor_mix)(tw, tp)):
+        assert tuple(got.shape) == want.shape
+        np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+    assert FM.factor_mix.launches == before
+
+
+@pytest.mark.parametrize("shape", LANE_SHAPES)
+def test_vmap_rule_grads_match_jax_vmap_of_custom_vjp(shape):
+    """Per-lane gradients through the vmap rule (``torch.func.vmap`` of
+    ``torch.func.grad``, the grid step's transform) and through the lane
+    backward against ``jax.vmap`` of ``jax.grad`` through the Pallas
+    kernel's custom VJP, for a loss weighting each output by a fixed
+    random cotangent."""
+    w, p = _lane_inputs(8, *shape)
+    r = np.random.default_rng(18).normal(
+        size=(shape[0], shape[1]) + shape[3:]).astype(np.float32)
+
+    def f_pl(a, b, c):
+        return jnp.sum(c * factor_mix_pallas(a, b, block_b=4,
+                                             interpret=True))
+    jg_w, jg_p = jax.vmap(jax.grad(f_pl, argnums=(0, 1)))(
+        jnp.asarray(w), jnp.asarray(p), jnp.asarray(r))
+
+    def f_t(a, b, c):
+        return (c * FM.FactorMixFn.apply(a, b)).sum()
+    tw, tp, tr = torch.from_numpy(w), torch.from_numpy(p), torch.from_numpy(r)
+    gw, gp = torch.func.vmap(torch.func.grad(f_t, argnums=(0, 1)))(tw, tp,
+                                                                   tr)
+    dw, dp = FM._mix_lanes_bwd(tw, tp, tr)
+    # ordinary autograd through a vmapped forward
+    aw = tw.clone().requires_grad_(True)
+    ap = tp.clone().requires_grad_(True)
+    (tr * torch.func.vmap(FM.FactorMixFn.apply)(aw, ap)).sum().backward()
+    for got_w, got_p in ((gw, gp), (dw, dp), (aw.grad, ap.grad)):
+        np.testing.assert_allclose(got_w.numpy(), np.asarray(jg_w),
+                                   rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(got_p.numpy(), np.asarray(jg_p),
+                                   rtol=RTOL, atol=ATOL)
+
+
+def _emulate_lanes(w, p, B, K, M, stride_k, stride_b, out_shape, G,
+                   stride_wg, stride_pg):
+    """The lane launch's addressing on the CPU: lane g's w at
+    ``g*stride_wg``, its element (k, b, m) of p at
+    ``g*stride_pg + k*stride_k + b*stride_b + m``."""
+    wv = torch.as_strided(w, (G, B, K), (stride_wg, K, 1), w.storage_offset())
+    pv = torch.as_strided(p, (G, K, B, M), (stride_pg, stride_k, stride_b, 1),
+                          p.storage_offset())
+    return torch.einsum("gbk,gkbm->gbm", wv, pv).reshape(out_shape)
+
+
+@pytest.mark.parametrize("shape", LANE_SHAPES)
+def test_lane_layout_matches_jax_on_views(shape):
+    """The layout the lane launch is handed for contiguous operands, a p
+    offset by one float, a p whose lane axis is a strided slice and a w
+    broadcast over the lanes (lane stride 0, as the vmap rule passes an
+    operand without a lane axis) computes the JAX mix per lane."""
+    w, p = _lane_inputs(9, *shape)
+    G = shape[0]
+    tw, base = torch.from_numpy(w), torch.from_numpy(p)
+    flat = torch.zeros(base.numel() + 1)
+    flat[1:] = base.reshape(-1)
+    wide = torch.zeros((2 * G,) + base.shape[1:])
+    wide[::2] = base
+    for tp in (base, flat[1:].view(base.shape), wide[::2]):
+        args = FM._lanes_layout(tw, tp)
+        assert args is not None and args[6] == G
+        want = np.asarray(jax.vmap(
+            lambda a, b: factor_mix_pallas(a, b, interpret=True))(
+                jnp.asarray(w), jnp.asarray(tp.numpy())))
+        np.testing.assert_allclose(_emulate_lanes(tw, tp, *args).numpy(),
+                                   want, rtol=RTOL, atol=ATOL)
+    w0 = tw[:1].expand(tw.shape)
+    args = FM._lanes_layout(w0, base)
+    assert args is not None and args[7] == 0
+    np.testing.assert_allclose(
+        _emulate_lanes(w0, base, *args).numpy(),
+        FM.factor_mix_lanes_reference(w0, base).numpy(), rtol=RTOL,
+        atol=ATOL)
+    # a w whose (B, K) block is not contiguous is refused
+    assert FM._lanes_layout(tw.transpose(1, 2).contiguous().transpose(
+        1, 2), base) is None or shape[2] == 1
+
+
+def test_mix_plan_lane_stride():
+    """The lane stride of p joins the alignment rule: float4 only when it
+    is a multiple of 4 floats too."""
+    assert FM.mix_plan(128, 10, 1280, 10, 0, 6400)[0] == 2
+    assert FM.mix_plan(64, 100, 100, 0, 0, 500)[0] == 4
+    assert FM.mix_plan(64, 100, 100, 0, 0, 502)[0] == 2
+    assert FM.mix_plan(64, 100, 100, 0, 0, 501)[0] == 1
+
+
+def test_lane_launch_refuses_cpu_tensors(monkeypatch):
+    def no_build():
+        raise AssertionError("CPU tensors must not build the kernel")
+
+    monkeypatch.setattr(FM, "load_kernel", no_build)
+    w, p = _lane_inputs(2, 2, 4, 3, 1, 5)
+    with pytest.raises(ValueError, match="CUDA"):
+        FM._launch_lanes(torch.from_numpy(w), torch.from_numpy(p))
+
+
+@pytest.mark.gpu
+def test_lane_kernel_matches_plain_on_card():
+    """The lane launch against the plain lane version on the card: the
+    grid's training shape and its remainder batch, a p offset by one float,
+    one launch per call for every lane, the vmap rule's gradients and
+    ordinary autograd through a vmapped forward."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+
+    def offset(t):
+        flat = torch.empty(t.numel() + 1, device=dev)
+        view = flat[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    for G, B in ((27, 128), (27, 80), (3, 17)):
+        w, p = _lane_inputs(10, G, B, 5, 1, 10)
+        tw = torch.tensor(w, device=dev)
+        for tp in (torch.tensor(p, device=dev),
+                   offset(torch.tensor(p, device=dev))):
+            before = FM.factor_mix.launches
+            got = FM.factor_mix_lanes(tw, tp)
+            assert FM.factor_mix.launches == before + 1
+            torch.testing.assert_close(
+                got, FM.factor_mix_lanes_reference(tw, tp), rtol=RTOL,
+                atol=ATOL)
+        tp = torch.tensor(p, device=dev)
+
+        def f(a, b, mix):
+            return torch.sin(mix(a, b)).sum()
+        got = torch.func.vmap(torch.func.grad(
+            lambda a, b: f(a, b, FM.FactorMixFn.apply), argnums=(0, 1)))(
+                tw, tp)
+        want = torch.func.vmap(torch.func.grad(
+            lambda a, b: f(a, b, FM.factor_mix_reference), argnums=(0, 1)))(
+                tw, tp)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL)
+        # ordinary autograd through a vmapped forward (FactorMixLanesFn),
+        # with a fixed cotangent
+        r = torch.randn(got[0].shape[:2] + (1, 10), device=dev)
+        aw, ap = tw.clone().requires_grad_(True), tp.clone().requires_grad_(
+            True)
+        rw, rp = tw.clone().requires_grad_(True), tp.clone().requires_grad_(
+            True)
+        (r * torch.func.vmap(FM.FactorMixFn.apply)(aw, ap)).sum().backward()
+        (r * FM.factor_mix_lanes_reference(rw, rp)).sum().backward()
+        torch.testing.assert_close(aw.grad, rw.grad, rtol=RTOL, atol=ATOL)
+        torch.testing.assert_close(ap.grad, rp.grad, rtol=RTOL, atol=ATOL)
+    torch.cuda.synchronize()

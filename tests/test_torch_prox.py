@@ -323,3 +323,160 @@ def test_gl_prox_kernel_matches_plain_on_card():
         PX.gl_prox(W.transpose(-1, -3), 1.0, 0.25)
     with pytest.raises(ValueError, match="block"):
         PX.gl_prox(W[0, 0, 0], 1.0, 0.25)
+
+
+# ------------------------------------------------------------ the lane form
+LANE_LRS = np.asarray([5e-4, 2e-3, 2e-4, 0.05], np.float32)
+
+
+def test_lane_thresholds_are_the_float32_product():
+    """Each lane's threshold is the float32 product of its float32 lr and
+    lam, computed on the lr's device (the JAX grid's ``lr * lam`` under
+    vmap), exactly."""
+    for lam in (4.0, 0.013, 50.0, 0.1):
+        got = PX.lane_thresholds(torch.from_numpy(LANE_LRS), lam).numpy()
+        want = np.asarray(jax.vmap(lambda lr: lr * lam)(
+            jnp.asarray(LANE_LRS)))
+        assert got.dtype == np.float32
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(got, LANE_LRS * np.float32(lam))
+
+
+@pytest.mark.parametrize("lam", [4.0, 0.013, 50.0])
+@pytest.mark.parametrize("shape", [(5, 10, 25, 10, 4), (3, 7, 5, 7, 3)])
+def test_gl_prox_lanes_plain_matches_jax_vmap_of_pallas(shape, lam):
+    """The plain lane version and ``gl_prox_lanes_`` on a CPU tensor (all
+    lanes gated on) against the JAX kernel batched as the grid batches it:
+    ``jax.vmap`` over the lanes with a per-lane lr, interpret mode."""
+    W = np.stack([_w(shape, seed=20 + g, scale=0.05)
+                  for g in range(len(LANE_LRS))])
+    want = np.asarray(jax.vmap(
+        lambda w, lr: gl_prox_pallas(w, lam, lr, block_rows=7,
+                                     interpret=True))(
+        jnp.asarray(W), jnp.asarray(LANE_LRS)))
+    t = PX.lane_thresholds(torch.from_numpy(LANE_LRS), lam)
+    gate = torch.ones(len(LANE_LRS), dtype=torch.bool)
+    Wt = torch.from_numpy(W.copy())
+    before = PX.gl_prox.launches
+    _close(PX.gl_prox_lanes_reference(Wt, t, gate), want)
+    ptr = Wt.data_ptr()
+    assert PX.gl_prox_lanes_(Wt, t, gate) is Wt and Wt.data_ptr() == ptr
+    _close(Wt, want)
+    assert PX.gl_prox.launches == before
+
+
+def test_gl_prox_lanes_gate_and_zero_groups():
+    """A gated-off lane is left exactly as it was, zero groups included;
+    a gated-on lane's zero group stays zero (no 0/0); the per-lane result
+    equals the per-point prox at that lane's float32 threshold."""
+    shape = (2, 3, 5, 3, 4)
+    W = np.stack([_w(shape, seed=30 + g) for g in range(4)])
+    W[1, 0, 0, :, 1, :] = 0.0
+    W[2, 1, 2, :, 0, :] = 0.0
+    lr = np.asarray([0.25, 0.1, 0.05, 0.2], np.float32)
+    t = PX.lane_thresholds(torch.from_numpy(lr), 1.0)
+    gate = torch.tensor([True, True, False, False])
+    Wt = torch.from_numpy(W.copy())
+    PX.gl_prox_lanes_(Wt, t, gate)
+    assert torch.isfinite(Wt).all()
+    for g in (2, 3):
+        assert torch.equal(Wt[g], torch.from_numpy(W[g]))
+    assert float(Wt[1, 0, 0, :, 1, :].abs().max()) == 0.0
+    for g in (0, 1):
+        want = gl_prox_pallas(jnp.asarray(W[g]), 1.0, jnp.float32(lr[g]),
+                              interpret=True)
+        _close(Wt[g], want)
+
+
+@pytest.mark.parametrize("penalty", ["GSGL", "H"])
+def test_prox_lanes_other_penalties_match_jax_vmap(penalty):
+    """GSGL and H stay plain over lanes too, at the same float32
+    thresholds as the JAX grid's vmapped prox."""
+    W = np.stack([_w((3, 4, 6, 4, 3), seed=40 + g, scale=0.3)
+                  for g in range(len(LANE_LRS))])
+    lam = 2.0
+    want = jax.vmap(lambda w, lr: jprox.prox_update(w, lam, lr, penalty))(
+        jnp.asarray(W), jnp.asarray(LANE_LRS))
+    Wt = torch.from_numpy(W.copy())
+    PX.gl_prox_lanes_(Wt, PX.lane_thresholds(torch.from_numpy(LANE_LRS),
+                                             lam),
+                      torch.ones(len(LANE_LRS), dtype=torch.bool), penalty)
+    _close(Wt, want)
+
+
+def test_apply_prox_lanes_changes_only_the_first_layer():
+    """The model's lane prox rewrites the stacked first-layer block in its
+    own storage, lane by lane as the per-point apply_prox_, and touches no
+    other leaf."""
+    _, _, tm, tp = _model()
+    G = 3
+    stacked = interop.tree_map(lambda x: torch.stack([x * (1 + 0.1 * g)
+                                                      for g in range(G)]),
+                               tp)
+    lr = torch.tensor([0.5, 0.2, 0.1])
+    t = PX.lane_thresholds(lr, 0.1)
+    gate = torch.tensor([True, False, True])
+    w = stacked["factors"][0]["w"]
+    ptr = w.data_ptr()
+    w0 = w.clone()
+    others = [x for x in interop.tree_leaves(stacked) if x is not w]
+    before = [x.clone() for x in others]
+    with torch.no_grad():
+        out = tm.apply_prox_lanes_(stacked, t, gate)
+    assert out is stacked and w.data_ptr() == ptr
+    for g in range(G):
+        want = w0[g] if not gate[g] else PX.prox_update_at(w0[g],
+                                                           float(t[g]))
+        assert torch.equal(w[g], want)
+    for a, b in zip(others, before):
+        assert torch.equal(a, b)
+
+
+def test_lane_launch_refuses_what_the_kernel_does_not_take(monkeypatch):
+    def no_build():
+        raise AssertionError("CPU tensors must not build the kernel")
+
+    monkeypatch.setattr(PX, "load_kernel", no_build)
+    W = torch.from_numpy(_w((2, 2, 3, 4, 3, 2)))
+    t = torch.ones(2)
+    gate = torch.ones(2, dtype=torch.bool)
+    with pytest.raises(ValueError, match="CUDA"):
+        PX._launch_lanes(W, t, gate)
+
+
+@pytest.mark.gpu
+def test_gl_prox_lanes_kernel_matches_plain_on_card():
+    """On the card: the lane kernel in place at the grid's block with mixed
+    gates (lanes off, a lane with a zero group), a block offset by one
+    float, and slabs walked in chunks, against the plain lane version; one
+    launch per call; thresholds and gate of the wrong kind raise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    G = 27
+    gen = torch.Generator().manual_seed(0)
+    lr = torch.tensor([2e-4, 5e-4, 2e-3] * 9, device=dev)
+    gate = (torch.rand(G, generator=gen) < 0.7).to(dev)
+    gate[5] = True
+    for shape in ((5, 10, 25, 10, 4), (3, 7, 5, 7, 3), (2, 3, 200, 10, 8)):
+        for lam in (4.0, 50.0):
+            t = PX.lane_thresholds(lr, lam)
+            W = (0.05 * torch.randn((G,) + shape, generator=gen)).to(dev)
+            W[5, 0, 0, :, 1, :] = 0.0
+            flat = torch.empty(W.numel() + 1, device=dev)
+            for Wi in (W.clone(), flat[1:].view(W.shape).copy_(W)):
+                want = PX.gl_prox_lanes_reference(Wi, t, gate)
+                before = PX.gl_prox.launches
+                ptr = Wi.data_ptr()
+                assert PX.gl_prox_lanes_(Wi, t, gate) is Wi
+                assert Wi.data_ptr() == ptr
+                assert PX.gl_prox.launches == before + 1
+                torch.testing.assert_close(Wi, want, **TOL)
+                assert float(Wi[5, 0, 0, :, 1, :].abs().max()) == 0.0
+                off = ~gate.cpu()
+                assert torch.equal(Wi[off.to(dev)], W[off.to(dev)])
+    with pytest.raises(ValueError, match="bool gate"):
+        PX.gl_prox_lanes_(W, t, gate.float())
+    with pytest.raises(ValueError, match="bool gate"):
+        PX.gl_prox_lanes_(W, t.cpu(), gate)
+    torch.cuda.synchronize()
