@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch/H100 port (``redcliff_tpu_torch``).
 
-Drives the port's three main paths on one CUDA card — serving a fitted
-model, fitting one, and fitting a coefficient grid — and holds every
-kernel on them against its plain PyTorch version. Phases, one JSON line
+Drives the port's main paths on one CUDA card — serving a fitted model,
+fitting one, fitting a coefficient grid, fitting it durably on the bucket
+ladder, and running one array task from cached-args files — and holds
+every kernel on them against its plain PyTorch version. Phases, one JSON line
 each:
 
 1. build: the factor-mix and GL-prox CUDA kernels from
@@ -50,11 +51,29 @@ each:
    against the port's per-point ``RedcliffTrainer`` fit of the same point
    from the same weights on the card.
 8. grid_check: the same 8 grid steps (27 lanes) from the same weights and
-   batches on the card and on the CPU, losses and params compared.
+   batches on the card and on the CPU, losses and per-lane updates
+   compared.
+9. grid_durable: the published grid through ``RedcliffGridRunner.fit`` on
+   the bucket ladder (27 points at width 32), a checkpoint every epoch,
+   and wall-clock budgets that evict points 15-26 at the first epoch
+   boundary: checks the eviction (cause ``deadline``, original ids, each
+   retired lane through ``on_lane_retire``), the compaction to width 16,
+   that the lane prox is handed aligned contiguous blocks (its TMA path),
+   launch counts by width, then a fit stopped after 2 epochs and resumed
+   to 4 against the uninterrupted one (same decisions, params within 1e-6
+   relative; bitwise equality printed); the step's host ms and device us
+   at widths 32 and 16, and the checkpoint's bytes, write and load ms.
+10. array_task: one array task of the published D4IC REDCLIFF-S
+   cached-args (depth cut as in train) through
+   ``train/driver.py:set_up_and_run_experiments`` on a fold of the train
+   phase's data written by the port's ``save_cv_split``; checks the
+   artifact, its reload through ``eval/model_io.py``, its GC readout and
+   the factor-mix launches against the fit's forwards (the array task sets
+   no prox, here as in the JAX package, so it launches no GL prox).
 
-Launch counts are reset just before each main path (serve, train, grid)
-and read just after; the kernel-phase launches do not count. Then a ``kernels``
-line, the ``nvidia-smi`` name/power line, and as the last line
+Launch counts are reset just before each main path (serve, train, grid,
+grid_durable, array_task) and read just after; the kernel-phase launches
+do not count. Then a ``kernels`` line, the ``nvidia-smi`` name/power line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises: the script
 exits non-zero and prints no ``ok`` line. It also refuses to run without
 CUDA or outside a checkout of the repository.
@@ -172,6 +191,58 @@ GRID_CHECK_REL = 1e-3
 GRID_LANE_LOSS_RTOL, GRID_LANE_LOSS_ATOL = 1e-4, 1e-5
 GRID_LANE_CRIT_RTOL = 2e-3
 GRID_LANE_PARAM_ATOL = 5e-4
+
+
+# grid_durable: the published grid on the bucket ladder (27 points at
+# width 32), a checkpoint every epoch, and wall-clock budgets that evict
+# points 15-26 at the first epoch boundary, so the 15 survivors compact to
+# width 16; then a fit stopped after DURABLE_RESUME_AT epochs and resumed
+# to the horizon, held to the uninterrupted one: the same decisions,
+# params within DURABLE_PARAM_REL relative (max abs error over the leaf's
+# max abs value; the same programs on the same inputs)
+DURABLE_LIVE = 15
+DURABLE_DEADLINES = (1e6,) * DURABLE_LIVE + (1e-3,) * (27 - DURABLE_LIVE)
+DURABLE_RESUME_AT = 2
+DURABLE_PARAM_REL = 1e-6
+DURABLE_PROFILE_STEPS = 8
+
+# array_task: the published D4IC REDCLIFF-S cached-args
+# (experiments/accuracy_parity_d4ic.py:70-97, from the reference's
+# train/REDCLIFF_S_CMLP_d4IC_BSCgs1_cached_args.txt) with the train
+# phase's depth cut, run as array task 1 through
+# train/driver.py:set_up_and_run_experiments on a fold of the train
+# phase's data written by the port's save_cv_split
+ARRAY_TASK_MODEL = "REDCLIFF_S_CMLP"
+ARRAY_TASK_DATA = "d4IC_sVAR_fold0"
+ARRAY_TASK_ARGS = {
+    "output_length": "1", "batch_size": "128", "max_iter": "1000",
+    "lookback": "1", "check_every": "10", "verbose": "0", "num_sims": "1",
+    "num_factors": "5", "num_supervised_factors": "5",
+    "wavelet_level": "None", "gen_hidden": "[25]", "gen_lr": "0.0005",
+    "gen_eps": "0.0001", "gen_weight_decay": "0.0001",
+    "gen_lag_and_input_len": "4", "FORECAST_COEFF": "10.0",
+    "FACTOR_SCORE_COEFF": "100.0", "FACTOR_COS_SIM_COEFF": "1.0",
+    "FACTOR_WEIGHT_L1_COEFF": "0.001", "ADJ_L1_REG_COEFF": "1.0",
+    "DAGNESS_REG_COEFF": "0.0", "DAGNESS_LAG_COEFF": "0.0",
+    "DAGNESS_NODE_COEFF": "0.0",
+    "primary_gc_est_mode": "conditional_factor_fixed_embedder",
+    "forward_pass_mode": "apply_factor_weights_after_sim_completion",
+    "training_mode": "pretrain_embedder_then_acclimate_factors_then_combined",
+    "num_pretrain_epochs": "50", "num_acclimation_epochs": "15",
+    "factor_score_embedder_type": "DGCNN", "embed_hidden_sizes": "[0]",
+    "embed_num_hidden_nodes": "100", "embed_num_graph_conv_layers": "3",
+    "embed_lr": "0.0002", "embed_eps": "0.0001",
+    "embed_weight_decay": "0.0001", "embed_lag": "16",
+    "use_sigmoid_restriction": "0", "sigmoid_eccentricity_coeff": "10.0",
+    "prior_factors_path": "None", "cost_criteria": "CosineSimilarity",
+    "unsupervised_start_index": "0", "max_factor_prior_batches": "10",
+    "stopping_criteria_forecast_coeff": "10.",
+    "stopping_criteria_factor_coeff": "100.",
+    "stopping_criteria_cosSim_coeff": "1.", "deltaConEps": "0.1",
+    "in_degree_coeff": "1.", "out_degree_coeff": "1.",
+}
+ARRAY_TASK_CUTS = {"num_pretrain_epochs": "1", "num_acclimation_epochs": "1",
+                   "max_iter": "4", "check_every": "1"}
 
 
 class SmokeFailure(RuntimeError):
@@ -437,6 +508,24 @@ def _grid_lr(torch, dev):
     return torch.tensor([lr for lr in GRID_GEN_LR
                          for _ in range(GRID_LANES // len(GRID_GEN_LR))],
                         dtype=torch.float32, device=dev)
+
+
+def _ladder_inputs(torch, PX, gen, dev, width, live):
+    """Lane-kernel inputs of a grid era on the bucket ladder: ``width``
+    lanes of which the first ``live`` hold grid points 0..live-1 and the
+    rest are filler lanes (point 0's threshold, gated off), as the engine
+    lays them out — the mix's (w, p) at the training batch, the prox's
+    first-layer block, thresholds and gate."""
+    B = TRAIN_KNOBS["batch_size"]
+    w = torch.rand((width, B, K_TRAIN), generator=gen).to(dev)
+    p = torch.randn((width, K_TRAIN, B, 1, C_TRAIN), generator=gen).to(dev)
+    W = (0.05 * torch.randn((width, K_TRAIN, C_TRAIN,
+                             TRAIN_CONFIG["gen_hidden"][0], C_TRAIN,
+                             TRAIN_CONFIG["gen_lag"]), generator=gen)).to(dev)
+    lr = _grid_lr(torch, dev)[:live]
+    lr = torch.cat([lr, lr[:1].expand(width - live)])
+    gate = torch.arange(width, device=dev) < live
+    return w, p, W, PX.lane_thresholds(lr, PROX_LAM), gate
 
 
 def _mix_lane_checks(torch, FM, gen, dev, errs):
@@ -733,6 +822,43 @@ def phase_kernel(torch, FM, PX):
     }
     grid["bound_ms"], grid["bound_by"] = _prox_bound_ms(Wg.numel())
     grid["floor_ms"] = floor_ms
+    # the ladder's widths: the 27 points at width 32 (5 filler lanes) and
+    # the 15 survivors of grid_durable at width 16 (1 filler lane); the
+    # prox's bound counts the gated-on lanes only (a gated-off slab is not
+    # read)
+    for width, live in ((32, GRID_LANES), (16, 15)):
+        wl, pl, Wl, tl, gl = _ladder_inputs(torch, PX, gen, dev, width, live)
+        Wli = Wl.clone()
+        _check_close(torch, f"factor_mix_lanes(G={width})",
+                     FM.factor_mix_lanes(wl, pl),
+                     FM.factor_mix_lanes_reference(wl, pl),
+                     errs["factor_mix"])
+        want = PX.gl_prox_lanes_reference(Wl, tl, gl)
+        _check_close(torch, f"gl_prox_lanes(G={width}, {live} on)",
+                     PX.gl_prox_lanes_(Wl.clone(), tl, gl), want,
+                     errs["gl_prox"])
+        t = timing["factor_mix"][f"grid{width}"] = {
+            "shape": f"G={width} ({live} points, {width - live} filler) "
+                     f"B={B} K={K_TRAIN} M={C_TRAIN} (factor_mix_lanes); "
+                     f"library_ms: torch.matmul on permuted operands",
+            **_time_turns(torch, {
+                "kernel_ms": lambda: FM.factor_mix_lanes(wl, pl),
+                "library_ms": lambda: _mix_lanes_library(torch, wl, pl),
+                "plain_ms": lambda: FM.factor_mix_lanes_reference(wl,
+                                                                  pl)})}
+        t["bound_ms"], t["bound_by"] = _bound_ms(width * B, K_TRAIN,
+                                                 C_TRAIN, width * B)
+        t["floor_ms"] = floor_ms
+        t = timing["gl_prox"][f"grid{width}"] = {
+            "shape": f"({width}, 5, 10, 25, 10, 4): {live} lanes gated on, "
+                     f"{width - live} filler lanes off; in place",
+            **_time_turns(torch, {
+                "kernel_ms": lambda: PX.gl_prox_lanes_(Wli, tl, gl),
+                "plain_ms": lambda: PX.gl_prox_lanes_reference(Wl, tl,
+                                                               gl)}),
+            "library_ms": None}
+        t["bound_ms"], t["bound_by"] = _prox_bound_ms(Wl[:live].numel())
+        t["floor_ms"] = floor_ms
     host_us = {"factor_mix_tick": _mix_host_breakdown(
         torch, FM, w, gc[:, None].expand(5, CAPACITY, 10, 10), gc),
         "factor_mix_train": _mix_host_breakdown(torch, FM, wt, pt),
@@ -980,7 +1106,8 @@ def phase_profile(torch, FM):
 def _d4ic_like_data(np, n, seed):
     """``n`` windows of (embed_lag + 1, 10) from a 5-state sparse VAR(4)
     (one random stable coefficient set per state, a burn-in per window),
-    with one-hot state labels (n, 5, 1)."""
+    with one-hot state labels (n, 5, 1), and each state's true lagged
+    graph (5, C, C, L): the support of its coefficients."""
     rng = np.random.default_rng(seed)
     K, C, L = K_TRAIN, C_TRAIN, TRAIN_CONFIG["gen_lag"]
     T = TRAIN_CONFIG["embed_lag"] + TRAIN_CONFIG["num_sims"]
@@ -1005,13 +1132,14 @@ def _d4ic_like_data(np, n, seed):
             np.einsum("nij,nj->ni", Ak[:, l], x[:, t - 1 - l])
             for l in range(L))
     Y = np.eye(K, dtype=np.float32)[states][:, :, None]
-    return x[:, burn:].astype(np.float32), Y
+    graphs = (np.transpose(A, (0, 2, 3, 1)) != 0).astype(np.float64)
+    return x[:, burn:].astype(np.float32), Y, graphs
 
 
 def _train_data(np):
     from redcliff_tpu_torch.data.datasets import train_val_split
 
-    X, Y = _d4ic_like_data(np, N_TRAIN + N_VAL, seed=0)
+    X, Y, _ = _d4ic_like_data(np, N_TRAIN + N_VAL, seed=0)
     return train_val_split(X, Y, val_fraction=N_VAL / (N_TRAIN + N_VAL),
                            rng=np.random.default_rng(1))
 
@@ -1474,16 +1602,17 @@ def phase_grid(torch, FM, PX):
 
 
 def _grid_steps(torch, np, model, host_params, batches, device):
-    """GRID_CHECK_STEPS combined steps of the 27-lane grid on ``device``
-    from ``host_params`` replicated over the lanes; returns the per-lane
-    losses and the stacked params after them."""
+    """GRID_CHECK_STEPS combined steps of the 27-lane grid (exact width) on
+    ``device`` from ``host_params`` replicated over the lanes; returns the
+    per-lane losses and the stacked params after them."""
     from redcliff_tpu_torch import interop
     from redcliff_tpu_torch.parallel.grid import GridSpec, RedcliffGridRunner
     from redcliff_tpu_torch.runtime import numerics
     from redcliff_tpu_torch.train.redcliff_trainer import RedcliffTrainConfig
 
-    runner = RedcliffGridRunner(model, RedcliffTrainConfig(**TRAIN_KNOBS),
-                                GridSpec(_grid_points()[0]), device=device)
+    runner = RedcliffGridRunner(
+        model, RedcliffTrainConfig(**TRAIN_KNOBS, g_bucket=False),
+        GridSpec(_grid_points()[0]), device=device)
     params, optA, optB = runner.init_grid_from(host_params)
     nstate = numerics.init_numerics_state(lanes=GRID_LANES,
                                           device=runner.device)
@@ -1580,7 +1709,29 @@ def phase_profile_grid(torch, FM, PX, model, params, train_ds):
     tg = PX.lane_thresholds(_grid_lr(torch, dev), PROX_LAM)
     on = torch.ones(G, dtype=torch.bool, device=dev)
     one = torch.zeros(1, device=dev)
+    B_rem = N_TRAIN % B
+    wr = torch.rand((G, B_rem, K_TRAIN), generator=gen).to(dev)
+    pr = torch.randn((G, K_TRAIN, B_rem, 1, C_TRAIN), generator=gen).to(dev)
+    ladder = {}
+    for width, live in ((32, GRID_LANES), (16, 15)):
+        wl, pl, Wl, tl, gl = _ladder_inputs(torch, PX, gen, dev, width, live)
+        Wli = Wl.clone()
+        ladder.update({
+            f"factor_mix_kernel (lanes, G={width})":
+                lambda wl=wl, pl=pl: FM.factor_mix_lanes(wl, pl),
+            f"torch.matmul (lanes, G={width})":
+                lambda wl=wl, pl=pl: _mix_lanes_library(torch, wl, pl),
+            f"gl_prox_kernel (lanes, G={width}, {live} on, in place)":
+                lambda Wli=Wli, tl=tl, gl=gl: PX.gl_prox_lanes_(Wli, tl, gl),
+            f"gl_prox_lanes_plain (G={width}, {live} on)":
+                lambda Wl=Wl, tl=tl, gl=gl: PX.gl_prox_lanes_reference(
+                    Wl, tl, gl)})
     alone = _alone_us(torch, {
+        **ladder,
+        f"factor_mix_kernel (lanes, B={B_rem})":
+            lambda: FM.factor_mix_lanes(wr, pr),
+        f"torch.matmul (lanes, B={B_rem})":
+            lambda: _mix_lanes_library(torch, wr, pr),
         "floor: x.zero_()": one.zero_,
         "factor_mix_kernel (lanes)": lambda: FM.factor_mix_lanes(wg, pg),
         "torch.matmul (lanes, permuted operands)":
@@ -1594,8 +1745,9 @@ def phase_profile_grid(torch, FM, PX, model, params, train_ds):
         "gl_prox_lanes_plain": lambda: PX.gl_prox_lanes_reference(
             Wg, tg, on)})
 
-    runner = RedcliffGridRunner(model, RedcliffTrainConfig(**TRAIN_KNOBS),
-                                GridSpec(_grid_points()[0]))
+    runner = RedcliffGridRunner(
+        model, RedcliffTrainConfig(**TRAIN_KNOBS, g_bucket=False),
+        GridSpec(_grid_points()[0]))
     gparams, optA, optB = runner.init_grid_from(
         interop.params_to_jax(params))
     nstate = numerics.init_numerics_state(lanes=G, device=dev)
@@ -1628,6 +1780,342 @@ def phase_profile_grid(torch, FM, PX, model, params, train_ds):
                                  if busy_us else None),
            "device_ops_per_step": len(per),
            "top_device_us_per_step": dict(top)})
+
+
+def _width_profile(torch, np, FM, PX, model, params, train_ds, points,
+                   live):
+    """Host wall ms, device busy us and kernel launches per combined step
+    of the grid engine at the bucket-ladder width of ``live`` of the
+    points (filler lanes gated off), from ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from redcliff_tpu_torch.parallel.grid import GridSpec, RedcliffGridRunner
+    from redcliff_tpu_torch.runtime import numerics
+    from redcliff_tpu_torch.train.redcliff_trainer import RedcliffTrainConfig
+
+    runner = RedcliffGridRunner(model, RedcliffTrainConfig(**TRAIN_KNOBS),
+                                GridSpec(points[:live]))
+    width = runner._g_exec0
+    gp, optA, optB = runner.pad_to_width(runner.init_grid_from(params))
+    dev = runner.device
+    nstate = numerics.init_numerics_state(lanes=width, device=dev)
+    active = torch.arange(width, device=dev) < live
+    batches = list(train_ds.batches(TRAIN_KNOBS["batch_size"],
+                                    rng=np.random.default_rng(9),
+                                    device=dev))
+    n = DURABLE_PROFILE_STEPS
+
+    def step(X, Y):
+        return runner._step("combined", gp, optA, optB, nstate, active, X,
+                            Y)[0]
+
+    for X, Y in batches[:2]:
+        nstate = step(X, Y)
+    torch.cuda.synchronize()
+    mix0, prox0 = FM.factor_mix.launches, PX.gl_prox.launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for X, Y in batches[2:2 + n]:
+            nstate = step(X, Y)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    per, busy_us = _device_us(torch, prof, n)
+    return {"width": width, "live": live, "steps": n,
+            "step_host_ms": wall_ms, "step_device_us": busy_us,
+            "device_idle_share": (1.0 - busy_us / 1e3 / wall_ms
+                                  if busy_us else None),
+            "factor_mix_launches_per_step": (FM.factor_mix.launches
+                                             - mix0) / n,
+            "gl_prox_launches_per_step": (PX.gl_prox.launches - prox0) / n}
+
+
+def phase_grid_durable(torch, FM, PX, params):
+    """The published grid on the bucket ladder with a checkpoint every
+    epoch and lane deadlines that force one compaction, through
+    ``RedcliffGridRunner.fit``: counts at 0 just before, read just after.
+    Then a stopped-and-resumed fit against the uninterrupted one, and each
+    ladder width's step cost."""
+    import numpy as np
+
+    from redcliff_tpu_torch import interop
+    from redcliff_tpu_torch.models.redcliff import (RedcliffSCMLP,
+                                                    RedcliffSCMLPConfig)
+    from redcliff_tpu_torch.parallel.grid import GridSpec, RedcliffGridRunner
+    from redcliff_tpu_torch.runtime import numerics
+    from redcliff_tpu_torch.train.redcliff_trainer import RedcliffTrainConfig
+
+    points, _ = _grid_points()
+    train_ds, val_ds = _train_data(np)
+    model = RedcliffSCMLP(RedcliffSCMLPConfig(**TRAIN_CONFIG))
+    spec = GridSpec(points, fit_deadline_s=list(DURABLE_DEADLINES))
+    tc = RedcliffTrainConfig(**TRAIN_KNOBS)
+    root = os.path.join(HERE, "build", "chip_smoke", "grid_durable")
+    shutil.rmtree(root, ignore_errors=True)
+
+    # what the lane prox is handed on every call: the block's width,
+    # alignment and layout, and the gate's and thresholds' widths
+    blocks = []
+    prox_lanes = model.apply_prox_lanes_
+
+    def watched_prox(p, t, gate, penalty="GL"):
+        W = p["factors"][0]["w"]
+        blocks.append((W.shape[0], W.data_ptr() % 16, W.is_contiguous(),
+                       t.shape[0], gate.shape[0]))
+        return prox_lanes(p, t, gate, penalty)
+    model.apply_prox_lanes_ = watched_prox
+
+    retired, at_retire = [], {}
+
+    def on_retire(pid, rec, epoch):
+        retired.append((pid, epoch, rec["failed_cause"]))
+        at_retire.setdefault(epoch, (FM.factor_mix.launches,
+                                     PX.gl_prox.launches))
+
+    def fit(ck, max_iter=None, hook=None):
+        runner = RedcliffGridRunner(model, tc, spec)
+        res = runner.fit(None, train_ds, val_ds, max_iter=max_iter,
+                         init_params=runner.init_grid_from(params),
+                         copy_init=False, checkpoint_dir=ck,
+                         checkpoint_every=1, on_lane_retire=hook)
+        return runner, res
+
+    # ---- the main path: counts at 0 just before, read just after
+    FM.factor_mix.launches = 0
+    PX.gl_prox.launches = 0
+    t0 = time.perf_counter()
+    runner, res = fit(os.path.join(root, "full"), hook=on_retire)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    mix_launches = FM.factor_mix.launches
+    prox_launches = PX.gl_prox.launches
+
+    stats = runner.dispatch_stats
+    B = TRAIN_KNOBS["batch_size"]
+    n_tr = -(-len(train_ds) // B)
+    n_val = -(-len(val_ds) // B)
+    evicted = list(range(DURABLE_LIVE, GRID_LANES))
+    widths = [e["width"] for e in res.epochs]
+    phases = [tuple(e["phases"]) for e in res.epochs]
+    _require([(f["point"], f["epoch"], f["cause"]) for f in res.failures]
+             == [(g, 0, "deadline") for g in evicted],
+             f"grid_durable: failures {res.failures}")
+    # the deadline evictions retire at epoch 0; lanes that stop early may
+    # retire at later check windows and compact the grid further
+    _require(sorted(r for r in retired if r[1] == 0)
+             == [(g, 0, numerics.CAUSE_DEADLINE) for g in evicted]
+             and all(r[2] != numerics.CAUSE_DEADLINE for r in retired
+                     if r[1] > 0),
+             f"grid_durable: retired lanes {retired}")
+    _require(widths[:2] == [32, 16] and max(widths[1:]) == 16
+             and len(widths) == TRAIN_KNOBS["max_iter"]
+             and stats["compactions"] == len(at_retire),
+             f"grid_durable: widths {widths}, stats {stats}")
+    _require(not res.active[DURABLE_LIVE:].any()
+             and res.val_history.shape == (len(widths), GRID_LANES)
+             and bool(np.isfinite(res.val_history).all())
+             and bool(np.isfinite(res.best_criteria[:DURABLE_LIVE]).all())
+             and bool(np.isinf(res.best_criteria[DURABLE_LIVE:]).all()),
+             "grid_durable: results not at the original ids (the evicted "
+             "lanes stopped before any stopping criteria)")
+    _require(sum(res.numerics["skipped"]) == 0,
+             "grid_durable: the guard skipped steps")
+    # launches by width, measured: the retire hook read the counts at each
+    # compaction, i.e. at the end of each width's era
+    forwards = sum(n_tr * len(ph) + n_val for ph in phases)
+    factor_steps = sum(n_tr for ph in phases for p in ph
+                       if p != "embedder_pretrain")
+    by_width, prev = {}, (0, 0)
+    for epoch, counts in sorted(at_retire.items()) + [
+            (len(widths) - 1, (mix_launches, prox_launches))]:
+        w = by_width.setdefault(str(widths[epoch]),
+                                {"factor_mix": 0, "gl_prox": 0})
+        w["factor_mix"] += counts[0] - prev[0]
+        w["gl_prox"] += counts[1] - prev[1]
+        prev = counts
+    mix32 = n_tr * len(phases[0]) + n_val
+    prox32 = sum(n_tr for p in phases[0] if p != "embedder_pretrain")
+    _require(by_width["32"] == {"factor_mix": mix32, "gl_prox": prox32}
+             and mix_launches == forwards
+             and prox_launches == factor_steps > 0,
+             f"grid_durable: launches {mix_launches}/{prox_launches} for "
+             f"{forwards} forwards and {factor_steps} factor steps; by "
+             f"width {by_width}")
+    prox_widths = [w for w, ph in zip(widths, phases) for p in ph
+                   if p != "embedder_pretrain" for _ in range(n_tr)]
+    _require([b[0] for b in blocks] == prox_widths
+             and all(b[1:] == (0, True, b[0], b[0]) for b in blocks)
+             and PX.prox_plan(TRAIN_CONFIG["gen_hidden"][0], C_TRAIN,
+                              TRAIN_CONFIG["gen_lag"], 0)[1],
+             f"grid_durable: the lane prox was handed {set(blocks)}")
+    model.apply_prox_lanes_ = prox_lanes
+
+    # ---- stopped after DURABLE_RESUME_AT epochs, resumed to the horizon
+    ck = os.path.join(root, "resumed")
+    fit(ck, max_iter=DURABLE_RESUME_AT)
+    resumed_runner, resumed = fit(ck)
+    _require(resumed_runner.dispatch_stats["resumed_from_epoch"]
+             == DURABLE_RESUME_AT - 1
+             and [e["epoch"] for e in resumed.epochs]
+             == list(range(DURABLE_RESUME_AT, TRAIN_KNOBS["max_iter"])),
+             f"grid_durable: the resume ran {resumed.epochs}")
+    same = (np.array_equal(resumed.best_epoch, res.best_epoch)
+            and np.array_equal(resumed.active, res.active)
+            and resumed.failures == res.failures)
+    rel = max(float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+              for a, b in zip(_leaves_np(resumed.best_params),
+                              _leaves_np(res.best_params)))
+    bitwise = all(np.array_equal(a, b) for a, b in zip(
+        _leaves_np(resumed.best_params), _leaves_np(res.best_params))) \
+        and np.array_equal(resumed.val_history, res.val_history) \
+        and np.array_equal(resumed.best_criteria, res.best_criteria)
+    _require(same and rel <= DURABLE_PARAM_REL,
+             f"grid_durable: resumed vs uninterrupted: decisions "
+             f"{'same' if same else 'differ'}, params rel. err {rel}")
+
+    step_by_width = {str(w): _width_profile(
+        torch, np, FM, PX, model, interop.params_to_jax(params), train_ds,
+        points, live) for w, live in ((32, GRID_LANES), (16, DURABLE_LIVE))}
+    epoch_ms = {}
+    for e in res.epochs:
+        steps = n_tr * len(e["phases"])
+        epoch_ms.setdefault(str(e["width"]), []).append(
+            {"epoch": e["epoch"], "phases": e["phases"], "ms": e["ms"],
+             "ms_per_step": e["ms"] / steps})
+    _emit({"phase": "grid_durable", "device": torch.cuda.get_device_name(0),
+           "config": "the grid phase's 27 points, model, data and depth; "
+                     "checkpoint_every=1; fit_deadline_s 1e6 for points "
+                     "0-14, 1e-3 for 15-26",
+           "fit_wall_s": fit_s, "widths_by_epoch": widths,
+           "compactions": stats["compactions"],
+           "lane_epochs": stats["lane_epochs"],
+           "lane_epochs_nominal": stats["lane_epochs_nominal"],
+           "evicted": evicted, "retired_at_epoch": 0,
+           "retired": retired,
+           "prox_blocks": {"widths": sorted({b[0] for b in blocks}),
+                           "aligned_16B": True, "contiguous": True,
+                           "tma_path": True},
+           "launches": {"factor_mix": mix_launches,
+                        "gl_prox": prox_launches},
+           "launches_by_width": by_width,
+           "epoch_host_ms_by_width": epoch_ms,
+           "step_by_width": step_by_width,
+           "checkpoint": {"bytes": stats["ckpt_bytes"],
+                          "saves": stats["ckpt_saves"],
+                          "write_ms_mean": stats["ckpt_stall_ms"]
+                          / stats["ckpt_saves"],
+                          "load_ms": resumed_runner.dispatch_stats[
+                              "ckpt_load_ms"]},
+           "resume": {"stopped_after_epochs": DURABLE_RESUME_AT,
+                      "decisions_identical": same,
+                      "max_param_rel_err": rel,
+                      "param_rel_bar": DURABLE_PARAM_REL,
+                      "bitwise_equal": bool(bitwise)},
+           "best_epoch": res.best_epoch.tolist(),
+           "active_lanes": int(res.active.sum())})
+    return mix_launches, prox_launches
+
+
+def phase_array_task(torch, FM, PX):
+    """One array task of the published D4IC REDCLIFF-S configuration
+    through ``set_up_and_run_experiments`` on the card: counts at 0 just
+    before, read just after; then the artifact reloads through the port's
+    ``eval/model_io.py``."""
+    import math
+
+    import numpy as np
+
+    from redcliff_tpu_torch import interop
+    from redcliff_tpu_torch.data.shards import save_cv_split
+    from redcliff_tpu_torch.eval.model_io import load_model_for_eval
+    from redcliff_tpu_torch.models.redcliff import phase_schedule
+    from redcliff_tpu_torch.runtime.checkpoint import read_checkpoint
+    from redcliff_tpu_torch.train.driver import set_up_and_run_experiments
+    from redcliff_tpu_torch.utils.config import serialize_tensor_to_string
+
+    root = os.path.join(HERE, "build", "chip_smoke", "array_task")
+    shutil.rmtree(root, ignore_errors=True)
+    X, Y, graphs = _d4ic_like_data(np, N_TRAIN + N_VAL, seed=0)
+    pairs = [[x, y] for x, y in zip(X, Y)]
+    save_cv_split(pairs[:N_TRAIN], pairs[N_TRAIN:], 0,
+                  os.path.join(root, "data"))
+    data_args = os.path.join(root, f"{ARRAY_TASK_DATA}_cached_args.txt")
+    with open(data_args, "w") as f:
+        json.dump({"data_root_path": os.path.join(root, "data", "fold_0"),
+                   "num_channels": str(C_TRAIN),
+                   **{f"net{k + 1}_adjacency_tensor":
+                      serialize_tensor_to_string(g)
+                      for k, g in enumerate(graphs)}}, f)
+    model_args = os.path.join(root, f"{ARRAY_TASK_MODEL}_d4IC_BSCgs1_"
+                                    f"cached_args.txt")
+    with open(model_args, "w") as f:
+        json.dump({**ARRAY_TASK_ARGS, **ARRAY_TASK_CUTS}, f)
+    runs = os.path.join(root, "runs")
+    os.makedirs(runs)
+    args = {"save_root_path": runs}
+
+    # ---- the main path: counts at 0 just before, read just after
+    FM.factor_mix.launches = 0
+    PX.gl_prox.launches = 0
+    t0 = time.perf_counter()
+    task = set_up_and_run_experiments(args, [model_args], [data_args],
+                                      [ARRAY_TASK_MODEL], [ARRAY_TASK_DATA],
+                                      task_id=1)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    mix_launches = FM.factor_mix.launches
+    prox_launches = PX.gl_prox.launches
+
+    _require(task == 1 and len(os.listdir(runs)) == 1,
+             f"array_task: runs {os.listdir(runs)}")
+    run_dir = os.path.join(runs, os.listdir(runs)[0])
+    model, params = load_model_for_eval(run_dir)
+    cfg = model.config
+    _require((cfg.num_chans, cfg.gen_hidden, cfg.num_factors,
+              cfg.dgcnn_num_graph_conv_layers, cfg.dgcnn_num_hidden_nodes)
+             == (C_TRAIN, (25,), K_TRAIN, 3, 100)
+             and math.isclose(cfg.adj_l1_reg_coeff,
+                              TRAIN_CONFIG["adj_l1_reg_coeff"])
+             and math.isclose(cfg.factor_cos_sim_coeff,
+                              TRAIN_CONFIG["factor_cos_sim_coeff"]),
+             f"array_task: artifact config {cfg}")
+    leaves = _leaves_np(interop.params_to_jax(params))
+    _require(all(bool(np.isfinite(x).all()) for x in leaves),
+             "array_task: non-finite artifact params")
+    with torch.no_grad():
+        Xw = torch.from_numpy(X[:8, :cfg.embed_lag]).to(params[
+            "factors"][0]["w"].device)
+        gc = model.gc(params, X=Xw, ignore_lag=False)
+    _require(bool(torch.isfinite(gc).all())
+             and tuple(gc.shape) == (8, K_TRAIN, C_TRAIN, C_TRAIN,
+                                     TRAIN_CONFIG["gen_lag"]),
+             f"array_task: GC readout {tuple(gc.shape)}")
+    meta = read_checkpoint(os.path.join(
+        run_dir, "training_meta_data_and_hyper_parameters.pkl"))
+    B = TRAIN_KNOBS["batch_size"]
+    n_tr, n_val = -(-N_TRAIN // B), -(-N_VAL // B)
+    phases = [phase_schedule(cfg, it) for it in range(meta["epoch"] + 1)]
+    forwards = sum(n_tr * (1 + (p in ("embedder_pretrain", "combined")))
+                   for ph in phases for p in ph)
+    forwards += 2 * n_val * len(phases) + n_val
+    _require(mix_launches == forwards and prox_launches == 0,
+             f"array_task: {mix_launches} factor_mix launches for "
+             f"{forwards} forwards, {prox_launches} gl_prox launches (the "
+             f"array task sets no prox)")
+    _require(all(math.isfinite(v) for v in meta["avg_combo_loss"]),
+             f"array_task: val losses {meta['avg_combo_loss']}")
+    _emit({"phase": "array_task", "device": torch.cuda.get_device_name(0),
+           "config": "published D4IC REDCLIFF-S cached-args "
+                     "(experiments/accuracy_parity_d4ic.py:70-97), no prox",
+           "reduced": ARRAY_TASK_CUTS,
+           "run_dir": os.path.relpath(run_dir, HERE), "task_id": task,
+           "train_windows": N_TRAIN, "val_windows": N_VAL,
+           "epochs": len(phases), "fit_wall_s": fit_s,
+           "factor_mix_launches": mix_launches,
+           "gl_prox_launches": prox_launches, "best_it": meta["best_it"],
+           "val_combo_loss": meta["avg_combo_loss"],
+           "gc_shape": list(gc.shape)})
+    return mix_launches, prox_launches
 
 
 def _kernel_entry(name, mod, replaces, launches, by_path, max_err, t):
@@ -1665,6 +2153,8 @@ def main():
     phase_train_check(torch, tmodel, tparams, train_ds)
     grid_mix, grid_prox, gmodel, gparams, gtrain = phase_grid(torch, FM, PX)
     phase_grid_check(torch, gmodel, gparams, gtrain)
+    dur_mix, dur_prox = phase_grid_durable(torch, FM, PX, gparams)
+    task_mix, task_prox = phase_array_task(torch, FM, PX)
     if "--profile" in sys.argv[1:]:
         phase_profile(torch, FM)
         phase_profile_train(torch, FM, PX, tmodel, tparams, train_ds)
@@ -1676,14 +2166,16 @@ def main():
     _require(not leaked, f"the port imported {leaked}")
 
     mix_paths = {"serve": serve_launches, "train": mix_launches,
-                 "grid": grid_mix}
+                 "grid": grid_mix, "grid_durable": dur_mix,
+                 "array_task": task_mix}
     fm = _kernel_entry(
         "factor_mix", FM, "redcliff_tpu/ops/factor_mix.py:58",
         sum(mix_paths.values()), mix_paths, max_err["factor_mix"],
         timing["factor_mix"]["train"])
     fm["by_shape"] = {k: v for k, v in timing["factor_mix"].items()
                       if k != "train"}
-    prox_paths = {"serve": 0, "train": prox_launches, "grid": grid_prox}
+    prox_paths = {"serve": 0, "train": prox_launches, "grid": grid_prox,
+                  "grid_durable": dur_prox, "array_task": task_prox}
     px = _kernel_entry(
         "gl_prox", PX, "redcliff_tpu/ops/pallas_prox.py:47",
         sum(prox_paths.values()), prox_paths, max_err["gl_prox"],

@@ -1,4 +1,5 @@
-"""Coefficient-grid execution (port of ``redcliff_tpu/parallel``): the grid
-core of ``parallel/grid.py``. The mesh, the bucket ladder, compaction and
-the packing modules are not ported yet (ROADMAP queue 1, items 9 and 15).
+"""Coefficient-grid execution (port of ``redcliff_tpu/parallel``): the
+grid engine (``grid.py``), its scheduling policy (``policy.py``) and the
+bucket ladder and compaction planning (``compaction.py``). The device mesh
+and the packing modules are not ported yet (ROADMAP queue 1, item 15).
 """

@@ -1,5 +1,5 @@
 """Coefficient-grid engine: G REDCLIFF-S points trained as one batched
-program (port of the core of ``parallel/grid.py``).
+program (port of ``parallel/grid.py``).
 
 The reference fits a coefficient grid as one process per point (SLURM
 arrays). The JAX package vmaps the per-point training step over a stacked
@@ -10,7 +10,7 @@ the lanes with the batch shared, followed by two stacked Adams with
 weight decay, eps and bias correction with per-lane step counts) and the
 GL prox for every lane at once (``models/redcliff.py apply_prox_lanes_``).
 On the card the factor mix and the prox are hand-written CUDA kernels,
-each launched once per call for all G lanes.
+each launched once per call for all lanes.
 
 Per lane, as the JAX grid: a lane gate ``active & isfinite(loss) &
 isfinite(grad norm)`` applied with ``torch.where`` (a gated lane keeps its
@@ -21,21 +21,41 @@ zero, the supervised cosine stopping term, per-lane stopping criteria,
 (causes ``nonfinite_grad`` / ``nonfinite_val``), Freeze accept/revert over
 lanes, and the Hungarian factor alignment after pretraining.
 
-The port runs the JAX path at exact width with the bucket ladder and
-compaction off, and streams per batch (the JAX "per_batch" stream mode,
-bit-identical there to its epoch and k-batch scans). Not ported yet
-(ROADMAP queue 1): checkpoint/resume, lane and grid deadlines, the bucket
-ladder, compaction and scheduling policies, ``on_lane_retire``, the scan
-stream modes, mixed precision, telemetry (metrics log, quality monitor),
-and the device mesh. Asking for any of them raises
+Durability and elasticity, as the JAX grid:
+
+* the bucket ladder and compaction (``parallel/policy.py``,
+  ``parallel/compaction.py``): a grid runs at a power-of-two width with
+  masked filler lanes, and at check windows the surviving lanes are
+  gathered down the ladder into fresh, contiguous leaves (the lane prox's
+  fast path needs an aligned slab). Results, histories and failures are
+  reported under original point ids; ``on_lane_retire`` sees each lane a
+  compaction retires;
+* checkpoint and resume: a synchronous durable write (atomic, CRC,
+  ``.prev`` generation, quarantine of a corrupt head) of the whole fit
+  state with the shuffle rng and the compaction era, behind the JAX
+  grid's compatibility fingerprint; a resume lands at the checkpoint's
+  own era and width and continues bit for bit;
+* per-lane deadlines (eviction with cause ``"deadline"`` and a forced
+  checkpoint; siblings' math untouched) and a whole-grid deadline
+  (``DeadlineExceeded`` after a final checkpoint);
+* SIGTERM/SIGINT while checkpointing: one final checkpoint at the epoch
+  boundary, then ``Preempted``.
+
+The port streams per batch (the JAX "per_batch" stream mode, bit-identical
+there to its epoch and k-batch scans). Not ported yet (ROADMAP queue 1):
+the scan stream modes, the predictive scheduling policy, the async
+checkpoint writer, mixed precision, telemetry (metrics log, quality
+monitor) and the device mesh. Asking for any of them raises
 ``NotImplementedError``.
 
 Entry points run on ``cuda`` unless the caller passes ``device=``.
 """
 from __future__ import annotations
 
+import os
 import time
-from dataclasses import dataclass, field
+import warnings
+from dataclasses import asdict, dataclass, field
 from typing import Any, Sequence
 
 import numpy as np
@@ -45,7 +65,12 @@ from redcliff_tpu_torch.data import pipeline
 from redcliff_tpu_torch.interop import params_to_jax, tree_leaves, tree_map
 from redcliff_tpu_torch.models.redcliff import phase_schedule
 from redcliff_tpu_torch.ops.pallas_prox import lane_thresholds
+from redcliff_tpu_torch.parallel import compaction
+from redcliff_tpu_torch.parallel.policy import GridSchedulingPolicy
+from redcliff_tpu_torch.runtime import checkpoint as durable_ckpt
 from redcliff_tpu_torch.runtime import numerics
+from redcliff_tpu_torch.runtime.preempt import (DeadlineExceeded, Preempted,
+                                                PreemptionGuard)
 from redcliff_tpu_torch.train.freeze import apply_freeze_lanes
 from redcliff_tpu_torch.utils.misc import factor_alignment_order
 from redcliff_tpu_torch.utils.precision import (check_precision_mode,
@@ -66,6 +91,9 @@ STOP_AXES = ("stopping_criteria_forecast_coeff",
              "stopping_criteria_cosSim_coeff")
 
 _BETA1, _BETA2 = 0.9, 0.999
+# the JAX grid's default stream knobs, which the port has no field for:
+# they stand in its resume fingerprint as the JAX package writes them
+_JAX_SCAN_BATCHES, _JAX_STREAM_MODE = 0, "auto"
 
 
 def _not_ported(what, where):
@@ -83,8 +111,9 @@ class GridSpec:
     ``lane_seeds`` (one int per point) makes per-lane initialization
     composition-independent: lane i's init depends on ``(seed,
     lane_seeds[i])`` only, never on its position in the grid.
-    ``fit_deadline_s`` and ``grid_deadline_s`` are validated as in the JAX
-    package; the runner does not honour them yet and raises."""
+    ``fit_deadline_s`` (a scalar or one per point) is each lane's
+    wall-clock budget and ``grid_deadline_s`` the whole fit's, both
+    counted from the start of this process's ``fit`` call."""
 
     points: Sequence[dict]
     fit_deadline_s: Any = None   # scalar | per-point sequence | None
@@ -160,17 +189,18 @@ class GridResult:
     coeffs: dict
     active: np.ndarray = None  # (G,) bool; False = point early-stopped
     # quarantined grid points, one {"point", "epoch", "cause", "hparams"}
-    # record each, cause in {"nonfinite_grad", "nonfinite_val"}:
-    # ``nonfinite_grad`` — the lane's numerics guard skipped steps in the
-    # failing epoch (max_consecutive_skips in a row, or a non-finite
-    # validation loss after skipped steps); ``nonfinite_val`` — validation
-    # loss went non-finite with finite steps. Both freeze the lane while
+    # record each, cause in {"nonfinite_grad", "nonfinite_val",
+    # "deadline"}: ``nonfinite_grad`` — the lane's numerics guard skipped
+    # steps in the failing epoch (max_consecutive_skips in a row, or a
+    # non-finite validation loss after skipped steps); ``nonfinite_val`` —
+    # validation loss went non-finite with finite steps; ``deadline`` —
+    # the lane's wall-clock budget ran out. Each freezes the lane while
     # the rest of the grid keeps training
     failures: list = field(default_factory=list)
-    # the port's additions, as RedcliffFitResult carries them: per epoch run
-    # {"epoch", "phases", "ms"} (host wall ms, read after the epoch's early
-    # exit check), and the numerics guard's per-lane counters at the end of
-    # the fit ({"skipped": [...], ...})
+    # the port's additions, as RedcliffFitResult carries them: per epoch
+    # run by this call {"epoch", "phases", "width", "ms"} (host wall ms,
+    # read after the epoch's check window), and the numerics guard's
+    # per-point counters at the end of the fit ({"skipped": [...], ...})
     epochs: list = field(default_factory=list)
     numerics: dict | None = None
 
@@ -211,20 +241,26 @@ def _clone(tree):
     return tree_map(lambda x: x.detach().clone(), tree)
 
 
+def _take(tree, rows):
+    """Rows ``rows`` of every leaf as fresh contiguous tensors (never views
+    of the old leaves: the lane prox works in place on an aligned slab)."""
+    return tree_map(lambda x: x.index_select(0, rows), tree)
+
+
 class RedcliffGridRunner:
     """Trains G REDCLIFF-S configurations at once (see the module
     docstring)."""
+
+    CHECKPOINT_NAME = "grid_checkpoint.pkl"
+    # per-fit accounting, (re)set by fit: the width, compactions,
+    # lane-epochs computed against an uncompacted run's, the synchronous
+    # checkpoint writes and load, the epoch resumed from
+    dispatch_stats = None
 
     def __init__(self, model, train_config, spec: GridSpec, mesh=None,
                  policy=None, device=None):
         if mesh is not None:
             _not_ported("a device mesh for the grid", "item 15, multi-GPU")
-        if policy is not None:
-            _not_ported("grid scheduling policies (bucket ladder, "
-                        "compaction, deadline eviction)", "item 9")
-        if spec.fit_deadline_s is not None \
-                or spec.grid_deadline_s is not None:
-            _not_ported("lane and grid deadlines", "item 9")
         if spec.precision_mode is not None:
             check_precision_mode(spec.precision_mode)
         if len(spec.points) == 0:
@@ -233,12 +269,22 @@ class RedcliffGridRunner:
         self.tc = train_config
         self.spec = spec
         self.device = resolve_device(device)
-        self._g_real = len(spec.points)
+        self.policy = (policy if policy is not None
+                       else GridSchedulingPolicy.from_train_config(
+                           train_config))
+        self._g_real = G = len(spec.points)
+        self._g_exec0 = self.policy.initial_width(G)
+        # original point id per execution lane; -1 marks bucket filler
+        # lanes (masked from birth, never surfaced in GridResult)
+        self._orig_ids0 = np.concatenate(
+            [np.arange(G, dtype=np.int32),
+             np.full((self._g_exec0 - G,), -1, np.int32)])
         tc, cfg = train_config, model.config
+        # result-facing per-point coefficients (real width); the execution
+        # lanes' come from _set_era
         self.result_coeffs = spec.stacked(cfg, tc)
         self.coeffs = {k: torch.from_numpy(v).to(self.device)
                        for k, v in self.result_coeffs.items()}
-        self._loss_coeffs = {k: self.coeffs[k] for k in COEFF_AXES}
         # Adam's learning rates as torch.optim.Adam holds them (Python
         # floats): the step size lr / (1 - beta1**step) is rounded once
         self._lr64 = {name: torch.tensor(
@@ -259,11 +305,12 @@ class RedcliffGridRunner:
         self._freeze = "Freeze" in mode
         self._freeze_by_batch = "FreezeByBatch" in mode
         self._build()
+        self._set_era(self._orig_ids0)
 
     # ------------------------------------------------------------------ init
     def _adam_state(self, tree):
-        return {"step": torch.zeros((self._g_real,), dtype=torch.int64,
-                                    device=self.device),
+        return {"step": torch.zeros((tree_leaves(tree)[0].shape[0],),
+                                    dtype=torch.int64, device=self.device),
                 "exp_avg": tree_map(torch.zeros_like, tree),
                 "exp_avg_sq": tree_map(torch.zeros_like, tree)}
 
@@ -304,6 +351,16 @@ class RedcliffGridRunner:
             return torch.stack([t] * G)
         params = tree_map(rep, point_params)
         return (params,) + self._opt_states(params)
+
+    def pad_to_width(self, state):
+        """A real-width stacked state (any tree of ``(G, ...)`` leaves)
+        padded to the initial execution width: filler lanes replicate lane
+        0 — finite, valid math whose results the active mask discards."""
+        pad = self._g_exec0 - self._g_real
+        if not pad:
+            return state
+        return tree_map(lambda x: torch.cat(
+            [x, x[:1].expand((pad,) + tuple(x.shape[1:]))]), state)
 
     # ----------------------------------------------------------------- build
     def _build(self):
@@ -364,6 +421,36 @@ class RedcliffGridRunner:
         self._cos = (torch.func.vmap(point_cos, in_dims=(0, None))
                      if S > 1 else None)
 
+    def _set_era(self, orig_ids):
+        """The execution lanes' coefficients, learning rates and prox
+        thresholds for one compaction era: real lanes take their point's,
+        filler lanes replicate the first real lane's (their math must stay
+        finite; the active mask discards their results)."""
+        ids = np.asarray(orig_ids)
+        real = ids >= 0
+        fill = int(ids[real][0]) if real.any() else 0
+        ix = torch.as_tensor(np.where(real, ids, fill), dtype=torch.long,
+                             device=self.device)
+        self._ex_coeffs = {k: v.index_select(0, ix)
+                           for k, v in self.coeffs.items()}
+        self._ex_loss_coeffs = {k: self._ex_coeffs[k] for k in COEFF_AXES}
+        self._ex_lr64 = {k: v.index_select(0, ix)
+                         for k, v in self._lr64.items()}
+        self._ex_prox_t = (self._prox_t.index_select(0, ix)
+                           if self._prox_t is not None else None)
+
+    def _exec_deadlines(self, orig_ids):
+        """Per-execution-lane wall-clock budgets for the current era
+        (filler lanes: +inf), or None when no per-fit deadline is set."""
+        lane_deadline = self.spec.lane_deadlines()
+        if lane_deadline is None:
+            return None
+        ids = np.asarray(orig_ids)
+        out = np.full(ids.shape, np.inf)
+        m = ids >= 0
+        out[m] = lane_deadline[ids[m]]
+        return out
+
     # ------------------------------------------------------------------ step
     def _adam_(self, params, grads, state, lr64, wd, eps, gate):
         """One gated Adam step over the stacked leaves of ``params``, in
@@ -391,12 +478,12 @@ class RedcliffGridRunner:
         state["step"] = torch.where(gate, step, state["step"])
 
     def _step(self, phase, params, optA, optB, nstate, active, X, Y):
-        """One guarded, lane-gated step of ``phase`` for every lane, in
-        place on ``params`` and the Adam states. Returns the new numerics
-        state and the per-lane loss."""
-        c = self.coeffs
-        grads, (combo, _) = self._grads[phase](params, self._loss_coeffs, X,
-                                               Y)
+        """One guarded, lane-gated step of ``phase`` for every execution
+        lane of the current era, in place on ``params`` and the Adam
+        states. Returns the new numerics state and the per-lane loss."""
+        c = self._ex_coeffs
+        grads, (combo, _) = self._grads[phase](params, self._ex_loss_coeffs,
+                                               X, Y)
         combo = combo.detach()
         if self._guard:
             gnorm = numerics.lane_global_norm(grads)
@@ -410,18 +497,18 @@ class RedcliffGridRunner:
         with torch.no_grad():
             if phase in ("embedder_pretrain", "combined"):
                 self._adam_(params["embedder"], grads["embedder"], optA,
-                            self._lr64["embed_lr"], c["embed_weight_decay"],
-                            tc.embed_eps, gate)
+                            self._ex_lr64["embed_lr"],
+                            c["embed_weight_decay"], tc.embed_eps, gate)
             if phase in ("factor_pretrain", "post_train", "combined"):
                 self._adam_(params["factors"], grads["factors"], optB,
-                            self._lr64["gen_lr"], c["gen_weight_decay"],
+                            self._ex_lr64["gen_lr"], c["gen_weight_decay"],
                             tc.gen_eps, gate)
                 if self._prox_pen is not None:
                     # GISTA prox after the factor step; the gate leaves
-                    # frozen/guarded lanes untouched (a prox of an
+                    # frozen/guarded/filler lanes untouched (a prox of an
                     # unchanged iterate would still shrink it)
-                    self.model.apply_prox_lanes_(params, self._prox_t, gate,
-                                                 self._prox_pen)
+                    self.model.apply_prox_lanes_(params, self._ex_prox_t,
+                                                 gate, self._prox_pen)
         return nstate, combo
 
     def _select_best(self, best_params, best_crit, best_epoch, params, crit,
@@ -485,6 +572,89 @@ class RedcliffGridRunner:
                 leaf.copy_(torch.gather(leaf, 1, ix.expand(leaf.shape)))
         return params
 
+    # ------------------------------------------------------------ checkpoint
+    def _checkpoint_meta(self, train_ds, val_ds):
+        """The resume-compatibility fingerprint of the JAX grid: every knob
+        whose change would make "resume" silently mean "train something
+        else". Deliberately absent, as there: the per-call ``max_iter``
+        override, the deadlines and the elastic-scheduling knobs
+        (``compaction``, ``g_bucket``) — the checkpoint state carries its
+        own compaction era."""
+        tc = self.tc
+        return {
+            "points": list(self.spec.points),
+            "lane_seeds": (list(int(s) for s in self.spec.lane_seeds)
+                           if self.spec.lane_seeds is not None else None),
+            "seed": tc.seed,
+            "training_mode": self.model.config.training_mode,
+            "batch_size": tc.batch_size,
+            "check_every": tc.check_every,
+            "lookback": tc.lookback,
+            "scan_batches": _JAX_SCAN_BATCHES,
+            "stream_mode": _JAX_STREAM_MODE,
+            "prefetch_batches": tc.prefetch_batches,
+            "max_iter": tc.max_iter,
+            "matmul_precision": tc.matmul_precision,
+            "precision_mode": self.spec.precision_mode or tc.precision_mode,
+            "prox": {"penalty": tc.prox_penalty, "lam": tc.prox_lam},
+            "numerics": (None if tc.numerics is None
+                         else asdict(tc.numerics)),
+            "train_data": durable_ckpt.dataset_fingerprint(train_ds),
+            "val_data": durable_ckpt.dataset_fingerprint(val_ds),
+        }
+
+    def _save_checkpoint(self, checkpoint_dir, state, meta):
+        """Write the fit state durably and synchronously: tensors as numpy
+        copies, the per-epoch loss rows expanded to the original point
+        width (a resumed fit may land in another era than the one that
+        wrote a row)."""
+        t0 = time.perf_counter()
+        host = {k: numerics.to_host(v) for k, v in state.items()
+                if k not in ("val_history", "val_eras", "eras")}
+        rows = [numerics.to_host(v) for v in state["val_history"]]
+        host["val_history"] = list(compaction.expand_history(
+            rows, state["val_eras"], state["eras"], self._g_real))
+        host["orig_ids"] = np.asarray(state["orig_ids"], np.int32)
+        host["meta"] = meta
+        os.makedirs(checkpoint_dir, exist_ok=True)
+        path = os.path.join(checkpoint_dir, self.CHECKPOINT_NAME)
+        durable_ckpt.write_checkpoint(path, host)
+        stats = self.dispatch_stats
+        stats["ckpt_saves"] += 1
+        stats["ckpt_bytes"] = os.path.getsize(path)
+        stats["ckpt_stall_ms"] += (time.perf_counter() - t0) * 1e3
+
+    def _load_checkpoint(self, checkpoint_dir, want_meta):
+        """The newest usable checkpoint generation, or None for a fresh
+        start. A corrupt head is quarantined to ``*.bad`` and ``.prev`` is
+        tried next; a readable checkpoint of a different fit, or one the
+        JAX grid wrote (its optimizer state is optax's), is refused with a
+        ``ValueError``."""
+        path = os.path.join(checkpoint_dir, self.CHECKPOINT_NAME)
+        try:
+            ckpt, _ = durable_ckpt.load_checkpoint(path)
+        except durable_ckpt.ForbiddenClassError as e:
+            raise ValueError(
+                f"{path} is not a grid checkpoint of the port (a JAX-written "
+                f"one holds optax state and does not resume here); point "
+                f"checkpoint_dir elsewhere") from e
+        if ckpt is None:
+            return None
+        meta = ckpt.get("meta", {})
+        diff = ([k for k in want_meta if meta.get(k) != want_meta[k]]
+                + [k for k in meta if k not in want_meta])
+        if diff:
+            detail = ", ".join(
+                f"{k}: saved={meta.get(k)!r} current={want_meta.get(k)!r}"
+                for k in diff)
+            raise ValueError(
+                f"checkpoint in {checkpoint_dir!r} was written by a "
+                f"different fit — resuming it would silently train something "
+                f"else. Mismatched fields: {detail}. Point checkpoint_dir "
+                f"elsewhere, delete the stale checkpoint, or rerun with the "
+                f"original configuration.")
+        return ckpt
+
     # ------------------------------------------------------------------- fit
     def fit(self, key=None, train_ds=None, val_ds=None, max_iter=None,
             log_dir=None, init_params=None, copy_init=True,
@@ -494,53 +664,120 @@ class RedcliffGridRunner:
 
         ``key``: the int seed of :meth:`init_grid` (the JAX package takes
         a PRNG key; ``None`` means ``train_config.seed``), unused when
-        ``init_params`` (a stacked ``(params, embedder Adam, factor
-        Adam)`` tuple from :meth:`init_grid`, :meth:`init_grid_from` or
-        ``interop.grid_state_from_jax``) is given; that state is copied
-        unless ``copy_init=False`` hands it over (the fit updates it in
-        place). ``log_dir``, ``checkpoint_dir``/``checkpoint_every``,
-        ``true_gc`` and ``on_lane_retire`` are not ported yet and raise."""
+        ``init_params`` (a stacked real-width ``(params, embedder Adam,
+        factor Adam)`` tuple from :meth:`init_grid`, :meth:`init_grid_from`
+        or ``interop.grid_state_from_jax``) is given; that state is copied
+        unless ``copy_init=False`` hands it over.
+
+        ``checkpoint_dir`` + ``checkpoint_every``: the whole fit state every
+        ``checkpoint_every`` epochs (and at a deadline eviction); a fit
+        pointed at a directory holding a checkpoint resumes from it
+        instead of starting over, and a SIGTERM/SIGINT then writes one
+        final checkpoint at the epoch boundary and raises ``Preempted``.
+
+        ``on_lane_retire(point_id, record, epoch)``: called at a check
+        window for each lane a compaction retires (early-stopped,
+        quarantined or evicted: its state never changes again), with its
+        ``best_params``/``best_crit``/``best_epoch``/``failed_epoch``/
+        ``failed_cause``/``numerics`` record, under its original id. An
+        exception in the hook is reported as a warning: results do not
+        depend on it.
+
+        ``log_dir`` and ``true_gc`` (telemetry) are not ported yet and
+        raise."""
         if log_dir is not None or true_gc is not None:
             _not_ported("grid telemetry (metrics log, quality monitor)",
                         "item 11")
-        if checkpoint_dir is not None or checkpoint_every is not None:
-            _not_ported("grid checkpoint and resume", "item 9")
-        if on_lane_retire is not None:
-            _not_ported("on_lane_retire (lane retirement by compaction)",
-                        "item 9")
         if train_ds is None or val_ds is None:
             raise TypeError("fit needs train_ds and val_ds")
-        tc = self.tc
-        if init_params is not None:
-            def own(x):
-                x = torch.as_tensor(x).to(self.device)
-                return x.detach().clone() if copy_init else x
-            params, optA, optB = tree_map(own, tuple(init_params))
-        else:
-            params, optA, optB = self.init_grid(
-                tc.seed if key is None else key)
-        return self._fit(params, optA, optB, train_ds, val_ds,
-                         tc.max_iter if max_iter is None else max_iter)
+        # the guard wraps the whole fit, so a signal during set-up is
+        # latched too; the epoch loop polls it
+        with PreemptionGuard(enabled=checkpoint_dir is not None) as guard:
+            return self._fit(key, train_ds, val_ds, max_iter, init_params,
+                             copy_init, checkpoint_dir, checkpoint_every,
+                             on_lane_retire, guard)
 
-    def _fit(self, params, optA, optB, train_ds, val_ds, max_iter):
+    def _fit(self, key, train_ds, val_ds, max_iter, init_params, copy_init,
+             checkpoint_dir, checkpoint_every, on_lane_retire, guard):
         tc = self.tc
         cfg = self.model.config
         dev = self.device
-        G = self._g_real
+        G_real = self._g_real
+        max_iter = tc.max_iter if max_iter is None else max_iter
         rng = np.random.default_rng(tc.seed)
+        # deadlines bound this process's spend: a resumed fit gets a fresh
+        # budget
+        fit_t0 = time.monotonic()
         stop_after = tc.lookback * tc.check_every
-        c = self.coeffs
-        best_crit = torch.full((G,), float("inf"), device=dev)
-        best_epoch = torch.zeros((G,), dtype=torch.int32, device=dev)
-        best_params = _clone(params)
-        accepted = _clone(params) if self._freeze else None
-        active = torch.ones((G,), dtype=torch.bool, device=dev)
-        failed_epoch = torch.full((G,), -1, dtype=torch.int32, device=dev)
-        failed_cause = torch.zeros((G,), dtype=torch.int32, device=dev)
-        nstate = numerics.init_numerics_state(lanes=G, device=dev)
-        val_history = []
-        aligned = False
         past_at = cfg.num_pretrain_epochs + cfg.num_acclimation_epochs
+        self.dispatch_stats = stats = {
+            "grid_width": self._g_exec0, "compactions": 0,
+            "lane_epochs": 0, "lane_epochs_nominal": 0,
+            "ckpt_saves": 0, "ckpt_bytes": None, "ckpt_stall_ms": 0.0,
+            "ckpt_load_ms": None, "resumed_from_epoch": None}
+        ckpt = ck_meta = None
+        if checkpoint_dir is not None:
+            t0 = time.perf_counter()
+            ck_meta = self._checkpoint_meta(train_ds, val_ds)
+            ckpt = self._load_checkpoint(checkpoint_dir, ck_meta)
+            if ckpt is not None:
+                stats["ckpt_load_ms"] = (time.perf_counter() - t0) * 1e3
+        if ckpt is not None:
+            # resume at the checkpoint's own era and width
+            to_dev = lambda t: numerics.to_torch(t, dev)  # noqa: E731
+            orig_ids = np.asarray(ckpt["orig_ids"], np.int32)
+            retired = dict(ckpt["retired"])
+            params, optA, optB = (to_dev(ckpt[k]) for k in (
+                "params", "optA_state", "optB_state"))
+            best_params = to_dev(ckpt["best_params"])
+            accepted = (to_dev(ckpt["accepted"])
+                        if ckpt["accepted"] is not None else None)
+            best_crit, best_epoch, active, failed_epoch, failed_cause = (
+                to_dev(ckpt[k]) for k in ("best_crit", "best_epoch",
+                                          "active", "failed_epoch",
+                                          "failed_cause"))
+            nstate = to_dev(ckpt["nstate"])
+            # checkpointed rows are already expanded to the original width
+            val_history = list(ckpt["val_history"])
+            val_eras = [-1] * len(val_history)
+            aligned = ckpt["aligned"]
+            rng.bit_generator.state = ckpt["rng_state"]
+            start_it = ckpt["epoch"] + 1
+            stats["resumed_from_epoch"] = ckpt["epoch"]
+        else:
+            if init_params is not None:
+                def own(x):
+                    x = torch.as_tensor(x).to(dev)
+                    return x.detach().clone() if copy_init else x
+                state = tree_map(own, tuple(init_params))
+            else:
+                state = self.init_grid(tc.seed if key is None else key)
+            params, optA, optB = self.pad_to_width(state)
+            orig_ids = self._orig_ids0.copy()
+            retired = {}
+            Gx = orig_ids.size
+            best_crit = torch.full((Gx,), float("inf"), device=dev)
+            best_epoch = torch.zeros((Gx,), dtype=torch.int32, device=dev)
+            best_params = _clone(params)
+            accepted = _clone(params) if self._freeze else None
+            # filler lanes are born inactive
+            active = torch.from_numpy(orig_ids >= 0).to(dev)
+            failed_epoch = torch.full((Gx,), -1, dtype=torch.int32,
+                                      device=dev)
+            failed_cause = torch.zeros((Gx,), dtype=torch.int32, device=dev)
+            nstate = numerics.init_numerics_state(lanes=Gx, device=dev)
+            val_history, val_eras = [], []
+            aligned = False
+            start_it = 0
+        Gx = int(orig_ids.size)
+        width_nominal = Gx
+        eras, era_cur = [orig_ids], 0
+        self._set_era(orig_ids)
+        stats["grid_width"] = Gx
+        # per-execution-lane deadlines, remapped per era; dl_done keeps the
+        # per-epoch check a host compare
+        lane_deadline = self._exec_deadlines(orig_ids)
+        dl_done = np.zeros((Gx,), dtype=bool)
         # the cosine window: the first validation batch's slice, once
         cos_Xw = None
         if self._cos is not None:
@@ -549,8 +786,9 @@ class RedcliffGridRunner:
                 cos_Xw = first[0][: tc.max_samples_for_gc_tracking,
                                   : cfg.max_lag, :]
         epochs = []
-        for it in range(max_iter):
+        for it in range(start_it, max_iter):
             t_epoch0 = time.perf_counter()
+            epoch_width = Gx
             if (not aligned and "pretrain_factor" in cfg.training_mode
                     and it == cfg.num_pretrain_epochs
                     and cfg.num_supervised_factors > 0):
@@ -566,13 +804,14 @@ class RedcliffGridRunner:
                 if self._freeze_by_batch:
                     params, accepted = self._freeze_step(params, accepted)
             # validation: ordered per-batch sums from zero
-            combo_sum = torch.zeros((G,), device=dev)
-            forecast_sum = torch.zeros((G,), device=dev)
-            factor_sum = torch.zeros((G,), device=dev)
+            combo_sum = torch.zeros((Gx,), device=dev)
+            forecast_sum = torch.zeros((Gx,), device=dev)
+            factor_sum = torch.zeros((Gx,), device=dev)
             n = 0
             with torch.no_grad():
                 for X, Y in self._batches(val_ds):
-                    combo, fo, fa = self._val(params, self._loss_coeffs, X, Y)
+                    combo, fo, fa = self._val(params, self._ex_loss_coeffs,
+                                              X, Y)
                     combo_sum = combo_sum + combo
                     forecast_sum = forecast_sum + fo
                     factor_sum = factor_sum + fa
@@ -583,6 +822,7 @@ class RedcliffGridRunner:
                     "val_fraction or dataset size")
             val_now = combo_sum / n
             val_history.append(val_now)
+            val_eras.append(era_cur)
             # quarantine: a non-finite validation loss, or a guard streak of
             # max_consecutive_skips; the cause is nonfinite_grad when this
             # epoch skipped steps, else nonfinite_val
@@ -605,6 +845,7 @@ class RedcliffGridRunner:
                                             numerics.CAUSE_NONFINITE_VAL)),
                 failed_cause)
             active = active & ~bad
+            c = self._ex_coeffs
             if it >= past_at:
                 # per-point stopping criteria: stopping coefficients x
                 # coefficient-normalized val means, plus the supervised
@@ -638,17 +879,166 @@ class RedcliffGridRunner:
                 best_epoch = torch.where(active,
                                          torch.full_like(best_epoch, it),
                                          best_epoch)
-            # the one host read of the loop, on the check cadence: the
-            # global early exit once every lane has stopped
-            stop = (it % tc.check_every == 0 and it >= past_at
-                    and not bool(active.any()))
+
+            # wall-clock deadlines, after this epoch's bookkeeping: an
+            # evicted lane keeps what it earned through this epoch and
+            # freezes from the next one, siblings untouched
+            force_ckpt = False
+            elapsed = None
+            if lane_deadline is not None or self.spec.grid_deadline_s:
+                elapsed = time.monotonic() - fit_t0
+            over = self.policy.lane_evictions(lane_deadline, dl_done,
+                                              elapsed)
+            if over is not None and over.any():
+                dl_done |= over
+                dl_bad = torch.from_numpy(over).to(dev)
+                newly_dl = active & dl_bad
+                if bool(newly_dl.any()):
+                    failed_epoch = torch.where(
+                        newly_dl, torch.full_like(failed_epoch, it),
+                        failed_epoch)
+                    failed_cause = torch.where(
+                        newly_dl, torch.full_like(failed_cause,
+                                                  numerics.CAUSE_DEADLINE),
+                        failed_cause)
+                    active = active & ~dl_bad
+                    # the evicted lanes' state must land durably
+                    force_ckpt = True
+            grid_dl_hit = self.policy.grid_deadline_hit(
+                self.spec.grid_deadline_s, elapsed)
+
+            stop = False
+            plan = None
+            if it % tc.check_every == 0:
+                # the one host read of the loop, on the check cadence: the
+                # early exit once every lane has stopped, and the
+                # compaction decision
+                act_host = active.cpu().numpy()
+                stop = it >= past_at and not act_host.any()
+                if not stop:
+                    plan = self.policy.compaction_plan(
+                        act_host, orig_ids, retired.keys())
+            epoch_ms = (time.perf_counter() - t_epoch0) * 1e3
             epochs.append({"epoch": it, "phases": list(phases),
-                           "ms": (time.perf_counter() - t_epoch0) * 1e3})
+                           "width": epoch_width, "ms": epoch_ms})
+            stats["lane_epochs"] += epoch_width
+            stats["lane_epochs_nominal"] += width_nominal
             if stop:
                 break
+            if plan is not None:
+                # retire the frozen lanes' results to the host before
+                # their rows are dropped
+                if plan.retire_rows.size:
+                    rows = torch.as_tensor(plan.retire_rows,
+                                           dtype=torch.long, device=dev)
+                    frozen = numerics.to_host({
+                        "best_params": _take(best_params, rows),
+                        "best_crit": best_crit[rows],
+                        "best_epoch": best_epoch[rows],
+                        "failed_epoch": failed_epoch[rows],
+                        "failed_cause": failed_cause[rows],
+                        "numerics": _take(nstate, rows)})
+                    for i, pid in enumerate(plan.retire_ids):
+                        retired[int(pid)] = {
+                            "best_params": tree_map(
+                                lambda leaf, _i=i: leaf[_i].copy(),
+                                frozen["best_params"]),
+                            "best_crit": float(frozen["best_crit"][i]),
+                            "best_epoch": int(frozen["best_epoch"][i]),
+                            "failed_epoch": int(frozen["failed_epoch"][i]),
+                            "failed_cause": int(frozen["failed_cause"][i]),
+                            "numerics": {k: v[i].item() for k, v
+                                         in frozen["numerics"].items()}}
+                    if on_lane_retire is not None:
+                        for pid in plan.retire_ids:
+                            # the hook is advisory: a failing one is
+                            # reported and the fit goes on unchanged
+                            try:
+                                on_lane_retire(int(pid), retired[int(pid)],
+                                               it)
+                            except Exception as e:  # noqa: BLE001
+                                warnings.warn(
+                                    f"on_lane_retire failed for point "
+                                    f"{int(pid)} at epoch {it}: {e!r}",
+                                    RuntimeWarning)
+                sel = torch.as_tensor(plan.sel, dtype=torch.long, device=dev)
+                params, optA, optB, nstate, best_params = (
+                    _take(t, sel) for t in (params, optA, optB, nstate,
+                                            best_params))
+                if accepted is not None:
+                    accepted = _take(accepted, sel)
+                best_crit, best_epoch, failed_epoch, failed_cause = (
+                    t.index_select(0, sel) for t in (
+                        best_crit, best_epoch, failed_epoch, failed_cause))
+                active = torch.from_numpy(plan.active).to(dev)
+                orig_ids = plan.orig_ids
+                Gx = plan.new_width
+                self._set_era(orig_ids)
+                lane_deadline = self._exec_deadlines(orig_ids)
+                dl_done = dl_done[plan.sel]
+                eras.append(orig_ids)
+                era_cur += 1
+                stats["compactions"] += 1
+                stats["grid_width"] = Gx
 
-        final_failed = failed_epoch.cpu().numpy()
-        final_cause = failed_cause.cpu().numpy()
+            if checkpoint_dir is not None:
+                due = ((checkpoint_every and (it + 1) % checkpoint_every == 0)
+                       or force_ckpt or grid_dl_hit or guard.preempted)
+                if due:
+                    self._save_checkpoint(checkpoint_dir, {
+                        "params": params, "optA_state": optA,
+                        "optB_state": optB, "best_params": best_params,
+                        "best_crit": best_crit, "best_epoch": best_epoch,
+                        "active": active, "accepted": accepted,
+                        "failed_epoch": failed_epoch,
+                        "failed_cause": failed_cause, "nstate": nstate,
+                        "val_history": val_history, "val_eras": val_eras,
+                        "eras": eras, "orig_ids": orig_ids,
+                        "retired": retired, "aligned": aligned,
+                        "rng_state": rng.bit_generator.state, "epoch": it,
+                    }, ck_meta)
+                if guard.preempted:
+                    raise Preempted(guard.signum, epoch=it)
+            if grid_dl_hit:
+                raise DeadlineExceeded(
+                    "grid", epoch=it, elapsed_s=elapsed,
+                    deadline_s=float(self.spec.grid_deadline_s))
+
+        # ---- result assembly under original point ids: live lanes
+        # scatter through orig_ids, retired lanes come from the host store,
+        # filler lanes are dropped
+        real = orig_ids >= 0
+        ids = orig_ids[real]
+
+        def full_of(exec_arr, fill):
+            exec_arr = np.asarray(exec_arr)
+            out = np.full((G_real,) + exec_arr.shape[1:], fill,
+                          exec_arr.dtype)
+            out[ids] = exec_arr[real]
+            return out
+
+        host = numerics.to_host({
+            "best_crit": best_crit, "best_epoch": best_epoch,
+            "active": active, "failed_epoch": failed_epoch,
+            "failed_cause": failed_cause, "nstate": nstate})
+        final_crit = full_of(host["best_crit"], np.inf)
+        final_epoch = full_of(host["best_epoch"], 0)
+        final_active = full_of(host["active"], False)
+        final_failed = full_of(host["failed_epoch"], -1)
+        final_cause = full_of(host["failed_cause"], 0)
+        final_numerics = {k: full_of(v, 0) for k, v in host["nstate"].items()}
+        best_full = tree_map(lambda leaf: full_of(leaf, 0),
+                             params_to_jax(best_params))
+        for pid, rec in retired.items():
+            final_crit[pid] = rec["best_crit"]
+            final_epoch[pid] = rec["best_epoch"]
+            final_failed[pid] = rec["failed_epoch"]
+            final_cause[pid] = rec["failed_cause"]
+            for k, v in rec["numerics"].items():
+                final_numerics[k][pid] = v
+            for dst, src in zip(tree_leaves(best_full),
+                                tree_leaves(rec["best_params"])):
+                dst[pid] = src
         failures = [{"point": int(g), "epoch": int(e),
                      "cause": numerics.QUARANTINE_CAUSES.get(
                          int(cc), "nonfinite_val"),
@@ -656,17 +1046,17 @@ class RedcliffGridRunner:
                     for g, (e, cc) in enumerate(zip(final_failed,
                                                     final_cause))
                     if e >= 0]
-        history = (torch.stack(val_history).cpu().numpy() if val_history
-                   else np.zeros((0, G), np.float32))
+        rows = [numerics.to_host(v) for v in val_history]
         return GridResult(
-            best_params=params_to_jax(best_params),
-            best_criteria=best_crit.cpu().numpy(),
-            best_epoch=best_epoch.cpu().numpy(),
-            val_history=history,
+            best_params=best_full,
+            best_criteria=final_crit,
+            best_epoch=final_epoch,
+            val_history=compaction.expand_history(rows, val_eras, eras,
+                                                  G_real),
             coeffs=dict(self.result_coeffs),
-            active=active.cpu().numpy(),
+            active=final_active,
             failures=failures, epochs=epochs,
-            numerics={k: v.cpu().tolist() for k, v in nstate.items()})
+            numerics={k: v.tolist() for k, v in final_numerics.items()})
 
     def _freeze_step(self, params, accepted):
         """One Freeze accept/revert round over every lane: the merged

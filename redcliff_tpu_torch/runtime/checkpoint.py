@@ -36,10 +36,12 @@ import threading
 import warnings
 import zlib
 
+import numpy as np
+
 __all__ = ["CheckpointCorruptError", "CheckpointWriteError",
            "ForbiddenClassError", "PortUnpickler", "write_checkpoint",
            "read_checkpoint", "load_checkpoint", "quarantine",
-           "FORMAT_VERSION"]
+           "dataset_fingerprint", "FORMAT_VERSION"]
 
 MAGIC = b"RTCK"
 FORMAT_VERSION = 1
@@ -187,3 +189,20 @@ def load_checkpoint(path):
         except CheckpointCorruptError as e:
             quarantine(cand, str(e))
     return None, None
+
+
+def dataset_fingerprint(ds):
+    """A cheap shape-level identity for a dataset: enough to catch "resumed
+    against different data" (the rng state would replay a different batch
+    stream) without hashing the arrays. Works with ArrayDataset-style
+    objects (``.X``/``.Y``) and falls back to ``len`` for anything else."""
+    X = getattr(ds, "X", None)
+    if X is not None:
+        Y = getattr(ds, "Y", None)
+        return {"X_shape": tuple(int(s) for s in np.shape(X)),
+                "Y_shape": (None if Y is None
+                            else tuple(int(s) for s in np.shape(Y)))}
+    try:
+        return {"len": len(ds)}
+    except TypeError:
+        return {"type": type(ds).__name__}

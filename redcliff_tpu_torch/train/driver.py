@@ -1,6 +1,15 @@
-"""Experiment drivers (port of ``train/driver.py``): the coefficient-grid
-entry and the two pure helpers every driver uses.
+"""Experiment drivers (port of ``train/driver.py``): the array-task
+driver of the reference's train-script template and the coefficient-grid
+entry.
 
+* :func:`set_up_and_run_experiments` — the array-task entry point: one
+  (model type, dataset) from the shuffled cartesian product, picked by a
+  1-based task id (or ``SLURM_ARRAY_TASK_ID``), its cached-args files
+  read, the coefficients rescaled, and
+  :func:`kick_off_model_training_experiment` run: the hyperparameter-named
+  run folder (auto-resume when ``final_best_model.bin`` is there, a stale
+  folder cleaned out), the fold's datasets, the model and its fit. The
+  port dispatches REDCLIFF-S only (``train/orchestration.py``).
 * :func:`run_coefficient_grid` — train G coefficient/optimizer variations
   of one REDCLIFF-S model at once through
   :class:`~redcliff_tpu_torch.parallel.grid.RedcliffGridRunner`, replacing
@@ -9,19 +18,21 @@ entry and the two pure helpers every driver uses.
 * :func:`rescale_dataset_dependent_coefficients` and
   :func:`run_folder_name` — copies of the JAX package's helpers.
 
-The array-task driver (``kick_off_model_training_experiment``,
-``set_up_and_run_experiments``) and ``train/orchestration.py`` are not
-ported yet (ROADMAP queue 1, item 10).
+Both entry points take ``device=`` (``cuda`` unless given), which the JAX
+signatures lack.
 """
 from __future__ import annotations
 
 import json
 import os
+import random
+from itertools import product
 
 import numpy as np
 
 __all__ = ["run_folder_name", "rescale_dataset_dependent_coefficients",
-           "run_coefficient_grid"]
+           "kick_off_model_training_experiment",
+           "set_up_and_run_experiments", "run_coefficient_grid"]
 
 
 def run_folder_name(args_dict):
@@ -71,6 +82,81 @@ def rescale_dataset_dependent_coefficients(args_dict):
     return args_dict
 
 
+def kick_off_model_training_experiment(args_dict, grid_search=False, seed=0,
+                                       device=None):
+    """One training run end to end: the run folder (a folder without
+    ``final_best_model.bin`` is stale and cleaned out; one with it resumes
+    through the trainer's checkpoint), the fold, the model, the fit on
+    ``device``. Returns ``(model, params, fit result)``."""
+    from redcliff_tpu_torch.train.orchestration import (
+        call_model_fit_method, create_model_instance,
+        get_data_for_model_training)
+
+    save_dir = os.path.join(args_dict["save_root_path"],
+                            run_folder_name(args_dict))
+    args_dict["save_path"] = save_dir
+    os.makedirs(save_dir, exist_ok=True)
+    if "final_best_model.bin" not in os.listdir(save_dir):
+        for f in os.listdir(save_dir):
+            path = os.path.join(save_dir, f)
+            if os.path.isfile(path):
+                os.remove(path)
+
+    train_ds, val_ds = get_data_for_model_training(
+        args_dict, grid_search=grid_search, device=device)
+    model = create_model_instance(
+        args_dict,
+        employ_version_with_smoothing_loss="Smooth" in
+        args_dict["model_type"] or "WithSmoothing" in args_dict["model_type"])
+    params, result = call_model_fit_method(
+        model, args_dict, train_ds, val_ds, save_dir=save_dir, seed=seed,
+        device=device)
+    return model, params, result
+
+
+def set_up_and_run_experiments(args_dict, files_of_cached_model_args,
+                               files_of_cached_data_args,
+                               possible_model_types, possible_data_sets,
+                               shuffle_seed=0, task_id=None,
+                               grid_search=False, device=None):
+    """Array-task entry point: pick one (model_type, dataset) from the
+    shuffled cartesian product by task id (1-based, from
+    ``SLURM_ARRAY_TASK_ID`` when not given), read its cached-args files,
+    rescale the coefficients, and run it on ``device``. Returns the task
+    id."""
+    from redcliff_tpu_torch.utils.config import (read_in_data_args,
+                                                 read_in_model_args)
+
+    combos = list(product(possible_model_types, possible_data_sets))
+    random.Random(shuffle_seed).shuffle(combos)
+    if task_id is None:
+        task_id = int(os.environ["SLURM_ARRAY_TASK_ID"])
+    model_type, data_set_name = combos[task_id - 1]
+
+    def only(name, files):
+        matches = [x for x in files if name in x]
+        if len(matches) != 1:
+            raise ValueError(f"{name!r} names {len(matches)} cached-args "
+                             f"files, not one: {matches}")
+        return matches[0]
+
+    args_dict["model_type"] = model_type
+    args_dict["model_cached_args_file"] = only(model_type,
+                                               files_of_cached_model_args)
+    args_dict["data_set_name"] = data_set_name
+    args_dict["data_cached_args_file"] = only(data_set_name,
+                                              files_of_cached_data_args)
+
+    read_in_model_args(args_dict)
+    read_in_data_args(args_dict)
+    if "coeff_dict" in args_dict and "REDCLIFF" in model_type:
+        rescale_dataset_dependent_coefficients(args_dict)
+
+    kick_off_model_training_experiment(args_dict, grid_search=grid_search,
+                                       device=device)
+    return task_id
+
+
 def run_coefficient_grid(model, train_config, grid_points, train_ds, val_ds,
                          key=None, mesh=None, max_iter=None,
                          init_point_params=None, checkpoint_dir=None,
@@ -90,16 +176,25 @@ def run_coefficient_grid(model, train_config, grid_points, train_ds, val_ds,
     default = independent per-lane draws from the int seed ``key``
     (``train_config.seed`` when None; the JAX package takes a PRNG key).
 
+    checkpoint_dir + checkpoint_every: periodic whole-state checkpoints
+    with bit-identical resume, and a final checkpoint on SIGTERM/SIGINT
+    (``Preempted``); ``fit_deadline_s`` (scalar or per point) evicts
+    over-budget lanes with cause ``"deadline"``, ``grid_deadline_s`` ends
+    the fit resumably with ``DeadlineExceeded``
+    (:meth:`RedcliffGridRunner.fit`). The grid runs on the bucket ladder
+    and compacts as lanes stop (``train_config.g_bucket`` /
+    ``compaction``); results stay indexed by original point id.
+
     Points whose validation loss goes non-finite, or whose numerics guard
     reports a stuck lane, are quarantined (the lane freezes; the rest of
-    the grid trains on) and recorded to ``failures.json`` in ``run_dir`` —
-    one {"point", "epoch", "cause", "hparams"} record each, plus the run
-    context. No file is written when the run has no failures.
+    the grid trains on) and recorded to ``failures.json`` in ``run_dir``
+    (default: ``checkpoint_dir``) — one {"point", "epoch", "cause",
+    "hparams"} record each, plus the run context. No file is written when
+    the run has no failures.
 
     Not ported yet, and raising when asked for: a device mesh (``mesh``,
-    ROADMAP item 15), checkpoints (``checkpoint_dir``/``checkpoint_every``,
-    item 9), deadlines (``fit_deadline_s``/``grid_deadline_s``, item 9) and
-    the quality monitor's ground truth (``true_gc``, item 11)."""
+    ROADMAP item 15) and the quality monitor's ground truth (``true_gc``,
+    item 11)."""
     from redcliff_tpu_torch.parallel.grid import GridSpec, RedcliffGridRunner
 
     if mesh is not None:
@@ -118,9 +213,10 @@ def run_coefficient_grid(model, train_config, grid_points, train_ds, val_ds,
                         init_params=init, copy_init=False,
                         checkpoint_dir=checkpoint_dir,
                         checkpoint_every=checkpoint_every, true_gc=true_gc)
-    if result.failures and run_dir is not None:
-        os.makedirs(run_dir, exist_ok=True)
-        with open(os.path.join(run_dir, "failures.json"), "w") as f:
+    failures_dir = run_dir if run_dir is not None else checkpoint_dir
+    if result.failures and failures_dir is not None:
+        os.makedirs(failures_dir, exist_ok=True)
+        with open(os.path.join(failures_dir, "failures.json"), "w") as f:
             json.dump({"grid_size": len(spec.points),
                        "training_mode": model.config.training_mode,
                        "seed": train_config.seed,

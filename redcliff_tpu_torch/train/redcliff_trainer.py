@@ -92,6 +92,11 @@ class RedcliffTrainConfig:
     prox_lam: float = 0.0
     # prefetch depth for batch sources that are not device-resident
     prefetch_batches: int = 2
+    # grid engine only (parallel/policy.py): gather the surviving lanes
+    # down the power-of-two bucket ladder at check windows, and pad a
+    # fresh grid's width up to the ladder with masked filler lanes
+    compaction: bool = True
+    g_bucket: bool = True
     # None disables the guard and the divergence monitor
     numerics: NumericsPolicy | None = field(default_factory=NumericsPolicy)
 

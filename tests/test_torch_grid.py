@@ -397,31 +397,29 @@ def test_driver_helpers_match_jax():
 
 
 def test_what_is_not_ported_raises(tmp_path):
-    """Mesh, checkpoints, deadlines, telemetry, mixed precision and a
+    """Mesh, telemetry, the predictive policy, mixed precision and a
     default CUDA device without a card raise; nothing is quietly
     ignored."""
+    from redcliff_tpu_torch.parallel import policy as tpolicy
+
     _, tm = _models()
     X, Y = _data(32)
     ds = TDataset(X, Y)
     tc = ttr.RedcliffTrainConfig(max_iter=1, batch_size=16)
     spec = tgrid.GridSpec([{}, {}])
     runner = tgrid.RedcliffGridRunner(tm, tc, spec, device="cpu")
-    for kw in (dict(checkpoint_dir=str(tmp_path)), dict(checkpoint_every=1),
-               dict(log_dir=str(tmp_path)), dict(true_gc=[np.eye(4)]),
-               dict(on_lane_retire=lambda *a: None)):
+    for kw in (dict(log_dir=str(tmp_path)), dict(true_gc=[np.eye(4)])):
         with pytest.raises(NotImplementedError):
             runner.fit(0, ds, ds, **kw)
     with pytest.raises(NotImplementedError):
         tgrid.RedcliffGridRunner(tm, tc, spec, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        tgrid.RedcliffGridRunner(tm, tc, tgrid.GridSpec(
-            [{}, {}], fit_deadline_s=10.0), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 11"):
+        tpolicy.PredictiveSchedulingPolicy()
     with pytest.raises(NotImplementedError):
         tgrid.GridSpec([{}], precision_mode="mixed")
-    for kw in (dict(mesh="auto"), dict(grid_deadline_s=5.0)):
-        with pytest.raises(NotImplementedError):
-            tdriver.run_coefficient_grid(tm, tc, [{}, {}], ds, ds,
-                                         device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        tdriver.run_coefficient_grid(tm, tc, [{}, {}], ds, ds,
+                                     device="cpu", mesh="auto")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             tgrid.RedcliffGridRunner(tm, tc, spec)
