@@ -3,15 +3,17 @@
 
 Drives the port's main paths on one CUDA card — serving a fitted model,
 fitting one, fitting a coefficient grid, fitting it durably on the bucket
-ladder, and running one array task from cached-args files — and holds
-every kernel on them against its plain PyTorch version. Phases, one JSON line
+ladder, running one array task from cached-args files, and scoring the
+fitted models through the evaluation layer — and holds every kernel on
+them against its plain PyTorch version. Phases, one JSON line
 each:
 
 1. build: the factor-mix and GL-prox CUDA kernels from
    ``redcliff_tpu_torch/ops/csrc`` (into ``build/torch_kernels/``), built
    at once, each timed; the card's name and power limit.
 2. kernel: each kernel against its plain version on the card — factor mix
-   at the serve shapes and at the training shapes (forward and autograd
+   at the serve shapes, the eval readout's (S = 240) and the training
+   shapes (forward and autograd
    backward, full and remainder batch, M = 100, 10 and 7, a p offset by
    one float), GL prox functional and in place (the output aliasing the
    input) at the training block, the off-tile shapes, slabs walked in
@@ -70,9 +72,26 @@ each:
    artifact, its reload through ``eval/model_io.py``, its GC readout and
    the factor-mix launches against the fit's forwards (the array task sets
    no prox, here as in the JAX package, so it launches no GL prox).
+11. eval: the evaluation layer (``redcliff_tpu_torch/eval``) on the
+   grid's and the array task's models. Each of the 27 points' best params
+   is written as ``grid_point<i>/final_best_model.bin`` (as
+   ``experiments/d4ic_grid_search.py:231-258`` does) and scored by
+   ``evaluate_algorithm_on_fold`` against the sVAR's 5 true graphs: each
+   point's off-diagonal optimal F1, the criteria winner (argmin of the
+   grid's best criteria) and the oracle best. ``select_best_models`` over
+   the array task's run root. The array task's model read out by
+   ``evaluate_dynamic_readouts_on_fold`` over 16 switching recordings of
+   256 steps from the same state VARs (240 windows each: one embed and
+   one ``graph_mix`` per recording), ``average_factor_scoring_by_state``,
+   ``get_model_gc_score_estimates`` on one window (one forward) and
+   ``evaluate_fold_system_level``. The same artifacts through the port's
+   CPU path: optimal-F1 stats within 1e-6, everything downstream of the
+   DGCNN embed within 1e-4, the same winners; factor-mix launches = 16
+   ``graph_mix`` + 1 forward, GL prox 0; eval wall per grid point and
+   readout windows per second.
 
 Launch counts are reset just before each main path (serve, train, grid,
-grid_durable, array_task) and read just after; the kernel-phase launches
+grid_durable, array_task, eval) and read just after; the kernel-phase launches
 do not count. Then a ``kernels`` line, the ``nvidia-smi`` name/power line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises: the script
 exits non-zero and prints no ``ok`` line. It also refuses to run without
@@ -243,6 +262,22 @@ ARRAY_TASK_ARGS = {
 }
 ARRAY_TASK_CUTS = {"num_pretrain_epochs": "1", "num_acclimation_epochs": "1",
                    "max_iter": "4", "check_every": "1"}
+
+# eval: the grid's 27 best-params artifacts scored against the sVAR's 5
+# true graphs (experiments/d4ic_grid_search.py:231-258), the array task's
+# run root selected (eval_gs), and the array task's model read out over
+# EVAL_RECORDINGS validation recordings of EVAL_T steps from the same 5
+# state VARs, the state switching every EVAL_SWITCH steps in an order
+# drawn from numpy's default_rng(EVAL_ORDER_SEED); windows of embed_lag
+# (T - history = 240 per recording). Card vs CPU: the per-point
+# optimal-F1 stats within EVAL_F1_ATOL (a readout of the params, no
+# embed); anything downstream of the DGCNN embed within EVAL_DYN_ATOL
+EVAL_RECORDINGS = 16
+EVAL_T = 256
+EVAL_SWITCH = 32
+EVAL_ORDER_SEED = 2
+EVAL_F1_ATOL = 1e-6
+EVAL_DYN_ATOL = 1e-4
 
 
 class SmokeFailure(RuntimeError):
@@ -415,7 +450,8 @@ def _mix_checks(torch, FM, gen, dev, errs):
                      FM.factor_mix_reference(w, p), errs)
         plans[name] = plan(w, p, B, T * C, p.stride(0), p.stride(1))
     gc = torch.randn((5, 10, 10), generator=gen).to(dev)
-    for S, offset in ((64, False), (3, False), (64, True)):
+    for S, offset in ((64, False), (3, False), (64, True),
+                      (EVAL_T - TRAIN_CONFIG["embed_lag"], False)):
         w = torch.rand((S, 5), generator=gen).to(dev)
         g = _offset_view(torch, gc) if offset else gc
         name = f"graph_mix(S={S})" + (" gc+1 float" if offset else "")
@@ -423,6 +459,7 @@ def _mix_checks(torch, FM, gen, dev, errs):
                      FM.graph_mix_reference(w, g), errs)
         plans[name] = plan(w, g, S, 100, g.stride(0), 0)
     _require(plans["graph_mix(S=64)"] == "float4"
+             and plans["graph_mix(S=240)"] == "float4"
              and plans["factor_mix(128, 5, 1, 10)"] == "float2"
              and plans["graph_mix(S=64) gc+1 float"] == "scalar"
              and plans["factor_mix(64, 5, 10, 10) p+1 float"] == "scalar",
@@ -748,12 +785,20 @@ def phase_kernel(torch, FM, PX):
     B = TRAIN_KNOBS["batch_size"]
     wt = torch.rand((B, K_TRAIN), generator=gen).to(dev)
     pt = torch.randn((K_TRAIN, B, 1, C_TRAIN), generator=gen).to(dev)
+    S_r = EVAL_T - TRAIN_CONFIG["embed_lag"]
+    wr = torch.rand((S_r, 5), generator=gen).to(dev)
     for key, shape, fns, bound in (
             ("tick", "S=64 K=5 M=100 (graph_mix, p broadcast over S)",
              {"kernel_ms": lambda: FM.graph_mix(w, gc),
               "library_ms": lambda: torch.mm(w, gc.view(5, -1)),
               "plain_ms": lambda: FM.graph_mix_reference(w, gc)},
              _bound_ms(CAPACITY, 5, 100, 1)),
+            ("readout", f"S={S_r} K=5 M=100 (graph_mix, the dynamic "
+                        f"readout's factor sum, graphs broadcast over S)",
+             {"kernel_ms": lambda: FM.graph_mix(wr, gc),
+              "library_ms": lambda: torch.mm(wr, gc.view(5, -1)),
+              "plain_ms": lambda: FM.graph_mix_reference(wr, gc)},
+             _bound_ms(S_r, 5, 100, 1)),
             ("load", "B=1 K=5 M=10 (factor_mix, one sim step)",
              {"kernel_ms": lambda: FM.factor_mix(w1, p1),
               "library_ms": lambda: torch.bmm(
@@ -1057,11 +1102,16 @@ def phase_profile(torch, FM):
     w = torch.rand((CAPACITY, 5), generator=gen).to(dev)
     w1 = torch.rand((1, 5), generator=gen).to(dev)
     p1 = torch.randn((5, 1, 1, 10), generator=gen).to(dev)
+    wr = torch.rand((EVAL_T - TRAIN_CONFIG["embed_lag"], 5),
+                    generator=gen).to(dev)
     one = torch.zeros(1, device=dev)
     alone = _alone_us(torch, {
         "floor: x.zero_()": one.zero_,
         "factor_mix_kernel (tick)": lambda: FM.graph_mix(w, gc),
         "torch.mm (tick)": lambda: torch.mm(w, gc.view(5, -1)),
+        "factor_mix_kernel (readout)": lambda: FM.graph_mix(wr, gc),
+        "torch.mm (readout)": lambda: torch.mm(wr, gc.view(5, -1)),
+        "plain (readout)": lambda: FM.graph_mix_reference(wr, gc),
         "factor_mix_kernel (load)": lambda: FM.factor_mix(w1, p1),
         "torch.bmm (load)": lambda: torch.bmm(
             w1[:, None, :], p1.reshape(5, 1, 10).transpose(0, 1))})
@@ -1103,15 +1153,10 @@ def phase_profile(torch, FM):
            "top_device_us_per_tick": dict(top)})
 
 
-def _d4ic_like_data(np, n, seed):
-    """``n`` windows of (embed_lag + 1, 10) from a 5-state sparse VAR(4)
-    (one random stable coefficient set per state, a burn-in per window),
-    with one-hot state labels (n, 5, 1), and each state's true lagged
-    graph (5, C, C, L): the support of its coefficients."""
-    rng = np.random.default_rng(seed)
+def _state_vars(np, rng):
+    """The 5 states' sparse VAR(4) coefficients (K, L, C, C), each scaled
+    to a companion spectral radius of at most 0.9."""
     K, C, L = K_TRAIN, C_TRAIN, TRAIN_CONFIG["gen_lag"]
-    T = TRAIN_CONFIG["embed_lag"] + TRAIN_CONFIG["num_sims"]
-    burn = 32
     A = np.zeros((K, L, C, C))
     for k in range(K):
         A[k] = (rng.random((L, C, C)) < 0.15) * rng.normal(0.0, 0.4,
@@ -1123,6 +1168,19 @@ def _d4ic_like_data(np, n, seed):
         rho = float(np.max(np.abs(np.linalg.eigvals(comp))))
         if rho > 0.9:  # spectral radius of the companion matrix to 0.9
             A[k] *= ((0.9 / rho) ** np.arange(1, L + 1))[:, None, None]
+    return A
+
+
+def _d4ic_like_data(np, n, seed):
+    """``n`` windows of (embed_lag + 1, 10) from a 5-state sparse VAR(4)
+    (one random stable coefficient set per state, a burn-in per window),
+    with one-hot state labels (n, 5, 1), and each state's true lagged
+    graph (5, C, C, L): the support of its coefficients."""
+    rng = np.random.default_rng(seed)
+    K, C, L = K_TRAIN, C_TRAIN, TRAIN_CONFIG["gen_lag"]
+    T = TRAIN_CONFIG["embed_lag"] + TRAIN_CONFIG["num_sims"]
+    burn = 32
+    A = _state_vars(np, rng)
     states = rng.integers(0, K, n)
     Ak = A[states]
     x = np.zeros((n, burn + T, C))
@@ -1598,7 +1656,7 @@ def phase_grid(torch, FM, PX):
            "val_combo_loss_last": res.val_history[-1].tolist(),
            "own_lane": g, "own_lane_point": raw[g],
            "own_lane_vs_per_point": lane})
-    return mix_launches, prox_launches, model, params, train_ds
+    return mix_launches, prox_launches, model, params, train_ds, res
 
 
 def _grid_steps(torch, np, model, host_params, batches, device):
@@ -2115,6 +2173,216 @@ def phase_array_task(torch, FM, PX):
            "gl_prox_launches": prox_launches, "best_it": meta["best_it"],
            "val_combo_loss": meta["avg_combo_loss"],
            "gc_shape": list(gc.shape)})
+    return mix_launches, prox_launches, runs
+
+
+def _switching_recordings(np, A, n, T, seed):
+    """``n`` recordings (x (T, C), y (K, T)) of the state VARs ``A``
+    (K, L, C, C), the state switching every EVAL_SWITCH steps in an order
+    drawn from ``default_rng(seed)``, a burn-in in the first state, one-hot
+    labels per step."""
+    rng = np.random.default_rng(seed)
+    K, L, C = A.shape[0], A.shape[1], A.shape[2]
+    burn = 32
+    out = []
+    for _ in range(n):
+        order = rng.integers(0, K, -(-T // EVAL_SWITCH))
+        states = np.repeat(order, EVAL_SWITCH)[:T]
+        steps = np.concatenate([np.full(burn, states[0]), states])
+        x = rng.normal(size=(burn + T, C))
+        for t in range(L, burn + T):
+            x[t] += sum(A[steps[t], l] @ x[t - 1 - l] for l in range(L))
+        out.append((x[burn:].astype(np.float32),
+                    np.eye(K, dtype=np.float32)[states].T))
+    return out
+
+
+def _max_abs_diff(np, a, b):
+    """Max abs difference of two trees of numbers and arrays (None where
+    the other has None); inf where their structures differ."""
+    if isinstance(a, dict):
+        if not isinstance(b, dict) or set(a) != set(b):
+            return float("inf")
+        return max([_max_abs_diff(np, a[k], b[k]) for k in a] or [0.0])
+    if isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            return float("inf")
+        return max([_max_abs_diff(np, x, y) for x, y in zip(a, b)] or [0.0])
+    if a is None or b is None:
+        return 0.0 if a is b else float("inf")
+    d = np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64))
+    return float(np.max(d)) if d.size else 0.0
+
+
+def phase_eval(torch, FM, PX, model, grid_res, task_runs, readout_timing):
+    """The evaluation layer on the card: score the grid's 27 points and
+    pick the criteria winner and the oracle best, select over the array
+    task's run root, read out the array task's model over switching
+    recordings (state tracking and the conditional graphs through
+    ``graph_mix``), one factor-score estimate and the system-level
+    battery; counts at 0 just before, read just after. Then the same
+    artifacts through the port's CPU path."""
+    import pickle
+    import types
+
+    import numpy as np
+
+    from redcliff_tpu_torch import interop
+    from redcliff_tpu_torch.eval import (average_factor_scoring_by_state,
+                                         evaluate_algorithm_on_fold,
+                                         evaluate_dynamic_readouts_on_fold,
+                                         evaluate_fold_system_level,
+                                         get_model_gc_estimates,
+                                         get_model_gc_score_estimates,
+                                         load_model_for_eval,
+                                         select_best_models)
+    from redcliff_tpu_torch.eval.summaries import OFFDIAG_PARADIGM
+
+    _, raw = _grid_points()
+    _, _, graphs = _d4ic_like_data(np, 1, seed=0)
+    A = _state_vars(np, np.random.default_rng(0))
+    true_gcs = list(graphs)
+    root = os.path.join(HERE, "build", "chip_smoke", "eval")
+    shutil.rmtree(root, ignore_errors=True)
+    # each point's best params as experiments/d4ic_grid_search.py:233-240
+    # writes them: a headerless pickle per grid_point<i>/
+    point_dirs = []
+    for i in range(GRID_LANES):
+        d = os.path.join(root, f"grid_point{i}")
+        os.makedirs(d)
+        with open(os.path.join(d, "final_best_model.bin"), "wb") as f:
+            pickle.dump({"model_class": "RedcliffSCMLP",
+                         "config": model.config,
+                         "params": interop.tree_map(
+                             lambda x, i=i: np.asarray(x[i]),
+                             grid_res.best_params)}, f)
+        point_dirs.append(d)
+    task_run = os.path.join(task_runs, os.listdir(task_runs)[0])
+    samples = _switching_recordings(np, A, EVAL_RECORDINGS, EVAL_T,
+                                    EVAL_ORDER_SEED)
+    history = TRAIN_CONFIG["embed_lag"]
+    windows = EVAL_T - history
+    K = K_TRAIN
+    label_ds = types.SimpleNamespace(X=[x for x, _ in samples],
+                                     Y=[y for _, y in samples])
+
+    def run(device):
+        out, wall = {}, {}
+        t0 = time.perf_counter()
+        out["points"] = [evaluate_algorithm_on_fold(
+            d, ARRAY_TASK_MODEL, true_gcs, device=device)
+            for d in point_dirs]
+        wall["points_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["dynamic"] = evaluate_dynamic_readouts_on_fold(
+            task_run, ARRAY_TASK_MODEL, true_gcs, samples, K,
+            max_recordings=EVAL_RECORDINGS, history=history, device=device)
+        wall["dynamic_s"] = time.perf_counter() - t0
+        tmodel, tparams = load_model_for_eval(task_run, device=device)
+        t0 = time.perf_counter()
+        out["factor_scores"] = average_factor_scoring_by_state(
+            tmodel, tparams, label_ds, K, windows, history)
+        wall["factor_scores_s"] = time.perf_counter() - t0
+        out["score_estimate"] = get_model_gc_score_estimates(
+            tmodel, tparams, ARRAY_TASK_MODEL, K,
+            X=samples[0][0][None, :history])
+        out["system_level"] = evaluate_fold_system_level(
+            get_model_gc_estimates(tmodel, tparams, ARRAY_TASK_MODEL, K),
+            true_gcs)
+        return out, wall
+
+    # ---- the main path: counts at 0 just before, read just after
+    FM.factor_mix.launches = 0
+    PX.gl_prox.launches = 0
+    t0 = time.perf_counter()
+    card, card_wall = run(None)
+    selection = select_best_models(task_runs)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    mix_launches = FM.factor_mix.launches
+    prox_launches = PX.gl_prox.launches
+
+    cpu, cpu_wall = run("cpu")
+    # one graph_mix per recording, one forward for the score estimate
+    want_mix = EVAL_RECORDINGS + 1
+    _require(mix_launches == want_mix and prox_launches == 0,
+             f"eval: {mix_launches} factor_mix launches for {want_mix} "
+             f"(16 graph_mix + 1 forward), {prox_launches} gl_prox")
+
+    def f1(stats):
+        return stats[OFFDIAG_PARADIGM]["f1_mean_across_factors"]
+
+    crit = np.asarray(grid_res.best_criteria, dtype=np.float64)
+    card_f1 = [f1(s) for s in card["points"]]
+    cpu_f1 = [f1(s) for s in cpu["points"]]
+    pick = {"criteria_winner": int(np.argmin(crit)),
+            "oracle_best_card": int(np.argmax(card_f1)),
+            "oracle_best_cpu": int(np.argmax(cpu_f1))}
+    errs = {"points_f1_stats": _max_abs_diff(np, card["points"],
+                                             cpu["points"]),
+            "points_offdiag_f1": _max_abs_diff(np, card_f1, cpu_f1),
+            "dynamic": _max_abs_diff(np, card["dynamic"], cpu["dynamic"]),
+            "factor_scores": _max_abs_diff(np, card["factor_scores"],
+                                           cpu["factor_scores"]),
+            "score_estimate": _max_abs_diff(np, card["score_estimate"],
+                                            cpu["score_estimate"]),
+            "system_level": _max_abs_diff(np, card["system_level"],
+                                          cpu["system_level"])}
+    _require(max(errs["points_f1_stats"], errs["points_offdiag_f1"])
+             <= EVAL_F1_ATOL,
+             f"eval: grid-point optimal-F1 stats card vs CPU {errs}")
+    _require(all(errs[k] <= EVAL_DYN_ATOL for k in (
+        "dynamic", "factor_scores", "score_estimate", "system_level")),
+             f"eval: readouts card vs CPU {errs}")
+    _require(pick["oracle_best_card"] == pick["oracle_best_cpu"],
+             f"eval: oracle best card vs CPU {pick}")
+    _require(all(np.isfinite(card_f1))
+             and all(len(v) == EVAL_RECORDINGS
+                     for v in card["dynamic"].values()),
+             f"eval: F1s {card_f1}, dynamic {card['dynamic']}")
+    _require(all(r["ranking"] and r["best_run"] == os.path.basename(task_run)
+                 for r in selection.values()),
+             f"eval: selection over the array task's runs {selection}")
+    n_win = EVAL_RECORDINGS * windows
+    f1_top2 = sorted(card_f1, reverse=True)[:2]
+    summary = {k: float(np.mean(v)) for k, v in card["dynamic"].items()}
+    _emit({"phase": "eval", "device": torch.cuda.get_device_name(0),
+           "config": "the grid's 27 best params (grid phase) and the array "
+                     "task's model (array_task phase): the published D4IC "
+                     "REDCLIFF-S at full width",
+           "grid_points": GRID_LANES, "eval_wall_s": eval_s,
+           "eval_wall_s_per_grid_point": card_wall["points_s"] / GRID_LANES,
+           "cpu_eval_wall_s_per_grid_point": cpu_wall["points_s"]
+           / GRID_LANES,
+           "optf1_offdiag_by_point": card_f1,
+           "criteria_winner": {"point": pick["criteria_winner"],
+                               "raw": raw[pick["criteria_winner"]],
+                               "optf1": card_f1[pick["criteria_winner"]]},
+           "oracle_best": {"point": pick["oracle_best_card"],
+                           "raw": raw[pick["oracle_best_card"]],
+                           "optf1": card_f1[pick["oracle_best_card"]],
+                           # the pick's lead over the runner-up: a near-tie
+                           # says the pick carries little
+                           "margin_to_second": f1_top2[0] - f1_top2[1]},
+           "selection": {c: {"best_run": r["best_run"],
+                             "best_epoch": r["best_epoch"]}
+                         for c, r in selection.items()},
+           "recordings": EVAL_RECORDINGS, "recording_len": EVAL_T,
+           "windows_per_recording": windows,
+           "dynamic_readout_wall_s": card_wall["dynamic_s"],
+           "readout_windows_per_s": n_win / card_wall["dynamic_s"],
+           "cpu_readout_windows_per_s": n_win / cpu_wall["dynamic_s"],
+           "factor_scoring_wall_s": card_wall["factor_scores_s"],
+           "dynamic_means": summary,
+           "score_estimate": card["score_estimate"].tolist(),
+           "system_level_normal_means": {
+               k: float(np.mean(v))
+               for k, v in card["system_level"]["normal"].items()},
+           "card_vs_cpu_max_abs": errs, "f1_atol": EVAL_F1_ATOL,
+           "readout_atol": EVAL_DYN_ATOL,
+           "factor_mix_launches": mix_launches,
+           "gl_prox_launches": prox_launches,
+           "graph_mix_readout_timing": readout_timing})
     return mix_launches, prox_launches
 
 
@@ -2151,10 +2419,13 @@ def main():
     mix_launches, prox_launches, tmodel, tparams, train_ds = phase_train(
         torch, FM, PX)
     phase_train_check(torch, tmodel, tparams, train_ds)
-    grid_mix, grid_prox, gmodel, gparams, gtrain = phase_grid(torch, FM, PX)
+    grid_mix, grid_prox, gmodel, gparams, gtrain, gres = phase_grid(
+        torch, FM, PX)
     phase_grid_check(torch, gmodel, gparams, gtrain)
     dur_mix, dur_prox = phase_grid_durable(torch, FM, PX, gparams)
-    task_mix, task_prox = phase_array_task(torch, FM, PX)
+    task_mix, task_prox, task_runs = phase_array_task(torch, FM, PX)
+    eval_mix, eval_prox = phase_eval(torch, FM, PX, gmodel, gres, task_runs,
+                                     timing["factor_mix"]["readout"])
     if "--profile" in sys.argv[1:]:
         phase_profile(torch, FM)
         phase_profile_train(torch, FM, PX, tmodel, tparams, train_ds)
@@ -2167,7 +2438,7 @@ def main():
 
     mix_paths = {"serve": serve_launches, "train": mix_launches,
                  "grid": grid_mix, "grid_durable": dur_mix,
-                 "array_task": task_mix}
+                 "array_task": task_mix, "eval": eval_mix}
     fm = _kernel_entry(
         "factor_mix", FM, "redcliff_tpu/ops/factor_mix.py:58",
         sum(mix_paths.values()), mix_paths, max_err["factor_mix"],
@@ -2175,7 +2446,8 @@ def main():
     fm["by_shape"] = {k: v for k, v in timing["factor_mix"].items()
                       if k != "train"}
     prox_paths = {"serve": 0, "train": prox_launches, "grid": grid_prox,
-                  "grid_durable": dur_prox, "array_task": task_prox}
+                  "grid_durable": dur_prox, "array_task": task_prox,
+                  "eval": eval_prox}
     px = _kernel_entry(
         "gl_prox", PX, "redcliff_tpu/ops/pallas_prox.py:47",
         sum(prox_paths.values()), prox_paths, max_err["gl_prox"],

@@ -1,20 +1,29 @@
 """Model loading (port of ``eval/model_io.py``, REDCLIFF-S only).
 
 Artifacts are ``{model_class, config, params}`` payloads in the durable
-checkpoint format, written by either package's ``save_model``. A JAX-written
+checkpoint format, written by either package's ``save_model``, or legacy
+headerless pickles of the same payload (what
+``experiments/d4ic_grid_search.py`` writes per grid point). A JAX-written
 artifact loads without JAX: the restricted unpickler maps the JAX config
 class to the port's (runtime/checkpoint.py) and the params are numpy.
+
+:func:`to_params_device` moves host inputs (numpy windows) to the device
+the loaded params live on, as one float32 tensor: the evaluation layer's
+one host-to-device copy per call.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
 
+import numpy as np
+import torch
+
 from redcliff_tpu_torch.interop import params_from_jax
 from redcliff_tpu_torch.runtime.checkpoint import read_checkpoint
 from redcliff_tpu_torch.utils.precision import resolve_device
 
-__all__ = ["load_artifact", "load_model_for_eval"]
+__all__ = ["load_artifact", "load_model_for_eval", "to_params_device"]
 
 
 def load_artifact(path, best_model_name=None):
@@ -64,3 +73,12 @@ def load_model_for_eval(path, device=None, model_class=None,
     config.__post_init__()  # unpickling skipped the validation
     model = RedcliffSCMLP(config)
     return model, params_from_jax(payload["params"], dev)
+
+
+def to_params_device(params, x):
+    """``x`` (numpy or a tensor) as one contiguous float32 tensor on the
+    device of the REDCLIFF-S params tree ``params``."""
+    dev = params["factors"][0]["w"].device
+    if isinstance(x, torch.Tensor):
+        return x.to(device=dev, dtype=torch.float32).contiguous()
+    return torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)).to(dev)

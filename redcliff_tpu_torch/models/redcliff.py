@@ -7,7 +7,8 @@ estimates. The K factors are one stacked weight block (leading K axis,
 the JAX package's ``vmap`` written out as broadcasting einsums).
 
 Ported: the config with its validation, ``init``, both forward modes, all
-9 GC readout modes (the serve slice), and the training half — the phase
+9 GC readout modes (the serve slice) with their host view
+``gc_as_lists`` (the evaluation layer), and the training half — the phase
 schedule, the multi-term loss with its smoothing variant, ``apply_prox``
 and its in-place form ``apply_prox_`` (the GL prox kernel on the card),
 ``permute_factors`` and the validation normalization coefficients. cLSTM
@@ -412,6 +413,14 @@ class RedcliffSCMLP:
                 return G[..., -lag_clip:] + Ec[..., -lag_clip:]
             return G + Ec
         raise ValueError(f"GC EST MODE == {mode} IS NOT SUPPORTED")
+
+    def gc_as_lists(self, params, gc_est_mode=None, X=None, **kw):
+        """Host view of :meth:`gc` in the reference's list-of-lists
+        contract: outer list by sample, inner by factor, numpy (C, C, L)
+        arrays, from one device-to-host copy."""
+        arr = self.gc(params, gc_est_mode, X=X, **kw).detach().cpu().numpy()
+        return [[arr[s, k] for k in range(arr.shape[1])]
+                for s in range(arr.shape[0])]
 
     # -------------------------------------------------------------------- loss
     def compute_loss(self, params, conditioning_X, preds, targets,

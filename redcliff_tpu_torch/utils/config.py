@@ -24,7 +24,19 @@ __all__ = [
     "serialize_tensor_to_string",
     "read_in_model_args",
     "read_in_data_args",
+    "load_true_gc_factors",
 ]
+
+
+def load_true_gc_factors(data_cached_args_file,
+                         model_type="REDCLIFF_S_CMLP"):
+    """The per-dataset true factor graphs from a cached-args file, the one
+    place the eval layer reads the cached-args truth (``model_type`` only
+    selects the parsing schema)."""
+    args = read_in_data_args({"model_type": model_type,
+                              "data_cached_args_file": data_cached_args_file},
+                             read_in_gc_factors_for_eval=True)
+    return args["true_GC_factors"]
 
 
 def parse_input_list_of_ints(list_string):
@@ -190,11 +202,13 @@ def read_in_model_args(args_dict):
     return args_dict
 
 
-def read_in_data_args(args_dict):
+def read_in_data_args(args_dict, read_in_gc_factors_for_eval=False):
     """Data cached-args reader: fills data_root_path / num_channels and
     the true graphs — for cMLP/REDCLIFF the per-factor lagged tensors
     (``true_GC_factors``) and their sum, for the lag-collapsing families
-    the summed nontemporal view."""
+    the summed nontemporal view. ``read_in_gc_factors_for_eval=True``
+    returns the per-factor lagged tensors whatever the family (the eval
+    drivers read them)."""
     with open(args_dict["data_cached_args_file"], "r") as f:
         a = json.load(f)
     args_dict["data_root_path"] = a["data_root_path"]
@@ -209,6 +223,10 @@ def read_in_data_args(args_dict):
 
     # order by the parsed factor index, not lexicographically (net10 < net2)
     keys_sorted = sorted(lagged_tensors, key=_factor_index)
+    if read_in_gc_factors_for_eval:
+        args_dict["true_GC_factors"] = [lagged_tensors[k]
+                                        for k in keys_sorted]
+
     if "cMLP" in model_type or "REDCLIFF" in model_type:
         factors = [lagged_tensors[k] for k in keys_sorted]
         args_dict["true_GC_factors"] = factors

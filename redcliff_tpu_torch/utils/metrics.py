@@ -1,11 +1,21 @@
-"""Graph-comparison metrics the training path reads (a copy of what
-``train/tracking.py`` and ``utils/misc.py`` use from the JAX package's
-``utils/metrics.py``; numpy/scipy on the host).
+"""Graph-comparison metrics (a copy of the part of the JAX package's
+``utils/metrics.py`` that the trainer and the evaluation layer use;
+numpy/scipy on the host).
 
-- ROC-AUC (rank statistic), fixed-threshold F1 on positive entries;
-- DeltaCon0, its directed-degree variant, Deltaffinity, path-length MSE;
-- cosine similarity with epsilon-floored norms;
-- Hungarian matching of graph estimates by cosine similarity.
+The reference metric suite (the reference's ``general_utils/metrics.py``)
+for scoring Granger-causal graph estimates against ground truth:
+
+- optimal-threshold F1 via precision-recall scan   (ref metrics.py:11)
+- fixed-threshold F1                               (ref metrics.py:33)
+- confusion rates / sensitivity / specificity / LR (ref metrics.py:43-71)
+- DeltaCon0 + directed-degree variant              (ref metrics.py:162,191)
+- Deltaffinity / path-length MSE                   (ref metrics.py:218,235)
+- Hungarian graph matching                         (ref metrics.py:274)
+- cosine similarity / MSE / fixed-edge F1          (ref metrics.py:321-430)
+
+The training path (``train/tracking.py``, ``utils/misc.py``) and the
+evaluation layer (``eval/``) read them; the differentiable counterparts
+used inside training losses are in ``ops/losses.py``.
 """
 from __future__ import annotations
 
@@ -13,7 +23,15 @@ import numpy as np
 from scipy.optimize import linear_sum_assignment
 
 __all__ = [
+    "precision_recall_curve",
+    "compute_optimal_f1",
+    "compute_f1",
     "roc_auc",
+    "confusion_counts",
+    "compute_sensitivity",
+    "compute_specificity",
+    "compute_positive_likelihood_ratio",
+    "compute_negative_likelihood_ratio",
     "matsusita_distance",
     "deltacon0",
     "deltacon0_with_directed_degrees",
@@ -21,8 +39,67 @@ __all__ = [
     "path_length_mse",
     "solve_linear_sum_assignment_between_graph_options",
     "compute_cosine_similarity",
+    "compute_mse",
     "get_f1_score",
 ]
+
+
+# ---------------------------------------------------------------------------
+# Threshold-scan classification metrics
+# ---------------------------------------------------------------------------
+
+def precision_recall_curve(labels: np.ndarray, scores: np.ndarray):
+    """Precision/recall at every distinct score threshold (descending-score scan).
+
+    Matches sklearn.metrics.precision_recall_curve semantics (which the reference
+    relies on at metrics.py:18): thresholds are the distinct predicted scores; a
+    sample is predicted positive when score >= threshold. Returns (precision,
+    recall, thresholds) with the conventional trailing (1, 0) point appended.
+    """
+    labels = np.asarray(labels).ravel().astype(np.float64)
+    scores = np.asarray(scores).ravel().astype(np.float64)
+    order = np.argsort(-scores, kind="mergesort")
+    labels = labels[order]
+    scores = scores[order]
+    # indices where the score changes (last occurrence of each distinct value)
+    distinct = np.where(np.diff(scores))[0]
+    threshold_idx = np.r_[distinct, labels.size - 1]
+    tp = np.cumsum(labels)[threshold_idx]
+    fp = (1 + threshold_idx) - tp
+    total_pos = labels.sum()
+    precision = np.where(tp + fp > 0, tp / np.maximum(tp + fp, 1e-300), 0.0)
+    recall = tp / total_pos if total_pos > 0 else np.ones_like(tp)
+    thresholds = scores[threshold_idx]
+    # reverse so recall is decreasing, then append the conventional (1, 0) endpoint
+    precision = np.r_[precision[::-1], 1.0]
+    recall = np.r_[recall[::-1], 0.0]
+    thresholds = thresholds[::-1]
+    return precision, recall, thresholds
+
+
+def compute_optimal_f1(labels, pred_logits):
+    """Best-F1 threshold scan over the precision-recall curve (ref metrics.py:11-30)."""
+    precision, recall, thresholds = precision_recall_curve(labels, pred_logits)
+    precision = precision[:-1]
+    recall = recall[:-1]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        f1 = (2.0 * precision * recall) / (precision + recall)
+    f1 = np.where(np.isfinite(f1), f1, 0.0)
+    opt_threshold = thresholds[int(np.argmax(f1))]
+    opt_f1 = float(np.max(f1))
+    assert np.isfinite(opt_f1)
+    return float(opt_threshold), opt_f1
+
+
+def compute_f1(labels, pred_logits, pred_cutoff):
+    """F1 at a fixed cutoff: positive iff score > cutoff (ref metrics.py:33-41)."""
+    labels = np.asarray(labels).ravel()
+    preds = (np.asarray(pred_logits).ravel() > pred_cutoff).astype(np.int64)
+    tp = float(np.sum((preds == 1) & (labels == 1)))
+    fp = float(np.sum((preds == 1) & (labels == 0)))
+    fn = float(np.sum((preds == 0) & (labels == 1)))
+    denom = 2 * tp + fp + fn
+    return 0.0 if denom == 0 else 2 * tp / denom
 
 
 def roc_auc(labels, scores):
@@ -51,6 +128,45 @@ def roc_auc(labels, scores):
     rank_sum_pos = ranks[labels == 1].sum()
     return float((rank_sum_pos - n_pos * (n_pos + 1) / 2.0) / (n_pos * n_neg))
 
+
+def confusion_counts(labels, preds, pred_cutoff=None):
+    """(tp, tn, fp, fn) counts; thresholds preds if a cutoff is given (ref metrics.py:43-48)."""
+    labels = np.asarray(labels).ravel()
+    preds = np.asarray(preds).ravel()
+    if pred_cutoff is not None:
+        preds = (preds > pred_cutoff).astype(np.int64)
+    tp = int(np.sum((preds == 1) & (labels == 1)))
+    tn = int(np.sum((preds == 0) & (labels == 0)))
+    fp = int(np.sum((preds == 1) & (labels == 0)))
+    fn = int(np.sum((preds == 0) & (labels == 1)))
+    return tp, tn, fp, fn
+
+
+def compute_sensitivity(labels, preds, pred_cutoff=None):
+    tp, _, _, fn = confusion_counts(labels, preds, pred_cutoff)
+    return tp / (tp + fn)
+
+
+def compute_specificity(labels, preds, pred_cutoff=None):
+    _, tn, fp, _ = confusion_counts(labels, preds, pred_cutoff)
+    return tn / (tn + fp)
+
+
+def compute_positive_likelihood_ratio(labels, preds, pred_cutoff=None):
+    sens = compute_sensitivity(labels, preds, pred_cutoff)
+    spec = compute_specificity(labels, preds, pred_cutoff)
+    return sens / (1.0 - spec)
+
+
+def compute_negative_likelihood_ratio(labels, preds, pred_cutoff=None):
+    sens = compute_sensitivity(labels, preds, pred_cutoff)
+    spec = compute_specificity(labels, preds, pred_cutoff)
+    return (1.0 - sens) / spec
+
+
+# ---------------------------------------------------------------------------
+# DeltaCon0 family (Koutra, CMU-CS-15-126 Alg 7.4) — ref metrics.py:109-269
+# ---------------------------------------------------------------------------
 
 def matsusita_distance(S1, S2):
     """sqrt(sum((sqrt(S1)-sqrt(S2))^2)) — eq. 7.3 (ref metrics.py:130-134).
@@ -151,6 +267,10 @@ def path_length_mse(A1, A2, max_path_length=None):
     return float(sum(mses)), mses
 
 
+# ---------------------------------------------------------------------------
+# Matching / graph structure helpers
+# ---------------------------------------------------------------------------
+
 def solve_linear_sum_assignment_between_graph_options(
     graph_estimates, true_graphs, cost_criteria="CosineSimilarity", inf_approximation=1e10
 ):
@@ -170,6 +290,10 @@ def solve_linear_sum_assignment_between_graph_options(
     return linear_sum_assignment(cost)
 
 
+# ---------------------------------------------------------------------------
+# Cosine similarity / elementwise comparisons
+# ---------------------------------------------------------------------------
+
 def compute_cosine_similarity(A, B, epsilon=1e-8):
     """Flattened cosine similarity with epsilon-floored norms (ref metrics.py:321-339)."""
     A = np.asarray(A, dtype=np.float64).ravel()
@@ -181,6 +305,10 @@ def compute_cosine_similarity(A, B, epsilon=1e-8):
     if not np.isfinite(b_norm):
         b_norm = -1.0
     return float(A @ B / (max(a_norm, epsilon) * max(b_norm, epsilon)))
+
+
+def compute_mse(A, B):
+    return float(((np.asarray(A) - np.asarray(B)) ** 2).mean())
 
 
 def get_f1_score(A_hat, A):

@@ -1,15 +1,37 @@
-"""Hungarian alignment of factor indices to supervised labels (a copy of
-the part of the JAX package's ``utils/misc.py`` the trainer uses; numpy on
-the host)."""
+"""Small host-side helpers (a copy of the part of the JAX package's
+``utils/misc.py`` that the trainer and the evaluation layer use; numpy on
+the host): normalization and diagonal masking, Hungarian alignment of
+unsupervised factor estimates and of factor indices to supervised
+labels."""
 from __future__ import annotations
 
 import numpy as np
 
 from redcliff_tpu_torch.utils.metrics import (
+    compute_cosine_similarity,
     solve_linear_sum_assignment_between_graph_options,
 )
 
-__all__ = ["sort_unsupervised_estimates", "factor_alignment_order"]
+__all__ = [
+    "normalize_array",
+    "mask_diag_elements",
+    "sort_unsupervised_estimates",
+    "factor_alignment_order",
+]
+
+
+def normalize_array(A):
+    """Scale by the max entry (ref misc.py:39-40)."""
+    A = np.asarray(A)
+    return A / np.max(A)
+
+
+def mask_diag_elements(A):
+    """Zero the diagonal of a square matrix, returning a copy (ref misc.py:42-48)."""
+    A = np.array(A, copy=True)
+    assert A.ndim == 2 and A.shape[0] == A.shape[1]
+    np.fill_diagonal(A, 0.0)
+    return A
 
 
 def sort_unsupervised_estimates(
