@@ -47,32 +47,48 @@ each:
 7. grid: the published D4IC coefficient grid (gen_lr x ADJ_L1 x COS_SIM,
    3 x 3 x 3 = 27 points, rescaled as train/driver.py does) of the train
    phase's model, data and depth, fitted through ``run_coefficient_grid``
-   from one point's weights replicated over the lanes. Checks finite
-   results, no skipped step or quarantined lane, both kernels' launch
-   counts against the steps and forwards the grid ran, and one lane
-   against the port's per-point ``RedcliffTrainer`` fit of the same point
-   from the same weights on the card.
+   from one point's weights replicated over the lanes, in the default
+   stream mode, which is the epoch engine on the card (each epoch one
+   CUDA-graph replay of its full batches and one of the remainder, the
+   same for validation). Checks the mode and the dispatches against
+   ``dispatch_budget``, finite results, no skipped step or quarantined
+   lane, both kernels' executions against the steps and forwards the grid
+   ran (plus each capture's warm-up step), and one lane against the port's
+   per-point ``RedcliffTrainer`` fit of the same point from the same
+   weights on the card.
 8. grid_check: the same 8 grid steps (27 lanes) from the same weights and
    batches on the card and on the CPU, losses and per-lane updates
    compared.
-9. grid_durable: the published grid through ``RedcliffGridRunner.fit`` on
-   the bucket ladder (27 points at width 32), a checkpoint every epoch,
-   and wall-clock budgets that evict points 15-26 at the first epoch
-   boundary: checks the eviction (cause ``deadline``, original ids, each
-   retired lane through ``on_lane_retire``), the compaction to width 16,
-   that the lane prox is handed aligned contiguous blocks (its TMA path),
+9. grid_stream: the grid phase's points, model, data and weights at 12
+   epochs (1 pretrain, 1 acclimation, 10 combined; lookback 50 keeps the
+   published 50-epoch stop-after span, so no lane stops), fitted three
+   times: ``per_batch`` (eager steps), ``auto`` (the epoch engine) and
+   ``kscan`` (``scan_batches`` 4). For each: the mode, train and
+   validation dispatches against ``dispatch_budget``, graphs captured and
+   capture ms, epoch ms by phase, fit wall, peak device memory, kernel
+   executions; the captured fits' max abs differences from the per_batch
+   fit (val history, best criteria, best params; within the ROADMAP grid
+   bars) and equal best epochs, active lanes and failures.
+10. grid_durable: the published grid through ``RedcliffGridRunner.fit`` on
+   the bucket ladder (27 points at width 32) in the epoch engine, a
+   checkpoint every epoch, and wall-clock budgets that evict points 15-26
+   at the first epoch boundary: checks the eviction (cause ``deadline``,
+   original ids, each retired lane through ``on_lane_retire``), the
+   compaction to width 16 and the recapture of the programs there, that
+   the lane prox is handed aligned contiguous blocks (its TMA path),
    launch counts by width, then a fit stopped after 2 epochs and resumed
-   to 4 against the uninterrupted one (same decisions, params within 1e-6
-   relative; bitwise equality printed); the step's host ms and device us
-   at widths 32 and 16, and the checkpoint's bytes, write and load ms.
-10. array_task: one array task of the published D4IC REDCLIFF-S
+   to 4 (its programs captured anew) against the uninterrupted one (same
+   decisions, params within 1e-6 relative; bitwise equality printed); the
+   eager step's host ms and device us at widths 32 and 16, and the
+   checkpoint's bytes, write and load ms.
+11. array_task: one array task of the published D4IC REDCLIFF-S
    cached-args (depth cut as in train) through
    ``train/driver.py:set_up_and_run_experiments`` on a fold of the train
    phase's data written by the port's ``save_cv_split``; checks the
    artifact, its reload through ``eval/model_io.py``, its GC readout and
    the factor-mix launches against the fit's forwards (the array task sets
    no prox, here as in the JAX package, so it launches no GL prox).
-11. eval: the evaluation layer (``redcliff_tpu_torch/eval``) on the
+12. eval: the evaluation layer (``redcliff_tpu_torch/eval``) on the
    grid's and the array task's models. Each of the 27 points' best params
    is written as ``grid_point<i>/final_best_model.bin`` (as
    ``experiments/d4ic_grid_search.py:231-258`` does) and scored by
@@ -91,8 +107,11 @@ each:
    readout windows per second.
 
 Launch counts are reset just before each main path (serve, train, grid,
-grid_durable, array_task, eval) and read just after; the kernel-phase launches
-do not count. Then a ``kernels`` line, the ``nvidia-smi`` name/power line, and as the last line
+each grid_stream fit, grid_durable, array_task, eval) and read just after;
+the kernel-phase launches do not count. A count is executions on the
+device: a launch captured into a CUDA graph counts at each replay of the
+graph (and the warm-up step before each capture ran and counts). Then a
+``kernels`` line, the ``nvidia-smi`` name/power line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises: the script
 exits non-zero and prints no ``ok`` line. It also refuses to run without
 CUDA or outside a checkout of the repository.
@@ -101,7 +120,8 @@ Usage: ``python3 chip_smoke.py`` from the repository root, on a machine
 with one NVIDIA card. ``--profile`` adds ``profile`` phases after the
 checks: each kernel's, each library call's and the floor's device time
 alone, a ``torch.profiler`` window of serve ticks, one of training steps
-and one of grid steps (device busy time, idle share, top device ops), the
+and one of grid steps (device busy time, idle share, top device ops) with
+one combined epoch replayed by the epoch engine beside them, the
 ops of one prox step as the trainer runs it (one kernel, no allocation or
 copy), and each lane kernel's device time alone beside its library call
 and plain version.
@@ -211,6 +231,28 @@ GRID_LANE_LOSS_RTOL, GRID_LANE_LOSS_ATOL = 1e-4, 1e-5
 GRID_LANE_CRIT_RTOL = 2e-3
 GRID_LANE_PARAM_ATOL = 5e-4
 
+
+# grid_stream: the grid phase's 27 points, model, data and seed-0 weights
+# at a depth of STREAM_MAX_ITER epochs (1 pretrain, 1 acclimation, the rest
+# combined) fitted in the three stream modes: per_batch (eager steps), the
+# default "auto" (the epoch engine on the card) and kscan with
+# STREAM_SCAN_BATCHES. lookback 50 at check_every 1 keeps the published
+# stop-after span (lookback 5 x check_every 10 = 50 epochs), so no lane
+# stops within the depth and the grid stays at width 32. The captured fits
+# must make the per_batch fit's decisions, their values within the grid
+# bars of ROADMAP "Tolerances" (0 difference is predicted: the same
+# kernels in the same order)
+STREAM_MAX_ITER = 12
+STREAM_LOOKBACK = 50
+STREAM_SCAN_BATCHES = 4
+# the points the guard quarantines (nonfinite_grad, epochs 4-9): the nine
+# gen_lr 2e-3 lanes. The JAX grid quarantines the same points at the same
+# epochs with the same cause from the same weights and data
+# (tests/test_torch_grid_stream.py::
+# test_published_grid_quarantine_matches_jax); every other lane stays finite
+STREAM_QUARANTINED = tuple(range(18, 27))
+STREAM_HIST = dict(rtol=1e-4, atol=1e-5)
+STREAM_PARAMS = dict(rtol=1e-4, atol=1e-4)
 
 # grid_durable: the published grid on the bucket ladder (27 points at
 # width 32), a checkpoint every epoch, and wall-clock budgets that evict
@@ -1069,6 +1111,22 @@ def _device_us(torch, prof, n):
     return per, sum(per.values())
 
 
+def _kernel_us(torch, prof):
+    """Each hand-written kernel's device us per launch in a profile, and
+    its launches there: ``{name: {"us_per_launch", "launches"}}``."""
+    out = {}
+    for name in ("factor_mix_kernel", "gl_prox_kernel"):
+        total, count = 0.0, 0
+        for e in prof.key_averages():
+            if (name in e.key
+                    and e.device_type == torch.autograd.DeviceType.CUDA):
+                total += getattr(e, "self_device_time_total", 0.0) or 0.0
+                count += e.count
+        out[name] = {"us_per_launch": total / count if count else None,
+                     "launches": count}
+    return out
+
+
 def _alone_us(torch, fns, n=200):
     """Device us per call of each of ``fns`` (name -> fn) run alone:
     ``torch.profiler`` device time of ``n`` back-to-back calls."""
@@ -1509,6 +1567,34 @@ def _grid_points():
     return points, raw
 
 
+def _warmup_launches(stats):
+    """Kernel launches of the warm-up steps of the fit's captured programs
+    (one step each, run on the device and counted): per program, its
+    launches per replay over its steps."""
+    out = {"factor_mix": 0, "gl_prox": 0}
+    for p in stats["programs"]:
+        for k, n in p["launches_per_replay"].items():
+            out[k] += n // p["steps"]
+    return out
+
+
+def _stream_budget(stats, res, n_train, n_val, scan_batches=0):
+    """The train and validation dispatches the fit's epochs may make
+    (``data/pipeline.py dispatch_budget``; multi-phase epochs step per
+    batch and phase), against the counted ones."""
+    from redcliff_tpu_torch.data.pipeline import dispatch_budget
+
+    B = TRAIN_KNOBS["batch_size"]
+    tr, vl = (n_train // B, int(n_train % B > 0)), (n_val // B,
+                                                     int(n_val % B > 0))
+    train = sum(dispatch_budget(*tr, scan_batches, e["mode"])
+                * len(e["phases"]) for e in res.epochs)
+    val_mode = "epoch" if stats["mode"] == "epoch" else "per_batch"
+    val = len(res.epochs) * dispatch_budget(*vl, mode=val_mode)
+    return {"train": stats["train_dispatches"], "train_budget": train,
+            "val": stats["val_dispatches"], "val_budget": val}
+
+
 def _own_lane_fit(model, params, point, train_ds, val_ds):
     """The port's per-point fit of one grid point on the card, from the
     grid's weights: the point's coefficients in the model config, its
@@ -1580,17 +1666,31 @@ def phase_grid(torch, FM, PX):
     for leaf in interop.tree_leaves(res.best_params):
         _require(leaf.shape[0] == G and bool(np.isfinite(leaf).all()),
                  "grid best params: shape or non-finite")
-    # forwards: one per step (all lanes at once) and one per validation
-    # batch; prox launches: one per factor step (all lanes at once)
+    # the default stream mode resolves to the epoch engine on the card:
+    # one replay per epoch's full batches and one for the remainder, the
+    # same for validation
+    stats = res.dispatch_stats
+    budget = _stream_budget(stats, res, len(train_ds), len(val_ds))
+    _require(stats["mode"] == "epoch"
+             and all(e["mode"] == "epoch" for e in res.epochs)
+             and budget["train"] == budget["train_budget"]
+             and budget["val"] == budget["val_budget"]
+             and stats["graph_captures"] == len(stats["programs"]) > 0,
+             f"grid: stream {stats['mode']}, dispatches {budget}")
+    # executions: one forward per step (all lanes at once) and one per
+    # validation batch, one prox per factor step (all lanes at once), each
+    # counted at its replay, plus the warm-up step before each capture
+    warm = _warmup_launches(stats)
     forwards = sum(n_tr * len(ph) + n_val for ph in phases)
-    _require(mix_launches == forwards,
+    _require(mix_launches == forwards + warm["factor_mix"],
              f"{mix_launches} factor_mix launches for {forwards} grid "
-             f"forwards")
+             f"forwards and {warm['factor_mix']} warm-up steps")
     factor_steps = sum(n_tr for ph in phases for p in ph
                        if p != "embedder_pretrain")
-    _require(prox_launches == factor_steps > 0,
+    _require(prox_launches == factor_steps + warm["gl_prox"]
+             and factor_steps > 0,
              f"{prox_launches} gl_prox launches for {factor_steps} grid "
-             f"factor steps")
+             f"factor steps and {warm['gl_prox']} warm-up steps")
     past = TRAIN_CONFIG["num_pretrain_epochs"] \
         + TRAIN_CONFIG["num_acclimation_epochs"]
     _require(bool((res.best_epoch >= past).all()),
@@ -1641,7 +1741,11 @@ def phase_grid(torch, FM, PX):
                        "num_acclimation_epochs": "15 -> 1",
                        "max_iter": "1000 -> 4", "check_every": "10 -> 1",
                        "lookback": "5 -> 1"},
-           "stream_mode": "per_batch", "epochs": len(phases),
+           "stream_mode": stats["mode"], "epochs": len(phases),
+           "dispatches": budget,
+           "graph_captures": stats["graph_captures"],
+           "capture_ms": stats["capture_ms"],
+           "warmup_launches": warm,
            "steps": steps, "fit_wall_s": fit_s,
            "steps_per_s": steps / fit_s,
            "lane_steps_per_s": G * steps / fit_s,
@@ -1657,6 +1761,147 @@ def phase_grid(torch, FM, PX):
            "own_lane": g, "own_lane_point": raw[g],
            "own_lane_vs_per_point": lane})
     return mix_launches, prox_launches, model, params, train_ds, res
+
+
+def _without_res(run):
+    return {k: v for k, v in run.items() if k != "res"}
+
+
+def phase_grid_stream(torch, FM, PX, params):
+    """The grid in its three stream modes through ``run_coefficient_grid``
+    from the same seed-0 weights: per_batch, auto (the epoch engine) and
+    kscan. Each fit's counts at 0 just before it, read just after; the
+    captured fits against the per_batch one."""
+    import numpy as np
+
+    from redcliff_tpu_torch import interop
+    from redcliff_tpu_torch.models.redcliff import (RedcliffSCMLP,
+                                                    RedcliffSCMLPConfig)
+    from redcliff_tpu_torch.train.driver import run_coefficient_grid
+    from redcliff_tpu_torch.train.redcliff_trainer import RedcliffTrainConfig
+
+    points, _ = _grid_points()
+    train_ds, val_ds = _train_data(np)
+    model = RedcliffSCMLP(RedcliffSCMLPConfig(**TRAIN_CONFIG))
+    B = TRAIN_KNOBS["batch_size"]
+    n_tr = -(-len(train_ds) // B)
+    n_val = -(-len(val_ds) // B)
+    knobs = {**TRAIN_KNOBS, "max_iter": STREAM_MAX_ITER,
+             "lookback": STREAM_LOOKBACK}
+    runs, launches = {}, {}
+    for name, over in (("per_batch", {"stream_mode": "per_batch"}),
+                       ("auto", {}),
+                       ("kscan", {"stream_mode": "kscan",
+                                  "scan_batches": STREAM_SCAN_BATCHES})):
+        tc = RedcliffTrainConfig(**knobs, **over)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # ---- a main path: counts at 0 just before, read just after
+        FM.factor_mix.launches = 0
+        PX.gl_prox.launches = 0
+        t0 = time.perf_counter()
+        res = run_coefficient_grid(model, tc, points, train_ds, val_ds,
+                                   init_point_params=params)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches[name] = {"factor_mix": FM.factor_mix.launches,
+                          "gl_prox": PX.gl_prox.launches}
+        st = res.dispatch_stats
+        phases = [tuple(e["phases"]) for e in res.epochs]
+        warm = _warmup_launches(st)
+        forwards = sum(n_tr * len(ph) + n_val for ph in phases)
+        factor_steps = sum(n_tr for ph in phases for p in ph
+                           if p != "embedder_pretrain")
+        budget = _stream_budget(st, res, len(train_ds), len(val_ds),
+                                tc.scan_batches)
+        by_phase = {}
+        for e in res.epochs:
+            by_phase.setdefault("+".join(e["phases"]), []).append(e["ms"])
+        runs[name] = {
+            "res": res, "mode": st["mode"], "fit_wall_s": fit_s,
+            "epochs": len(res.epochs), "dispatches": budget,
+            "graph_captures": st["graph_captures"],
+            "capture_ms": st["capture_ms"],
+            "programs": [{k: p[k] for k in ("kind", "phase", "steps",
+                                             "rows", "capture_ms")}
+                         for p in st["programs"]],
+            "epoch_ms_by_phase": by_phase,
+            "epoch_ms_p50_by_phase": {k: float(np.percentile(v, 50))
+                                      for k, v in by_phase.items()},
+            "train_time_ms": st["train_time_ms"],
+            "val_time_ms": st["val_time_ms"],
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "launches": launches[name], "warmup_launches": warm,
+            "executions_expected": {
+                "factor_mix": forwards + warm["factor_mix"],
+                "gl_prox": factor_steps + warm["gl_prox"]}}
+    want = {"per_batch": "per_batch", "auto": "epoch", "kscan": "kscan"}
+    ref = runs["per_batch"]["res"]
+    for name, r in runs.items():
+        d = r["dispatches"]
+        _require(r["mode"] == want[name]
+                 and r["epochs"] == STREAM_MAX_ITER
+                 and d["train"] == d["train_budget"]
+                 and d["val"] == d["val_budget"]
+                 and r["launches"] == r["executions_expected"]
+                 and (r["graph_captures"] > 0) == (name != "per_batch"),
+                 f"grid_stream {name}: {_without_res(r)}")
+        res = r["res"]
+        r["max_abs_diff_vs_per_batch"] = {
+            "val_history": float(np.nanmax(np.abs(res.val_history
+                                                  - ref.val_history))),
+            "best_criteria": float(np.nanmax(np.abs(res.best_criteria
+                                                    - ref.best_criteria))),
+            "best_params": max(float(np.abs(a - b).max()) for a, b in zip(
+                _leaves_np(res.best_params), _leaves_np(ref.best_params)))}
+        r["bitwise_equal_to_per_batch"] = bool(
+            np.array_equal(res.val_history, ref.val_history)
+            and np.array_equal(res.best_criteria, ref.best_criteria)
+            and all(np.array_equal(a, b) for a, b in zip(
+                _leaves_np(res.best_params), _leaves_np(ref.best_params))))
+        same = {"best_epoch": bool(np.array_equal(res.best_epoch,
+                                                  ref.best_epoch)),
+                "active": bool(np.array_equal(res.active, ref.active)),
+                "failures": res.failures == ref.failures}
+        r["decisions_equal_to_per_batch"] = same
+        _require(all(same.values())
+                 and np.allclose(res.val_history, ref.val_history,
+                                 equal_nan=True, **STREAM_HIST)
+                 and np.allclose(res.best_criteria, ref.best_criteria,
+                                 equal_nan=True, **STREAM_HIST)
+                 and all(np.allclose(a, b, **STREAM_PARAMS) for a, b in zip(
+                     _leaves_np(res.best_params),
+                     _leaves_np(ref.best_params))),
+                 f"grid_stream {name} vs per_batch: decisions {same}, "
+                 f"max abs diffs {r['max_abs_diff_vs_per_batch']}")
+    # the guard quarantines the points the JAX grid quarantines, and only
+    # those; their lanes may hold NaN, every other lane is finite
+    failed = sorted(f["point"] for f in ref.failures)
+    _require(failed == list(STREAM_QUARANTINED)
+             and {f["cause"] for f in ref.failures} == {"nonfinite_grad"},
+             f"grid_stream: quarantined {ref.failures}, want the points "
+             f"{list(STREAM_QUARANTINED)} (nonfinite_grad)")
+    healthy = [g for g in range(GRID_LANES) if g not in failed]
+    _require(bool(np.isfinite(ref.val_history[:, healthy]).all()),
+             f"grid_stream: non-finite validation losses outside the "
+             f"quarantined lanes {failed}")
+    _emit({"phase": "grid_stream", "device": torch.cuda.get_device_name(0),
+           "config": "the grid phase's 27 points, model, data and seed-0 "
+                     "weights; three stream modes",
+           "lanes": GRID_LANES, "width": 32,
+           "reduced": {"num_pretrain_epochs": "50 -> 1",
+                       "num_acclimation_epochs": "15 -> 1",
+                       "max_iter": f"1000 -> {STREAM_MAX_ITER}",
+                       "check_every": "10 -> 1",
+                       "lookback": f"5 -> {STREAM_LOOKBACK} (the same "
+                                   f"50-epoch stop-after span)"},
+           "scan_batches": STREAM_SCAN_BATCHES,
+           "bars": {"history": STREAM_HIST, "params": STREAM_PARAMS},
+           "per_batch_failures": ref.failures,
+           "per_batch_skipped": int(sum(ref.numerics["skipped"])),
+           "per_batch_best_epoch": ref.best_epoch.tolist(),
+           "runs": {n: _without_res(r) for n, r in runs.items()}})
+    return {n: r["launches"] for n, r in runs.items()}
 
 
 def _grid_steps(torch, np, model, host_params, batches, device):
@@ -1752,6 +1997,7 @@ def phase_profile_grid(torch, FM, PX, model, params, train_ds):
     from torch.profiler import ProfilerActivity, profile
 
     from redcliff_tpu_torch import interop
+    from redcliff_tpu_torch.parallel.epoch_engine import EpochEngine
     from redcliff_tpu_torch.parallel.grid import GridSpec, RedcliffGridRunner
     from redcliff_tpu_torch.runtime import numerics
     from redcliff_tpu_torch.train.redcliff_trainer import RedcliffTrainConfig
@@ -1830,6 +2076,32 @@ def phase_profile_grid(torch, FM, PX, model, params, train_ds):
         wall_ms = (time.perf_counter() - t0) * 1e3 / n_prof
     per, busy_us = _device_us(torch, prof, n_prof)
     top = sorted(per.items(), key=lambda kv: -kv[1])[:12]
+
+    # one combined epoch replayed by the epoch engine (its programs
+    # captured by a first epoch), on the same runner and state
+    engine = EpochEngine(runner, "epoch", train_ds, train_ds, {
+        "train_dispatches": 0, "val_dispatches": 0, "graph_captures": 0,
+        "capture_ms": 0.0, "programs": []})
+    engine.new_era(G)
+    state = (gparams, optA, optB, nstate)
+    rng = np.random.default_rng(8)
+    t0 = time.perf_counter()
+    engine.train_epoch("epoch", "combined", state, active, train_ds, rng)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as eprof:
+        t0 = time.perf_counter()
+        start.record()
+        engine.train_epoch("epoch", "combined", state, active, train_ds, rng)
+        end.record()
+        torch.cuda.synchronize()
+        epoch_wall_ms = (time.perf_counter() - t0) * 1e3
+    eper, ebusy_us = _device_us(torch, eprof, 1)
+    etop = sorted(eper.items(), key=lambda kv: -kv[1])[:12]
+    n_steps = -(-len(train_ds) // B)
     _emit({"phase": "profile_grid", "device": torch.cuda.get_device_name(0),
            "device_us_per_call_alone": alone, "lanes": G, "steps": n_prof,
            "step_wall_ms_profiled": wall_ms,
@@ -1837,7 +2109,22 @@ def phase_profile_grid(torch, FM, PX, model, params, train_ds):
            "device_idle_share": (1.0 - busy_us / 1e3 / wall_ms
                                  if busy_us else None),
            "device_ops_per_step": len(per),
-           "top_device_us_per_step": dict(top)})
+           "top_device_us_per_step": dict(top),
+           "kernels_in_eager_steps": _kernel_us(torch, prof),
+           "replayed_epoch": {
+               "steps": n_steps, "replays": 2,
+               "first_epoch_ms_with_capture": first_ms,
+               "capture_ms": engine.stats["capture_ms"],
+               "wall_ms_profiled": epoch_wall_ms,
+               "event_ms": start.elapsed_time(end),
+               "device_busy_us": ebusy_us,
+               "device_busy_us_per_step": ebusy_us / n_steps,
+               "device_idle_share": (1.0 - ebusy_us / 1e3 / epoch_wall_ms
+                                     if ebusy_us else None),
+               "device_ops": len(eper),
+               "top_device_us": dict(etop),
+               "kernels_in_replay": _kernel_us(torch, eprof),
+               "eager_step_wall_ms_x_steps": wall_ms * n_steps}})
 
 
 def _width_profile(torch, np, FM, PX, model, params, train_ds, points,
@@ -1978,11 +2265,30 @@ def phase_grid_durable(torch, FM, PX, params):
              "lanes stopped before any stopping criteria)")
     _require(sum(res.numerics["skipped"]) == 0,
              "grid_durable: the guard skipped steps")
+    # the epoch engine: every epoch replayed, and each era (width 32, then
+    # 16 after the compaction) captured its own programs
+    budget = _stream_budget(stats, res, len(train_ds), len(val_ds))
+    cap_widths = sorted({p["width"] for p in stats["programs"]})
+    _require(stats["mode"] == "epoch"
+             and all(e["mode"] == "epoch" for e in res.epochs)
+             and budget["train"] == budget["train_budget"]
+             and budget["val"] == budget["val_budget"]
+             and cap_widths == sorted(set(widths)),
+             f"grid_durable: stream {stats['mode']}, dispatches {budget}, "
+             f"programs captured at widths {cap_widths}")
     # launches by width, measured: the retire hook read the counts at each
-    # compaction, i.e. at the end of each width's era
-    forwards = sum(n_tr * len(ph) + n_val for ph in phases)
+    # compaction, i.e. at the end of each width's era; each capture's
+    # warm-up step ran on the device and counts
+    warm = _warmup_launches(stats)
+    warm_by_width = {str(w): {"factor_mix": 0, "gl_prox": 0}
+                     for w in widths}
+    for p in stats["programs"]:
+        for k, n in p["launches_per_replay"].items():
+            warm_by_width[str(p["width"])][k] += n // p["steps"]
+    forwards = sum(n_tr * len(ph) + n_val for ph in phases) \
+        + warm["factor_mix"]
     factor_steps = sum(n_tr for ph in phases for p in ph
-                       if p != "embedder_pretrain")
+                       if p != "embedder_pretrain") + warm["gl_prox"]
     by_width, prev = {}, (0, 0)
     for epoch, counts in sorted(at_retire.items()) + [
             (len(widths) - 1, (mix_launches, prox_launches))]:
@@ -1991,17 +2297,23 @@ def phase_grid_durable(torch, FM, PX, params):
         w["factor_mix"] += counts[0] - prev[0]
         w["gl_prox"] += counts[1] - prev[1]
         prev = counts
-    mix32 = n_tr * len(phases[0]) + n_val
-    prox32 = sum(n_tr for p in phases[0] if p != "embedder_pretrain")
+    mix32 = n_tr * len(phases[0]) + n_val \
+        + warm_by_width["32"]["factor_mix"]
+    prox32 = sum(n_tr for p in phases[0] if p != "embedder_pretrain") \
+        + warm_by_width["32"]["gl_prox"]
     _require(by_width["32"] == {"factor_mix": mix32, "gl_prox": prox32}
              and mix_launches == forwards
              and prox_launches == factor_steps > 0,
              f"grid_durable: launches {mix_launches}/{prox_launches} for "
-             f"{forwards} forwards and {factor_steps} factor steps; by "
-             f"width {by_width}")
-    prox_widths = [w for w, ph in zip(widths, phases) for p in ph
-                   if p != "embedder_pretrain" for _ in range(n_tr)]
-    _require([b[0] for b in blocks] == prox_widths
+             f"{forwards} forwards and {factor_steps} factor steps (warm-up "
+             f"steps included); by width {by_width}")
+    # the lane prox's Python wrapper runs at each warm-up and capture (a
+    # replay runs the captured launches): every block it was handed is
+    # the era's aligned, contiguous slab with a gate and thresholds of its
+    # width
+    prox_widths = {w for w, ph in zip(widths, phases) for p in ph
+                   if p != "embedder_pretrain"}
+    _require({b[0] for b in blocks} == prox_widths
              and all(b[1:] == (0, True, b[0], b[0]) for b in blocks)
              and PX.prox_plan(TRAIN_CONFIG["gen_hidden"][0], C_TRAIN,
                               TRAIN_CONFIG["gen_lag"], 0)[1],
@@ -2012,8 +2324,10 @@ def phase_grid_durable(torch, FM, PX, params):
     ck = os.path.join(root, "resumed")
     fit(ck, max_iter=DURABLE_RESUME_AT)
     resumed_runner, resumed = fit(ck)
+    # the resume loads new leaves: its programs are captured anew
     _require(resumed_runner.dispatch_stats["resumed_from_epoch"]
              == DURABLE_RESUME_AT - 1
+             and resumed_runner.dispatch_stats["graph_captures"] > 0
              and [e["epoch"] for e in resumed.epochs]
              == list(range(DURABLE_RESUME_AT, TRAIN_KNOBS["max_iter"])),
              f"grid_durable: the resume ran {resumed.epochs}")
@@ -2045,6 +2359,15 @@ def phase_grid_durable(torch, FM, PX, params):
                      "checkpoint_every=1; fit_deadline_s 1e6 for points "
                      "0-14, 1e-3 for 15-26",
            "fit_wall_s": fit_s, "widths_by_epoch": widths,
+           "stream_mode": stats["mode"], "dispatches": budget,
+           "graph_captures": stats["graph_captures"],
+           "capture_ms": stats["capture_ms"],
+           "captures_by_width": {str(w): sum(
+               1 for p in stats["programs"] if p["width"] == w)
+               for w in cap_widths},
+           "warmup_launches_by_width": warm_by_width,
+           "resumed_graph_captures": resumed_runner.dispatch_stats[
+               "graph_captures"],
            "compactions": stats["compactions"],
            "lane_epochs": stats["lane_epochs"],
            "lane_epochs_nominal": stats["lane_epochs_nominal"],
@@ -2422,6 +2745,7 @@ def main():
     grid_mix, grid_prox, gmodel, gparams, gtrain, gres = phase_grid(
         torch, FM, PX)
     phase_grid_check(torch, gmodel, gparams, gtrain)
+    stream = phase_grid_stream(torch, FM, PX, gparams)
     dur_mix, dur_prox = phase_grid_durable(torch, FM, PX, gparams)
     task_mix, task_prox, task_runs = phase_array_task(torch, FM, PX)
     eval_mix, eval_prox = phase_eval(torch, FM, PX, gmodel, gres, task_runs,
@@ -2437,7 +2761,9 @@ def main():
     _require(not leaked, f"the port imported {leaked}")
 
     mix_paths = {"serve": serve_launches, "train": mix_launches,
-                 "grid": grid_mix, "grid_durable": dur_mix,
+                 "grid": grid_mix,
+                 "grid_stream": sum(v["factor_mix"] for v in stream.values()),
+                 "grid_durable": dur_mix,
                  "array_task": task_mix, "eval": eval_mix}
     fm = _kernel_entry(
         "factor_mix", FM, "redcliff_tpu/ops/factor_mix.py:58",
@@ -2446,6 +2772,7 @@ def main():
     fm["by_shape"] = {k: v for k, v in timing["factor_mix"].items()
                       if k != "train"}
     prox_paths = {"serve": 0, "train": prox_launches, "grid": grid_prox,
+                  "grid_stream": sum(v["gl_prox"] for v in stream.values()),
                   "grid_durable": dur_prox, "array_task": task_prox,
                   "eval": eval_prox}
     px = _kernel_entry(

@@ -1,18 +1,32 @@
-"""Batch streams: epoch index plans and host prefetch (port of the part of
-``data/pipeline.py`` the per-point trainer uses).
+"""Batch streams: epoch index plans, the stream-mode choice and host
+prefetch (port of ``data/pipeline.py``).
 
 * :func:`epoch_batch_plan` — one epoch's batch order as index arrays,
   consuming the shuffle rng exactly like ``ArrayDataset.batches``.
+* :func:`choose_stream_mode`, :func:`dispatch_budget`,
+  :func:`dataset_device_bytes` — the grid's stream modes, resolved as the
+  JAX package resolves them (``data/pipeline.py:60-167``):
+
+  ``"epoch"``
+      The dataset stays device-resident (``ArrayDataset.device_arrays``);
+      the epoch's shuffled batch order is copied into a device index
+      buffer, and one replay of a CUDA graph runs every full batch's
+      step, gathering each batch in the graph (plus one replay for the
+      short remainder). JAX scans the epoch in one jit'd dispatch.
+  ``"kscan"``
+      One replay of a graph of ``scan_batches`` steps per full group of
+      batches staged on the device (JAX: a ``lax.scan`` over k stacked
+      batches).
+  ``"per_batch"``
+      One eager step per batch; host streams ride :func:`prefetch_batches`.
+
+  All three run the same steps on the same batches in the same order
+  (``parallel/epoch_engine.py`` holds the programs).
 * :class:`PrefetchIterator` / :func:`prefetch_batches` — double-buffered
   background prefetch for batch sources that are not device-resident: a
   thread drains the source up to ``depth`` items ahead and applies ``put``
   (e.g. a host-to-device copy) there, so producing batch t+1 overlaps the
   consumer's compute on batch t.
-
-The JAX package's epoch-scan and k-batch-scan stream modes compile a whole
-epoch into one XLA program; they are bit-identical to per-batch dispatch
-there and have no counterpart in eager PyTorch, so the port streams per
-batch.
 """
 from __future__ import annotations
 
@@ -21,7 +35,15 @@ import threading
 
 import numpy as np
 
-__all__ = ["epoch_batch_plan", "prefetch_batches", "PrefetchIterator"]
+__all__ = ["epoch_batch_plan", "choose_stream_mode", "dataset_device_bytes",
+           "dispatch_budget", "prefetch_batches", "PrefetchIterator",
+           "DEFAULT_MAX_DEVICE_DATASET_BYTES", "STREAM_MODES"]
+
+STREAM_MODES = ("auto", "epoch", "kscan", "per_batch")
+
+# device-residency ceiling of the epoch stream, as in the JAX package:
+# datasets beyond it stay host resident (prefetched)
+DEFAULT_MAX_DEVICE_DATASET_BYTES = 2 << 30
 
 
 def epoch_batch_plan(n, batch_size, rng=None):
@@ -36,6 +58,86 @@ def epoch_batch_plan(n, batch_size, rng=None):
     full = idx[: nb * batch_size].astype(np.int32).reshape(nb, batch_size)
     rem = idx[nb * batch_size:].astype(np.int32)
     return full, rem
+
+
+def dataset_device_bytes(ds):
+    """Device footprint of keeping ``ds`` resident (X + Y), or None when
+    the dataset exposes no dense arrays."""
+    X = getattr(ds, "X", None)
+    if X is None:
+        return None
+    total = int(np.asarray(X).nbytes)
+    Y = getattr(ds, "Y", None)
+    if Y is not None:
+        total += int(np.asarray(Y).nbytes)
+    return total
+
+
+def _single_process():
+    """Not inside a ``torch.distributed`` world of more than one process
+    (the JAX package's ``jax.process_count() == 1``)."""
+    import torch.distributed as dist
+
+    return not (dist.is_available() and dist.is_initialized()
+                and dist.get_world_size() > 1)
+
+
+def choose_stream_mode(mode, train_ds, *, scan_batches=0, batch_size=1,
+                       freeze_by_batch=False):
+    """Resolve a configured stream mode ("auto" included) against what the
+    dataset and the engine support: ``"epoch" | "kscan" | "per_batch"``.
+    Multi-phase epochs are the caller's to step per batch.
+
+    The epoch stream needs a device-batch dataset within
+    ``DEFAULT_MAX_DEVICE_DATASET_BYTES``, one process, labels, at least
+    one full batch and no per-batch freeze choreography. ``"auto"``
+    degrades epoch -> kscan (``scan_batches > 1``) -> per_batch; a
+    requested mode that is not eligible degrades the same way. An unknown
+    mode raises ``ValueError``."""
+    if mode not in STREAM_MODES:
+        raise ValueError(
+            f"unknown stream_mode {mode!r}; valid: {STREAM_MODES}")
+
+    def epoch_ok():
+        if freeze_by_batch:
+            return False
+        if not getattr(train_ds, "supports_device_batches", False):
+            return False
+        if getattr(train_ds, "Y", None) is None:
+            return False
+        try:
+            if len(train_ds) < batch_size:
+                return False
+        except TypeError:
+            return False
+        nbytes = dataset_device_bytes(train_ds)
+        if nbytes is None or nbytes > DEFAULT_MAX_DEVICE_DATASET_BYTES:
+            return False
+        return _single_process()
+
+    def kscan_ok():
+        return scan_batches and scan_batches > 1 and not freeze_by_batch
+
+    if mode in ("auto", "epoch") and epoch_ok():
+        return "epoch"
+    if mode in ("auto", "epoch", "kscan") and kscan_ok():
+        return "kscan"
+    return "per_batch"
+
+
+def dispatch_budget(num_full_batches, num_remainder_batches=0,
+                    scan_batches=0, mode="per_batch"):
+    """Train dispatches per single-phase epoch in a stream mode (a replay
+    or an eager step each). ``num_remainder_batches`` counts the trailing
+    short batches, which always take a step of their own."""
+    if mode == "epoch":
+        return (1 if num_full_batches else 0) + num_remainder_batches
+    if mode == "kscan" and scan_batches and scan_batches > 1:
+        k = scan_batches
+        # full k-groups replay; the partial trailing group steps per batch
+        return (num_full_batches // k
+                + num_full_batches % k + num_remainder_batches)
+    return num_full_batches + num_remainder_batches
 
 
 class PrefetchIterator:

@@ -25,8 +25,11 @@
   are ``torch.func`` tensors; otherwise they launch the kernel directly.
 * :func:`mix_plan` — the kernel's launch plan (vector width, threads,
   blocks), a pure function of the shapes, strides and alignment.
-* ``factor_mix.launches`` — a plain int, one per kernel launch, lane
-  launches included.
+* ``factor_mix.launches`` — a plain int, one per execution of the kernel
+  on the device, lane launches included. A launch made while the current
+  stream is capturing a CUDA graph runs nothing yet: it adds to
+  ``factor_mix.captured`` instead, and each replay of the graph adds the
+  launches it captured (``parallel/epoch_engine.py``).
 
 The launch path is kept short because at the main path's shapes the launch,
 not the device work, is the cost (PERF.md): one pass of checks, no
@@ -72,6 +75,7 @@ _F32 = torch.float32
 _lib = None
 _fn = None
 _raw_stream = None
+_capturing = None
 _lib_lock = threading.Lock()
 
 
@@ -142,7 +146,7 @@ def _mix_args(B, K, M, stride_k, stride_b, p_offset, device, G=1,
 def load_kernel():
     """Build (first call in a process; cached by content on disk) and bind
     the CUDA kernel. Returns the ctypes library."""
-    global _lib, _fn, _raw_stream
+    global _lib, _fn, _raw_stream, _capturing
     with _lib_lock:
         if _lib is not None:
             return _lib
@@ -153,6 +157,8 @@ def load_kernel():
         fn.restype = ctypes.c_int
         # the current stream's cudaStream_t of a device, as an int
         _raw_stream = torch._C._cuda_getCurrentRawStream
+        # whether the current stream is capturing a CUDA graph
+        _capturing = torch._C._cuda_isCurrentStreamCapturing
         _fn, _lib = fn, lib
         return _lib
 
@@ -182,7 +188,10 @@ def _run(w, p, B, K, M, stride_k, stride_b, out_shape, G=1, stride_wg=0,
     rc = _fn(w.data_ptr(), p_ptr, out.data_ptr(), args[1], _raw_stream(dev))
     if rc != 0:
         raise RuntimeError(f"factor_mix kernel launch failed: cudaError {rc}")
-    factor_mix.launches += 1
+    if _capturing():
+        factor_mix.captured += 1
+    else:
+        factor_mix.launches += 1
     return out
 
 
@@ -370,6 +379,7 @@ def factor_mix(weightings, preds):
 
 
 factor_mix.launches = 0
+factor_mix.captured = 0
 
 
 def factor_mix_lanes(weightings, preds):

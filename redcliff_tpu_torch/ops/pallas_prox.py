@@ -20,8 +20,10 @@ the file keeps its counterpart's name).
 * :func:`prox_plan` — the kernel's launch plan (chunk of a slab staged in
   shared memory, TMA path or not), a pure function of the shape and the
   alignment.
-* ``gl_prox.launches`` — a plain int, one per kernel launch, from any
-  form.
+* ``gl_prox.launches`` — a plain int, one per execution of the kernel on
+  the device, from any form. A launch captured into a CUDA graph adds to
+  ``gl_prox.captured`` instead, and each replay of the graph adds the
+  launches it captured (``parallel/epoch_engine.py``).
 
 There is no fallback: a CUDA tensor the kernel does not take (not float32,
 not contiguous, rank < 3) raises. The kernel is built at first use into
@@ -57,6 +59,7 @@ _lib = None
 _fn = None
 _fn_lanes = None
 _raw_stream = None
+_capturing = None
 _lib_lock = threading.Lock()
 
 
@@ -114,7 +117,7 @@ def _prox_args(lead, H, C, L, offset, device, slabs_per_lane=0):
 def load_kernel():
     """Build (first call in a process; cached by content on disk) and bind
     the CUDA kernel. Returns the ctypes library."""
-    global _lib, _fn, _fn_lanes, _raw_stream
+    global _lib, _fn, _fn_lanes, _raw_stream, _capturing
     with _lib_lock:
         if _lib is None:
             lib = build_library("redcliff_gl_prox", KERNEL_SOURCE)
@@ -127,6 +130,8 @@ def load_kernel():
             fn_lanes.restype = ctypes.c_int
             # the current stream's cudaStream_t of a device, as an int
             _raw_stream = torch._C._cuda_getCurrentRawStream
+            # whether the current stream is capturing a CUDA graph
+            _capturing = torch._C._cuda_isCurrentStreamCapturing
             _fn, _fn_lanes, _lib = fn, fn_lanes, lib
         return _lib
 
@@ -145,6 +150,15 @@ def _check_block(W1):
             raise ValueError(f"gl_prox wants a (..., H, C_in, L) block, got "
                              f"shape {tuple(W1.shape)}")
         raise ValueError("gl_prox kernel needs a contiguous block")
+
+
+def _count():
+    """One launch: an execution now, or a launch into the CUDA graph the
+    current stream is capturing."""
+    if _capturing():
+        gl_prox.captured += 1
+    else:
+        gl_prox.launches += 1
 
 
 def _launch(W1, lam, lr, out=None):
@@ -170,7 +184,7 @@ def _launch(W1, lam, lr, out=None):
     rc = _fn(w_ptr, out_ptr, args[1], threshold(lam, lr), _raw_stream(dev))
     if rc != 0:
         raise RuntimeError(f"gl_prox kernel launch failed: cudaError {rc}")
-    gl_prox.launches += 1
+    _count()
     return out
 
 
@@ -184,6 +198,7 @@ def gl_prox(W1, lam, lr, penalty="GL"):
 
 
 gl_prox.launches = 0
+gl_prox.captured = 0
 
 
 def gl_prox_(W1, lam, lr, penalty="GL"):
@@ -273,5 +288,5 @@ def _launch_lanes(W, t, gate):
                    _raw_stream(dev))
     if rc != 0:
         raise RuntimeError(f"gl_prox kernel launch failed: cudaError {rc}")
-    gl_prox.launches += 1
+    _count()
     return W

@@ -41,10 +41,23 @@ Durability and elasticity, as the JAX grid:
 * SIGTERM/SIGINT while checkpointing: one final checkpoint at the epoch
   boundary, then ``Preempted``.
 
-The port streams per batch (the JAX "per_batch" stream mode, bit-identical
-there to its epoch and k-batch scans). Not ported yet (ROADMAP queue 1):
-the scan stream modes, the predictive scheduling policy, the async
-checkpoint writer, mixed precision, telemetry (metrics log, quality
+Execution engine (``data/pipeline.py`` stream modes,
+``parallel/epoch_engine.py``), as the JAX grid's: with the default
+``stream_mode="auto"`` an eligible fit runs the EPOCH engine — the dataset
+stays device-resident, each single-phase epoch's shuffled batch order is
+copied into a device index buffer, and one replay of a CUDA graph runs the
+whole epoch's steps (one more for the short remainder); validation is one
+replay too. ``"kscan"`` replays a graph of ``scan_batches`` steps per full
+group of batches; ``"per_batch"``, multi-phase epochs and FreezeByBatch
+step eagerly per batch. Every mode runs the same steps on the same batches
+in the same order, so the modes agree bit for bit on the CPU, where a
+program's body runs eagerly. ``dispatch_stats`` records what ran (the JAX
+keys ``mode``, ``epochs``, ``train_dispatches``, ``val_dispatches``,
+``train_time_ms``, ``val_time_ms``, ``epoch_ms_by_width``, and the port's
+``graph_captures``, ``capture_ms`` and ``programs``).
+
+Not ported yet (ROADMAP queue 1): the predictive scheduling policy, the
+async checkpoint writer, mixed precision, telemetry (metrics log, quality
 monitor) and the device mesh. Asking for any of them raises
 ``NotImplementedError``.
 
@@ -66,6 +79,7 @@ from redcliff_tpu_torch.interop import params_to_jax, tree_leaves, tree_map
 from redcliff_tpu_torch.models.redcliff import phase_schedule
 from redcliff_tpu_torch.ops.pallas_prox import lane_thresholds
 from redcliff_tpu_torch.parallel import compaction
+from redcliff_tpu_torch.parallel.epoch_engine import EpochEngine
 from redcliff_tpu_torch.parallel.policy import GridSchedulingPolicy
 from redcliff_tpu_torch.runtime import checkpoint as durable_ckpt
 from redcliff_tpu_torch.runtime import numerics
@@ -91,9 +105,6 @@ STOP_AXES = ("stopping_criteria_forecast_coeff",
              "stopping_criteria_cosSim_coeff")
 
 _BETA1, _BETA2 = 0.9, 0.999
-# the JAX grid's default stream knobs, which the port has no field for:
-# they stand in its resume fingerprint as the JAX package writes them
-_JAX_SCAN_BATCHES, _JAX_STREAM_MODE = 0, "auto"
 
 
 def _not_ported(what, where):
@@ -198,11 +209,15 @@ class GridResult:
     # the rest of the grid keeps training
     failures: list = field(default_factory=list)
     # the port's additions, as RedcliffFitResult carries them: per epoch
-    # run by this call {"epoch", "phases", "width", "ms"} (host wall ms,
-    # read after the epoch's check window), and the numerics guard's
-    # per-point counters at the end of the fit ({"skipped": [...], ...})
+    # run by this call {"epoch", "phases", "width", "ms", "mode"} (host
+    # wall ms, read after the epoch's check window; the stream mode its
+    # steps ran in), the numerics guard's per-point counters at the end of
+    # the fit ({"skipped": [...], ...}), and the runner's dispatch_stats
+    # (what ran: stream mode, dispatches, CUDA graphs) for callers that
+    # never see the runner
     epochs: list = field(default_factory=list)
     numerics: dict | None = None
+    dispatch_stats: dict | None = None
 
 
 def group_configs_by_shape(config_dicts, shape_keys):
@@ -252,9 +267,10 @@ class RedcliffGridRunner:
     docstring)."""
 
     CHECKPOINT_NAME = "grid_checkpoint.pkl"
-    # per-fit accounting, (re)set by fit: the width, compactions,
-    # lane-epochs computed against an uncompacted run's, the synchronous
-    # checkpoint writes and load, the epoch resumed from
+    # per-fit accounting, (re)set by fit: the stream mode, dispatches and
+    # CUDA graphs, the width, compactions, lane-epochs computed against an
+    # uncompacted run's, the synchronous checkpoint writes and load, the
+    # epoch resumed from
     dispatch_stats = None
 
     def __init__(self, model, train_config, spec: GridSpec, mesh=None,
@@ -475,12 +491,14 @@ class RedcliffGridRunner:
 
         tree_map(update, params, grads, state["exp_avg"],
                  state["exp_avg_sq"])
-        state["step"] = torch.where(gate, step, state["step"])
+        state["step"].copy_(torch.where(gate, step, state["step"]))
 
     def _step(self, phase, params, optA, optB, nstate, active, X, Y):
         """One guarded, lane-gated step of ``phase`` for every execution
-        lane of the current era, in place on ``params`` and the Adam
-        states. Returns the new numerics state and the per-lane loss."""
+        lane of the current era, in place on ``params``, the Adam states
+        and the numerics counters ``nstate`` (a captured program replays
+        on fixed storage; JAX rebinds donated buffers instead). Returns
+        ``(nstate, per-lane loss)``."""
         c = self._ex_coeffs
         grads, (combo, _) = self._grads[phase](params, self._ex_loss_coeffs,
                                                X, Y)
@@ -488,8 +506,10 @@ class RedcliffGridRunner:
         if self._guard:
             gnorm = numerics.lane_global_norm(grads)
             ok = torch.isfinite(combo) & torch.isfinite(gnorm)
-            nstate = numerics.update_numerics_state(nstate, ok, gnorm,
-                                                    count=active)
+            new = numerics.update_numerics_state(nstate, ok, gnorm,
+                                                 count=active)
+            for k, v in new.items():
+                nstate[k].copy_(v)
             gate = active & ok
         else:
             gate = active
@@ -590,8 +610,8 @@ class RedcliffGridRunner:
             "batch_size": tc.batch_size,
             "check_every": tc.check_every,
             "lookback": tc.lookback,
-            "scan_batches": _JAX_SCAN_BATCHES,
-            "stream_mode": _JAX_STREAM_MODE,
+            "scan_batches": tc.scan_batches,
+            "stream_mode": tc.stream_mode,
             "prefetch_batches": tc.prefetch_batches,
             "max_iter": tc.max_iter,
             "matmul_precision": tc.matmul_precision,
@@ -710,7 +730,20 @@ class RedcliffGridRunner:
         fit_t0 = time.monotonic()
         stop_after = tc.lookback * tc.check_every
         past_at = cfg.num_pretrain_epochs + cfg.num_acclimation_epochs
+        # the batch stream, resolved once per fit; multi-phase epochs step
+        # per batch below (their phases interleave within each batch)
+        base_stream = pipeline.choose_stream_mode(
+            tc.stream_mode, train_ds, scan_batches=tc.scan_batches,
+            batch_size=tc.batch_size, freeze_by_batch=self._freeze_by_batch)
+        # host wall ms of the train and validation sections (enqueue time:
+        # no sync is added to measure them), epoch ms by execution width,
+        # and the CUDA graphs captured (each program's key, capture ms and
+        # kernel launches per replay)
         self.dispatch_stats = stats = {
+            "mode": base_stream, "epochs": 0, "train_dispatches": 0,
+            "val_dispatches": 0, "train_time_ms": 0.0, "val_time_ms": 0.0,
+            "epoch_ms_by_width": {}, "graph_captures": 0, "capture_ms": 0.0,
+            "programs": [],
             "grid_width": self._g_exec0, "compactions": 0,
             "lane_epochs": 0, "lane_epochs_nominal": 0,
             "ckpt_saves": 0, "ckpt_bytes": None, "ckpt_stall_ms": 0.0,
@@ -773,6 +806,8 @@ class RedcliffGridRunner:
         width_nominal = Gx
         eras, era_cur = [orig_ids], 0
         self._set_era(orig_ids)
+        engine = EpochEngine(self, base_stream, train_ds, val_ds, stats)
+        engine.new_era(Gx)
         stats["grid_width"] = Gx
         # per-execution-lane deadlines, remapped per era; dl_done keeps the
         # per-epoch check a host compare
@@ -797,25 +832,25 @@ class RedcliffGridRunner:
             phases = self.phase_for_epoch(it)
             # per-epoch skip baseline for quarantine-cause attribution
             epoch_skip_base = nstate["skipped"].clone()
-            for X, Y in self._batches(train_ds, rng=rng):
-                for phase in phases:
-                    nstate, _ = self._step(phase, params, optA, optB, nstate,
-                                           active, X, Y)
-                if self._freeze_by_batch:
-                    params, accepted = self._freeze_step(params, accepted)
+            mode = base_stream if len(phases) == 1 else "per_batch"
+            if mode == "per_batch":
+                for X, Y in self._batches(train_ds, rng=rng):
+                    for phase in phases:
+                        self._step(phase, params, optA, optB, nstate, active,
+                                   X, Y)
+                        stats["train_dispatches"] += 1
+                    if self._freeze_by_batch:
+                        params, accepted = self._freeze_step(params, accepted)
+            else:
+                engine.train_epoch(mode, phases[0],
+                                   (params, optA, optB, nstate), active,
+                                   train_ds, rng)
+            t_val0 = time.perf_counter()
+            stats["train_time_ms"] += (t_val0 - t_epoch0) * 1e3
             # validation: ordered per-batch sums from zero
-            combo_sum = torch.zeros((Gx,), device=dev)
-            forecast_sum = torch.zeros((Gx,), device=dev)
-            factor_sum = torch.zeros((Gx,), device=dev)
-            n = 0
-            with torch.no_grad():
-                for X, Y in self._batches(val_ds):
-                    combo, fo, fa = self._val(params, self._ex_loss_coeffs,
-                                              X, Y)
-                    combo_sum = combo_sum + combo
-                    forecast_sum = forecast_sum + fo
-                    factor_sum = factor_sum + fa
-                    n += 1
+            combo_sum, forecast_sum, factor_sum, n = engine.validate(params,
+                                                                     val_ds)
+            stats["val_time_ms"] += (time.perf_counter() - t_val0) * 1e3
             if n == 0:
                 raise ValueError(
                     "validation dataset yielded no batches — increase "
@@ -920,7 +955,12 @@ class RedcliffGridRunner:
                         act_host, orig_ids, retired.keys())
             epoch_ms = (time.perf_counter() - t_epoch0) * 1e3
             epochs.append({"epoch": it, "phases": list(phases),
-                           "width": epoch_width, "ms": epoch_ms})
+                           "width": epoch_width, "ms": epoch_ms,
+                           "mode": mode})
+            stats["epochs"] += 1
+            wkey = str(epoch_width)
+            stats["epoch_ms_by_width"][wkey] = (
+                stats["epoch_ms_by_width"].get(wkey, 0.0) + epoch_ms)
             stats["lane_epochs"] += epoch_width
             stats["lane_epochs_nominal"] += width_nominal
             if stop:
@@ -974,6 +1014,7 @@ class RedcliffGridRunner:
                 orig_ids = plan.orig_ids
                 Gx = plan.new_width
                 self._set_era(orig_ids)
+                engine.new_era(Gx)
                 lane_deadline = self._exec_deadlines(orig_ids)
                 dl_done = dl_done[plan.sel]
                 eras.append(orig_ids)
@@ -1056,7 +1097,8 @@ class RedcliffGridRunner:
             coeffs=dict(self.result_coeffs),
             active=final_active,
             failures=failures, epochs=epochs,
-            numerics={k: v.tolist() for k, v in final_numerics.items()})
+            numerics={k: v.tolist() for k, v in final_numerics.items()},
+            dispatch_stats=stats)
 
     def _freeze_step(self, params, accepted):
         """One Freeze accept/revert round over every lane: the merged

@@ -90,6 +90,20 @@ class RedcliffTrainConfig:
     # GISTA prox after each factor step: "GL" | "GSGL" | "H" | None
     prox_penalty: str | None = None
     prox_lam: float = 0.0
+    # grid engine only: replay a CUDA graph of this many steps per group of
+    # batches staged on the device; <= 1 keeps the one-step-per-batch
+    # path. Ignored in FreezeByBatch modes (accept/revert runs between
+    # batches)
+    scan_batches: int = 0
+    # batch-stream execution mode of the grid (data/pipeline.py): "auto"
+    # resolves to the EPOCH engine — one CUDA-graph replay runs the whole
+    # epoch's steps against the device-resident dataset — when eligible,
+    # degrading to the k-batch replay (scan_batches) and then per-batch
+    # steps. All modes run the same steps in the same order;
+    # "per_batch"/"kscan"/"epoch" force a mode (still degrading when
+    # ineligible, e.g. multi-process or freeze-by-batch). An unknown mode
+    # raises ValueError when a grid fit resolves it
+    stream_mode: str = "auto"
     # prefetch depth for batch sources that are not device-resident
     prefetch_batches: int = 2
     # grid engine only (parallel/policy.py): gather the surviving lanes

@@ -515,9 +515,10 @@ def test_entry_points_ask_for_cuda_by_default(tmp_path, monkeypatch, entry):
 
 
 def test_eval_imports_and_runs_with_jax_blocked(tmp_path):
-    """``redcliff_tpu_torch.eval`` imports, and scores a JAX-written
-    artifact, in a process where importing jax fails; no module of the
-    JAX package is loaded."""
+    """``redcliff_tpu_torch.eval`` and the grid's epoch engine
+    (``parallel/epoch_engine.py``) import, and the eval scores a
+    JAX-written artifact, in a process where importing jax fails; no
+    module of the JAX package is loaded."""
     jm, jp, _, _ = _pair("DGCNN", MODES[0], seed=13)
     save_model(str(tmp_path / "run"), jm, jp)
     code = f"""
@@ -525,6 +526,8 @@ import sys
 sys.modules["jax"] = None
 import numpy as np
 import redcliff_tpu_torch.eval as E
+import redcliff_tpu_torch.parallel.epoch_engine as EE
+assert EE.EpochEngine and EE.Program
 graphs = list((np.random.default_rng(3).random(({K}, {C}, {C}, {L}))
                < 0.35).astype(float))
 stats = E.evaluate_algorithm_on_fold({str(tmp_path / "run")!r}, "{ALG}",
