@@ -3,8 +3,9 @@
 
 Drives the port's main paths on one CUDA card — serving a fitted model,
 fitting one, fitting a coefficient grid, fitting it durably on the bucket
-ladder, running one array task from cached-args files, and scoring the
-fitted models through the evaluation layer — and holds every kernel on
+ladder, running one array task from cached-args files, scoring the
+fitted models through the evaluation layer, and fitting the paper's
+baseline families as array tasks — and holds every kernel on
 them against its plain PyTorch version. Phases, one JSON line
 each:
 
@@ -16,7 +17,8 @@ each:
    shapes (forward and autograd
    backward, full and remainder batch, M = 100, 10 and 7, a p offset by
    one float), GL prox functional and in place (the output aliasing the
-   input) at the training block, the off-tile shapes, slabs walked in
+   input) at the training block and the cMLP-FM GISTA block (10, 50, 10,
+   2), the off-tile shapes, slabs walked in
    chunks, blocks offset by one float, and on an all-zero and an
    at-threshold group; the lane forms of both at the grid's shapes (27
    lanes): the mix at the training batch and the remainder batch, on a p
@@ -105,9 +107,25 @@ each:
    DGCNN embed within 1e-4, the same winners; factor-mix launches = 16
    ``graph_mix`` + 1 forward, GL prox 0; eval wall per grid point and
    readout windows per second.
+13. baselines: the paper's baseline families, each as array task 1
+   through ``set_up_and_run_experiments`` from its published D4IC
+   cached-args (cMLP, cLSTM, DGCNN, NAVAR_CMLP, NAVAR_CLSTM, and
+   REDCLIFF_S_CLSTM: REDCLIFF-S with cLSTM factors), depth cut only, on
+   2,000 / 500 recordings of 48 steps from the train phase's 5-state VAR;
+   then a cMLP-FM GISTA fit through ``Trainer`` with the GL prox. One line
+   per family: fit wall, steps/s, epochs, best epoch; checks finite
+   losses, no skipped step, the artifact's reload through
+   ``eval/model_io.py`` and finite (C, C) GC estimates, the factor-mix
+   executions of REDCLIFF_S_CLSTM against its forwards, and the GISTA
+   fit's GL-prox executions against its applied steps with no zeroed
+   group.
+14. baselines_check: 8 guarded steps of each family from the same weights
+   and batches on the card and on the CPU, losses and params compared at
+   the train_check bars.
 
 Launch counts are reset just before each main path (serve, train, grid,
-each grid_stream fit, grid_durable, array_task, eval) and read just after;
+each grid_stream fit, grid_durable, array_task, eval, each baseline task
+and the GISTA fit) and read just after;
 the kernel-phase launches do not count. A count is executions on the
 device: a launch captured into a CUDA graph counts at each replay of the
 graph (and the warm-up step before each capture ran and counts). Then a
@@ -123,8 +141,8 @@ alone, a ``torch.profiler`` window of serve ticks, one of training steps
 and one of grid steps (device busy time, idle share, top device ops) with
 one combined epoch replayed by the epoch engine beside them, the
 ops of one prox step as the trainer runs it (one kernel, no allocation or
-copy), and each lane kernel's device time alone beside its library call
-and plain version.
+copy), each lane kernel's device time alone beside its library call
+and plain version, and a window of each baseline family's steps.
 """
 from __future__ import annotations
 
@@ -304,6 +322,79 @@ ARRAY_TASK_ARGS = {
 }
 ARRAY_TASK_CUTS = {"num_pretrain_epochs": "1", "num_acclimation_epochs": "1",
                    "max_iter": "4", "check_every": "1"}
+
+# baselines: the paper's baseline families as array tasks through
+# train/driver.py:set_up_and_run_experiments from their published D4IC
+# cached-args (experiments/accuracy_parity_d4ic.py: CMLP_ARGS :98-108,
+# CLSTM_ARGS :110-120, DGCNN_ARGS :122-131, NAVAR_ARGS :152-153 with the
+# synSys transcription's widths, accuracy_parity_synsys.py:93-99) and
+# REDCLIFF-S with cLSTM factors (the REDCLIFF args :70-96 in the cLSTM
+# schema: LSTM width 25, context 4 = gen_lag), on 10-channel recordings of
+# BASELINE_T steps (:66-67) from the train phase's 5-state sparse VAR, with
+# one-hot state labels for DGCNN; depth cut only (BASELINE_CUTS)
+BASELINE_T = 48
+BASELINE_DATA = "d4IC_sVAR48_fold0"
+BASELINE_ARGS = {
+    "cMLP": {
+        "output_length": "1", "num_sims": "1", "embed_hidden_sizes": "[60]",
+        "batch_size": "128", "gen_eps": "0.0001",
+        "gen_weight_decay": "0.0001", "max_iter": "1000", "lookback": "1",
+        "check_every": "10", "verbose": "0", "num_factors": "1",
+        "num_supervised_factors": "0", "wavelet_level": "None",
+        "gen_hidden": "[50]", "gen_lr": "0.0005",
+        "gen_lag_and_input_len": "2", "FORECAST_COEFF": "1.0",
+        "FACTOR_SCORE_COEFF": "0.0", "ADJ_L1_REG_COEFF": "1.0",
+        "DAGNESS_REG_COEFF": "0.0", "DAGNESS_LAG_COEFF": "0.0",
+        "DAGNESS_NODE_COEFF": "0.0"},
+    "cLSTM": {
+        "output_length": "1", "num_sims": "1", "embed_hidden_sizes": "[10]",
+        "batch_size": "128", "gen_eps": "0.0001",
+        "gen_weight_decay": "0.0001", "max_iter": "1000", "lookback": "3",
+        "check_every": "5", "verbose": "0", "num_factors": "1",
+        "num_supervised_factors": "0", "wavelet_level": "None",
+        "gen_hidden": "25", "gen_lr": "0.0005", "context": "2",
+        "max_input_length": "4", "FORECAST_COEFF": "1.0",
+        "FACTOR_SCORE_COEFF": "0.0", "ADJ_L1_REG_COEFF": "10.0",
+        "DAGNESS_REG_COEFF": "0.0", "DAGNESS_LAG_COEFF": "0.0",
+        "DAGNESS_NODE_COEFF": "0.0"},
+    "DGCNN": {
+        "batch_size": "128", "gen_eps": "0.0001",
+        "gen_weight_decay": "0.0001", "max_iter": "1000", "lookback": "1",
+        "check_every": "10", "verbose": "0", "num_channels": "10",
+        "wavelet_level": "None", "num_wavelets_per_chan": "1",
+        "num_features_per_node": "2", "num_graph_conv_layers": "1",
+        "num_hidden_nodes": "100", "num_classes": "5",
+        "signal_format": "original flattened", "gen_lr": "0.0001"},
+    "NAVAR_CMLP": {
+        "num_nodes": "10", "num_hidden": "256", "maxlags": "20",
+        "hidden_layers": "2", "dropout": "0", "val_proportion": "0.0",
+        "epochs": "250", "batch_size": "128", "check_every": "50",
+        "learning_rate": "0.0001", "weight_decay": "0",
+        "split_timeseries": "0", "signal_format": "original",
+        "lambda1": "0.0"},
+    "REDCLIFF_S_CLSTM": dict(ARRAY_TASK_ARGS, gen_hidden="25", context="4",
+                             max_input_length="4"),
+}
+BASELINE_ARGS["NAVAR_CLSTM"] = BASELINE_ARGS["NAVAR_CMLP"]
+BASELINE_CUTS = {
+    "cMLP": {"max_iter": "4", "check_every": "1"},
+    "cLSTM": {"max_iter": "4", "check_every": "1"},
+    "DGCNN": {"max_iter": "4", "check_every": "1"},
+    "NAVAR_CMLP": {"epochs": "4", "check_every": "1"},
+    "NAVAR_CLSTM": {"epochs": "4", "check_every": "1"},
+    "REDCLIFF_S_CLSTM": ARRAY_TASK_CUTS,
+}
+# each family's name in the eval layer's GC dispatch
+BASELINE_ALG = {"cMLP": "CMLP", "cLSTM": "CLSTM", "DGCNN": "DGCNN",
+                "NAVAR_CMLP": "NAVAR_CMLP", "NAVAR_CLSTM": "NAVAR_CLSTM",
+                "REDCLIFF_S_CLSTM": "REDCLIFF_S_CLSTM"}
+# the cMLP-FM GISTA fit: the cMLP widths through Trainer with the GL prox
+# at the train phase's threshold (lr 5e-4 x lam 4 = 2e-3 per step), which
+# zeroes no group within the run (a zeroed group stalls the fit: ROADMAP
+# queue 3 item 2); its first-layer block (C_out, H, C_in, L) = (10, 50,
+# 10, 2) is the GL prox kernel's new shape
+GISTA_BLOCK = (C_TRAIN, 50, C_TRAIN, 2)
+BASELINE_CHECK_STEPS = 8
 
 # eval: the grid's 27 best-params artifacts scored against the sVAR's 5
 # true graphs (experiments/d4ic_grid_search.py:231-258), the array task's
@@ -529,12 +620,12 @@ def _prox_checks(torch, PX, gen, dev, errs):
     plans = {}
     train_block = (K_TRAIN, C_TRAIN, TRAIN_CONFIG["gen_hidden"][0], C_TRAIN,
                    TRAIN_CONFIG["gen_lag"])
-    # the training block, the off-tile shapes of
+    # the training block, the cMLP-FM GISTA block, the off-tile shapes of
     # tests/test_precision_kernels.py:117-121, a slab walked in chunks with
     # and without the bulk copy (16,000 and 15,005 floats); three
     # thresholds each, on an aligned and on a misaligned block, functional
     # and in place (the output aliasing the input)
-    for shape in (train_block, (3, 7, 5, 7, 3), (1, 1, 3, 1, 1),
+    for shape in (train_block, GISTA_BLOCK, (3, 7, 5, 7, 3), (1, 1, 3, 1, 1),
                   (5, 12, 32, 12, 4), (2, 3, 200, 10, 8),
                   (2, 1, 3001, 1, 5)):
         for offset in (False, True):
@@ -561,6 +652,8 @@ def _prox_checks(torch, PX, gen, dev, errs):
                              Wi, want, errs)
     _require(plans[f"gl_prox{train_block}"]["bulk"]
              and plans[f"gl_prox{train_block}"]["chunk"] == 1000
+             and plans[f"gl_prox{GISTA_BLOCK}"]["bulk"]
+             and plans[f"gl_prox{GISTA_BLOCK}"]["chunk"] == 1000
              and not plans[f"gl_prox{train_block} +1 float"]["bulk"]
              and plans["gl_prox(2, 3, 200, 10, 8)"]["chunk"] < 16000,
              f"gl_prox launch plans {plans}")
@@ -893,6 +986,21 @@ def phase_kernel(torch, FM, PX):
     }
     prox["bound_ms"], prox["bound_by"] = _prox_bound_ms(Wt.numel())
     prox["floor_ms"] = floor_ms
+    # the cMLP-FM GISTA block (the generic trainer's prox), in place
+    Wc = (0.05 * torch.randn(GISTA_BLOCK, generator=gen)).to(dev)
+    Wci = Wc.clone()
+    cmlp = timing["gl_prox"]["cmlp_fm"] = {
+        "shape": "(C_out, H, C_in, L) = (10, 50, 10, 2): 100 groups of "
+                 "100, 10 slabs of 1,000; kernel_ms in place (gl_prox_), "
+                 "as the generic trainer runs it",
+        **_time_turns(torch, {
+            "kernel_ms": lambda: PX.gl_prox_(Wci, lam, lr),
+            "functional_ms": lambda: PX.gl_prox(Wc, lam, lr),
+            "plain_ms": lambda: PX.gl_prox_reference(Wc, lam, lr)}),
+        "library_ms": None,
+    }
+    cmlp["bound_ms"], cmlp["bound_by"] = _prox_bound_ms(Wc.numel())
+    cmlp["floor_ms"] = floor_ms
     # the grid's lane form in place, every lane gated on (the most work)
     Wg = (0.05 * torch.randn((G,) + train_block, generator=gen)).to(dev)
     Wgi = Wg.clone()
@@ -1229,14 +1337,16 @@ def _state_vars(np, rng):
     return A
 
 
-def _d4ic_like_data(np, n, seed):
-    """``n`` windows of (embed_lag + 1, 10) from a 5-state sparse VAR(4)
-    (one random stable coefficient set per state, a burn-in per window),
-    with one-hot state labels (n, 5, 1), and each state's true lagged
-    graph (5, C, C, L): the support of its coefficients."""
+def _d4ic_like_data(np, n, seed, T=None):
+    """``n`` windows of (T, 10) (default embed_lag + 1 steps) from a
+    5-state sparse VAR(4) (one random stable coefficient set per state, a
+    burn-in per window), with one-hot state labels (n, 5, 1), and each
+    state's true lagged graph (5, C, C, L): the support of its
+    coefficients."""
     rng = np.random.default_rng(seed)
     K, C, L = K_TRAIN, C_TRAIN, TRAIN_CONFIG["gen_lag"]
-    T = TRAIN_CONFIG["embed_lag"] + TRAIN_CONFIG["num_sims"]
+    if T is None:
+        T = TRAIN_CONFIG["embed_lag"] + TRAIN_CONFIG["num_sims"]
     burn = 32
     A = _state_vars(np, rng)
     states = rng.integers(0, K, n)
@@ -1387,15 +1497,18 @@ def _leaves_np(tree):
     return [tree]
 
 
-def _train_steps(torch, np, model, host_params, batches, device):
-    """TRAIN_CHECK_STEPS guarded combined steps on ``device``; returns the
-    losses and the params after them."""
+def _train_steps(torch, np, model, host_params, batches, device,
+                 prox=True):
+    """Guarded combined steps on ``device``, one per batch (with the
+    train phase's prox unless ``prox`` is False); returns the losses and
+    the params after them."""
     from redcliff_tpu_torch import interop
     from redcliff_tpu_torch.runtime import numerics
     from redcliff_tpu_torch.train.redcliff_trainer import (
         RedcliffTrainConfig, RedcliffTrainer)
 
-    trainer = RedcliffTrainer(model, RedcliffTrainConfig(**TRAIN_KNOBS),
+    knobs = TRAIN_KNOBS if prox else dict(TRAIN_KNOBS, prox_penalty=None)
+    trainer = RedcliffTrainer(model, RedcliffTrainConfig(**knobs),
                               device=device)
     live = trainer.live_params(host_params)
     optA, optB = trainer.make_optimizers(live)
@@ -1465,6 +1578,7 @@ def phase_profile_train(torch, FM, PX, model, params, train_ds):
     lam, lr = PROX_LAM, TRAIN_KNOBS["gen_lr"]
     Wi = Wt.clone()
     Wo = _offset_view(torch, Wt)
+    Wc = (0.05 * torch.randn(GISTA_BLOCK, generator=gen)).to(dev)
     one = torch.zeros(1, device=dev)
     alone = _alone_us(torch, {
         "floor: x.zero_()": one.zero_,
@@ -1477,7 +1591,11 @@ def phase_profile_train(torch, FM, PX, model, params, train_ds):
         # the same block offset by one float: scalar loads, not the TMA
         "gl_prox_kernel (in place, +1 float)": lambda: PX.gl_prox_(
             Wo, lam, lr),
-        "gl_prox_plain": lambda: PX.gl_prox_reference(Wt, lam, lr)})
+        "gl_prox_plain": lambda: PX.gl_prox_reference(Wt, lam, lr),
+        "gl_prox_kernel (cMLP-FM block, in place)": lambda: PX.gl_prox_(
+            Wc, lam, lr),
+        "gl_prox_plain (cMLP-FM block)": lambda: PX.gl_prox_reference(
+            Wc, lam, lr)})
 
     trainer = RedcliffTrainer(model, RedcliffTrainConfig(**TRAIN_KNOBS))
     live = trainer.live_params(interop.params_to_jax(params))
@@ -1538,6 +1656,75 @@ def phase_profile_train(torch, FM, PX, model, params, train_ds):
            "device_ops_per_step": len(per),
            "top_device_us_per_step": dict(top),
            "prox_step": prox_step})
+
+
+def phase_profile_baselines(torch, models, train_ds):
+    """Where a baseline step's time goes (``--profile`` only): for each
+    family, a profiled window of guarded steps at the published widths on
+    the card — host wall per step, device busy per step, the device's idle
+    share and the top device ops."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from redcliff_tpu_torch import interop
+    from redcliff_tpu_torch.models.redcliff import RedcliffSCMLP
+    from redcliff_tpu_torch.runtime import numerics
+    from redcliff_tpu_torch.train.redcliff_trainer import (
+        RedcliffTrainConfig, RedcliffTrainer)
+    from redcliff_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    dev = torch.device("cuda")
+    B = 128
+    X = torch.from_numpy(train_ds.X[:8 * B]).to(dev)
+    Y = torch.from_numpy(train_ds.Y[:8 * B]).to(dev)
+    batches = [(X[i * B:(i + 1) * B], Y[i * B:(i + 1) * B]) for i in range(8)]
+    n_warm = 2
+    out = {}
+    for family, (model, lr, prox) in models.items():
+        host = interop.params_to_jax(model.init(
+            torch.Generator().manual_seed(0)))
+        nstate = numerics.init_numerics_state()
+        if isinstance(model, RedcliffSCMLP):
+            trainer = RedcliffTrainer(model, RedcliffTrainConfig(
+                **dict(TRAIN_KNOBS, prox_penalty=None)))
+            live = trainer.live_params(host)
+            opts = trainer.make_optimizers(live)
+
+            def step(Xb, Yb, nstate):
+                return trainer.train_step(live, *opts, Xb, Yb, "combined",
+                                          nstate)[2]
+        else:
+            trainer = Trainer(model, TrainConfig(
+                learning_rate=lr, prox_penalty="GL" if prox else None,
+                prox_lam=PROX_LAM),
+                has_labels=type(model).__name__ == "DGCNNModel")
+            live = trainer.live_params(host)
+            opt = trainer.make_optimizer(live)
+
+            def step(Xb, Yb, nstate):
+                return trainer.train_step(live, opt, Xb, Yb, None,
+                                          nstate)[2]
+        for Xb, Yb in batches[:n_warm]:
+            nstate = step(Xb, Yb, nstate)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for Xb, Yb in batches[n_warm:]:
+                nstate = step(Xb, Yb, nstate)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / (8 - n_warm)
+        per, busy_us = _device_us(torch, prof, 8 - n_warm)
+        top = sorted(per.items(), key=lambda kv: -kv[1])[:6]
+        out[family] = {"step_wall_ms_profiled": wall_ms,
+                       "device_busy_us_per_step": busy_us,
+                       "device_idle_share": (1.0 - busy_us / 1e3 / wall_ms
+                                             if busy_us else None),
+                       "device_ops_per_step": len(per),
+                       "top_device_us_per_step": dict(top)}
+    _emit({"phase": "profile_baselines",
+           "device": torch.cuda.get_device_name(0),
+           "steps": 8 - n_warm, "batch_size": B, "families": out})
 
 
 def _grid_points():
@@ -2499,6 +2686,291 @@ def phase_array_task(torch, FM, PX):
     return mix_launches, prox_launches, runs
 
 
+def _write_fold(np, root, name, T):
+    """The train phase's windows at T steps as a fold written by the port's
+    ``save_cv_split``, and its data cached-args file (the 5 true graphs).
+    Returns the cached-args path and the numpy windows."""
+    from redcliff_tpu_torch.data.shards import save_cv_split
+    from redcliff_tpu_torch.utils.config import serialize_tensor_to_string
+
+    X, Y, graphs = _d4ic_like_data(np, N_TRAIN + N_VAL, seed=0, T=T)
+    pairs = [[x, y] for x, y in zip(X, Y)]
+    save_cv_split(pairs[:N_TRAIN], pairs[N_TRAIN:], 0,
+                  os.path.join(root, "data"))
+    data_args = os.path.join(root, f"{name}_cached_args.txt")
+    with open(data_args, "w") as f:
+        json.dump({"data_root_path": os.path.join(root, "data", "fold_0"),
+                   "num_channels": str(C_TRAIN),
+                   **{f"net{k + 1}_adjacency_tensor":
+                      serialize_tensor_to_string(g)
+                      for k, g in enumerate(graphs)}}, f)
+    return data_args, X
+
+
+def _redcliff_forwards(cfg, epochs, n_tr, n_val):
+    """The REDCLIFF-S forwards (factor-mix launches) of a per-point fit of
+    ``epochs`` epochs: one per step (the loss), one per step of the phases
+    that track the label confusion, two per validation batch (loss and
+    confusion) each epoch, one per batch of the final validation."""
+    from redcliff_tpu_torch.models.redcliff import phase_schedule
+
+    phases = [phase_schedule(cfg, it) for it in range(epochs)]
+    forwards = sum(n_tr * (1 + (p in ("embedder_pretrain", "combined")))
+                   for ph in phases for p in ph)
+    return forwards + 2 * n_val * len(phases) + n_val
+
+
+def phase_baselines(torch, FM, PX):
+    """The baseline families on the card: each family's published D4IC
+    array task through ``set_up_and_run_experiments`` (counts at 0 just
+    before each, read just after), then the cMLP-FM GISTA fit through
+    ``Trainer`` with the GL prox. One line per family. Returns the
+    factor-mix and GL-prox executions of the path, and for baselines_check
+    each family's (model, learning rate, prox on) and the training
+    windows."""
+    import math
+
+    import numpy as np
+
+    from redcliff_tpu_torch import interop
+    from redcliff_tpu_torch.data.shards import load_normalized_split_datasets
+    from redcliff_tpu_torch.eval.gc_estimates import get_model_gc_estimates
+    from redcliff_tpu_torch.eval.model_io import load_model_for_eval
+    from redcliff_tpu_torch.models.cmlp_fm import CMLPFM, CMLPFMConfig
+    from redcliff_tpu_torch.runtime.checkpoint import read_checkpoint
+    from redcliff_tpu_torch.train.driver import set_up_and_run_experiments
+    from redcliff_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    root = os.path.join(HERE, "build", "chip_smoke", "baselines")
+    shutil.rmtree(root, ignore_errors=True)
+    data_args, X = _write_fold(np, root, BASELINE_DATA, BASELINE_T)
+    B = 128
+    n_tr, n_val = -(-N_TRAIN // B), -(-N_VAL // B)
+    mix_total = prox_total = 0
+    models = {}
+    for family, args in BASELINE_ARGS.items():
+        margs = os.path.join(root, f"{family}_d4IC_cached_args.txt")
+        with open(margs, "w") as f:
+            json.dump({**args, **BASELINE_CUTS[family]}, f)
+        runs = os.path.join(root, "runs", family)
+        os.makedirs(runs)
+        # ---- the main path: counts at 0 just before, read just after
+        FM.factor_mix.launches = 0
+        PX.gl_prox.launches = 0
+        t0 = time.perf_counter()
+        task = set_up_and_run_experiments(
+            {"save_root_path": runs}, [margs], [data_args], [family],
+            [BASELINE_DATA], task_id=1)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        mix, prox = FM.factor_mix.launches, PX.gl_prox.launches
+
+        _require(task == 1 and len(os.listdir(runs)) == 1,
+                 f"baselines {family}: runs {os.listdir(runs)}")
+        run_dir = os.path.join(runs, os.listdir(runs)[0])
+        model, params = load_model_for_eval(run_dir)
+        models[family] = (model, float(args.get(
+            "gen_lr", args.get("learning_rate"))), False)
+        meta = read_checkpoint(os.path.join(
+            run_dir, "training_meta_data_and_hyper_parameters.pkl"))
+        epochs = meta["epoch"] + 1
+        losses = meta["avg_combo_loss"]
+        # the task's per-epoch log of steps and skips, in its checkpoint
+        log = read_checkpoint(os.path.join(
+            run_dir, "trainer_checkpoint.pkl"))["epoch_log"]
+        skipped = sum(e["skipped"] for e in log)
+        actions = [e["action"] for e in log]
+        _require(len(losses) == epochs
+                 and all(math.isfinite(v) for v in losses),
+                 f"baselines {family}: val losses {losses}")
+        _require(log and log[-1]["epoch"] == meta["epoch"],
+                 f"baselines {family}: epoch log {log}")
+        _require("abort" not in actions and skipped == 0,
+                 f"baselines {family}: monitor actions {actions}, "
+                 f"{skipped} skipped steps")
+        leaves = _leaves_np(interop.params_to_jax(params))
+        _require(all(bool(np.isfinite(x).all()) for x in leaves),
+                 f"baselines {family}: non-finite artifact params")
+        Xe = X[N_TRAIN:N_TRAIN + 32]
+        if "REDCLIFF" in family:
+            Xe = Xe[:, :model.config.max_lag]
+        ests = get_model_gc_estimates(model, params, BASELINE_ALG[family],
+                                      K_TRAIN, X=Xe)
+        _require(len(ests) == K_TRAIN
+                 and all(e.shape[:2] == (C_TRAIN, C_TRAIN)
+                         and bool(np.isfinite(e).all()) for e in ests),
+                 f"baselines {family}: GC estimates "
+                 f"{[e.shape for e in ests]}")
+        if "REDCLIFF" in family:
+            want_mix = _redcliff_forwards(model.config, epochs, n_tr,
+                                          n_val)
+        else:
+            want_mix = 0
+        # the array tasks set no prox, in either package
+        _require(mix == want_mix and prox == 0,
+                 f"baselines {family}: {mix} factor_mix launches "
+                 f"({want_mix} expected), {prox} gl_prox launches (0)")
+        mix_total += mix
+        steps = sum(e["steps"] + e["skipped"] for e in log) \
+            if "REDCLIFF" not in family else sum(
+                sum(e["steps"].values()) + e["skipped"] for e in log)
+        _emit({"phase": "baselines", "family": family,
+               "device": torch.cuda.get_device_name(0),
+               "model": type(model).__name__,
+               "config": "published D4IC cached-args "
+                         "(experiments/accuracy_parity_d4ic.py)",
+               "reduced": BASELINE_CUTS[family],
+               "run_dir": os.path.relpath(run_dir, HERE),
+               "recording_steps": BASELINE_T,
+               "train_recordings": N_TRAIN, "val_recordings": N_VAL,
+               "epochs": epochs, "best_epoch": meta["best_it"],
+               "steps": steps, "fit_wall_s": fit_s,
+               "steps_per_s": steps / fit_s,
+               "epoch_ms": [e["ms"] for e in log],
+               "skipped": skipped, "val_combo_loss": losses,
+               "gc_estimate_shape": list(ests[0].shape),
+               "factor_mix_launches": mix, "gl_prox_launches": prox})
+
+    # ---- the cMLP-FM GISTA fit at the cMLP widths
+    args = BASELINE_ARGS["cMLP"]
+    model = CMLPFM(CMLPFMConfig(
+        num_chans=C_TRAIN, gen_lag=int(args["gen_lag_and_input_len"]),
+        gen_hidden=(50,), input_length=int(args["gen_lag_and_input_len"]),
+        adj_l1_coeff=float(args["ADJ_L1_REG_COEFF"])))
+    train_ds, val_ds = load_normalized_split_datasets(
+        os.path.join(root, "data", "fold_0"), grid_search=False,
+        device="cuda")
+    trainer = Trainer(model, TrainConfig(
+        learning_rate=float(args["gen_lr"]), max_iter=4, lookback=1,
+        check_every=1, batch_size=B, seed=0, prox_penalty="GL",
+        prox_lam=PROX_LAM))
+    params = model.init(torch.Generator().manual_seed(0), trainer.device)
+    _require(tuple(params["factor"][0]["w"].shape) == GISTA_BLOCK,
+             f"GISTA block {tuple(params['factor'][0]['w'].shape)}")
+    gdir = os.path.join(root, "gista")
+    FM.factor_mix.launches = 0
+    PX.gl_prox.launches = 0
+    t0 = time.perf_counter()
+    res = trainer.fit(params, train_ds, val_ds, save_dir=gdir)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    mix, prox = FM.factor_mix.launches, PX.gl_prox.launches
+    applied = sum(e["steps"] for e in res.epochs)
+    _require(res.aborted is None and res.numerics["skipped"] == 0
+             and all(math.isfinite(v)
+                     for v in res.histories["avg_combo_loss"]),
+             f"GISTA fit: aborted {res.aborted}, skipped "
+             f"{res.numerics['skipped']}, {res.histories['avg_combo_loss']}")
+    _require(prox == applied == n_tr * len(res.epochs) > 0 and mix == 0,
+             f"GISTA fit: {prox} gl_prox launches for {applied} applied "
+             f"steps, {mix} factor_mix launches")
+    last = read_checkpoint(os.path.join(gdir, "trainer_checkpoint.pkl"))
+    norms = np.concatenate([
+        _group_norms(np, last["params"]["factor"][0]["w"]).ravel(),
+        _group_norms(np, interop.params_to_jax(res.params)["factor"][0][
+            "w"]).ravel()])
+    _require(bool((norms > 0).all()), "GISTA fit: the prox zeroed a group")
+    gm, gp = load_model_for_eval(gdir)
+    _require(type(gm) is CMLPFM, "GISTA fit: artifact class")
+    first = _group_norms(np, interop.params_to_jax(params)["factor"][0]["w"])
+    _emit({"phase": "baselines", "family": "cMLP GISTA",
+           "device": torch.cuda.get_device_name(0), "model": "CMLPFM",
+           "config": "the cMLP widths (gen_hidden [50], lag 2, batch 128) "
+                     "through Trainer, prox_penalty GL",
+           "reduced": {"max_iter": "1000 -> 4", "check_every": "10 -> 1"},
+           "prox_lam": PROX_LAM, "learning_rate": float(args["gen_lr"]),
+           "block": list(GISTA_BLOCK), "epochs": len(res.epochs),
+           "best_epoch": res.best_it, "steps": applied,
+           "fit_wall_s": fit_s, "steps_per_s": applied / fit_s,
+           "epoch_ms": [e["ms"] for e in res.epochs], "skipped": 0,
+           "val_combo_loss": res.histories["avg_combo_loss"],
+           "group_norm_sum_first_last": [
+               float(first.sum()), float(_group_norms(
+                   np, last["params"]["factor"][0]["w"]).sum())],
+           "min_group_norm": float(norms.min()),
+           "factor_mix_launches": mix, "gl_prox_launches": prox})
+    models["cMLP GISTA"] = (model, float(args["gen_lr"]), True)
+    return mix_total, prox, models, train_ds
+
+
+def _baseline_steps(torch, np, model, lr, prox, host_params, batches,
+                    device):
+    """Guarded steps of one family on ``device``, one per batch (the
+    generic trainer's step at learning rate ``lr``, with the GL prox when
+    ``prox``; or REDCLIFF-S's combined step): the losses and the params
+    after them."""
+    from redcliff_tpu_torch import interop
+    from redcliff_tpu_torch.models.redcliff import RedcliffSCMLP
+    from redcliff_tpu_torch.runtime import numerics
+    from redcliff_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    if isinstance(model, RedcliffSCMLP):
+        return _train_steps(torch, np, model, host_params, batches, device,
+                            prox=False)
+    trainer = Trainer(model, TrainConfig(
+        learning_rate=lr, prox_penalty="GL" if prox else None,
+        prox_lam=PROX_LAM), has_labels=type(model).__name__ == "DGCNNModel",
+        device=device)
+    live = trainer.live_params(host_params)
+    opt = trainer.make_optimizer(live)
+    nstate = numerics.init_numerics_state()
+    losses = []
+    for X, Y in batches:
+        combo, _, nstate, ok = trainer.train_step(
+            live, opt, torch.from_numpy(X).to(trainer.device),
+            torch.from_numpy(Y).to(trainer.device), None, nstate)
+        _require(ok, f"baselines_check: a step on {device} was skipped")
+        losses.append(float(combo.detach()))
+    return np.asarray(losses), interop.params_to_jax(live)
+
+
+def phase_baselines_check(torch, PX, models, train_ds):
+    """Card against the port's CPU path for each family: the same weights
+    (the port's init, seed 0), the same batches, BASELINE_CHECK_STEPS
+    guarded steps; the GISTA fit's steps run the GL prox (the kernel on
+    the card)."""
+    import numpy as np
+
+    from redcliff_tpu_torch import interop
+
+    X = train_ds.X
+    Y = train_ds.Y
+    rng = np.random.default_rng(2)
+    order = rng.permutation(len(X))
+    B = 128
+    batches = [(X[order[i * B:(i + 1) * B]], Y[order[i * B:(i + 1) * B]])
+               for i in range(BASELINE_CHECK_STEPS)]
+    out = {}
+    for family, (model, lr, prox) in models.items():
+        host = interop.params_to_jax(model.init(
+            torch.Generator().manual_seed(0)))
+        prox0 = PX.gl_prox.launches
+        card_l, card_p = _baseline_steps(torch, np, model, lr, prox, host,
+                                         batches, "cuda")
+        prox_card = PX.gl_prox.launches - prox0
+        cpu_l, cpu_p = _baseline_steps(torch, np, model, lr, prox, host,
+                                       batches, "cpu")
+        torch.cuda.synchronize()
+        diffs = [float(np.abs(a - b).max())
+                 for a, b in zip(_leaves_np(card_p), _leaves_np(cpu_p))]
+        rel = float(np.max(np.abs(card_l - cpu_l) / np.abs(cpu_l)))
+        _require(bool(np.isfinite(card_l).all())
+                 and bool(np.allclose(card_l, cpu_l, rtol=TRAIN_LOSS_RTOL,
+                                      atol=TRAIN_LOSS_ATOL))
+                 and max(diffs) <= TRAIN_PARAM_ATOL,
+                 f"baselines_check {family}: losses card {card_l.tolist()} "
+                 f"vs CPU {cpu_l.tolist()}, params differ by {max(diffs)}")
+        _require(prox_card == (BASELINE_CHECK_STEPS if prox else 0),
+                 f"baselines_check {family}: {prox_card} gl_prox launches")
+        out[family] = {"max_loss_rel_err": rel, "max_param_abs_err":
+                       max(diffs), "card_losses": card_l.tolist(),
+                       "gl_prox_launches": prox_card}
+    _emit({"phase": "baselines_check", "against": "port CPU path, same "
+           "weights and batches", "steps": BASELINE_CHECK_STEPS,
+           "loss_rtol": TRAIN_LOSS_RTOL, "loss_atol": TRAIN_LOSS_ATOL,
+           "param_atol": TRAIN_PARAM_ATOL, "families": out})
+
+
 def _switching_recordings(np, A, n, T, seed):
     """``n`` recordings (x (T, C), y (K, T)) of the state VARs ``A``
     (K, L, C, C), the state switching every EVAL_SWITCH steps in an order
@@ -2750,10 +3222,14 @@ def main():
     task_mix, task_prox, task_runs = phase_array_task(torch, FM, PX)
     eval_mix, eval_prox = phase_eval(torch, FM, PX, gmodel, gres, task_runs,
                                      timing["factor_mix"]["readout"])
+    base_mix, base_prox, base_models, base_train = phase_baselines(
+        torch, FM, PX)
+    phase_baselines_check(torch, PX, base_models, base_train)
     if "--profile" in sys.argv[1:]:
         phase_profile(torch, FM)
         phase_profile_train(torch, FM, PX, tmodel, tparams, train_ds)
         phase_profile_grid(torch, FM, PX, gmodel, gparams, gtrain)
+        phase_profile_baselines(torch, base_models, base_train)
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.")
@@ -2764,7 +3240,8 @@ def main():
                  "grid": grid_mix,
                  "grid_stream": sum(v["factor_mix"] for v in stream.values()),
                  "grid_durable": dur_mix,
-                 "array_task": task_mix, "eval": eval_mix}
+                 "array_task": task_mix, "eval": eval_mix,
+                 "baselines": base_mix}
     fm = _kernel_entry(
         "factor_mix", FM, "redcliff_tpu/ops/factor_mix.py:58",
         sum(mix_paths.values()), mix_paths, max_err["factor_mix"],
@@ -2774,7 +3251,7 @@ def main():
     prox_paths = {"serve": 0, "train": prox_launches, "grid": grid_prox,
                   "grid_stream": sum(v["gl_prox"] for v in stream.values()),
                   "grid_durable": dur_prox, "array_task": task_prox,
-                  "eval": eval_prox}
+                  "eval": eval_prox, "baselines": base_prox}
     px = _kernel_entry(
         "gl_prox", PX, "redcliff_tpu/ops/pallas_prox.py:47",
         sum(prox_paths.values()), prox_paths, max_err["gl_prox"],

@@ -13,8 +13,9 @@ at the root (the reference's artifact names, kept for tooling parity).
 
 The entry points that load a model take ``device`` (default ``cuda``,
 raising without a card; the tests pass ``"cpu"``): the model's readout
-runs there, the statistics on the host. The port loads REDCLIFF-S
-artifacts only (``eval/model_io.py``).
+runs there, the statistics on the host. The port loads the artifacts of
+the families it has ported (``eval/model_io.py``): REDCLIFF-S, cMLP,
+cLSTM, NAVAR and DGCNN.
 """
 from __future__ import annotations
 

@@ -1,12 +1,13 @@
 """Per-family Granger-causal estimate dispatch for evaluation (port of
-``eval/gc_estimates.py``, the REDCLIFF-S branches).
+``eval/gc_estimates.py``).
 
 The reference's get_model_gc_estimates / get_model_gc_score_estimates
 (its ``evaluate/eval_utils.py:893-948``): every model family exposes its
 GC readout differently, and single-graph baselines are replicated K times
 so cross-algorithm comparisons always see one estimate per true factor.
-The port reads REDCLIFF-S models; the other families' branches raise
-until their models are ported (ROADMAP queue 1, item 13).
+The port reads REDCLIFF-S, NCFM, cMLP, cLSTM, NAVAR and DGCNN models; the
+DCSFA-NMF and DYNOTEARS branches raise until their models are ported
+(ROADMAP queue 1, item 13).
 
 Readouts run without autograd on the params' device and come back to the
 host once per call. :func:`get_model_gc_score_estimates` runs
@@ -18,23 +19,21 @@ import numpy as np
 import torch
 
 from redcliff_tpu_torch.eval.model_io import to_params_device
+from redcliff_tpu_torch.train.orchestration import (is_unported_family,
+                                                    refuse_unported)
 
 __all__ = ["get_model_gc_estimates", "get_model_gc_score_estimates",
            "get_model_gc_summary_matrices",
            "get_combined_gc_representations_across_factors"]
 
-# the families of the JAX dispatch whose models are not ported yet
-_OTHER_FAMILIES = ("DCSFA", "NCFM", "DYNOTEARS", "NAVAR", "DGCNN", "cMLP",
-                   "CMLP", "cLSTM", "CLSTM")
-
-
 def _not_ported(model_type):
-    if any(tag in model_type for tag in _OTHER_FAMILIES):
-        raise NotImplementedError(
-            f"the GC readout of {model_type} is not ported yet (ROADMAP "
-            f"queue 1, item 13: the other model families); the port reads "
-            f"REDCLIFF-S models only")
+    if is_unported_family(model_type):
+        refuse_unported(f"the GC readout of {model_type}")
     raise NotImplementedError(f"unrecognized model_type: {model_type!r}")
+
+
+def _np_list(graphs):
+    return [g.detach().cpu().numpy() for g in graphs]
 
 
 def _replicate(graphs, num_required):
@@ -45,28 +44,63 @@ def _replicate(graphs, num_required):
 
 def get_model_gc_estimates(model, params, model_type, num_ests_required,
                            X=None):
-    """List of ``num_ests_required`` per-factor GC matrices (numpy
-    (C, C, L)) of a REDCLIFF model (ref eval_utils.py:908-948).
-    ``model_type`` uses the reference's naming."""
-    if "REDCLIFF" not in model_type:
-        _not_ported(model_type)
-    mode = model.config.primary_gc_est_mode
-    if "conditional" in mode:
-        # system-level eval always forces the sample-independent readout
-        # (ref eval_sysOptF1...py:172-175 overrides unconditionally)
-        mode = "fixed_factor_exclusive"
+    """List of ``num_ests_required`` per-factor GC matrices (numpy) for any
+    ported family (ref eval_utils.py:908-948). ``model_type`` uses the
+    reference's naming: substring dispatch over REDCLIFF / NCFM / NAVAR /
+    DGCNN / cMLP / cLSTM."""
+    mt = model_type
     if X is not None:
         X = to_params_device(params, X)
+    if "REDCLIFF" in mt:
+        mode = model.config.primary_gc_est_mode
+        if "conditional" in mode:
+            # system-level eval always forces the sample-independent
+            # readout (ref eval_sysOptF1...py:172-175 overrides
+            # unconditionally)
+            mode = "fixed_factor_exclusive"
+        with torch.no_grad():
+            ests_by_sample = model.gc_as_lists(
+                params, gc_est_mode=mode, X=X, threshold=False,
+                ignore_lag=False, combine_wavelet_representations=True,
+                rank_wavelets=False)
+        assert len(ests_by_sample) == 1, (
+            "expected a single sample-level estimate for system-level eval")
+        gc_ests = list(ests_by_sample[0])
+        if len(gc_ests) < num_ests_required:
+            gc_ests = _replicate(gc_ests, num_ests_required)
+        return gc_ests
+
+    if is_unported_family(mt):
+        _not_ported(mt)
+
     with torch.no_grad():
-        ests_by_sample = model.gc_as_lists(
-            params, gc_est_mode=mode, X=X, threshold=False, ignore_lag=False,
-            combine_wavelet_representations=True, rank_wavelets=False)
-    assert len(ests_by_sample) == 1, (
-        "expected a single sample-level estimate for system-level eval")
-    gc_ests = list(ests_by_sample[0])
-    if len(gc_ests) < num_ests_required:
-        gc_ests = _replicate(gc_ests, num_ests_required)
-    return gc_ests
+        if "NCFM" in mt:
+            # single-factor forecaster baselines keep their own factor count
+            if "CMLP" in mt.upper():
+                return _np_list(model.gc(
+                    params, threshold=False, ignore_lag=True,
+                    combine_wavelet_representations=True,
+                    rank_wavelets=False))
+            return _np_list(model.gc(params, threshold=False,
+                                     combine_wavelet_representations=True,
+                                     rank_wavelets=False))
+        if "NAVAR" in mt:
+            generic = _np_list(model.gc(params, X=X, threshold=False,
+                                        ignore_lag=True))
+        elif "DGCNN" in mt:
+            generic = _np_list(model.gc(params, threshold=False,
+                                        combine_wavelet_representations=True))
+        elif "cMLP" in mt or "CMLP" in mt:
+            generic = _np_list(model.gc(
+                params, threshold=False, ignore_lag=True,
+                combine_wavelet_representations=True, rank_wavelets=False))
+        elif "cLSTM" in mt or "CLSTM" in mt:
+            generic = _np_list(model.gc(
+                params, threshold=False,
+                combine_wavelet_representations=True, rank_wavelets=False))
+        else:
+            _not_ported(mt)
+    return _replicate(generic, num_ests_required)
 
 
 def get_model_gc_summary_matrices(model, params, model_type,
@@ -88,12 +122,18 @@ def get_model_gc_score_estimates(model, params, model_type,
                                  num_ests_required, X=None, state=None):
     """Factor-score estimates (ref eval_utils.py:893-906): a REDCLIFF
     model's first-sim state-label predictions on ``X`` (one window), from
-    one ``model.forward`` (the factor-mix kernel on the card)."""
-    if "REDCLIFF" not in model_type:
-        _not_ported(model_type)
-    with torch.no_grad():
-        _, _, _, weights = model.forward(params, to_params_device(params, X))
-    return weights[0].cpu().numpy().reshape(num_ests_required)
+    one ``model.forward`` (the factor-mix kernel on the card); a flat ones
+    vector for the graph-only baselines."""
+    mt = model_type
+    if "REDCLIFF" in mt:
+        with torch.no_grad():
+            _, _, _, weights = model.forward(params,
+                                             to_params_device(params, X))
+        return weights[0].cpu().numpy().reshape(num_ests_required)
+    if any(tag in mt for tag in ("cMLP", "CMLP", "cLSTM", "CLSTM", "DGCNN",
+                                 "NAVAR")):
+        return np.ones(num_ests_required)
+    _not_ported(mt)
 
 
 def get_combined_gc_representations_across_factors(estimated_gcs, true_gcs):

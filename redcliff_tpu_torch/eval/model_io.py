@@ -1,4 +1,4 @@
-"""Model loading (port of ``eval/model_io.py``, REDCLIFF-S only).
+"""Model loading (port of ``eval/model_io.py``).
 
 Artifacts are ``{model_class, config, params}`` payloads in the durable
 checkpoint format, written by either package's ``save_model``, or legacy
@@ -10,6 +10,11 @@ class to the port's (runtime/checkpoint.py) and the params are numpy.
 :func:`to_params_device` moves host inputs (numpy windows) to the device
 the loaded params live on, as one float32 tensor: the evaluation layer's
 one host-to-device copy per call.
+
+The registry holds the classes the port has: REDCLIFF-S (both factor
+types), cMLP-FM, cLSTM-FM, NAVAR, NAVAR-LSTM and DGCNN. A DCSFA-NMF or
+DYNOTEARS artifact raises: its config class does not unpickle here, and
+its class name is refused (ROADMAP queue 1, item 13).
 """
 from __future__ import annotations
 
@@ -19,11 +24,26 @@ import os
 import numpy as np
 import torch
 
-from redcliff_tpu_torch.interop import params_from_jax
+from redcliff_tpu_torch.interop import params_from_jax, tree_leaves
 from redcliff_tpu_torch.runtime.checkpoint import read_checkpoint
+from redcliff_tpu_torch.train.orchestration import (UNPORTED_MODEL_CLASSES,
+                                                    refuse_unported)
 from redcliff_tpu_torch.utils.precision import resolve_device
 
-__all__ = ["load_artifact", "load_model_for_eval", "to_params_device"]
+__all__ = ["MODEL_REGISTRY", "load_artifact", "load_model_for_eval",
+           "to_params_device"]
+
+def MODEL_REGISTRY():
+    """Artifact ``model_class`` name -> the port's model class."""
+    from redcliff_tpu_torch.models.clstm_fm import CLSTMFM
+    from redcliff_tpu_torch.models.cmlp_fm import CMLPFM
+    from redcliff_tpu_torch.models.dgcnn import DGCNNModel
+    from redcliff_tpu_torch.models.navar import NAVAR, NAVARLSTM
+    from redcliff_tpu_torch.models.redcliff import RedcliffSCMLP
+
+    return {"RedcliffSCMLP": RedcliffSCMLP, "CMLPFM": CMLPFM,
+            "CLSTMFM": CLSTMFM, "DGCNNModel": DGCNNModel, "NAVAR": NAVAR,
+            "NAVARLSTM": NAVARLSTM}
 
 
 def load_artifact(path, best_model_name=None):
@@ -56,29 +76,30 @@ def _migrate_config(config):
 
 def load_model_for_eval(path, device=None, model_class=None,
                         best_model_name=None):
-    """``(model, params)`` from a saved REDCLIFF-S artifact, params on
-    ``device`` (default ``cuda``; raises without CUDA unless ``device`` is
-    given)."""
-    from redcliff_tpu_torch.models.redcliff import RedcliffSCMLP
-
+    """``(model, params)`` from a saved artifact, params on ``device``
+    (default ``cuda``; raises without CUDA unless ``device`` is given).
+    ``model_class`` overrides the class the payload records."""
     dev = resolve_device(device)
     payload = load_artifact(path, best_model_name=best_model_name)
     cls_name = model_class or payload.get("model_class")
     if cls_name is None and "config" in payload:
         cls_name = type(payload["config"]).__name__.replace("Config", "")
-    if cls_name != "RedcliffSCMLP":
-        raise ValueError(f"the port loads RedcliffSCMLP artifacts only, got "
-                         f"{cls_name!r}")
+    if cls_name in UNPORTED_MODEL_CLASSES:
+        refuse_unported(f"loading a {cls_name} artifact")
+    registry = MODEL_REGISTRY()
+    if cls_name not in registry:
+        raise ValueError(f"unknown model class in artifact: {cls_name!r}")
     config = _migrate_config(payload["config"])
-    config.__post_init__()  # unpickling skipped the validation
-    model = RedcliffSCMLP(config)
+    if hasattr(config, "__post_init__"):
+        config.__post_init__()  # unpickling skipped the validation
+    model = registry[cls_name](config)
     return model, params_from_jax(payload["params"], dev)
 
 
 def to_params_device(params, x):
     """``x`` (numpy or a tensor) as one contiguous float32 tensor on the
-    device of the REDCLIFF-S params tree ``params``."""
-    dev = params["factors"][0]["w"].device
+    device of the params tree ``params``."""
+    dev = tree_leaves(params)[0].device
     if isinstance(x, torch.Tensor):
         return x.to(device=dev, dtype=torch.float32).contiguous()
     return torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)).to(dev)

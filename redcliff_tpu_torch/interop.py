@@ -2,7 +2,8 @@
 
 The port keeps the JAX package's parameter layout exactly — nested dicts and
 lists, per-leaf shapes as ``models/redcliff.py`` (stacked K-factor
-``[{"w", "b"}, ...]`` lists), ``models/cmlp.py``, ``models/dgcnn.py`` and
+``[{"w", "b"}, ...]`` lists or stacked cLSTM dicts), ``models/cmlp.py``,
+``models/clstm.py``, ``models/dgcnn.py``, ``models/navar.py`` and
 ``models/embedders.py`` build them — so moving weights is a leaf-by-leaf
 conversion:
 

@@ -11,6 +11,10 @@ variance) and a learned scale/shift, as in the JAX package. In the serve
 engine the batch is the slot table, so these statistics mix lanes; the
 port reproduces that behaviour rather than fixing it. The learned adjacency
 is the model's Granger-graph estimate, read out transposed.
+
+:class:`DGCNNModel` is the supervised baseline: it predicts state labels
+from a signal window, fitted by the generic trainer; its adjacency is its
+one graph estimate.
 """
 from __future__ import annotations
 
@@ -19,7 +23,8 @@ from dataclasses import dataclass
 
 import torch
 
-__all__ = ["DGCNNConfig", "init_dgcnn_params", "dgcnn_forward", "dgcnn_gc"]
+__all__ = ["DGCNNConfig", "DGCNNModel", "init_dgcnn_params",
+           "dgcnn_forward", "dgcnn_gc"]
 
 
 @dataclass(frozen=True)
@@ -101,3 +106,45 @@ def dgcnn_gc(params, cfg: DGCNNConfig, threshold=False,
     if threshold:
         return (GC > 0).to(torch.int32)
     return GC
+
+
+class DGCNNModel:
+    """Graph-conv state classifier baseline over a params tree of
+    :func:`init_dgcnn_params`; its trained adjacency is the (single)
+    system GC estimate."""
+
+    def __init__(self, config: DGCNNConfig):
+        self.config = config
+
+    def init(self, generator, device="cpu"):
+        return init_dgcnn_params(generator, self.config, device)
+
+    def forward(self, params, X):
+        return dgcnn_forward(params, X)
+
+    def loss(self, params, X, Y):
+        """MSE between the predicted logits and the labels, on the first
+        ``num_features_per_node`` steps; labels (B, S, T) are read at the
+        feature horizon (or step 0 when shorter), (B, S) as they are."""
+        F = self.config.num_features_per_node
+        Y_pred = self.forward(params, X[:, :F, :].transpose(1, 2))
+        if Y.dim() == 3:
+            Y_t = Y[:, :, F] if Y.shape[2] > F else Y[:, :, 0]
+        else:
+            Y_t = Y
+        loss = torch.mean((Y_pred - Y_t) ** 2)
+        return loss, {"factor_loss": loss}
+
+    def gc(self, params, threshold=False, ignore_lag=True,
+           combine_wavelet_representations=False, rank_wavelets=False):
+        g = dgcnn_gc(params, self.config, threshold=threshold,
+                     combine_node_feature_edges=
+                     combine_wavelet_representations)
+        return [g if ignore_lag else g[:, :, None]]
+
+    def validation_criteria(self, params, val_metrics):
+        """The L1 of the max-normalized GC estimate plus the factor
+        loss."""
+        g = torch.abs(self.gc(params)[0])
+        g = g / torch.clamp_min(torch.max(g), 1e-12)
+        return torch.sum(g) + val_metrics.get("factor_loss", 0.0)

@@ -11,8 +11,11 @@ Ported: the config with its validation, ``init``, both forward modes, all
 ``gc_as_lists`` (the evaluation layer), and the training half — the phase
 schedule, the multi-term loss with its smoothing variant, ``apply_prox``
 and its in-place form ``apply_prox_`` (the GL prox kernel on the card),
-``permute_factors`` and the validation normalization coefficients. cLSTM
-factors are not ported yet.
+``permute_factors`` and the validation normalization coefficients. The
+factors are cMLPs (``models/cmlp.py``) or cLSTMs (``models/clstm.py``):
+with cLSTM factors the K stacked LSTMs run as one recurrence (K folded
+into the einsums' leading axes), their last-step forecasts go through the
+factor mix, and the GISTA prox is refused, as in the JAX package.
 
 The coefficient grid runs the loss for G lanes at once under
 ``torch.func.vmap(torch.func.grad_and_value(loss_for_phase))`` with the
@@ -29,6 +32,8 @@ from typing import Tuple
 
 import torch
 
+from redcliff_tpu_torch.interop import tree_leaves, tree_map
+from redcliff_tpu_torch.models import clstm as clstm_mod
 from redcliff_tpu_torch.models import cmlp as cmlp_mod
 from redcliff_tpu_torch.models.embedders import (CEmbedder, DGCNNEmbedder,
                                                  build_embedder)
@@ -197,9 +202,6 @@ class RedcliffSCMLP:
     leading K axis on every factor leaf."""
 
     def __init__(self, config: RedcliffSCMLPConfig):
-        if config.factor_network_type != "cMLP":
-            raise NotImplementedError(
-                "cLSTM factor networks are not ported yet (ROADMAP queue 1)")
         self.config = config
         cfg = config
         self.embedder = build_embedder(
@@ -225,13 +227,27 @@ class RedcliffSCMLP:
         init's distributions (not its numbers), placed on ``device``."""
         cfg = self.config
         embedder = self.embedder.init(generator, device)
-        per_factor = [cmlp_mod.init_cmlp_params(
-            generator, cfg.num_series, cfg.gen_lag, list(cfg.gen_hidden),
-            device) for _ in range(cfg.num_factors)]
-        factors = [{k: torch.stack([f[i][k] for f in per_factor])
-                    for k in per_factor[0][i]}
-                   for i in range(len(per_factor[0]))]
+        if cfg.factor_network_type == "cLSTM":
+            per_factor = [clstm_mod.init_clstm_params(
+                generator, cfg.num_series, cfg.gen_hidden[0], device)
+                for _ in range(cfg.num_factors)]
+        else:
+            per_factor = [cmlp_mod.init_cmlp_params(
+                generator, cfg.num_series, cfg.gen_lag, list(cfg.gen_hidden),
+                device) for _ in range(cfg.num_factors)]
+        factors = tree_map(lambda *leaves: torch.stack(leaves),
+                           *per_factor)
         return {"embedder": embedder, "factors": factors}
+
+    def _factors_apply(self, factors, window):
+        """The stacked factors' one-step predictions on ``window``
+        ((B, lag, C), shared, or (K, B, lag, C), one per factor):
+        (K, B, 1, C). cLSTM factors consume the window step by step and
+        emit the last step's forecast."""
+        if self.config.factor_network_type == "cLSTM":
+            preds, _ = clstm_mod.clstm_forward(factors, window)
+            return preds[..., -1:, :]
+        return cmlp_mod.cmlp_forward(factors, window)
 
     # ----------------------------------------------------------------- forward
     def _embed(self, params, window):
@@ -247,7 +263,7 @@ class RedcliffSCMLP:
         """All K factors' one-step predictions on the last gen_lag steps:
         (K, B, 1, C)."""
         w = window[:, -self.config.gen_lag:, :]
-        return cmlp_mod.cmlp_forward(params["factors"], w)
+        return self._factors_apply(params["factors"], w)
 
     def forward(self, params, X, factor_weightings=None):
         """Returns (x_sims (B, num_sims, C), factor_preds, factor_weighting
@@ -291,7 +307,7 @@ class RedcliffSCMLP:
         win = last[None].expand((K,) + tuple(last.shape))
         per_factor_sims = []
         for _ in range(cfg.num_sims):
-            preds = cmlp_mod.cmlp_forward(params["factors"], win)
+            preds = self._factors_apply(params["factors"], win)
             per_factor_sims.append(preds)                 # (K, B, 1, C)
             win = torch.cat([win[:, :, preds.shape[2]:, :], preds], dim=2)
         factor_sims = torch.cat(per_factor_sims, dim=2)   # (K, B, S, C)
@@ -301,14 +317,22 @@ class RedcliffSCMLP:
     # ---------------------------------------------------------------------- GC
     def factor_gc(self, params, threshold=False, ignore_lag=True,
                   combine_wavelet_representations=False, rank_wavelets=False):
-        """(K, C, C[, L]) per-factor readouts."""
+        """(K, C, C[, L]) per-factor readouts; cLSTM factors read the
+        input-weight column norms (a singleton lag axis when lagged)."""
         cfg = self.config
         mask = None
         if rank_wavelets and cfg.wavelet_level is not None:
             mask = cmlp_mod.build_wavelet_ranking_mask(
                 cfg.num_series,
                 wavelets_per_chan=cfg.num_series // cfg.num_chans,
-                device=params["factors"][0]["w"].device)
+                device=tree_leaves(params["factors"])[0].device)
+        if cfg.factor_network_type == "cLSTM":
+            G = clstm_mod.clstm_gc(
+                params["factors"], threshold=threshold, wavelet_mask=mask,
+                rank_wavelets=rank_wavelets, num_chans=cfg.num_chans,
+                combine_wavelet_representations=
+                combine_wavelet_representations)
+            return G if ignore_lag else G[..., None]
         return cmlp_mod.cmlp_gc(
             params["factors"], threshold=threshold, ignore_lag=ignore_lag,
             wavelet_mask=mask, rank_wavelets=rank_wavelets,
@@ -569,7 +593,10 @@ class RedcliffSCMLP:
     def apply_prox(self, params, lam, lr, penalty="GL"):
         """GISTA proximal update on the stacked factor first-layer block
         (K, C_out, H, C_in, L); GL on the card runs the CUDA kernel
-        (ops/pallas_prox.py). Functional: returns a new params tree."""
+        (ops/pallas_prox.py). Functional: returns a new params tree.
+        cMLP factors only: a cLSTM factor has no lag-structured first-layer
+        block to group."""
+        self._require_cmlp_factors()
         factors = params["factors"]
         new_w = gl_prox(factors[0]["w"], lam, lr, penalty)
         new_factors = [dict(factors[0], w=new_w)] + list(factors[1:])
@@ -582,6 +609,7 @@ class RedcliffSCMLP:
         port updates the live block in place because nothing else holds
         its storage (the trainer keeps every other tree as a copy). Call
         under ``torch.no_grad()``. Returns ``params``."""
+        self._require_cmlp_factors()
         gl_prox_(params["factors"][0]["w"], lam, lr, penalty)
         return params
 
@@ -593,15 +621,21 @@ class RedcliffSCMLP:
         (``ops/pallas_prox.py gl_prox_lanes_``: one kernel launch for all
         lanes on the card). Call under ``torch.no_grad()``. Returns
         ``params``."""
+        self._require_cmlp_factors()
         gl_prox_lanes_(params["factors"][0]["w"], thresholds, gate, penalty)
         return params
+
+    def _require_cmlp_factors(self):
+        if self.config.factor_network_type != "cMLP":
+            raise ValueError(
+                "apply_prox requires cMLP factor networks (the GL group "
+                "structure lives in the lagged first-layer block)")
 
     # -------------------------------------------------------- factor alignment
     def permute_factors(self, params, order):
         """Reorder the stacked factor params along K."""
         idx = torch.as_tensor(list(order), dtype=torch.long)
-        factors = [{k: v[idx.to(v.device)] for k, v in layer.items()}
-                   for layer in params["factors"]]
+        factors = tree_map(lambda v: v[idx.to(v.device)], params["factors"])
         return dict(params, factors=factors)
 
     def normalization_coeffs(self):

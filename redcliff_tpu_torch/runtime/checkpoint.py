@@ -13,9 +13,10 @@ are unusable does the caller see "no checkpoint". Legacy headerless pickles
 are still readable.
 
 Unpickling is restricted (:class:`PortUnpickler`): numpy arrays, a safe set
-of builtins, and the REDCLIFF-S config class. The JAX package's config
-class, ``redcliff_tpu.models.redcliff.RedcliffSCMLPConfig``, is mapped to
-the port's own, so a JAX-written ``final_best_model.bin`` loads without
+of builtins, and the model config classes (REDCLIFF-S, cMLP-FM, cLSTM-FM,
+NAVAR, NAVAR-LSTM, DGCNN). The JAX package's config classes (e.g.
+``redcliff_tpu.models.redcliff.RedcliffSCMLPConfig``) are mapped to the
+port's own, so a JAX-written ``final_best_model.bin`` loads without
 importing JAX. Any other class raises :class:`ForbiddenClassError` naming
 it; that error is not a corruption and is raised as is. The port's trainer
 checkpoints (``train/redcliff_trainer.py``) hold only numpy arrays and
@@ -28,6 +29,7 @@ stdlib + numpy only.
 from __future__ import annotations
 
 import errno as _errno
+import importlib
 import io
 import os
 import pickle
@@ -47,9 +49,15 @@ MAGIC = b"RTCK"
 FORMAT_VERSION = 1
 _HEADER = struct.Struct("<4sIIQ")  # magic, version, crc32, payload_len
 
+# config class name -> the port module that defines it; the JAX package's
+# module of the same relative path maps to the same class
 _CONFIG_CLASSES = {
-    ("redcliff_tpu.models.redcliff", "RedcliffSCMLPConfig"),
-    ("redcliff_tpu_torch.models.redcliff", "RedcliffSCMLPConfig"),
+    "RedcliffSCMLPConfig": "redcliff_tpu_torch.models.redcliff",
+    "CMLPFMConfig": "redcliff_tpu_torch.models.cmlp_fm",
+    "CLSTMFMConfig": "redcliff_tpu_torch.models.clstm_fm",
+    "NAVARConfig": "redcliff_tpu_torch.models.navar",
+    "NAVARLSTMConfig": "redcliff_tpu_torch.models.navar",
+    "DGCNNConfig": "redcliff_tpu_torch.models.dgcnn",
 }
 _SAFE_BUILTINS = frozenset({
     "bool", "bytearray", "bytes", "complex", "dict", "float", "frozenset",
@@ -79,19 +87,21 @@ class CheckpointWriteError(RuntimeError):
 
 
 class PortUnpickler(pickle.Unpickler):
-    """numpy, safe builtins and the REDCLIFF-S config; nothing else."""
+    """numpy, safe builtins and the model configs; nothing else."""
 
     def find_class(self, module, name):
-        if (module, name) in _CONFIG_CLASSES:
-            from redcliff_tpu_torch.models.redcliff import RedcliffSCMLPConfig
-            return RedcliffSCMLPConfig
+        port = _CONFIG_CLASSES.get(name)
+        if port is not None and module in (
+                port, port.replace("redcliff_tpu_torch", "redcliff_tpu", 1)):
+            return getattr(importlib.import_module(port), name)
         if module == "builtins" and name in _SAFE_BUILTINS:
             return super().find_class(module, name)
         if module == "numpy" or module.startswith("numpy."):
             return super().find_class(module, name)
         raise ForbiddenClassError(
             f"checkpoint names {module}.{name}, which the port does not "
-            f"unpickle (allowed: numpy, builtins, RedcliffSCMLPConfig)")
+            f"unpickle (allowed: numpy, builtins, the model configs "
+            f"{sorted(_CONFIG_CLASSES)})")
 
 
 def _loads(data):

@@ -8,8 +8,9 @@ entry.
   read, the coefficients rescaled, and
   :func:`kick_off_model_training_experiment` run: the hyperparameter-named
   run folder (auto-resume when ``final_best_model.bin`` is there, a stale
-  folder cleaned out), the fold's datasets, the model and its fit. The
-  port dispatches REDCLIFF-S only (``train/orchestration.py``).
+  folder cleaned out), the fold's datasets, the model and its fit
+  (``train/orchestration.py``: REDCLIFF-S with cMLP or cLSTM factors,
+  cMLP, cLSTM, NAVAR and DGCNN).
 * :func:`run_coefficient_grid` — train G coefficient/optimizer variations
   of one REDCLIFF-S model at once through
   :class:`~redcliff_tpu_torch.parallel.grid.RedcliffGridRunner`, replacing

@@ -21,19 +21,22 @@
   ``final_best_model.bin`` in the shared ``{model_class, config, params}``
   numpy layout both packages read, the meta histories, and
   ``trainer_checkpoint.pkl`` in the port's own layout (optimizer
-  ``state_dict`` s as numpy, the batch-shuffle rng state). A resumed fit
+  ``state_dict`` s as numpy, the batch-shuffle rng state, the per-epoch
+  log of steps by phase, skips and wall ms). A resumed fit
   continues the shuffle stream, so it equals the uninterrupted fit; the
   JAX trainer restarts the stream from the seed on resume.
 
 The optimizers and the prox update the live parameter tensors in place,
 so every tree kept beside them (best, accepted, snapshots, checkpoints) is
-a copy. Fits run on ``cuda`` unless ``device=`` says otherwise.
+a copy (``train/live.py``). Fits run on ``cuda`` unless ``device=`` says
+otherwise.
 
 Not ported (ROADMAP): the metrics/event log, watchdog, profiler window,
 memory footprint, compile observability, fault injection, autotune, the
 async checkpoint writer (writes are synchronous), the quality monitor,
-``factor_mesh``, mixed precision and cLSTM factors. A non-default value of
-a knob the port does not honour raises ``NotImplementedError``.
+``factor_mesh`` and mixed precision. A non-default value of a knob the
+port does not honour raises ``NotImplementedError``. The factors are
+cMLPs or cLSTMs (a cLSTM fit takes no prox, as in the JAX package).
 """
 from __future__ import annotations
 
@@ -44,13 +47,14 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from redcliff_tpu_torch.data import pipeline
 from redcliff_tpu_torch.interop import params_to_jax, tree_leaves, tree_map
 from redcliff_tpu_torch.models.redcliff import RedcliffSCMLP, phase_schedule
 from redcliff_tpu_torch.runtime import checkpoint as durable_ckpt
 from redcliff_tpu_torch.runtime import numerics
 from redcliff_tpu_torch.runtime.numerics import NumericsPolicy
 from redcliff_tpu_torch.train.freeze import apply_freeze
+from redcliff_tpu_torch.train.live import (LiveTreeMixin, assign_tree,
+                                           copy_tree)
 from redcliff_tpu_torch.train.tracking import GCProgressTracker
 from redcliff_tpu_torch.utils.misc import factor_alignment_order
 from redcliff_tpu_torch.utils.precision import (check_precision_mode,
@@ -145,21 +149,7 @@ class RedcliffFitResult:
     numerics: dict | None = None
 
 
-def _copy(tree):
-    """A detached copy of a tensor tree (the trees kept beside the live
-    params, which the optimizers update in place)."""
-    return tree_map(lambda x: x.detach().clone(), tree)
-
-
-def _assign(live, tree):
-    """Copy ``tree``'s values into the live leaves, in place."""
-    with torch.no_grad():
-        for dst, src in zip(tree_leaves(live), tree_leaves(tree)):
-            if dst is not src:
-                dst.copy_(src)
-
-
-class RedcliffTrainer:
+class RedcliffTrainer(LiveTreeMixin):
     def __init__(self, model: RedcliffSCMLP, config: RedcliffTrainConfig,
                  device=None):
         self.model = model
@@ -170,31 +160,6 @@ class RedcliffTrainer:
     # ------------------------------------------------------------------ phases
     def phase_for_epoch(self, epoch):
         return phase_schedule(self.model.config, epoch)
-
-    def _to_device(self, x):
-        return None if x is None else torch.as_tensor(x).to(self.device)
-
-    def _batches(self, ds, rng=None):
-        """(X, Y) tensors on the trainer's device: gathered from the
-        dataset's device-resident copy when it has one, else prefetched."""
-        if getattr(ds, "supports_device_batches", False):
-            return ds.batches(self.config.batch_size, rng=rng,
-                              device=self.device)
-        src = ds.batches(self.config.batch_size, rng=rng)
-        depth = self.config.prefetch_batches
-        if depth > 0:
-            return pipeline.prefetch_batches(src, depth=depth,
-                                             put=self._to_device)
-        return ((self._to_device(X), self._to_device(Y)) for X, Y in src)
-
-    def live_params(self, params):
-        """Fresh leaf tensors on the device (requires_grad) from a numpy or
-        torch params tree."""
-        def leaf(x):
-            t = x.detach() if isinstance(x, torch.Tensor) \
-                else torch.from_numpy(np.array(x))
-            return t.to(self.device).clone().requires_grad_(True)
-        return tree_map(leaf, params)
 
     def make_optimizers(self, live):
         """(embedder Adam, factor Adam) over the live leaves."""
@@ -312,10 +277,12 @@ class RedcliffTrainer:
         }
         best_it = None
         best_loss = np.inf
-        best_params = _copy(live)
-        accepted = _copy(live)  # Freeze-mode accepted tree
+        best_params = copy_tree(live)
+        accepted = copy_tree(live)  # Freeze-mode accepted tree
         iter_start = 0
         aligned = False
+        # the epochs of earlier calls on this save_dir (the checkpoint's log)
+        prior_log = []
 
         ckpt_path = (os.path.join(save_dir, "trainer_checkpoint.pkl")
                      if save_dir else None)
@@ -331,7 +298,7 @@ class RedcliffTrainer:
                 ) from e
         if ck is not None:
             to_dev = lambda t: numerics.to_torch(t, self.device)  # noqa: E731
-            _assign(live, to_dev(ck["params"]))
+            assign_tree(live, to_dev(ck["params"]))
             best_params = to_dev(ck["best_params"])
             accepted = to_dev(ck["accepted"])
             optA.load_state_dict(numerics.to_torch(ck["optA_state"]))
@@ -344,6 +311,7 @@ class RedcliffTrainer:
                 tracker.__dict__.update(ck["tracker_state"])
             if ck.get("rng_state") is not None:
                 rng.bit_generator.state = ck["rng_state"]
+            prior_log = list(ck.get("epoch_log", []))
 
         last_it = iter_start - 1
         policy = tc.numerics if self._guard else None
@@ -358,7 +326,7 @@ class RedcliffTrainer:
             if (not aligned and "pretrain_factor" in mode
                     and it == cfg.num_pretrain_epochs
                     and cfg.num_supervised_factors > 0):
-                _assign(live, self.align_factors_with_labels(live, train_ds))
+                assign_tree(live, self.align_factors_with_labels(live, train_ds))
                 aligned = True
 
             phases = self.phase_for_epoch(it)
@@ -423,7 +391,7 @@ class RedcliffTrainer:
                                        criteria)
                 if action.kind == "rollback":
                     snap = monitor.rollback()
-                    _assign(live, snap["params"])
+                    assign_tree(live, snap["params"])
                     accepted = tree_map(lambda x: x.to(self.device),
                                          snap["accepted"])
                     optA.load_state_dict(snap["optA_state"])
@@ -454,13 +422,13 @@ class RedcliffTrainer:
                         if criteria < best_loss:
                             best_loss = criteria
                             best_it = it
-                            best_params = _copy(live)
+                            best_params = copy_tree(live)
                         elif best_it is not None and (it - best_it) == \
                                 tc.lookback * tc.check_every:
                             stop_early = True
                 else:
                     best_it = it
-                    best_params = _copy(live)
+                    best_params = copy_tree(live)
 
             epochs.append({"epoch": it, "phases": list(phases),
                            "ms": (time.perf_counter() - t_epoch0) * 1e3,
@@ -477,7 +445,8 @@ class RedcliffTrainer:
             if it % tc.check_every == 0 and save_dir:
                 self._save_checkpoint(save_dir, it, best_params, accepted,
                                       live, optA, optB, histories, best_it,
-                                      best_loss, tracker, aligned, rng)
+                                      best_loss, tracker, aligned, rng,
+                                      prior_log + epochs)
             if tc.verbose and it % max(1, tc.check_every) == 0:
                 print(f"epoch {it} phases={phases}: "
                       f"val_combo={val['combo_loss']:.5f}")
@@ -486,7 +455,8 @@ class RedcliffTrainer:
         if save_dir:
             self._save_checkpoint(save_dir, last_it, best_params, accepted,
                                   live, optA, optB, histories, best_it,
-                                  best_loss, tracker, aligned, rng)
+                                  best_loss, tracker, aligned, rng,
+                                  prior_log + epochs)
         return RedcliffFitResult(
             params=best_params,
             best_it=best_it if best_it is not None else 0,
@@ -501,7 +471,7 @@ class RedcliffTrainer:
         with torch.no_grad():
             candidate, accepted = apply_freeze(
                 self.model, self.model.config.training_mode, live, accepted)
-        _assign(live, candidate)
+        assign_tree(live, candidate)
         return accepted
 
     def _confusion(self, params, X, Y):
@@ -601,8 +571,10 @@ class RedcliffTrainer:
 
     def _save_checkpoint(self, save_dir, it, best_params, accepted, live,
                          optA, optB, histories, best_it, best_loss, tracker,
-                         aligned, rng):
-        """The three durable files, written synchronously."""
+                         aligned, rng, epoch_log):
+        """The three durable files, written synchronously. The trainer
+        checkpoint carries ``epoch_log``: the per-epoch records
+        (``RedcliffFitResult.epochs``) of every call on this save_dir."""
         os.makedirs(save_dir, exist_ok=True)
         durable_ckpt.write_checkpoint(
             os.path.join(save_dir, "final_best_model.bin"),
@@ -628,4 +600,5 @@ class RedcliffTrainer:
                 "aligned": aligned,
                 "tracker_state": dict(tracker.__dict__),
                 "rng_state": rng.bit_generator.state,
+                "epoch_log": epoch_log,
             })

@@ -1,22 +1,128 @@
-"""Model artifacts (the ``save_model`` / ``load_model`` half of
-``train/trainer.py``). The REDCLIFF-S trainer is
-``train/redcliff_trainer.py``; the generic trainer of the baseline model
-families is not ported yet (ROADMAP queue 1).
+"""The generic trainer of the baseline model families, and model artifacts
+(port of ``train/trainer.py``).
 
-An artifact is ``final_best_model.bin`` in the durable checkpoint format,
-holding ``{"model_class", "config", "params"}`` with params as the JAX
-package's numpy tree, so artifacts move between the two packages.
+A model exposes ``init(generator, device)``, ``loss(params, X[, Y][,
+rng]) -> (combo, parts)`` and ``gc``, and optionally ``apply_prox_`` (the
+in-place GISTA prox), ``validation_criteria``, ``normalization_coeffs``,
+``gc_requires_data`` and ``wants_rng``: cMLP-FM, cLSTM-FM, NAVAR,
+NAVAR-LSTM and DGCNN (``models/``). The REDCLIFF-S trainer is
+``train/redcliff_trainer.py``; this one follows its conventions:
+
+* one ``torch.optim.Adam`` over every leaf (optax's
+  ``inject_hyperparams(adam)``: no weight decay, eps 1e-8, the learning
+  rate in ``param_groups`` so the divergence monitor can back it off);
+* the prox after the Adam step, in place, at ``learning_rate`` (never the
+  backed-off rate): for cMLP-FM one GL prox kernel launch on the card;
+* the numerics guard (runtime/numerics.py) with one host read per step,
+  and the divergence monitor's rollback/abort;
+* labels reach the loss only for ``has_labels`` (DGCNN); a model that
+  ``wants_rng`` (NAVAR with dropout) gets a ``torch.Generator`` on the
+  device, seeded with ``seed``, drawn from step after step (JAX folds a
+  key per step, which torch cannot reproduce);
+* validation, GC tracking on the first validation batch, early stopping
+  after ``lookback * check_every`` epochs without a better criteria;
+* checkpoints through the durable format: ``final_best_model.bin`` in the
+  ``{model_class, config, params}`` numpy layout both packages read, the
+  meta histories, and ``trainer_checkpoint.pkl`` in the port's own layout
+  (Adam's ``state_dict`` as numpy, the batch-shuffle rng state, the
+  dropout generator's state, and the per-epoch log of steps, skips and
+  wall ms). A resumed fit equals the uninterrupted one;
+  the JAX trainer restarts both streams on resume, and its checkpoint
+  (optax state) is refused with ``ValueError``.
+
+Adam and the prox update the live parameter tensors in place, so every
+tree kept beside them (best, snapshots, checkpoints) is a copy
+(``train/live.py``, shared with the REDCLIFF-S trainer). Fits run
+on ``cuda`` unless ``device=`` says otherwise.
+
+Not ported (ROADMAP): the metrics/event log, watchdog, profiler window,
+memory footprint, compile observability, fault injection, the quality
+monitor, mixed precision and the async checkpoint writer (writes are
+synchronous, and ``TrainConfig`` has no ``async_checkpointing``). A
+non-default value of a knob the port does not honour raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
+import math
 import os
+import time
+from dataclasses import dataclass, field
+from typing import Any
 
-from redcliff_tpu_torch.interop import params_to_jax
+import numpy as np
+import torch
+
+from redcliff_tpu_torch.interop import params_to_jax, tree_leaves
 from redcliff_tpu_torch.runtime import checkpoint as durable_ckpt
+from redcliff_tpu_torch.runtime import numerics
+from redcliff_tpu_torch.runtime.numerics import NumericsPolicy
+from redcliff_tpu_torch.train.live import (LiveTreeMixin, assign_tree,
+                                           copy_tree)
+from redcliff_tpu_torch.train.tracking import GCProgressTracker
+from redcliff_tpu_torch.utils.precision import (check_precision_mode,
+                                                resolve_device)
 
-__all__ = ["save_model", "load_model", "ARTIFACT_NAME"]
+__all__ = ["TrainConfig", "Trainer", "FitResult", "save_model", "load_model",
+           "ARTIFACT_NAME"]
 
 ARTIFACT_NAME = "final_best_model.bin"
+
+
+@dataclass
+class TrainConfig:
+    """The JAX package's knobs, field for field."""
+
+    learning_rate: float = 1e-3
+    max_iter: int = 100
+    lookback: int = 5
+    check_every: int = 50
+    batch_size: int = 32
+    seed: int = 0
+    prox_penalty: str | None = None  # "GL" | "GSGL" | "H"
+    prox_lam: float = 0.0
+    verbose: int = 0
+    # not ported: must stay None
+    profile_dir: str | None = None
+    profile_window: str | None = None
+    # prefetch depth for batch sources that are not device-resident
+    prefetch_batches: int = 2
+    # not ported: must stay None
+    compile_cache_dir: str | None = None
+    # None disables the guard and the divergence monitor
+    numerics: NumericsPolicy | None = field(default_factory=NumericsPolicy)
+    # "f32" only ("mixed" raises)
+    precision_mode: str = "f32"
+
+    def __post_init__(self):
+        check_precision_mode(self.precision_mode)
+        for knob in ("profile_dir", "profile_window", "compile_cache_dir"):
+            if getattr(self, knob) is not None:
+                raise NotImplementedError(
+                    f"{knob} is not ported yet (ROADMAP queue 1, item 11, "
+                    f"observability of the training path)")
+        if self.prox_penalty not in (None, "GL", "GSGL", "H"):
+            raise ValueError(
+                f"prox_penalty must be one of None/'GL'/'GSGL'/'H', got "
+                f"{self.prox_penalty!r}")
+
+
+@dataclass
+class FitResult:
+    params: Any
+    best_it: int
+    best_loss: float
+    histories: dict
+    tracker: GCProgressTracker | None
+    final_val_loss: float
+    # non-None when the numerics sentinel aborted the fit
+    aborted: str | None = None
+    # per epoch run by this call: {"epoch", "ms", "steps", "skipped",
+    # "action"}: wall ms, the applied (guard-passed) steps, the guard's
+    # skipped steps and the divergence monitor's verdict
+    epochs: list = field(default_factory=list)
+    # runtime/numerics.py numerics_summary at the end of the fit
+    numerics: dict | None = None
 
 
 def save_model(save_dir, model, params, extra=None):
@@ -39,3 +145,297 @@ def load_model(save_dir_or_file):
     if os.path.isdir(path):
         path = os.path.join(path, ARTIFACT_NAME)
     return durable_ckpt.read_checkpoint(path)
+
+
+class Trainer(LiveTreeMixin):
+    def __init__(self, model, config: TrainConfig, has_labels=False,
+                 device=None):
+        self.model = model
+        self.config = config
+        self.has_labels = has_labels
+        self.device = resolve_device(device)
+        self.wants_rng = bool(getattr(model, "wants_rng", False))
+        self._guard = config.numerics is not None and config.numerics.enabled
+
+    def make_optimizer(self, live):
+        """Adam over every live leaf, as optax's adam."""
+        return torch.optim.Adam(tree_leaves(live), lr=self.config.learning_rate,
+                                betas=(0.9, 0.999), eps=1e-8)
+
+    def make_step_rng(self):
+        """The dropout generator on the trainer's device, or None."""
+        if not self.wants_rng:
+            return None
+        return torch.Generator(device=self.device).manual_seed(
+            self.config.seed)
+
+    def loss(self, params, X, Y, rng=None):
+        """The model's loss with the labels or the dropout generator the
+        family takes."""
+        if self.has_labels:
+            return self.model.loss(params, X, Y)
+        if self.wants_rng:
+            return self.model.loss(params, X, rng=rng)
+        return self.model.loss(params, X)
+
+    # -------------------------------------------------------------------- step
+    def train_step(self, live, opt, X, Y, rng, nstate):
+        """One guarded step on the live params. Returns ``(combo, parts,
+        nstate, applied)``."""
+        cfg = self.config
+        leaves = tree_leaves(live)
+        combo, parts = self.loss(live, X, Y, rng)
+        grads = torch.autograd.grad(combo, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for g, p in zip(grads, leaves)]
+
+        def apply():
+            for p, g in zip(leaves, grads):
+                p.grad = g
+            opt.step()
+            for p in leaves:
+                p.grad = None
+            if cfg.prox_penalty is not None:
+                with torch.no_grad():
+                    self.model.apply_prox_(live, cfg.prox_lam,
+                                           cfg.learning_rate,
+                                           cfg.prox_penalty)
+
+        if self._guard:
+            nstate, ok = numerics.guarded_update(grads, combo, apply, nstate)
+        else:
+            apply()
+            ok = True
+        return combo, parts, nstate, ok
+
+    # ---------------------------------------------------------------- validate
+    def validate(self, params, val_ds):
+        """Mean loss parts over the (unshuffled) validation batches, each
+        part divided by its loss coefficient."""
+        coeffs = getattr(self.model, "normalization_coeffs", lambda: {})()
+        sums = {}
+        combo_sum = 0.0
+        n = 0
+        for X, Y in self._batches(val_ds):
+            with torch.no_grad():
+                combo, parts = self.loss(params, X, Y)
+            names = list(parts)
+            host = torch.stack([combo] + [parts[k] for k in names]).tolist()
+            combo_sum += host[0]
+            for k, v in zip(names, host[1:]):
+                c = coeffs.get(k, 1.0)
+                sums[k] = sums.get(k, 0.0) + v / (c if c > 0 else 1.0)
+            n += 1
+        if n == 0:
+            raise ValueError(
+                "validation dataset yielded no batches — increase "
+                "val_fraction or dataset size (empty validation would make "
+                "early stopping undefined)")
+        out = {k: v / n for k, v in sums.items()}
+        out["combo_loss"] = combo_sum / n
+        return out
+
+    def criteria(self, params, val):
+        """The model's early-stopping criteria, else the combo loss."""
+        if hasattr(self.model, "validation_criteria"):
+            with torch.no_grad():
+                return float(self.model.validation_criteria(params, val))
+        return val["combo_loss"]
+
+    def gc_kwargs(self, track_X):
+        """``model.gc`` keywords of the tracker: the tracking window for
+        data-dependent estimates, and wavelet bands condensed to (C, C)."""
+        kw = {}
+        if getattr(self.model, "gc_requires_data", False):
+            kw["X"] = track_X
+        mcfg = self.model.config
+        if (getattr(mcfg, "wavelet_level", None) is not None
+                or getattr(mcfg, "num_wavelets_per_chan", 1) > 1):
+            kw["combine_wavelet_representations"] = True
+        return kw
+
+    def _epoch_gc_tracking(self, params, tracker, true_GC, track_X):
+        kw = self.gc_kwargs(track_X)
+        with torch.no_grad():
+            ests = [g.cpu().numpy() for g in
+                    self.model.gc(params, ignore_lag=False, **kw)]
+            nolag = [g.cpu().numpy() for g in
+                     self.model.gc(params, ignore_lag=True, **kw)]
+        tracker.update(true_GC, [ests], est_by_sample_lagsummed=[nolag])
+
+    # --------------------------------------------------------------------- fit
+    def fit(self, params, train_ds, val_ds, true_GC=None, save_dir=None,
+            resume=True) -> FitResult:
+        """Fit from ``params`` (a numpy or torch tree in the JAX layout).
+        Returns the best params as tensors on the trainer's device."""
+        cfg = self.config
+        rng = np.random.default_rng(cfg.seed)
+        live = self.live_params(params)
+        opt = self.make_optimizer(live)
+        step_rng = self.make_step_rng()
+        tracker = None
+        if true_GC is not None:
+            tracker = GCProgressTracker(
+                num_supervised_factors=len(true_GC),
+                num_chans=true_GC[0].shape[0],
+                num_factors=getattr(self.model.config, "num_factors",
+                                    len(true_GC)))
+        histories = {"avg_forecasting_loss": [], "avg_adj_penalty": [],
+                     "avg_combo_loss": []}
+        best_it = None
+        best_loss = np.inf
+        best_params = copy_tree(live)
+        iter_start = 0
+        # the epochs of earlier calls on this save_dir (the checkpoint's log)
+        prior_log = []
+
+        ckpt_path = (os.path.join(save_dir, "trainer_checkpoint.pkl")
+                     if save_dir else None)
+        ck = None
+        if resume and ckpt_path:
+            try:
+                ck, _src = durable_ckpt.load_checkpoint(ckpt_path)
+            except durable_ckpt.ForbiddenClassError as e:
+                raise ValueError(
+                    f"{ckpt_path} is not a trainer checkpoint of the port "
+                    f"(a JAX-written one holds optax state and does not "
+                    f"resume here); pass resume=False or another save_dir"
+                ) from e
+        if ck is not None:
+            assign_tree(live, numerics.to_torch(ck["params"], self.device))
+            best_params = numerics.to_torch(ck["best_params"], self.device)
+            opt.load_state_dict(numerics.to_torch(ck["opt_state"]))
+            histories = ck["histories"]
+            best_it, best_loss = ck["best_it"], ck["best_loss"]
+            iter_start = ck["epoch"] + 1
+            if tracker is not None and ck.get("tracker_state") is not None:
+                tracker.__dict__.update(ck["tracker_state"])
+            rng.bit_generator.state = ck["rng_state"]
+            if step_rng is not None:
+                step_rng.set_state(torch.from_numpy(ck["step_rng_state"]))
+            prior_log = list(ck.get("epoch_log", []))
+
+        track_X = None
+        if tracker is not None and getattr(self.model, "gc_requires_data",
+                                           False):
+            # data-dependent estimates (NAVAR's contribution stds) are
+            # tracked on the first validation batch
+            for X, _ in self._batches(val_ds):
+                track_X = X
+                break
+
+        last_it = iter_start - 1
+        policy = cfg.numerics if self._guard else None
+        monitor = (numerics.DivergenceMonitor(policy)
+                   if policy is not None else None)
+        nstate = numerics.init_numerics_state()
+        aborted = None
+        epochs = []
+        for it in range(iter_start, cfg.max_iter):
+            t_epoch0 = time.perf_counter()
+            last_it = it
+            applied = skipped = 0
+            for X, Y in self._batches(train_ds, rng=rng):
+                _, _, nstate, ok = self.train_step(live, opt, X, Y, step_rng,
+                                                   nstate)
+                applied += int(ok)
+                skipped += int(not ok)
+
+            if tracker is not None:
+                self._epoch_gc_tracking(live, tracker, true_GC, track_X)
+            val = self.validate(live, val_ds)
+            histories["avg_forecasting_loss"].append(
+                val.get("forecasting_loss", 0.0))
+            histories["avg_adj_penalty"].append(
+                val.get("adj_l1_penalty", 0.0))
+            histories["avg_combo_loss"].append(val["combo_loss"])
+            criteria = self.criteria(live, val)
+
+            action = None
+            if monitor is not None:
+                action = monitor.check(it, numerics.numerics_summary(nstate),
+                                       criteria)
+                if action.kind == "abort":
+                    aborted = action.cause
+                elif action.kind == "ok" and math.isfinite(criteria):
+                    monitor.note_good(it, {"params": live,
+                                           "opt_state": opt.state_dict()})
+            epochs.append({"epoch": it,
+                           "ms": (time.perf_counter() - t_epoch0) * 1e3,
+                           "steps": applied, "skipped": skipped,
+                           "action": None if action is None
+                           else action.kind})
+            if aborted is not None:
+                break
+            if action is not None and action.kind == "rollback":
+                # re-run from the snapshot, its learning rate backed off;
+                # no best or checkpoint update
+                snap = monitor.rollback()
+                assign_tree(live, snap["params"])
+                opt.load_state_dict(snap["opt_state"])
+                nstate = numerics.reset_consecutive(nstate)
+                continue
+
+            if criteria < best_loss:
+                best_loss = criteria
+                best_it = it
+                best_params = copy_tree(live)
+            elif best_it is not None and (it - best_it) == \
+                    cfg.lookback * cfg.check_every:
+                if cfg.verbose:
+                    print("Stopping early")
+                break
+
+            if it % cfg.check_every == 0 and save_dir:
+                self._save_checkpoint(save_dir, it, best_params, opt, live,
+                                      histories, best_it, best_loss, tracker,
+                                      rng, step_rng, prior_log + epochs)
+            if cfg.verbose and it % max(1, cfg.check_every) == 0:
+                print(f"epoch {it}: val_combo={val['combo_loss']:.5f} "
+                      f"criteria={criteria:.5f}")
+
+        final_val = self.validate(best_params, val_ds)
+        if save_dir:
+            # the last trained epoch, so a resume with a larger max_iter
+            # continues from where training stopped
+            self._save_checkpoint(save_dir, last_it, best_params, opt, live,
+                                  histories, best_it, best_loss, tracker,
+                                  rng, step_rng, prior_log + epochs)
+        return FitResult(
+            params=best_params,
+            best_it=best_it if best_it is not None else 0,
+            best_loss=float(best_loss), histories=histories, tracker=tracker,
+            final_val_loss=final_val["combo_loss"], aborted=aborted,
+            epochs=epochs, numerics=numerics.numerics_summary(nstate))
+
+    def _save_checkpoint(self, save_dir, it, best_params, opt, live,
+                         histories, best_it, best_loss, tracker, rng,
+                         step_rng, epoch_log):
+        """The three durable files, written synchronously. The trainer
+        checkpoint carries ``epoch_log``: the per-epoch records
+        (``FitResult.epochs``) of every call on this save_dir."""
+        save_model(save_dir, self.model, best_params)
+        meta = {"epoch": it, "best_loss": float(best_loss),
+                "best_it": best_it, **histories}
+        if tracker is not None:
+            meta.update(tracker.as_dict())
+        durable_ckpt.write_checkpoint(
+            os.path.join(save_dir,
+                         "training_meta_data_and_hyper_parameters.pkl"), meta)
+        durable_ckpt.write_checkpoint(
+            os.path.join(save_dir, "trainer_checkpoint.pkl"),
+            {
+                "epoch": it,
+                "params": params_to_jax(live),
+                "best_params": params_to_jax(best_params),
+                "opt_state": numerics.to_host(opt.state_dict()),
+                "histories": histories,
+                "best_it": best_it,
+                "best_loss": float(best_loss),
+                "tracker_state": (None if tracker is None
+                                  else dict(tracker.__dict__)),
+                "rng_state": rng.bit_generator.state,
+                "step_rng_state": (None if step_rng is None
+                                   else step_rng.get_state().numpy()),
+                "epoch_log": epoch_log,
+            })

@@ -1,13 +1,13 @@
-"""Legacy cached-args readers (the port's copy of the REDCLIFF-S half of
-``utils/config.py``).
+"""Legacy cached-args readers (the port's copy of ``utils/config.py``).
 
 The reference's config system is two levels of stringly-typed JSON: model
 cached-args (every value a string, "None" sentinels, "[1,2]" int lists)
 and data cached-args carrying the fold path, the channel count and the
 ground-truth adjacency tensors serialized as Python-repr strings. The
-port reads the REDCLIFF cMLP family's model schema and every data
-cached-args file; the other model families' schemas come with their
-models (ROADMAP queue 1, item 13) and raise.
+port reads the model schemas of the REDCLIFF cMLP and cLSTM variants,
+cMLP, cLSTM, DGCNN and NAVAR, and every data cached-args file; the
+DCSFA-NMF and DYNOTEARS schemas come with their models (ROADMAP queue 1,
+item 13) and raise.
 
 stdlib + numpy only.
 """
@@ -160,45 +160,148 @@ def _read_redcliff_common(args_dict, a):
 
 
 def read_in_model_args(args_dict):
-    """The REDCLIFF cMLP family's cached-args schema: ``args_dict`` must
-    carry "model_type" and "model_cached_args_file"; returns it with the
-    typed fields filled in. Other model families raise
-    ``NotImplementedError``."""
+    """Per-family cached-args schema reader: ``args_dict`` must carry
+    "model_type" and "model_cached_args_file"; returns it with the
+    family's typed fields filled in."""
+    # the unported families are listed beside the factory, which imports
+    # torch; this module stays stdlib + numpy at import
+    from redcliff_tpu_torch.train.orchestration import (is_unported_family,
+                                                        refuse_unported)
+
     model_type = args_dict["model_type"]
-    if not ("REDCLIFF" in model_type and "CMLP" in model_type):
-        raise NotImplementedError(
-            f"the cached-args schema of {model_type} is not ported yet "
-            f"(ROADMAP queue 1, item 13: the other model families); the "
-            f"port reads REDCLIFF cMLP args only")
+    is_redcliff = "REDCLIFF" in model_type
+    is_cmlp = "cMLP" in model_type or ("CMLP" in model_type and is_redcliff)
+    is_clstm = "cLSTM" in model_type or ("CLSTM" in model_type
+                                         and is_redcliff)
+    if not (is_cmlp or is_clstm) and is_unported_family(model_type):
+        refuse_unported(f"the cached-args schema of {model_type}")
     with open(args_dict["model_cached_args_file"], "r") as f:
         a = json.load(f)
 
-    args_dict["num_sims"] = int(a["num_sims"])
-    args_dict["embed_hidden_sizes"] = parse_input_list_of_ints(
-        a["embed_hidden_sizes"])
-    args_dict["batch_size"] = int(a["batch_size"])
-    args_dict["gen_eps"] = float(a["gen_eps"])
-    args_dict["gen_weight_decay"] = float(a["gen_weight_decay"])
-    args_dict["max_iter"] = int(a["max_iter"])
-    args_dict["lookback"] = int(a["lookback"])
-    args_dict["check_every"] = int(a["check_every"])
-    args_dict["verbose"] = int(a["verbose"])
-    args_dict["output_length"] = int(a["output_length"])
-    args_dict["wavelet_level"] = _opt(a["wavelet_level"], int)
-    args_dict["gen_hidden"] = parse_input_list_of_ints(a["gen_hidden"])
-    args_dict["gen_lr"] = float(a["gen_lr"])
-    args_dict["input_length"] = int(a["gen_lag_and_input_len"])
-    args_dict["gen_lag"] = int(a["gen_lag_and_input_len"])
-    args_dict["coeff_dict"] = {
-        "FORECAST_COEFF": float(a["FORECAST_COEFF"]),
-        "ADJ_L1_REG_COEFF": float(a["ADJ_L1_REG_COEFF"]),
-    }
-    args_dict["signal_format"] = (
-        "wavelet_decomp" if args_dict["wavelet_level"] is not None
-        else "original")
-    if "_S_" in model_type:
-        args_dict["embed_lag"] = int(a["embed_lag"])
-    _read_redcliff_common(args_dict, a)
+    if is_cmlp:
+        args_dict["num_sims"] = int(a["num_sims"])
+        args_dict["embed_hidden_sizes"] = parse_input_list_of_ints(
+            a["embed_hidden_sizes"])
+        args_dict["batch_size"] = int(a["batch_size"])
+        args_dict["gen_eps"] = float(a["gen_eps"])
+        args_dict["gen_weight_decay"] = float(a["gen_weight_decay"])
+        args_dict["max_iter"] = int(a["max_iter"])
+        args_dict["lookback"] = int(a["lookback"])
+        args_dict["check_every"] = int(a["check_every"])
+        args_dict["verbose"] = int(a["verbose"])
+        args_dict["output_length"] = int(a["output_length"])
+        args_dict["wavelet_level"] = _opt(a["wavelet_level"], int)
+        args_dict["gen_hidden"] = parse_input_list_of_ints(a["gen_hidden"])
+        args_dict["gen_lr"] = float(a["gen_lr"])
+        args_dict["input_length"] = int(a["gen_lag_and_input_len"])
+        args_dict["gen_lag"] = int(a["gen_lag_and_input_len"])
+        args_dict["coeff_dict"] = {
+            "FORECAST_COEFF": float(a["FORECAST_COEFF"]),
+            "ADJ_L1_REG_COEFF": float(a["ADJ_L1_REG_COEFF"]),
+        }
+        args_dict["signal_format"] = (
+            "wavelet_decomp" if args_dict["wavelet_level"] is not None
+            else "original")
+        if not is_redcliff:
+            for key in ("DAGNESS_REG_COEFF", "DAGNESS_LAG_COEFF",
+                        "DAGNESS_NODE_COEFF"):
+                args_dict["coeff_dict"][key] = float(a[key])
+        else:
+            if "_S_" in model_type:
+                args_dict["embed_lag"] = int(a["embed_lag"])
+            _read_redcliff_common(args_dict, a)
+
+    elif is_clstm:
+        args_dict["num_sims"] = int(a["num_sims"])
+        args_dict["embed_hidden_sizes"] = parse_input_list_of_ints(
+            a["embed_hidden_sizes"])
+        args_dict["coeff_dict"] = {
+            "FORECAST_COEFF": float(a["FORECAST_COEFF"]),
+            "ADJ_L1_REG_COEFF": float(a["ADJ_L1_REG_COEFF"]),
+            "DAGNESS_REG_COEFF": float(a["DAGNESS_REG_COEFF"]),
+        }
+        args_dict["batch_size"] = int(a["batch_size"])
+        args_dict["gen_eps"] = float(a["gen_eps"])
+        args_dict["gen_weight_decay"] = float(a["gen_weight_decay"])
+        args_dict["max_iter"] = int(a["max_iter"])
+        args_dict["lookback"] = int(a["lookback"])
+        args_dict["check_every"] = int(a["check_every"])
+        args_dict["verbose"] = int(a["verbose"])
+        args_dict["wavelet_level"] = _opt(a["wavelet_level"], int)
+        args_dict["gen_hidden"] = int(a["gen_hidden"])
+        args_dict["gen_lr"] = float(a["gen_lr"])
+        args_dict["context"] = int(a["context"])
+        args_dict["max_input_length"] = int(a["max_input_length"])
+        args_dict["signal_format"] = (
+            "wavelet_decomp" if args_dict["wavelet_level"] is not None
+            else "original")
+        if is_redcliff:
+            if "_S_" in model_type:
+                args_dict["num_in_timesteps"] = int(a["embed_lag"])
+            _read_redcliff_common(args_dict, a)
+            # the reference zeroes lag/node DAGness for CLSTM
+            args_dict["coeff_dict"]["DAGNESS_LAG_COEFF"] = 0
+            args_dict["coeff_dict"]["DAGNESS_NODE_COEFF"] = 0
+
+    elif "DGCNN" in model_type:
+        if not is_redcliff:
+            args_dict["num_classes"] = int(a["num_classes"])
+            args_dict["batch_size"] = int(a["batch_size"])
+            args_dict["gen_eps"] = float(a["gen_eps"])
+            args_dict["gen_weight_decay"] = float(a["gen_weight_decay"])
+            args_dict["max_iter"] = int(a["max_iter"])
+            args_dict["lookback"] = int(a["lookback"])
+            args_dict["check_every"] = int(a["check_every"])
+            args_dict["verbose"] = int(a["verbose"])
+            args_dict["num_features_per_node"] = int(
+                a["num_features_per_node"])
+            args_dict["num_graph_conv_layers"] = int(
+                a["num_graph_conv_layers"])
+            args_dict["num_hidden_nodes"] = int(a["num_hidden_nodes"])
+            args_dict["wavelet_level"] = (
+                0 if a["wavelet_level"] == "None" else int(a["wavelet_level"]))
+            args_dict["num_wavelets_per_chan"] = int(
+                a["num_wavelets_per_chan"])
+            args_dict["gen_lr"] = float(a["gen_lr"])
+            args_dict["signal_format"] = (
+                "wavelet_decomp" if args_dict["wavelet_level"] else "original")
+        else:
+            args_dict["num_sims"] = int(a["num_sims"])
+            args_dict["embed_hidden_sizes"] = parse_input_list_of_ints(
+                a["embed_hidden_sizes"])
+            args_dict["coeff_dict"] = {
+                "FORECAST_COEFF": float(a["FORECAST_COEFF"]),
+                "ADJ_L1_REG_COEFF": float(a["ADJ_L1_REG_COEFF"]),
+                "DAGNESS_REG_COEFF": float(a["DAGNESS_REG_COEFF"]),
+            }
+            if "_S_" in model_type:
+                args_dict["embed_num_features_per_node"] = int(a["embed_lag"])
+            _read_redcliff_common(args_dict, a)
+            args_dict["coeff_dict"]["DAGNESS_LAG_COEFF"] = 0
+            args_dict["coeff_dict"]["DAGNESS_NODE_COEFF"] = 0
+
+    elif "NAVAR" in model_type:
+        args_dict["num_nodes"] = int(a["num_nodes"])
+        args_dict["num_hidden"] = int(a["num_hidden"])
+        args_dict["maxlags"] = int(a["maxlags"])
+        args_dict["hidden_layers"] = int(a["hidden_layers"])
+        args_dict["dropout"] = float(a["dropout"])
+        args_dict["X_train"] = None
+        args_dict["y_train"] = None
+        args_dict["X_val"] = None
+        args_dict["y_val"] = None
+        args_dict["batch_size"] = int(a["batch_size"])
+        args_dict["signal_format"] = a.get("signal_format", "original")
+        for key in ("epochs", "val_proportion", "learning_rate",
+                    "lambda1", "check_every", "verbose"):
+            if key in a:
+                cast = (int if key in ("epochs", "check_every", "verbose")
+                        else float)
+                args_dict[key] = cast(a[key])
+
+    else:
+        raise ValueError(f"UNRECOGNIZED model_type == {model_type}")
+
     return args_dict
 
 

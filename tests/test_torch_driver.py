@@ -281,10 +281,11 @@ def test_config_readers_and_factory_match_jax(fold):
         == jconfig.serialize_tensor_to_string(t)
     np.testing.assert_array_equal(tconfig.parse_tensor_string_representation(
         tconfig.serialize_tensor_to_string(t))[:, :, ::-1], t)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tconfig.read_in_model_args({"model_type": "cLSTM",
-                                    "model_cached_args_file": path})
-    for mt in ("REDCLIFF_S_DGCNN", "cMLP", "REDCLIFF_S_CLSTM"):
+    for mt in ("DCSFANMF", "DYNOTEARS_Vanilla"):
+        with pytest.raises(NotImplementedError, match="item 13"):
+            tconfig.read_in_model_args({"model_type": mt,
+                                        "model_cached_args_file": path})
+    for mt in ("REDCLIFF_S_DGCNN", "DCSFANMF", "DYNOTEARS_Vanilla"):
         with pytest.raises(NotImplementedError):
             torch_orch.create_model_instance(dict(got, model_type=mt))
     with pytest.raises(NotImplementedError) as e:

@@ -211,7 +211,7 @@ def test_gc_estimates_summaries_and_scores_match_jax(embedder, mode):
 def test_other_families_raise_citing_the_roadmap():
     _, _, tm, tp = _pair(*CASES[0])
     for fn in (tge.get_model_gc_estimates, tge.get_model_gc_score_estimates):
-        for mt in ("DCSFA", "NAVAR_CMLP", "DYNOTEARS_Vanilla", "CLSTM"):
+        for mt in ("DCSFA", "DYNOTEARS_Vanilla", "DYNOTEARS_Stochastic"):
             with pytest.raises(NotImplementedError, match="item 13"):
                 fn(tm, tp, mt, K)
         with pytest.raises(NotImplementedError, match="unrecognized"):

@@ -285,11 +285,19 @@ def test_config_validation_and_unported_parts_raise():
             dataclasses.asdict(_config("DGCNN",
                                        tred.FORWARD_PASS_MODES[0])),
             training_mode="nope"))
+    with pytest.raises(ValueError, match="factor_network_type"):
+        tred.RedcliffSCMLPConfig(**dict(
+            dataclasses.asdict(_config("DGCNN", tred.FORWARD_PASS_MODES[0])),
+            factor_network_type="DGCNN"))
     cfg = tred.RedcliffSCMLPConfig(**dict(
         dataclasses.asdict(_config("DGCNN", tred.FORWARD_PASS_MODES[0])),
         factor_network_type="cLSTM"))
-    with pytest.raises(NotImplementedError, match="cLSTM"):
-        tred.RedcliffSCMLP(cfg)
+    model = tred.RedcliffSCMLP(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    # a cLSTM factor has no lagged first-layer block: the prox is refused,
+    # as in the JAX package
+    with pytest.raises(ValueError, match="cMLP factor"):
+        model.apply_prox(params, 1.0, 0.1)
     from redcliff_tpu_torch.utils.precision import check_precision_mode
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         check_precision_mode("mixed")

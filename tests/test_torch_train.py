@@ -659,6 +659,11 @@ def test_resume_is_bit_identical_to_uninterrupted_fit(tmp_path):
     for a, b in zip(jax.tree.leaves(ck[0]["params"]),
                     jax.tree.leaves(ck[1]["params"])):
         np.testing.assert_array_equal(a, b)
+    # the checkpoint's epoch log spans both calls on the cut save_dir
+    for c in ck:
+        assert [e["epoch"] for e in c["epoch_log"]] == [0, 1, 2, 3]
+    assert [e["steps"] for e in ck[1]["epoch_log"]] == \
+        [e["steps"] for e in first.epochs + resumed.epochs]
     for name in ("final_best_model.bin", "trainer_checkpoint.pkl",
                  "training_meta_data_and_hyper_parameters.pkl"):
         with open(tmp_path / "cut" / name, "rb") as f:
