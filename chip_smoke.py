@@ -5,9 +5,9 @@ Drives the port's main paths on one CUDA card — serving a fitted model,
 fitting one, fitting a coefficient grid, fitting it durably on the bucket
 ladder, running one array task from cached-args files, scoring the
 fitted models through the evaluation layer, and fitting the paper's
-baseline families as array tasks — and holds every kernel on
-them against its plain PyTorch version. Phases, one JSON line
-each:
+baseline families as array tasks, DCSFA-NMF and DYNOTEARS among them —
+and holds every kernel on them against its plain PyTorch version.
+Phases, one JSON line each:
 
 1. build: the factor-mix and GL-prox CUDA kernels from
    ``redcliff_tpu_torch/ops/csrc`` (into ``build/torch_kernels/``), built
@@ -122,10 +122,31 @@ each:
 14. baselines_check: 8 guarded steps of each family from the same weights
    and batches on the card and on the CPU, losses and params compared at
    the train_check bars.
+15. dcsfa: DCSFA-NMF from the published d4IC cached-args (10 nodes, 500
+   ``vanilla`` directed-spectrum features, 5 components, h 256, batch
+   128, AdamW; depth cut to 2 encoder-pretrain and 4 joint epochs) as
+   array task 1 through ``set_up_and_run_experiments`` on the baselines
+   phase's recordings: the features are host work inside the task, the
+   NMF pretrain and every step run on the card. Checks the fit log's
+   steps, finite histories, the artifact's reload (``(model, params,
+   state)``), the 5 component graphs from ``get_model_gc_estimates``,
+   scored against the 5 true graphs by ``evaluate_algorithm_on_fold``;
+   neither kernel launches. Prints the NMF pretrain ms, encoder-pretrain
+   and joint steps/s and epoch ms.
+16. dcsfa_check: on the features of 512 training recordings, the NMF
+   pretrain's component order from the card and the CPU (equal), then 8
+   joint steps from the same post-NMF params and batches on both: losses
+   and params at the train_check bars, the BatchNorm-cancelled encoder
+   bias (whose gradient is rounding noise that AdamW turns into steps of
+   about lr) within its random-walk bound.
+17. dynotears: DYNOTEARS_Vanilla from its published cached-args as array
+   task 1 on the same recordings, on the host (the family does no device
+   work in either package): wall per recording, the averaged graph read
+   out and scored; neither kernel launches.
 
 Launch counts are reset just before each main path (serve, train, grid,
 each grid_stream fit, grid_durable, array_task, eval, each baseline task
-and the GISTA fit) and read just after;
+and the GISTA fit, dcsfa, dynotears) and read just after;
 the kernel-phase launches do not count. A count is executions on the
 device: a launch captured into a CUDA graph counts at each replay of the
 graph (and the warm-up step before each capture ran and counts). Then a
@@ -142,7 +163,8 @@ and one of grid steps (device busy time, idle share, top device ops) with
 one combined epoch replayed by the epoch engine beside them, the
 ops of one prox step as the trainer runs it (one kernel, no allocation or
 copy), each lane kernel's device time alone beside its library call
-and plain version, and a window of each baseline family's steps.
+and plain version, a window of each baseline family's steps and one of
+DCSFA joint steps.
 """
 from __future__ import annotations
 
@@ -395,6 +417,41 @@ BASELINE_ALG = {"cMLP": "CMLP", "cLSTM": "CLSTM", "DGCNN": "DGCNN",
 # 10, 2) is the GL prox kernel's new shape
 GISTA_BLOCK = (C_TRAIN, 50, C_TRAIN, 2)
 BASELINE_CHECK_STEPS = 8
+
+# DCSFA-NMF and DYNOTEARS: the published d4IC DCSFA cached-args
+# (experiments/accuracy_parity_d4ic.py:132-141: 10 nodes, windows cut to
+# num_node_features = 20 steps, nperseg 20 -> F = 5 frequencies below 250
+# Hz, the "vanilla" layout of 10 x 10 x 5 = 500 features, 5 components all
+# supervised, h 256, batch 128, AdamW lr 1e-3, 20 NMF iterations) and the
+# published DYNOTEARS_Vanilla args (experiments/accuracy_parity_synsys.py:
+# 101-106), as array tasks on the baselines phase's 2,000 / 500 recordings
+# of 48 steps with one-hot state labels; depth cut only
+DCSFA_MODEL = "DCSFANMF"
+DCSFA_ARGS = {
+    "batch_size": "128", "num_high_level_node_features": "5",
+    "best_model_name": "dCSFA-NMF-best-model.pt", "num_node_features": "20",
+    "n_components": "5", "n_sup_networks": "5",
+    "signal_format": "original flattened directed_spectrum vanilla",
+    "h": "256", "momentum": "0.5", "lr": "0.001", "recon_weight": "1.0",
+    "sup_weight": "2.0", "sup_recon_weight": "1.0",
+    "sup_smoothness_weight": "2.0", "n_epochs": "1000",
+    "n_pre_epochs": "50", "nmf_max_iter": "20",
+}
+DCSFA_CUTS = {"n_epochs": "4", "n_pre_epochs": "2"}
+DCSFA_FEATURES = 5 * C_TRAIN * C_TRAIN
+DCSFA_CHECK_STEPS = 8
+# AdamW turns the rounding noise of a gradient that is zero in exact
+# arithmetic (the encoder bias in front of the BatchNorm, which the batch
+# mean cancels) into steps of up to about lr each: card and CPU walk that
+# bias apart by at most about 2 lr per step (tests/test_torch_dcsfa.py)
+DCSFA_BIAS_WALK = 2 * 1e-3 * DCSFA_CHECK_STEPS
+DYNOTEARS_MODEL = "DYNOTEARS_Vanilla"
+DYNOTEARS_ARGS = {
+    "lambda_w": "0.9", "lambda_a": "0.1", "max_iter": "100",
+    "h_tol": "0.00000001", "w_threshold": "0.0", "tabu_edges": "None",
+    "tabu_parent_nodes": "None", "tabu_child_nodes": "None",
+    "lag_size": "1", "signal_format": "original",
+}
 
 # eval: the grid's 27 best-params artifacts scored against the sVAR's 5
 # true graphs (experiments/d4ic_grid_search.py:231-258), the array task's
@@ -2971,6 +3028,339 @@ def phase_baselines_check(torch, PX, models, train_ds):
            "param_atol": TRAIN_PARAM_ATOL, "families": out})
 
 
+def phase_dcsfa(torch, FM, PX):
+    """DCSFA-NMF on the card: the published d4IC cached-args, depth cut,
+    as array task 1 through ``set_up_and_run_experiments`` (counts at 0
+    just before, read just after: the path launches neither kernel). The
+    directed-spectrum features are host work inside the task; the fit log
+    gives the NMF pretrain, the encoder pretrain's and the joint fit's
+    steps and walls, and each epoch. The run's 5 component graphs are read
+    out with ``get_model_gc_estimates`` and scored against the 5 true
+    graphs with ``evaluate_algorithm_on_fold``. Returns the executions and
+    what dcsfa_check needs."""
+    import math
+
+    import numpy as np
+
+    from redcliff_tpu_torch import interop
+    from redcliff_tpu_torch.data.shards import load_normalized_split_datasets
+    from redcliff_tpu_torch.eval.cross_alg import evaluate_algorithm_on_fold
+    from redcliff_tpu_torch.eval.gc_estimates import get_model_gc_estimates
+    from redcliff_tpu_torch.eval.model_io import load_model_for_eval
+    from redcliff_tpu_torch.models.dcsfa_nmf import FIT_LOG_NAME
+    from redcliff_tpu_torch.runtime.checkpoint import read_checkpoint
+    from redcliff_tpu_torch.train.driver import set_up_and_run_experiments
+    from redcliff_tpu_torch.utils.config import load_true_gc_factors
+
+    root = os.path.join(HERE, "build", "chip_smoke", "dcsfa")
+    shutil.rmtree(root, ignore_errors=True)
+    data_args, _ = _write_fold(np, root, BASELINE_DATA, BASELINE_T)
+    margs = os.path.join(root, f"{DCSFA_MODEL}_d4IC_OBPgs1_cached_args.txt")
+    with open(margs, "w") as f:
+        json.dump({**DCSFA_ARGS, **DCSFA_CUTS}, f)
+    runs = os.path.join(root, "runs")
+    os.makedirs(runs)
+    t0 = time.perf_counter()
+    load_normalized_split_datasets(os.path.join(root, "data", "fold_0"),
+                                   grid_search=False)
+    load_s = time.perf_counter() - t0
+
+    # ---- the main path: counts at 0 just before, read just after
+    FM.factor_mix.launches = 0
+    PX.gl_prox.launches = 0
+    t0 = time.perf_counter()
+    task = set_up_and_run_experiments(
+        {"save_root_path": runs}, [margs], [data_args], [DCSFA_MODEL],
+        [BASELINE_DATA], task_id=1)
+    torch.cuda.synchronize()
+    task_s = time.perf_counter() - t0
+    mix, prox = FM.factor_mix.launches, PX.gl_prox.launches
+
+    _require(task == 1 and len(os.listdir(runs)) == 1,
+             f"dcsfa: runs {os.listdir(runs)}")
+    run_dir = os.path.join(runs, os.listdir(runs)[0])
+    _require(mix == 0 and prox == 0,
+             f"dcsfa: {mix} factor_mix / {prox} gl_prox launches (0, 0)")
+    log = read_checkpoint(os.path.join(run_dir, FIT_LOG_NAME))
+    hist = log["histories"]
+    B = int(DCSFA_ARGS["batch_size"])
+    n_tr = -(-N_TRAIN // B)
+    _require(log["device"].startswith("cuda"), f"dcsfa: fit on {log['device']}")
+    _require(log["dim_in"] == DCSFA_FEATURES and log["n"] == N_TRAIN,
+             f"dcsfa: {log['n']} x {log['dim_in']} features")
+    _require(log["pre_steps"] == int(DCSFA_CUTS["n_pre_epochs"]) * n_tr
+             and log["joint_steps"] == int(DCSFA_CUTS["n_epochs"]) * n_tr,
+             f"dcsfa: {log['pre_steps']} pretrain / {log['joint_steps']} "
+             f"joint steps")
+    _require(all(math.isfinite(v) for k in ("training", "recon",
+                                            "val_recon") for v in hist[k])
+             and hist["best_epoch"] >= 0,
+             f"dcsfa: histories {hist}")
+    model, params, state = load_model_for_eval(run_dir)
+    _require(type(model).__name__ == "FullDCSFAModel"
+             and model.gc_feature_layout == "vanilla"
+             and tuple(params["W_nmf"].shape) == (K_TRAIN, DCSFA_FEATURES)
+             and params["W_nmf"].is_cuda,
+             f"dcsfa: artifact {type(model).__name__}")
+    leaves = _leaves_np(interop.params_to_jax(params))
+    _require(all(bool(np.isfinite(x).all()) for x in leaves),
+             "dcsfa: non-finite artifact params")
+    ests = get_model_gc_estimates(model, params, "DCSFA", K_TRAIN)
+    _require(len(ests) == K_TRAIN
+             and all(e.shape == (C_TRAIN, C_TRAIN)
+                     and bool(np.isfinite(e).all()) for e in ests),
+             f"dcsfa: GC estimates {[e.shape for e in ests]}")
+    true_gcs = load_true_gc_factors(data_args)
+    stats = evaluate_algorithm_on_fold(run_dir, "DCSFA", true_gcs)
+    f1 = {k: v for k, v in stats.items() if not k.startswith("factor_")}
+    pre_s, joint_s = log["pre_s"], log["joint_s"]
+    fit_s = (log["nmf_ms"] / 1e3 + pre_s
+             + sum(e["ms"] for e in log["epochs"]) / 1e3)
+    _emit({"phase": "dcsfa", "device": torch.cuda.get_device_name(0),
+           "model": type(model).__name__,
+           "config": "published d4IC DCSFA cached-args "
+                     "(experiments/accuracy_parity_d4ic.py:132-141)",
+           "reduced": DCSFA_CUTS, "run_dir": os.path.relpath(run_dir, HERE),
+           "train_recordings": N_TRAIN, "val_recordings": N_VAL,
+           "features": log["dim_in"], "task_wall_s": task_s,
+           # the task's wall outside the fit and the fold's load: the host
+           # features, most of it (dcsfa_check times them alone)
+           "features_and_setup_s_host": task_s - fit_s - load_s,
+           "fold_load_s": load_s, "nmf_pretrain_ms": log["nmf_ms"],
+           "component_order": log["component_order"],
+           "encoder_pretrain_steps": log["pre_steps"],
+           "encoder_pretrain_steps_per_s": log["pre_steps"] / pre_s,
+           "joint_steps": log["joint_steps"],
+           "joint_steps_per_s": log["joint_steps"] / joint_s,
+           "epoch_ms": [e["ms"] for e in log["epochs"]],
+           "epoch_steps_ms": [e["steps_ms"] for e in log["epochs"]],
+           "training_loss": hist["training"], "val_recon": hist["val_recon"],
+           "val_auc": hist["val_pred"], "best_epoch": hist["best_epoch"],
+           "gc_estimate_shape": list(ests[0].shape),
+           "f1_across_factors": {
+               p: {k: v for k, v in s.items() if k.endswith("mean_across_"
+                                                             "factors")}
+               for p, s in f1.items()},
+           "factor_mix_launches": mix, "gl_prox_launches": prox})
+    return mix, prox, model, root, margs
+
+
+def _dcsfa_steps(torch, np, model, host_params, host_state, batches,
+                 device):
+    """Joint DCSFA steps on ``device`` from host params and state, one per
+    batch: the losses and the params and state after them."""
+    from redcliff_tpu_torch import interop
+    from redcliff_tpu_torch.models.dcsfa_nmf import _live
+    from redcliff_tpu_torch.utils.precision import resolve_device
+
+    dev = resolve_device(device)  # full float32 on the card
+    live = _live(interop.params_from_jax(host_params, dev))
+    state = interop.params_from_jax(host_state, dev)
+    phase = model.make_phase(live, pretrain=False)
+    losses = []
+    for b in batches:
+        batch = tuple(torch.from_numpy(a).to(dev) for a in b)
+        state, lv = model.train_step(live, state, phase, batch, False)
+        losses.append(lv)
+    losses = torch.stack(losses).cpu().numpy()
+    return (losses, interop.params_to_jax(live),
+            interop.params_to_jax(state))
+
+
+def phase_dcsfa_check(torch, model, root, margs):
+    """Card against the port's CPU path: the NMF pretrain's component order
+    from both (on the features of the first 512 training recordings), then
+    DCSFA_CHECK_STEPS joint steps from the same post-NMF params and the
+    same batches (weighted draws with replacement, as the fit draws them):
+    losses within TRAIN_LOSS_RTOL, params within TRAIN_PARAM_ATOL, but the
+    BatchNorm-cancelled encoder bias and the running mean that tracks it
+    within DCSFA_BIAS_WALK. Returns the host features, labels and params
+    (for the profile)."""
+    import numpy as np
+
+    from redcliff_tpu_torch import interop
+    from redcliff_tpu_torch.data.shards import (apply_signal_format,
+                                                load_normalized_split_datasets)
+    from redcliff_tpu_torch.models.dcsfa_nmf import nmf_fit, order_components
+    from redcliff_tpu_torch.utils.config import read_in_model_args
+
+    args = read_in_model_args({"model_type": DCSFA_MODEL,
+                               "model_cached_args_file": margs})
+    train_ds, _ = load_normalized_split_datasets(
+        os.path.join(root, "data", "fold_0"), grid_search=False)
+    n = min(512, len(train_ds))
+    t0 = time.perf_counter()
+    X = apply_signal_format(train_ds.X[:n], args["signal_format"],
+                            args["max_num_features_per_series"],
+                            args["dirspec_params"])
+    feat_s = time.perf_counter() - t0
+    y = train_ds.Y[:n].reshape(n, -1)[:, :K_TRAIN]
+    cfg = model.config
+    orders, nmf_ms = {}, {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        s_nmf, _ = nmf_fit(X, cfg.n_components, max_iter=int(
+            DCSFA_ARGS["nmf_max_iter"]), loss=cfg.recon_loss, device=dev)
+        nmf_ms[dev] = (time.perf_counter() - t0) * 1e3
+        orders[dev] = order_components(s_nmf, y, cfg.n_components,
+                                       cfg.fixed_corr)[0]
+    _require(orders["cuda"] == orders["cpu"],
+             f"dcsfa_check: component order card {orders['cuda']} vs CPU "
+             f"{orders['cpu']}")
+    params, state = model.init(torch.Generator().manual_seed(0),
+                               X.shape[1])
+    params, _ = model.pretrain_nmf(params, X, y,
+                                   int(DCSFA_ARGS["nmf_max_iter"]))
+    host_p = interop.params_to_jax(params)
+    host_s = interop.params_to_jax(state)
+    rng = np.random.default_rng(2)
+    B = int(DCSFA_ARGS["batch_size"])
+    ones = np.ones((B, 1), np.float32)
+    batches = []
+    for _ in range(DCSFA_CHECK_STEPS):
+        idx = rng.choice(n, size=B, replace=True)
+        batches.append((X[idx], y[idx], np.ones_like(y[idx]), ones, ones))
+    card_l, card_p, card_s = _dcsfa_steps(torch, np, model, host_p, host_s,
+                                          batches, "cuda")
+    cpu_l, cpu_p, cpu_s = _dcsfa_steps(torch, np, model, host_p, host_s,
+                                       batches, "cpu")
+    walked = ("enc1/b", "bn_mean")
+
+    def diffs(a, b, prefix=""):
+        out = {}
+        for k, v in a.items():
+            if isinstance(v, dict):
+                out.update(diffs(v, b[k], f"{prefix}{k}/"))
+            else:
+                out[prefix + k] = float(np.abs(v - b[k]).max())
+        return out
+    d = {**diffs(card_p, cpu_p), **diffs(card_s, cpu_s)}
+    held = max(v for k, v in d.items() if k not in walked)
+    walk = max(d[k] for k in walked)
+    rel = float(np.max(np.abs(card_l - cpu_l) / np.abs(cpu_l)))
+    _require(bool(np.isfinite(card_l).all())
+             and bool(np.allclose(card_l, cpu_l, rtol=TRAIN_LOSS_RTOL,
+                                  atol=TRAIN_LOSS_ATOL))
+             and held <= TRAIN_PARAM_ATOL and walk <= DCSFA_BIAS_WALK,
+             f"dcsfa_check: losses card {card_l.tolist()} vs CPU "
+             f"{cpu_l.tolist()}, params differ by {d}")
+    _emit({"phase": "dcsfa_check", "against": "port CPU path, same "
+           "post-NMF params and batches", "steps": DCSFA_CHECK_STEPS,
+           "recordings": n, "features_s_host": feat_s,
+           "features_ms_per_recording": feat_s * 1e3 / n,
+           "component_order": orders, "nmf_ms": nmf_ms,
+           "loss_rtol": TRAIN_LOSS_RTOL, "param_atol": TRAIN_PARAM_ATOL,
+           "max_loss_rel_err": rel, "max_param_abs_err": held,
+           "bias_walk_abs": walk, "bias_walk_bound": DCSFA_BIAS_WALK,
+           "card_losses": card_l[:, 0].tolist()})
+    return X, y, host_p, host_s
+
+
+def phase_dynotears(torch, FM, PX):
+    """DYNOTEARS_Vanilla with the published args as array task 1 through
+    ``set_up_and_run_experiments`` on the baselines phase's fold: host
+    work only (counts at 0 just before, read just after: 0 and 0); the
+    averaged lagged graph read out and scored against the 5 true graphs."""
+    import numpy as np
+
+    from redcliff_tpu_torch.eval.cross_alg import evaluate_algorithm_on_fold
+    from redcliff_tpu_torch.eval.gc_estimates import get_model_gc_estimates
+    from redcliff_tpu_torch.eval.model_io import load_model_for_eval
+    from redcliff_tpu_torch.train.driver import set_up_and_run_experiments
+    from redcliff_tpu_torch.utils.config import load_true_gc_factors
+
+    root = os.path.join(HERE, "build", "chip_smoke", "dynotears")
+    shutil.rmtree(root, ignore_errors=True)
+    data_args, _ = _write_fold(np, root, BASELINE_DATA, BASELINE_T)
+    margs = os.path.join(root, f"{DYNOTEARS_MODEL}_d4IC_BCNIBCHVgs1Parsim_"
+                               f"cached_args.txt")
+    with open(margs, "w") as f:
+        json.dump(DYNOTEARS_ARGS, f)
+    runs = os.path.join(root, "runs")
+    os.makedirs(runs)
+    FM.factor_mix.launches = 0
+    PX.gl_prox.launches = 0
+    t0 = time.perf_counter()
+    task = set_up_and_run_experiments(
+        {"save_root_path": runs}, [margs], [data_args], [DYNOTEARS_MODEL],
+        [BASELINE_DATA], task_id=1)
+    wall_s = time.perf_counter() - t0
+    mix, prox = FM.factor_mix.launches, PX.gl_prox.launches
+    _require(task == 1 and len(os.listdir(runs)) == 1,
+             f"dynotears: runs {os.listdir(runs)}")
+    _require(mix == 0 and prox == 0,
+             f"dynotears: {mix} factor_mix / {prox} gl_prox launches")
+    run_dir = os.path.join(runs, os.listdir(runs)[0])
+    model, params = load_model_for_eval(run_dir)
+    ests = get_model_gc_estimates(model, params, DYNOTEARS_MODEL, K_TRAIN)
+    _require(params is None and len(ests) == K_TRAIN
+             and all(e.shape == (C_TRAIN, C_TRAIN)
+                     and bool(np.isfinite(e).all()) for e in ests),
+             f"dynotears: GC estimates {[e.shape for e in ests]}")
+    stats = evaluate_algorithm_on_fold(run_dir, DYNOTEARS_MODEL,
+                                       load_true_gc_factors(data_args))
+    _emit({"phase": "dynotears", "model": type(model).__name__,
+           "config": "published DYNOTEARS_Vanilla cached-args "
+                     "(experiments/accuracy_parity_synsys.py:101-106)",
+           "reduced": {}, "run_dir": os.path.relpath(run_dir, HERE),
+           "recordings": N_TRAIN, "recording_steps": BASELINE_T,
+           "wall_s_host": wall_s, "ms_per_recording": wall_s * 1e3 / N_TRAIN,
+           "gc_abs_sum": float(np.abs(ests[0]).sum()),
+           "f1_across_factors": {
+               p: {k: v for k, v in s.items() if k.endswith("mean_across_"
+                                                             "factors")}
+               for p, s in stats.items() if not p.startswith("factor_")},
+           "factor_mix_launches": mix, "gl_prox_launches": prox})
+    return mix, prox
+
+
+def phase_profile_dcsfa(torch, model, X, y, host_p, host_s):
+    """Where a DCSFA joint step's time goes (``--profile`` only): a
+    profiled window of joint steps at the published widths on the card —
+    host wall per step, device busy per step, the device's idle share and
+    the top device ops."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from redcliff_tpu_torch import interop
+    from redcliff_tpu_torch.models.dcsfa_nmf import _live
+    from redcliff_tpu_torch.utils.precision import resolve_device
+
+    dev = resolve_device("cuda")
+    live = _live(interop.params_from_jax(host_p, dev))
+    state = interop.params_from_jax(host_s, dev)
+    phase = model.make_phase(live, pretrain=False)
+    B, n_warm, n = int(DCSFA_ARGS["batch_size"]), 2, 10
+    rng = np.random.default_rng(3)
+    ones = torch.ones((B, 1), device=dev)
+    Xd, yd = torch.from_numpy(X).to(dev), torch.from_numpy(y).to(dev)
+    batches = []
+    for _ in range(n):
+        idx = torch.from_numpy(rng.choice(len(X), B)).to(dev)
+        batches.append((Xd[idx], yd[idx], torch.ones_like(yd[idx]), ones,
+                        ones))
+    for b in batches[:n_warm]:
+        state, _ = model.train_step(live, state, phase, b, False)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches[n_warm:]:
+            state, _ = model.train_step(live, state, phase, b, False)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / (n - n_warm)
+    per, busy_us = _device_us(torch, prof, n - n_warm)
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:8]
+    _emit({"phase": "profile_dcsfa", "device": torch.cuda.get_device_name(0),
+           "steps": n - n_warm, "batch_size": B, "features": X.shape[1],
+           "step_wall_ms_profiled": wall_ms,
+           "device_busy_us_per_step": busy_us,
+           "device_idle_share": (1.0 - busy_us / 1e3 / wall_ms
+                                 if busy_us else None),
+           "device_ops_per_step": len(per),
+           "top_device_us_per_step": dict(top)})
+
+
 def _switching_recordings(np, A, n, T, seed):
     """``n`` recordings (x (T, C), y (K, T)) of the state VARs ``A``
     (K, L, C, C), the state switching every EVAL_SWITCH steps in an order
@@ -3225,11 +3615,15 @@ def main():
     base_mix, base_prox, base_models, base_train = phase_baselines(
         torch, FM, PX)
     phase_baselines_check(torch, PX, base_models, base_train)
+    dc_mix, dc_prox, dc_model, dc_root, dc_margs = phase_dcsfa(torch, FM, PX)
+    dc_check = phase_dcsfa_check(torch, dc_model, dc_root, dc_margs)
+    dy_mix, dy_prox = phase_dynotears(torch, FM, PX)
     if "--profile" in sys.argv[1:]:
         phase_profile(torch, FM)
         phase_profile_train(torch, FM, PX, tmodel, tparams, train_ds)
         phase_profile_grid(torch, FM, PX, gmodel, gparams, gtrain)
         phase_profile_baselines(torch, base_models, base_train)
+        phase_profile_dcsfa(torch, dc_model, *dc_check)
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.")
@@ -3241,7 +3635,8 @@ def main():
                  "grid_stream": sum(v["factor_mix"] for v in stream.values()),
                  "grid_durable": dur_mix,
                  "array_task": task_mix, "eval": eval_mix,
-                 "baselines": base_mix}
+                 "baselines": base_mix, "dcsfa": dc_mix,
+                 "dynotears": dy_mix}
     fm = _kernel_entry(
         "factor_mix", FM, "redcliff_tpu/ops/factor_mix.py:58",
         sum(mix_paths.values()), mix_paths, max_err["factor_mix"],
@@ -3251,7 +3646,8 @@ def main():
     prox_paths = {"serve": 0, "train": prox_launches, "grid": grid_prox,
                   "grid_stream": sum(v["gl_prox"] for v in stream.values()),
                   "grid_durable": dur_prox, "array_task": task_prox,
-                  "eval": eval_prox, "baselines": base_prox}
+                  "eval": eval_prox, "baselines": base_prox,
+                  "dcsfa": dc_prox, "dynotears": dy_prox}
     px = _kernel_entry(
         "gl_prox", PX, "redcliff_tpu/ops/pallas_prox.py:47",
         sum(prox_paths.values()), prox_paths, max_err["gl_prox"],

@@ -14,8 +14,8 @@ at the root (the reference's artifact names, kept for tooling parity).
 The entry points that load a model take ``device`` (default ``cuda``,
 raising without a card; the tests pass ``"cpu"``): the model's readout
 runs there, the statistics on the host. The port loads the artifacts of
-the families it has ported (``eval/model_io.py``): REDCLIFF-S, cMLP,
-cLSTM, NAVAR and DGCNN.
+every family (``eval/model_io.py``): REDCLIFF-S, cMLP, cLSTM, NAVAR,
+DGCNN, DCSFA-NMF and DYNOTEARS (whose graph is read on the host).
 """
 from __future__ import annotations
 
@@ -113,8 +113,10 @@ def evaluate_algorithm_on_fold(run_dir, alg_name, true_gcs, X=None,
                                device=None):
     """Per-factor three-view optimal-F1 stats + cross-factor summaries for one
     trained run (ref :169-237), its model loaded on ``device``. Returns the
-    alg_level_stats dict."""
-    model, params = load_model_for_eval(run_dir, device=device)
+    alg_level_stats dict. A DCSFA-NMF artifact loads as ``(model, params,
+    state)``; its graphs need the params only."""
+    loaded = load_model_for_eval(run_dir, device=device)
+    model, params = loaded[0], loaded[1]
     estimated_gcs = get_model_gc_estimates(model, params, alg_name,
                                            len(true_gcs), X=X)
     alg_level_stats = {}

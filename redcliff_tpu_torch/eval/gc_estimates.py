@@ -5,13 +5,15 @@ The reference's get_model_gc_estimates / get_model_gc_score_estimates
 (its ``evaluate/eval_utils.py:893-948``): every model family exposes its
 GC readout differently, and single-graph baselines are replicated K times
 so cross-algorithm comparisons always see one estimate per true factor.
-The port reads REDCLIFF-S, NCFM, cMLP, cLSTM, NAVAR and DGCNN models; the
-DCSFA-NMF and DYNOTEARS branches raise until their models are ported
-(ROADMAP queue 1, item 13).
+The port reads every family of the JAX dispatch: REDCLIFF-S, NCFM, cMLP,
+cLSTM, NAVAR, DGCNN, DCSFA-NMF (one graph per NMF component) and DYNOTEARS
+(its one host graph, replicated).
 
 Readouts run without autograd on the params' device and come back to the
-host once per call. :func:`get_model_gc_score_estimates` runs
-``model.forward``, which launches the factor-mix kernel on the card.
+host once per call (DYNOTEARS has no params: its graph is host numpy).
+:func:`get_model_gc_score_estimates` runs ``model.forward``, which launches
+the factor-mix kernel on the card, for REDCLIFF; DCSFA-NMF's are its
+predicted probabilities.
 """
 from __future__ import annotations
 
@@ -19,16 +21,12 @@ import numpy as np
 import torch
 
 from redcliff_tpu_torch.eval.model_io import to_params_device
-from redcliff_tpu_torch.train.orchestration import (is_unported_family,
-                                                    refuse_unported)
 
 __all__ = ["get_model_gc_estimates", "get_model_gc_score_estimates",
            "get_model_gc_summary_matrices",
            "get_combined_gc_representations_across_factors"]
 
-def _not_ported(model_type):
-    if is_unported_family(model_type):
-        refuse_unported(f"the GC readout of {model_type}")
+def _unrecognized(model_type):
     raise NotImplementedError(f"unrecognized model_type: {model_type!r}")
 
 
@@ -45,10 +43,14 @@ def _replicate(graphs, num_required):
 def get_model_gc_estimates(model, params, model_type, num_ests_required,
                            X=None):
     """List of ``num_ests_required`` per-factor GC matrices (numpy) for any
-    ported family (ref eval_utils.py:908-948). ``model_type`` uses the
-    reference's naming: substring dispatch over REDCLIFF / NCFM / NAVAR /
-    DGCNN / cMLP / cLSTM."""
+    family (ref eval_utils.py:908-948). ``model_type`` uses the
+    reference's naming: substring dispatch over REDCLIFF / DCSFA / NCFM /
+    DYNOTEARS / NAVAR / DGCNN / cMLP / cLSTM."""
     mt = model_type
+    if "DYNOTEARS" in mt:
+        return _replicate([np.asarray(model.gc())], num_ests_required)
+    if "DCSFA" in mt:
+        return list(model.gc(params, threshold=False, ignore_features=True))
     if X is not None:
         X = to_params_device(params, X)
     if "REDCLIFF" in mt:
@@ -69,9 +71,6 @@ def get_model_gc_estimates(model, params, model_type, num_ests_required,
         if len(gc_ests) < num_ests_required:
             gc_ests = _replicate(gc_ests, num_ests_required)
         return gc_ests
-
-    if is_unported_family(mt):
-        _not_ported(mt)
 
     with torch.no_grad():
         if "NCFM" in mt:
@@ -99,7 +98,7 @@ def get_model_gc_estimates(model, params, model_type, num_ests_required,
                 params, threshold=False,
                 combine_wavelet_representations=True, rank_wavelets=False))
         else:
-            _not_ported(mt)
+            _unrecognized(mt)
     return _replicate(generic, num_ests_required)
 
 
@@ -122,18 +121,23 @@ def get_model_gc_score_estimates(model, params, model_type,
                                  num_ests_required, X=None, state=None):
     """Factor-score estimates (ref eval_utils.py:893-906): a REDCLIFF
     model's first-sim state-label predictions on ``X`` (one window), from
-    one ``model.forward`` (the factor-mix kernel on the card); a flat ones
-    vector for the graph-only baselines."""
+    one ``model.forward`` (the factor-mix kernel on the card); DCSFA-NMF's
+    predicted probabilities on ``X`` (one feature row, ``state`` its
+    BatchNorm statistics); a flat ones vector for the graph-only
+    baselines."""
     mt = model_type
     if "REDCLIFF" in mt:
         with torch.no_grad():
             _, _, _, weights = model.forward(params,
                                              to_params_device(params, X))
         return weights[0].cpu().numpy().reshape(num_ests_required)
+    if "DCSFA" in mt:
+        scores = model.predict_proba(params, state, X)
+        return np.asarray(scores).reshape(num_ests_required)
     if any(tag in mt for tag in ("cMLP", "CMLP", "cLSTM", "CLSTM", "DGCNN",
-                                 "NAVAR")):
+                                 "DYNOTEARS", "NAVAR")):
         return np.ones(num_ests_required)
-    _not_ported(mt)
+    _unrecognized(mt)
 
 
 def get_combined_gc_representations_across_factors(estimated_gcs, true_gcs):

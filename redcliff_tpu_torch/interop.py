@@ -4,8 +4,11 @@ The port keeps the JAX package's parameter layout exactly — nested dicts and
 lists, per-leaf shapes as ``models/redcliff.py`` (stacked K-factor
 ``[{"w", "b"}, ...]`` lists or stacked cLSTM dicts), ``models/cmlp.py``,
 ``models/clstm.py``, ``models/dgcnn.py``, ``models/navar.py`` and
-``models/embedders.py`` build them — so moving weights is a leaf-by-leaf
-conversion:
+``models/embedders.py`` build them, and DCSFA-NMF's ``W_nmf``, ``phi``,
+``beta``, ``enc1``/``enc2`` ``{w, b}``, ``bn_scale``, ``bn_shift`` with its
+BatchNorm state ``{bn_mean, bn_var}`` from ``models/dcsfa_nmf.py`` (a tree
+without ``enc2`` is the linear encoder, its state ``{}``) — so moving
+weights is a leaf-by-leaf conversion:
 
 * :func:`params_from_jax` — a tree of numpy arrays (what the JAX package
   saves, or ``np.asarray`` of its device arrays) -> the same tree of torch

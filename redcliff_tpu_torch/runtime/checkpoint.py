@@ -14,7 +14,8 @@ are still readable.
 
 Unpickling is restricted (:class:`PortUnpickler`): numpy arrays, a safe set
 of builtins, and the model config classes (REDCLIFF-S, cMLP-FM, cLSTM-FM,
-NAVAR, NAVAR-LSTM, DGCNN). The JAX package's config classes (e.g.
+NAVAR, NAVAR-LSTM, DGCNN, DCSFA-NMF, DYNOTEARS and the DYNOTEARS solver
+state). The JAX package's config classes (e.g.
 ``redcliff_tpu.models.redcliff.RedcliffSCMLPConfig``) are mapped to the
 port's own, so a JAX-written ``final_best_model.bin`` loads without
 importing JAX. Any other class raises :class:`ForbiddenClassError` naming
@@ -58,6 +59,9 @@ _CONFIG_CLASSES = {
     "NAVARConfig": "redcliff_tpu_torch.models.navar",
     "NAVARLSTMConfig": "redcliff_tpu_torch.models.navar",
     "DGCNNConfig": "redcliff_tpu_torch.models.dgcnn",
+    "DcsfaNmfConfig": "redcliff_tpu_torch.models.dcsfa_nmf",
+    "DynotearsConfig": "redcliff_tpu_torch.models.dynotears",
+    "DynotearsState": "redcliff_tpu_torch.models.dynotears",
 }
 _SAFE_BUILTINS = frozenset({
     "bool", "bytearray", "bytes", "complex", "dict", "float", "frozenset",

@@ -10,7 +10,8 @@ entry.
   run folder (auto-resume when ``final_best_model.bin`` is there, a stale
   folder cleaned out), the fold's datasets, the model and its fit
   (``train/orchestration.py``: REDCLIFF-S with cMLP or cLSTM factors,
-  cMLP, cLSTM, NAVAR and DGCNN).
+  cMLP, cLSTM, NAVAR, DGCNN, DCSFA-NMF on the device, DYNOTEARS on the
+  host).
 * :func:`run_coefficient_grid` — train G coefficient/optimizer variations
   of one REDCLIFF-S model at once through
   :class:`~redcliff_tpu_torch.parallel.grid.RedcliffGridRunner`, replacing

@@ -4,20 +4,22 @@
 An args dict produced by ``utils/config.py`` maps onto the model config
 and the trainer:
 
-* :func:`create_model_instance` builds REDCLIFF-S with cMLP factors (and
-  its smoothing variant) or cLSTM factors (``REDCLIFF_S_CLSTM``), cMLP-FM,
-  cLSTM-FM, NAVAR (MLP and LSTM) and DGCNN. The reference's
-  declared-but-absent ``REDCLIFF_S_DGCNN`` raises as in the JAX package;
-  DCSFA-NMF and DYNOTEARS are not ported yet (ROADMAP queue 1, item 13)
-  and raise.
+* :func:`create_model_instance` builds every family of the JAX dispatch:
+  REDCLIFF-S with cMLP factors (and its smoothing variant) or cLSTM
+  factors (``REDCLIFF_S_CLSTM``), cMLP-FM, cLSTM-FM, NAVAR (MLP and LSTM),
+  DGCNN, DCSFA-NMF (``FullDCSFAModel``, its GC layout from the signal
+  format) and DYNOTEARS (Vanilla and Stochastic). The reference's
+  declared-but-absent ``REDCLIFF_S_DGCNN`` raises as in the JAX package.
 * :func:`get_data_for_model_training` loads the fold's (train,
-  validation) datasets.
+  validation) datasets, with the feature format and directed-spectrum
+  parameters the family asks for.
 * :func:`call_model_fit_method` fits REDCLIFF-S with the port's
-  ``RedcliffTrainer`` and the other families with the generic
-  ``Trainer``. A model is initialised by the port's own ``init`` from a
-  generator seeded with ``seed`` (the JAX package draws from
-  ``jax.random.PRNGKey(seed)``, which torch cannot match). As in the JAX
-  dispatch, neither trainer's config sets a prox.
+  ``RedcliffTrainer``, DCSFA-NMF with its own fit loop on the device, the
+  two DYNOTEARS models with their host solver, and the other families
+  with the generic ``Trainer``. A model is initialised by the port's own
+  ``init`` from a generator seeded with ``seed`` (the JAX package draws
+  from ``jax.random.PRNGKey(seed)``, which torch cannot match). As in the
+  JAX dispatch, neither trainer's config sets a prox.
 * :func:`call_model_eval_method` decomposes a fitted model's validation
   loss per family, in the reference's positional order.
 * :func:`generate_signal_from_sequential_factor_model` rolls a factor
@@ -35,28 +37,6 @@ from redcliff_tpu_torch.interop import tree_leaves
 __all__ = ["create_model_instance", "get_data_for_model_training",
            "call_model_fit_method", "call_model_eval_method",
            "generate_signal_from_sequential_factor_model"]
-
-# the families of the JAX dispatch whose models are not ported yet
-# (ROADMAP queue 1, item 13): their model_type tags, and the class names
-# their artifacts record. The schema reader, the factory, the GC readout
-# and the artifact loader all refuse them from these
-UNPORTED_FAMILIES = ("DCSFA", "DYNOTEARS")
-UNPORTED_MODEL_CLASSES = ("DcsfaNmf", "FullDCSFAModel", "DynotearsModel",
-                          "DynotearsVanillaModel")
-# the families the generic trainer fits
-_GENERIC_FAMILIES = ("CMLPFM", "CLSTMFM", "NAVAR", "NAVARLSTM", "DGCNNModel")
-
-
-def is_unported_family(model_type):
-    """Whether ``model_type`` names a family not ported yet."""
-    return any(tag in model_type for tag in UNPORTED_FAMILIES)
-
-
-def refuse_unported(what):
-    """The ``NotImplementedError`` for ``what`` of an unported family."""
-    raise NotImplementedError(
-        f"{what} is not ported yet (ROADMAP queue 1, item 13: DCSFA-NMF "
-        f"and DYNOTEARS)")
 
 
 def generate_signal_from_sequential_factor_model(model, params, x0,
@@ -215,8 +195,26 @@ def create_model_instance(args_dict, employ_version_with_smoothing_loss=False):
             dagness_coeff=_coeff(args_dict, "DAGNESS_REG_COEFF"),
             wavelet_level=args_dict.get("wavelet_level")))
 
-    if is_unported_family(model_type):
-        refuse_unported(model_type)
+    if "DCSFA" in model_type:
+        from redcliff_tpu_torch.models.dcsfa_nmf import (DcsfaNmfConfig,
+                                                         FullDCSFAModel)
+        layout = "vanilla" if "vanilla" in args_dict.get(
+            "signal_format", "") else "dirspec"
+        return FullDCSFAModel(
+            num_nodes=args_dict["num_channels"],
+            num_high_level_node_features=args_dict[
+                "num_high_level_node_features"],
+            gc_feature_layout=layout,
+            config=DcsfaNmfConfig(
+                n_components=args_dict["n_components"],
+                n_sup_networks=args_dict["n_sup_networks"],
+                h=args_dict["h"],
+                momentum=args_dict["momentum"],
+                lr=args_dict["lr"],
+                recon_weight=args_dict["recon_weight"],
+                sup_weight=args_dict["sup_weight"],
+                sup_recon_weight=args_dict["sup_recon_weight"],
+                sup_smoothness_weight=args_dict["sup_smoothness_weight"]))
 
     if "DGCNN" in model_type:
         from redcliff_tpu_torch.models.dgcnn import DGCNNConfig, DGCNNModel
@@ -228,31 +226,67 @@ def create_model_instance(args_dict, employ_version_with_smoothing_loss=False):
             num_hidden_nodes=args_dict["num_hidden_nodes"],
             num_classes=args_dict["num_classes"]))
 
+    if "DYNOTEARS" in model_type:
+        from redcliff_tpu_torch.models.dynotears import (
+            DynotearsConfig, DynotearsModel, DynotearsVanillaModel)
+        cfg = DynotearsConfig(
+            lambda_w=args_dict["lambda_w"],
+            lambda_a=args_dict["lambda_a"],
+            max_iter=args_dict["max_iter"],
+            h_tol=args_dict["h_tol"],
+            w_threshold=args_dict["w_threshold"],
+            lag_size=args_dict["lag_size"],
+            grad_step=float(args_dict.get("grad_step", 1.0)),
+            tabu_edges=args_dict.get("tabu_edges"),
+            tabu_parent_nodes=args_dict.get("tabu_parent_nodes"),
+            tabu_child_nodes=args_dict.get("tabu_child_nodes"),
+            reuse_rho=bool(args_dict.get("reuse_rho", False)),
+            reuse_alpha=bool(args_dict.get("reuse_alpha", False)),
+            reuse_h_val=bool(args_dict.get("reuse_h_val", False)),
+            reuse_h_new=bool(args_dict.get("reuse_h_new", False)))
+        if "Vanilla" in model_type:
+            return DynotearsVanillaModel(cfg)
+        return DynotearsModel(cfg)
+
     raise ValueError(f"UNRECOGNIZED model_type == {model_type}")
 
 
 def get_data_for_model_training(args_dict, grid_search=True, shuffle=True,
                                 shuffle_seed=0, device=None):
     """(train, validation) datasets for a parsed args dict: the
-    data_root_path holds the fold in the shared shard layout; with
-    ``device`` their resident copies are placed there."""
+    data_root_path holds the fold in the shared shard layout; the signal
+    format and directed-spectrum parameters follow the model family. With
+    ``device`` the resident copies are placed there, except for DYNOTEARS,
+    whose solver reads host windows only."""
     from redcliff_tpu_torch.data.shards import load_normalized_split_datasets
 
+    if "DYNOTEARS" in args_dict.get("model_type", ""):
+        device = None
     return load_normalized_split_datasets(
         args_dict["data_root_path"],
         signal_format=args_dict.get("signal_format", "original"),
         shuffle=shuffle, shuffle_seed=shuffle_seed,
+        max_num_features_per_series=args_dict.get(
+            "max_num_features_per_series",
+            args_dict.get("num_node_features")),
+        dirspec_params=args_dict.get("dirspec_params"),
         grid_search=grid_search,
         average_region_map=args_dict.get("average_region_map"),
+        wavelet_level=args_dict.get("wavelet_level"),
         device=device)
 
 
 def call_model_fit_method(model, args_dict, train_ds, val_ds, save_dir=None,
                           seed=0, device=None):
     """Fit a model from its port-drawn init on ``device`` (``cuda``
-    unless given): REDCLIFF-S through ``RedcliffTrainer``, the other
-    families through the generic ``Trainer``. Returns ``(best params, fit
-    result)``."""
+    unless given): REDCLIFF-S through ``RedcliffTrainer``, DCSFA-NMF
+    through its own fit (returns ``((params, state), histories)``),
+    DYNOTEARS on the host whatever ``device`` says (returns ``(its GC
+    matrix, the model)``), the other families through the generic
+    ``Trainer``. Returns ``(best params, fit result)``."""
+    from redcliff_tpu_torch.models.dcsfa_nmf import DcsfaNmf
+    from redcliff_tpu_torch.models.dynotears import (DynotearsModel,
+                                                     DynotearsVanillaModel)
     from redcliff_tpu_torch.models.redcliff import RedcliffSCMLP
 
     save_dir = save_dir or args_dict.get("save_path")
@@ -287,11 +321,53 @@ def call_model_fit_method(model, args_dict, train_ds, val_ds, save_dir=None,
             unsupervised_start_index=args_dict.get(
                 "unsupervised_start_index", 0))
         trainer = RedcliffTrainer(model, tc, device=device)
+    elif isinstance(model, (DynotearsModel, DynotearsVanillaModel)):
+        if isinstance(model, DynotearsVanillaModel):
+            model.fit(train_ds.X, save_dir=save_dir)
+            return model.gc(), model
+        model.fit(train_ds, val_ds, save_dir=save_dir,
+                  max_data_iter=args_dict.get("max_data_iter", 10),
+                  batch_size=args_dict.get("batch_size", 32),
+                  num_iters_prior_to_stop=args_dict.get(
+                      "num_iters_prior_to_stop", 10),
+                  check_every=args_dict.get("check_every", 5),
+                  verbose=bool(args_dict.get("verbose", 0)))
+        return model.gc(), model
+    elif isinstance(model, DcsfaNmf):
+        if getattr(train_ds, "X_features", None) is None:
+            raise ValueError(
+                "DCSFA training requires feature-format datasets "
+                "(signal_format='directed_spectrum*'); got raw windows")
+
+        def features(ds):
+            """The features on the device when the loader placed them."""
+            return getattr(ds, "device_features", ds.X_features)
+
+        def dcsfa_labels(ds):
+            """Label traces (N, R, T) average over time (the reference's
+            average_label_over_time_steps=True) and slice to the fit
+            contract's n_sup_networks columns."""
+            y = np.asarray(ds.Y)
+            if y.ndim == 3:
+                y = y.mean(axis=2)
+            y = y.reshape(len(ds), -1)
+            return y[:, : model.config.n_sup_networks]
+
+        params, state, hist = model.fit(
+            generator, features(train_ds), dcsfa_labels(train_ds),
+            X_val=features(val_ds), y_val=dcsfa_labels(val_ds),
+            n_epochs=args_dict.get("n_epochs", 100),
+            n_pre_epochs=args_dict.get("n_pre_epochs", 100),
+            nmf_max_iter=args_dict.get("nmf_max_iter", 100),
+            batch_size=args_dict.get("batch_size", 128),
+            save_folder=save_dir,
+            best_model_name=args_dict.get("best_model_name",
+                                          "dCSFA-NMF-best-model.pkl"),
+            device=device)
+        return (params, state), hist
     else:
-        if type(model).__name__ not in _GENERIC_FAMILIES:
-            raise NotImplementedError(
-                f"fitting {type(model).__name__} is not ported yet (ROADMAP "
-                f"queue 1, item 13)")
+        # the generic single-optimizer families (cMLP-FM, cLSTM-FM, NAVAR,
+        # NAVAR-LSTM, DGCNN)
         from redcliff_tpu_torch.train.trainer import TrainConfig, Trainer
         tc = TrainConfig(
             learning_rate=args_dict.get("gen_lr",
@@ -347,7 +423,9 @@ def _normalized_gc_l1(gc):
 def call_model_eval_method(model, params, args_dict, val_ds, state=None):
     """The per-family "evaluate this trained model" dispatch: each family's
     validation-loss decomposition (plus the GC-L1 terms grid selection
-    reads), on the device the params live on.
+    reads), on the device the params live on. DCSFA-NMF takes its
+    ``(params, state)`` as ``params`` or its state as ``state``; the
+    DYNOTEARS models evaluate on the host.
 
     Returns a dict with a ``components`` list in the reference's
     positional order for that family plus the same values under stable
@@ -356,12 +434,64 @@ def call_model_eval_method(model, params, args_dict, val_ds, state=None):
     layout is kept so index-based consumers match."""
     from redcliff_tpu_torch.models.clstm_fm import CLSTMFM
     from redcliff_tpu_torch.models.cmlp_fm import CMLPFM
+    from redcliff_tpu_torch.models.dcsfa_nmf import DcsfaNmf
     from redcliff_tpu_torch.models.dgcnn import DGCNNModel
+    from redcliff_tpu_torch.models.dynotears import (DynotearsModel,
+                                                     DynotearsVanillaModel)
     from redcliff_tpu_torch.models.navar import NAVAR, NAVARLSTM
     from redcliff_tpu_torch.models.redcliff import RedcliffSCMLP
 
-    del state
     batch_size = int(args_dict.get("batch_size", 32))
+
+    if isinstance(model, DcsfaNmf):
+        # the recon and score MSEs on the params' device, the GC MSEs
+        # against the summed truth on the host (an empty list for real
+        # datasets, whose config sets true_GC_tensor to None)
+        if state is None and isinstance(params, tuple) and len(params) == 2:
+            params, state = params
+        true_gc = args_dict.get("true_GC_tensor")
+        if true_gc is None:
+            true_gc = []
+        summary = model.evaluate(
+            params, state, getattr(val_ds, "X_features", val_ds.X),
+            np.asarray(val_ds.Y).reshape(len(val_ds), -1),
+            true_gc,
+            save_path=args_dict.get("save_root_path"),
+            threshold=False, ignore_features=True)
+        return {"components": [summary["recon_mse"], summary["avg_recon_mse"],
+                               summary["score_mse"], summary["avg_score_mse"],
+                               summary["gc_mse"]], **summary}
+
+    if isinstance(model, DynotearsModel):
+        avg = float(model._mean_objective(val_ds, batch_size))
+        return {"components": [avg], "avg_val_loss": avg}
+
+    if isinstance(model, DynotearsVanillaModel):
+        from redcliff_tpu_torch.models.dynotears import (_split_windows,
+                                                         dynotears_objective)
+        cfg = model.config
+        a = np.asarray(model.gc(), dtype=np.float64)
+        d = a.shape[0]
+        # score the averaged lagged graph as a single-lag solution with no
+        # intra-window W, in the solver's (plus, minus)-split vector layout
+        # (reshape_wa contract: W+ rows, W- rows, then A+/A- flat blocks)
+        wa = np.concatenate([
+            np.zeros(2 * d * d),              # W+ = W- = 0
+            np.maximum(a, 0.0).reshape(-1),   # A+
+            np.maximum(-a, 0.0).reshape(-1),  # A-
+        ])
+        total, count = 0.0, 0
+        for X, _ in val_ds.batches(batch_size):
+            for b in range(X.shape[0]):
+                x_in, x_lag = _split_windows(
+                    np.asarray(X[b], np.float64), cfg.lag_size)
+                total += dynotears_objective(
+                    x_in, x_lag, wa, 0.0, 0.0, d, 1,
+                    cfg.lambda_a, cfg.lambda_w, x_in.shape[0])
+                count += 1
+        avg = total / max(count, 1)
+        return {"components": [avg], "avg_val_loss": avg}
+
     device = tree_leaves(params)[0].device
 
     def avg(loss_fn):

@@ -4,10 +4,10 @@ The reference's config system is two levels of stringly-typed JSON: model
 cached-args (every value a string, "None" sentinels, "[1,2]" int lists)
 and data cached-args carrying the fold path, the channel count and the
 ground-truth adjacency tensors serialized as Python-repr strings. The
-port reads the model schemas of the REDCLIFF cMLP and cLSTM variants,
-cMLP, cLSTM, DGCNN and NAVAR, and every data cached-args file; the
-DCSFA-NMF and DYNOTEARS schemas come with their models (ROADMAP queue 1,
-item 13) and raise.
+port reads the model schemas of every family of the JAX package: the
+REDCLIFF cMLP and cLSTM variants, cMLP, cLSTM, DGCNN, NAVAR, DCSFA-NMF
+(with the directed-spectrum parameters its features take) and DYNOTEARS
+(Vanilla and Stochastic), and every data cached-args file.
 
 stdlib + numpy only.
 """
@@ -163,18 +163,11 @@ def read_in_model_args(args_dict):
     """Per-family cached-args schema reader: ``args_dict`` must carry
     "model_type" and "model_cached_args_file"; returns it with the
     family's typed fields filled in."""
-    # the unported families are listed beside the factory, which imports
-    # torch; this module stays stdlib + numpy at import
-    from redcliff_tpu_torch.train.orchestration import (is_unported_family,
-                                                        refuse_unported)
-
     model_type = args_dict["model_type"]
     is_redcliff = "REDCLIFF" in model_type
     is_cmlp = "cMLP" in model_type or ("CMLP" in model_type and is_redcliff)
     is_clstm = "cLSTM" in model_type or ("CLSTM" in model_type
                                          and is_redcliff)
-    if not (is_cmlp or is_clstm) and is_unported_family(model_type):
-        refuse_unported(f"the cached-args schema of {model_type}")
     with open(args_dict["model_cached_args_file"], "r") as f:
         a = json.load(f)
 
@@ -243,6 +236,37 @@ def read_in_model_args(args_dict):
             args_dict["coeff_dict"]["DAGNESS_LAG_COEFF"] = 0
             args_dict["coeff_dict"]["DAGNESS_NODE_COEFF"] = 0
 
+    elif "DCSFA" in model_type:
+        args_dict["batch_size"] = int(a["batch_size"])
+        args_dict["best_model_name"] = a["best_model_name"]
+        args_dict["num_high_level_node_features"] = int(
+            a["num_high_level_node_features"])
+        args_dict["num_node_features"] = int(a["num_node_features"])
+        args_dict["n_components"] = int(a["n_components"])
+        args_dict["n_sup_networks"] = int(a["n_sup_networks"])
+        args_dict["signal_format"] = a["signal_format"]
+        args_dict["h"] = int(a["h"])
+        args_dict["momentum"] = float(a["momentum"])
+        args_dict["lr"] = float(a["lr"])
+        args_dict["recon_weight"] = float(a["recon_weight"])
+        args_dict["sup_weight"] = float(a["sup_weight"])
+        args_dict["sup_recon_weight"] = float(a["sup_recon_weight"])
+        args_dict["sup_smoothness_weight"] = float(a["sup_smoothness_weight"])
+        args_dict["n_epochs"] = int(a["n_epochs"])
+        args_dict["n_pre_epochs"] = int(a["n_pre_epochs"])
+        args_dict["nmf_max_iter"] = int(a["nmf_max_iter"])
+        nnf = args_dict["num_node_features"]
+        # recordings are truncated to num_node_features steps before feature
+        # extraction (ref model_utils.py:692-717 max_num_features_per_series)
+        args_dict["max_num_features_per_series"] = nnf
+        args_dict["dirspec_params"] = {
+            "fs": 1000, "min_freq": 0.0, "max_freq": 250.0,
+            "directed_spectrum": True,
+            "csd_params": {"detrend": "constant", "window": "hann",
+                           "nperseg": nnf, "noverlap": int(nnf * 0.5),
+                           "nfft": None},
+        }
+
     elif "DGCNN" in model_type:
         if not is_redcliff:
             args_dict["num_classes"] = int(a["num_classes"])
@@ -279,6 +303,39 @@ def read_in_model_args(args_dict):
             _read_redcliff_common(args_dict, a)
             args_dict["coeff_dict"]["DAGNESS_LAG_COEFF"] = 0
             args_dict["coeff_dict"]["DAGNESS_NODE_COEFF"] = 0
+
+    elif "DYNOTEARS" in model_type:
+        args_dict["signal_format"] = a["signal_format"]
+        args_dict["lambda_w"] = float(a["lambda_w"])
+        args_dict["lambda_a"] = float(a["lambda_a"])
+        args_dict["max_iter"] = int(a["max_iter"])
+        args_dict["h_tol"] = float(a["h_tol"])
+        args_dict["w_threshold"] = float(a["w_threshold"])
+        args_dict["tabu_edges"] = _opt(a["tabu_edges"])
+        args_dict["tabu_parent_nodes"] = _opt(a["tabu_parent_nodes"])
+        args_dict["tabu_child_nodes"] = _opt(a["tabu_child_nodes"])
+        args_dict["X_train"] = None
+        args_dict["X_val"] = None
+        args_dict["lag_size"] = int(a["lag_size"])
+        if "Vanilla" not in model_type:
+            args_dict["batch_size"] = int(a["batch_size"])
+            args_dict["grad_step"] = float(a["grad_step"])
+            args_dict["wa_est"] = _opt(a["wa_est"])
+            args_dict["rho"] = float(a["rho"])
+            args_dict["alpha"] = float(a["alpha"])
+            args_dict["h_value"] = (np.inf if a["h_value"] == "inf"
+                                    else float(a["h_value"]))
+            args_dict["h_new"] = (np.inf if a["h_new"] == "inf"
+                                  else float(a["h_new"]))
+            args_dict["max_data_iter"] = int(a["max_data_iter"])
+            args_dict["iter_start"] = int(a["iter_start"])
+            args_dict["num_iters_prior_to_stop"] = int(
+                a["num_iters_prior_to_stop"])
+            args_dict["reuse_rho"] = bool(int(a["reuse_rho"]))
+            args_dict["reuse_alpha"] = bool(int(a["reuse_alpha"]))
+            args_dict["reuse_h_val"] = bool(int(a["reuse_h_val"]))
+            args_dict["reuse_h_new"] = bool(int(a["reuse_h_new"]))
+            args_dict["check_every"] = int(a["check_every"])
 
     elif "NAVAR" in model_type:
         args_dict["num_nodes"] = int(a["num_nodes"])

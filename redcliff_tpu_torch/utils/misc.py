@@ -1,8 +1,8 @@
 """Small host-side helpers (a copy of the part of the JAX package's
-``utils/misc.py`` that the trainer and the evaluation layer use; numpy on
-the host): normalization and diagonal masking, Hungarian alignment of
-unsupervised factor estimates and of factor indices to supervised
-labels."""
+``utils/misc.py`` that the trainer, the evaluation layer and the DCSFA-NMF
+features use; numpy on the host): normalization and diagonal masking,
+Hungarian alignment of unsupervised factor estimates and of factor indices
+to supervised labels, and the directed-spectrum feature (un)flattening."""
 from __future__ import annotations
 
 import numpy as np
@@ -17,6 +17,8 @@ __all__ = [
     "mask_diag_elements",
     "sort_unsupervised_estimates",
     "factor_alignment_order",
+    "flatten_directed_spectrum_features",
+    "unflatten_directed_spectrum_features",
 ]
 
 
@@ -87,3 +89,51 @@ def factor_alignment_order(preds, labels, num_factors, unsupervised_start_index=
     order = list(range(usi)) + [o for o in order_tail if o is not None] + unmatched
     order = order + [k for k in range(K) if k not in order]
     return order[:K]
+
+
+def flatten_directed_spectrum_features(x):
+    """(n, n, m) directed-spectrum tensor -> (n, m*(2n-1)) row layout
+    (ref misc.py:159-176): for each feature block, row j holds x[j, :, i] followed
+    by the off-diagonal column entries x[:j, j, i] and x[j+1:, j, i]."""
+    x = np.asarray(x)
+    assert x.ndim == 3 and x.shape[0] == x.shape[1]
+    n, _, m = x.shape
+    x_flat = np.zeros((n, m * (2 * n - 1)), dtype=x.dtype)
+    for i in range(m):
+        c0 = i * (2 * n - 1)
+        for j in range(n):
+            x_flat[j, c0 : c0 + n] = x[j, :, i]
+            x_flat[j, c0 + n : c0 + n + j] = x[:j, j, i]
+            x_flat[j, c0 + n + j : c0 + (2 * n - 1)] = x[j + 1 :, j, i]
+    return x_flat
+
+
+def unflatten_directed_spectrum_features(x_flat, accumulate_shared_entries=False):
+    """Inverse of flatten_directed_spectrum_features (ref misc.py:178-195).
+
+    The reference's implementation ACCUMULATES the row and column writes
+    (``x[...] = x_flat[...] + x[...]``), so every off-diagonal entry — which
+    appears in two nodes' flattened rows — comes out doubled; it is not a
+    true inverse. ``accumulate_shared_entries=True`` reproduces that exactly
+    (the reference's only call site, the DCSFA GC readout
+    ref dcsfa_nmf.py:1305, inherits the doubling); the default keeps the
+    exact inverse for feature round-trips.
+    """
+    x_flat = np.asarray(x_flat)
+    assert x_flat.ndim == 2
+    n = x_flat.shape[0]
+    m = x_flat.shape[1] // (2 * n - 1)
+    # float64 output like the reference's np.zeros (also keeps the halving
+    # below exact for integer inputs)
+    x = np.zeros((n, n, m))
+    for i in range(m):
+        c0 = i * (2 * n - 1)
+        for j in range(n):
+            x[j, :, i] += x_flat[j, c0 : c0 + n]
+            x[:j, j, i] += x_flat[j, c0 + n : c0 + n + j]
+            x[j + 1 :, j, i] += x_flat[j, c0 + n + j : c0 + (2 * n - 1)]
+    if not accumulate_shared_entries:
+        # halve the doubled off-diagonal entries back to the true inverse
+        off = ~np.eye(n, dtype=bool)
+        x[off] *= 0.5
+    return x

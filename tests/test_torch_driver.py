@@ -51,6 +51,24 @@ GC_TOL = dict(rtol=1e-5, atol=1e-6)
 
 # the reference's REDCLIFF_S_CMLP_d4IC_BSCgs1_cached_args.txt
 # (experiments/accuracy_parity_d4ic.py:70-97) ...
+# experiments/accuracy_parity_d4ic.py DCSFA_ARGS and
+# experiments/accuracy_parity_synsys.py DYNOTEARS_ARGS
+DCSFA_PUBLISHED = {
+    "batch_size": "128", "num_high_level_node_features": "5",
+    "best_model_name": "dCSFA-NMF-best-model.pt", "num_node_features": "20",
+    "n_components": "5", "n_sup_networks": "5",
+    "signal_format": "original flattened directed_spectrum vanilla",
+    "h": "256", "momentum": "0.5", "lr": "0.001", "recon_weight": "1.0",
+    "sup_weight": "2.0", "sup_recon_weight": "1.0",
+    "sup_smoothness_weight": "2.0", "n_epochs": "1000",
+    "n_pre_epochs": "50", "nmf_max_iter": "20",
+}
+DYNOTEARS_PUBLISHED = {
+    "lambda_w": "0.9", "lambda_a": "0.1", "max_iter": "100",
+    "h_tol": "0.00000001", "w_threshold": "0.0", "tabu_edges": "None",
+    "tabu_parent_nodes": "None", "tabu_child_nodes": "None",
+    "lag_size": "1", "signal_format": "original",
+}
 PUBLISHED = {
     "output_length": "1", "batch_size": "128", "max_iter": "1000",
     "lookback": "1", "check_every": "10", "verbose": "0", "num_sims": "1",
@@ -251,7 +269,8 @@ def test_task_pick_matches_jax(monkeypatch, tmp_path, task_id, seed):
 def test_config_readers_and_factory_match_jax(fold):
     """The REDCLIFF cMLP cached-args schema (published and tiny), the data
     cached-args with its true graphs, and the model factory, smoothing
-    variant included; the families the port has not ported raise."""
+    variant included; the published DCSFA-NMF and DYNOTEARS schemas and
+    models; the unpublished REDCLIFF_S_DGCNN raises as in JAX."""
     for margs in (PUBLISHED, TINY):
         path = os.path.join(fold["base"], "published_cached_args.txt")
         _write_model_args(path, margs)
@@ -281,13 +300,30 @@ def test_config_readers_and_factory_match_jax(fold):
         == jconfig.serialize_tensor_to_string(t)
     np.testing.assert_array_equal(tconfig.parse_tensor_string_representation(
         tconfig.serialize_tensor_to_string(t))[:, :, ::-1], t)
-    for mt in ("DCSFANMF", "DYNOTEARS_Vanilla"):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            tconfig.read_in_model_args({"model_type": mt,
-                                        "model_cached_args_file": path})
-    for mt in ("REDCLIFF_S_DGCNN", "DCSFANMF", "DYNOTEARS_Vanilla"):
-        with pytest.raises(NotImplementedError):
-            torch_orch.create_model_instance(dict(got, model_type=mt))
+    # the published DCSFA-NMF and DYNOTEARS cached-args read and build
+    # alike in both packages
+    for mt, margs in (("DCSFANMF", DCSFA_PUBLISHED),
+                      ("DYNOTEARS_Vanilla", DYNOTEARS_PUBLISHED)):
+        path = os.path.join(fold["base"], f"{mt}_cached_args.txt")
+        _write_model_args(path, margs)
+        base = {"model_type": mt, "model_cached_args_file": path,
+                "data_cached_args_file": fold["dargs"]}
+        want = jconfig.read_in_data_args(
+            jconfig.read_in_model_args(dict(base)))
+        got_ = tconfig.read_in_data_args(
+            tconfig.read_in_model_args(dict(base)))
+        assert sorted(got_) == sorted(want)
+        for k, v in want.items():
+            if k not in ("true_GC_factors", "true_GC_tensor"):
+                assert got_[k] == v, k
+        jm = jorch.create_model_instance(want)
+        tm = torch_orch.create_model_instance(got_)
+        assert type(tm).__name__ == type(jm).__name__
+        assert dataclasses.asdict(tm.config) \
+            == dataclasses.asdict(jm.config)
+    with pytest.raises(NotImplementedError):
+        torch_orch.create_model_instance(dict(got,
+                                              model_type="REDCLIFF_S_DGCNN"))
     with pytest.raises(NotImplementedError) as e:
         jorch.create_model_instance(dict(want, model_type="REDCLIFF_S_DGCNN"))
     with pytest.raises(NotImplementedError) as t:
@@ -298,8 +334,8 @@ def test_config_readers_and_factory_match_jax(fold):
 
 def test_shards_round_trip_matches_jax(fold, tmp_path):
     """A fold the port's save_cv_split writes loads identically through
-    both packages, and so does the JAX-curated fold; with ``device`` the
-    resident copies are placed."""
+    both packages, and so does the JAX-curated fold, in the original and
+    a feature format; with ``device`` the resident copies are placed."""
     rng = np.random.default_rng(4)
     pairs = lambda n: [[rng.normal(size=(1, 7, 3)).astype(np.float32),  # noqa
                         np.eye(2, dtype=np.float32)[i % 2][:, None]]
@@ -321,9 +357,17 @@ def test_shards_round_trip_matches_jax(fold, tmp_path):
     with open(os.path.join(tmp_path, "fold_0", "train", "subset_0.pkl"),
               "rb") as f:
         assert len(pickle.load(f)) == 10
-    with pytest.raises(NotImplementedError):
-        tshards.load_normalized_split_datasets(
-            str(tmp_path / "fold_0"), signal_format="flattened")
+    # a feature format loads as in JAX (tests/test_torch_features.py holds
+    # every format)
+    kw = dict(signal_format="flattened", max_num_features_per_series=5)
+    want = jshards.load_normalized_split_datasets(str(tmp_path / "fold_0"),
+                                                  **kw)
+    got = tshards.load_normalized_split_datasets(str(tmp_path / "fold_0"),
+                                                 device="cpu", **kw)
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(g.X_features, w.X_features)
+        np.testing.assert_array_equal(g.device_features.numpy(),
+                                      w.X_features)
 
 
 def test_port_driver_loads_no_jax(tmp_path):

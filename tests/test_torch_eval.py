@@ -209,11 +209,43 @@ def test_gc_estimates_summaries_and_scores_match_jax(embedder, mode):
 
 
 def test_other_families_raise_citing_the_roadmap():
+    """The DCSFA-NMF and DYNOTEARS readouts (which raised until their
+    models were ported) equal the JAX package's on the same weights and
+    solver state; an unknown family still raises."""
+    from redcliff_tpu.models import dcsfa_nmf as jdc
+    from redcliff_tpu.models import dynotears as jdy
+    from redcliff_tpu_torch.models import dcsfa_nmf as tdc
+    from redcliff_tpu_torch.models import dynotears as tdy
+
+    kw = dict(num_nodes=C, num_high_level_node_features=2,
+              gc_feature_layout="dirspec", n_components=K,
+              n_sup_networks=K, h=8)
+    jm, tm = jdc.FullDCSFAModel(**kw), tdc.FullDCSFAModel(**kw)
+    jp, js = jm.init(jax.random.PRNGKey(5), jm.dim_in)
+    tp = interop.params_from_jax(jax.tree.map(np.asarray, jp))
+    ts = interop.params_from_jax(jax.tree.map(np.asarray, js))
+    got = tge.get_model_gc_estimates(tm, tp, "DCSFA", K)
+    want = jge.get_model_gc_estimates(jm, jp, "DCSFA", K)
+    assert len(got) == len(want) == K
+    for g, w in zip(got, want):
+        _close(g, np.asarray(w), TOL)
+    x = np.abs(_x(6, 1, jm.dim_in))
+    _close(tge.get_model_gc_score_estimates(tm, tp, "DCSFA", K, X=x,
+                                            state=ts),
+           jge.get_model_gc_score_estimates(jm, jp, "DCSFA", K, X=x,
+                                            state=js), TOL)
+    a = _x(7, C, C)
+    for mt in ("DYNOTEARS_Vanilla", "DYNOTEARS_Stochastic"):
+        jd, td = jdy.DynotearsVanillaModel(), tdy.DynotearsVanillaModel()
+        jd.a_est, td.a_est = a, a.copy()
+        for g, w in zip(tge.get_model_gc_estimates(td, None, mt, K),
+                        jge.get_model_gc_estimates(jd, None, mt, K)):
+            np.testing.assert_array_equal(g, w)
+        np.testing.assert_array_equal(
+            tge.get_model_gc_score_estimates(td, None, mt, K),
+            jge.get_model_gc_score_estimates(jd, None, mt, K))
     _, _, tm, tp = _pair(*CASES[0])
     for fn in (tge.get_model_gc_estimates, tge.get_model_gc_score_estimates):
-        for mt in ("DCSFA", "DYNOTEARS_Vanilla", "DYNOTEARS_Stochastic"):
-            with pytest.raises(NotImplementedError, match="item 13"):
-                fn(tm, tp, mt, K)
         with pytest.raises(NotImplementedError, match="unrecognized"):
             fn(tm, tp, "MYSTERY", K)
 
@@ -515,10 +547,11 @@ def test_entry_points_ask_for_cuda_by_default(tmp_path, monkeypatch, entry):
 
 
 def test_eval_imports_and_runs_with_jax_blocked(tmp_path):
-    """``redcliff_tpu_torch.eval`` and the grid's epoch engine
-    (``parallel/epoch_engine.py``) import, and the eval scores a
-    JAX-written artifact, in a process where importing jax fails; no
-    module of the JAX package is loaded."""
+    """``redcliff_tpu_torch.eval``, the grid's epoch engine
+    (``parallel/epoch_engine.py``) and the DCSFA-NMF / DYNOTEARS modules
+    (features, models, loader, dispatch) import and run, and the eval
+    scores a JAX-written artifact, in a process where importing jax fails;
+    no module of the JAX package is loaded."""
     jm, jp, _, _ = _pair("DGCNN", MODES[0], seed=13)
     save_model(str(tmp_path / "run"), jm, jp)
     code = f"""
@@ -528,6 +561,23 @@ import numpy as np
 import redcliff_tpu_torch.eval as E
 import redcliff_tpu_torch.parallel.epoch_engine as EE
 assert EE.EpochEngine and EE.Program
+# the DCSFA-NMF / DYNOTEARS slice: features, models, loader, dispatch
+import redcliff_tpu_torch.data.shards as SH
+import redcliff_tpu_torch.models.dcsfa_nmf as DC
+import redcliff_tpu_torch.models.dynotears as DY
+import redcliff_tpu_torch.train.orchestration as OR
+import redcliff_tpu_torch.utils.directed_spectrum as DS
+import redcliff_tpu_torch.utils.time_series as TS
+w = np.random.default_rng(1).normal(size=(2, 24, 3)).astype(np.float32)
+feats = SH.apply_signal_format(w, "directed_spectrum vanilla", 16, {{
+    "fs": 1000, "min_freq": 0.0, "max_freq": 250.0,
+    "directed_spectrum": True, "csd_params": {{"nperseg": 8,
+                                              "noverlap": 4}}}})
+assert feats.shape[0] == 2 and DC.nmf_fit(
+    feats, 2, max_iter=2, device="cpu")[1].shape == (2, feats.shape[1])
+assert DY.dynotears_solve(w[0, :-1], w[0, 1:], max_iter=2).a_mat.shape \
+    == (3, 3)
+assert OR.create_model_instance and DS.get_directed_spectrum and TS.swt
 graphs = list((np.random.default_rng(3).random(({K}, {C}, {C}, {L}))
                < 0.35).astype(float))
 stats = E.evaluate_algorithm_on_fold({str(tmp_path / "run")!r}, "{ALG}",

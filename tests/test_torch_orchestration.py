@@ -121,6 +121,30 @@ NAVAR_ARGS = {
     "learning_rate": "0.0001", "weight_decay": "0",
     "split_timeseries": "0", "signal_format": "original", "lambda1": "0.0",
 }
+# experiments/accuracy_parity_d4ic.py DCSFA_ARGS, and the DYNOTEARS args
+# of experiments/accuracy_parity_synsys.py (Vanilla) and the Stochastic
+# schema
+DCSFA_ARGS = {
+    "batch_size": "128", "num_high_level_node_features": "5",
+    "best_model_name": "dCSFA-NMF-best-model.pt", "num_node_features": "20",
+    "n_components": "5", "n_sup_networks": "5",
+    "signal_format": "original flattened directed_spectrum vanilla",
+    "h": "256", "momentum": "0.5", "lr": "0.001", "recon_weight": "1.0",
+    "sup_weight": "2.0", "sup_recon_weight": "1.0",
+    "sup_smoothness_weight": "2.0", "n_epochs": "1000",
+    "n_pre_epochs": "50", "nmf_max_iter": "20",
+}
+DYNOTEARS_ARGS = {
+    "lambda_w": "0.9", "lambda_a": "0.1", "max_iter": "100",
+    "h_tol": "0.00000001", "w_threshold": "0.0", "tabu_edges": "None",
+    "tabu_parent_nodes": "None", "tabu_child_nodes": "None",
+    "lag_size": "1", "signal_format": "original",
+}
+DYNOTEARS_STOCHASTIC_ARGS = dict(
+    DYNOTEARS_ARGS, batch_size="32", grad_step="1.0", wa_est="None",
+    rho="1.0", alpha="0.0", h_value="inf", h_new="inf", max_data_iter="10",
+    iter_start="0", num_iters_prior_to_stop="10", reuse_rho="0",
+    reuse_alpha="0", reuse_h_val="0", reuse_h_new="0", check_every="5")
 # REDCLIFF-S with cLSTM factors: the REDCLIFF args in the cLSTM schema
 # (an int LSTM width, context = gen_lag, max_input_length)
 REDCLIFF_CLSTM_ARGS = dict(REDCLIFF_ARGS, gen_hidden="25", context="4",
@@ -252,24 +276,48 @@ def test_published_args_readers_and_factory_match_jax(model_type, fold):
 
 
 def test_unported_families_raise_citing_the_roadmap(fold, tmp_path):
-    """DCSFA-NMF and DYNOTEARS (schema, factory, artifact) and the
-    unpublished REDCLIFF_S_DGCNN raise; an unknown family raises as in
-    JAX."""
-    for mt in ("DCSFANMF", "DYNOTEARS_Vanilla", "DYNOTEARS_Stochastic"):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            tconfig.read_in_model_args({"model_type": mt,
-                                        "model_cached_args_file": "none"})
-        with pytest.raises(NotImplementedError, match="item 13"):
-            torch_orch.create_model_instance({"model_type": mt})
+    """DCSFA-NMF and DYNOTEARS (which raised until their models were
+    ported): their cached-args schemas and the factory agree with JAX, and
+    a JAX-written DcsfaNmf artifact loads as ``(model, params, state)``
+    with its weights and BatchNorm state as written. The unpublished
+    REDCLIFF_S_DGCNN and an unknown family raise as in JAX."""
+    from redcliff_tpu.models import dcsfa_nmf as jdc
+
+    for mt, args in (("DCSFANMF", DCSFA_ARGS),
+                     ("DYNOTEARS_Vanilla", DYNOTEARS_ARGS),
+                     ("DYNOTEARS_Stochastic", DYNOTEARS_STOCHASTIC_ARGS)):
+        margs = _model_args(tmp_path, mt, args)
+        base = {"model_type": mt, "model_cached_args_file": margs,
+                "data_cached_args_file": fold["dargs"]}
+        want = jconfig.read_in_data_args(
+            jconfig.read_in_model_args(dict(base)))
+        got = tconfig.read_in_data_args(
+            tconfig.read_in_model_args(dict(base)))
+        assert sorted(got) == sorted(want)
+        for k, v in want.items():
+            if k not in ("true_GC_factors", "true_GC_tensor"):
+                assert got[k] == v, k
+        jm = jorch.create_model_instance(want)
+        tm = torch_orch.create_model_instance(got)
+        assert type(tm).__name__ == type(jm).__name__
+        assert dataclasses.asdict(tm.config) == dataclasses.asdict(jm.config)
     with pytest.raises(NotImplementedError, match="never"):
         torch_orch.create_model_instance({"model_type": "REDCLIFF_S_DGCNN"})
     with pytest.raises(ValueError, match="UNRECOGNIZED"):
         torch_orch.create_model_instance({"model_type": "MYSTERY"})
+    jm = jdc.DcsfaNmf(jdc.DcsfaNmfConfig(n_components=K, n_sup_networks=2,
+                                         h=6))
+    jp, js = jm.init(jax.random.PRNGKey(3), 12)
     write_checkpoint(str(tmp_path / "final_best_model.bin"),
-                     {"model_class": "DcsfaNmf", "config": None,
-                      "params": {}})
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tio.load_model_for_eval(str(tmp_path), device="cpu")
+                     jm._artifact_payload(jp, js))
+    tm, tp, ts = tio.load_model_for_eval(str(tmp_path), device="cpu")
+    assert type(tm).__name__ == "DcsfaNmf"
+    assert dataclasses.asdict(tm.config) == dataclasses.asdict(jm.config)
+    for got, want in ((tp, jp), (ts, js)):
+        got, want = _flat(interop.params_to_jax(got)), _flat(want)
+        assert sorted(got) == sorted(want)
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k])
 
 
 @pytest.mark.parametrize("model_type", list(TINY))
