@@ -4,9 +4,11 @@
 Drives the port's main paths on one CUDA card — serving a fitted model,
 fitting one, fitting a coefficient grid, fitting it durably on the bucket
 ladder, running one array task from cached-args files, scoring the
-fitted models through the evaluation layer, and fitting the paper's
-baseline families as array tasks, DCSFA-NMF and DYNOTEARS among them —
-and holds every kernel on them against its plain PyTorch version.
+fitted models through the evaluation layer, fitting the paper's
+baseline families as array tasks, DCSFA-NMF and DYNOTEARS among them,
+generating synthetic data on the card, and running the paper's two
+accuracy flows from curation to scores — and holds every kernel on them
+against its plain PyTorch version.
 Phases, one JSON line each:
 
 1. build: the factor-mix and GL-prox CUDA kernels from
@@ -143,10 +145,38 @@ Phases, one JSON line each:
    task 1 on the same recordings, on the host (the family does no device
    work in either package): wall per recording, the averaged graph read
    out and scored; neither kernel launches.
+18. data_gen: the device half of ``data/synthetic.py``
+   (``generate_synthetic_dataset``, one batched program over all
+   recordings and states) at the synSys accuracy study's size (1,040 +
+   240 recordings, T 100, burn-in 50, 2 states of 6 nodes, gaussian,
+   OneHot) and at one D4IC network's (150 recordings, T 48, burn-in 50, 1
+   state of 10 nodes, Oracle): wall ms (first call and the mean of 5),
+   recordings/s, the device's busy and idle share; shapes, finite values
+   and labels checked; neither kernel launches.
+19. data_gen_check: at both sizes, the unit draws made on the card and
+   copied to the CPU, the generator's body run on each: per recording
+   max |dX| within 1e-5 of the largest amplitude, Oracle labels within
+   1e-6, OneHot labels equal off the (counted) ties.
+20. accuracy_synsys: the synSys twin
+   (``redcliff_tpu_torch/experiments/accuracy_parity_synsys.py``) with
+   the JAX script's ``--smoke``, one fold, ``--dynamic --algs ref``:
+   curation, the array tasks of REDCLIFF-S, cMLP, cLSTM, DGCNN and
+   DCSFA-NMF, the cross-algorithm battery, the dynamic readouts. Checks
+   every artifact's reload and finite params, finite F1s, factor-mix
+   executions = the REDCLIFF task's forwards (from its meta data) + one
+   ``graph_mix`` per dynamic-readout recording (16), and no GL prox (no
+   family of the flow sets one, in either package). One fold keeps the
+   phase inside its time: the JAX smoke runs three.
+21. accuracy_d4ic: the D4IC twin with ``--smoke --folds 1 --algs core``:
+   five networks' recordings from the device generator, the D4IC
+   mixture, the array tasks of both REDCLIFF-S variants, cMLP, cLSTM,
+   DGCNN and DCSFA-NMF, the battery; the same checks (factor-mix
+   executions = both REDCLIFF tasks' forwards).
 
 Launch counts are reset just before each main path (serve, train, grid,
 each grid_stream fit, grid_durable, array_task, eval, each baseline task
-and the GISTA fit, dcsfa, dynotears) and read just after;
+and the GISTA fit, dcsfa, dynotears, data_gen, accuracy_synsys,
+accuracy_d4ic) and read just after;
 the kernel-phase launches do not count. A count is executions on the
 device: a launch captured into a CUDA graph counts at each replay of the
 graph (and the warm-up step before each capture ran and counts). Then a
@@ -470,6 +500,44 @@ EVAL_F1_ATOL = 1e-6
 EVAL_DYN_ATOL = 1e-4
 
 
+# data_gen: the device generator (data/synthetic.py) at the synSys size of
+# the accuracy study (experiments/accuracy_parity_synsys.py:195-196,
+# 239-247: 1,040 + 240 recordings, T 100, burn-in 50, 2 states of 6 nodes
+# with 2 edges, gaussian, OneHot, noise 1.0; fold 0's graphs) and at one
+# D4IC network's (experiments/accuracy_parity_d4ic.py:193-210,233: 150
+# recordings, T 48, burn-in 50, 1 state of 10 nodes with 13 edges,
+# gaussian, Oracle; network 0's graph)
+GEN_SIZES = {
+    "synsys": dict(nodes=6, factors=2, edges=2, orthogonal=True, seed=0,
+                   n=1040 + 240, T=100, burnin=50, label="OneHot",
+                   noise="gaussian", noise_amp=1.0),
+    "d4ic_network": dict(nodes=10, factors=1, edges=13, orthogonal=False,
+                         seed=1, n=150, T=48, burnin=50, label="Oracle",
+                         noise="gaussian", noise_amp=0.1),
+}
+GEN_TIMED_RUNS = 5
+# card vs CPU body: per recording, relative to its largest amplitude (the
+# recurrence runs burnin + T steps in float32, another summation order on
+# each device); labels absolute
+GEN_BODY_REL = 1e-5
+GEN_LABEL_ATOL = 1e-6
+# the accuracy flows' smokes through the twins' main (the JAX scripts'
+# own --smoke): synSys one fold with --dynamic and the reference's
+# algorithm set; D4IC one fold without NAVAR / DYNOTEARS
+ACC_SYNSYS_ARGV = ["--smoke", "--folds", "1", "--dynamic", "--algs", "ref"]
+ACC_D4IC_ARGV = ["--smoke", "--folds", "1", "--algs", "core"]
+# run_dynamic_readout_evaluation's default: recordings read out per fold,
+# one graph_mix each for a REDCLIFF run
+ACC_DYNAMIC_RECORDINGS = 16
+# the factor mix's shapes on those flows (batch 128): synSys K = 2, M = 6
+# at 1,040 / 240 (remainders 16, 112) and the smoke's 240 / 96 (112, 96);
+# D4IC K = 5, M = 10 at 600 / 150 (88, 22) and the smoke's 120 / 40; the
+# synSys readout's windows: T 100 - embed_lag 16 + 1
+SYNSYS_BATCHES = (128, 16, 112, 96)
+D4IC_BATCHES = (120, 40, 88, 22)
+SYNSYS_READOUT_S = 100 - 16 + 1
+
+
 class SmokeFailure(RuntimeError):
     pass
 
@@ -630,6 +698,12 @@ def _mix_checks(torch, FM, gen, dev, errs):
              ((128, 5, 1, 10), False), ((64, 5, 10, 10), False),
              ((32, 5, 1, 7), False), ((8, 20, 1, 12), False),
              ((64, 5, 10, 10), True), ((128, 5, 1, 10), True)]
+    # the accuracy flows' batches: synSys (K = 2, M = 6) full, the
+    # published remainder and the smoke's remainder and validation batch;
+    # D4IC (K = 5, M = 10) the smoke's one batch and validation batch, the
+    # published remainders
+    cases += [((B, 2, 1, 6), False) for B in SYNSYS_BATCHES]
+    cases += [((B, K_TRAIN, 1, C_TRAIN), False) for B in D4IC_BATCHES]
     for (B, K, T, C), offset in cases:
         w = torch.rand((B, K), generator=gen).to(dev)
         p = torch.randn((K, B, T, C), generator=gen).to(dev)
@@ -648,6 +722,14 @@ def _mix_checks(torch, FM, gen, dev, errs):
         _check_close(torch, name, FM.graph_mix(w, g),
                      FM.graph_mix_reference(w, g), errs)
         plans[name] = plan(w, g, S, 100, g.stride(0), 0)
+    # the synSys dynamic readout: 85 windows of a 100-step recording, the
+    # 2 factor graphs of 6 x 6
+    g2 = torch.randn((2, 6, 6), generator=gen).to(dev)
+    w2 = torch.rand((SYNSYS_READOUT_S, 2), generator=gen).to(dev)
+    name = f"graph_mix(S={SYNSYS_READOUT_S} K=2 M=36)"
+    _check_close(torch, name, FM.graph_mix(w2, g2),
+                 FM.graph_mix_reference(w2, g2), errs)
+    plans[name] = plan(w2, g2, SYNSYS_READOUT_S, 36, g2.stride(0), 0)
     _require(plans["graph_mix(S=64)"] == "float4"
              and plans["graph_mix(S=240)"] == "float4"
              and plans["factor_mix(128, 5, 1, 10)"] == "float2"
@@ -657,13 +739,17 @@ def _mix_checks(torch, FM, gen, dev, errs):
     # autograd, kernel forward + einsum backward vs the plain version: the
     # serve-test shape, the training batch and an odd remainder batch; and
     # the same forward with no gradient wanted (the direct launch)
-    for B in (64, 128, 117):
-        w0 = torch.rand((B, K_TRAIN), generator=gen).to(dev)
-        p0 = torch.randn((K_TRAIN, B, 1, C_TRAIN), generator=gen).to(dev)
+    for B, K, C in ((64, K_TRAIN, C_TRAIN), (128, K_TRAIN, C_TRAIN),
+                    (117, K_TRAIN, C_TRAIN), (120, K_TRAIN, C_TRAIN),
+                    (128, 2, 6), (112, 2, 6), (16, 2, 6)):
+        w0 = torch.rand((B, K), generator=gen).to(dev)
+        p0 = torch.randn((K, B, 1, C), generator=gen).to(dev)
         got = _mix_grads(torch, FM.factor_mix, w0, p0)
         want = _mix_grads(torch, FM.factor_mix_reference, w0, p0)
+        tag = (f"B={B}" if (K, C) == (K_TRAIN, C_TRAIN)
+               else f"B={B} K={K} M={C}")
         for what, a, b in zip(("forward", "dw", "dp"), got, want):
-            _check_close(torch, f"factor_mix_{what}(B={B})", a, b, errs)
+            _check_close(torch, f"factor_mix_{what}({tag})", a, b, errs)
         with torch.no_grad():
             direct = FM.factor_mix(w0.requires_grad_(True), p0)
         _require(bool(torch.equal(direct, got[0])),
@@ -979,6 +1065,11 @@ def phase_kernel(torch, FM, PX):
     pt = torch.randn((K_TRAIN, B, 1, C_TRAIN), generator=gen).to(dev)
     S_r = EVAL_T - TRAIN_CONFIG["embed_lag"]
     wr = torch.rand((S_r, 5), generator=gen).to(dev)
+    ws = torch.rand((B, 2), generator=gen).to(dev)
+    ps = torch.randn((2, B, 1, 6), generator=gen).to(dev)
+    S_s = SYNSYS_READOUT_S
+    wsr = torch.rand((S_s, 2), generator=gen).to(dev)
+    gs = torch.randn((2, 6, 6), generator=gen).to(dev)
     for key, shape, fns, bound in (
             ("tick", "S=64 K=5 M=100 (graph_mix, p broadcast over S)",
              {"kernel_ms": lambda: FM.graph_mix(w, gc),
@@ -1003,7 +1094,20 @@ def phase_kernel(torch, FM, PX):
                   wt[:, None, :], pt.reshape(K_TRAIN, B, C_TRAIN).transpose(
                       0, 1)),
               "plain_ms": lambda: FM.factor_mix_reference(wt, pt)},
-             _bound_ms(B, K_TRAIN, C_TRAIN, B))):
+             _bound_ms(B, K_TRAIN, C_TRAIN, B)),
+            ("synsys_train", "B=128 K=2 M=6 (factor_mix forward, the synSys "
+                             "accuracy flow's training batch)",
+             {"kernel_ms": lambda: FM.factor_mix(ws, ps),
+              "library_ms": lambda: torch.bmm(
+                  ws[:, None, :], ps.reshape(2, B, 6).transpose(0, 1)),
+              "plain_ms": lambda: FM.factor_mix_reference(ws, ps)},
+             _bound_ms(B, 2, 6, B)),
+            ("synsys_readout", f"S={S_s} K=2 M=36 (graph_mix, the synSys "
+                               f"dynamic readout's factor sum)",
+             {"kernel_ms": lambda: FM.graph_mix(wsr, gs),
+              "library_ms": lambda: torch.mm(wsr, gs.view(2, -1)),
+              "plain_ms": lambda: FM.graph_mix_reference(wsr, gs)},
+             _bound_ms(S_s, 2, 36, 1))):
         t = timing["factor_mix"][key] = {"shape": shape,
                                          **_time_turns(torch, fns)}
         t["bound_ms"], t["bound_by"] = bound
@@ -3314,6 +3418,295 @@ def phase_dynotears(torch, FM, PX):
     return mix, prox
 
 
+def _gen_system(size):
+    """A size's graphs from the host factory with the curation's
+    coefficients, and its base parameters."""
+    from redcliff_tpu_torch.data import synthetic as S
+
+    c = GEN_SIZES[size]
+    p = S.reference_curation_params(c["nodes"])
+    graphs, acts, _ = S.generate_lagged_adjacency_graphs_for_factor_model(
+        num_nodes=c["nodes"], num_lags=2, num_factors=c["factors"],
+        make_factors_orthogonal=c["orthogonal"],
+        make_factors_singular_components=False, rand_seed=c["seed"],
+        off_diag_edge_strengths=p["off_diag_edge_strengths"],
+        diag_receiving_node_forgetting_coeffs=
+            p["diag_receiving_node_forgetting_coeffs"],
+        diag_sending_node_forgetting_coeffs=
+            p["diag_sending_node_forgetting_coeffs"],
+        num_edges_per_graph=c["edges"])
+    return c, p, graphs, acts
+
+
+def phase_data_gen(torch, FM, PX):
+    """The device generator (``generate_synthetic_dataset``) on the card at
+    both sizes: wall ms of the first call and the mean of
+    ``GEN_TIMED_RUNS`` more (host clock around a synchronized call, the
+    numpy copy included), recordings/s, and the device's busy and idle
+    share (``torch.profiler`` device time of one call over the unprofiled
+    mean wall). Checks shapes, dtypes, finite values and labels. Launches
+    neither kernel (counts at 0 before the timed calls, read after)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from redcliff_tpu_torch.data import synthetic as S
+
+    out = {}
+    FM.factor_mix.launches = 0
+    PX.gl_prox.launches = 0
+    for size in GEN_SIZES:
+        c, p, graphs, acts = _gen_system(size)
+
+        def gen(seed):
+            return S.generate_synthetic_dataset(
+                torch.Generator(device="cuda").manual_seed(seed), graphs,
+                acts, p["base_freqs"], p["noise_mu"], p["noise_var"],
+                p["innovation_amp"], num_samples=c["n"],
+                recording_length=c["T"], burnin_period=c["burnin"],
+                num_labeled_sys_states=c["factors"], label_type=c["label"],
+                noise_type=c["noise"], noise_amp=c["noise_amp"])
+
+        t0 = time.perf_counter()
+        X, Y = gen(0)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        walls = []
+        for seed in range(1, GEN_TIMED_RUNS + 1):
+            t0 = time.perf_counter()
+            gen(seed)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        wall_ms = sum(walls) / len(walls)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            gen(0)
+            torch.cuda.synchronize()
+        device_us = _device_us(torch, prof, 1)[1]
+        _require(X.shape == (c["n"], c["T"], c["nodes"])
+                 and Y.shape == (c["n"], c["factors"], c["T"])
+                 and X.dtype == np.float32 and Y.dtype == np.float32
+                 and bool(np.isfinite(X).all()),
+                 f"data_gen {size}: X {X.shape} {X.dtype}, Y {Y.shape}")
+        if c["label"] == "OneHot":
+            _require(bool(np.all(Y.sum(axis=1) == 1.0)),
+                     f"data_gen {size}: labels not one-hot")
+        else:
+            _require(float(Y.min()) >= 0.0 and float(Y.max()) <= 1.0 + 1e-6,
+                     f"data_gen {size}: Oracle labels outside [0, 1]")
+        out[size] = {"recordings": c["n"], "T": c["T"],
+                     "burnin": c["burnin"], "states": c["factors"],
+                     "nodes": c["nodes"], "label": c["label"],
+                     "noise": c["noise"], "first_call_ms": first_ms,
+                     "wall_ms": wall_ms, "wall_ms_runs": walls,
+                     "recordings_per_s": c["n"] / wall_ms * 1e3,
+                     "device_busy_us": device_us,
+                     "device_busy_share": device_us / (wall_ms * 1e3),
+                     "device_idle_share": 1.0 - device_us / (wall_ms * 1e3),
+                     "abs_max": float(np.abs(X).max())}
+    mix, prox = FM.factor_mix.launches, PX.gl_prox.launches
+    _require(mix == 0 and prox == 0,
+             f"data_gen: {mix} factor_mix / {prox} gl_prox launches")
+    _emit({"phase": "data_gen", "device": torch.cuda.get_device_name(0),
+           "config": "synSys 6-2-2 curation size "
+                     "(experiments/accuracy_parity_synsys.py:195-196,"
+                     "239-247) and one D4IC network "
+                     "(experiments/accuracy_parity_d4ic.py:193-210,233)",
+           "reduced": {}, "sizes": out,
+           "factor_mix_launches": mix, "gl_prox_launches": prox})
+    return mix, prox
+
+
+def phase_data_gen_check(torch):
+    """The generator's body card vs CPU at both sizes: the unit draws made
+    on the card (``draw_synthetic_noise``) and copied to the CPU, then
+    ``synthetic_batch_body`` on each. Per recording max |dX| within
+    ``GEN_BODY_REL`` of the CPU's largest amplitude; Oracle labels within
+    ``GEN_LABEL_ATOL``; OneHot labels equal but where the two largest
+    ramps lie within ``GEN_LABEL_ATOL`` (counted). The body sums and
+    divides in the same order on both devices, so bitwise equality is
+    expected; ``bitwise`` says whether it held."""
+    import numpy as np
+
+    from redcliff_tpu_torch.data import synthetic as S
+
+    out = {}
+    for size in GEN_SIZES:
+        c, p, graphs, acts = _gen_system(size)
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        draws = S.draw_synthetic_noise(gen, c["n"], c["factors"], c["T"],
+                                       c["burnin"], c["nodes"],
+                                       noise_type=c["noise"], device="cuda")
+        res = {}
+        for dev, label in (("cuda", c["label"]), ("cpu", c["label"]),
+                           ("cpu_oracle", "Oracle")):
+            d = dev.split("_")[0]
+            M1, M2, codes, base = S.stack_systems(
+                graphs, acts, p["base_freqs"], p["noise_mu"],
+                p["noise_var"], p["innovation_amp"], device=d)
+            with torch.no_grad():
+                X, Y = S.synthetic_batch_body(
+                    M1, M2, codes, base,
+                    {k: v.to(d) for k, v in draws.items()}, c["T"],
+                    c["burnin"], c["factors"], label_type=label,
+                    noise_type=c["noise"], noise_amp=c["noise_amp"])
+            res[dev] = (X.cpu().numpy(), Y.cpu().numpy())
+        (gX, gY), (cX, cY) = res["cuda"], res["cpu"]
+        rel = np.abs(gX - cX).max(axis=(1, 2)) / np.abs(cX).max(axis=(1, 2))
+        oracle = np.sort(res["cpu_oracle"][1], axis=1)
+        ties = (np.zeros(oracle[:, 0].shape, bool) if oracle.shape[1] == 1
+                else oracle[:, -1] - oracle[:, -2] <= GEN_LABEL_ATOL)
+        label_err = float(np.abs(gY - cY).max())
+        flips = (int(np.any(gY != cY, axis=1)[~ties].sum())
+                 if c["label"] == "OneHot" else None)
+        _require(float(rel.max()) <= GEN_BODY_REL,
+                 f"data_gen_check {size}: body card vs CPU rel err "
+                 f"{float(rel.max())} > {GEN_BODY_REL}")
+        if c["label"] == "Oracle":
+            _require(label_err <= GEN_LABEL_ATOL,
+                     f"data_gen_check {size}: labels {label_err}")
+        else:
+            _require(flips == 0, f"data_gen_check {size}: {flips} one-hot "
+                                 f"labels differ off the ties")
+        out[size] = {"bitwise": bool(np.array_equal(gX, cX)
+                                     and np.array_equal(gY, cY)),
+                     "max_rel_err": float(rel.max()),
+                     "max_abs_err": float(np.abs(gX - cX).max()),
+                     "label_max_abs_err": label_err,
+                     "onehot_ties_excluded": int(ties.sum()),
+                     "label_flips": flips}
+    _emit({"phase": "data_gen_check",
+           "against": "port CPU body, the card's draws",
+           "rel_tol": GEN_BODY_REL, "label_atol": GEN_LABEL_ATOL,
+           "sizes": out})
+
+
+def _flow_runs(roots_dir):
+    """Each algorithm's run dirs under a twin's runs root:
+    {alias: [run_dir, ...]}."""
+    out = {}
+    for d in sorted(os.listdir(roots_dir)):
+        alias = d[:-len("_models")]
+        root = os.path.join(roots_dir, d)
+        out[alias] = [os.path.join(root, r) for r in sorted(os.listdir(root))]
+    return out
+
+
+def _flow_checks(name, out, runs, n_train, n_val, batch, dynamic_folds):
+    """The checks both flows share: every algorithm's runs load back
+    through ``load_artifact`` with finite params, every F1 is finite; the
+    factor-mix executions each REDCLIFF run's fit makes (its forwards, from
+    its meta data) plus one ``graph_mix`` per dynamic-readout recording.
+    Returns the expected factor-mix executions."""
+    import math
+
+    import numpy as np
+
+    from redcliff_tpu_torch.eval.model_io import load_artifact
+    from redcliff_tpu_torch.interop import tree_leaves
+    from redcliff_tpu_torch.runtime.checkpoint import read_checkpoint
+
+    _require(set(out["algorithms"]) == set(runs),
+             f"{name}: algorithms {sorted(out['algorithms'])} vs runs "
+             f"{sorted(runs)}")
+    forwards = 0
+    for alias, run_dirs in runs.items():
+        stats = out["algorithms"][alias]
+        _require(math.isfinite(stats["offdiag_optimal_f1_mean"]),
+                 f"{name}: {alias} F1 {stats}")
+        for run_dir in run_dirs:
+            payload = load_artifact(run_dir)
+            leaves = ([] if payload.get("params") is None
+                      else tree_leaves(payload["params"]))
+            _require(all(bool(np.isfinite(np.asarray(x)).all())
+                         for x in leaves),
+                     f"{name}: non-finite params in {run_dir}")
+            if payload["model_class"] == "RedcliffSCMLP":
+                meta = read_checkpoint(os.path.join(
+                    run_dir, "training_meta_data_and_hyper_parameters.pkl"))
+                forwards += _redcliff_forwards(
+                    payload["config"], meta["epoch"] + 1,
+                    -(-n_train // batch), -(-n_val // batch))
+                forwards += ACC_DYNAMIC_RECORDINGS * dynamic_folds
+    return forwards
+
+
+def phase_accuracy_synsys(torch, FM, PX):
+    """The synSys twin's ``main`` with the JAX script's ``--smoke`` on the
+    card (``ACC_SYNSYS_ARGV``): curation, the five array tasks, the
+    cross-algorithm battery and the dynamic readouts. Counts at 0 just
+    before, read just after."""
+    from redcliff_tpu_torch.experiments import accuracy_parity_synsys as A
+
+    wd = os.path.join(HERE, "build", "chip_smoke", "accuracy_synsys")
+    shutil.rmtree(wd, ignore_errors=True)
+    FM.factor_mix.launches = 0
+    PX.gl_prox.launches = 0
+    t0 = time.perf_counter()
+    out = A.main([wd] + ACC_SYNSYS_ARGV)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    mix, prox = FM.factor_mix.launches, PX.gl_prox.launches
+    n_train, n_val = A.SAMPLES[True]
+    runs = _flow_runs(os.path.join(wd, "runs"))
+    expected = _flow_checks("accuracy_synsys", out, runs, n_train,
+                            n_val, int(A.REDCLIFF_ARGS["batch_size"]),
+                            dynamic_folds=out["folds"])
+    _require(mix == expected and prox == 0,
+             f"accuracy_synsys: {mix} factor_mix executions for {expected} "
+             f"REDCLIFF forwards + graph_mix readouts, {prox} gl_prox")
+    _require(os.path.isfile(os.path.join(wd, "ACCURACY_SYNSYS_smoke.json")),
+             "accuracy_synsys: no JSON in the work dir")
+    _emit({"phase": "accuracy_synsys",
+           "device": torch.cuda.get_device_name(0),
+           "config": "experiments/accuracy_parity_synsys.py --smoke "
+                     "(its own smoke cuts), through the port twin",
+           "argv": ACC_SYNSYS_ARGV, "reduced": {"folds": "3 -> 1"},
+           "train_recordings": n_train, "val_recordings": n_val,
+           "wall_s": wall_s, "walls": out["wall_s"],
+           "algorithms": out["algorithms"],
+           "dynamic_redcliff": out["dynamic_readouts"]["REDCLIFF_S_CMLP"],
+           "factor_mix_launches": mix, "expected_factor_mix": expected,
+           "gl_prox_launches": prox})
+    return mix, prox
+
+
+def phase_accuracy_d4ic(torch, FM, PX):
+    """The D4IC twin's ``main`` with the JAX script's ``--smoke`` on the
+    card (``ACC_D4IC_ARGV``): five networks' recordings from the device
+    generator, the D4IC mixture, the six array tasks and the battery.
+    Counts at 0 just before, read just after."""
+    from redcliff_tpu_torch.experiments import accuracy_parity_d4ic as A
+
+    wd = os.path.join(HERE, "build", "chip_smoke", "accuracy_d4ic")
+    shutil.rmtree(wd + "_smoke", ignore_errors=True)
+    FM.factor_mix.launches = 0
+    PX.gl_prox.launches = 0
+    t0 = time.perf_counter()
+    out = A.main([wd] + ACC_D4IC_ARGV)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    mix, prox = FM.factor_mix.launches, PX.gl_prox.launches
+    n_train, n_val = (k * A.NUM_NETWORKS for k in A.SAMPLES[True])
+    runs = _flow_runs(os.path.join(wd + "_smoke", "runs_HSNR"))
+    expected = _flow_checks("accuracy_d4ic", out, runs, n_train,
+                            n_val, int(A.REDCLIFF_ARGS["batch_size"]),
+                            dynamic_folds=0)
+    _require(mix == expected and prox == 0,
+             f"accuracy_d4ic: {mix} factor_mix executions for {expected} "
+             f"REDCLIFF forwards, {prox} gl_prox")
+    _require(os.path.isfile(os.path.join(
+        wd + "_smoke", "ACCURACY_D4IC_HSNR_smoke.json")),
+        "accuracy_d4ic: no JSON in the work dir")
+    _emit({"phase": "accuracy_d4ic", "device": torch.cuda.get_device_name(0),
+           "config": "experiments/accuracy_parity_d4ic.py --smoke --algs "
+                     "core (its own smoke cuts), through the port twin",
+           "argv": ACC_D4IC_ARGV, "reduced": {"folds": "3 -> 1"},
+           "train_recordings": n_train, "val_recordings": n_val,
+           "wall_s": wall_s, "walls": out["wall_s"],
+           "algorithms": out["algorithms"],
+           "factor_mix_launches": mix, "expected_factor_mix": expected,
+           "gl_prox_launches": prox})
+    return mix, prox
+
+
 def phase_profile_dcsfa(torch, model, X, y, host_p, host_s):
     """Where a DCSFA joint step's time goes (``--profile`` only): a
     profiled window of joint steps at the published widths on the card —
@@ -3618,6 +4011,10 @@ def main():
     dc_mix, dc_prox, dc_model, dc_root, dc_margs = phase_dcsfa(torch, FM, PX)
     dc_check = phase_dcsfa_check(torch, dc_model, dc_root, dc_margs)
     dy_mix, dy_prox = phase_dynotears(torch, FM, PX)
+    gen_mix, gen_prox = phase_data_gen(torch, FM, PX)
+    phase_data_gen_check(torch)
+    syn_mix, syn_prox = phase_accuracy_synsys(torch, FM, PX)
+    d4_mix, d4_prox = phase_accuracy_d4ic(torch, FM, PX)
     if "--profile" in sys.argv[1:]:
         phase_profile(torch, FM)
         phase_profile_train(torch, FM, PX, tmodel, tparams, train_ds)
@@ -3636,7 +4033,8 @@ def main():
                  "grid_durable": dur_mix,
                  "array_task": task_mix, "eval": eval_mix,
                  "baselines": base_mix, "dcsfa": dc_mix,
-                 "dynotears": dy_mix}
+                 "dynotears": dy_mix, "data_gen": gen_mix,
+                 "accuracy_synsys": syn_mix, "accuracy_d4ic": d4_mix}
     fm = _kernel_entry(
         "factor_mix", FM, "redcliff_tpu/ops/factor_mix.py:58",
         sum(mix_paths.values()), mix_paths, max_err["factor_mix"],
@@ -3647,7 +4045,9 @@ def main():
                   "grid_stream": sum(v["gl_prox"] for v in stream.values()),
                   "grid_durable": dur_prox, "array_task": task_prox,
                   "eval": eval_prox, "baselines": base_prox,
-                  "dcsfa": dc_prox, "dynotears": dy_prox}
+                  "dcsfa": dc_prox, "dynotears": dy_prox,
+                  "data_gen": gen_prox, "accuracy_synsys": syn_prox,
+                  "accuracy_d4ic": d4_prox}
     px = _kernel_entry(
         "gl_prox", PX, "redcliff_tpu/ops/pallas_prox.py:47",
         sum(prox_paths.values()), prox_paths, max_err["gl_prox"],

@@ -2,23 +2,38 @@
 
 The package mirrors ``redcliff_tpu/``'s layout file for file, so
 ``redcliff_tpu_torch/serve/engine.py`` is the counterpart of
-``redcliff_tpu/serve/engine.py``. It imports ``torch``, ``numpy`` and the
-standard library only: never ``jax`` and never a module of ``redcliff_tpu``.
-What it needs from the JAX package's backend-free modules it keeps as its
-own copies (``serve/session.py``, ``runtime/admission.py``,
-``runtime/checkpoint.py``, ``runtime/preempt.py``,
-``parallel/{policy,compaction}.py``, ``utils/config.py``,
-``data/shards.py``).
+``redcliff_tpu/serve/engine.py``. It imports ``torch``, ``numpy``,
+``scipy`` and the standard library only: never ``jax`` and never a module
+of ``redcliff_tpu``. What it needs from the JAX package's backend-free
+modules it keeps as its own copies: ``serve/session.py``,
+``runtime/{admission,checkpoint,preempt}.py``, ``utils/{metrics,misc}.py``,
+``train/tracking.py``, ``parallel/{policy,compaction}.py``,
+``utils/config.py``, ``data/shards.py`` (without ``ShardedBatchDataset``),
+``eval/*`` (without ``analysis.py`` and ``supervised_discovery.py``),
+``utils/{directed_spectrum,time_series}.py``, ``models/dynotears.py``, and
+``data/{curation,dream4,lfp}.py`` with the host half of
+``data/synthetic.py``.
 
-Four slices are ported: the serve path (load a fitted REDCLIFF-S artifact
-and serve it to live streams), the per-point REDCLIFF-S fit
-(``train/redcliff_trainer.py``, with the GISTA group-lasso prox), the
-coefficient grid (``train/driver.py:run_coefficient_grid`` ->
-``parallel/grid.py:RedcliffGridRunner``, G points as one batched program,
-with checkpoint and resume, deadlines, the bucket ladder and compaction),
-and the array-task driver (``train/driver.py:set_up_and_run_experiments``
--> ``train/orchestration.py``: one REDCLIFF-S experiment from cached-args
-files to ``final_best_model.bin``).
+Ported so far:
+
+- serving: load a fitted REDCLIFF-S artifact and serve it to live streams
+  (``serve/``);
+- training: the per-point REDCLIFF-S fit (``train/redcliff_trainer.py``,
+  with the GISTA group-lasso prox), the coefficient grid
+  (``train/driver.py:run_coefficient_grid`` ->
+  ``parallel/grid.py:RedcliffGridRunner``, G points as one batched
+  program, durable, on the bucket ladder, its epochs replayed as CUDA
+  graphs by ``parallel/epoch_engine.py``), the generic trainer
+  (``train/trainer.py``) and every family of the paper's comparison as an
+  array task (``train/driver.py:set_up_and_run_experiments`` ->
+  ``train/orchestration.py``): REDCLIFF-S with cMLP or cLSTM factors,
+  cMLP, cLSTM, NAVAR, NAVAR-LSTM, DGCNN, DCSFA-NMF and DYNOTEARS;
+- evaluation: scoring, selection and the dynamic readouts (``eval/``);
+- data: synthetic sVAR generation on the host and on the card, synSys and
+  D4IC curation, DREAM4 and LFP preprocessing (``data/``);
+- the paper's synSys and D4IC accuracy studies as twins of the JAX
+  package's scripts (``experiments/``).
+
 The two TPU kernels on those paths are hand-written CUDA kernels, each with
 a lane form for the grid: the factor mix (``ops/csrc/factor_mix.cu``) and
 the GL prox (``ops/csrc/gl_prox.cu``).

@@ -249,7 +249,9 @@ def evaluate_dynamic_readouts_on_fold(run_dir, alg_name, true_graphs, samples,
     "center", "majority") — fast-switching systems blur under "last".
     device: where the model is loaded and read out (default ``cuda``).
     """
-    model, params = load_model_for_eval(run_dir, device=device)
+    # a DCSFA-NMF artifact loads as (model, params, state); the readout
+    # needs the first two, as in the JAX package
+    model, params = load_model_for_eval(run_dir, device=device)[:2]
     is_redcliff = alg_name.startswith("REDCLIFF")
     if history is None:
         history = default_history(run_dir, alg_name, true_graphs)

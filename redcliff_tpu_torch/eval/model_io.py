@@ -61,9 +61,12 @@ def load_artifact(path, best_model_name=None):
     In a run dir, ``best_model_name`` names the artifact outright (it must
     exist); otherwise ``final_best_model.bin`` is read, else a DCSFA
     ``dCSFA-NMF-best-model*`` file (``.pt`` before ``.bin`` before
-    ``.pkl``, newest first among equals), as the JAX package does. Unlike
-    the JAX package, a lone pickle of another name is not guessed at: name
-    it with ``best_model_name``."""
+    ``.pkl``, newest first among equals), else a lone ``.pt``/``.pkl``/
+    ``.bin`` file that is neither the run's meta data nor its trainer
+    checkpoint, as the JAX package does. One difference, on purpose: the
+    durable writer's older generation (``.prev``) and quarantined copies
+    (``.bad``) are never candidates, where the JAX package ranks them
+    last."""
     if os.path.isdir(path):
         if best_model_name:
             named = os.path.join(path, best_model_name)
@@ -81,6 +84,16 @@ def load_artifact(path, best_model_name=None):
         cands.sort(key=lambda x: (
             ext_rank.get(os.path.splitext(x)[1], 3),
             -os.path.getmtime(os.path.join(path, x))))
+        if not cands:
+            # a run saved under another best_model_name: a LONE pickle-like
+            # file that is not one of the known non-model artifacts
+            non_model = {"training_meta_data_and_hyper_parameters.pkl",
+                         "trainer_checkpoint.pkl"}
+            loose = [x for x in os.listdir(path)
+                     if x.endswith((".pt", ".pkl", ".bin"))
+                     and x not in non_model]
+            if len(loose) == 1:
+                cands = loose
         for name in ["final_best_model.bin"] + cands:
             cand = os.path.join(path, name)
             if os.path.isfile(cand):

@@ -243,7 +243,7 @@ def evaluate_system_level_cv(model_type, trained_models_root_path,
                           f"no data args for fold {fold}", flush=True)
                     continue
             true_gcs = _true_graphs_from_args(data_args, model_type)
-            model, params = load_model_for_eval(run_dir, device=device)
+            model, params = load_model_for_eval(run_dir, device=device)[:2]
             X = None if X_by_split is None else X_by_split.get(split)
             est_gcs = get_model_gc_estimates(model, params, model_type,
                                              len(true_gcs), X=X)
@@ -283,7 +283,7 @@ def evaluate_system_level_gs(model_type, trained_models_root_path,
         if not (os.path.isdir(run_dir)
                 and "final_best_model.bin" in os.listdir(run_dir)):
             continue
-        model, params = load_model_for_eval(run_dir, device=device)
+        model, params = load_model_for_eval(run_dir, device=device)[:2]
         est_gcs = get_model_gc_estimates(model, params, model_type,
                                          len(true_gc_factors), X=X)
         results[d] = evaluate_fold_system_level(est_gcs, true_gc_factors,

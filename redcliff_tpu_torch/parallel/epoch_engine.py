@@ -44,6 +44,7 @@ captured launches.
 """
 from __future__ import annotations
 
+import gc
 import time
 
 import numpy as np
@@ -151,10 +152,20 @@ class Program:
         # "thread_local": a call that is unsafe in a capture still raises
         # when this thread makes it, while the prefetch thread of a dataset
         # with no device copy (the k-batch mode) goes on copying the next
-        # batches on its own stream
-        with torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
-                              capture_error_mode="thread_local"):
-            out = self.body(self.inputs, self.steps, state)
+        # batches on its own stream. A CUDA graph destroyed during the
+        # capture (an earlier fit's program, freed when the collector finds
+        # its reference cycle) invalidates it: collect first, and hold the
+        # collector off until the capture ends
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
+                                  capture_error_mode="thread_local"):
+                out = self.body(self.inputs, self.steps, state)
+        finally:
+            if collecting:
+                gc.enable()
         self.tally = tuple((fn, fn.captured - b)
                            for fn, b in zip(COUNTED, before))
         self.graph, self.out = graph, out

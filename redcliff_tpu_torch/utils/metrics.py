@@ -12,14 +12,17 @@ for scoring Granger-causal graph estimates against ground truth:
 - Deltaffinity / path-length MSE                   (ref metrics.py:218,235)
 - Hungarian graph matching                         (ref metrics.py:274)
 - cosine similarity / MSE / fixed-edge F1          (ref metrics.py:321-430)
+- connected components of a graph                  (ref metrics.py:303-319)
 
-The training path (``train/tracking.py``, ``utils/misc.py``) and the
-evaluation layer (``eval/``) read them; the differentiable counterparts
+The training path (``train/tracking.py``, ``utils/misc.py``), the
+evaluation layer (``eval/``) and the synthetic graph factory
+(``data/synthetic.py``) read them; the differentiable counterparts
 used inside training losses are in ``ops/losses.py``.
 """
 from __future__ import annotations
 
 import numpy as np
+from scipy.linalg import null_space
 from scipy.optimize import linear_sum_assignment
 
 __all__ = [
@@ -41,6 +44,8 @@ __all__ = [
     "compute_cosine_similarity",
     "compute_mse",
     "get_f1_score",
+    "get_symmetric_graph_laplacian",
+    "get_number_of_connected_components",
 ]
 
 
@@ -325,3 +330,21 @@ def get_f1_score(A_hat, A):
     if not np.isfinite(precision) or not np.isfinite(recall) or (precision + recall) == 0.0:
         return 0.0
     return float(2.0 * precision * recall / (precision + recall))
+
+
+# ---------------------------------------------------------------------------
+# Connectivity (the synthetic graph factory's constraint)
+# ---------------------------------------------------------------------------
+
+def get_symmetric_graph_laplacian(A):
+    symm = A + A.T
+    return np.diag(symm.sum(axis=1)) - symm
+
+
+def get_number_of_connected_components(A, add_self_connections=True):
+    """Nullity of the symmetrized Laplacian (ref metrics.py:303-319)."""
+    A = np.asarray(A, dtype=np.float64)
+    if add_self_connections:
+        A = A + np.eye(A.shape[0])
+    L = get_symmetric_graph_laplacian(A)
+    return null_space(L).shape[1]

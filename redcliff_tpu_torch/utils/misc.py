@@ -2,7 +2,8 @@
 ``utils/misc.py`` that the trainer, the evaluation layer and the DCSFA-NMF
 features use; numpy on the host): normalization and diagonal masking,
 Hungarian alignment of unsupervised factor estimates and of factor indices
-to supervised labels, and the directed-spectrum feature (un)flattening."""
+to supervised labels, the directed-spectrum feature (un)flattening, and
+the sequential k-fold splits of the DREAM4 curation."""
 from __future__ import annotations
 
 import numpy as np
@@ -19,6 +20,7 @@ __all__ = [
     "factor_alignment_order",
     "flatten_directed_spectrum_features",
     "unflatten_directed_spectrum_features",
+    "make_kfolds_cv_splits",
 ]
 
 
@@ -137,3 +139,25 @@ def unflatten_directed_spectrum_features(x_flat, accumulate_shared_entries=False
         off = ~np.eye(n, dtype=bool)
         x[off] *= 0.5
     return x
+
+
+def make_kfolds_cv_splits(data, labels, num_folds=10):
+    """Sequential (non-shuffled) k-fold CV splits keyed by fold id
+    (ref misc.py:197-220). Each fold maps to {"train": [[x, y], ...],
+    "validation": [[x, y], ...]}."""
+    assert len(data) == len(labels)
+    n = len(data)
+    min_val = n // num_folds
+    assert min_val > 0
+    extra = n % num_folds
+    folds = {}
+    for fold_id in range(num_folds):
+        n_val = min_val + (1 if fold_id < extra else 0)
+        start = fold_id * min_val
+        val_idx = list(range(start, start + n_val))
+        train_idx = [i for i in range(n) if i < start or i >= start + n_val]
+        folds[fold_id] = {
+            "train": [[data[i], labels[i]] for i in train_idx],
+            "validation": [[data[i], labels[i]] for i in val_idx],
+        }
+    return folds

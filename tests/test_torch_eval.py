@@ -317,6 +317,13 @@ def test_best_model_name_reads_a_legacy_pickle(tmp_path):
     for a, b in zip(jax.tree.leaves(interop.params_to_jax(params)),
                     jax.tree.leaves(jp)):
         assert a.tobytes() == b.tobytes()
+    # unnamed, the lone pickle is found as the JAX package finds it
+    # (ROADMAP queue 3 item 11); a second loose pickle is ambiguous
+    _, params = tio.load_model_for_eval(str(run_dir), device="cpu")
+    for a, b in zip(jax.tree.leaves(interop.params_to_jax(params)),
+                    jax.tree.leaves(jp)):
+        assert a.tobytes() == b.tobytes()
+    os.link(run_dir / "point.pkl", run_dir / "other.pkl")
     with pytest.raises(FileNotFoundError):
         tio.load_model_for_eval(str(run_dir), device="cpu")
 
