@@ -6,9 +6,10 @@ fitting one, fitting a coefficient grid, fitting it durably on the bucket
 ladder, running one array task from cached-args files, scoring the
 fitted models through the evaluation layer, fitting the paper's
 baseline families as array tasks, DCSFA-NMF and DYNOTEARS among them,
-generating synthetic data on the card, and running the paper's two
-accuracy flows from curation to scores — and holds every kernel on them
-against its plain PyTorch version.
+generating synthetic data on the card, running the paper's two
+accuracy flows from curation to scores, the Table-2 discovery flow and
+the analysis layer on the host, and the time-series transformer on the
+card — and holds every kernel on them against its plain PyTorch version.
 Phases, one JSON line each:
 
 1. build: the factor-mix and GL-prox CUDA kernels from
@@ -31,8 +32,10 @@ Phases, one JSON line each:
    per call for all lanes — max abs error beside the tolerance and the
    launch plan each case took; CUDA-event times of the kernel, one library
    call where one exists and the plain version, in turns, beside the bound
-   and the launch floor (one ``x.zero_()``); the host cost of each piece of
-   the factor mix's launch path.
+   and the launch floor (one ``x.zero_()``), and at the synSys flow's two
+   shapes (B=128 K=2 M=6, S=85 K=2 M=36) each one's device time alone
+   (``torch.profiler``); the host cost of each piece of the factor mix's
+   launch path.
 3. serve: a REDCLIFF-S model at the D4IC headline widths (10 channels,
    gen_lag 4, embed_lag 16, 5 factors, DGCNN embedder with 3 graph-conv
    layers of 100 hidden nodes, 2 sims) from random weights (seed 0), saved
@@ -172,11 +175,38 @@ Phases, one JSON line each:
    mixture, the array tasks of both REDCLIFF-S variants, cMLP, cLSTM,
    DGCNN and DCSFA-NMF, the battery; the same checks (factor-mix
    executions = both REDCLIFF tasks' forwards).
+22. discovery: the Table-2 flow on the host
+   (``eval/supervised_discovery.py``): one synSys 6-2-2 fold curated at the
+   study's size by the port's data layer, its held-out split (240
+   recordings of (100, 6), two states, OneHot) through
+   ``run_supervised_discovery_evaluation`` over SLARAC, QRBS, SELVAR (its
+   native C++ core, built with g++ into ``build/host_native/``; a failed
+   build fails the phase) and PCMCI against the fold's true factor
+   graphs; LASAR is left out (it needs scikit-learn, which the card's
+   machine lacks). The native SELVAR core held to the numpy core on the
+   same input; ``run_d4ic_regime_pcmci_experiment`` on one D4IC network's
+   recordings from the device generator (150 of (48, 10)). Wall per
+   algorithm, optimal F1 and ROC-AUC per regime factor; neither kernel
+   launches.
+23. analysis: the analysis layer on the host over the accuracy_synsys
+   phase's ``evals/`` tree (``run_cross_experiment_analysis`` without
+   figures, ``summarize_off_diag_f1``, ``write_cross_experiment_report``,
+   ``factor_selection_table`` over its REDCLIFF-S runs): the condensed
+   off-diagonal F1 means equal the twin's JSON, no figure is written;
+   neither kernel launches.
+24. ts_transformer: the time-series transformer at mvts_transformer's
+   published defaults (d_model 64, 8 heads, 3 layers, feed-forward 256,
+   fixed positions, gelu, BatchNorm) on 128 synSys windows (T 100, 6
+   features): the encoder and the 2-class classiregressor, forwards card
+   vs CPU at the f32 bars (BatchNorm and LayerNorm, with and without a
+   padding mask), 20 Adam steps of the classifier loss on each (loss
+   histories at the trainer bars); ms per forward and per step, peak
+   device memory; neither kernel launches.
 
 Launch counts are reset just before each main path (serve, train, grid,
 each grid_stream fit, grid_durable, array_task, eval, each baseline task
 and the GISTA fit, dcsfa, dynotears, data_gen, accuracy_synsys,
-accuracy_d4ic) and read just after;
+accuracy_d4ic, discovery, analysis, ts_transformer) and read just after;
 the kernel-phase launches do not count. A count is executions on the
 device: a launch captured into a CUDA graph counts at each replay of the
 graph (and the warm-up step before each capture ran and counts). Then a
@@ -536,6 +566,30 @@ ACC_DYNAMIC_RECORDINGS = 16
 SYNSYS_BATCHES = (128, 16, 112, 96)
 D4IC_BATCHES = (120, 40, 88, 22)
 SYNSYS_READOUT_S = 100 - 16 + 1
+# discovery: the Table-2 flow (eval/supervised_discovery.py) on the held-out
+# split of one synSys 6-2-2 fold at the study's size
+# (experiments/accuracy_parity_synsys.py:195-196,239-247: 240 recordings of
+# (100, 6), two states, OneHot), lasar left out (it needs scikit-learn);
+# SELVAR on its native core, held to the numpy core at
+# tests/test_selvar_golden.py's bars; then the D4IC regime-PCMCI
+# experiment on one network's recordings from the device generator (the
+# data_gen phase's size)
+DISCOVERY_ALGS = ("slarac", "qrbs", "selvar", "PCMCI")
+DISCOVERY_FOLD = 0
+SELVAR_RTOL, SELVAR_ATOL = 1e-8, 1e-10
+# ts_transformer: mvts_transformer's published defaults (src/options.py of
+# Zerveas et al., KDD 2021, the model the reference vendors) on the synSys
+# windows: B 128, T 100, 6 features, 2 classes
+TST_CONFIG = dict(feat_dim=6, max_len=100, d_model=64, n_heads=8,
+                  num_layers=3, dim_feedforward=256, pos_encoding="fixed",
+                  activation="gelu", norm="BatchNorm")
+TST_BATCH = 128
+TST_CLASSES = 2
+TST_STEPS = 20
+TST_LR = 1e-3
+TST_TIMED = 50
+# the trainer bars for multi-step histories (ROADMAP "Tolerances")
+TST_HIST = dict(rtol=1e-4, atol=1e-5)
 
 
 class SmokeFailure(RuntimeError):
@@ -1112,6 +1166,12 @@ def phase_kernel(torch, FM, PX):
                                          **_time_turns(torch, fns)}
         t["bound_ms"], t["bound_by"] = bound
         t["floor_ms"] = floor_ms
+        if key.startswith("synsys"):
+            # device time alone (torch.profiler, 200 calls), as the
+            # --profile phase measures the other shapes
+            t["device_us_alone"] = _alone_us(torch, {
+                "kernel": fns["kernel_ms"], "library": fns["library_ms"],
+                "plain": fns["plain_ms"], "floor": one.zero_})
     # the grid's lane form: 27 lanes at the training batch and at the
     # remainder batch, one launch each; the library call is torch.matmul on
     # the permuted operands
@@ -3632,7 +3692,8 @@ def phase_accuracy_synsys(torch, FM, PX):
     """The synSys twin's ``main`` with the JAX script's ``--smoke`` on the
     card (``ACC_SYNSYS_ARGV``): curation, the five array tasks, the
     cross-algorithm battery and the dynamic readouts. Counts at 0 just
-    before, read just after."""
+    before, read just after. Returns them, the work dir, the twin's JSON
+    and its run dirs (the analysis phase reads them)."""
     from redcliff_tpu_torch.experiments import accuracy_parity_synsys as A
 
     wd = os.path.join(HERE, "build", "chip_smoke", "accuracy_synsys")
@@ -3665,7 +3726,7 @@ def phase_accuracy_synsys(torch, FM, PX):
            "dynamic_redcliff": out["dynamic_readouts"]["REDCLIFF_S_CMLP"],
            "factor_mix_launches": mix, "expected_factor_mix": expected,
            "gl_prox_launches": prox})
-    return mix, prox
+    return mix, prox, wd, out, runs
 
 
 def phase_accuracy_d4ic(torch, FM, PX):
@@ -3704,6 +3765,304 @@ def phase_accuracy_d4ic(torch, FM, PX):
            "algorithms": out["algorithms"],
            "factor_mix_launches": mix, "expected_factor_mix": expected,
            "gl_prox_launches": prox})
+    return mix, prox
+
+
+def phase_discovery(torch, FM, PX):
+    """The Table-2 discovery flow on the host. One synSys 6-2-2 fold is
+    curated at the study's size with the port's data layer, and its
+    held-out split (240 recordings of (100, 6), two states, OneHot) goes
+    through ``run_supervised_discovery_evaluation`` over
+    ``DISCOVERY_ALGS`` against the fold's true factor graphs. Before the
+    flow, SELVAR's native core is called with ``backend="native"`` (a
+    failed build raises) and held to the numpy core on the first regime's
+    masked series, so the flow's ``"auto"`` runs the native core. Then
+    ``run_d4ic_regime_pcmci_experiment`` on one D4IC network's recordings
+    from the device generator. Prints the wall per algorithm and, per
+    regime factor, the optimal F1 and ROC-AUC. Launches neither kernel.
+    Returns the launch counts and the fold's training windows and labels
+    (the ts_transformer phase's data)."""
+    import importlib
+    import importlib.util
+
+    import numpy as np
+
+    from redcliff_tpu_torch.data import synthetic as S
+    from redcliff_tpu_torch.data.curation import curate_synthetic_fold
+    from redcliff_tpu_torch.data.shards import load_normalized_samples
+    from redcliff_tpu_torch.eval import supervised_discovery as SD
+    from redcliff_tpu_torch.utils.config import load_true_gc_factors
+
+    sel = importlib.import_module("redcliff_tpu_torch.tidybench.selvar")
+    wd = os.path.join(HERE, "build", "chip_smoke", "discovery")
+    shutil.rmtree(wd, ignore_errors=True)
+    t0 = time.perf_counter()
+    fold_dir, _ = curate_synthetic_fold(
+        os.path.join(wd, "data"), fold_id=DISCOVERY_FOLD, num_nodes=6,
+        num_lags=2, num_factors=2, num_supervised_factors=2,
+        num_edges_per_graph=2, num_samples_in_train_set=1040,
+        num_samples_in_val_set=240, sample_recording_len=100,
+        burnin_period=50, label_type_setting="OneHot",
+        noise_type="gaussian", noise_level=1.0, folder_name="synSys6_2_2")
+    curate_s = time.perf_counter() - t0
+    truth = load_true_gc_factors(os.path.join(
+        fold_dir, f"data_fold{DISCOVERY_FOLD}_cached_args.txt"))
+    held_out = load_normalized_samples(os.path.join(fold_dir, "validation"))
+    samples = list(zip(held_out.X, held_out.Y))
+    _require(len(samples) == 240 and held_out.X.shape[1:] == (100, 6),
+             f"discovery: held-out split {held_out.X.shape}")
+
+    FM.factor_mix.launches = 0
+    PX.gl_prox.launches = 0
+    # the native SELVAR core against the numpy core on the same input,
+    # first: backend="native" raises when the C++ core cannot be built, so a
+    # failed build fails the phase before the flow (whose "auto" would fall
+    # back to numpy) runs
+    data, _, masks = SD.prepare_data_for_modeling(samples)[:3]
+    x0 = data * masks[0]
+    t0 = time.perf_counter()
+    Bn, An, _ = sel.slvar(x0, maxlags=1, backend="native")
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    Bp, Ap, _ = sel.slvar(x0, maxlags=1, backend="numpy")
+    numpy_s = time.perf_counter() - t0
+    selvar_err = float(np.abs(Bn - Bp).max())
+    _require(np.array_equal(An, Ap) and np.allclose(
+        Bn, Bp, rtol=SELVAR_RTOL, atol=SELVAR_ATOL),
+        f"discovery: native SELVAR vs numpy: lags equal "
+        f"{np.array_equal(An, Ap)}, max abs diff {selvar_err}")
+    results, walls = {}, {}
+    for alg in DISCOVERY_ALGS:
+        t0 = time.perf_counter()
+        results[alg] = SD.run_supervised_discovery_evaluation(
+            samples, truth, algorithms=(alg,))[alg]
+        walls[alg] = time.perf_counter() - t0
+    scores = {}
+    for alg, res in results.items():
+        _require(len(res["preds"]) == 2 and all(
+            p.shape == (6, 6) and bool(np.isfinite(p).all())
+            for p in res["preds"]), f"discovery: {alg} predictions")
+        scores[alg] = {rf: {"optF1": st["optF1_score"],
+                            "roc_auc": st["roc_auc"]}
+                       for rf, st in res["stats"].items()}
+        _require(all(0.0 <= v["optF1"] <= 1.0 for v in scores[alg].values()),
+                 f"discovery: {alg} F1s {scores[alg]}")
+
+    # one D4IC network's recordings from the device generator
+    c, p, graphs, acts = _gen_system("d4ic_network")
+    X, Y = S.generate_synthetic_dataset(
+        torch.Generator(device="cuda").manual_seed(0), graphs, acts,
+        p["base_freqs"], p["noise_mu"], p["noise_var"], p["innovation_amp"],
+        num_samples=c["n"], recording_length=c["T"],
+        burnin_period=c["burnin"], num_labeled_sys_states=c["factors"],
+        label_type=c["label"], noise_type=c["noise"],
+        noise_amp=c["noise_amp"])
+    t0 = time.perf_counter()
+    out = SD.run_d4ic_regime_pcmci_experiment(
+        list(zip(X, Y)), graphs, regime_source="oracle", pred_source="graph")
+    d4ic = {"wall_s_host": time.perf_counter() - t0,
+            "recordings": int(X.shape[0]), "T": int(X.shape[1]),
+            "optF1_by_regime": out["optF1Scores_by_regime"],
+            "mean": out["cross_regime_mean"]}
+    _require(0.0 <= out["cross_regime_mean"] <= 1.0,
+             f"discovery: D4IC regime PCMCI {d4ic}")
+    mix, prox = FM.factor_mix.launches, PX.gl_prox.launches
+    _require(mix == 0 and prox == 0,
+             f"discovery: {mix} factor_mix / {prox} gl_prox launches")
+    lasar = ("left out: scikit-learn is not installed on this machine"
+             if importlib.util.find_spec("sklearn") is None else
+             "left out (scikit-learn is installed here; the smoke keeps "
+             "the card machine's algorithm set)")
+    _emit({"phase": "discovery", "device": torch.cuda.get_device_name(0),
+           "config": "synSys 6-2-2 fold 0, held-out split "
+                     "(experiments/accuracy_parity_synsys.py:195-196,"
+                     "239-247); one D4IC network "
+                     "(experiments/accuracy_parity_d4ic.py:193-210,233)",
+           "reduced": {"folds": "3 -> 1", "split": "held-out only"},
+           "recordings": len(samples), "curate_s_host": curate_s,
+           "algorithms": list(DISCOVERY_ALGS), "lasar": lasar,
+           "selvar_core": "native (built and held to numpy "
+                          "before the flow)", "wall_s_host": walls,
+           "scores_by_regime_factor": scores,
+           "selvar_native_vs_numpy": {
+               "max_abs_diff": selvar_err, "rtol": SELVAR_RTOL,
+               "atol": SELVAR_ATOL, "native_s": native_s,
+               "numpy_s": numpy_s},
+           "d4ic_network_regime_pcmci": d4ic,
+           "factor_mix_launches": mix, "gl_prox_launches": prox})
+    n = TST_BATCH
+    train = load_normalized_samples(os.path.join(fold_dir, "train"))
+    labels = train.Y[:n].mean(axis=2).argmax(axis=1)
+    return mix, prox, train.X[:n], labels
+
+
+def phase_analysis(torch, FM, PX, synsys_wd, synsys_out, synsys_runs):
+    """The analysis layer on the host over the ``evals/`` tree that the
+    accuracy_synsys phase wrote: ``run_cross_experiment_analysis`` (no
+    figures: ``plot=False``), ``summarize_off_diag_f1``,
+    ``write_cross_experiment_report`` and ``factor_selection_table`` over
+    that phase's REDCLIFF-S run directories. Checks that the condensed
+    off-diagonal F1 means equal the twin's own JSON, and that no figure
+    is written (matplotlib is absent on the card's machine, and the
+    analysis draws nothing without it). Launches neither kernel."""
+    import importlib.util
+
+    from redcliff_tpu_torch.eval import analysis as AN
+    from redcliff_tpu_torch.eval import summaries as SM
+
+    evals = os.path.join(synsys_wd, "evals")
+    save = os.path.join(HERE, "build", "chip_smoke", "analysis")
+    shutil.rmtree(save, ignore_errors=True)
+    FM.factor_mix.launches = 0
+    PX.gl_prox.launches = 0
+    t0 = time.perf_counter()
+    cross = AN.run_cross_experiment_analysis(evals, save, plot=False)
+    merged = {k: e["cv_stats"] for k, e in cross["condensed"].items()}
+    table = SM.summarize_off_diag_f1(merged)
+    SM.write_cross_experiment_report(merged, save, plot=False)
+    selection = AN.factor_selection_table(
+        {2: synsys_runs["REDCLIFF_S_CMLP"]})
+    wall_s = time.perf_counter() - t0
+    mix, prox = FM.factor_mix.launches, PX.gl_prox.launches
+    (sys_key,) = cross["condensed"]
+    condensed = cross["condensed"][sys_key]["alg_stats"]
+    for alg, stats in synsys_out["algorithms"].items():
+        want = stats["offdiag_optimal_f1_mean"]
+        _require(condensed[alg]["mean"] == want
+                 and table["mean"][sys_key][alg] == want,
+                 f"analysis: {alg} condensed F1 {condensed[alg]['mean']} / "
+                 f"table {table['mean'][sys_key][alg]} vs the twin's {want}")
+    figures = [f for _, _, files in os.walk(save) for f in files
+               if f.endswith(".png")]
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    _require(not figures, f"analysis: figures written {figures}")
+    _require(bool(selection[2]), "analysis: empty factor-selection table")
+    _require(mix == 0 and prox == 0,
+             f"analysis: {mix} factor_mix / {prox} gl_prox launches")
+    _emit({"phase": "analysis", "device": torch.cuda.get_device_name(0),
+           "config": "the accuracy_synsys phase's evals/ tree "
+                     f"({sys_key})", "reduced": {},
+           "wall_s_host": wall_s, "system_details": cross["system_details"],
+           "off_diag_f1_mean": table["mean"][sys_key],
+           "matches_twin_json": True,
+           "factor_selection": selection, "matplotlib": has_mpl,
+           "figures": len(figures),
+           "factor_mix_launches": mix, "gl_prox_launches": prox})
+    return mix, prox
+
+
+def _tst_steps(torch, model, params, X, y, steps):
+    """``steps`` Adam steps of the classifier loss on one batch from
+    ``params`` (copied); the loss history."""
+    from redcliff_tpu_torch.interop import tree_leaves, tree_map
+
+    live = tree_map(lambda t: t.detach().clone().requires_grad_(True),
+                    params)
+    opt = torch.optim.Adam(tree_leaves(live), lr=TST_LR)
+    hist = []
+    for _ in range(steps):
+        loss, _ = model.loss(live, X, y)
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+        hist.append(loss.item())
+    return hist
+
+
+def phase_ts_transformer(torch, FM, PX, X_np, y_np, smi):
+    """The time-series transformer at mvts_transformer's published
+    defaults (``TST_CONFIG``) on 128 synSys windows (T 100, 6 features):
+    the encoder and the 2-class classiregressor, params from a seeded
+    generator on the CPU and copied to the card (TF32 off through
+    ``utils/precision.py``). Forwards card vs CPU at the f32 bars with
+    BatchNorm and LayerNorm, with and without a padding mask; 20 Adam
+    steps of the classifier loss on each, the loss histories at the
+    trainer bars. Prints ms per forward and per step (CUDA events), the
+    peak device memory, and the card's name and power limit. Launches
+    neither kernel."""
+    import numpy as np
+
+    from redcliff_tpu_torch.interop import tree_map
+    from redcliff_tpu_torch.models import ts_transformer as TT
+    from redcliff_tpu_torch.utils.precision import resolve_device
+
+    dev = resolve_device("cuda")
+    _require(not torch.backends.cuda.matmul.allow_tf32
+             and not torch.backends.cudnn.allow_tf32,
+             "ts_transformer: TF32 is on")
+    Xc = torch.from_numpy(np.ascontiguousarray(X_np, dtype=np.float32))
+    yc = torch.from_numpy(np.asarray(y_np, dtype=np.int64))
+    mask_c = torch.ones(Xc.shape[:2], dtype=torch.bool)
+    mask_c[::2, -20:] = False
+    Xd, yd, mask_d = Xc.to(dev), yc.to(dev), mask_c.to(dev)
+    FM.factor_mix.launches = 0
+    PX.gl_prox.launches = 0
+    errs, times = {}, {}
+    for norm in ("BatchNorm", "LayerNorm"):
+        models = {
+            "encoder": TT.TSTransformerEncoder(TT.TSTransformerConfig(
+                **dict(TST_CONFIG, norm=norm))),
+            "classifier": TT.TSTransformerEncoderClassiregressor(
+                TT.TSTransformerConfig(**dict(TST_CONFIG, norm=norm,
+                                              num_classes=TST_CLASSES)))}
+        gen = torch.Generator().manual_seed(0)
+        params = {}
+        for name, model in models.items():
+            host = model.init(gen, device="cpu")
+            card = params[name] = tree_map(lambda t: t.to(dev), host)
+            if name == "classifier":
+                clf_host = host
+            for masked in (False, True):
+                with torch.no_grad():
+                    got = model.forward(card, Xd, mask_d if masked else None)
+                    want = model.forward(host, Xc,
+                                         mask_c if masked else None)
+                _check_close(torch, f"{name}/{norm}/"
+                             f"{'mask' if masked else 'no mask'}",
+                             got.cpu(), want, errs)
+        if norm != TST_CONFIG["norm"]:
+            continue
+        # the published model on the card: ms per forward and per step
+        enc, clf = models["encoder"], models["classifier"]
+        with torch.no_grad():
+            times["encoder_forward_ms"] = _time_ms(
+                torch, lambda: enc.forward(params["encoder"], Xd), TST_TIMED,
+                5)
+            times["classifier_forward_ms"] = _time_ms(
+                torch, lambda: clf.forward(params["classifier"], Xd),
+                TST_TIMED, 5)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        card_hist = _tst_steps(torch, clf, params["classifier"], Xd, yd,
+                               TST_STEPS)
+        end.record()
+        torch.cuda.synchronize()
+        times["step_ms"] = start.elapsed_time(end) / TST_STEPS
+        times["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+        cpu_hist = _tst_steps(torch, clf, clf_host, Xc, yc, TST_STEPS)
+        hist_err = float(np.max(np.abs(np.subtract(card_hist, cpu_hist))))
+        _require(np.allclose(card_hist, cpu_hist, **TST_HIST)
+                 and bool(np.isfinite(card_hist).all()),
+                 f"ts_transformer: {TST_STEPS} steps card vs CPU, max "
+                 f"|dloss| {hist_err}: {card_hist} vs {cpu_hist}")
+    mix, prox = FM.factor_mix.launches, PX.gl_prox.launches
+    _require(mix == 0 and prox == 0,
+             f"ts_transformer: {mix} factor_mix / {prox} gl_prox launches")
+    _emit({"phase": "ts_transformer", "device": torch.cuda.get_device_name(0),
+           "card": smi,
+           "config": "mvts_transformer defaults (src/options.py, Zerveas "
+                     "et al. KDD 2021): " + json.dumps(TST_CONFIG),
+           "reduced": {}, "batch": TST_BATCH, "classes": TST_CLASSES,
+           "data": "synSys 6-2-2 fold 0 training windows (the discovery "
+                   "phase's fold)",
+           "rtol": RTOL, "atol": ATOL, "max_abs_err": errs,
+           "steps": TST_STEPS, "lr": TST_LR, "loss_card": card_hist,
+           "loss_cpu": cpu_hist, "loss_max_abs_diff": hist_err,
+           "hist_bars": TST_HIST, **times,
+           "factor_mix_launches": mix, "gl_prox_launches": prox})
     return mix, prox
 
 
@@ -4013,8 +4372,14 @@ def main():
     dy_mix, dy_prox = phase_dynotears(torch, FM, PX)
     gen_mix, gen_prox = phase_data_gen(torch, FM, PX)
     phase_data_gen_check(torch)
-    syn_mix, syn_prox = phase_accuracy_synsys(torch, FM, PX)
+    syn_mix, syn_prox, syn_wd, syn_out, syn_runs = phase_accuracy_synsys(
+        torch, FM, PX)
     d4_mix, d4_prox = phase_accuracy_d4ic(torch, FM, PX)
+    disc_mix, disc_prox, tst_X, tst_y = phase_discovery(torch, FM, PX)
+    an_mix, an_prox = phase_analysis(torch, FM, PX, syn_wd, syn_out,
+                                     syn_runs)
+    tst_mix, tst_prox = phase_ts_transformer(torch, FM, PX, tst_X, tst_y,
+                                             smi)
     if "--profile" in sys.argv[1:]:
         phase_profile(torch, FM)
         phase_profile_train(torch, FM, PX, tmodel, tparams, train_ds)
@@ -4034,7 +4399,9 @@ def main():
                  "array_task": task_mix, "eval": eval_mix,
                  "baselines": base_mix, "dcsfa": dc_mix,
                  "dynotears": dy_mix, "data_gen": gen_mix,
-                 "accuracy_synsys": syn_mix, "accuracy_d4ic": d4_mix}
+                 "accuracy_synsys": syn_mix, "accuracy_d4ic": d4_mix,
+                 "discovery": disc_mix, "analysis": an_mix,
+                 "ts_transformer": tst_mix}
     fm = _kernel_entry(
         "factor_mix", FM, "redcliff_tpu/ops/factor_mix.py:58",
         sum(mix_paths.values()), mix_paths, max_err["factor_mix"],
@@ -4047,7 +4414,8 @@ def main():
                   "eval": eval_prox, "baselines": base_prox,
                   "dcsfa": dc_prox, "dynotears": dy_prox,
                   "data_gen": gen_prox, "accuracy_synsys": syn_prox,
-                  "accuracy_d4ic": d4_prox}
+                  "accuracy_d4ic": d4_prox, "discovery": disc_prox,
+                  "analysis": an_prox, "ts_transformer": tst_prox}
     px = _kernel_entry(
         "gl_prox", PX, "redcliff_tpu/ops/pallas_prox.py:47",
         sum(prox_paths.values()), prox_paths, max_err["gl_prox"],

@@ -9,8 +9,9 @@ modules it keeps as its own copies: ``serve/session.py``,
 ``runtime/{admission,checkpoint,preempt}.py``, ``utils/{metrics,misc}.py``,
 ``train/tracking.py``, ``parallel/{policy,compaction}.py``,
 ``utils/config.py``, ``data/shards.py`` (without ``ShardedBatchDataset``),
-``eval/*`` (without ``analysis.py`` and ``supervised_discovery.py``),
-``utils/{directed_spectrum,time_series}.py``, ``models/dynotears.py``, and
+``eval/*``, ``utils/{directed_spectrum,time_series,plotting}.py``,
+``models/{dynotears,pcmci}.py``, ``tidybench/*`` (with the C++ SELVAR
+core, built with g++ into ``build/host_native/`` at first use), and
 ``data/{curation,dream4,lfp}.py`` with the host half of
 ``data/synthetic.py``.
 
@@ -28,11 +29,18 @@ Ported so far:
   array task (``train/driver.py:set_up_and_run_experiments`` ->
   ``train/orchestration.py``): REDCLIFF-S with cMLP or cLSTM factors,
   cMLP, cLSTM, NAVAR, NAVAR-LSTM, DGCNN, DCSFA-NMF and DYNOTEARS;
-- evaluation: scoring, selection and the dynamic readouts (``eval/``);
+- evaluation: scoring, selection and the dynamic readouts (``eval/``),
+  the paper's Table-2 discovery comparison (``tidybench/``, PCMCI and
+  R-PCMCI in ``models/pcmci.py``, ``eval/supervised_discovery.py``) and
+  the analysis layer that regenerates its summary tables
+  (``eval/analysis.py``; figures through ``utils/plotting.py`` where
+  matplotlib is installed);
 - data: synthetic sVAR generation on the host and on the card, synSys and
   D4IC curation, DREAM4 and LFP preprocessing (``data/``);
 - the paper's synSys and D4IC accuracy studies as twins of the JAX
-  package's scripts (``experiments/``).
+  package's scripts (``experiments/``);
+- the time-series transformer (``models/ts_transformer.py``, plain
+  PyTorch on the card).
 
 The two TPU kernels on those paths are hand-written CUDA kernels, each with
 a lane form for the grid: the factor mix (``ops/csrc/factor_mix.cu``) and

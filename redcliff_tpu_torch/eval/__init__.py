@@ -1,13 +1,26 @@
 """Evaluation layer (port of ``eval/``): graph statistics, causal
 distances, GC-estimate dispatch, cross-algorithm comparison, dynamic
-readouts, factor scoring, system-level scoring and grid-search selection,
-exported under the JAX package's names.
+readouts, factor scoring, system-level scoring, grid-search selection,
+the supervised-discovery (Table-2) evaluation and the analysis/report
+layer, exported under the JAX package's names.
 
-Not ported yet (ROADMAP queue 1): ``eval/analysis.py`` and the plotting it
-needs, and ``eval/supervised_discovery.py`` (needs the PCMCI and
-tidybench baselines). Importing this package builds and imports nothing
-CUDA-specific.
+Importing this package builds and imports nothing CUDA-specific, and no
+matplotlib: the analysis layer imports its plotting inside the functions
+that draw.
 """
+from redcliff_tpu_torch.eval.analysis import (
+    collect_summary_figures,
+    complexity_category,
+    condense_cross_experiment,
+    factor_selection_table,
+    generate_analysis_report,
+    network_complexity,
+    parse_system_name,
+    run_cross_experiment_analysis,
+    summarize_ablations,
+    visualize_factors_across_folds,
+    visualize_trained_model_factors,
+)
 from redcliff_tpu_torch.eval.causal_distances import (ancestor_aid, oset_aid,
                                                       parent_aid, shd)
 from redcliff_tpu_torch.eval.cross_alg import (
@@ -64,6 +77,13 @@ from redcliff_tpu_torch.eval.summaries import (
     summarize_off_diag_f1,
     write_cross_experiment_report,
 )
+from redcliff_tpu_torch.eval.supervised_discovery import (
+    prepare_data_for_modeling,
+    run_d4ic_regime_pcmci_experiment,
+    run_discovery_algorithm,
+    run_supervised_discovery_evaluation,
+    score_discovery_predictions,
+)
 from redcliff_tpu_torch.eval.system_level import (
     evaluate_fold_system_level,
     evaluate_system_level_cv,
@@ -72,6 +92,11 @@ from redcliff_tpu_torch.eval.system_level import (
 )
 
 __all__ = [
+    "collect_summary_figures", "complexity_category",
+    "condense_cross_experiment", "factor_selection_table",
+    "generate_analysis_report", "network_complexity", "parse_system_name",
+    "run_cross_experiment_analysis", "summarize_ablations",
+    "visualize_factors_across_folds", "visualize_trained_model_factors",
     "ancestor_aid", "oset_aid", "parent_aid", "shd",
     "compute_edge_lock_performance_v3_stats",
     "compute_edge_lock_performance_v4_stats",
@@ -95,6 +120,9 @@ __all__ = [
     "evaluate_avg_factor_scoring_across_recordings", "factor_score_sweep",
     "extract_metric_table", "load_full_comparison_summary",
     "summarize_off_diag_f1", "write_cross_experiment_report",
+    "prepare_data_for_modeling", "run_d4ic_regime_pcmci_experiment",
+    "run_discovery_algorithm",
+    "run_supervised_discovery_evaluation", "score_discovery_predictions",
     "evaluate_fold_system_level", "evaluate_system_level_cv",
     "evaluate_system_level_gs", "key_similarity_stats",
     "compute_fixed_f1_stats", "compute_graph_comparison_stats",

@@ -238,7 +238,7 @@ def run_cross_algorithm_comparison(root_paths_to_trained_models,
 
 
 def _plot_cv_summaries(cv_level_stats, algorithms, cv_save):
-    # no plotting module in the port yet (ROADMAP queue 1)
+    # matplotlib is absent on the card's machine: no figures there
     try:
         from redcliff_tpu_torch.utils.plotting import \
             make_scatter_and_std_err_of_mean_plot_overlay

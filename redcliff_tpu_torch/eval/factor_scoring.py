@@ -137,7 +137,7 @@ def evaluate_avg_factor_scoring_across_recordings(
         model, params, dataset, num_states, num_timesteps_to_score,
         num_timesteps_in_input_history,
         max_recordings_per_state=max_recordings_per_state)
-    # no plotting module in the port yet (ROADMAP queue 1): the summary only
+    # without matplotlib (the card's machine): the summary only
     try:
         from redcliff_tpu_torch.utils.plotting import plot_state_score_traces
     except ImportError:

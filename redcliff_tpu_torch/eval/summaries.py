@@ -72,7 +72,7 @@ def write_cross_experiment_report(full_summary, save_root,
             f.write(dset + "," + ",".join(cells) + "\n")
     if plot:
         try:
-            # no plotting module in the port yet (ROADMAP queue 1)
+            # without matplotlib (the card's machine) the table only
             from redcliff_tpu_torch.utils.plotting import (
                 plot_cross_experiment_summary_grid)
             plot_cross_experiment_summary_grid(

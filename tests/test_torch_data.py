@@ -522,10 +522,13 @@ def test_tst_and_socpref_preprocessing_equal_jax(tmp_path):
 # ----------------------------------------------------------- exports
 
 def test_data_and_train_exports_resolve_with_jax_blocked():
-    """Every name the JAX ``data`` and ``train`` packages export resolves
-    in the port (``ShardedBatchDataset`` waits for ROADMAP queue 1 item
-    11), in a process where importing jax fails; nothing of the JAX package
-    loads and nothing CUDA is initialised."""
+    """Every name the JAX ``data``, ``train``, ``eval`` and ``tidybench``
+    packages export resolves in the port (``ShardedBatchDataset`` waits for
+    ROADMAP queue 1 item 11), and the port's ``models`` exports resolve, in
+    a process where importing jax fails; nothing of the JAX package loads,
+    nothing CUDA is initialised and no matplotlib is imported."""
+    from redcliff_tpu import eval as jeval
+    from redcliff_tpu import tidybench as jtidy
     from redcliff_tpu import train as jtrain
 
     data_names = sorted(set(jdata.__all__) - {"ShardedBatchDataset"})
@@ -534,12 +537,20 @@ import sys
 sys.modules["jax"] = None
 import torch
 import redcliff_tpu_torch.data as D
+import redcliff_tpu_torch.eval as E
+import redcliff_tpu_torch.models as M
+import redcliff_tpu_torch.tidybench as TB
 import redcliff_tpu_torch.train as T
 missing = [n for n in {data_names!r} if not hasattr(D, n)]
 missing += [n for n in {sorted(jtrain.__all__)!r} if not hasattr(T, n)]
+missing += [n for n in {sorted(jeval.__all__)!r} if not hasattr(E, n)]
+missing += [n for n in {sorted(jtidy.__all__)!r} if not hasattr(TB, n)]
+missing += [n for n in M.__all__ if not hasattr(M, n)]
 assert not missing, missing
 assert sorted(D.__all__) == {data_names!r}
 assert sorted(T.__all__) == {sorted(jtrain.__all__)!r}
+assert TB.__all__ == {jtidy.__all__!r}
+assert "matplotlib" not in sys.modules
 assert not torch.cuda.is_initialized()
 leaked = sorted(m for m in sys.modules
                 if (m == "jax" or m.startswith("jax.")) and sys.modules[m]

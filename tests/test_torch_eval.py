@@ -387,7 +387,7 @@ def test_graph_mix_takes_the_readout_shape():
 
 
 @pytest.mark.parametrize("embedder", EMBEDDERS)
-def test_factor_scoring_matches_jax(embedder):
+def test_factor_scoring_matches_jax(embedder, tmp_path):
     jm, jp, tm, tp = _pair(embedder, MODES[0], seed=7)
     samples = _switching_samples(4, 20, seed=8, switch=20)
     ds = types.SimpleNamespace(X=[x for x, _ in samples],
@@ -398,7 +398,7 @@ def test_factor_scoring_matches_jax(embedder):
     assert sum(s["count"] for s in want.values()) == 4
     _same_tree(got, want, TOL_DGCNN if embedder == "DGCNN" else TOL)
     summary = tfs.evaluate_avg_factor_scoring_across_recordings(
-        tm, tp, ds, *args, save_root_path="unused")
+        tm, tp, ds, *args, save_root_path=str(tmp_path / "scores"))
     _same_tree(summary, got)
 
 
@@ -555,10 +555,12 @@ def test_entry_points_ask_for_cuda_by_default(tmp_path, monkeypatch, entry):
 
 def test_eval_imports_and_runs_with_jax_blocked(tmp_path):
     """``redcliff_tpu_torch.eval``, the grid's epoch engine
-    (``parallel/epoch_engine.py``) and the DCSFA-NMF / DYNOTEARS modules
-    (features, models, loader, dispatch) import and run, and the eval
-    scores a JAX-written artifact, in a process where importing jax fails;
-    no module of the JAX package is loaded."""
+    (``parallel/epoch_engine.py``), the DCSFA-NMF / DYNOTEARS modules
+    (features, models, loader, dispatch), the Table-2 discovery stack
+    (tidybench, PCMCI, supervised discovery), the analysis layer, plotting
+    and the time-series transformer import and run, and the eval scores a
+    JAX-written artifact, in a process where importing jax fails; no module
+    of the JAX package is loaded."""
     jm, jp, _, _ = _pair("DGCNN", MODES[0], seed=13)
     save_model(str(tmp_path / "run"), jm, jp)
     code = f"""
@@ -585,6 +587,37 @@ assert feats.shape[0] == 2 and DC.nmf_fit(
 assert DY.dynotears_solve(w[0, :-1], w[0, 1:], max_iter=2).a_mat.shape \
     == (3, 3)
 assert OR.create_model_instance and DS.get_directed_spectrum and TS.swt
+# the Table-2 discovery stack, the analysis layer, plotting and the
+# time-series transformer: every module imports, one discovery flow, one
+# analysis table and one transformer forward run
+import torch
+import redcliff_tpu_torch.models as M
+import redcliff_tpu_torch.tidybench as TB
+import redcliff_tpu_torch.tidybench.native as NAT
+import redcliff_tpu_torch.eval.analysis as AN
+import redcliff_tpu_torch.eval.supervised_discovery as SD
+import redcliff_tpu_torch.models.pcmci as PC
+import redcliff_tpu_torch.models.ts_transformer as TST
+import redcliff_tpu_torch.utils.plotting as PL
+assert TB.slarac and TB.qrbs and TB.lasar and NAT.build_library and PC.rpcmci
+assert SD.run_d4ic_regime_pcmci_experiment and PL.plot_heatmap and M.CMLPFM
+rng = np.random.default_rng(4)
+samples = [(rng.normal(size=(40, 3)), np.repeat(np.eye(2)[i % 2][:, None],
+                                                40, 1)) for i in range(4)]
+truth = [np.eye(3)[:, ::-1, None], np.eye(3)[::-1, :, None]]
+res = E.run_supervised_discovery_evaluation(
+    samples, truth, algorithms=("slarac", "selvar", "PCMCI"))
+assert sorted(res) == ["PCMCI", "selvar", "slarac"]
+vals = {{"cv": {{AN.OFFDIAG_PARADIGM: {{"A": {{
+    "f1_vals_across_factors": [0.5, 0.7]}}}}}}}}
+table = E.summarize_ablations({{"full": vals, "v": vals}}, "full")
+assert table["v"]["full_minus_variant_mean"] == 0.0
+cfg = TST.TSTransformerConfig(feat_dim=3, max_len=8, d_model=8, n_heads=2,
+                              num_layers=1, dim_feedforward=8, num_classes=2)
+clf = TST.TSTransformerEncoderClassiregressor(cfg)
+logits = clf.forward(clf.init(torch.Generator().manual_seed(0), "cpu"),
+                     torch.zeros((2, 8, 3)))
+assert logits.shape == (2, 2)
 graphs = list((np.random.default_rng(3).random(({K}, {C}, {C}, {L}))
                < 0.35).astype(float))
 stats = E.evaluate_algorithm_on_fold({str(tmp_path / "run")!r}, "{ALG}",

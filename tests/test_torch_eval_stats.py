@@ -178,7 +178,7 @@ def test_true_graph_readers_match_jax(tmp_path):
 
 def test_summaries_match_jax(tmp_path):
     """The headline off-diagonal F1 table of a comparison summary, and the
-    CSV report (no figure: the port has no plotting module yet)."""
+    CSV report (no figure, in either package: ``plot=False``)."""
     rng = np.random.default_rng(7)
     par = jsum.OFFDIAG_PARADIGM
     full = {d: {par: {a: {f"f1_{s}_across_factors": float(rng.random())
@@ -186,7 +186,8 @@ def test_summaries_match_jax(tmp_path):
                       for a in ("REDCLIFF_S_CMLP", "DGCNN")}}
             for d in ("d4IC", "synSys")}
     _same(tsum.summarize_off_diag_f1(full), jsum.summarize_off_diag_f1(full))
-    _same(tsum.write_cross_experiment_report(full, str(tmp_path / "t")),
+    _same(tsum.write_cross_experiment_report(full, str(tmp_path / "t"),
+                                             plot=False),
           jsum.write_cross_experiment_report(full, str(tmp_path / "j"),
                                              plot=False))
     name = f"{par}__f1_mean_across_factors.csv"
