@@ -202,11 +202,29 @@ Phases, one JSON line each:
    padding mask), 20 Adam steps of the classifier loss on each (loss
    histories at the trainer bars); ms per forward and per step, peak
    device memory; neither kernel launches.
+25. telemetry: the telemetry spine through the normal entry points, on
+   the train phase's model, data, knobs and weights. (1) A per-point fit
+   through ``RedcliffTrainer.fit`` with a ``save_dir``,
+   ``profile_window="epoch:2"``, ``REDCLIFF_QUALITY=1`` and the truth
+   graphs: every ``metrics.jsonl`` record validates against the port's
+   registry, the event sequence is the expected one, and the Chrome trace
+   of the window names both kernels, each as many times as its wrapper
+   counted over the window; the predicted bytes beside the measured peak.
+   (2) The same fit with telemetry off equals it bitwise; both walls.
+   (3) The published grid (27 lanes, ladder 32, epoch engine) with a
+   ``log_dir``, the truth and a window over a capture epoch (1), then over
+   a replayed epoch (3): records valid, ``quality`` keyed by the 27 point
+   ids, ``compile`` events counting the captures, both kernels in each
+   trace at the counters' counts. (4) Two fits armed with ``nan_batch:40``
+   and ``skip_update:40`` end bitwise equal. The earlier phases run with
+   ``REDCLIFF_QUALITY=0`` (their counts are their fits' forwards; the
+   quality readout adds one per check window).
 
 Launch counts are reset just before each main path (serve, train, grid,
 each grid_stream fit, grid_durable, array_task, eval, each baseline task
 and the GISTA fit, dcsfa, dynotears, data_gen, accuracy_synsys,
-accuracy_d4ic, discovery, analysis, ts_transformer) and read just after;
+accuracy_d4ic, discovery, analysis, ts_transformer, each telemetry fit)
+and read just after;
 the kernel-phase launches do not count. A count is executions on the
 device: a launch captured into a CUDA graph counts at each replay of the
 graph (and the warm-up step before each capture ran and counts). Then a
@@ -565,6 +583,10 @@ ACC_DYNAMIC_RECORDINGS = 16
 # synSys readout's windows: T 100 - embed_lag 16 + 1
 SYNSYS_BATCHES = (128, 16, 112, 96)
 D4IC_BATCHES = (120, 40, 88, 22)
+# the grid's quality readout: the graph summary vmapped over the lanes on
+# the first validation batch cut to RedcliffTrainConfig's
+# max_samples_for_gc_tracking windows, one lane-form mix at each ladder width
+QUALITY_READOUT_B = 40
 SYNSYS_READOUT_S = 100 - 16 + 1
 # discovery: the Table-2 flow (eval/supervised_discovery.py) on the held-out
 # split of one synSys 6-2-2 fold at the study's size
@@ -1249,6 +1271,21 @@ def phase_kernel(torch, FM, PX):
                      FM.factor_mix_lanes(wl, pl),
                      FM.factor_mix_lanes_reference(wl, pl),
                      errs["factor_mix"])
+        # the quality readout's lane form at this width (telemetry path)
+        wq = torch.rand((width, QUALITY_READOUT_B, K_TRAIN),
+                        generator=gen).to(dev)
+        pq = torch.randn((width, K_TRAIN, QUALITY_READOUT_B, 1, C_TRAIN),
+                         generator=gen).to(dev)
+        for pp, tag in ((pq, ""), (_offset_view(torch, pq), " p+1 float")):
+            name = (f"factor_mix_lanes(G={width}, B={QUALITY_READOUT_B}) "
+                    f"quality readout{tag}")
+            before = FM.factor_mix.launches
+            got = FM.factor_mix_lanes(wq, pp)
+            _require(FM.factor_mix.launches == before + 1,
+                     f"{name}: not one launch for all lanes")
+            _check_close(torch, name, got,
+                         FM.factor_mix_lanes_reference(wq, pp),
+                         errs["factor_mix"])
         want = PX.gl_prox_lanes_reference(Wl, tl, gl)
         _check_close(torch, f"gl_prox_lanes(G={width}, {live} on)",
                      PX.gl_prox_lanes_(Wl.clone(), tl, gl), want,
@@ -4323,6 +4360,380 @@ def phase_eval(torch, FM, PX, model, grid_res, task_runs, readout_timing):
     return mix_launches, prox_launches
 
 
+# telemetry: the train phase's model, data, knobs and seed-0 weights through
+# the normal entry points with the telemetry spine on. The per-point fit
+# profiles its first combined epoch; the grid fits profile a capture epoch
+# at width 32 (the factor_pretrain programs are captured in epoch 1), a
+# replayed combined epoch (3) at width 32, and one at width 16 (points
+# 15-26 evicted by their deadline at epoch 0, as in grid_durable); the
+# fault fits poison / skip the middle step of the first combined epoch (40
+# at the full size)
+TELEMETRY_WINDOW = 2
+TELEMETRY_GRID_FITS = (("capture32", 1, None), ("replay32", 3, None),
+                       ("replay16", 3, DURABLE_DEADLINES))
+# the kernels' names in a torch.profiler trace (the __global__ functions of
+# ops/csrc/factor_mix.cu and ops/csrc/gl_prox.cu)
+KERNEL_NAMES = {"factor_mix": "factor_mix_kernel",
+                "gl_prox": "gl_prox_kernel"}
+# the small width of the gpu-marked test's run of the same checks
+TELEMETRY_SMALL = dict(gen_hidden=(8,), dgcnn_num_hidden_nodes=16)
+TELEMETRY_SMALL_N = (384, 128)
+
+
+def _trace_kernels(path):
+    """Each kernel's executions in a ``torch.profiler`` Chrome trace, and
+    its device time by launch configuration ("grid x,y,z block x"): count
+    and mean µs."""
+    with open(path) as f:
+        trace = json.load(f)
+    counts = {k: 0 for k in KERNEL_NAMES}
+    by_launch = {k: {} for k in KERNEL_NAMES}
+    for ev in trace.get("traceEvents", []):
+        if ev.get("cat") != "kernel":
+            continue
+        for k, name in KERNEL_NAMES.items():
+            if name in ev.get("name", ""):
+                counts[k] += 1
+                args = ev.get("args", {})
+                key = (f"grid {','.join(map(str, args.get('grid', [])))} "
+                       f"block {','.join(map(str, args.get('block', [])))}")
+                n, tot = by_launch[k].get(key, (0, 0.0))
+                by_launch[k][key] = (n + 1, tot + float(ev.get("dur", 0)))
+    return counts, {k: {key: {"n": n, "mean_us": tot / n}
+                        for key, (n, tot) in v.items()}
+                    for k, v in by_launch.items()}
+
+
+class _WindowCounters:
+    """Wraps ``obs.profiling.window_for`` while a fit runs, so the kernel
+    counters are read when its capture starts and when it stops: the
+    window's launches on the wrappers' own count."""
+
+    def __init__(self, FM, PX):
+        self.FM, self.PX = FM, PX
+        self.at = {}
+
+    def _read(self):
+        return {"factor_mix": self.FM.factor_mix.launches,
+                "gl_prox": self.PX.gl_prox.launches}
+
+    def __enter__(self):
+        from redcliff_tpu_torch.obs import profiling
+
+        self._mod, self._real = profiling, profiling.window_for
+
+        def window_for(*a, **kw):
+            win = self._real(*a, **kw)
+            if not win.enabled:
+                return win
+            start, end = win.on_epoch_start, win.on_epoch_end
+
+            def on_start(epoch):
+                was = win._prof
+                start(epoch)
+                if was is None and win._prof is not None:
+                    self.at["start"] = self._read()
+
+            def on_end(epoch, logger=None):
+                was = win._prof
+                end(epoch, logger=logger)
+                if was is not None and win._prof is None:
+                    self.at["stop"] = self._read()
+            win.on_epoch_start, win.on_epoch_end = on_start, on_end
+            return win
+        profiling.window_for = window_for
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.window_for = self._real
+        return False
+
+    def window_launches(self):
+        return {k: self.at["stop"][k] - self.at["start"][k]
+                for k in KERNEL_NAMES}
+
+
+class _Env:
+    """Set environment variables for a block and restore them after."""
+
+    def __init__(self, **values):
+        self.values = values
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k) for k in self.values}
+        for k, v in self.values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        return self
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        return False
+
+
+def _records(run_dir):
+    from redcliff_tpu_torch.obs.logging import read_jsonl
+    from redcliff_tpu_torch.obs.schema import validate_records
+
+    recs = read_jsonl(run_dir)
+    bad = validate_records(recs)
+    _require(not bad, f"{run_dir}: records outside the registry: {bad[:3]}")
+    return recs
+
+
+def _profiled(recs, trace_counts, window_counts, what):
+    """The fit's one ``profile`` record; its trace's kernel counts must be
+    the wrappers' counts over the window. Returns the record and the
+    kernels' device time by launch configuration."""
+    prof = [r for r in recs if r["event"] == "profile"]
+    _require(len(prof) == 1 and os.path.isfile(prof[0]["path"])
+             and not prof[0]["truncated"],
+             f"{what}: profile events {prof}")
+    counts, by_launch = _trace_kernels(prof[0]["path"])
+    _require(counts == window_counts,
+             f"{what}: trace kernel counts {counts} against the wrappers' "
+             f"{window_counts} over the window")
+    trace_counts[what] = counts
+    return prof[0], by_launch
+
+
+def telemetry_checks(root, small=False, grid=True):
+    """The telemetry phase's fits and checks (``small``: the gpu test's
+    width; ``grid=False`` leaves out check 3); returns the phase's
+    readings. Raises on a failed check."""
+    import numpy as np
+    import torch
+
+    from redcliff_tpu_torch import interop
+    from redcliff_tpu_torch.data.datasets import train_val_split
+    from redcliff_tpu_torch.models.redcliff import (RedcliffSCMLP,
+                                                    RedcliffSCMLPConfig)
+    from redcliff_tpu_torch.ops import factor_mix as FM
+    from redcliff_tpu_torch.ops import pallas_prox as PX
+    from redcliff_tpu_torch.parallel.grid import GridSpec, RedcliffGridRunner
+    from redcliff_tpu_torch.train.redcliff_trainer import (
+        RedcliffTrainConfig, RedcliffTrainer)
+
+    root = str(root)
+    shutil.rmtree(root, ignore_errors=True)
+    cfg = dict(TRAIN_CONFIG, **(TELEMETRY_SMALL if small else {}))
+    n_tr, n_val = TELEMETRY_SMALL_N if small else (N_TRAIN, N_VAL)
+    X, Y, graphs = _d4ic_like_data(np, n_tr + n_val, seed=0)
+    train_ds, val_ds = train_val_split(X, Y, val_fraction=n_val
+                                       / (n_tr + n_val),
+                                       rng=np.random.default_rng(1))
+    truth = list(graphs)
+    model = RedcliffSCMLP(RedcliffSCMLPConfig(**cfg))
+    params = model.init(torch.Generator().manual_seed(0))
+    out = {"trace_counts": {}, "counter_counts": {}, "launches": {
+        "factor_mix": 0, "gl_prox": 0}}
+    # the kernel phase held the grid readout's lane form at this batch
+    _require(RedcliffTrainConfig(**TRAIN_KNOBS).max_samples_for_gc_tracking
+             == QUALITY_READOUT_B, "the quality readout's batch moved")
+
+    def fit(save_dir, **knobs):
+        trainer = RedcliffTrainer(model, RedcliffTrainConfig(
+            **{**TRAIN_KNOBS, **knobs}))
+        t0 = time.perf_counter()
+        res = trainer.fit(params, train_ds, val_ds, true_GC=truth,
+                          save_dir=save_dir)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    # ---- 1. the traced per-point fit: counts at 0 just before, read
+    # just after
+    run1 = os.path.join(root, "fit")
+    torch.cuda.reset_peak_memory_stats()
+    base_alloc = torch.cuda.memory_allocated()
+    FM.factor_mix.launches = 0
+    PX.gl_prox.launches = 0
+    with _Env(REDCLIFF_QUALITY="1", REDCLIFF_PROFILE=None), \
+            _WindowCounters(FM, PX) as wc:
+        on, on_s = fit(run1, profile_window=f"epoch:{TELEMETRY_WINDOW}")
+    torch.cuda.synchronize()
+    out["launches"]["factor_mix"] += FM.factor_mix.launches
+    out["launches"]["gl_prox"] += PX.gl_prox.launches
+    out["counter_counts"]["fit"] = wc.window_launches()
+    recs = _records(run1)
+    epochs = TRAIN_KNOBS["max_iter"]
+    want = (["fit_start", "memory"]
+            + [e for it in range(epochs) for e in
+               (["epoch", "quality"]
+                + (["profile"] if it == TELEMETRY_WINDOW else []))]
+            + ["memory", "fit_end"])
+    got = [r["event"] for r in recs]
+    _require(got == want, f"fit events {got}, expected {want}")
+    prof, fit_kernels = _profiled(recs, out["trace_counts"],
+                                  out["counter_counts"]["fit"], "fit")
+    _require(all(v > 0 for v in out["counter_counts"]["fit"].values()),
+             f"the window missed a kernel: {out['counter_counts']}")
+    qual = [r for r in recs if r["event"] == "quality"]
+    _require(all(q["lanes"] == [0] and q["auroc"][0] is not None
+                 for q in qual), "quality records without AUROC")
+    pred, meas = [r for r in recs if r["event"] == "memory"]
+    _require(pred["kind"] == "predicted" and meas["kind"] == "measured"
+             and pred["backend"] == "cuda" and pred["fits"] is True,
+             f"memory records {pred} {meas}")
+    out["fit"] = {
+        "fit_wall_s_on": on_s, "profile_path": os.path.relpath(
+            prof["path"], HERE), "profile_dur_ms": prof["dur_ms"],
+        "quality_last": {k: qual[-1][k] for k in (
+            "edge_energy", "sparsity", "entropy", "auroc", "aupr",
+            "jaccard", "topk_hash")},
+        "predicted_bytes": pred["predicted_bytes"],
+        "measured_peak_bytes": meas["peak_bytes"],
+        "phase_start_allocated_bytes": base_alloc,
+        "kernels_us_by_launch": fit_kernels,
+        "peak_above_start_bytes": meas["peak_bytes"] - base_alloc,
+        "bytes_limit": meas["bytes_limit"],
+        "device_kind": meas["device_kind"]}
+
+    # ---- 2. the same fit with telemetry off: the same params, bitwise
+    with _Env(REDCLIFF_QUALITY="0", REDCLIFF_PROFILE=None):
+        off, off_s = fit(None)
+    same = all(torch.equal(a, b) for a, b in zip(
+        interop.tree_leaves(on.params), interop.tree_leaves(off.params)))
+    _require(same and on.best_it == off.best_it,
+             "the fit with telemetry off differs from the traced fit")
+    out["bitwise_on_off"] = same
+    out["fit"]["fit_wall_s_off"] = off_s
+
+    # ---- 3. the published grid (27 lanes, ladder 32, the epoch engine)
+    # with a metrics log, the truth and a window over a capture epoch, then
+    # over a replayed epoch at width 32 and at width 16
+    points, _ = _grid_points()
+    grids = {}
+    for name, w, deadlines in TELEMETRY_GRID_FITS if grid else ():
+        run = os.path.join(root, f"grid_{name}")
+        runner = RedcliffGridRunner(model, RedcliffTrainConfig(
+            **TRAIN_KNOBS, profile_window=f"epoch:{w}"),
+            GridSpec(points=points, fit_deadline_s=deadlines))
+        FM.factor_mix.launches = 0
+        PX.gl_prox.launches = 0
+        t0 = time.perf_counter()
+        with _Env(REDCLIFF_QUALITY="1", REDCLIFF_PROFILE=None), \
+                _WindowCounters(FM, PX) as gwc:
+            res = runner.fit(None, train_ds, val_ds, log_dir=run,
+                             init_params=runner.init_grid_from(params),
+                             true_gc=truth)
+        torch.cuda.synchronize()
+        g_s = time.perf_counter() - t0
+        out["launches"]["factor_mix"] += FM.factor_mix.launches
+        out["launches"]["gl_prox"] += PX.gl_prox.launches
+        stats = res.dispatch_stats
+        grecs = _records(run)
+        start = grecs[0]
+        _require(stats["mode"] == "epoch" and start["event"] == "fit_start"
+                 and start["grid_width"] == 32,
+                 f"grid mode {stats['mode']}, first record {start}")
+        counts = gwc.window_launches()
+        out["counter_counts"][f"grid_{name}"] = counts
+        gprof, by_launch = _profiled(grecs, out["trace_counts"], counts,
+                                     f"grid_{name}")
+        _require(all(v > 0 for v in counts.values()),
+                 f"grid window {name} missed a kernel: {counts}")
+        widths = [r["grid_width"] for r in grecs if r["event"] == "epoch"]
+        _require(widths[w] == int(name[-2:]),
+                 f"grid {name}: widths by epoch {widths}")
+        # quality keyed by original point id: all 27 at the first window,
+        # then the lanes that still run (filler lanes never appear)
+        quals = [r for r in grecs if r["event"] == "quality"]
+        live = list(range(GRID_LANES if deadlines is None
+                          else DURABLE_LIVE))
+        _require(quals and quals[0]["lanes"] == list(range(GRID_LANES))
+                 and all(q["lanes"] == live and len(q["auroc"]) == len(live)
+                         for q in quals[1:]),
+                 f"grid {name}: quality lanes "
+                 f"{[q['lanes'] for q in quals]}")
+        comp = [r for r in grecs if r["event"] == "compile"]
+        _require(sum(c["programs"] for c in comp) == stats["graph_captures"]
+                 > 0 and all(c["compile_ms"] > 0 for c in comp),
+                 f"compile events {comp} against "
+                 f"{stats['graph_captures']} captures")
+        cap_epochs = sorted(c["epoch"] for c in comp)
+        kind = "capture" if w in cap_epochs else "replay"
+        _require(name.startswith(kind),
+                 f"grid window {name} is a {kind} epoch (captures at "
+                 f"{cap_epochs})")
+        gpred = next(r for r in grecs if r["event"] == "memory")
+        gmeas = [r for r in grecs if r["event"] == "memory"
+                 and r["kind"] == "measured"]
+        grids[name] = {
+            "window_epoch": w, "fit_wall_s": g_s,
+            "widths_by_epoch": widths,
+            "compile_events": [(c["epoch"], c["programs"],
+                                round(c["compile_ms"], 3)) for c in comp],
+            "profile_dur_ms": gprof["dur_ms"],
+            "kernels_us_by_launch": by_launch,
+            "predicted_bytes": gpred["predicted_bytes"],
+            "measured_peak_bytes": max(r["peak_bytes"] for r in gmeas),
+            "mean_auroc_last": quals[-1]["mean_auroc"],
+            "quality_windows": len(quals)}
+    out["grid"] = grids or None
+
+    # ---- 4. nan_batch:K and skip_update:K end bitwise equal
+    n_b = -(-len(train_ds) // TRAIN_KNOBS["batch_size"])
+    out["fault_step"] = step = 2 * n_b + n_b // 2
+    fault = {}
+    for spec in ("nan_batch", "skip_update"):
+        FM.factor_mix.launches = 0
+        PX.gl_prox.launches = 0
+        with _Env(REDCLIFF_QUALITY="0", REDCLIFF_PROFILE=None,
+                  REDCLIFF_FAULT_INJECT=f"{spec}:{step}"):
+            fault[spec], _ = fit(None)
+        out["launches"]["factor_mix"] += FM.factor_mix.launches
+        out["launches"]["gl_prox"] += PX.gl_prox.launches
+    nan_res, skip_res = fault["nan_batch"], fault["skip_update"]
+    same = all(torch.equal(a, b) for a, b in zip(
+        interop.tree_leaves(nan_res.params),
+        interop.tree_leaves(skip_res.params)))
+    _require(same and nan_res.numerics["skipped"] == 1
+             and skip_res.numerics["skipped"] == 0,
+             f"nan_batch vs skip_update: bitwise {same}, skipped "
+             f"{nan_res.numerics['skipped']} / "
+             f"{skip_res.numerics['skipped']}")
+    out["nan_equals_skip"] = same
+    return out
+
+
+def phase_telemetry(torch, smi):
+    """The telemetry spine through the normal entry points (see
+    :func:`telemetry_checks`); every fit's launches are its path's."""
+    root = os.path.join(HERE, "build", "chip_smoke", "telemetry")
+    t0 = time.perf_counter()
+    out = telemetry_checks(root)
+    fit = out["fit"]
+    _emit({"phase": "telemetry", "device": torch.cuda.get_device_name(0),
+           "card": smi,
+           "config": "the train phase's (D4IC REDCLIFF-S, full width) and "
+                     "the published D4IC grid (27 lanes, ladder 32)",
+           "wall_s": time.perf_counter() - t0,
+           "fit_wall_s_telemetry_on": fit["fit_wall_s_on"],
+           "fit_wall_s_telemetry_off": fit["fit_wall_s_off"],
+           "bitwise_on_off": out["bitwise_on_off"],
+           "nan_batch_equals_skip_update": out["nan_equals_skip"],
+           "fault_step": out["fault_step"],
+           "predicted_bytes": fit["predicted_bytes"],
+           "measured_peak_bytes": fit["measured_peak_bytes"],
+           "peak_above_phase_start_bytes": fit["peak_above_start_bytes"],
+           "phase_start_allocated_bytes": fit["phase_start_allocated_bytes"],
+           "bytes_limit": fit["bytes_limit"],
+           "profile": fit["profile_path"],
+           "profile_dur_ms": fit["profile_dur_ms"],
+           "trace_kernel_counts": out["trace_counts"],
+           "counter_kernel_counts": out["counter_counts"],
+           "quality_last": fit["quality_last"], "grid": out["grid"],
+           "factor_mix_launches": out["launches"]["factor_mix"],
+           "gl_prox_launches": out["launches"]["gl_prox"]})
+    return out["launches"]["factor_mix"], out["launches"]["gl_prox"]
+
+
 def _kernel_entry(name, mod, replaces, launches, by_path, max_err, t):
     return {"name": name, "route": "cuda",
             "source": os.path.relpath(mod.KERNEL_SOURCE, HERE),
@@ -4349,6 +4760,10 @@ def main():
               file=sys.stderr)
         return 2
 
+    # the quality readout adds a forward (a factor-mix launch) per check
+    # window; the phases before telemetry count their fits' forwards
+    # without it, and the telemetry phase turns it on for its own fits
+    os.environ["REDCLIFF_QUALITY"] = "0"
     smi = phase_build(torch, {"factor_mix": FM, "gl_prox": PX})
     max_err, timing = phase_kernel(torch, FM, PX)
     serve_launches, smodel, sparams = phase_serve(torch, FM, PX)
@@ -4380,6 +4795,7 @@ def main():
                                      syn_runs)
     tst_mix, tst_prox = phase_ts_transformer(torch, FM, PX, tst_X, tst_y,
                                              smi)
+    tel_mix, tel_prox = phase_telemetry(torch, smi)
     if "--profile" in sys.argv[1:]:
         phase_profile(torch, FM)
         phase_profile_train(torch, FM, PX, tmodel, tparams, train_ds)
@@ -4401,7 +4817,7 @@ def main():
                  "dynotears": dy_mix, "data_gen": gen_mix,
                  "accuracy_synsys": syn_mix, "accuracy_d4ic": d4_mix,
                  "discovery": disc_mix, "analysis": an_mix,
-                 "ts_transformer": tst_mix}
+                 "ts_transformer": tst_mix, "telemetry": tel_mix}
     fm = _kernel_entry(
         "factor_mix", FM, "redcliff_tpu/ops/factor_mix.py:58",
         sum(mix_paths.values()), mix_paths, max_err["factor_mix"],
@@ -4415,7 +4831,8 @@ def main():
                   "dcsfa": dc_prox, "dynotears": dy_prox,
                   "data_gen": gen_prox, "accuracy_synsys": syn_prox,
                   "accuracy_d4ic": d4_prox, "discovery": disc_prox,
-                  "analysis": an_prox, "ts_transformer": tst_prox}
+                  "analysis": an_prox, "ts_transformer": tst_prox,
+                  "telemetry": tel_prox}
     px = _kernel_entry(
         "gl_prox", PX, "redcliff_tpu/ops/pallas_prox.py:47",
         sum(prox_paths.values()), prox_paths, max_err["gl_prox"],

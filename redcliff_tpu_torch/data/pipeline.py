@@ -26,14 +26,21 @@ prefetch (port of ``data/pipeline.py``).
   background prefetch for batch sources that are not device-resident: a
   thread drains the source up to ``depth`` items ahead and applies ``put``
   (e.g. a host-to-device copy) there, so producing batch t+1 overlaps the
-  consumer's compute on batch t.
+  consumer's compute on batch t. Each fill is a ring-only
+  ``prefetch.fill`` span and counts into ``prefetch_items``; the
+  consumer's waits on an empty queue count into ``prefetch_stall_ms``
+  (``obs.counters``, folded into the grid's ``dispatch_stats``), and a
+  wait over 1 ms is also a ``prefetch.stall`` span.
 """
 from __future__ import annotations
 
 import queue
 import threading
+import time
 
 import numpy as np
+
+from redcliff_tpu_torch.obs import spans as _spans
 
 __all__ = ["epoch_batch_plan", "choose_stream_mode", "dataset_device_bytes",
            "dispatch_budget", "prefetch_batches", "PrefetchIterator",
@@ -181,9 +188,13 @@ class PrefetchIterator:
             for item in self._iterator:
                 if self._cancel.is_set():
                     return
-                if self._put is not None:
-                    item = tuple(None if x is None else self._put(x)
-                                 for x in item)
+                # the fill span covers the transform/copy half of producing
+                # one batch; waiting on a full queue stays outside it
+                with _spans.span("prefetch.fill", component="prefetch"):
+                    if self._put is not None:
+                        item = tuple(None if x is None else self._put(x)
+                                     for x in item)
+                _spans.COUNTERS.add("prefetch_items", 1)
                 if not self._put_blocking(item):
                     return
             self._put_blocking(self._END)
@@ -198,7 +209,15 @@ class PrefetchIterator:
             raise StopIteration
         if self._thread is None:
             return next(self._source)
+        # consumer-side stall accounting: time blocked on an empty queue is
+        # the pipeline's un-overlapped fill cost
+        t_get0 = time.perf_counter()
         item = self._q.get()
+        wait_ms = (time.perf_counter() - t_get0) * 1e3
+        _spans.COUNTERS.add("prefetch_stall_ms", wait_ms)
+        if wait_ms > 1.0:
+            _spans.record_span("prefetch.stall", wait_ms,
+                               component="prefetch")
         if item is self._END:
             self.close()
             raise StopIteration

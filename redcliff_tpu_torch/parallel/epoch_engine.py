@@ -41,6 +41,10 @@ Kernel launch counts (``factor_mix.launches``, ``gl_prox.launches``) keep
 meaning executions on the device: a launch made while the stream is
 capturing is recorded by the program, and each replay adds the program's
 captured launches.
+
+Every program run and eager step is a ring-only ``grid.dispatch`` span
+(host enqueue time), and every capture counts into
+``runtime/compileobs.py`` (the grid's ``compile`` events).
 """
 from __future__ import annotations
 
@@ -54,6 +58,7 @@ from redcliff_tpu_torch.data import pipeline
 from redcliff_tpu_torch.interop import tree_leaves
 from redcliff_tpu_torch.ops import factor_mix as _factor_mix
 from redcliff_tpu_torch.ops import pallas_prox as _pallas_prox
+from redcliff_tpu_torch.runtime import compileobs
 
 __all__ = ["Program", "EpochEngine", "COUNTED"]
 
@@ -242,12 +247,14 @@ class EpochEngine:
         if prog is None:
             prog = self.programs[key] = make()
         fresh = prog.pointers is None
-        prog.load(**batches)
-        out = prog.run(state)
         kind, phase, steps, rows = key
+        with self.runner._dispatch_span(kind, cold=fresh):
+            prog.load(**batches)
+            out = prog.run(state)
         self.stats["val_dispatches" if kind == "val"
                    else "train_dispatches"] += 1
         if fresh and prog.capture_ms is not None:
+            compileobs.note_capture(prog.capture_ms)
             self.stats["graph_captures"] += 1
             self.stats["capture_ms"] += prog.capture_ms
             self.stats["programs"].append({
@@ -305,7 +312,8 @@ class EpochEngine:
                        X=[x for x, _ in group], Y=[y for _, y in group])
 
     def _eager_step(self, phase, state, X, Y):
-        self.runner._step(phase, *state, self.active, X, Y)
+        with self.runner._dispatch_span("step"):
+            self.runner._step(phase, *state, self.active, X, Y)
         self.stats["train_dispatches"] += 1
 
     def train_epoch(self, mode, phase, state, active, train_ds, rng):
@@ -389,8 +397,9 @@ class EpochEngine:
         n = 0
         with torch.no_grad():
             for X, Y in runner._batches(val_ds):
-                combo, fo, fa = runner._val(params, runner._ex_loss_coeffs,
-                                            X, Y)
+                with runner._dispatch_span("val"):
+                    combo, fo, fa = runner._val(params,
+                                                runner._ex_loss_coeffs, X, Y)
                 self.stats["val_dispatches"] += 1
                 combo_sum = combo_sum + combo
                 forecast_sum = forecast_sum + fo

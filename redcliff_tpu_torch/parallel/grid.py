@@ -56,10 +56,32 @@ keys ``mode``, ``epochs``, ``train_dispatches``, ``val_dispatches``,
 ``train_time_ms``, ``val_time_ms``, ``epoch_ms_by_width``, and the port's
 ``graph_captures``, ``capture_ms`` and ``programs``).
 
-Not ported yet (ROADMAP queue 1): the predictive scheduling policy, the
-async checkpoint writer, mixed precision, telemetry (metrics log, quality
-monitor) and the device mesh. Asking for any of them raises
-``NotImplementedError``.
+Telemetry, as the JAX grid emits it (``redcliff_tpu/parallel/grid.py:
+1588-1650,1772,2021-2080,2134-2173,2289-2414,2535``): with a ``log_dir``
+the fit writes ``metrics.jsonl`` — ``fit_start``, the predicted
+``memory`` of its ladder width, at each check window an ``epoch`` record,
+``quality`` (per-lane graph summaries of ``obs/quality.py`` keyed by
+original point id, filler lanes skipped; AUROC/AUPR with ``true_gc``) and
+the measured ``memory`` on a card, then ``deadline_evicted``,
+``compaction``, ``early_exit_all_inactive``, ``compile`` (the CUDA graphs
+an epoch captured, ``runtime/compileobs.py``),
+``preempted_final_checkpoint``, ``grid_deadline_final_checkpoint``,
+``profile`` and ``fit_end`` — and the spans ``grid.dispatch`` (every
+step, program replay and validation pass: ring-only, enqueue time),
+``grid.check_window`` and ``grid.compaction`` (emitted) and
+``grid.ckpt_save``. ``profile_window`` / ``profile_dir`` open a bounded
+``torch.profiler`` window. The quality readout reads params only, so fits
+are bit-identical with telemetry on or off. The step fault points
+(``runtime/faultinject.py``) apply on the per-batch path only, as in
+JAX: ``nan_batch`` and ``grad_blowup`` as there, and ``skip_update``
+too, which the JAX grid never applies (ROADMAP queue 3 item 16); the
+scanned modes apply none. The crash points ``checkpoint_saved`` and
+``epoch_end`` are the JAX grid's.
+
+Not ported yet (ROADMAP queue 1): the predictive scheduling policy and its
+``policy`` / ``cost_model`` events, the async checkpoint writer, the
+watchdog, mixed precision and the device mesh. Asking for the policy, the
+mesh or mixed precision raises ``NotImplementedError``.
 
 Entry points run on ``cuda`` unless the caller passes ``device=``.
 """
@@ -77,12 +99,18 @@ import torch
 from redcliff_tpu_torch.data import pipeline
 from redcliff_tpu_torch.interop import params_to_jax, tree_leaves, tree_map
 from redcliff_tpu_torch.models.redcliff import phase_schedule
+from redcliff_tpu_torch.obs import memory as _obsmem
+from redcliff_tpu_torch.obs import profiling as _profiling
+from redcliff_tpu_torch.obs import quality as _quality
+from redcliff_tpu_torch.obs import schema as _schema
+from redcliff_tpu_torch.obs import spans as _spans
+from redcliff_tpu_torch.obs.logging import MetricLogger
 from redcliff_tpu_torch.ops.pallas_prox import lane_thresholds
 from redcliff_tpu_torch.parallel import compaction
 from redcliff_tpu_torch.parallel.epoch_engine import EpochEngine
 from redcliff_tpu_torch.parallel.policy import GridSchedulingPolicy
 from redcliff_tpu_torch.runtime import checkpoint as durable_ckpt
-from redcliff_tpu_torch.runtime import numerics
+from redcliff_tpu_torch.runtime import compileobs, faultinject, numerics
 from redcliff_tpu_torch.runtime.preempt import (DeadlineExceeded, Preempted,
                                                 PreemptionGuard)
 from redcliff_tpu_torch.train.freeze import apply_freeze_lanes
@@ -320,6 +348,9 @@ class RedcliffGridRunner:
         mode = cfg.training_mode
         self._freeze = "Freeze" in mode
         self._freeze_by_batch = "FreezeByBatch" in mode
+        # reported in fit_start; the port caches no compiled program
+        self._compile_cache_dir = compileobs.enable_cache(
+            getattr(train_config, "compile_cache_dir", None))
         self._build()
         self._set_era(self._orig_ids0)
 
@@ -645,21 +676,21 @@ class RedcliffGridRunner:
         stats["ckpt_stall_ms"] += (time.perf_counter() - t0) * 1e3
 
     def _load_checkpoint(self, checkpoint_dir, want_meta):
-        """The newest usable checkpoint generation, or None for a fresh
-        start. A corrupt head is quarantined to ``*.bad`` and ``.prev`` is
-        tried next; a readable checkpoint of a different fit, or one the
-        JAX grid wrote (its optimizer state is optax's), is refused with a
-        ``ValueError``."""
+        """``(checkpoint, source path)`` of the newest usable generation,
+        or ``(None, None)`` for a fresh start. A corrupt head is
+        quarantined to ``*.bad`` and ``.prev`` is tried next; a readable
+        checkpoint of a different fit, or one the JAX grid wrote (its
+        optimizer state is optax's), is refused with a ``ValueError``."""
         path = os.path.join(checkpoint_dir, self.CHECKPOINT_NAME)
         try:
-            ckpt, _ = durable_ckpt.load_checkpoint(path)
+            ckpt, src = durable_ckpt.load_checkpoint(path)
         except durable_ckpt.ForbiddenClassError as e:
             raise ValueError(
                 f"{path} is not a grid checkpoint of the port (a JAX-written "
                 f"one holds optax state and does not resume here); point "
                 f"checkpoint_dir elsewhere") from e
         if ckpt is None:
-            return None
+            return None, None
         meta = ckpt.get("meta", {})
         diff = ([k for k in want_meta if meta.get(k) != want_meta[k]]
                 + [k for k in meta if k not in want_meta])
@@ -673,7 +704,7 @@ class RedcliffGridRunner:
                 f"else. Mismatched fields: {detail}. Point checkpoint_dir "
                 f"elsewhere, delete the stale checkpoint, or rerun with the "
                 f"original configuration.")
-        return ckpt
+        return ckpt, src
 
     # ------------------------------------------------------------------- fit
     def fit(self, key=None, train_ds=None, val_ds=None, max_iter=None,
@@ -703,22 +734,42 @@ class RedcliffGridRunner:
         exception in the hook is reported as a warning: results do not
         depend on it.
 
-        ``log_dir`` and ``true_gc`` (telemetry) are not ported yet and
-        raise."""
-        if log_dir is not None or true_gc is not None:
-            _not_ported("grid telemetry (metrics log, quality monitor)",
-                        "item 11")
+        ``log_dir``: the fit's ``metrics.jsonl`` (and a profiler window's
+        trace, under ``profile/``) go there. ``true_gc``: the dataset's
+        ground-truth graphs (a list of ``(C, C[, L])`` arrays), which add
+        per-lane AUROC/AUPR to the ``quality`` events. Telemetry only:
+        results are bit-identical with or without either."""
         if train_ds is None or val_ds is None:
             raise TypeError("fit needs train_ds and val_ds")
-        # the guard wraps the whole fit, so a signal during set-up is
-        # latched too; the epoch loop polls it
-        with PreemptionGuard(enabled=checkpoint_dir is not None) as guard:
-            return self._fit(key, train_ds, val_ds, max_iter, init_params,
-                             copy_init, checkpoint_dir, checkpoint_every,
-                             on_lane_retire, guard)
+        pw = _profiling.window_for(
+            self.tc, run_dir=log_dir,
+            max_iter=max_iter if max_iter is not None else self.tc.max_iter,
+            device=self.device)
+        logger = MetricLogger(log_dir)
+        try:
+            # the guard wraps the whole fit, so a signal during set-up is
+            # latched too; the epoch loop polls it
+            with PreemptionGuard(enabled=checkpoint_dir is not None) \
+                    as guard:
+                return self._fit(key, train_ds, val_ds, max_iter,
+                                 init_params, copy_init, checkpoint_dir,
+                                 checkpoint_every, on_lane_retire, guard,
+                                 logger, pw, true_gc)
+        finally:
+            # a window the epochs never closed (an early exit inside it, a
+            # preemption, a deadline) announces its truncated capture
+            pw.finish(logger=logger)
+            logger.close()
+
+    def _dispatch_span(self, kind, cold=False):
+        """The ring-only ``grid.dispatch`` span around one step, program
+        run or validation pass (host enqueue time; no sync)."""
+        return _spans.span("grid.dispatch", component="dispatch", kind=kind,
+                           cold=cold)
 
     def _fit(self, key, train_ds, val_ds, max_iter, init_params, copy_init,
-             checkpoint_dir, checkpoint_every, on_lane_retire, guard):
+             checkpoint_dir, checkpoint_every, on_lane_retire, guard, logger,
+             pw, true_gc):
         tc = self.tc
         cfg = self.model.config
         dev = self.device
@@ -747,12 +798,18 @@ class RedcliffGridRunner:
             "grid_width": self._g_exec0, "compactions": 0,
             "lane_epochs": 0, "lane_epochs_nominal": 0,
             "ckpt_saves": 0, "ckpt_bytes": None, "ckpt_stall_ms": 0.0,
-            "ckpt_load_ms": None, "resumed_from_epoch": None}
-        ckpt = ck_meta = None
+            "ckpt_load_ms": None, "resumed_from_epoch": None,
+            # telemetry, as the JAX grid's: live lanes at the last check
+            # window, the prefetch counters of obs.counters, the predicted
+            # footprint and measured peak (obs/memory.py), the quality
+            # monitor's rolling snapshot (obs/quality.py)
+            "lanes_live": None, "prefetch_stall_ms": 0.0,
+            "prefetch_items": 0, "memory": None, "quality": None}
+        ckpt = ck_meta = ck_src = None
         if checkpoint_dir is not None:
             t0 = time.perf_counter()
             ck_meta = self._checkpoint_meta(train_ds, val_ds)
-            ckpt = self._load_checkpoint(checkpoint_dir, ck_meta)
+            ckpt, ck_src = self._load_checkpoint(checkpoint_dir, ck_meta)
             if ckpt is not None:
                 stats["ckpt_load_ms"] = (time.perf_counter() - t0) * 1e3
         if ckpt is not None:
@@ -820,8 +877,68 @@ class RedcliffGridRunner:
             if first is not None:
                 cos_Xw = first[0][: tc.max_samples_for_gc_tracking,
                                   : cfg.max_lag, :]
+        # the quality observatory (obs/quality.py): per-lane graph
+        # summaries at check windows, one vmapped readout of the params
+        # (nothing else is read or written); none with REDCLIFF_QUALITY=0
+        qmon = qual_fn = qual_Xw = None
+        if _quality.enabled():
+            qual_Xw = cos_Xw
+            if qual_Xw is None:
+                qfirst = next(iter(self._batches(val_ds)), None)
+                if qfirst is not None:
+                    qual_Xw = qfirst[0][: tc.max_samples_for_gc_tracking,
+                                        : cfg.max_lag, :]
+            if qual_Xw is not None:
+                qual_fn = torch.func.vmap(
+                    _quality.make_summary_fn(self.model), in_dims=(0, None))
+                qmon = _quality.QualityMonitor(
+                    true_gc=true_gc, mode=_quality.readout_mode(cfg))
+        counters_t0 = _spans.COUNTERS.snapshot()
+        logger.log("fit_start", model="RedcliffGridRunner", grid_size=G_real,
+                   grid_width=Gx, lanes_padded=int((orig_ids < 0).sum()),
+                   training_mode=cfg.training_mode,
+                   shape=_schema.shape_desc(cfg), max_iter=max_iter,
+                   stream_mode=base_stream, mesh=None,
+                   compile_cache_dir=self._compile_cache_dir,
+                   resumed_from_epoch=start_it - 1 if ckpt else None,
+                   resumed_from=ck_src,
+                   precision_mode=(self.spec.precision_mode
+                                   or tc.precision_mode),
+                   points=list(self.spec.points))
+        # the predicted footprint of this fit's width, from shapes only,
+        # and the headroom verdict on its device
+        mem_poll = _obsmem.polling_enabled()
+        mem_pred = _obsmem.grid_footprint(
+            self.model, tc, Gx, train_ds=train_ds, val_ds=val_ds,
+            stream_mode=base_stream, freeze=self._freeze)
+        headroom = _obsmem.check_headroom(mem_pred["total_bytes"],
+                                          devices=[dev])
+        stats["memory"] = {
+            "predicted_bytes": mem_pred["total_bytes"],
+            "per_lane_bytes": mem_pred["per_lane_bytes"],
+            "g_bucket": Gx, "peak_bytes": None,
+            "bytes_limit": headroom["bytes_limit"],
+            "fits": headroom["fits"], "polls": 0}
+        logger.log(
+            "memory", kind="predicted", epoch=start_it - 1,
+            g_bucket=Gx, grid_width=Gx,
+            predicted_bytes=mem_pred["total_bytes"],
+            params_bytes=mem_pred["params_bytes"],
+            opt_bytes=mem_pred["opt_bytes"],
+            best_bytes=mem_pred["best_bytes"],
+            per_lane_bytes=mem_pred["per_lane_bytes"],
+            dataset_bytes=mem_pred["dataset_bytes"],
+            epoch_gather_bytes=mem_pred["epoch_gather_bytes"],
+            fits=headroom["fits"], bytes_limit=headroom["bytes_limit"],
+            budget_bytes=headroom["budget_bytes"],
+            headroom_bytes=headroom["headroom_bytes"],
+            backend=headroom["backend"], n_devices=1)
+        # the fault points' step index on the per-batch path, as JAX's
+        fi_step = 0
         epochs = []
         for it in range(start_it, max_iter):
+            pw.on_epoch_start(it)
+            epoch_compile_t0 = compileobs.snapshot()
             t_epoch0 = time.perf_counter()
             epoch_width = Gx
             if (not aligned and "pretrain_factor" in cfg.training_mode
@@ -835,9 +952,17 @@ class RedcliffGridRunner:
             mode = base_stream if len(phases) == 1 else "per_batch"
             if mode == "per_batch":
                 for X, Y in self._batches(train_ds, rng=rng):
+                    # the step fault points ride the per-batch path only
+                    # (the scanned modes take device-resident batches)
+                    X = faultinject.poison_batch(X, fi_step)
+                    skip = faultinject.skip_update(fi_step)
+                    fi_step += 1
+                    if skip:
+                        continue
                     for phase in phases:
-                        self._step(phase, params, optA, optB, nstate, active,
-                                   X, Y)
+                        with self._dispatch_span("step"):
+                            self._step(phase, params, optA, optB, nstate,
+                                       active, X, Y)
                         stats["train_dispatches"] += 1
                     if self._freeze_by_batch:
                         params, accepted = self._freeze_step(params, accepted)
@@ -928,7 +1053,8 @@ class RedcliffGridRunner:
                 dl_done |= over
                 dl_bad = torch.from_numpy(over).to(dev)
                 newly_dl = active & dl_bad
-                if bool(newly_dl.any()):
+                n_evict = int(newly_dl.sum())
+                if n_evict:
                     failed_epoch = torch.where(
                         newly_dl, torch.full_like(failed_epoch, it),
                         failed_epoch)
@@ -939,6 +1065,12 @@ class RedcliffGridRunner:
                     active = active & ~dl_bad
                     # the evicted lanes' state must land durably
                     force_ckpt = True
+                    # original point ids, not execution rows
+                    logger.log("deadline_evicted", epoch=it,
+                               elapsed_s=round(elapsed, 3),
+                               lanes=[int(orig_ids[g])
+                                      for g in np.flatnonzero(over)],
+                               num_evicted=n_evict)
             grid_dl_hit = self.policy.grid_deadline_hit(
                 self.spec.grid_deadline_s, elapsed)
 
@@ -946,11 +1078,60 @@ class RedcliffGridRunner:
             plan = None
             if it % tc.check_every == 0:
                 # the one host read of the loop, on the check cadence: the
-                # early exit once every lane has stopped, and the
-                # compaction decision
-                act_host = active.cpu().numpy()
+                # epoch record, the quality readout, the early exit once
+                # every lane has stopped, and the compaction decision
+                with _spans.span("grid.check_window",
+                                 component="check_window", logger=logger,
+                                 emit=True, epoch=it, width=Gx):
+                    act_host = active.cpu().numpy()
+                    stats["lanes_live"] = int(act_host.sum())
+                    if logger.active:
+                        host = numerics.to_host({
+                            "val": val_now, "best": best_crit,
+                            "failed": failed_epoch,
+                            "skipped": nstate["skipped"]})
+                        logger.log(
+                            "epoch", epoch=it, phases=list(phases),
+                            val_combo_loss=host["val"],
+                            best_criteria=host["best"],
+                            num_active=int(act_host.sum()),
+                            lanes_live=stats["lanes_live"], grid_width=Gx,
+                            lanes_padded=int((orig_ids < 0).sum()),
+                            num_quarantined=int((host["failed"] >= 0).sum()),
+                            guarded_steps_skipped=int(host["skipped"].sum()),
+                            epoch_ms=round(
+                                (time.perf_counter() - t_epoch0) * 1e3, 3))
+                    if qmon is not None:
+                        with torch.no_grad(), self._dispatch_span("quality"):
+                            qdev = qual_fn(params, qual_Xw)
+                        # the (G, K, C, C) graphs are read only to score
+                        # them against the truth
+                        qhost = {k: v.cpu().numpy() for k, v in qdev.items()
+                                 if qmon.true_gc is not None or k != "gc"}
+                        qrec = qmon.update(it, qhost, orig_ids)
+                        stats["quality"] = qmon.snapshot()
+                        if logger.active:
+                            logger.log("quality", grid_width=Gx, **qrec)
+                # the measured watermark (allocator counters; none on the
+                # CPU)
+                if mem_poll:
+                    wm = _obsmem.poll_watermark([dev])
+                    if wm is not None:
+                        sm = stats["memory"]
+                        sm["polls"] += 1
+                        sm["peak_bytes"] = max(sm["peak_bytes"] or 0,
+                                               wm["peak_bytes"])
+                        logger.log("memory", kind="measured", epoch=it,
+                                   grid_width=Gx,
+                                   bytes_in_use=wm["bytes_in_use"],
+                                   peak_bytes=wm["peak_bytes"],
+                                   bytes_limit=wm["bytes_limit"],
+                                   n_devices=wm["n_devices"],
+                                   device_kind=wm["device_kind"])
                 stop = it >= past_at and not act_host.any()
-                if not stop:
+                if stop:
+                    logger.log("early_exit_all_inactive", epoch=it)
+                else:
                     plan = self.policy.compaction_plan(
                         act_host, orig_ids, retired.keys())
             epoch_ms = (time.perf_counter() - t_epoch0) * 1e3
@@ -966,6 +1147,7 @@ class RedcliffGridRunner:
             if stop:
                 break
             if plan is not None:
+                t_comp = time.perf_counter()
                 # retire the frozen lanes' results to the host before
                 # their rows are dropped
                 if plan.retire_rows.size:
@@ -1001,6 +1183,7 @@ class RedcliffGridRunner:
                                     f"on_lane_retire failed for point "
                                     f"{int(pid)} at epoch {it}: {e!r}",
                                     RuntimeWarning)
+                old_width = Gx
                 sel = torch.as_tensor(plan.sel, dtype=torch.long, device=dev)
                 params, optA, optB, nstate, best_params = (
                     _take(t, sel) for t in (params, optA, optB, nstate,
@@ -1021,11 +1204,20 @@ class RedcliffGridRunner:
                 era_cur += 1
                 stats["compactions"] += 1
                 stats["grid_width"] = Gx
+                logger.log("compaction", epoch=it, from_width=old_width,
+                           to_width=Gx, lanes_live=stats["lanes_live"],
+                           retired=[int(p) for p in plan.retire_ids],
+                           mesh_devices=None)
+                _spans.record_span(
+                    "grid.compaction", (time.perf_counter() - t_comp) * 1e3,
+                    component="compaction", logger=logger, emit=True,
+                    epoch=it, from_width=old_width, to_width=Gx)
 
             if checkpoint_dir is not None:
                 due = ((checkpoint_every and (it + 1) % checkpoint_every == 0)
                        or force_ckpt or grid_dl_hit or guard.preempted)
                 if due:
+                    t_save = time.perf_counter()
                     self._save_checkpoint(checkpoint_dir, {
                         "params": params, "optA_state": optA,
                         "optB_state": optB, "best_params": best_params,
@@ -1038,12 +1230,43 @@ class RedcliffGridRunner:
                         "retired": retired, "aligned": aligned,
                         "rng_state": rng.bit_generator.state, "epoch": it,
                     }, ck_meta)
+                    # the synchronous write's stall (ring-only)
+                    _spans.record_span(
+                        "grid.ckpt_save",
+                        (time.perf_counter() - t_save) * 1e3,
+                        component="ckpt", epoch=it, background=False)
+                    faultinject.crash_point("checkpoint_saved", epoch=it)
                 if guard.preempted:
+                    logger.log("preempted_final_checkpoint", epoch=it,
+                               signum=guard.signum)
                     raise Preempted(guard.signum, epoch=it)
             if grid_dl_hit:
+                logger.log("grid_deadline_final_checkpoint", epoch=it,
+                           elapsed_s=round(elapsed, 3),
+                           deadline_s=float(self.spec.grid_deadline_s),
+                           checkpointed=checkpoint_dir is not None)
                 raise DeadlineExceeded(
                     "grid", epoch=it, elapsed_s=elapsed,
                     deadline_s=float(self.spec.grid_deadline_s))
+            # the CUDA graphs this epoch captured (runtime/compileobs.py)
+            dc = compileobs.delta(epoch_compile_t0)
+            if dc["compiles"]:
+                logger.log("compile", epoch=it, programs=dc["compiles"],
+                           compile_ms=dc["compile_ms"], grid_width=Gx)
+            pw.on_epoch_end(it, logger=logger)
+            faultinject.crash_point("epoch_end", epoch=it)
+
+        # a last watermark sample, so fits shorter than a check window
+        # still record a measured peak on a card
+        if mem_poll:
+            wm = _obsmem.poll_watermark([dev])
+            if wm is not None:
+                stats["memory"]["polls"] += 1
+                stats["memory"]["peak_bytes"] = max(
+                    stats["memory"]["peak_bytes"] or 0, wm["peak_bytes"])
+        cdelta = _spans.COUNTERS.delta(counters_t0)
+        stats["prefetch_stall_ms"] = cdelta.get("prefetch_stall_ms", 0.0)
+        stats["prefetch_items"] = int(cdelta.get("prefetch_items", 0))
 
         # ---- result assembly under original point ids: live lanes
         # scatter through orig_ids, retired lanes come from the host store,
@@ -1087,6 +1310,12 @@ class RedcliffGridRunner:
                     for g, (e, cc) in enumerate(zip(final_failed,
                                                     final_cause))
                     if e >= 0]
+        logger.log("fit_end", best_epoch=final_epoch,
+                   best_criteria=final_crit,
+                   num_active=int(final_active.sum()),
+                   compactions=stats["compactions"],
+                   compile_ms=stats["capture_ms"], failures=failures,
+                   dispatch_stats=stats)
         rows = [numerics.to_host(v) for v in val_history]
         return GridResult(
             best_params=best_full,

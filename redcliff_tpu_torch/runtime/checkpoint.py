@@ -25,6 +25,11 @@ builtins — optimizer ``state_dict`` s converted to numpy, the shuffle rng's
 state dict — so they pass this unpickler; a JAX-written trainer checkpoint
 names optax classes and is refused.
 
+Every write is a ring-only ``ckpt.write`` span (flight-recorder evidence:
+the last writes and how long they took) and carries the JAX writer's
+fault points (``runtime/faultinject.py``: ``slow_io``, ``io_error`` and
+``hang_between_ckpt_replaces``), one environment lookup when unarmed.
+
 stdlib + numpy only.
 """
 from __future__ import annotations
@@ -36,10 +41,13 @@ import os
 import pickle
 import struct
 import threading
+import time
 import warnings
 import zlib
 
 import numpy as np
+
+from redcliff_tpu_torch.obs import spans as _spans
 
 __all__ = ["CheckpointCorruptError", "CheckpointWriteError",
            "ForbiddenClassError", "PortUnpickler", "write_checkpoint",
@@ -116,24 +124,46 @@ def write_checkpoint(path, obj):
     """Atomically write ``obj`` to ``path`` with header+CRC, keeping the
     previous file as ``path + '.prev'``. The tmp file is fsynced before
     promotion; OS-level failures map to :class:`CheckpointWriteError`."""
+    t_span0 = time.perf_counter()
     payload = pickle.dumps(obj, protocol=pickle.HIGHEST_PROTOCOL)
     header = _HEADER.pack(MAGIC, FORMAT_VERSION,
                           zlib.crc32(payload) & 0xFFFFFFFF, len(payload))
     tmp = f"{path}.tmp{os.getpid()}.{threading.get_ident()}"
+    armed = os.environ.get("REDCLIFF_FAULT_INJECT")
     try:
         with open(tmp, "wb") as f:
             f.write(header)
             f.write(payload)
+            if armed:
+                from redcliff_tpu_torch.runtime import faultinject
+
+                faultinject.io_point("ckpt_write")
+                faultinject.io_error_point("ckpt_write")
             f.flush()
             os.fsync(f.fileno())
         if os.path.exists(path):
             os.replace(path, path + ".prev")
+            # crash window: the head is gone and the new generation not
+            # yet promoted — readers fall back to .prev; fault injection
+            # can hold it open
+            if armed:
+                from redcliff_tpu_torch.runtime import faultinject
+
+                faultinject.ckpt_write_point("between_replaces", path=path)
         os.replace(tmp, path)
+        _spans.record_span("ckpt.write",
+                           (time.perf_counter() - t_span0) * 1e3,
+                           component="ckpt", file=os.path.basename(path),
+                           bytes=len(payload))
     except OSError as e:
         try:
             os.remove(tmp)
         except OSError:
             pass
+        _spans.record_span("ckpt.write",
+                           (time.perf_counter() - t_span0) * 1e3,
+                           component="ckpt", file=os.path.basename(path),
+                           error=type(e).__name__)
         raise CheckpointWriteError(path, e) from e
 
 

@@ -194,9 +194,13 @@ def run_coefficient_grid(model, train_config, grid_points, train_ds, val_ds,
     "hparams"} record each, plus the run context. No file is written when
     the run has no failures.
 
+    ``true_gc``: the dataset's ground-truth graphs, which the quality
+    monitor scores every lane's graphs against (``quality`` events,
+    ``dispatch_stats["quality"]``). As in JAX, no ``log_dir`` is taken
+    here: drive :class:`RedcliffGridRunner` for a metrics log.
+
     Not ported yet, and raising when asked for: a device mesh (``mesh``,
-    ROADMAP item 15) and the quality monitor's ground truth (``true_gc``,
-    item 11)."""
+    ROADMAP item 15)."""
     from redcliff_tpu_torch.parallel.grid import GridSpec, RedcliffGridRunner
 
     if mesh is not None:

@@ -31,11 +31,27 @@ so every tree kept beside them (best, accepted, snapshots, checkpoints) is
 a copy (``train/live.py``). Fits run on ``cuda`` unless ``device=`` says
 otherwise.
 
-Not ported (ROADMAP): the metrics/event log, watchdog, profiler window,
-memory footprint, compile observability, fault injection, autotune, the
-async checkpoint writer (writes are synchronous), the quality monitor,
-``factor_mesh`` and mixed precision. A non-default value of a knob the
-port does not honour raises ``NotImplementedError``. The factors are
+Telemetry, as the JAX trainer emits it (``redcliff_tpu/train/
+redcliff_trainer.py:355-368,477-493,509-540,577-578,628-680,721-760``): a
+fit with a ``save_dir`` writes ``<save_dir>/metrics.jsonl``
+(``obs/logging.py``) with ``fit_start``, the predicted ``memory``, one
+``epoch`` per epoch, ``anomaly`` and ``numerics`` (rollback; abort with
+the flight recorder's dump), ``quality`` on the check cadence (the graph
+summary of ``obs/quality.py``, one readout of params; AUROC/AUPR when
+``true_GC`` is given; off with ``REDCLIFF_QUALITY=0``; unlike JAX, a fit
+with no ``save_dir`` builds no readout, as it has no log to write to), the
+measured
+``memory`` on a card, ``profile`` and ``fit_end``. ``profile_window`` /
+``profile_dir`` / ``REDCLIFF_PROFILE`` open a bounded ``torch.profiler``
+window (``obs/profiling.py``). The step fault points
+(``runtime/faultinject.py``: ``nan_batch``, ``grad_blowup``,
+``skip_update``) apply per batch with the JAX trainer's global step
+counter. Telemetry reads the device only at epoch boundaries and never
+changes a number: a fit is bit-identical with it on or off.
+
+Not ported (ROADMAP): the watchdog, autotune, the async checkpoint writer
+(writes are synchronous), ``factor_mesh``, ``matmul_precision`` and mixed
+precision; the last three raise ``NotImplementedError``. The factors are
 cMLPs or cLSTMs (a cLSTM fit takes no prox, as in the JAX package).
 """
 from __future__ import annotations
@@ -49,8 +65,14 @@ import torch
 
 from redcliff_tpu_torch.interop import params_to_jax, tree_leaves, tree_map
 from redcliff_tpu_torch.models.redcliff import RedcliffSCMLP, phase_schedule
+from redcliff_tpu_torch.obs import flight as _flight
+from redcliff_tpu_torch.obs import memory as _obsmem
+from redcliff_tpu_torch.obs import profiling as _profiling
+from redcliff_tpu_torch.obs import quality as _obsquality
+from redcliff_tpu_torch.obs import schema as _schema
+from redcliff_tpu_torch.obs.logging import MetricLogger
 from redcliff_tpu_torch.runtime import checkpoint as durable_ckpt
-from redcliff_tpu_torch.runtime import numerics
+from redcliff_tpu_torch.runtime import faultinject, numerics
 from redcliff_tpu_torch.runtime.numerics import NumericsPolicy
 from redcliff_tpu_torch.train.freeze import apply_freeze
 from redcliff_tpu_torch.train.live import (LiveTreeMixin, assign_tree,
@@ -85,9 +107,14 @@ class RedcliffTrainConfig:
     max_factor_prior_batches: int = 10
     unsupervised_start_index: int = 0
     max_samples_for_gc_tracking: int = 40
-    # not ported: must stay None
+    # bounded torch.profiler window (obs/profiling.py): "epoch:N" /
+    # "epoch:N-M" brackets exactly those epochs, the Chrome trace under the
+    # run dir's profile/ (or profile_dir) announced by a `profile` event.
+    # None = follow REDCLIFF_PROFILE; profile_dir alone means ONE bounded
+    # window (epoch 1)
     profile_dir: str | None = None
     profile_window: str | None = None
+    # not ported: must stay None
     matmul_precision: str | None = None
     # "f32" only ("mixed" raises)
     precision_mode: str = "f32"
@@ -115,16 +142,19 @@ class RedcliffTrainConfig:
     # fresh grid's width up to the ladder with masked filler lanes
     compaction: bool = True
     g_bucket: bool = True
+    # the compile-cache directory of the JAX knob (runtime/compileobs.py):
+    # the port caches no compiled program, so it is only reported (in
+    # fit_start); None = follow REDCLIFF_COMPILE_CACHE
+    compile_cache_dir: str | None = None
     # None disables the guard and the divergence monitor
     numerics: NumericsPolicy | None = field(default_factory=NumericsPolicy)
 
     def __post_init__(self):
         check_precision_mode(self.precision_mode)
-        for knob in ("profile_dir", "profile_window", "matmul_precision"):
-            if getattr(self, knob) is not None:
-                raise NotImplementedError(
-                    f"{knob} is not ported yet (ROADMAP queue 1, "
-                    f"observability and precision of the training path)")
+        if self.matmul_precision is not None:
+            raise NotImplementedError(
+                "matmul_precision is not ported yet (ROADMAP queue 1, item "
+                "18, mixed precision of the training path)")
         if self.prox_penalty not in (None, "GL", "GSGL", "H"):
             raise ValueError(
                 f"prox_penalty must be one of None/'GL'/'GSGL'/'H', got "
@@ -242,10 +272,19 @@ class RedcliffTrainer(LiveTreeMixin):
     def fit(self, params, train_ds, val_ds, true_GC=None, save_dir=None,
             resume=True, factor_mesh=None) -> RedcliffFitResult:
         """Fit from ``params`` (a numpy or torch tree in the JAX layout).
-        Returns the best params as tensors on the trainer's device."""
+        Returns the best params as tensors on the trainer's device. With a
+        ``save_dir`` the fit writes its checkpoints and ``metrics.jsonl``
+        there."""
         if factor_mesh is not None:
             raise NotImplementedError(
                 "factor_mesh is not ported yet (ROADMAP queue 1, multi-GPU)")
+        pw = _profiling.window_for(self.config, run_dir=save_dir,
+                                   max_iter=self.config.max_iter,
+                                   device=self.device)
+        return self._fit(params, train_ds, val_ds, true_GC, save_dir, resume,
+                         pw)
+
+    def _fit(self, params, train_ds, val_ds, true_GC, save_dir, resume, pw):
         cfg = self.model.config
         tc = self.config
         self._true_GC = true_GC
@@ -313,145 +352,252 @@ class RedcliffTrainer(LiveTreeMixin):
                 rng.bit_generator.state = ck["rng_state"]
             prior_log = list(ck.get("epoch_log", []))
 
+        # the quality observatory (obs/quality.py): one graph-summary
+        # readout of the live params on the check cadence, on the first
+        # validation batch's window; nothing is built with
+        # REDCLIFF_QUALITY=0, nor without a save_dir (the readout lands
+        # only in metrics.jsonl, so a fit with no log pays nothing for it)
+        qmon = qual_fn = qual_Xw = None
+        if save_dir and _obsquality.enabled():
+            qfirst = next(iter(self._batches(val_ds)), None)
+            if qfirst is not None:
+                qual_Xw = qfirst[0][: tc.max_samples_for_gc_tracking,
+                                    : cfg.max_lag, :]
+                qual_fn = _obsquality.make_summary_fn(self.model)
+                qmon = _obsquality.QualityMonitor(
+                    true_gc=true_GC, mode=_obsquality.readout_mode(cfg))
+
         last_it = iter_start - 1
         policy = tc.numerics if self._guard else None
         monitor = (numerics.DivergenceMonitor(policy)
                    if policy is not None else None)
         nstate = numerics.init_numerics_state()
+        prev_skipped = 0
+        # the fault points' global step index, per fit call as in JAX
+        step_counter = 0
         aborted = None
         epochs = []
-        for it in range(iter_start, tc.max_iter):
-            t_epoch0 = time.perf_counter()
-            last_it = it
-            if (not aligned and "pretrain_factor" in mode
-                    and it == cfg.num_pretrain_epochs
-                    and cfg.num_supervised_factors > 0):
-                assign_tree(live, self.align_factors_with_labels(live, train_ds))
-                aligned = True
+        logger = MetricLogger(save_dir)
+        try:
+            logger.log("fit_start", model="RedcliffSCMLP", training_mode=mode,
+                       shape=_schema.shape_desc(cfg), train_config=tc,
+                       resume_epoch=iter_start)
+            # the predicted footprint from shapes: live params + best and
+            # accepted copies + both Adams' two moments + the datasets
+            mp = _obsmem.trainer_footprint(live, (live, live),
+                                           extra_copies=2, train_ds=train_ds,
+                                           val_ds=val_ds)
+            hr = _obsmem.check_headroom(mp["total_bytes"],
+                                        devices=[self.device])
+            logger.log("memory", kind="predicted", epoch=iter_start - 1,
+                       predicted_bytes=mp["total_bytes"],
+                       params_bytes=mp["params_bytes"],
+                       opt_bytes=mp["opt_bytes"],
+                       dataset_bytes=mp["dataset_bytes"],
+                       fits=hr["fits"], bytes_limit=hr["bytes_limit"],
+                       budget_bytes=hr["budget_bytes"],
+                       headroom_bytes=hr["headroom_bytes"],
+                       backend=hr["backend"])
+            for it in range(iter_start, tc.max_iter):
+                pw.on_epoch_start(it)
+                t_epoch0 = time.perf_counter()
+                last_it = it
+                if (not aligned and "pretrain_factor" in mode
+                        and it == cfg.num_pretrain_epochs
+                        and cfg.num_supervised_factors > 0):
+                    assign_tree(live, self.align_factors_with_labels(
+                        live, train_ds))
+                    aligned = True
 
-            phases = self.phase_for_epoch(it)
-            conf_mat = (np.zeros((cfg.num_supervised_factors,) * 2)
-                        if cfg.num_supervised_factors > 0 else None)
-            applied = {p: 0 for p in phases}
-            skipped = 0
-            for X, Y in self._batches(train_ds, rng=rng):
-                for phase in phases:
-                    _, _, nstate, ok = self.train_step(
-                        live, optA, optB, X, Y, phase, nstate)
-                    applied[phase] += int(ok)
-                    skipped += int(not ok)
-                    if conf_mat is not None and phase in (
-                            "embedder_pretrain", "combined"):
-                        conf_mat += self._confusion(live, X, Y)
-                if freeze_by_batch:
-                    accepted = self._apply_freeze(live, accepted)
-
-            if conf_mat is not None and conf_mat.sum() > 0:
-                self._append_conf_stats(conf_mat, histories, "train")
-
-            self._epoch_gc_tracking(live, val_ds, tracker)
-
-            val = self.validate(live, val_ds, histories)
-            histories["avg_forecasting_loss"].append(val["forecasting_loss"])
-            histories["avg_factor_loss"].append(val["factor_loss"])
-            histories["avg_factor_cos_sim_penalty"].append(
-                val["factor_cos_sim_penalty"])
-            histories["avg_fw_l1_penalty"].append(val["fw_l1_penalty"])
-            histories["avg_adj_penalty"].append(val["adj_l1_penalty"])
-            histories["avg_fw_smoothing_penalty"].append(
-                val.get("fw_smoothing_penalty", 0.0))
-            histories["avg_combo_loss"].append(val["combo_loss"])
-
-            criteria = None
-            stop_early = False
-            past_pretrain = (it >= cfg.num_pretrain_epochs
-                             + cfg.num_acclimation_epochs)
-            if past_pretrain:
-                cos_mean = tracker.latest_mean_supervised_cosine()
-                if cfg.num_supervised_factors > 1:
-                    criteria = (tc.stopping_criteria_factor_coeff
-                                * val["factor_loss"]
-                                + tc.stopping_criteria_forecast_coeff
-                                * val["forecasting_loss"]
-                                + tc.stopping_criteria_cosSim_coeff
-                                * cos_mean)
-                elif cfg.num_supervised_factors == 1:
-                    criteria = (tc.stopping_criteria_factor_coeff
-                                * val["factor_loss"]
-                                + tc.stopping_criteria_forecast_coeff
-                                * val["forecasting_loss"])
-                else:
-                    criteria = (tc.stopping_criteria_forecast_coeff
-                                * val["forecasting_loss"])
-
-            rolled_back = False
-            action = None
-            if monitor is not None:
-                action = monitor.check(it, numerics.numerics_summary(nstate),
-                                       criteria)
-                if action.kind == "rollback":
-                    snap = monitor.rollback()
-                    assign_tree(live, snap["params"])
-                    accepted = tree_map(lambda x: x.to(self.device),
-                                         snap["accepted"])
-                    optA.load_state_dict(snap["optA_state"])
-                    optB.load_state_dict(snap["optB_state"])
-                    nstate = numerics.reset_consecutive(nstate)
-                    rolled_back = True
-                elif action.kind == "abort":
-                    aborted = action.cause
-                elif criteria is None or np.isfinite(criteria):
-                    monitor.note_good(
-                        it, {"params": live, "accepted": accepted,
-                             "optA_state": optA.state_dict(),
-                             "optB_state": optB.state_dict()})
-
-            if not rolled_back and aborted is None:
-                if past_pretrain:
-                    if freeze:
+                phases = self.phase_for_epoch(it)
+                conf_mat = (np.zeros((cfg.num_supervised_factors,) * 2)
+                            if cfg.num_supervised_factors > 0 else None)
+                applied = {p: 0 for p in phases}
+                skipped = 0
+                for X, Y in self._batches(train_ds, rng=rng):
+                    X = faultinject.poison_batch(X, step_counter)
+                    skip = faultinject.skip_update(step_counter)
+                    step_counter += 1
+                    if skip:
+                        continue
+                    for phase in phases:
+                        _, _, nstate, ok = self.train_step(
+                            live, optA, optB, X, Y, phase, nstate)
+                        applied[phase] += int(ok)
+                        skipped += int(not ok)
+                        if conf_mat is not None and phase in (
+                                "embedder_pretrain", "combined"):
+                            conf_mat += self._confusion(live, X, Y)
+                    if freeze_by_batch:
                         accepted = self._apply_freeze(live, accepted)
-                        if criteria < best_loss:
-                            best_loss = criteria
-                            best_it = it
-                        elif best_it is not None and (it - best_it) == \
-                                tc.lookback * tc.check_every:
-                            # the lookback rule in every mode, Freeze too
-                            stop_early = True
-                        best_params = accepted
+
+                if conf_mat is not None and conf_mat.sum() > 0:
+                    self._append_conf_stats(conf_mat, histories, "train")
+
+                self._epoch_gc_tracking(live, val_ds, tracker)
+
+                val = self.validate(live, val_ds, histories)
+                histories["avg_forecasting_loss"].append(
+                    val["forecasting_loss"])
+                histories["avg_factor_loss"].append(val["factor_loss"])
+                histories["avg_factor_cos_sim_penalty"].append(
+                    val["factor_cos_sim_penalty"])
+                histories["avg_fw_l1_penalty"].append(val["fw_l1_penalty"])
+                histories["avg_adj_penalty"].append(val["adj_l1_penalty"])
+                histories["avg_fw_smoothing_penalty"].append(
+                    val.get("fw_smoothing_penalty", 0.0))
+                histories["avg_combo_loss"].append(val["combo_loss"])
+
+                criteria = None
+                stop_early = False
+                past_pretrain = (it >= cfg.num_pretrain_epochs
+                                 + cfg.num_acclimation_epochs)
+                if past_pretrain:
+                    cos_mean = tracker.latest_mean_supervised_cosine()
+                    if cfg.num_supervised_factors > 1:
+                        criteria = (tc.stopping_criteria_factor_coeff
+                                    * val["factor_loss"]
+                                    + tc.stopping_criteria_forecast_coeff
+                                    * val["forecasting_loss"]
+                                    + tc.stopping_criteria_cosSim_coeff
+                                    * cos_mean)
+                    elif cfg.num_supervised_factors == 1:
+                        criteria = (tc.stopping_criteria_factor_coeff
+                                    * val["factor_loss"]
+                                    + tc.stopping_criteria_forecast_coeff
+                                    * val["forecasting_loss"])
                     else:
-                        if criteria < best_loss:
-                            best_loss = criteria
-                            best_it = it
-                            best_params = copy_tree(live)
-                        elif best_it is not None and (it - best_it) == \
-                                tc.lookback * tc.check_every:
-                            stop_early = True
-                else:
-                    best_it = it
-                    best_params = copy_tree(live)
+                        criteria = (tc.stopping_criteria_forecast_coeff
+                                    * val["forecasting_loss"])
 
-            epochs.append({"epoch": it, "phases": list(phases),
-                           "ms": (time.perf_counter() - t_epoch0) * 1e3,
-                           "steps": applied, "skipped": skipped,
-                           "action": None if action is None
-                           else action.kind})
-            if stop_early and tc.verbose:
-                print("Stopping early")
-            if stop_early or aborted is not None:
-                break
-            if rolled_back:
-                continue
+                rolled_back = False
+                action = None
+                if monitor is not None:
+                    nhost = numerics.numerics_summary(nstate)
+                    if nhost["skipped"] > prev_skipped:
+                        logger.log("anomaly", epoch=it,
+                                   cause="nonfinite_grad",
+                                   epoch_skipped_steps=nhost["skipped"]
+                                   - prev_skipped, **nhost)
+                    prev_skipped = nhost["skipped"]
+                    action = monitor.check(it, nhost, criteria)
+                    if action.kind == "rollback":
+                        snap = monitor.rollback()
+                        assign_tree(live, snap["params"])
+                        accepted = tree_map(lambda x: x.to(self.device),
+                                            snap["accepted"])
+                        optA.load_state_dict(snap["optA_state"])
+                        optB.load_state_dict(snap["optB_state"])
+                        nstate = numerics.reset_consecutive(nstate)
+                        logger.log(
+                            "numerics", kind="rollback", epoch=it,
+                            cause=action.cause,
+                            restored_epoch=monitor.snapshot_epoch,
+                            lr_scale=monitor.lr_scale,
+                            learning_rates=numerics.current_learning_rates(
+                                (optA.state_dict(), optB.state_dict())),
+                            rollbacks=monitor.rollbacks)
+                        rolled_back = True
+                    elif action.kind == "abort":
+                        aborted = action.cause
+                        # the abort dumps the flight recorder next to
+                        # metrics.jsonl
+                        fr = _flight.dump_for_logger(
+                            logger, reason="numerics_abort",
+                            extra={"epoch": it, "cause": action.cause})
+                        logger.log("numerics", kind="abort", epoch=it,
+                                   cause=action.cause, flight_record=fr,
+                                   **nhost)
+                    elif criteria is None or np.isfinite(criteria):
+                        monitor.note_good(
+                            it, {"params": live, "accepted": accepted,
+                                 "optA_state": optA.state_dict(),
+                                 "optB_state": optB.state_dict()})
 
-            if it % tc.check_every == 0 and save_dir:
-                self._save_checkpoint(save_dir, it, best_params, accepted,
-                                      live, optA, optB, histories, best_it,
-                                      best_loss, tracker, aligned, rng,
-                                      prior_log + epochs)
-            if tc.verbose and it % max(1, tc.check_every) == 0:
-                print(f"epoch {it} phases={phases}: "
-                      f"val_combo={val['combo_loss']:.5f}")
+                if not rolled_back and aborted is None:
+                    if past_pretrain:
+                        if freeze:
+                            accepted = self._apply_freeze(live, accepted)
+                            if criteria < best_loss:
+                                best_loss = criteria
+                                best_it = it
+                            elif best_it is not None and (it - best_it) == \
+                                    tc.lookback * tc.check_every:
+                                # the lookback rule in every mode, Freeze too
+                                stop_early = True
+                            best_params = accepted
+                        else:
+                            if criteria < best_loss:
+                                best_loss = criteria
+                                best_it = it
+                                best_params = copy_tree(live)
+                            elif best_it is not None and (it - best_it) == \
+                                    tc.lookback * tc.check_every:
+                                stop_early = True
+                    else:
+                        best_it = it
+                        best_params = copy_tree(live)
 
-        final_val = self.validate(best_params, val_ds, None)
+                epoch_ms = (time.perf_counter() - t_epoch0) * 1e3
+                epochs.append({"epoch": it, "phases": list(phases),
+                               "ms": epoch_ms, "steps": applied,
+                               "skipped": skipped,
+                               "action": None if action is None
+                               else action.kind})
+                # logged before the early stop is honoured, so the stopping
+                # epoch's record lands
+                logger.log("epoch", epoch=it, phases=list(phases),
+                           criteria=criteria, epoch_ms=round(epoch_ms, 3),
+                           **val, **tracker.latest_as_dict())
+                if qmon is not None and it % tc.check_every == 0:
+                    with torch.no_grad():
+                        qdev = qual_fn(live, qual_Xw)
+                    qhost = {k: v.cpu().numpy()[None]
+                             for k, v in qdev.items()}
+                    logger.log("quality", **qmon.update(
+                        it, qhost, np.zeros(1, np.int32)))
+                pw.on_epoch_end(it, logger=logger)
+                if stop_early and tc.verbose:
+                    print("Stopping early")
+                if stop_early or aborted is not None:
+                    break
+                if rolled_back:
+                    continue
+
+                if it % tc.check_every == 0 and save_dir:
+                    self._save_checkpoint(save_dir, it, best_params,
+                                          accepted, live, optA, optB,
+                                          histories, best_it, best_loss,
+                                          tracker, aligned, rng,
+                                          prior_log + epochs)
+                if tc.verbose and it % max(1, tc.check_every) == 0:
+                    print(f"epoch {it} phases={phases}: "
+                          f"val_combo={val['combo_loss']:.5f}")
+
+            final_val = self.validate(best_params, val_ds, None)
+            # the measured watermark, on a card (nothing on the CPU)
+            if _obsmem.polling_enabled():
+                wm = _obsmem.poll_watermark([self.device])
+                if wm is not None:
+                    logger.log("memory", kind="measured", epoch=last_it,
+                               bytes_in_use=wm["bytes_in_use"],
+                               peak_bytes=wm["peak_bytes"],
+                               bytes_limit=wm["bytes_limit"],
+                               n_devices=wm["n_devices"],
+                               device_kind=wm["device_kind"])
+            logger.log("fit_end",
+                       best_it=best_it if best_it is not None else 0,
+                       best_loss=float(best_loss),
+                       final_val_loss=final_val["combo_loss"],
+                       aborted=aborted,
+                       quality=(qmon.snapshot()
+                                if qmon is not None and qmon.windows
+                                else None))
+        finally:
+            # an exit inside the profiler window (an early stop, an abort,
+            # an exception) still closes the capture and announces it
+            pw.finish(logger=logger)
+            logger.close()
         if save_dir:
             self._save_checkpoint(save_dir, last_it, best_params, accepted,
                                   live, optA, optB, histories, best_it,

@@ -35,11 +35,22 @@ tree kept beside them (best, snapshots, checkpoints) is a copy
 (``train/live.py``, shared with the REDCLIFF-S trainer). Fits run
 on ``cuda`` unless ``device=`` says otherwise.
 
-Not ported (ROADMAP): the metrics/event log, watchdog, profiler window,
-memory footprint, compile observability, fault injection, the quality
-monitor, mixed precision and the async checkpoint writer (writes are
-synchronous, and ``TrainConfig`` has no ``async_checkpointing``). A
-non-default value of a knob the port does not honour raises
+Telemetry, as the JAX trainer emits it (``redcliff_tpu/train/
+trainer.py:368-523``): with a ``save_dir`` the fit writes
+``metrics.jsonl`` with ``fit_start``, the predicted ``memory``, one
+``epoch`` per epoch, ``quality`` on the check cadence (the host twin
+``obs/quality.py:summarize_host`` of the family's GC readout; off with
+``REDCLIFF_QUALITY=0``), ``anomaly`` / ``numerics`` (rollback; abort with
+the flight recorder's dump), the measured ``memory`` on a card,
+``profile`` and ``fit_end``; ``profile_window`` / ``profile_dir`` /
+``REDCLIFF_PROFILE`` open a bounded ``torch.profiler`` window, and the
+step fault points of ``runtime/faultinject.py`` apply per batch with the
+JAX trainer's global step counter. A fit is bit-identical with telemetry
+on or off.
+
+Not ported (ROADMAP): the watchdog, mixed precision and the async
+checkpoint writer (writes are synchronous, and ``TrainConfig`` has no
+``async_checkpointing``). ``precision_mode="mixed"`` raises
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -54,8 +65,14 @@ import numpy as np
 import torch
 
 from redcliff_tpu_torch.interop import params_to_jax, tree_leaves
+from redcliff_tpu_torch.obs import flight as _flight
+from redcliff_tpu_torch.obs import memory as _obsmem
+from redcliff_tpu_torch.obs import profiling as _profiling
+from redcliff_tpu_torch.obs import quality as _obsquality
+from redcliff_tpu_torch.obs import schema as _schema
+from redcliff_tpu_torch.obs.logging import MetricLogger
 from redcliff_tpu_torch.runtime import checkpoint as durable_ckpt
-from redcliff_tpu_torch.runtime import numerics
+from redcliff_tpu_torch.runtime import faultinject, numerics
 from redcliff_tpu_torch.runtime.numerics import NumericsPolicy
 from redcliff_tpu_torch.train.live import (LiveTreeMixin, assign_tree,
                                            copy_tree)
@@ -82,12 +99,16 @@ class TrainConfig:
     prox_penalty: str | None = None  # "GL" | "GSGL" | "H"
     prox_lam: float = 0.0
     verbose: int = 0
-    # not ported: must stay None
+    # bounded torch.profiler window ("epoch:N" / "epoch:N-M",
+    # obs/profiling.py); None = follow REDCLIFF_PROFILE. profile_dir alone
+    # means ONE bounded window (epoch 1)
     profile_dir: str | None = None
     profile_window: str | None = None
     # prefetch depth for batch sources that are not device-resident
     prefetch_batches: int = 2
-    # not ported: must stay None
+    # the compile-cache directory of the JAX knob (runtime/compileobs.py):
+    # the port caches no compiled program, so it is only reported (in
+    # fit_start's train_config)
     compile_cache_dir: str | None = None
     # None disables the guard and the divergence monitor
     numerics: NumericsPolicy | None = field(default_factory=NumericsPolicy)
@@ -96,11 +117,6 @@ class TrainConfig:
 
     def __post_init__(self):
         check_precision_mode(self.precision_mode)
-        for knob in ("profile_dir", "profile_window", "compile_cache_dir"):
-            if getattr(self, knob) is not None:
-                raise NotImplementedError(
-                    f"{knob} is not ported yet (ROADMAP queue 1, item 11, "
-                    f"observability of the training path)")
         if self.prox_penalty not in (None, "GL", "GSGL", "H"):
             raise ValueError(
                 f"prox_penalty must be one of None/'GL'/'GSGL'/'H', got "
@@ -267,7 +283,9 @@ class Trainer(LiveTreeMixin):
     def fit(self, params, train_ds, val_ds, true_GC=None, save_dir=None,
             resume=True) -> FitResult:
         """Fit from ``params`` (a numpy or torch tree in the JAX layout).
-        Returns the best params as tensors on the trainer's device."""
+        Returns the best params as tensors on the trainer's device. With a
+        ``save_dir`` the fit writes its checkpoints and ``metrics.jsonl``
+        there."""
         cfg = self.config
         rng = np.random.default_rng(cfg.seed)
         live = self.live_params(params)
@@ -315,9 +333,15 @@ class Trainer(LiveTreeMixin):
                 step_rng.set_state(torch.from_numpy(ck["step_rng_state"]))
             prior_log = list(ck.get("epoch_log", []))
 
+        # the quality observatory rides the host twin of the family's GC
+        # readout (entropy None: no factor scores on this path); built
+        # only when there is a metrics log (a save_dir) to write it to
+        qmon = (_obsquality.QualityMonitor(true_gc=true_GC,
+                                           mode="host_readout")
+                if save_dir and _obsquality.enabled() else None)
         track_X = None
-        if tracker is not None and getattr(self.model, "gc_requires_data",
-                                           False):
+        if ((tracker is not None or qmon is not None)
+                and getattr(self.model, "gc_requires_data", False)):
             # data-dependent estimates (NAVAR's contribution stds) are
             # tracked on the first validation batch
             for X, _ in self._batches(val_ds):
@@ -329,72 +353,166 @@ class Trainer(LiveTreeMixin):
         monitor = (numerics.DivergenceMonitor(policy)
                    if policy is not None else None)
         nstate = numerics.init_numerics_state()
+        prev_skipped = 0
+        # the fault points' global step index, per fit call as in JAX
+        step_counter = 0
         aborted = None
         epochs = []
-        for it in range(iter_start, cfg.max_iter):
-            t_epoch0 = time.perf_counter()
-            last_it = it
-            applied = skipped = 0
-            for X, Y in self._batches(train_ds, rng=rng):
-                _, _, nstate, ok = self.train_step(live, opt, X, Y, step_rng,
-                                                   nstate)
-                applied += int(ok)
-                skipped += int(not ok)
+        logger = MetricLogger(save_dir)
+        pw = _profiling.window_for(cfg, run_dir=save_dir,
+                                   max_iter=cfg.max_iter, device=self.device)
+        try:
+            logger.log("fit_start", model=type(self.model).__name__,
+                       shape=_schema.shape_desc(self.model.config),
+                       train_config=cfg, resume_epoch=iter_start)
+            # the predicted footprint from shapes: live params + the best
+            # copy + Adam's two moments + the datasets
+            mp = _obsmem.trainer_footprint(live, (live, live),
+                                           extra_copies=1, train_ds=train_ds,
+                                           val_ds=val_ds)
+            hr = _obsmem.check_headroom(mp["total_bytes"],
+                                        devices=[self.device])
+            logger.log("memory", kind="predicted", epoch=iter_start - 1,
+                       predicted_bytes=mp["total_bytes"],
+                       params_bytes=mp["params_bytes"],
+                       opt_bytes=mp["opt_bytes"],
+                       dataset_bytes=mp["dataset_bytes"],
+                       fits=hr["fits"], bytes_limit=hr["bytes_limit"],
+                       budget_bytes=hr["budget_bytes"],
+                       headroom_bytes=hr["headroom_bytes"],
+                       backend=hr["backend"])
+            # scoped around the loop: a window the epochs never closed
+            # announces its truncated capture on the way out
+            with pw:
+                for it in range(iter_start, cfg.max_iter):
+                    pw.on_epoch_start(it)
+                    t_epoch0 = time.perf_counter()
+                    last_it = it
+                    applied = skipped = 0
+                    for X, Y in self._batches(train_ds, rng=rng):
+                        X = faultinject.poison_batch(X, step_counter)
+                        skip = faultinject.skip_update(step_counter)
+                        step_counter += 1
+                        if skip:
+                            continue
+                        _, _, nstate, ok = self.train_step(
+                            live, opt, X, Y, step_rng, nstate)
+                        applied += int(ok)
+                        skipped += int(not ok)
 
-            if tracker is not None:
-                self._epoch_gc_tracking(live, tracker, true_GC, track_X)
-            val = self.validate(live, val_ds)
-            histories["avg_forecasting_loss"].append(
-                val.get("forecasting_loss", 0.0))
-            histories["avg_adj_penalty"].append(
-                val.get("adj_l1_penalty", 0.0))
-            histories["avg_combo_loss"].append(val["combo_loss"])
-            criteria = self.criteria(live, val)
+                    if tracker is not None:
+                        self._epoch_gc_tracking(live, tracker, true_GC,
+                                                track_X)
+                    val = self.validate(live, val_ds)
+                    histories["avg_forecasting_loss"].append(
+                        val.get("forecasting_loss", 0.0))
+                    histories["avg_adj_penalty"].append(
+                        val.get("adj_l1_penalty", 0.0))
+                    histories["avg_combo_loss"].append(val["combo_loss"])
+                    criteria = self.criteria(live, val)
+                    epoch_ms = (time.perf_counter() - t_epoch0) * 1e3
 
-            action = None
-            if monitor is not None:
-                action = monitor.check(it, numerics.numerics_summary(nstate),
-                                       criteria)
-                if action.kind == "abort":
-                    aborted = action.cause
-                elif action.kind == "ok" and math.isfinite(criteria):
-                    monitor.note_good(it, {"params": live,
-                                           "opt_state": opt.state_dict()})
-            epochs.append({"epoch": it,
-                           "ms": (time.perf_counter() - t_epoch0) * 1e3,
-                           "steps": applied, "skipped": skipped,
-                           "action": None if action is None
-                           else action.kind})
-            if aborted is not None:
-                break
-            if action is not None and action.kind == "rollback":
-                # re-run from the snapshot, its learning rate backed off;
-                # no best or checkpoint update
-                snap = monitor.rollback()
-                assign_tree(live, snap["params"])
-                opt.load_state_dict(snap["opt_state"])
-                nstate = numerics.reset_consecutive(nstate)
-                continue
+                    logger.log("epoch", epoch=it, criteria=criteria,
+                               epoch_ms=round(epoch_ms, 3), **val,
+                               **(tracker.latest_as_dict() if tracker
+                                  else {}))
+                    if qmon is not None and it % cfg.check_every == 0:
+                        with torch.no_grad():
+                            mats = [g.cpu().numpy() for g in self.model.gc(
+                                live, ignore_lag=False,
+                                **self.gc_kwargs(track_X))]
+                        logger.log("quality", **qmon.update(
+                            it, _obsquality.summarize_host(mats),
+                            np.zeros(1, np.int32)))
+                    pw.on_epoch_end(it, logger=logger)
 
-            if criteria < best_loss:
-                best_loss = criteria
-                best_it = it
-                best_params = copy_tree(live)
-            elif best_it is not None and (it - best_it) == \
-                    cfg.lookback * cfg.check_every:
-                if cfg.verbose:
-                    print("Stopping early")
-                break
+                    action = None
+                    if monitor is not None:
+                        nhost = numerics.numerics_summary(nstate)
+                        if nhost["skipped"] > prev_skipped:
+                            logger.log("anomaly", epoch=it,
+                                       cause="nonfinite_grad",
+                                       epoch_skipped_steps=nhost["skipped"]
+                                       - prev_skipped, **nhost)
+                        prev_skipped = nhost["skipped"]
+                        action = monitor.check(it, nhost, criteria)
+                        if action.kind == "abort":
+                            aborted = action.cause
+                            # the abort dumps the flight recorder next to
+                            # metrics.jsonl
+                            fr = _flight.dump_for_logger(
+                                logger, reason="numerics_abort",
+                                extra={"epoch": it, "cause": action.cause})
+                            logger.log("numerics", kind="abort", epoch=it,
+                                       cause=action.cause, flight_record=fr,
+                                       **nhost)
+                        elif action.kind == "ok" and math.isfinite(criteria):
+                            monitor.note_good(it, {
+                                "params": live,
+                                "opt_state": opt.state_dict()})
+                    epochs.append({"epoch": it, "ms": epoch_ms,
+                                   "steps": applied, "skipped": skipped,
+                                   "action": None if action is None
+                                   else action.kind})
+                    if aborted is not None:
+                        break
+                    if action is not None and action.kind == "rollback":
+                        # re-run from the snapshot, its learning rate
+                        # backed off; no best or checkpoint update
+                        snap = monitor.rollback()
+                        assign_tree(live, snap["params"])
+                        opt.load_state_dict(snap["opt_state"])
+                        nstate = numerics.reset_consecutive(nstate)
+                        logger.log(
+                            "numerics", kind="rollback", epoch=it,
+                            cause=action.cause,
+                            restored_epoch=monitor.snapshot_epoch,
+                            lr_scale=monitor.lr_scale,
+                            learning_rates=numerics.current_learning_rates(
+                                opt.state_dict()),
+                            rollbacks=monitor.rollbacks)
+                        continue
 
-            if it % cfg.check_every == 0 and save_dir:
-                self._save_checkpoint(save_dir, it, best_params, opt, live,
-                                      histories, best_it, best_loss, tracker,
-                                      rng, step_rng, prior_log + epochs)
-            if cfg.verbose and it % max(1, cfg.check_every) == 0:
-                print(f"epoch {it}: val_combo={val['combo_loss']:.5f} "
-                      f"criteria={criteria:.5f}")
+                    if criteria < best_loss:
+                        best_loss = criteria
+                        best_it = it
+                        best_params = copy_tree(live)
+                    elif best_it is not None and (it - best_it) == \
+                            cfg.lookback * cfg.check_every:
+                        if cfg.verbose:
+                            print("Stopping early")
+                        break
 
-        final_val = self.validate(best_params, val_ds)
+                    if it % cfg.check_every == 0 and save_dir:
+                        self._save_checkpoint(save_dir, it, best_params, opt,
+                                              live, histories, best_it,
+                                              best_loss, tracker, rng,
+                                              step_rng, prior_log + epochs)
+                    if cfg.verbose and it % max(1, cfg.check_every) == 0:
+                        print(f"epoch {it}: val_combo={val['combo_loss']:.5f} "
+                              f"criteria={criteria:.5f}")
+
+            final_val = self.validate(best_params, val_ds)
+            # the measured watermark, on a card (nothing on the CPU)
+            if _obsmem.polling_enabled():
+                wm = _obsmem.poll_watermark([self.device])
+                if wm is not None:
+                    logger.log("memory", kind="measured", epoch=last_it,
+                               bytes_in_use=wm["bytes_in_use"],
+                               peak_bytes=wm["peak_bytes"],
+                               bytes_limit=wm["bytes_limit"],
+                               n_devices=wm["n_devices"],
+                               device_kind=wm["device_kind"])
+            logger.log("fit_end",
+                       best_it=best_it if best_it is not None else 0,
+                       best_loss=float(best_loss),
+                       final_val_loss=final_val["combo_loss"],
+                       aborted=aborted,
+                       quality=(qmon.snapshot()
+                                if qmon is not None and qmon.windows
+                                else None))
+        finally:
+            logger.close()
         if save_dir:
             # the last trained epoch, so a resume with a larger max_iter
             # continues from where training stopped

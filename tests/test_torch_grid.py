@@ -396,21 +396,24 @@ def test_driver_helpers_match_jax():
     assert tdriver.run_folder_name(got) == jdriver.run_folder_name(want)
 
 
-def test_what_is_not_ported_raises(tmp_path):
-    """Mesh, telemetry, the predictive policy, mixed precision and a
-    default CUDA device without a card raise; nothing is quietly
-    ignored."""
+def test_what_is_not_ported_raises(tmp_path, monkeypatch):
+    """Mesh, the predictive policy, mixed precision and a default CUDA
+    device without a card raise; nothing is quietly ignored. The telemetry
+    knobs (``log_dir``, ``true_gc``) work."""
+    from redcliff_tpu_torch.obs.logging import read_jsonl
     from redcliff_tpu_torch.parallel import policy as tpolicy
 
+    monkeypatch.setenv("REDCLIFF_QUALITY", "1")
     _, tm = _models()
     X, Y = _data(32)
     ds = TDataset(X, Y)
     tc = ttr.RedcliffTrainConfig(max_iter=1, batch_size=16)
     spec = tgrid.GridSpec([{}, {}])
     runner = tgrid.RedcliffGridRunner(tm, tc, spec, device="cpu")
-    for kw in (dict(log_dir=str(tmp_path)), dict(true_gc=[np.eye(4)])):
-        with pytest.raises(NotImplementedError):
-            runner.fit(0, ds, ds, **kw)
+    runner.fit(0, ds, ds, log_dir=str(tmp_path),
+               true_gc=[np.eye(4)] * tm.config.num_factors)
+    q, = read_jsonl(str(tmp_path), event="quality")
+    assert q["lanes"] == [0, 1] and len(q["auroc"]) == 2
     with pytest.raises(NotImplementedError):
         tgrid.RedcliffGridRunner(tm, tc, spec, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="item 11"):

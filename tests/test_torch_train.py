@@ -670,11 +670,18 @@ def test_resume_is_bit_identical_to_uninterrupted_fit(tmp_path):
             assert f.read(4) == b"RTCK"
 
 
-def test_unported_knobs_raise_and_default_device_is_cuda(monkeypatch):
-    for knob, val in (("profile_window", "epoch:1"), ("profile_dir", "p"),
-                      ("matmul_precision", "bfloat16")):
-        with pytest.raises(NotImplementedError, match=knob):
-            ttr.RedcliffTrainConfig(**{knob: val})
+def test_unported_knobs_raise_and_default_device_is_cuda(monkeypatch,
+                                                          tmp_path):
+    with pytest.raises(NotImplementedError, match="matmul_precision"):
+        ttr.RedcliffTrainConfig(matmul_precision="bfloat16")
+    # the telemetry knobs are ported: they construct and resolve a window
+    from redcliff_tpu_torch.obs import profiling
+
+    tc = ttr.RedcliffTrainConfig(profile_window="epoch:1",
+                                 profile_dir=str(tmp_path),
+                                 compile_cache_dir=str(tmp_path))
+    win = profiling.window_for(tc, max_iter=3, device="cpu")
+    assert (win.first_epoch, win.last_epoch, win.cuda) == (1, 1, False)
     with pytest.raises(NotImplementedError, match="mixed"):
         ttr.RedcliffTrainConfig(precision_mode="mixed")
     with pytest.raises(ValueError, match="prox_penalty"):

@@ -306,11 +306,16 @@ def test_resume_is_bit_identical_to_uninterrupted_fit(family, over,
         _fit(ttr, tds, tm0, jp0, "cmlp_fm", tmp_path / "jax", device="cpu")
 
 
-def test_unported_knobs_raise_and_default_device_is_cuda(monkeypatch):
-    for knob, val in (("profile_window", "epoch:1"), ("profile_dir", "p"),
-                      ("compile_cache_dir", "c")):
-        with pytest.raises(NotImplementedError, match=knob):
-            ttr.TrainConfig(**{knob: val})
+def test_unported_knobs_raise_and_default_device_is_cuda(monkeypatch,
+                                                          tmp_path):
+    # the telemetry knobs are ported: they construct and resolve a window
+    from redcliff_tpu_torch.obs import profiling
+
+    tc = ttr.TrainConfig(profile_window="epoch:0-1",
+                         profile_dir=str(tmp_path),
+                         compile_cache_dir=str(tmp_path))
+    win = profiling.window_for(tc, max_iter=3, device="cpu")
+    assert (win.first_epoch, win.last_epoch) == (0, 1)
     with pytest.raises(NotImplementedError, match="mixed"):
         ttr.TrainConfig(precision_mode="mixed")
     # checkpoint writes are synchronous: the JAX knob does not exist here
