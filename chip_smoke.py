@@ -219,12 +219,38 @@ Phases, one JSON line each:
    and ``skip_update:40`` end bitwise equal. The earlier phases run with
    ``REDCLIFF_QUALITY=0`` (their counts are their fits' forwards; the
    quality readout adds one per check window).
+26. runtime: the production runtime, on the train phase's model, data and
+   weights, under a fresh autotune store and cost-model store
+   (``REDCLIFF_AUTOTUNE_DIR``, ``REDCLIFF_COST_MODEL_DIR``). (1) The
+   launch-plan autotuner (``ops/autotune.py``): each kernel's threads-per-
+   block ladder searched at the train shapes (B=128 K=5 M=10; the block
+   (5, 10, 25, 10, 4)) and at the grid's lane shapes at width 32, each
+   candidate's median us (CUDA events) and max abs error against the
+   plain version beside the bar, its threads read back from the cached
+   plan; the factor mix bitwise equal across tiles; a second
+   ``RedcliffTrainer`` construction reuses both winners with 0 search
+   steps; a per-point fit with the winners launches both kernels as the
+   train phase counts them. (3) The training split written as a shard
+   file (the validation split as four), fitted through
+   ``ShardedBatchDataset`` with ``REDCLIFF_WATCHDOG`` armed: every core
+   heartbeat stamps, the params within the trainer bars of the
+   ArrayDataset fit (the same batch order), both kernels launched eagerly;
+   a child armed with ``hang_in:prefetch:60`` exits with the taxonomy's
+   hang code (19), leaving a ``hang`` event and a ``flight_record.json``.
+   (2) The grid_durable configuration with ``async_checkpointing`` on and
+   off: results bitwise equal, checkpoints equal after ``read_checkpoint``,
+   a resume from the async checkpoint against the uninterrupted fit; the
+   main thread's stall per save (``ckpt_barrier_stall_ms``,
+   ``ckpt.submit_barrier``) beside the synchronous write ms. (4) Those
+   fits wrote the cost-model store (rows under platform ``cuda`` at widths
+   32 and 16); a fit with ``REDCLIFF_PREDICTIVE=1`` logs ``policy`` and
+   ``cost_model`` events: each decision and the MAPE.
 
 Launch counts are reset just before each main path (serve, train, grid,
 each grid_stream fit, grid_durable, array_task, eval, each baseline task
 and the GISTA fit, dcsfa, dynotears, data_gen, accuracy_synsys,
-accuracy_d4ic, discovery, analysis, ts_transformer, each telemetry fit)
-and read just after;
+accuracy_d4ic, discovery, analysis, ts_transformer, each telemetry fit,
+each runtime fit) and read just after;
 the kernel-phase launches do not count. A count is executions on the
 device: a launch captured into a CUDA graph counts at each replay of the
 graph (and the warm-up step before each capture ran and counts). Then a
@@ -248,6 +274,7 @@ from __future__ import annotations
 
 import json
 import os
+import pickle
 import shutil
 import subprocess
 import sys
@@ -4567,7 +4594,9 @@ def telemetry_checks(root, small=False, grid=True):
                (["epoch", "quality"]
                 + (["profile"] if it == TELEMETRY_WINDOW else []))]
             + ["memory", "fit_end"])
-    got = [r["event"] for r in recs]
+    # the launch-plan records of the trainer's construction come from the
+    # environment's autotune store (none in this script's own run)
+    got = [r["event"] for r in recs if r["event"] != "autotune"]
     _require(got == want, f"fit events {got}, expected {want}")
     prof, fit_kernels = _profiled(recs, out["trace_counts"],
                                   out["counter_counts"]["fit"], "fit")
@@ -4734,6 +4763,458 @@ def phase_telemetry(torch, smi):
     return out["launches"]["factor_mix"], out["launches"]["gl_prox"]
 
 
+# ---------------------------------------------------------------------------
+# runtime: the production runtime (launch-plan autotuner, async checkpoint
+# writer, streaming shards and the watchdog, cost model and the predictive
+# policy)
+# ---------------------------------------------------------------------------
+# the launch-plan search: the median of this many CUDA-event-timed launches
+# per candidate, after one warm-up launch
+RUNTIME_TUNE_REPS = 200
+# the grid's lane shapes are tuned at the published grid's ladder width
+RUNTIME_LANES = 32
+# the in-process watchdog of the shard fit: armed, with budgets no healthy
+# component of that fit comes near
+RUNTIME_WATCHDOG = "poll_s=0.5,grace_s=30,budget_s=120"
+# the hang subprocess: the JAX tests' fault and watchdog policy
+RUNTIME_HANG_FAULT = "hang_in:prefetch:60"
+RUNTIME_HANG_WATCHDOG = "poll_s=0.5,grace_s=2,budget.prefetch=3"
+RUNTIME_HANG_TIMEOUT_S = 180
+# the shard fit's validation split streams from this many shard files; its
+# training split is one shard, so its batch order equals the ArrayDataset
+# fit's (a shuffle permutes the shard order and then each shard)
+RUNTIME_VAL_SHARDS = 4
+
+
+def _train_raw(np):
+    """The train phase's raw windows, split as ``_train_data`` splits them
+    (``train_val_split``): ``(X_train, Y_train, X_val, Y_val)``."""
+    X, Y, _ = _d4ic_like_data(np, N_TRAIN + N_VAL, seed=0)
+    idx = np.arange(len(X))
+    np.random.default_rng(1).shuffle(idx)
+    n_val = int(round(len(X) * N_VAL / (N_TRAIN + N_VAL)))
+    return X[idx[n_val:]], Y[idx[n_val:]], X[idx[:n_val]], Y[idx[:n_val]]
+
+
+def _tune_checks(torch, np, FM, PX, at):
+    """Each kernel's ladder searched at the train shapes and the grid's lane
+    shapes at width 32 (a fresh store): each candidate's median us, its
+    error against the plain version beside the bar, its threads as
+    launched (read back from the cached plan); the factor mix bitwise equal
+    across tiles; the winner's plan read back after the search."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    B, K = TRAIN_KNOBS["batch_size"], K_TRAIN
+    M = TRAIN_CONFIG["num_sims"] * C_TRAIN
+    G = RUNTIME_LANES
+    block = (K_TRAIN, C_TRAIN, TRAIN_CONFIG["gen_hidden"][0], C_TRAIN,
+             TRAIN_CONFIG["gen_lag"])
+    lam, lr = PROX_LAM, TRAIN_KNOBS["gen_lr"]
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    w1, p1 = torch.rand((B, K), generator=gen, device="cuda"), rnd(K, B, 1, M)
+    wG = torch.rand((G, B, K), generator=gen, device="cuda")
+    pG = rnd(G, K, B, 1, M)
+    W1, WG = rnd(*block), rnd(G, *block)
+    tG = PX.lane_thresholds(torch.full((G,), lr, device="cuda"), lam)
+    gate = torch.arange(G, device="cuda") < GRID_LANES  # 27 on, 5 filler
+
+    def prox1():
+        W = W1.clone()
+        PX.gl_prox_(W, lam, lr)
+        return W, PX.launch_plan(W)[2]
+
+    def proxG():
+        W = WG.clone()
+        PX.gl_prox_lanes_(W, tG, gate)
+        return W, PX.launch_plan(W, lanes=True)[2]
+
+    cases = {
+        "factor_mix": (
+            lambda: at.tune_factor_mix(B, K, M, reps=RUNTIME_TUNE_REPS),
+            lambda: (FM.factor_mix(w1, p1), FM.launch_plan(w1, p1)[1]),
+            FM.factor_mix_reference(w1, p1)),
+        "factor_mix_lanes": (
+            lambda: at.tune_factor_mix(B, K, M, lanes=G,
+                                       reps=RUNTIME_TUNE_REPS),
+            lambda: (FM.factor_mix_lanes(wG, pG),
+                     FM.launch_plan(wG, pG)[1]),
+            FM.factor_mix_lanes_reference(wG, pG)),
+        "gl_prox": (
+            lambda: at.tune_gl_prox(block, reps=RUNTIME_TUNE_REPS),
+            prox1, PX.gl_prox_reference(W1, lam, lr)),
+        "gl_prox_lanes": (
+            lambda: at.tune_gl_prox(block, lanes=G, reps=RUNTIME_TUNE_REPS),
+            proxG, PX.gl_prox_lanes_reference(WG, tG, gate)),
+    }
+    out = {}
+    for kernel, (tune, run, want) in cases.items():
+        winner, rec = tune()
+        _require(rec["searched"] and rec["search_steps"] == 3,
+                 f"runtime: {kernel} did not search its ladder: {rec}")
+        ladder = (at.FACTOR_MIX_THREADS if kernel.startswith("factor_mix")
+                  else at.GL_PROX_THREADS)
+        errs, outs, launched = {}, {}, {}
+        for t in ladder:
+            with at.trial(kernel, {"threads": t}):
+                got, launched[t] = run()
+            _check_close(torch, f"runtime {kernel} threads={t}", got, want,
+                         errs)
+            outs[t] = got
+        _require(all(launched[t] == t for t in ladder),
+                 f"runtime: {kernel} launched {launched} threads")
+        bitwise = all(torch.equal(outs[ladder[0]], outs[t]) for t in ladder)
+        if kernel.startswith("factor_mix"):
+            # K is summed in one thread whatever the block size
+            _require(bitwise, f"runtime: {kernel} differs across tiles")
+        _, winner_plan = run()
+        _require(winner_plan == winner,
+                 f"runtime: {kernel} launches {winner_plan} threads, the "
+                 f"stored winner is {winner}")
+        out[kernel] = {
+            "candidate_us": {str(t): rec["candidate_us"][t] for t in ladder},
+            "winner_threads": winner, "default_threads": rec[
+                "default_threads"],
+            "speedup_vs_default": rec.get("speedup_vs_default"),
+            "search_ms": rec.get("search_ms"),
+            "max_abs_err": {str(t): errs[f"runtime {kernel} threads={t}"]
+                            for t in ladder},
+            "rtol": RTOL, "atol": ATOL,
+            "threads_launched": {str(t): launched[t] for t in ladder},
+            "winner_threads_launched": winner_plan,
+            "bitwise_equal_across_tiles": bool(bitwise)}
+    return out
+
+
+def _grid_equal(np, a, b):
+    """Bitwise equality of two GridResults (NaN equal to NaN)."""
+    return (all(np.array_equal(x, y, equal_nan=True) for x, y in zip(
+        _leaves_np(a.best_params), _leaves_np(b.best_params)))
+        and np.array_equal(a.val_history, b.val_history, equal_nan=True)
+        and np.array_equal(a.best_criteria, b.best_criteria, equal_nan=True)
+        and np.array_equal(a.best_epoch, b.best_epoch)
+        and np.array_equal(a.active, b.active) and a.failures == b.failures)
+
+
+def _ckpt_equal(np, a, b):
+    """Equality of two read-back checkpoints: arrays bitwise (NaN equal),
+    everything else by ``==``."""
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and list(a) == list(b)
+                and all(_ckpt_equal(np, a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return (type(a) is type(b) and len(a) == len(b)
+                and all(_ckpt_equal(np, x, y) for x, y in zip(a, b)))
+    if isinstance(a, np.ndarray):
+        return (isinstance(b, np.ndarray) and a.dtype == b.dtype
+                and np.array_equal(a, b, equal_nan=a.dtype.kind == "f"))
+    return a == b
+
+
+def runtime_checks(root):
+    """The runtime phase's fits and checks; returns its readings (each main
+    path's launches under ``"launches"``). Raises on a failed check."""
+    import numpy as np
+    import torch
+
+    from redcliff_tpu_torch import interop
+    from redcliff_tpu_torch.data.datasets import ArrayDataset
+    from redcliff_tpu_torch.data.shards import ShardedBatchDataset
+    from redcliff_tpu_torch.models.redcliff import (RedcliffSCMLP,
+                                                    RedcliffSCMLPConfig)
+    from redcliff_tpu_torch.obs import costmodel, flight
+    from redcliff_tpu_torch.obs.logging import read_jsonl
+    from redcliff_tpu_torch.ops import autotune as at
+    from redcliff_tpu_torch.ops import factor_mix as FM
+    from redcliff_tpu_torch.ops import pallas_prox as PX
+    from redcliff_tpu_torch.parallel.grid import GridSpec, RedcliffGridRunner
+    from redcliff_tpu_torch.runtime import checkpoint as ckpt
+    from redcliff_tpu_torch.runtime import watchdog
+    from redcliff_tpu_torch.train.redcliff_trainer import (
+        RedcliffTrainConfig, RedcliffTrainer)
+
+    root = str(root)
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    out = {"launches": {"factor_mix": 0, "gl_prox": 0}}
+
+    def count(name, fn):
+        """One main path: counts at 0 just before, read just after."""
+        FM.factor_mix.launches = 0
+        PX.gl_prox.launches = 0
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {"factor_mix": FM.factor_mix.launches,
+               "gl_prox": PX.gl_prox.launches}
+        for k, v in got.items():
+            out["launches"][k] += v
+        out.setdefault("launches_by_path", {})[name] = got
+        return res, got, wall
+
+    model = RedcliffSCMLP(RedcliffSCMLPConfig(**TRAIN_CONFIG))
+    params = model.init(torch.Generator().manual_seed(0))
+    Xtr, Ytr, Xva, Yva = _train_raw(np)
+    B = TRAIN_KNOBS["batch_size"]
+    n_tr, n_val = -(-len(Xtr) // B), -(-len(Xva) // B)
+
+    # ---- 1. autotune: the ladders searched into a fresh store, then a
+    # trainer constructed on it reuses both winners with 0 search steps
+    at.clear_memo()
+    at.drain_records()
+    out["autotune"] = _tune_checks(torch, np, FM, PX, at)
+    at.drain_records()
+    tc = RedcliffTrainConfig(**TRAIN_KNOBS)
+    trainer = RedcliffTrainer(model, tc)
+    recs = at.drain_records()
+    _require(sorted(r["kernel"] for r in recs) == ["factor_mix", "gl_prox"]
+             and all(r["kind"] == "reuse" and r["search_steps"] == 0
+                     for r in recs),
+             f"runtime: the second construction searched: {recs}")
+    out["second_construction_records"] = recs
+
+    def expected(res):
+        ph = [tuple(e["phases"]) for e in res.epochs]
+        mix = sum(n_tr * (1 + (p in ("embedder_pretrain", "combined")))
+                  for e in ph for p in e) + 2 * n_val * len(ph) + n_val
+        prox = sum(n_tr for e in ph for p in e if p != "embedder_pretrain")
+        return ph, {"factor_mix": mix, "gl_prox": prox}
+
+    # ---- 3 (its reference first). The per-point fit with the winners on
+    # the ArrayDataset of the shard fit's statistics
+    split = os.path.join(root, "shards")
+    os.makedirs(os.path.join(split, "train"))
+    os.makedirs(os.path.join(split, "val"))
+    with open(os.path.join(split, "train", "subset_0.pkl"), "wb") as f:
+        pickle.dump([[x, y] for x, y in zip(Xtr, Ytr)], f)
+    for i, rows in enumerate(np.array_split(np.arange(len(Xva)),
+                                            RUNTIME_VAL_SHARDS)):
+        with open(os.path.join(split, "val", f"subset_{i}.pkl"), "wb") as f:
+            pickle.dump([[Xva[j], Yva[j]] for j in rows], f)
+    with _Env(REDCLIFF_WATCHDOG=RUNTIME_WATCHDOG):
+        watchdog.REGISTRY.clear()
+        sh_train = ShardedBatchDataset(os.path.join(split, "train"))
+        sh_val = ShardedBatchDataset(os.path.join(split, "val"))
+        arr_train = ArrayDataset(Xtr, Ytr, stats=sh_train.stats)
+        arr_val = ArrayDataset(Xva, Yva, stats=sh_val.stats)
+        ref, ref_launch, ref_s = count("tuned_fit", lambda: trainer.fit(
+            params, arr_train, arr_val, save_dir=os.path.join(root, "arr")))
+        _, want = expected(ref)
+        _require(all(np.isfinite(v) for v in ref.histories["avg_combo_loss"])
+                 and ref.numerics["skipped"] == 0 and ref_launch == want,
+                 f"runtime: the tuned fit launched {ref_launch} ({want} "
+                 f"expected) or is not finite")
+        watchdog.REGISTRY.clear()
+        sh, sh_launch, sh_s = count("shard_fit", lambda: RedcliffTrainer(
+            model, tc).fit(params, sh_train, sh_val,
+                           save_dir=os.path.join(root, "sharded")))
+        beats = watchdog.REGISTRY.counts()
+    core = {c: sum(n for k, n in beats.items()
+                   if k == c or k.endswith(":" + c))
+            for c in watchdog.CORE_COMPONENTS}
+    _require(all(core.values()), f"runtime: heartbeats {beats}")
+    diffs = [float(np.abs(a - b).max()) for a, b in zip(
+        _leaves_np(interop.params_to_jax(sh.params)),
+        _leaves_np(interop.params_to_jax(ref.params)))]
+    loss_diff = float(np.max(np.abs(
+        np.asarray(sh.histories["avg_combo_loss"])
+        - np.asarray(ref.histories["avg_combo_loss"]))))
+    _require(max(diffs) <= TRAIN_PARAM_ATOL and loss_diff <= TRAIN_LOSS_ATOL
+             + TRAIN_LOSS_RTOL * max(abs(v) for v in ref.histories[
+                 "avg_combo_loss"]) and sh_launch == ref_launch,
+             f"runtime: the shard fit is {max(diffs)} / {loss_diff} from the "
+             f"ArrayDataset fit, launches {sh_launch} / {ref_launch}")
+    out["shards"] = {
+        "train_shards": 1, "val_shards": RUNTIME_VAL_SHARDS,
+        "fit_wall_s": {"array": ref_s, "sharded": sh_s},
+        "heartbeats": core, "max_param_abs_diff": max(diffs),
+        "max_val_loss_abs_diff": loss_diff,
+        "param_atol": TRAIN_PARAM_ATOL,
+        "bitwise_equal": all(d == 0.0 for d in diffs),
+        "launches_sharded": sh_launch, "launches_array": ref_launch,
+        "eager": True}
+
+    # the armed hang child: exits with the taxonomy's hang code, leaving a
+    # hang event and a flight record
+    hang_dir = os.path.join(root, "hang")
+    os.makedirs(hang_dir)
+    env = dict(os.environ, REDCLIFF_FAULT_INJECT=RUNTIME_HANG_FAULT,
+               REDCLIFF_WATCHDOG=RUNTIME_HANG_WATCHDOG, PYTHONPATH=HERE)
+    # the child's own shapes are neither tuned nor priced here
+    for k in ("REDCLIFF_FAULT_MARKER", "REDCLIFF_AUTOTUNE_DIR",
+              "REDCLIFF_COST_MODEL_DIR", "REDCLIFF_COMPILE_CACHE"):
+        env.pop(k, None)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "redcliff_tpu_torch.runtime.faultinject",
+         "--checkpoint-dir", hang_dir, "--sharded", "--device", "cuda"],
+        env=env, cwd=HERE, capture_output=True, text=True,
+        timeout=RUNTIME_HANG_TIMEOUT_S)
+    hang_s = time.perf_counter() - t0
+    hang_events = [r for r in read_jsonl(hang_dir)
+                   if r["event"] in ("hang", "hang_exit")]
+    flight_path = os.path.join(hang_dir, flight.FLIGHT_RECORD_NAME)
+    _require(proc.returncode == watchdog.EXIT_HANG
+             and watchdog.classify_exit(proc.returncode) == "hang"
+             and any(r["event"] == "hang" and "prefetch" in r["components"]
+                     for r in hang_events)
+             and os.path.exists(flight_path),
+             f"runtime: the hang child exited {proc.returncode}, events "
+             f"{[r['event'] for r in hang_events]}, flight record "
+             f"{os.path.exists(flight_path)}: {proc.stderr[-2000:]}")
+    out["hang"] = {"exit_code": proc.returncode,
+                   "taxonomy": watchdog.classify_exit(proc.returncode),
+                   "wall_s": hang_s, "events": [r["event"]
+                                                for r in hang_events],
+                   "flight_record": os.path.relpath(flight_path, HERE)}
+
+    # ---- 2. async checkpoints: the durable grid with the writer on and
+    # off; the store of step 4 is written by these fits
+    points, _ = _grid_points()
+    train_ds = ArrayDataset(Xtr, Ytr)
+    val_ds = ArrayDataset(Xva, Yva, stats=train_ds.stats)
+    spec = GridSpec(points, fit_deadline_s=list(DURABLE_DEADLINES))
+    store = costmodel.store_path()
+
+    def grid(ck, max_iter=None, log_dir=None, **knobs):
+        runner = RedcliffGridRunner(model, RedcliffTrainConfig(
+            **{**TRAIN_KNOBS, **knobs}), spec)
+        res = runner.fit(None, train_ds, val_ds, max_iter=max_iter,
+                         init_params=runner.init_grid_from(params),
+                         copy_init=False, checkpoint_dir=ck,
+                         checkpoint_every=1, log_dir=log_dir)
+        return runner, res
+
+    # the grid's constructor tunes its lane forms at every ladder width
+    # (32 was searched above): the first one searches the rest, before any
+    # count is read
+    at.drain_records()
+    RedcliffGridRunner(model, RedcliffTrainConfig(**TRAIN_KNOBS), spec)
+    out["grid_construction_records"] = at.drain_records()
+    flight.clear()
+    (arun, ares), a_launch, a_s = count("grid_async", lambda: grid(
+        os.path.join(root, "async")))
+    barrier_spans = [r["dur_ms"] for r in flight.snapshot().get("ckpt", [])
+                     if r["name"] == "ckpt.submit_barrier"]
+    buckets = (costmodel.load().buckets if store else {})
+    widths_in_store = sorted(b["g_bucket"] for b in buckets.values()
+                             if b["platform"] == "cuda")
+    _require(widths_in_store == [16, 32],
+             f"runtime: the store holds widths {widths_in_store}")
+    (srun, sres), s_launch, s_s = count("grid_sync", lambda: grid(
+        os.path.join(root, "sync"), async_checkpointing=False))
+    a_ck = ckpt.read_checkpoint(os.path.join(root, "async",
+                                             RedcliffGridRunner.CHECKPOINT_NAME))
+    s_ck = ckpt.read_checkpoint(os.path.join(root, "sync",
+                                             RedcliffGridRunner.CHECKPOINT_NAME))
+    res_eq, ck_eq = _grid_equal(np, ares, sres), _ckpt_equal(np, a_ck, s_ck)
+    _require(res_eq and ck_eq and a_launch == s_launch,
+             f"runtime: async against sync: results equal {res_eq} (max "
+             f"abs diff {_max_abs_diff(np, ares.best_params, sres.best_params)}"
+             f"), checkpoints equal {ck_eq}, launches {a_launch} / "
+             f"{s_launch}")
+    ck = os.path.join(root, "resumed")
+    _, _, r1 = count("grid_async_stopped", lambda: grid(
+        ck, max_iter=DURABLE_RESUME_AT))
+    (rrun, rres), _, r2 = count("grid_async_resumed", lambda: grid(ck))
+    same = (np.array_equal(rres.best_epoch, ares.best_epoch)
+            and np.array_equal(rres.active, ares.active)
+            and rres.failures == ares.failures)
+    rel = max(float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+              for a, b in zip(_leaves_np(rres.best_params),
+                              _leaves_np(ares.best_params)))
+    _require(rrun.dispatch_stats["resumed_from_epoch"]
+             == DURABLE_RESUME_AT - 1 and same and rel <= DURABLE_PARAM_REL,
+             f"runtime: the resume from the async checkpoint: decisions "
+             f"{'same' if same else 'differ'}, params rel. err {rel}")
+    ast, sst = arun.dispatch_stats, srun.dispatch_stats
+    out["async_checkpoint"] = {
+        "saves": ast["ckpt_saves"], "bytes": ast["ckpt_bytes"],
+        "main_thread_ms_per_save_async": ast["ckpt_stall_ms"]
+        / ast["ckpt_saves"],
+        "ckpt_barrier_stall_ms": ast["ckpt_barrier_stall_ms"],
+        "ckpt_submit_barrier_spans_ms": barrier_spans,
+        "sync_write_ms_per_save": sst["ckpt_stall_ms"] / sst["ckpt_saves"],
+        "fit_wall_s": {"async": a_s, "sync": s_s},
+        "bitwise_equal_results": True, "checkpoint_equal_after_read": True,
+        "resume": {"stopped_after_epochs": DURABLE_RESUME_AT,
+                   "decisions_identical": same, "max_param_rel_err": rel,
+                   "param_rel_bar": DURABLE_PARAM_REL,
+                   "bitwise_equal": _grid_equal(np, rres, ares),
+                   "wall_s": r1 + r2}}
+
+    # ---- 4. the cost model and the predictive policy: a fit armed with
+    # REDCLIFF_PREDICTIVE prices its widths from the store the fits above
+    # wrote, and scores the store against its epochs
+    out["store"] = {"path": os.path.relpath(store, HERE) if store else None,
+                    "buckets": costmodel.load().accuracy_rows()}
+    run_dir = os.path.join(root, "predictive")
+    with _Env(REDCLIFF_PREDICTIVE="1"):
+        (prun, pres), p_launch, p_s = count("grid_predictive", lambda: grid(
+            os.path.join(run_dir, "ck"), log_dir=run_dir))
+    recs = read_jsonl(run_dir)
+    pol = [r for r in recs if r["event"] == "policy"]
+    cms = [r for r in recs if r["event"] == "cost_model"]
+    _require(type(prun.policy).__name__ == "PredictiveSchedulingPolicy"
+             and pol and cms and np.isfinite(pres.val_history[
+                 :, :DURABLE_LIVE]).all(),
+             f"runtime: the predictive fit logged {len(pol)} policy and "
+             f"{len(cms)} cost_model events")
+    out["predictive"] = {
+        "fit_wall_s": p_s,
+        "decisions": [{k: r.get(k) for k in (
+            "kind", "epoch", "action", "fallback", "chosen_width",
+            "heuristic_width", "from_width", "to_width", "saving_ms",
+            "compile_ms", "gather_ms", "total_ms", "heuristic_ms")}
+            for r in pol],
+        "widths_by_epoch": [e["width"] for e in pres.epochs],
+        "cost_model_events": [{k: r.get(k) for k in (
+            "epoch", "grid_width", "predicted_epoch_ms", "actual_epoch_ms",
+            "residual_pct", "source", "eta_s")} for r in cms],
+        "mape_pct": prun.dispatch_stats["cost_model"]["mape_pct"],
+        "eta": prun.dispatch_stats["eta"]}
+    # each folded epoch's ms beside its host wall: the device span covers
+    # the replayed epoch's work
+    out["epoch_ms"] = {
+        "folded_by_width": {w: ast["epoch_ms_by_width"][w]
+                            / ast["epochs_by_width"][w]
+                            for w in ast["epochs_by_width"]},
+        "host_by_epoch": [(e["epoch"], e["width"], e["ms"])
+                          for e in ares.epochs]}
+    return out
+
+
+def phase_runtime(torch, smi):
+    """The production runtime through the normal entry points (see
+    :func:`runtime_checks`), under a fresh autotune and cost-model store;
+    every fit's launches are its path's."""
+    from redcliff_tpu_torch.ops import autotune as at
+
+    root = os.path.join(HERE, "build", "chip_smoke", "runtime")
+    t0 = time.perf_counter()
+    with _Env(REDCLIFF_AUTOTUNE_DIR=os.path.join(root + "_store", "tune"),
+              REDCLIFF_COST_MODEL_DIR=os.path.join(root + "_store", "cost"),
+              REDCLIFF_QUALITY="0", REDCLIFF_PREDICTIVE=None,
+              REDCLIFF_AUTOTUNE=None):
+        shutil.rmtree(root + "_store", ignore_errors=True)
+        try:
+            out = runtime_checks(root)
+        finally:
+            # the plans go back to the defaults the earlier phases ran
+            at.clear_memo()
+            at._clear_plans("factor_mix")
+            at._clear_plans("gl_prox")
+    _emit({"phase": "runtime", "device": torch.cuda.get_device_name(0),
+           "card": smi,
+           "config": "the train phase's (D4IC REDCLIFF-S, full width, GL "
+                     "prox lam 4) and the grid_durable configuration (27 "
+                     "points, width 32 -> 16)",
+           "wall_s": time.perf_counter() - t0, **out})
+    return out["launches"]["factor_mix"], out["launches"]["gl_prox"]
+
+
 def _kernel_entry(name, mod, replaces, launches, by_path, max_err, t):
     return {"name": name, "route": "cuda",
             "source": os.path.relpath(mod.KERNEL_SOURCE, HERE),
@@ -4796,6 +5277,7 @@ def main():
     tst_mix, tst_prox = phase_ts_transformer(torch, FM, PX, tst_X, tst_y,
                                              smi)
     tel_mix, tel_prox = phase_telemetry(torch, smi)
+    rt_mix, rt_prox = phase_runtime(torch, smi)
     if "--profile" in sys.argv[1:]:
         phase_profile(torch, FM)
         phase_profile_train(torch, FM, PX, tmodel, tparams, train_ds)
@@ -4817,7 +5299,8 @@ def main():
                  "dynotears": dy_mix, "data_gen": gen_mix,
                  "accuracy_synsys": syn_mix, "accuracy_d4ic": d4_mix,
                  "discovery": disc_mix, "analysis": an_mix,
-                 "ts_transformer": tst_mix, "telemetry": tel_mix}
+                 "ts_transformer": tst_mix, "telemetry": tel_mix,
+                 "runtime": rt_mix}
     fm = _kernel_entry(
         "factor_mix", FM, "redcliff_tpu/ops/factor_mix.py:58",
         sum(mix_paths.values()), mix_paths, max_err["factor_mix"],
@@ -4832,7 +5315,7 @@ def main():
                   "data_gen": gen_prox, "accuracy_synsys": syn_prox,
                   "accuracy_d4ic": d4_prox, "discovery": disc_prox,
                   "analysis": an_prox, "ts_transformer": tst_prox,
-                  "telemetry": tel_prox}
+                  "telemetry": tel_prox, "runtime": rt_prox}
     px = _kernel_entry(
         "gl_prox", PX, "redcliff_tpu/ops/pallas_prox.py:47",
         sum(prox_paths.values()), prox_paths, max_err["gl_prox"],

@@ -4,9 +4,9 @@
 (``lfp.py``), the shard layout and its loaders (``shards.py``), the dataset
 containers (``datasets.py``) and the stream modes (``pipeline.py``).
 
-The exports are the JAX package's, under the same names, but for
-``ShardedBatchDataset``, which is not ported yet (ROADMAP queue 1, item
-11). Importing the package builds and loads nothing CUDA-specific.
+The exports are the JAX package's, under the same names (the streaming
+``ShardedBatchDataset`` since the production-runtime slice). Importing the
+package builds and loads nothing CUDA-specific.
 """
 from redcliff_tpu_torch.data.datasets import ArrayDataset, train_val_split
 from redcliff_tpu_torch.data.dream4 import (
@@ -32,6 +32,7 @@ from redcliff_tpu_torch.data.pipeline import (
     prefetch_batches,
 )
 from redcliff_tpu_torch.data.shards import (
+    ShardedBatchDataset,
     apply_signal_format,
     load_normalized_split_datasets,
     load_shard_samples,
@@ -53,4 +54,5 @@ __all__ = [
     "preprocess_tst_raw_lfps_for_windowed_training",
     "apply_signal_format", "load_normalized_split_datasets",
     "load_shard_samples", "samples_to_arrays", "save_cv_split",
+    "ShardedBatchDataset",
 ]

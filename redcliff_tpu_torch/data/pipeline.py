@@ -30,7 +30,10 @@ prefetch (port of ``data/pipeline.py``).
   ``prefetch.fill`` span and counts into ``prefetch_items``; the
   consumer's waits on an empty queue count into ``prefetch_stall_ms``
   (``obs.counters``, folded into the grid's ``dispatch_stats``), and a
-  wait over 1 ms is also a ``prefetch.stall`` span.
+  wait over 1 ms is also a ``prefetch.stall`` span. The worker stamps the
+  ``"prefetch"`` heartbeat of ``runtime/watchdog.py`` per item and while it
+  waits on a full queue, carries the ``hang_point("prefetch")`` fault
+  point, and retires the heartbeat when the stream ends or is closed.
 """
 from __future__ import annotations
 
@@ -41,6 +44,8 @@ import time
 import numpy as np
 
 from redcliff_tpu_torch.obs import spans as _spans
+from redcliff_tpu_torch.runtime import faultinject as _faultinject
+from redcliff_tpu_torch.runtime import watchdog as _watchdog
 
 __all__ = ["epoch_batch_plan", "choose_stream_mode", "dataset_device_bytes",
            "dispatch_budget", "prefetch_batches", "PrefetchIterator",
@@ -153,7 +158,14 @@ class PrefetchIterator:
     the worker thread. An error raised by the source (or ``put``) re-raises
     at the consumer's ``next()``. :meth:`close` (idempotent; also via
     ``with`` and at end of stream) unblocks and joins the worker.
-    ``depth < 1`` is a passthrough with no thread."""
+    ``depth < 1`` is a passthrough with no thread.
+
+    Liveness: the worker stamps the ``"prefetch"`` heartbeat per produced
+    item and while it waits on a full queue (a worker blocked on a slow
+    consumer is healthy; one wedged in the source or in ``put`` stops
+    stamping and the watchdog escalates). The heartbeat retires when the
+    stream ends or closes, so idle time between epochs never reads as a
+    hang."""
 
     _END, _ERR = object(), object()
 
@@ -176,6 +188,9 @@ class PrefetchIterator:
         """Enqueue, waiting out a full queue unless cancelled (items, END
         and ERR alike: a dropped sentinel would strand the consumer)."""
         while not self._cancel.is_set():
+            # a full queue means the CONSUMER is slow, not that this thread
+            # is hung: keep the heartbeat alive
+            _watchdog.stamp("prefetch")
             try:
                 self._q.put(item, timeout=0.1)
                 return True
@@ -188,6 +203,8 @@ class PrefetchIterator:
             for item in self._iterator:
                 if self._cancel.is_set():
                     return
+                _watchdog.stamp("prefetch")
+                _faultinject.hang_point("prefetch")
                 # the fill span covers the transform/copy half of producing
                 # one batch; waiting on a full queue stays outside it
                 with _spans.span("prefetch.fill", component="prefetch"):
@@ -200,6 +217,12 @@ class PrefetchIterator:
             self._put_blocking(self._END)
         except BaseException as e:  # noqa: BLE001 — re-raised at consumer
             self._put_blocking((self._ERR, e))
+        finally:
+            # a cancelled worker retires its own heartbeat: its stamps
+            # happen before this (same thread), so a late stamp can never
+            # re-register the beat after the consumer retired it
+            if self._cancel.is_set():
+                _watchdog.retire("prefetch")
 
     def __iter__(self):
         return self
@@ -228,7 +251,8 @@ class PrefetchIterator:
         return item
 
     def close(self):
-        """Unblock and join the worker; buffered items are dropped."""
+        """Unblock and join the worker, retire the heartbeat; buffered
+        items are dropped."""
         if self._closed:
             return
         self._closed = True
@@ -241,6 +265,7 @@ class PrefetchIterator:
         except queue.Empty:
             pass
         self._thread.join(timeout=5.0)
+        _watchdog.retire("prefetch")
 
     def __enter__(self):
         return self

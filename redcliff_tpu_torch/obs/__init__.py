@@ -17,15 +17,17 @@
   (``REDCLIFF_PROFILE=epoch:3`` / ``profile_window``);
 * :mod:`.quality` — the model-quality observatory: per-lane graph
   summaries, convergence diagnostics and live AUROC/AUPR
-  (``REDCLIFF_QUALITY``).
+  (``REDCLIFF_QUALITY``);
+* :mod:`.costmodel` — the learned per-(shape, width) epoch and capture
+  cost store the grid scores and folds, and the predictive scheduling
+  policy prices from.
 
 Not ported yet (ROADMAP queue 1, item 11): the JAX package's ``report``,
-``watch``, ``trace_export``, ``regress``, ``slo`` and ``costmodel``
-modules and their names (``build_report``, ``render_text``,
-``build_snapshot``, ``run_sentinel``, ``build_trace``,
-``build_fleet_trace``, ``validate_trace``, ``compute_slo``,
-``slo_for_root``). Asking for one raises ``NotImplementedError``; none is
-silently absent.
+``watch``, ``trace_export``, ``regress`` and ``slo`` modules and their
+names (``build_report``, ``render_text``, ``build_snapshot``,
+``run_sentinel``, ``build_trace``, ``build_fleet_trace``,
+``validate_trace``, ``compute_slo``, ``slo_for_root``). Asking for one
+raises ``NotImplementedError``; none is silently absent.
 
 Import discipline: importing this package does no CUDA work; numpy and
 torch load with :mod:`.logging` and :mod:`.quality`, lazily, on first
@@ -33,7 +35,7 @@ attribute access.
 """
 from __future__ import annotations
 
-from redcliff_tpu_torch.obs import flight, schema, spans  # noqa: F401
+from redcliff_tpu_torch.obs import costmodel, flight, schema, spans  # noqa: F401,E501
 from redcliff_tpu_torch.obs import memory, profiling  # noqa: F401
 from redcliff_tpu_torch.obs.spans import COUNTERS as counters  # noqa: F401
 from redcliff_tpu_torch.obs.spans import (NOOP, Span, enabled,  # noqa: F401
@@ -41,7 +43,8 @@ from redcliff_tpu_torch.obs.spans import (NOOP, Span, enabled,  # noqa: F401
 
 __all__ = [
     "span", "record_span", "Span", "NOOP", "enabled", "set_enabled",
-    "counters", "flight", "schema", "spans", "memory", "profiling",
+    "counters", "costmodel", "flight", "schema", "spans", "memory",
+    "profiling",
     "quality", "MetricLogger", "jsonable", "read_jsonl", "jsonl_files",
     "profiler_trace",
 ]
@@ -62,7 +65,6 @@ _UNPORTED = {
     "trace_export": "trace_export", "build_trace": "trace_export",
     "build_fleet_trace": "trace_export", "validate_trace": "trace_export",
     "slo": "slo", "compute_slo": "slo", "slo_for_root": "slo",
-    "costmodel": "costmodel",
 }
 
 

@@ -550,8 +550,8 @@ def validate_records(records, kind="metrics"):
 NO_CUDA_AT_IMPORT_MODULES = (
     "obs/__init__.py", "obs/spans.py", "obs/flight.py", "obs/schema.py",
     "obs/logging.py", "obs/memory.py", "obs/profiling.py", "obs/quality.py",
-    "runtime/compileobs.py", "runtime/faultinject.py",
-    "utils/observability.py")
+    "obs/costmodel.py", "runtime/compileobs.py", "runtime/faultinject.py",
+    "runtime/watchdog.py", "runtime/retry.py", "utils/observability.py")
 # module-scope imports these modules may not make
 _CUDA_AT_IMPORT = ("triton", "redcliff_tpu_torch.ops")
 _DEVICE_SYNCS = ("synchronize", "block_until_ready")

@@ -24,7 +24,9 @@
   wanted (grad mode on and an operand that requires grad) or the operands
   are ``torch.func`` tensors; otherwise they launch the kernel directly.
 * :func:`mix_plan` — the kernel's launch plan (vector width, threads,
-  blocks), a pure function of the shapes, strides and alignment.
+  blocks), a pure function of the shapes, strides, alignment and, when
+  ``ops/autotune.py`` holds a winner for the shape, its threads per block
+  (read once per shape, when the plan cache is filled; never per launch).
 * ``factor_mix.launches`` — a plain int, one per execution of the kernel
   on the device, lane launches included. A launch made while the current
   stream is capturing a CUDA graph runs nothing yet: it adds to
@@ -60,7 +62,7 @@ from redcliff_tpu_torch.ops.cuda_build import build_library
 __all__ = ["factor_mix", "factor_mix_reference", "factor_mix_lanes",
            "factor_mix_lanes_reference", "graph_mix", "graph_mix_reference",
            "FactorMixFn", "FactorMixLanesFn", "load_kernel", "mix_plan",
-           "KERNEL_SOURCE"]
+           "launch_plan", "KERNEL_SOURCE"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 KERNEL_SOURCE = os.path.join(_HERE, "csrc", "factor_mix.cu")
@@ -94,10 +96,12 @@ def factor_mix_lanes_reference(weightings, preds):
     return torch.einsum("gbk,gkbtc->gbtc", weightings, preds)
 
 
-def mix_plan(B, M, stride_k, stride_b, p_offset, stride_g=0):
+def mix_plan(B, M, stride_k, stride_b, p_offset, stride_g=0, threads=None):
     """``(vec, threads, blocks)`` for the kernel: each thread computes
     ``vec`` consecutive outputs of a lane's linear (b, m) index; ``blocks``
     covers one lane (the lanes are the grid's second dimension).
+    ``threads`` (a tuned plan's threads per block) replaces the default
+    rule: 128, or 256 once the grid would cover every SM several times.
 
     ``p_offset`` is ``p.data_ptr() % 16``. ``vec`` is 4 when M and every
     element stride of p (``stride_g`` is its lane stride) are multiples of
@@ -113,7 +117,8 @@ def mix_plan(B, M, stride_k, stride_b, p_offset, stride_g=0):
             vec = v
             break
     n = B * (M // vec)
-    threads = _LARGE_BLOCK if n >= _LARGE_FROM else _SMALL_BLOCK
+    if threads is None:
+        threads = _LARGE_BLOCK if n >= _LARGE_FROM else _SMALL_BLOCK
     return vec, threads, -(-n // threads)
 
 
@@ -136,9 +141,13 @@ def _mix_args(B, K, M, stride_k, stride_b, p_offset, device, G=1,
               stride_wg=0, stride_pg=0):
     """``(_MixArgs, its address)`` for one launch shape on ``device``;
     ``G`` lanes with lane strides ``stride_wg`` (w) and ``stride_pg`` (p),
-    one lane with zero lane strides by default."""
+    one lane with zero lane strides by default. The plan's threads are the
+    autotuner's winner for the shape when it holds one."""
+    from redcliff_tpu_torch.ops import autotune
+
+    threads = autotune.plan_threads(*autotune.mix_key(B, K, M, G))
     args = _MixArgs(B, K, M, *mix_plan(B, M, stride_k, stride_b, p_offset,
-                                       stride_pg),
+                                       stride_pg, threads=threads),
                     device, stride_k, stride_b, G, stride_wg, stride_pg)
     return args, ctypes.addressof(args)
 
@@ -286,6 +295,25 @@ def _launch_lanes(weightings, preds):
         _refuse(w, p, f"w (G, B, K) and p (G, K, B, T, C) with G <= "
                       f"{_MAX_LANES}")
     return _run(w, p, *args)
+
+
+def launch_plan(weightings, preds):
+    """``(vec, threads, blocks)`` of the cached plan a launch on these CUDA
+    operands takes: ``w (B, K)`` and ``p (K, B, T, C)``, or the lane form's
+    ``w (G, B, K)`` and ``p (G, K, B, T, C)``."""
+    w, p = weightings, preds
+    lay = ((_lanes_layout if w.dim() == 3 else _mix_layout)(w, p)
+           if _operands_ok(w, p) else None)
+    if lay is None:
+        _refuse(w, p, "the single or lane form's operands")
+    B, K, M, stride_k, stride_b, _, *lanes = lay
+    G, stride_wg, stride_pg = lanes or (1, 0, 0)
+    # as _run passes them: the stride of an axis of length 1 is 0
+    args = _mix_args(B, K, M, 0 if K == 1 else stride_k,
+                     0 if B == 1 else stride_b, p.data_ptr() % 16,
+                     w.get_device(), G, 0 if G == 1 else stride_wg,
+                     0 if G == 1 else stride_pg)[0]
+    return args.vec, args.threads, args.blocks
 
 
 def _mix_bwd(weightings, preds, g):

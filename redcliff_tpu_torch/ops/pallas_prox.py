@@ -18,8 +18,10 @@ the file keeps its counterpart's name).
   gate read on the device; otherwise the plain lane version
   (:func:`gl_prox_lanes_reference`) is written back.
 * :func:`prox_plan` — the kernel's launch plan (chunk of a slab staged in
-  shared memory, TMA path or not), a pure function of the shape and the
-  alignment.
+  shared memory, TMA path or not, threads per block), a pure function of
+  the shape, the alignment and, when ``ops/autotune.py`` holds a winner
+  for the shape, its threads per block (read once per shape, when the plan
+  cache is filled; never per launch).
 * ``gl_prox.launches`` — a plain int, one per execution of the kernel on
   the device, from any form. A launch captured into a CUDA graph adds to
   ``gl_prox.captured`` instead, and each replay of the graph adds the
@@ -44,7 +46,7 @@ from redcliff_tpu_torch.ops.prox import prox_update, prox_update_at, threshold
 
 __all__ = ["gl_prox", "gl_prox_", "gl_prox_reference", "gl_prox_lanes_",
            "gl_prox_lanes_reference", "lane_thresholds", "load_kernel",
-           "prox_plan", "KERNEL_SOURCE"]
+           "prox_plan", "launch_plan", "KERNEL_SOURCE"]
 
 KERNEL_SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                              "csrc", "gl_prox.cu")
@@ -68,7 +70,7 @@ def gl_prox_reference(W1, lam, lr):
     return prox_update(W1, lam, lr, "GL")
 
 
-def prox_plan(H, C, L, offset):
+def prox_plan(H, C, L, offset, threads=None):
     """``(chunk, bulk, threads)`` for a slab of ``H*C*L`` floats: the
     kernel stages
     ``chunk`` floats of a slab in shared memory at a time (the whole slab
@@ -77,9 +79,10 @@ def prox_plan(H, C, L, offset):
     and float4 path, taken when ``offset`` (the input's and output's
     addresses, or-ed, modulo 16) is 0 and the slab is a whole number of
     16-byte units, so every slab and chunk starts 16-byte aligned;
-    ``threads`` gives the block one warp per group, 4 to 16 warps. Raises
-    when the per-group floats alone leave no room (C_in > 6134) or a slab
-    holds 2**31 floats or more."""
+    ``threads`` gives the block one warp per group, 4 to 16 warps, unless
+    a tuned plan's ``threads`` is given (a block with fewer warps than
+    groups walks them in turn). Raises when the per-group floats alone
+    leave no room (C_in > 6134) or a slab holds 2**31 floats or more."""
     S = H * C * L
     cap = (_SMEM_FLOATS - 2 * C) // 4 * 4
     if cap < 4:
@@ -88,8 +91,9 @@ def prox_plan(H, C, L, offset):
     if S > _MAX_INDEX:
         raise ValueError(f"gl_prox kernel takes slabs H*C_in*L below 2**31 "
                          f"floats, got {S}")
-    return (min(S, cap), offset == 0 and S % 4 == 0,
-            32 * min(max(C, 4), 16))
+    if threads is None:
+        threads = 32 * min(max(C, 4), 16)
+    return min(S, cap), offset == 0 and S % 4 == 0, threads
 
 
 class _ProxArgs(ctypes.Structure):
@@ -107,8 +111,13 @@ class _ProxArgs(ctypes.Structure):
 @functools.lru_cache(maxsize=256)
 def _prox_args(lead, H, C, L, offset, device, slabs_per_lane=0):
     """``(_ProxArgs, its address)`` for one launch shape on ``device``;
-    ``slabs_per_lane`` for the lane entry."""
-    chunk, bulk, threads = prox_plan(H, C, L, offset)
+    ``slabs_per_lane`` for the lane entry. The plan's threads are the
+    autotuner's winner for the shape when it holds one."""
+    from redcliff_tpu_torch.ops import autotune
+
+    chunk, bulk, threads = prox_plan(
+        H, C, L, offset, threads=autotune.plan_threads(
+            *autotune.prox_key(lead, H, C, L, slabs_per_lane)))
     args = _ProxArgs(lead, H, C, L, chunk, int(bulk), threads, device,
                      slabs_per_lane)
     return args, ctypes.addressof(args)
@@ -186,6 +195,21 @@ def _launch(W1, lam, lr, out=None):
         raise RuntimeError(f"gl_prox kernel launch failed: cudaError {rc}")
     _count()
     return out
+
+
+def launch_plan(W1, lanes=False, out=None):
+    """``(chunk, bulk, threads)`` of the cached plan a launch on the CUDA
+    block ``W1`` takes: in place (``out`` None) or into ``out``; with
+    ``lanes`` the lane form over ``W1 (G, ...)``."""
+    _check_block(W1)
+    *_, H, C, L = W1.shape
+    lead = W1.numel() // (H * C * L)
+    out_ptr = W1.data_ptr() if out is None else out.data_ptr()
+    offset = (W1.data_ptr() % 16 if lanes
+              else (W1.data_ptr() | out_ptr) % 16)
+    args = _prox_args(lead, H, C, L, offset, W1.get_device(),
+                      lead // W1.shape[0] if lanes else 0)[0]
+    return args.chunk, bool(args.bulk), args.threads
 
 
 def gl_prox(W1, lam, lr, penalty="GL"):

@@ -44,10 +44,14 @@ captured launches.
 
 Every program run and eager step is a ring-only ``grid.dispatch`` span
 (host enqueue time), and every capture counts into
-``runtime/compileobs.py`` (the grid's ``compile`` events).
+``runtime/compileobs.py`` (the grid's ``compile`` events) and runs under
+the watchdog's op-scoped ``compile`` heartbeat (``runtime/watchdog.py``),
+which excuses the loop's own heartbeats while it lasts; the k-batch loop
+stamps ``batch_loop`` per batch.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import time
 
@@ -59,6 +63,7 @@ from redcliff_tpu_torch.interop import tree_leaves
 from redcliff_tpu_torch.ops import factor_mix as _factor_mix
 from redcliff_tpu_torch.ops import pallas_prox as _pallas_prox
 from redcliff_tpu_torch.runtime import compileobs
+from redcliff_tpu_torch.runtime import watchdog as _watchdog
 
 __all__ = ["Program", "EpochEngine", "COUNTED"]
 
@@ -231,6 +236,14 @@ class EpochEngine:
         self.pool = (torch.cuda.graph_pool_handle()
                      if self.stream is not None else None)
 
+    def holds(self, width):
+        """Whether running at ``width`` needs no capture: this engine
+        captures nothing (the CPU, or the per-batch stream), or it already
+        holds programs of this era at ``width``."""
+        return self.stream is None or bool(
+            self.programs and self.active is not None
+            and int(self.active.shape[0]) == int(width))
+
     def _reads(self, *data):
         r = self.runner
         out = [t for t in data if t is not None] + [self.active]
@@ -248,7 +261,12 @@ class EpochEngine:
             prog = self.programs[key] = make()
         fresh = prog.pointers is None
         kind, phase, steps, rows = key
-        with self.runner._dispatch_span(kind, cold=fresh):
+        # a first run on the card captures: the op-scoped `compile`
+        # heartbeat excuses the loop's own while it lasts
+        scope = (_watchdog.op_scope(_watchdog.COMPILE_COMPONENT)
+                 if fresh and self.stream is not None
+                 else contextlib.nullcontext())
+        with self.runner._dispatch_span(kind, cold=fresh), scope:
             prog.load(**batches)
             out = prog.run(state)
         self.stats["val_dispatches" if kind == "val"
@@ -334,6 +352,7 @@ class EpochEngine:
         k = self.scan_batches
         group = []
         for X, Y in self.runner._batches(train_ds, rng=rng):
+            _watchdog.stamp("batch_loop")
             if Y is None or X.shape[0] != B:
                 for Xg, Yg in group:
                     self._eager_step(phase, state, Xg, Yg)
@@ -346,6 +365,7 @@ class EpochEngine:
                 group = []
         for Xg, Yg in group:
             self._eager_step(phase, state, Xg, Yg)
+        _watchdog.retire("batch_loop")
 
     # ----------------------------------------------------------- validation
     def _val_body(self):

@@ -30,11 +30,17 @@ Durability and elasticity, as the JAX grid:
   fast path needs an aligned slab). Results, histories and failures are
   reported under original point ids; ``on_lane_retire`` sees each lane a
   compaction retires;
-* checkpoint and resume: a synchronous durable write (atomic, CRC,
-  ``.prev`` generation, quarantine of a corrupt head) of the whole fit
-  state with the shuffle rng and the compaction era, behind the JAX
-  grid's compatibility fingerprint; a resume lands at the checkpoint's
-  own era and width and continues bit for bit;
+* checkpoint and resume: a durable write (atomic, CRC, ``.prev``
+  generation, quarantine of a corrupt head) of the whole fit state with
+  the shuffle rng and the compaction era, behind the JAX grid's
+  compatibility fingerprint; a resume lands at the checkpoint's own era
+  and width and continues bit for bit. With ``async_checkpointing`` (the
+  default) the write runs on a background thread
+  (``runtime/checkpoint.AsyncCheckpointWriter``) from a host snapshot the
+  loop takes (pinned copies on the current stream and an event, which
+  the next replay is ordered after), the same bytes as a synchronous
+  write; a preemption's and a grid deadline's final checkpoint are joined
+  before the fit raises;
 * per-lane deadlines (eviction with cause ``"deadline"`` and a forced
   checkpoint; siblings' math untouched) and a whole-grid deadline
   (``DeadlineExceeded`` after a final checkpoint);
@@ -78,15 +84,43 @@ too, which the JAX grid never applies (ROADMAP queue 3 item 16); the
 scanned modes apply none. The crash points ``checkpoint_saved`` and
 ``epoch_end`` are the JAX grid's.
 
-Not ported yet (ROADMAP queue 1): the predictive scheduling policy and its
-``policy`` / ``cost_model`` events, the async checkpoint writer, the
-watchdog, mixed precision and the device mesh. Asking for the policy, the
-mesh or mixed precision raises ``NotImplementedError``.
+The production runtime, as the JAX grid runs it
+(``redcliff_tpu/parallel/grid.py:290-315,381-383,741,1150-1166,
+1502-1508,1599-1602,1668,1749-1783,1831-1833,2081-2130,2416-2485``):
+
+* the liveness watchdog (``REDCLIFF_WATCHDOG``, ``runtime/watchdog.py``)
+  around the fit, bound to the preemption guard and the fit's log; the
+  loop stamps ``epoch_engine`` per epoch and ``batch_loop`` per eager
+  batch, and each CUDA-graph capture runs under the op-scoped
+  ``compile`` heartbeat;
+* the learned cost model (``obs/costmodel.py``): ``dispatch_stats`` keeps
+  ``epoch_ms_by_width``, ``epochs_by_width`` and
+  ``first_epoch_ms_by_width``; each check window scores the store's
+  prediction (else the fit's own steady mean at the width) against the
+  epochs it resolved, logs a ``cost_model`` event and sets
+  ``dispatch_stats["eta"]``; the fit's end folds the per-width epochs and
+  captures into the store under platform ``"cuda"``. On the card an
+  epoch's ms is resolved at the next check window from a CUDA event pair
+  around it: the larger of its host wall and its device span, so a
+  replayed epoch whose host call returns early still counts its device
+  work;
+* the predictive scheduling policy (``REDCLIFF_PREDICTIVE``,
+  ``parallel/policy.py``), swapped in before the initial width when a
+  store resolves, its decisions logged as ``policy`` events; a width is
+  "warm" when the epoch engine needs no capture there;
+* the launch-plan autotuner (``ops/autotune.py``) at construction, for
+  both kernels' lane forms at every ladder width the grid can run at,
+  before any capture, its records logged as ``autotune`` events.
+
+Not ported yet (ROADMAP queue 1): mixed precision and the device mesh;
+asking for either raises ``NotImplementedError``.
 
 Entry points run on ``cuda`` unless the caller passes ``device=``.
 """
 from __future__ import annotations
 
+import contextlib
+import copy
 import os
 import time
 import warnings
@@ -99,18 +133,22 @@ import torch
 from redcliff_tpu_torch.data import pipeline
 from redcliff_tpu_torch.interop import params_to_jax, tree_leaves, tree_map
 from redcliff_tpu_torch.models.redcliff import phase_schedule
+from redcliff_tpu_torch.obs import costmodel as _costmodel
 from redcliff_tpu_torch.obs import memory as _obsmem
 from redcliff_tpu_torch.obs import profiling as _profiling
 from redcliff_tpu_torch.obs import quality as _quality
 from redcliff_tpu_torch.obs import schema as _schema
 from redcliff_tpu_torch.obs import spans as _spans
 from redcliff_tpu_torch.obs.logging import MetricLogger
+from redcliff_tpu_torch.ops import autotune as _autotune
 from redcliff_tpu_torch.ops.pallas_prox import lane_thresholds
 from redcliff_tpu_torch.parallel import compaction
+from redcliff_tpu_torch.parallel import policy as gridpolicy
 from redcliff_tpu_torch.parallel.epoch_engine import EpochEngine
 from redcliff_tpu_torch.parallel.policy import GridSchedulingPolicy
 from redcliff_tpu_torch.runtime import checkpoint as durable_ckpt
 from redcliff_tpu_torch.runtime import compileobs, faultinject, numerics
+from redcliff_tpu_torch.runtime import watchdog as _watchdog
 from redcliff_tpu_torch.runtime.preempt import (DeadlineExceeded, Preempted,
                                                 PreemptionGuard)
 from redcliff_tpu_torch.train.freeze import apply_freeze_lanes
@@ -316,8 +354,34 @@ class RedcliffGridRunner:
         self.policy = (policy if policy is not None
                        else GridSchedulingPolicy.from_train_config(
                            train_config))
+        # the epoch engine of the running fit (the predictive policy asks
+        # it which widths need no capture)
+        self._engine = None
+        # predictive scheduling (REDCLIFF_PREDICTIVE, parallel/policy.py):
+        # with a readable cost-model store, the predictive policy replaces
+        # the heuristic before the initial-width decision; with no usable
+        # prior every decision is the heuristic's. A caller's policy wins
+        if policy is None and gridpolicy.predictive_enabled():
+            cm = _costmodel.load(self._cost_model_base())
+            if cm is not None:
+                max_w = os.environ.get(gridpolicy.ENV_POLICY_MAX_WIDTH)
+                self.policy = gridpolicy.PredictiveSchedulingPolicy(
+                    g_bucket=self.policy.g_bucket,
+                    compaction=self.policy.compaction, cost_model=cm,
+                    shape_key=self._shape_key(),
+                    platform=_costmodel.platform_label(self.device),
+                    precision="f32",
+                    epochs=getattr(train_config, "max_iter", None),
+                    max_width=(int(max_w) if max_w and max_w.isdigit()
+                               else None),
+                    warm=self._width_warm)
         self._g_real = G = len(spec.points)
         self._g_exec0 = self.policy.initial_width(G)
+        # the initial-width decision record (predictive policy only),
+        # logged as a `policy` event once a fit has its log
+        self._policy_init_decision = (
+            self.policy.take_decision()
+            if hasattr(self.policy, "take_decision") else None)
         # original point id per execution lane; -1 marks bucket filler
         # lanes (masked from birth, never surfaced in GridResult)
         self._orig_ids0 = np.concatenate(
@@ -353,6 +417,40 @@ class RedcliffGridRunner:
             getattr(train_config, "compile_cache_dir", None))
         self._build()
         self._set_era(self._orig_ids0)
+        self._maybe_tune_kernels()
+
+    def _maybe_tune_kernels(self):
+        """Tune (or reuse) both kernels' launch plans at this grid's shapes
+        — their lane forms at every ladder width the grid can run at —
+        before any launch or capture
+        (``ops/autotune.py tune_for_model``; a no-op without a card or a
+        store)."""
+        cfg, tc = self.model.config, self.tc
+        widths = [self._g_exec0]
+        if self.policy.g_bucket and self.policy.compaction:
+            while widths[-1] > 2:
+                widths.append(compaction.bucket_width(widths[-1] // 2))
+        for width in widths:
+            _autotune.tune_for_model(cfg, tc.batch_size,
+                                     prox_penalty=tc.prox_penalty,
+                                     device=self.device, lanes=width)
+
+    def _cost_model_base(self):
+        """The cost-model store's base directory, resolved as
+        ``costmodel.store_path`` resolves it: ``REDCLIFF_COST_MODEL_DIR``,
+        the ``compile_cache_dir`` knob, ``REDCLIFF_COMPILE_CACHE``."""
+        return (os.environ.get(_costmodel.ENV_STORE_DIR)
+                or getattr(self.tc, "compile_cache_dir", None)
+                or os.environ.get(compileobs.ENV_CACHE_DIR) or None)
+
+    def _shape_key(self):
+        return _schema.shape_key(_schema.shape_desc(self.model.config))
+
+    def _width_warm(self, width):
+        """Whether moving to ``width`` needs no CUDA-graph capture: the
+        running fit's epoch engine holds that width's programs or captures
+        nothing (the predictive policy's "warm")."""
+        return self._engine is not None and self._engine.holds(width)
 
     # ------------------------------------------------------------------ init
     def _adam_state(self, tree):
@@ -654,12 +752,10 @@ class RedcliffGridRunner:
             "val_data": durable_ckpt.dataset_fingerprint(val_ds),
         }
 
-    def _save_checkpoint(self, checkpoint_dir, state, meta):
-        """Write the fit state durably and synchronously: tensors as numpy
-        copies, the per-epoch loss rows expanded to the original point
-        width (a resumed fit may land in another era than the one that
-        wrote a row)."""
-        t0 = time.perf_counter()
+    def _hostify(self, state, meta):
+        """The checkpoint payload: tensors as numpy copies, the per-epoch
+        loss rows expanded to the original point width (a resumed fit may
+        land in another era than the one that wrote a row)."""
         host = {k: numerics.to_host(v) for k, v in state.items()
                 if k not in ("val_history", "val_eras", "eras")}
         rows = [numerics.to_host(v) for v in state["val_history"]]
@@ -667,12 +763,37 @@ class RedcliffGridRunner:
             rows, state["val_eras"], state["eras"], self._g_real))
         host["orig_ids"] = np.asarray(state["orig_ids"], np.int32)
         host["meta"] = meta
+        return host
+
+    def _save_checkpoint(self, checkpoint_dir, state, meta, writer=None):
+        """Write the fit state durably: synchronously, or with a ``writer``
+        from a host snapshot the loop's thread takes
+        (``runtime/checkpoint.host_snapshot``: the tensors, which the next
+        step or replay updates in place, as pinned copies behind an event;
+        copies of the lists and the retired store the loop keeps growing)
+        while the writer thread waits on the event, pickles and writes."""
+        t0 = time.perf_counter()
         os.makedirs(checkpoint_dir, exist_ok=True)
         path = os.path.join(checkpoint_dir, self.CHECKPOINT_NAME)
-        durable_ckpt.write_checkpoint(path, host)
         stats = self.dispatch_stats
         stats["ckpt_saves"] += 1
-        stats["ckpt_bytes"] = os.path.getsize(path)
+        if writer is None:
+            durable_ckpt.write_checkpoint(path, self._hostify(state, meta))
+            stats["ckpt_bytes"] = os.path.getsize(path)
+        else:
+            snap = dict(state, val_history=list(state["val_history"]),
+                        val_eras=list(state["val_eras"]),
+                        eras=list(state["eras"]),
+                        retired=dict(state["retired"]))
+            snap, ready = durable_ckpt.host_snapshot(snap)
+            meta = copy.deepcopy(meta)
+
+            def write():
+                ready()
+                durable_ckpt.write_checkpoint(path,
+                                              self._hostify(snap, meta))
+                stats["ckpt_bytes"] = os.path.getsize(path)
+            writer.submit(write)
         stats["ckpt_stall_ms"] += (time.perf_counter() - t0) * 1e3
 
     def _load_checkpoint(self, checkpoint_dir, want_meta):
@@ -746,16 +867,31 @@ class RedcliffGridRunner:
             max_iter=max_iter if max_iter is not None else self.tc.max_iter,
             device=self.device)
         logger = MetricLogger(log_dir)
+        # the background checkpoint writer, scoped here so every exit path
+        # joins the in-flight write (a background failure re-raises on a
+        # clean exit and is warned while another exception propagates)
+        writer = (durable_ckpt.AsyncCheckpointWriter()
+                  if checkpoint_dir is not None and self.tc.async_checkpointing
+                  else None)
         try:
             # the guard wraps the whole fit, so a signal during set-up is
-            # latched too; the epoch loop polls it
+            # latched too; the epoch loop polls it. The env-armed watchdog
+            # escalates a stale heartbeat: log -> a final checkpoint
+            # through the guard -> hard exit with the hang code
             with PreemptionGuard(enabled=checkpoint_dir is not None) \
-                    as guard:
+                    as guard, (writer or contextlib.nullcontext()), \
+                    _watchdog.maybe_start(
+                        guard=guard if guard.enabled else None) as wd:
+                if wd is not None:
+                    wd.bind(logger=logger)
                 return self._fit(key, train_ds, val_ds, max_iter,
                                  init_params, copy_init, checkpoint_dir,
                                  checkpoint_every, on_lane_retire, guard,
-                                 logger, pw, true_gc)
+                                 logger, pw, true_gc, writer)
         finally:
+            self._engine = None
+            _watchdog.retire("epoch_engine")
+            _watchdog.retire("batch_loop")
             # a window the epochs never closed (an early exit inside it, a
             # preemption, a deadline) announces its truncated capture
             pw.finish(logger=logger)
@@ -769,7 +905,7 @@ class RedcliffGridRunner:
 
     def _fit(self, key, train_ds, val_ds, max_iter, init_params, copy_init,
              checkpoint_dir, checkpoint_every, on_lane_retire, guard, logger,
-             pw, true_gc):
+             pw, true_gc, writer=None):
         tc = self.tc
         cfg = self.model.config
         dev = self.device
@@ -787,14 +923,17 @@ class RedcliffGridRunner:
             tc.stream_mode, train_ds, scan_batches=tc.scan_batches,
             batch_size=tc.batch_size, freeze_by_batch=self._freeze_by_batch)
         # host wall ms of the train and validation sections (enqueue time:
-        # no sync is added to measure them), epoch ms by execution width,
+        # no sync is added to measure them); the epochs, their ms and each
+        # width's first epoch by execution width (on the card each epoch's
+        # ms covers its device work, resolved at the next check window);
         # and the CUDA graphs captured (each program's key, capture ms and
         # kernel launches per replay)
         self.dispatch_stats = stats = {
             "mode": base_stream, "epochs": 0, "train_dispatches": 0,
             "val_dispatches": 0, "train_time_ms": 0.0, "val_time_ms": 0.0,
-            "epoch_ms_by_width": {}, "graph_captures": 0, "capture_ms": 0.0,
-            "programs": [],
+            "epoch_ms_by_width": {}, "epochs_by_width": {},
+            "first_epoch_ms_by_width": {}, "graph_captures": 0,
+            "capture_ms": 0.0, "programs": [],
             "grid_width": self._g_exec0, "compactions": 0,
             "lane_epochs": 0, "lane_epochs_nominal": 0,
             "ckpt_saves": 0, "ckpt_bytes": None, "ckpt_stall_ms": 0.0,
@@ -804,7 +943,12 @@ class RedcliffGridRunner:
             # footprint and measured peak (obs/memory.py), the quality
             # monitor's rolling snapshot (obs/quality.py)
             "lanes_live": None, "prefetch_stall_ms": 0.0,
-            "prefetch_items": 0, "memory": None, "quality": None}
+            "prefetch_items": 0, "ckpt_barrier_stall_ms": 0.0,
+            "memory": None, "quality": None,
+            # the cost model's scoring (obs/costmodel.py): the remaining
+            # fit's ETA and the running residual summary, refreshed at each
+            # check window that resolves an epoch
+            "eta": None, "cost_model": None}
         ckpt = ck_meta = ck_src = None
         if checkpoint_dir is not None:
             t0 = time.perf_counter()
@@ -863,7 +1007,8 @@ class RedcliffGridRunner:
         width_nominal = Gx
         eras, era_cur = [orig_ids], 0
         self._set_era(orig_ids)
-        engine = EpochEngine(self, base_stream, train_ds, val_ds, stats)
+        engine = self._engine = EpochEngine(self, base_stream, train_ds,
+                                            val_ds, stats)
         engine.new_era(Gx)
         stats["grid_width"] = Gx
         # per-execution-lane deadlines, remapped per era; dl_done keeps the
@@ -894,6 +1039,44 @@ class RedcliffGridRunner:
                 qmon = _quality.QualityMonitor(
                     true_gc=true_gc, mode=_quality.readout_mode(cfg))
         counters_t0 = _spans.COUNTERS.snapshot()
+        compile_t0 = compileobs.snapshot()
+        # the learned cost model (obs/costmodel.py), loaded once per fit:
+        # its predictions are scored against the resolved epochs at each
+        # check window, and this fit's epochs fold into it at the end
+        cm_base = self._cost_model_base()
+        cm_platform = _costmodel.platform_label(dev)
+        cost_model = _costmodel.load(cm_base) if cm_base else None
+        cm_shape_key = self._shape_key()
+        cm_n = 0          # residual samples scored this fit
+        cm_abs_pct = 0.0  # running sum of |residual_pct|
+        # epochs whose ms is not resolved yet: on the card a CUDA event
+        # pair around each epoch, read at the next check window (the host
+        # syncs there anyway) so the folded ms covers the device work
+        ev_timing = dev.type == "cuda"
+        pending = []
+
+        def resolve(wait=False):
+            """Fold the pending epochs whose end event has run into the
+            per-width accumulators; returns the last one folded."""
+            last = None
+            while pending:
+                p_it, p_w, p_ms, ev0, ev1 = pending[0]
+                if ev1 is not None:
+                    if wait:
+                        ev1.synchronize()
+                    elif not ev1.query():
+                        break
+                    p_ms = max(p_ms, ev0.elapsed_time(ev1))
+                pending.pop(0)
+                key = str(p_w)
+                stats["epoch_ms_by_width"][key] = (
+                    stats["epoch_ms_by_width"].get(key, 0.0) + p_ms)
+                stats["epochs_by_width"][key] = (
+                    stats["epochs_by_width"].get(key, 0) + 1)
+                stats["first_epoch_ms_by_width"].setdefault(key, p_ms)
+                last = (p_it, p_w, p_ms)
+            return last
+
         logger.log("fit_start", model="RedcliffGridRunner", grid_size=G_real,
                    grid_width=Gx, lanes_padded=int((orig_ids < 0).sum()),
                    training_mode=cfg.training_mode,
@@ -905,6 +1088,14 @@ class RedcliffGridRunner:
                    precision_mode=(self.spec.precision_mode
                                    or tc.precision_mode),
                    points=list(self.spec.points))
+        # the launch-plan searches/lookups of the constructor
+        for atrec in _autotune.drain_records():
+            logger.log("autotune", **atrec)
+        # the predictive policy's initial-width decision
+        if self._policy_init_decision:
+            logger.log("policy", epoch=start_it - 1, grid_width=Gx,
+                       **self._policy_init_decision)
+            self._policy_init_decision = None
         # the predicted footprint of this fit's width, from shapes only,
         # and the headroom verdict on its device
         mem_poll = _obsmem.polling_enabled()
@@ -937,9 +1128,16 @@ class RedcliffGridRunner:
         fi_step = 0
         epochs = []
         for it in range(start_it, max_iter):
+            # the epoch loop's heartbeat, one stamp per epoch (a capture
+            # inside the epoch runs under the op-scoped `compile` beat)
+            _watchdog.stamp("epoch_engine")
             pw.on_epoch_start(it)
             epoch_compile_t0 = compileobs.snapshot()
             t_epoch0 = time.perf_counter()
+            ev0 = None
+            if ev_timing:
+                ev0 = torch.cuda.Event(enable_timing=True)
+                ev0.record()
             epoch_width = Gx
             if (not aligned and "pretrain_factor" in cfg.training_mode
                     and it == cfg.num_pretrain_epochs
@@ -952,6 +1150,7 @@ class RedcliffGridRunner:
             mode = base_stream if len(phases) == 1 else "per_batch"
             if mode == "per_batch":
                 for X, Y in self._batches(train_ds, rng=rng):
+                    _watchdog.stamp("batch_loop")
                     # the step fault points ride the per-batch path only
                     # (the scanned modes take device-resident batches)
                     X = faultinject.poison_batch(X, fi_step)
@@ -966,6 +1165,7 @@ class RedcliffGridRunner:
                         stats["train_dispatches"] += 1
                     if self._freeze_by_batch:
                         params, accepted = self._freeze_step(params, accepted)
+                _watchdog.retire("batch_loop")
             else:
                 engine.train_epoch(mode, phases[0],
                                    (params, optA, optB, nstate), active,
@@ -1128,20 +1328,82 @@ class RedcliffGridRunner:
                                    bytes_limit=wm["bytes_limit"],
                                    n_devices=wm["n_devices"],
                                    device_kind=wm["device_kind"])
+                # the cost model's scoring (obs/costmodel.py): the last
+                # epoch resolved in this window against the prediction that
+                # existed before it ran — the store's at its width, else
+                # the fit's own mean there. A width's first epoch is never
+                # scored (it carries the captures the model learns apart)
+                scored = resolve()
+                if scored is not None:
+                    s_it, s_w, s_ms = scored
+                    skey = str(s_w)
+                    pred_ms = cm_src = None
+                    n_w = stats["epochs_by_width"].get(skey, 0)
+                    if n_w > 1 and cost_model is not None:
+                        pred_ms = cost_model.predict_epoch_ms(
+                            cm_shape_key, s_w, platform=cm_platform,
+                            precision="f32")
+                        if pred_ms is not None:
+                            cm_src = "store"
+                    if pred_ms is None:
+                        tot_prior = stats["epoch_ms_by_width"][skey] - s_ms
+                        n_prior = n_w - 1
+                        first = stats["first_epoch_ms_by_width"].get(skey)
+                        if first is not None and n_prior >= 1:
+                            tot_prior -= first
+                            n_prior -= 1
+                        if n_prior > 0 and tot_prior > 0:
+                            pred_ms = tot_prior / n_prior
+                            cm_src = "observed"
+                    if pred_ms is not None and pred_ms > 0:
+                        residual_pct = 100.0 * (s_ms - pred_ms) / pred_ms
+                        cm_n += 1
+                        cm_abs_pct += abs(residual_pct)
+                        epochs_remaining = max(max_iter - it - 1, 0)
+                        eta_s = epochs_remaining * pred_ms / 1e3
+                        stats["eta"] = {
+                            "epoch": s_it,
+                            "predicted_epoch_ms": round(pred_ms, 3),
+                            "epochs_remaining": epochs_remaining,
+                            "eta_s": round(eta_s, 3), "source": cm_src}
+                        stats["cost_model"] = {
+                            "samples": cm_n,
+                            "mape_pct": round(cm_abs_pct / cm_n, 2),
+                            "source": cm_src}
+                        logger.log(
+                            "cost_model", epoch=s_it, grid_width=s_w,
+                            predicted_epoch_ms=round(pred_ms, 3),
+                            actual_epoch_ms=round(s_ms, 3),
+                            residual_pct=round(residual_pct, 2),
+                            source=cm_src, eta_s=round(eta_s, 3),
+                            epochs_remaining=epochs_remaining,
+                            samples=cm_n,
+                            mape_pct=stats["cost_model"]["mape_pct"])
                 stop = it >= past_at and not act_host.any()
                 if stop:
                     logger.log("early_exit_all_inactive", epoch=it)
                 else:
                     plan = self.policy.compaction_plan(
-                        act_host, orig_ids, retired.keys())
+                        act_host, orig_ids, retired.keys(),
+                        epochs_remaining=max(max_iter - it - 1, 0))
+                    # the predictive policy's pricing of this window's
+                    # ladder move (compact / hold / fallback)
+                    pol_dec = (self.policy.take_decision()
+                               if hasattr(self.policy, "take_decision")
+                               else None)
+                    if pol_dec is not None:
+                        logger.log("policy", epoch=it, grid_width=Gx,
+                                   **pol_dec)
             epoch_ms = (time.perf_counter() - t_epoch0) * 1e3
+            ev1 = None
+            if ev_timing:
+                ev1 = torch.cuda.Event(enable_timing=True)
+                ev1.record()
+            pending.append((it, epoch_width, epoch_ms, ev0, ev1))
             epochs.append({"epoch": it, "phases": list(phases),
                            "width": epoch_width, "ms": epoch_ms,
                            "mode": mode})
             stats["epochs"] += 1
-            wkey = str(epoch_width)
-            stats["epoch_ms_by_width"][wkey] = (
-                stats["epoch_ms_by_width"].get(wkey, 0.0) + epoch_ms)
             stats["lane_epochs"] += epoch_width
             stats["lane_epochs_nominal"] += width_nominal
             if stop:
@@ -1229,18 +1491,29 @@ class RedcliffGridRunner:
                         "eras": eras, "orig_ids": orig_ids,
                         "retired": retired, "aligned": aligned,
                         "rng_state": rng.bit_generator.state, "epoch": it,
-                    }, ck_meta)
-                    # the synchronous write's stall (ring-only)
+                    }, ck_meta, writer=writer)
+                    # the loop thread's stall: the whole write, or the
+                    # snapshot hand-off to the writer (ring-only)
                     _spans.record_span(
                         "grid.ckpt_save",
                         (time.perf_counter() - t_save) * 1e3,
-                        component="ckpt", epoch=it, background=False)
+                        component="ckpt", epoch=it,
+                        background=writer is not None)
+                    if writer is not None and faultinject.armed():
+                        # "checkpoint_saved" means durably on disk before
+                        # the crash point fires
+                        writer.wait()
                     faultinject.crash_point("checkpoint_saved", epoch=it)
                 if guard.preempted:
+                    if writer is not None:
+                        # the final checkpoint is durable before Preempted
+                        writer.wait()
                     logger.log("preempted_final_checkpoint", epoch=it,
                                signum=guard.signum)
                     raise Preempted(guard.signum, epoch=it)
             if grid_dl_hit:
+                if writer is not None:
+                    writer.wait()
                 logger.log("grid_deadline_final_checkpoint", epoch=it,
                            elapsed_s=round(elapsed, 3),
                            deadline_s=float(self.spec.grid_deadline_s),
@@ -1256,6 +1529,12 @@ class RedcliffGridRunner:
             pw.on_epoch_end(it, logger=logger)
             faultinject.crash_point("epoch_end", epoch=it)
 
+        _watchdog.retire("epoch_engine")
+        if writer is not None:
+            # completion barrier: a background failure surfaces here and
+            # the last generation is durable before results return
+            writer.wait()
+        resolve(wait=True)
         # a last watermark sample, so fits shorter than a check window
         # still record a measured peak on a card
         if mem_poll:
@@ -1264,9 +1543,23 @@ class RedcliffGridRunner:
                 stats["memory"]["polls"] += 1
                 stats["memory"]["peak_bytes"] = max(
                     stats["memory"]["peak_bytes"] or 0, wm["peak_bytes"])
+        stats.update(compileobs.delta(compile_t0))
         cdelta = _spans.COUNTERS.delta(counters_t0)
         stats["prefetch_stall_ms"] = cdelta.get("prefetch_stall_ms", 0.0)
         stats["prefetch_items"] = int(cdelta.get("prefetch_items", 0))
+        stats["ckpt_barrier_stall_ms"] = cdelta.get("ckpt_barrier_stall_ms",
+                                                    0.0)
+        # fold this fit's per-width epochs and captures into the persistent
+        # store (advisory: a store failure never fails the fit)
+        if cm_base:
+            try:
+                _costmodel.update_store(
+                    cm_base, _costmodel.rows_from_dispatch_stats(
+                        cm_shape_key, stats, precision="f32"),
+                    platform=cm_platform)
+            except Exception as e:  # noqa: BLE001 — best-effort fold
+                warnings.warn(f"cost-model store fold failed: {e!r}",
+                              RuntimeWarning)
 
         # ---- result assembly under original point ids: live lanes
         # scatter through orig_ids, retired lanes come from the host store,

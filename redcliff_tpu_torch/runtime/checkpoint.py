@@ -30,7 +30,20 @@ the last writes and how long they took) and carries the JAX writer's
 fault points (``runtime/faultinject.py``: ``slow_io``, ``io_error`` and
 ``hang_between_ckpt_replaces``), one environment lookup when unarmed.
 
-stdlib + numpy only.
+:class:`AsyncCheckpointWriter` (the JAX class: ``submit`` / ``wait`` /
+context manager, at most one write in flight) moves the pickle, CRC and
+fsync off the training loop's thread. Its partner is
+:func:`host_snapshot`: the trainers and the grid update their tensors in
+place (the GL prox writes the live block, Adam its moments, the epoch
+engine replays into fixed storage), so what a background write reads must
+be a copy, never a live tensor. A CUDA leaf is copied with
+``non_blocking=True`` into pinned host memory on the current stream and
+one CUDA event is recorded after the copies; the writer thread waits on
+that event before it reads them. Later kernels on the stream (and the
+epoch engine's replays, which wait on it) run after the copies, so an
+asynchronous checkpoint holds the same bytes as a synchronous one.
+
+stdlib + numpy at import; torch only inside :func:`host_snapshot`.
 """
 from __future__ import annotations
 
@@ -48,11 +61,13 @@ import zlib
 import numpy as np
 
 from redcliff_tpu_torch.obs import spans as _spans
+from redcliff_tpu_torch.runtime import watchdog as _watchdog
 
 __all__ = ["CheckpointCorruptError", "CheckpointWriteError",
            "ForbiddenClassError", "PortUnpickler", "write_checkpoint",
            "read_checkpoint", "load_checkpoint", "quarantine",
-           "dataset_fingerprint", "FORMAT_VERSION"]
+           "dataset_fingerprint", "AsyncCheckpointWriter", "host_snapshot",
+           "FORMAT_VERSION"]
 
 MAGIC = b"RTCK"
 FORMAT_VERSION = 1
@@ -233,6 +248,135 @@ def load_checkpoint(path):
         except CheckpointCorruptError as e:
             quarantine(cand, str(e))
     return None, None
+
+
+def host_snapshot(tree):
+    """A host copy of every tensor in ``tree`` (dicts, lists and tuples
+    walked; other leaves kept), taken now, and a ``ready()`` that blocks
+    until the copies have landed. Contiguous CUDA tensors are copied
+    without blocking into pinned host memory on their device's current
+    stream, followed by one recorded event that ``ready()`` synchronizes
+    on (any other CUDA tensor is copied at once); CPU tensors are cloned
+    at once. Hand ``ready`` and the snapshot to a background thread
+    (:class:`AsyncCheckpointWriter`): the live tensors may change as soon
+    as this returns."""
+    import torch
+
+    from redcliff_tpu_torch.interop import tree_map
+
+    devices = set()
+
+    def copy(x):
+        if not isinstance(x, torch.Tensor):
+            return x
+        x = x.detach()
+        if x.is_cuda:
+            if not x.is_contiguous():
+                return x.cpu()  # blocking, laid out as .cpu() lays it out
+            out = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+            out.copy_(x, non_blocking=True)
+            devices.add(x.device)
+            return out
+        return x.clone()
+
+    snap = tree_map(copy, tree)
+    events = []
+    for dev in devices:
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(dev))
+        events.append(ev)
+
+    def ready():
+        for ev in events:
+            ev.synchronize()
+    return snap, ready
+
+
+class AsyncCheckpointWriter:
+    """Background durable-checkpoint writer: at most one write in flight
+    (the port of the JAX class).
+
+    ``submit(fn)`` first waits for any previous write (the completion
+    barrier: generations stay ordered and two writes can never race on one
+    path's tmp file), then runs ``fn`` — a closure around
+    :func:`write_checkpoint` over a :func:`host_snapshot` — on a background
+    thread and returns. The main thread's wait at the barrier counts into
+    ``obs.counters["ckpt_barrier_stall_ms"]`` and is a ring-only
+    ``ckpt.submit_barrier`` span; the background write is a
+    ``ckpt.async_write`` span, stamps the ``"ckpt_writer"`` heartbeat while
+    it runs, and carries the ``hang_in:ckpt_writer`` fault point.
+
+    ``wait()`` joins the in-flight write and re-raises anything it threw:
+    :class:`CheckpointWriteError` (disk full / EIO) comes back typed,
+    anything else as a ``RuntimeError`` from it. As a context manager the
+    barrier runs on every exit; a background failure re-raises on a clean
+    exit and is warned (not masked) while another exception propagates.
+    Crash safety is the synchronous path's: :func:`write_checkpoint` is
+    atomic with a ``.prev`` generation.
+    """
+
+    def __init__(self):
+        self._thread = None
+        self._err = None
+
+    @property
+    def in_flight(self):
+        return self._thread is not None and self._thread.is_alive()
+
+    def submit(self, fn):
+        # the submit barrier: how long the MAIN thread stalls waiting for
+        # the previous background write
+        t_bar0 = time.perf_counter()
+        self.wait()
+        stall_ms = (time.perf_counter() - t_bar0) * 1e3
+        _spans.COUNTERS.add("ckpt_barrier_stall_ms", stall_ms)
+        _spans.record_span("ckpt.submit_barrier", stall_ms, component="ckpt")
+
+        def run():
+            # the writer heartbeats while a write is in flight and retires
+            # after, so idle gaps between saves never read as a hang; a
+            # wedged write goes stale and the watchdog escalates
+            _watchdog.stamp("ckpt_writer")
+            try:
+                if os.environ.get("REDCLIFF_FAULT_INJECT"):
+                    from redcliff_tpu_torch.runtime import faultinject
+
+                    faultinject.hang_point("ckpt_writer")
+                with _spans.span("ckpt.async_write", component="ckpt"):
+                    fn()
+            except BaseException as e:  # noqa: BLE001 — re-raised in wait()
+                self._err = e
+            finally:
+                _watchdog.retire("ckpt_writer")
+
+        self._thread = threading.Thread(target=run, name="ckpt-writer",
+                                        daemon=True)
+        self._thread.start()
+
+    def wait(self):
+        t, self._thread = self._thread, None
+        if t is not None:
+            t.join()
+        err, self._err = self._err, None
+        if err is not None:
+            if isinstance(err, CheckpointWriteError):
+                raise err
+            raise RuntimeError("background checkpoint write failed") from err
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        if exc_type is None:
+            self.wait()
+        else:
+            try:
+                self.wait()
+            except RuntimeError:
+                warnings.warn(
+                    "background checkpoint write failed while another "
+                    "exception was propagating", RuntimeWarning)
+        return False
 
 
 def dataset_fingerprint(ds):

@@ -12,8 +12,13 @@ comma-separated list of ``name:arg``, as in JAX:
 - ``hang_between_ckpt_replaces:S`` — inside the durable writer's crash
   window (head renamed to ``.prev``, new generation not yet promoted)
   write the marker file once and sleep S seconds;
+- ``hang_in:COMPONENT[:S]`` — wedge the named component (sleep S
+  seconds, default 3600) at its :func:`hang_point`, next to its watchdog
+  heartbeat, once per marker file: ``prefetch``, ``shard_loader`` and
+  ``ckpt_writer`` (the liveness watchdog, ``runtime/watchdog.py``, must
+  notice);
 - ``slow_io:MS`` — sleep MS milliseconds at every IO fault point
-  (checkpoint writes);
+  (checkpoint writes, shard reads);
 - ``io_error:KIND[:ERRNO]`` — raise an injected ``OSError`` (default
   ``ENOSPC``) at the named IO site (``ckpt_write``), once per marker file
   when ``REDCLIFF_FAULT_MARKER`` is set;
@@ -25,18 +30,22 @@ comma-separated list of ``name:arg``, as in JAX:
   semantics of the numerics guard's skip: a fit with ``nan_batch:K`` ends
   bit-identical to one with ``skip_update:K``.
 
-Not ported (their fault points come with the watchdog, re-meshing and the
-fleet): ``hang_in``, ``host_drop``, ``device_lost``, ``coordinator_loss``
-and ``fleet_poison``. Arming one raises ``NotImplementedError`` at the
-first fault point the process reaches; it is never ignored. So is the
-JAX module's random schedule composer, which draws from them.
+Not ported (their fault points come with multi-GPU re-meshing and the
+fleet): ``host_drop``, ``device_lost``, ``coordinator_loss`` (ROADMAP
+queue 1, item 15) and ``fleet_poison`` (item 12). Arming one raises
+``NotImplementedError`` at the first fault point the process reaches; it
+is never ignored. So is the JAX module's random schedule composer, which
+draws from them.
 
 The child fit (``python -m redcliff_tpu_torch.runtime.faultinject``) is
 one small deterministic port grid fit, identical in-process and as a
-subprocess, so killed, resumed and uninterrupted legs compare bit for bit.
-It runs on ``--device`` (``cuda`` unless given) and exits with the
-watchdog taxonomy's codes (copied here): 17 after a preemption's final
-checkpoint, 20 after a grid deadline's.
+subprocess, so killed, resumed and uninterrupted legs compare bit for bit;
+with ``--sharded`` it streams its data from on-disk shards
+(:func:`tiny_sharded_fit`), so every heartbeat of the watchdog beats. It
+runs on ``--device`` (``cuda`` unless given) and exits with the
+watchdog taxonomy's codes (``runtime/watchdog.py``): 17 after a
+preemption's final checkpoint, 20 after a grid deadline's, and 19 when
+an armed watchdog (``REDCLIFF_WATCHDOG``) hard-exits a hang.
 """
 from __future__ import annotations
 
@@ -47,19 +56,20 @@ import pickle
 import signal
 import sys
 
+from redcliff_tpu_torch.runtime.watchdog import (EXIT_DEADLINE,
+                                                 EXIT_PREEMPTED)
+
 __all__ = ["armed", "crash_point", "ckpt_write_point", "poison_batch",
-           "skip_update", "io_point", "io_error_point", "corrupt_checkpoint",
-           "flaky", "tiny_grid_fit", "EXIT_PREEMPTED", "EXIT_DEADLINE",
-           "UNPORTED_FAULTS"]
+           "skip_update", "hang_point", "io_point", "io_error_point",
+           "corrupt_checkpoint", "flaky", "tiny_grid_fit",
+           "tiny_sharded_fit", "EXIT_PREEMPTED",
+           "EXIT_DEADLINE", "UNPORTED_FAULTS"]
 
 ENV_SPEC = "REDCLIFF_FAULT_INJECT"
 ENV_MARKER = "REDCLIFF_FAULT_MARKER"
-# exit codes of redcliff_tpu/runtime/watchdog.py's taxonomy
-EXIT_PREEMPTED = 17  # SIGTERM/SIGINT latched; final checkpoint written
-EXIT_DEADLINE = 20   # wall-clock deadline; checkpointed + resumable
 # fault kinds of the JAX grammar whose fault points the port lacks
-UNPORTED_FAULTS = ("hang_in", "host_drop", "device_lost",
-                   "coordinator_loss", "fleet_poison")
+UNPORTED_FAULTS = ("host_drop", "device_lost", "coordinator_loss",
+                   "fleet_poison")
 
 
 def _active_faults():
@@ -72,8 +82,8 @@ def _active_faults():
         if name in UNPORTED_FAULTS:
             raise NotImplementedError(
                 f"{ENV_SPEC} arms {name!r}, whose fault point is not ported "
-                f"yet (ROADMAP queue 1, item 11: the watchdog, re-meshing "
-                f"and the fleet)")
+                f"yet (ROADMAP queue 1: item 15, re-meshing; item 12, the "
+                f"fleet)")
         if name:
             out.append((name, arg))
     return tuple(out)
@@ -167,6 +177,21 @@ def _once_guard(suffix):
     with open(guard, "w") as f:
         f.write(suffix)
     return True
+
+
+def hang_point(component):
+    """Liveness fault point: wedge ``component`` (sleep) when a matching
+    ``hang_in:component:S`` fault is armed. Placed next to the component's
+    heartbeat stamp, so the stamp stops and the watchdog must notice."""
+    for name, arg in _active_faults():
+        if name != "hang_in":
+            continue
+        comp, _, secs = arg.partition(":")
+        if comp != component or not _once_guard(f".hang_{component}"):
+            continue
+        import time
+
+        time.sleep(float(secs) if secs else 3600.0)
 
 
 def io_point(kind):
@@ -293,6 +318,37 @@ def tiny_grid_fit(checkpoint_dir, max_iter=4, checkpoint_every=1,
                       log_dir=checkpoint_dir)
 
 
+def tiny_sharded_fit(checkpoint_dir, max_iter=4, checkpoint_every=1,
+                     fit_deadline_s=None, grid_deadline_s=None, device=None):
+    """The supervised-run child: the same small grid fit, streamed from
+    on-disk shards so the host path runs every watchdog-stamped component
+    — the per-batch loop, the prefetcher, the shard loader and the async
+    checkpoint writer. The shards are written deterministically under
+    ``<checkpoint_dir>/shards`` (idempotent, so a restarted attempt reuses
+    them) and the fit is bit-identical across restarts."""
+    from redcliff_tpu_torch.data.shards import ShardedBatchDataset
+    from redcliff_tpu_torch.runtime import watchdog
+
+    runner, X, Y = _tiny_runner(max_iter, fit_deadline_s=fit_deadline_s,
+                                grid_deadline_s=grid_deadline_s,
+                                device=device)
+    split = os.path.join(checkpoint_dir, "shards", "train")
+    if not os.path.isdir(split):
+        os.makedirs(split)
+        half = len(X) // 2
+        for i, sl in enumerate((slice(0, half), slice(half, None))):
+            with open(os.path.join(split, f"subset_{i}.pkl"), "wb") as f:
+                pickle.dump([[x, y] for x, y in zip(X[sl], Y[sl])], f)
+    # the construction-time stats pass reads every shard: a read wedged
+    # there would hang before the fit's own watchdog exists
+    with watchdog.maybe_start():
+        train = ShardedBatchDataset(split)
+        val = ShardedBatchDataset(split)
+    return runner.fit(2, train, val, checkpoint_dir=checkpoint_dir,
+                      checkpoint_every=checkpoint_every,
+                      log_dir=checkpoint_dir)
+
+
 def _result_blob(result):
     import numpy as np
 
@@ -326,6 +382,9 @@ def _child_main(argv):
     ap.add_argument("--max-iter", type=int, default=4)
     ap.add_argument("--checkpoint-every", type=int, default=1)
     ap.add_argument("--bad-point", action="store_true")
+    ap.add_argument("--sharded", action="store_true",
+                    help="stream the data from on-disk shards (runs the "
+                         "prefetch and shard-loader heartbeats)")
     ap.add_argument("--fit-deadline-s", default=None,
                     help="per-lane wall-clock budget(s), comma separated")
     ap.add_argument("--grid-deadline-s", type=float, default=None)
@@ -337,13 +396,16 @@ def _child_main(argv):
 
     from redcliff_tpu_torch.runtime.preempt import DeadlineExceeded, Preempted
 
+    kw = dict(max_iter=args.max_iter,
+              checkpoint_every=args.checkpoint_every,
+              fit_deadline_s=_parse_deadlines(args.fit_deadline_s),
+              grid_deadline_s=args.grid_deadline_s, device=args.device)
     try:
-        result = tiny_grid_fit(
-            args.checkpoint_dir, max_iter=args.max_iter,
-            checkpoint_every=args.checkpoint_every,
-            bad_point=args.bad_point,
-            fit_deadline_s=_parse_deadlines(args.fit_deadline_s),
-            grid_deadline_s=args.grid_deadline_s, device=args.device)
+        if args.sharded:
+            result = tiny_sharded_fit(args.checkpoint_dir, **kw)
+        else:
+            result = tiny_grid_fit(args.checkpoint_dir,
+                                   bad_point=args.bad_point, **kw)
     except Preempted as e:
         print(f"faultinject child: {e}", file=sys.stderr)
         import json

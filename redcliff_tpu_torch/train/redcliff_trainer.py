@@ -24,7 +24,12 @@
   ``state_dict`` s as numpy, the batch-shuffle rng state, the per-epoch
   log of steps by phase, skips and wall ms). A resumed fit
   continues the shuffle stream, so it equals the uninterrupted fit; the
-  JAX trainer restarts the stream from the seed on resume.
+  JAX trainer restarts the stream from the seed on resume. With
+  ``async_checkpointing`` (the default, as in JAX) the periodic saves go
+  to a background writer (``AsyncCheckpointWriter``): the loop's thread
+  takes a host snapshot (pinned copies on the current stream and an
+  event) and the pickle, CRC and fsync run behind the next epoch; the
+  files are byte for byte the synchronous ones.
 
 The optimizers and the prox update the live parameter tensors in place,
 so every tree kept beside them (best, accepted, snapshots, checkpoints) is
@@ -49,14 +54,24 @@ window (``obs/profiling.py``). The step fault points
 counter. Telemetry reads the device only at epoch boundaries and never
 changes a number: a fit is bit-identical with it on or off.
 
-Not ported (ROADMAP): the watchdog, autotune, the async checkpoint writer
-(writes are synchronous), ``factor_mesh``, ``matmul_precision`` and mixed
-precision; the last three raise ``NotImplementedError``. The factors are
-cMLPs or cLSTMs (a cLSTM fit takes no prox, as in the JAX package).
+The production runtime, as the JAX trainer runs it
+(``redcliff_tpu/train/redcliff_trainer.py:215-217,352-355,506-521,548,
+576,766-767``): with ``REDCLIFF_WATCHDOG`` set a liveness watchdog
+(``runtime/watchdog.py``) watches the ``epoch_engine`` and ``batch_loop``
+heartbeats the loop stamps (and the prefetcher's, the shard loader's and
+the checkpoint writer's); the constructor tunes both kernels' launch plans
+at the fit's shapes (``ops/autotune.py tune_for_model``; a no-op without a
+card or a store) and the fit logs the drained ``autotune`` events.
+
+Not ported (ROADMAP): ``factor_mesh``, ``matmul_precision`` and mixed
+precision, which raise ``NotImplementedError``. The factors are cMLPs or
+cLSTMs (a cLSTM fit takes no prox, as in the JAX package).
 """
 from __future__ import annotations
 
+import copy
 import os
+import sys
 import time
 from dataclasses import dataclass, field
 
@@ -71,8 +86,10 @@ from redcliff_tpu_torch.obs import profiling as _profiling
 from redcliff_tpu_torch.obs import quality as _obsquality
 from redcliff_tpu_torch.obs import schema as _schema
 from redcliff_tpu_torch.obs.logging import MetricLogger
+from redcliff_tpu_torch.ops import autotune as _autotune
 from redcliff_tpu_torch.runtime import checkpoint as durable_ckpt
 from redcliff_tpu_torch.runtime import faultinject, numerics
+from redcliff_tpu_torch.runtime import watchdog as _watchdog
 from redcliff_tpu_torch.runtime.numerics import NumericsPolicy
 from redcliff_tpu_torch.train.freeze import apply_freeze
 from redcliff_tpu_torch.train.live import (LiveTreeMixin, assign_tree,
@@ -142,6 +159,10 @@ class RedcliffTrainConfig:
     # fresh grid's width up to the ladder with masked filler lanes
     compaction: bool = True
     g_bucket: bool = True
+    # hand periodic checkpoint saves to a background writer thread (the
+    # host snapshot stays on the loop's thread; pickle, CRC and fsync move
+    # off it); completion barrier at the next save and at the fit's end
+    async_checkpointing: bool = True
     # the compile-cache directory of the JAX knob (runtime/compileobs.py):
     # the port caches no compiled program, so it is only reported (in
     # fit_start); None = follow REDCLIFF_COMPILE_CACHE
@@ -186,6 +207,12 @@ class RedcliffTrainer(LiveTreeMixin):
         self.config = config
         self.device = resolve_device(device)
         self._guard = config.numerics is not None and config.numerics.enabled
+        # both kernels' launch plans tuned at this fit's shapes, before any
+        # launch (a no-op without a card, a store or with
+        # REDCLIFF_AUTOTUNE=0); the records land as `autotune` events
+        _autotune.tune_for_model(model.config, config.batch_size,
+                                 prox_penalty=config.prox_penalty,
+                                 device=self.device)
 
     # ------------------------------------------------------------------ phases
     def phase_for_epoch(self, epoch):
@@ -281,10 +308,15 @@ class RedcliffTrainer(LiveTreeMixin):
         pw = _profiling.window_for(self.config, run_dir=save_dir,
                                    max_iter=self.config.max_iter,
                                    device=self.device)
-        return self._fit(params, train_ds, val_ds, true_GC, save_dir, resume,
-                         pw)
+        # the env-armed liveness watchdog (REDCLIFF_WATCHDOG); no
+        # preemption guard here, so a confirmed hang goes straight to the
+        # hard-exit rung
+        with _watchdog.maybe_start() as wd:
+            return self._fit(params, train_ds, val_ds, true_GC, save_dir,
+                             resume, pw, wd)
 
-    def _fit(self, params, train_ds, val_ds, true_GC, save_dir, resume, pw):
+    def _fit(self, params, train_ds, val_ds, true_GC, save_dir, resume, pw,
+             wd=None):
         cfg = self.model.config
         tc = self.config
         self._true_GC = true_GC
@@ -377,11 +409,21 @@ class RedcliffTrainer(LiveTreeMixin):
         step_counter = 0
         aborted = None
         epochs = []
+        # the background checkpoint writer: periodic saves hand their
+        # pickle + fsync to a thread (completion barrier at the next save
+        # and at the fit's end)
+        writer = (durable_ckpt.AsyncCheckpointWriter()
+                  if save_dir and tc.async_checkpointing else None)
         logger = MetricLogger(save_dir)
+        if wd is not None:
+            wd.bind(logger=logger)  # hang incidents land in metrics.jsonl
         try:
             logger.log("fit_start", model="RedcliffSCMLP", training_mode=mode,
                        shape=_schema.shape_desc(cfg), train_config=tc,
                        resume_epoch=iter_start)
+            # the launch-plan searches/lookups of the constructor
+            for atrec in _autotune.drain_records():
+                logger.log("autotune", **atrec)
             # the predicted footprint from shapes: live params + best and
             # accepted copies + both Adams' two moments + the datasets
             mp = _obsmem.trainer_footprint(live, (live, live),
@@ -399,6 +441,7 @@ class RedcliffTrainer(LiveTreeMixin):
                        headroom_bytes=hr["headroom_bytes"],
                        backend=hr["backend"])
             for it in range(iter_start, tc.max_iter):
+                _watchdog.stamp("epoch_engine")
                 pw.on_epoch_start(it)
                 t_epoch0 = time.perf_counter()
                 last_it = it
@@ -415,6 +458,7 @@ class RedcliffTrainer(LiveTreeMixin):
                 applied = {p: 0 for p in phases}
                 skipped = 0
                 for X, Y in self._batches(train_ds, rng=rng):
+                    _watchdog.stamp("batch_loop")
                     X = faultinject.poison_batch(X, step_counter)
                     skip = faultinject.skip_update(step_counter)
                     step_counter += 1
@@ -569,7 +613,7 @@ class RedcliffTrainer(LiveTreeMixin):
                                           accepted, live, optA, optB,
                                           histories, best_it, best_loss,
                                           tracker, aligned, rng,
-                                          prior_log + epochs)
+                                          prior_log + epochs, writer=writer)
                 if tc.verbose and it % max(1, tc.check_every) == 0:
                     print(f"epoch {it} phases={phases}: "
                           f"val_combo={val['combo_loss']:.5f}")
@@ -594,15 +638,24 @@ class RedcliffTrainer(LiveTreeMixin):
                                 if qmon is not None and qmon.windows
                                 else None))
         finally:
+            _watchdog.retire("epoch_engine")
+            _watchdog.retire("batch_loop")
             # an exit inside the profiler window (an early stop, an abort,
             # an exception) still closes the capture and announces it
             pw.finish(logger=logger)
             logger.close()
+            if writer is not None:
+                # join the in-flight write on every exit path: a background
+                # failure re-raises on a clean exit and is warned (not
+                # masked) while another exception propagates
+                writer.__exit__(*sys.exc_info())
         if save_dir:
             self._save_checkpoint(save_dir, last_it, best_params, accepted,
                                   live, optA, optB, histories, best_it,
                                   best_loss, tracker, aligned, rng,
-                                  prior_log + epochs)
+                                  prior_log + epochs, writer=writer)
+            if writer is not None:
+                writer.wait()  # the final state is durable on return
         return RedcliffFitResult(
             params=best_params,
             best_it=best_it if best_it is not None else 0,
@@ -717,17 +770,47 @@ class RedcliffTrainer(LiveTreeMixin):
 
     def _save_checkpoint(self, save_dir, it, best_params, accepted, live,
                          optA, optB, histories, best_it, best_loss, tracker,
-                         aligned, rng, epoch_log):
-        """The three durable files, written synchronously. The trainer
-        checkpoint carries ``epoch_log``: the per-epoch records
-        (``RedcliffFitResult.epochs``) of every call on this save_dir."""
+                         aligned, rng, epoch_log, writer=None):
+        """The three durable files. The trainer checkpoint carries
+        ``epoch_log``: the per-epoch records (``RedcliffFitResult.epochs``)
+        of every call on this save_dir. With a ``writer`` the loop's thread
+        only snapshots (``runtime/checkpoint.host_snapshot``: the tensor
+        trees, which the next step updates in place, and deep copies of the
+        host state the loop keeps appending to) and the writer thread
+        writes the same files from the snapshot."""
+        if writer is None:
+            self._write_checkpoint_files(
+                save_dir, it, best_params, accepted, live,
+                optA.state_dict(), optB.state_dict(), histories, best_it,
+                best_loss, tracker.as_dict(), dict(tracker.__dict__),
+                aligned, rng.bit_generator.state, epoch_log)
+            return
+        trees, ready = durable_ckpt.host_snapshot(
+            (best_params, accepted, live, optA.state_dict(),
+             optB.state_dict()))
+        host = copy.deepcopy((histories, tracker.as_dict(),
+                              dict(tracker.__dict__),
+                              rng.bit_generator.state, epoch_log))
+
+        def write():
+            ready()
+            self._write_checkpoint_files(
+                save_dir, it, *trees, host[0], best_it,
+                best_loss, host[1], host[2], aligned, host[3], host[4])
+        writer.submit(write)
+
+    def _write_checkpoint_files(self, save_dir, it, best_params, accepted,
+                                live, optA_state, optB_state, histories,
+                                best_it, best_loss, tracker_meta,
+                                tracker_state, aligned, rng_state,
+                                epoch_log):
         os.makedirs(save_dir, exist_ok=True)
         durable_ckpt.write_checkpoint(
             os.path.join(save_dir, "final_best_model.bin"),
             {"model_class": "RedcliffSCMLP", "config": self.model.config,
              "params": params_to_jax(best_params)})
         meta = {"epoch": it, "best_loss": float(best_loss),
-                "best_it": best_it, **histories, **tracker.as_dict()}
+                "best_it": best_it, **histories, **tracker_meta}
         durable_ckpt.write_checkpoint(
             os.path.join(save_dir,
                          "training_meta_data_and_hyper_parameters.pkl"), meta)
@@ -738,13 +821,13 @@ class RedcliffTrainer(LiveTreeMixin):
                 "params": params_to_jax(live),
                 "best_params": params_to_jax(best_params),
                 "accepted": params_to_jax(accepted),
-                "optA_state": numerics.to_host(optA.state_dict()),
-                "optB_state": numerics.to_host(optB.state_dict()),
+                "optA_state": numerics.to_host(optA_state),
+                "optB_state": numerics.to_host(optB_state),
                 "histories": histories,
                 "best_it": best_it,
                 "best_loss": float(best_loss),
                 "aligned": aligned,
-                "tracker_state": dict(tracker.__dict__),
-                "rng_state": rng.bit_generator.state,
+                "tracker_state": tracker_state,
+                "rng_state": rng_state,
                 "epoch_log": epoch_log,
             })

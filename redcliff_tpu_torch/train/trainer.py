@@ -48,15 +48,24 @@ step fault points of ``runtime/faultinject.py`` apply per batch with the
 JAX trainer's global step counter. A fit is bit-identical with telemetry
 on or off.
 
-Not ported (ROADMAP): the watchdog, mixed precision and the async
-checkpoint writer (writes are synchronous, and ``TrainConfig`` has no
-``async_checkpointing``). ``precision_mode="mixed"`` raises
+The production runtime, as the JAX trainer runs it
+(``redcliff_tpu/train/trainer.py:79,359-364,397-402,531-532``): with
+``async_checkpointing`` (the default) the periodic saves go to a
+background writer (``runtime/checkpoint.AsyncCheckpointWriter``, the
+loop's thread taking a host snapshot, the files byte for byte the
+synchronous ones), and with ``REDCLIFF_WATCHDOG`` set a liveness watchdog
+(``runtime/watchdog.py``) watches the ``epoch_engine`` and ``batch_loop``
+heartbeats the loop stamps.
+
+Not ported (ROADMAP): mixed precision; ``precision_mode="mixed"`` raises
 ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import copy
 import math
 import os
+import sys
 import time
 from dataclasses import dataclass, field
 from typing import Any
@@ -73,6 +82,7 @@ from redcliff_tpu_torch.obs import schema as _schema
 from redcliff_tpu_torch.obs.logging import MetricLogger
 from redcliff_tpu_torch.runtime import checkpoint as durable_ckpt
 from redcliff_tpu_torch.runtime import faultinject, numerics
+from redcliff_tpu_torch.runtime import watchdog as _watchdog
 from redcliff_tpu_torch.runtime.numerics import NumericsPolicy
 from redcliff_tpu_torch.train.live import (LiveTreeMixin, assign_tree,
                                            copy_tree)
@@ -106,6 +116,10 @@ class TrainConfig:
     profile_window: str | None = None
     # prefetch depth for batch sources that are not device-resident
     prefetch_batches: int = 2
+    # hand periodic checkpoint saves to a background writer thread (the
+    # host snapshot stays on the loop's thread; pickle, CRC and fsync move
+    # off it); completion barrier at the next save and at the fit's end
+    async_checkpointing: bool = True
     # the compile-cache directory of the JAX knob (runtime/compileobs.py):
     # the port caches no compiled program, so it is only reported (in
     # fit_start's train_config)
@@ -358,7 +372,14 @@ class Trainer(LiveTreeMixin):
         step_counter = 0
         aborted = None
         epochs = []
+        # the background checkpoint writer (completion barrier at the next
+        # save and at the fit's end)
+        writer = (durable_ckpt.AsyncCheckpointWriter()
+                  if save_dir and cfg.async_checkpointing else None)
         logger = MetricLogger(save_dir)
+        # the env-armed liveness watchdog (REDCLIFF_WATCHDOG), its hang
+        # incidents in this fit's metrics.jsonl
+        wd = _watchdog.maybe_start(logger=logger)
         pw = _profiling.window_for(cfg, run_dir=save_dir,
                                    max_iter=cfg.max_iter, device=self.device)
         try:
@@ -383,13 +404,15 @@ class Trainer(LiveTreeMixin):
                        backend=hr["backend"])
             # scoped around the loop: a window the epochs never closed
             # announces its truncated capture on the way out
-            with pw:
+            with pw, wd:
                 for it in range(iter_start, cfg.max_iter):
+                    _watchdog.stamp("epoch_engine")
                     pw.on_epoch_start(it)
                     t_epoch0 = time.perf_counter()
                     last_it = it
                     applied = skipped = 0
                     for X, Y in self._batches(train_ds, rng=rng):
+                        _watchdog.stamp("batch_loop")
                         X = faultinject.poison_batch(X, step_counter)
                         skip = faultinject.skip_update(step_counter)
                         step_counter += 1
@@ -487,7 +510,8 @@ class Trainer(LiveTreeMixin):
                         self._save_checkpoint(save_dir, it, best_params, opt,
                                               live, histories, best_it,
                                               best_loss, tracker, rng,
-                                              step_rng, prior_log + epochs)
+                                              step_rng, prior_log + epochs,
+                                              writer=writer)
                     if cfg.verbose and it % max(1, cfg.check_every) == 0:
                         print(f"epoch {it}: val_combo={val['combo_loss']:.5f} "
                               f"criteria={criteria:.5f}")
@@ -512,13 +536,23 @@ class Trainer(LiveTreeMixin):
                                 if qmon is not None and qmon.windows
                                 else None))
         finally:
+            _watchdog.retire("epoch_engine")
+            _watchdog.retire("batch_loop")
             logger.close()
+            if writer is not None:
+                # join the in-flight write on every exit path: a background
+                # failure re-raises on a clean exit and is warned (not
+                # masked) while another exception propagates
+                writer.__exit__(*sys.exc_info())
         if save_dir:
             # the last trained epoch, so a resume with a larger max_iter
             # continues from where training stopped
             self._save_checkpoint(save_dir, last_it, best_params, opt, live,
                                   histories, best_it, best_loss, tracker,
-                                  rng, step_rng, prior_log + epochs)
+                                  rng, step_rng, prior_log + epochs,
+                                  writer=writer)
+            if writer is not None:
+                writer.wait()  # the final state is durable on return
         return FitResult(
             params=best_params,
             best_it=best_it if best_it is not None else 0,
@@ -528,15 +562,45 @@ class Trainer(LiveTreeMixin):
 
     def _save_checkpoint(self, save_dir, it, best_params, opt, live,
                          histories, best_it, best_loss, tracker, rng,
-                         step_rng, epoch_log):
-        """The three durable files, written synchronously. The trainer
-        checkpoint carries ``epoch_log``: the per-epoch records
-        (``FitResult.epochs``) of every call on this save_dir."""
+                         step_rng, epoch_log, writer=None):
+        """The three durable files. The trainer checkpoint carries
+        ``epoch_log``: the per-epoch records (``FitResult.epochs``) of every
+        call on this save_dir. With a ``writer`` the loop's thread only
+        snapshots (``runtime/checkpoint.host_snapshot`` of the tensor trees,
+        deep copies of the host state) and the writer thread writes the
+        same files from the snapshot."""
+        tracker_meta = tracker.as_dict() if tracker is not None else None
+        tracker_state = (None if tracker is None
+                         else dict(tracker.__dict__))
+        step_state = (None if step_rng is None
+                      else step_rng.get_state().numpy())
+        if writer is None:
+            self._write_checkpoint_files(
+                save_dir, it, best_params, opt.state_dict(), live,
+                histories, best_it, best_loss, tracker_meta, tracker_state,
+                rng.bit_generator.state, step_state, epoch_log)
+            return
+        trees, ready = durable_ckpt.host_snapshot(
+            (best_params, opt.state_dict(), live))
+        host = copy.deepcopy((histories, tracker_meta, tracker_state,
+                              rng.bit_generator.state, step_state,
+                              epoch_log))
+
+        def write():
+            ready()
+            self._write_checkpoint_files(
+                save_dir, it, *trees, host[0], best_it, best_loss, *host[1:])
+        writer.submit(write)
+
+    def _write_checkpoint_files(self, save_dir, it, best_params, opt_state,
+                                live, histories, best_it, best_loss,
+                                tracker_meta, tracker_state, rng_state,
+                                step_state, epoch_log):
         save_model(save_dir, self.model, best_params)
         meta = {"epoch": it, "best_loss": float(best_loss),
                 "best_it": best_it, **histories}
-        if tracker is not None:
-            meta.update(tracker.as_dict())
+        if tracker_meta is not None:
+            meta.update(tracker_meta)
         durable_ckpt.write_checkpoint(
             os.path.join(save_dir,
                          "training_meta_data_and_hyper_parameters.pkl"), meta)
@@ -546,14 +610,12 @@ class Trainer(LiveTreeMixin):
                 "epoch": it,
                 "params": params_to_jax(live),
                 "best_params": params_to_jax(best_params),
-                "opt_state": numerics.to_host(opt.state_dict()),
+                "opt_state": numerics.to_host(opt_state),
                 "histories": histories,
                 "best_it": best_it,
                 "best_loss": float(best_loss),
-                "tracker_state": (None if tracker is None
-                                  else dict(tracker.__dict__)),
-                "rng_state": rng.bit_generator.state,
-                "step_rng_state": (None if step_rng is None
-                                   else step_rng.get_state().numpy()),
+                "tracker_state": tracker_state,
+                "rng_state": rng_state,
+                "step_rng_state": step_state,
                 "epoch_log": epoch_log,
             })

@@ -523,15 +523,15 @@ def test_tst_and_socpref_preprocessing_equal_jax(tmp_path):
 
 def test_data_and_train_exports_resolve_with_jax_blocked():
     """Every name the JAX ``data``, ``train``, ``eval`` and ``tidybench``
-    packages export resolves in the port (``ShardedBatchDataset`` waits for
-    ROADMAP queue 1 item 11), and the port's ``models`` exports resolve, in
+    packages export resolves in the port (``ShardedBatchDataset`` since the
+    production-runtime slice), and the port's ``models`` exports resolve, in
     a process where importing jax fails; nothing of the JAX package loads,
     nothing CUDA is initialised and no matplotlib is imported."""
     from redcliff_tpu import eval as jeval
     from redcliff_tpu import tidybench as jtidy
     from redcliff_tpu import train as jtrain
 
-    data_names = sorted(set(jdata.__all__) - {"ShardedBatchDataset"})
+    data_names = sorted(jdata.__all__)
     code = f"""
 import sys
 sys.modules["jax"] = None
@@ -541,6 +541,11 @@ import redcliff_tpu_torch.eval as E
 import redcliff_tpu_torch.models as M
 import redcliff_tpu_torch.tidybench as TB
 import redcliff_tpu_torch.train as T
+import redcliff_tpu_torch.runtime as R
+from redcliff_tpu_torch.ops import autotune
+from redcliff_tpu_torch.parallel import policy
+assert R.AsyncCheckpointWriter and policy.PredictiveSchedulingPolicy
+assert autotune.tune_for_model and D.ShardedBatchDataset
 missing = [n for n in {data_names!r} if not hasattr(D, n)]
 missing += [n for n in {sorted(jtrain.__all__)!r} if not hasattr(T, n)]
 missing += [n for n in {sorted(jeval.__all__)!r} if not hasattr(E, n)]

@@ -94,7 +94,7 @@ def test_unported_fault_points_raise(monkeypatch, kind):
     monkeypatch.setenv(fi.ENV_SPEC, f"nan_batch:1,{kind}:1")
     with pytest.raises(NotImplementedError, match=kind):
         fi.skip_update(0)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="item 1[25]"):
         fi.poison_batch(torch.zeros(2), 1)
 
 

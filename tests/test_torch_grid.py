@@ -397,9 +397,9 @@ def test_driver_helpers_match_jax():
 
 
 def test_what_is_not_ported_raises(tmp_path, monkeypatch):
-    """Mesh, the predictive policy, mixed precision and a default CUDA
-    device without a card raise; nothing is quietly ignored. The telemetry
-    knobs (``log_dir``, ``true_gc``) work."""
+    """Mesh, mixed precision and a default CUDA device without a card
+    raise; nothing is quietly ignored. The telemetry knobs (``log_dir``,
+    ``true_gc``) and the predictive policy work."""
     from redcliff_tpu_torch.obs.logging import read_jsonl
     from redcliff_tpu_torch.parallel import policy as tpolicy
 
@@ -416,8 +416,11 @@ def test_what_is_not_ported_raises(tmp_path, monkeypatch):
     assert q["lanes"] == [0, 1] and len(q["auroc"]) == 2
     with pytest.raises(NotImplementedError):
         tgrid.RedcliffGridRunner(tm, tc, spec, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tpolicy.PredictiveSchedulingPolicy()
+    # the predictive policy is ported: without a cost model it is the
+    # heuristic and records no decision
+    pred = tpolicy.PredictiveSchedulingPolicy()
+    assert pred.initial_width(27) == tpolicy.GridSchedulingPolicy() \
+        .initial_width(27) and pred.take_decision() is None
     with pytest.raises(NotImplementedError):
         tgrid.GridSpec([{}], precision_mode="mixed")
     with pytest.raises(NotImplementedError):

@@ -18,9 +18,10 @@ exact, every port record valid under both registries. Two kinds of the
 JAX grid's events are left out of the comparison: ``compile`` (its XLA
 compiles have no CPU counterpart in the port, whose ``compile`` events
 count CUDA-graph captures; the card's smoke checks them) and
-``cost_model`` (the learned cost model, not ported yet, scores epochs
-against a store under the compile-cache directory tests/conftest.py
-sets).
+``cost_model``, from both streams (each package scores epochs against a
+store under the compile-cache directory tests/conftest.py sets, which
+other tests keep folding into; tests/test_torch_costmodel.py holds the
+two cost models to each other).
 """
 import json
 import os
@@ -649,7 +650,8 @@ def test_grid_events_match_jax(tmp_path, monkeypatch):
                     log_dir=str(tmp_path / "port"), true_gc=truth)
     j = [r for r in jlog.read_jsonl(str(tmp_path / "jax"))
          if r["event"] not in ("compile", "cost_model")]
-    t = tlog.read_jsonl(str(tmp_path / "port"))
+    t = [r for r in tlog.read_jsonl(str(tmp_path / "port"))
+         if r["event"] != "cost_model"]
     names = [r["event"] + r.get("name", "") for r in t]
     assert names[:8] == ["fit_start", "memory", "deadline_evicted", "epoch",
                          "quality", "spangrid.check_window", "compaction",
@@ -669,19 +671,22 @@ def test_grid_events_match_jax(tmp_path, monkeypatch):
 # ------------------------------------------------------ import discipline
 def test_obs_imports_with_jax_blocked_and_builds_nothing(tmp_path,
                                                          monkeypatch):
-    """The telemetry modules import (and the spine writes and reads) in a
-    process where importing jax fails; nothing under build/torch_kernels/
-    is built and no kernel module or Triton is loaded."""
+    """The telemetry modules (the cost model and the watchdog among them)
+    import (and the spine writes and reads) in a process where importing
+    jax fails; nothing under build/torch_kernels/ is built and no kernel
+    module or Triton is loaded."""
     kdir = os.path.join(REPO, "build", "torch_kernels")
     before = sorted(os.listdir(kdir)) if os.path.isdir(kdir) else None
     code = f"""
 import sys
 sys.modules["jax"] = None
 import redcliff_tpu_torch.obs as O
-from redcliff_tpu_torch.obs import (flight, logging, memory, profiling,
-                                    quality, schema, spans)
-from redcliff_tpu_torch.runtime import compileobs, faultinject
+from redcliff_tpu_torch.obs import (costmodel, flight, logging, memory,
+                                    profiling, quality, schema, spans)
+from redcliff_tpu_torch.runtime import (compileobs, faultinject, retry,
+                                        watchdog)
 from redcliff_tpu_torch.utils import observability
+assert O.costmodel is costmodel and callable(retry)
 with O.MetricLogger({str(tmp_path)!r}) as log:
     with O.span("grid.check_window", logger=log, emit=True, epoch=0):
         pass

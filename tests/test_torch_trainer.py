@@ -318,15 +318,15 @@ def test_unported_knobs_raise_and_default_device_is_cuda(monkeypatch,
     assert (win.first_epoch, win.last_epoch) == (0, 1)
     with pytest.raises(NotImplementedError, match="mixed"):
         ttr.TrainConfig(precision_mode="mixed")
-    # checkpoint writes are synchronous: the JAX knob does not exist here
-    with pytest.raises(TypeError, match="async_checkpointing"):
-        ttr.TrainConfig(async_checkpointing=False)
+    # the async checkpoint writer is ported: the JAX knob and its default
+    assert ttr.TrainConfig().async_checkpointing \
+        is jtr.TrainConfig().async_checkpointing is True
+    assert not ttr.TrainConfig(async_checkpointing=False).async_checkpointing
     with pytest.raises(ValueError, match="prox_penalty"):
         ttr.TrainConfig(prox_penalty="L1")
-    # every JAX knob but the async checkpoint writer, which the port lacks
+    # every JAX knob
     assert sorted(f.name for f in dataclasses.fields(ttr.TrainConfig)) == \
-        sorted(f.name for f in dataclasses.fields(jtr.TrainConfig)
-               if f.name != "async_checkpointing")
+        sorted(f.name for f in dataclasses.fields(jtr.TrainConfig))
     _, tm, _ = _models("navar")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
