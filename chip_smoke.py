@@ -1488,6 +1488,588 @@ def phase_check(torch, model, params):
            "max_abs_err": worst})
 
 
+# ---------------------------------------------------------------- elastic
+# the serve_elastic phase: the serve phase's DGCNN model and a Vanilla model
+# of the same widths (its 100 hidden channels, the DGCNN's hidden nodes;
+# the GC readout from the factors, as a Vanilla embedder has none)
+ELASTIC_VANILLA = dict(CONFIG, factor_score_embedder_type="Vanilla_Embedder",
+                       embed_hidden_sizes=(100,),
+                       primary_gc_est_mode="fixed_factor_exclusive")
+ELASTIC_VICTIMS = 2
+# sawtooth storm: 0-48 chaos streams, 12 ticks a half-cycle, so the forced
+# ladder rides rungs 4 -> 64 -> 4 twice
+ELASTIC_STORM = dict(lo=0, hi=STREAMS, period=12)
+ELASTIC_HOLD = "2"
+ELASTIC_TICKS = 60
+# ladder on vs off, a resumed stream vs an uninterrupted one: cuBLAS picks
+# its GEMM by the row count, so a lane's scores may round differently at
+# another width. Scores within 1e-6; a graph entry (a blend of the scores
+# with graphs whose entries reach 8-16, where one float32 ulp is 1-2e-6)
+# within 1e-6 or two ulps of its value, whichever is larger
+ELASTIC_LADDER_ATOL = 1e-6
+ELASTIC_GRAPH_ULPS = 2
+# mixed vs f32 (the JAX package's serve bars for bf16 contractions)
+MIXED_RTOL, MIXED_ATOL = 2e-2, 1e-3
+ELASTIC_RUNGS = (4, 8, 16, 32, 64)
+ELASTIC_FUSE = 4
+ELASTIC_FUSE_BURSTS = 12
+ELASTIC_POISONERS = 3
+ELASTIC_RESUME_CAPACITY = 32
+ELASTIC_LOOP_SAMPLES = CONFIG["embed_lag"] + 24
+
+
+class _TimedService:
+    """A service whose every pump is timed on the host clock and whose
+    width is read after it; everything else goes to the service."""
+
+    def __init__(self, svc):
+        self.svc, self.ms, self.widths = svc, [], []
+
+    def __getattr__(self, name):
+        return getattr(self.svc, name)
+
+    def pump(self, now=None):
+        t0 = time.perf_counter()
+        out = self.svc.pump(now=now)
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+        self.widths.append(self.svc.engine.width)
+        return out
+
+
+def _tick_stats(np, ms):
+    ms = np.asarray(ms, dtype=np.float64)
+    return {"ticks": int(ms.size),
+            "ticks_per_s": float(ms.size / (ms.sum() / 1e3)),
+            "tick_p50_ms": float(np.percentile(ms, 50)),
+            "tick_p99_ms": float(np.percentile(ms, 99))}
+
+
+def _elastic_diffs(np, a, b):
+    """Two drive() result maps with equal record sequences: per key the
+    max abs difference, the largest |value| and the most float32 ulps
+    apart; ``None`` when the counts, seqs or graph cadence differ."""
+    out = {k: {"max_abs_diff": 0.0, "max_abs_value": 0.0, "max_ulps": 0}
+           for k in ("scores", "graph")}
+    for sid in a:
+        if len(a[sid]) != len(b.get(sid, ())):
+            return None
+        for x, y in zip(a[sid], b[sid]):
+            if x.get("seq") != y.get("seq") or ("graph" in x) != (
+                    "graph" in y):
+                return None
+            for k, o in out.items():
+                if k not in x:
+                    continue
+                u = np.asarray(x[k], dtype=np.float32)
+                v = np.asarray(y[k], dtype=np.float32)
+                o["max_abs_diff"] = max(o["max_abs_diff"],
+                                        float(np.abs(u - v).max()))
+                o["max_abs_value"] = max(o["max_abs_value"],
+                                         float(np.abs(v).max()))
+                ulps = np.abs(u.view(np.int32).astype(np.int64)
+                              - v.view(np.int32).astype(np.int64))
+                o["max_ulps"] = max(o["max_ulps"], int(ulps.max()))
+    return out
+
+
+def _elastic_close(np, a, b):
+    """Scores within :data:`ELASTIC_LADDER_ATOL`; graph entries within it
+    or :data:`ELASTIC_GRAPH_ULPS` float32 ulps of their value."""
+    for sid in a:
+        for x, y in zip(a[sid], b[sid]):
+            if np.abs(np.asarray(x["scores"]) - np.asarray(y["scores"])
+                      ).max() > ELASTIC_LADDER_ATOL:
+                return False
+            if "graph" in x:
+                u = np.asarray(x["graph"], dtype=np.float32)
+                v = np.asarray(y["graph"], dtype=np.float32)
+                bar = np.maximum(ELASTIC_LADDER_ATOL, ELASTIC_GRAPH_ULPS
+                                 * np.spacing(np.abs(v)))
+                if (np.abs(u - v) > bar).any():
+                    return False
+    return True
+
+
+def _rungs(widths):
+    seq = []
+    for w in widths:
+        if not seq or seq[-1] != w:
+            seq.append(w)
+    return seq
+
+
+def _elastic_storm_run(torch, model, params, device, ladder, root=None,
+                       capacity=CAPACITY):
+    """The victims through a seeded sawtooth storm on a fresh service:
+    records, the timed service."""
+    from redcliff_tpu_torch.serve import chaos
+    from redcliff_tpu_torch.serve.service import ServeService
+
+    C = CONFIG["num_chans"]
+    n = CONFIG["embed_lag"] + ELASTIC_TICKS - 8
+    victims = {f"v{i}": chaos.stream_samples(100 + i, n, C)
+               for i in range(ELASTIC_VICTIMS)}
+    svc = _TimedService(ServeService(model, params, root=root,
+                                     capacity=capacity, resume=False,
+                                     ladder=ladder, device=device))
+    for sid in victims:
+        svc.connect(sid=sid, now=0.0)
+    storm = chaos.make_sawtooth_storm(7, C, **ELASTIC_STORM)
+    res = chaos.drive(svc, victims, ticks=ELASTIC_TICKS, chaos_fn=storm)
+    svc.stop()
+    if device != "cpu":
+        torch.cuda.synchronize()
+    return res, svc
+
+
+def _bf16_checks(torch, FM, gen, dev):
+    """The bf16 form against its plain version at every rung of the serve
+    table (S = 4 .. 64, K = 5, M = 100, graphs broadcast over S), its launch
+    plan, its CUDA-event time beside the library call on the same bf16
+    operands, the plain version and the launch floor, its device us alone
+    (torch.profiler) and its bound."""
+    K, C = CONFIG["num_factors"], CONFIG["num_chans"]
+    M = C * C
+    gb = torch.randn((K, C, C), generator=gen).to(dev).to(torch.bfloat16)
+    errs, plans = {}, {}
+    for S in ELASTIC_RUNGS:
+        wb = torch.rand((S, K), generator=gen).to(dev).to(torch.bfloat16)
+        got = FM.graph_mix(wb, gb)
+        want = FM.graph_mix_bf16_reference(wb, gb)
+        torch.cuda.synchronize()
+        _require(got.dtype == torch.float32 and got.shape == (S, C, C),
+                 f"bf16 mix output {got.dtype} {tuple(got.shape)}")
+        errs[f"S={S}"] = _max_err(got, want)
+        _require(errs[f"S={S}"] <= ATOL,
+                 f"bf16 mix S={S}: max abs err {errs[f'S={S}']} > {ATOL}")
+        args = FM._mix_args(S, K, M, M, 0, gb.data_ptr() % 16,
+                            wb.get_device(), 1, 0, 0, 2)[0]
+        plans[f"S={S}"] = {"vec": args.vec, "threads": args.threads,
+                           "blocks": args.blocks}
+    # an operand the kernel does not take raises: no fallback
+    for bad in (lambda: FM.graph_mix_bf16(wb, gb.float()),
+                lambda: FM.graph_mix_bf16(wb.t(), gb)):
+        try:
+            bad()
+        except (TypeError, ValueError):
+            continue
+        raise SmokeFailure("bf16 mix took an operand it does not take")
+    S = CAPACITY
+    w = torch.rand((S, K), generator=gen).to(dev)
+    wb = w.to(torch.bfloat16)
+    one = torch.zeros(1, device=dev)
+    t = _time_turns(torch, {
+        "kernel_ms": lambda: FM.graph_mix(wb, gb),
+        "library_ms": lambda: torch.einsum("sk,kij->sij", wb, gb),
+        "plain_ms": lambda: FM.graph_mix_bf16_reference(wb, gb)})
+    t["floor_ms"] = _time_ms(torch, one.zero_)
+    t["host_us"] = _host_us(torch, lambda: FM.graph_mix(wb, gb))
+    alone = _alone_us(torch, {
+        "kernel": lambda: FM.graph_mix(wb, gb),
+        "library": lambda: torch.einsum("sk,kij->sij", wb, gb),
+        "floor": one.zero_})
+    nbytes = 2 * S * K + 2 * K * M + 4 * S * M
+    bound, by = _bound(nbytes, 2.0 * S * K * M)
+    t.update({"bound_ms": bound, "bound_by": by, "bytes": nbytes,
+              "device_us_alone": alone,
+              "shape": f"S={S} K={K} M={M} bf16 in, f32 out (graph_mix, "
+                       f"graphs broadcast over S)"})
+    return max(errs.values()), errs, plans, t
+
+
+def phase_serve_elastic(torch, FM, PX, model, params):
+    """The serve data plane's elastic half on the card (legs a-g), each leg
+    through ``ServeService``; the bf16 form of the factor mix against its
+    plain version at every rung. Returns the f32 and bf16 launches of the
+    phase's main paths, the bf16 form's max abs error and its times."""
+    import numpy as np
+
+    from redcliff_tpu_torch import interop
+    from redcliff_tpu_torch.models.redcliff import (RedcliffSCMLP,
+                                                    RedcliffSCMLPConfig)
+    from redcliff_tpu_torch.obs.logging import read_jsonl
+    from redcliff_tpu_torch.serve import chaos
+    from redcliff_tpu_torch.serve.service import ServeService
+
+    t_phase = time.perf_counter()
+    root = os.path.join(HERE, "build", "chip_smoke", "elastic")
+    shutil.rmtree(root, ignore_errors=True)
+    dev = torch.device("cuda")
+    # the serve phase's weights (made on the host), on the card and on
+    # the CPU
+    host = interop.params_to_jax(params)
+    params = interop.params_from_jax(host, "cuda")
+    dparams = interop.params_from_jax(host, "cpu")
+    vmodel = RedcliffSCMLP(RedcliffSCMLPConfig(**ELASTIC_VANILLA))
+    vhost = interop.params_to_jax(vmodel.init(
+        torch.Generator().manual_seed(0)))
+    vparams = interop.params_from_jax(vhost, "cuda")
+    L, C = CONFIG["embed_lag"], CONFIG["num_chans"]
+    out = {"phase": "serve_elastic", "device": torch.cuda.get_device_name(0),
+           "capacity": CAPACITY}
+    mix = {"f32": 0, "bf16": 0}
+
+    def count_start():
+        FM.factor_mix.launches = 0
+        FM.graph_mix_bf16.launches = 0
+        PX.gl_prox.launches = 0
+
+    def count_read(leg):
+        got = {"f32": FM.factor_mix.launches,
+               "bf16": FM.graph_mix_bf16.launches}
+        _require(PX.gl_prox.launches == 0, f"{leg}: serving launched prox")
+        mix["f32"] += got["f32"]
+        mix["bf16"] += got["bf16"]
+        return got
+
+    with _Env(REDCLIFF_SERVE_LADDER_HOLD=ELASTIC_HOLD,
+              REDCLIFF_SERVE_LADDER=None, REDCLIFF_SERVE_FUSE=None,
+              REDCLIFF_SERVE_PRECISION=None,
+              REDCLIFF_SERVE_DEMOTE_STORM=None,
+              REDCLIFF_SERVE_DEMOTE_WINDOW=None,
+              REDCLIFF_COST_MODEL_DIR=None, REDCLIFF_COMPILE_CACHE=None):
+        # (a) the forced ladder against ladder off, Vanilla: rungs 4 -> 64
+        count_start()
+        on, svc_on = _elastic_storm_run(torch, vmodel, vparams, "cuda",
+                                        "force", root=os.path.join(root,
+                                                                   "a_on"))
+        launches_a = count_read("a")
+        off, svc_off = _elastic_storm_run(torch, vmodel, vparams, "cuda",
+                                          "off")
+        bitwise = chaos.outputs_identical(on, off)[0]
+        compared = sum(len(v) for v in on.values())
+        diffs = _elastic_diffs(np, on, off)
+        rungs = _rungs(svc_on.widths)
+        _require(compared > 0 and diffs is not None
+                 and _elastic_close(np, on, off),
+                 f"(a) ladder on vs off over {compared} records: {diffs}")
+        _require(set(ELASTIC_RUNGS) <= set(rungs),
+                 f"(a) rungs visited {rungs}, want all of {ELASTIC_RUNGS}")
+        ev = [e for e in read_jsonl(os.path.join(root, "a_on"))
+              if e["event"] == "serve_ladder"]
+        _require(launches_a["f32"] > 0, "(a) no factor-mix launch")
+        out["a_ladder"] = {
+            "model": "Vanilla_Embedder (hidden 100)", "records": compared,
+            "bitwise": bitwise, "diffs": diffs,
+            "bar": {"scores_atol": ELASTIC_LADDER_ATOL,
+                    "graph": f"max({ELASTIC_LADDER_ATOL:g}, "
+                             f"{ELASTIC_GRAPH_ULPS} ulps)"},
+            "rungs_visited": rungs,
+            "grows": sum(e["kind"] == "grow" for e in ev),
+            "shrinks": sum(e["kind"] == "shrink" for e in ev),
+            "launches": launches_a, "force": _tick_stats(np, svc_on.ms),
+            "off": _tick_stats(np, svc_off.ms)}
+
+        # (b) the same storm, DGCNN: card against the CPU path, same rungs
+        count_start()
+        card, svc_card = _elastic_storm_run(torch, model, params, "cuda",
+                                            "force")
+        launches_b = count_read("b")
+        cpu, svc_cpu = _elastic_storm_run(torch, model, dparams, "cpu",
+                                          "force")
+        _require(svc_card.widths == svc_cpu.widths,
+                 "(b) card and CPU rode different rungs")
+        worst_b = {"scores": 0.0, "graph": 0.0}
+        for sid in card:
+            _require(len(card[sid]) == len(cpu[sid]) > 0,
+                     f"(b) {sid}: {len(card[sid])} vs {len(cpu[sid])}")
+            for a, b in zip(card[sid], cpu[sid]):
+                for k in worst_b:
+                    x, y = np.asarray(a[k]), np.asarray(b[k])
+                    _require(bool(np.isfinite(x).all()), f"(b) {k} finite")
+                    _require(bool(np.allclose(x, y, rtol=SERVE_RTOL,
+                                              atol=SERVE_ATOL)),
+                             f"(b) {sid} {k} card vs CPU: max abs "
+                             f"{np.abs(x - y).max()}")
+                    worst_b[k] = max(worst_b[k],
+                                     float(np.abs(x - y).max()))
+        _require(launches_b["f32"] > 0, "(b) no factor-mix launch")
+        out["b_ladder_dgcnn"] = {
+            "model": "DGCNN", "rungs_visited": _rungs(svc_card.widths),
+            "max_abs_err_vs_cpu": worst_b, "rtol": SERVE_RTOL,
+            "atol": SERVE_ATOL, "launches": launches_b,
+            "card": _tick_stats(np, svc_card.ms)}
+
+        # (c) fusion: fuse 4 against fuse 1, 48 backlogged streams, DGCNN
+        streams = _streams(np, L + ELASTIC_FUSE * ELASTIC_FUSE_BURSTS, C)
+        streams.pop(f"s{STREAMS - 1:02d}")   # no poisoner in this leg
+        fused = {}
+        for fuse in (1, ELASTIC_FUSE):
+            count_start()
+            svc = _TimedService(ServeService(
+                model, params, capacity=CAPACITY, resume=False, ladder="off",
+                fuse=fuse, device="cuda"))
+            load = FM.factor_mix.launches
+            recs = {sid: [] for sid in streams}
+            for sid in streams:
+                svc.connect(sid=sid, now=0.0)
+            now = 0.0
+            t0 = time.perf_counter()
+            for b in range(ELASTIC_FUSE_BURSTS + L // ELASTIC_FUSE):
+                lo = b * ELASTIC_FUSE
+                for sid, xs in streams.items():
+                    for x in xs[lo:lo + ELASTIC_FUSE]:
+                        svc.ingest(sid, x, now=now)
+                for _ in range(ELASTIC_FUSE // fuse):
+                    now += 0.01
+                    svc.pump(now=now)
+                for sid in streams:
+                    recs[sid].extend(svc.poll(sid, now=now))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = count_read("c")
+            _require(got["f32"] == load + svc.dispatches * fuse,
+                     f"(c) fuse {fuse}: {got['f32']} launches for "
+                     f"{svc.dispatches} dispatches of depth {fuse}")
+            svc.stop()
+            fused[fuse] = (recs, svc, wall, got)
+        same, compared_c, detail = chaos.outputs_identical(
+            fused[1][0], fused[ELASTIC_FUSE][0])
+        _require(same and compared_c > 0,
+                 f"(c) fuse {ELASTIC_FUSE} vs 1 not bitwise: {detail}")
+        answered = fused[1][1].samples_out
+        out["c_fusion"] = {
+            "model": "DGCNN", "streams": len(streams), "records": compared_c,
+            "bitwise": same, "depth": ELASTIC_FUSE,
+            "dispatches": {str(f): v[1].dispatches
+                           for f, v in fused.items()},
+            "dispatches_saved": fused[1][1].dispatches
+            - fused[ELASTIC_FUSE][1].dispatches,
+            "fused_samples": fused[ELASTIC_FUSE][1]._fused_samples,
+            "samples_per_s": {str(f): answered / v[2]
+                              for f, v in fused.items()},
+            "ticks": {str(f): _tick_stats(np, v[1].ms)
+                      for f, v in fused.items()},
+            "launches": {str(f): v[3] for f, v in fused.items()}}
+
+        # (d) mixed against f32, DGCNN; the bf16 form at every rung
+        streams = _streams(np, L + ANSWERED, C)
+        streams.pop(f"s{STREAMS - 1:02d}")
+        runs = {}
+        for mode in ("f32", "mixed"):
+            count_start()
+            svc = _TimedService(ServeService(
+                model, params, capacity=CAPACITY, resume=False, ladder="off",
+                precision_mode=mode, device="cuda"))
+            load = FM.factor_mix.launches
+            for sid in streams:
+                svc.connect(sid=sid, now=0.0)
+            res = chaos.drive(svc, streams, ticks=L + ANSWERED)
+            torch.cuda.synchronize()
+            got = count_read("d")
+            want = ({"f32": load + svc.dispatches, "bf16": 0}
+                    if mode == "f32" else
+                    {"f32": load, "bf16": svc.dispatches})
+            _require(got == want, f"(d) {mode}: launches {got}, want {want}")
+            svc.stop()
+            runs[mode] = (res, svc, got)
+        worst_d = {"scores": 0.0, "graph": 0.0}
+        for sid, recs in runs["mixed"][0].items():
+            ref = runs["f32"][0][sid]
+            _require(len(recs) == len(ref) == ANSWERED + 1,
+                     f"(d) {sid}: {len(recs)} vs {len(ref)} records")
+            for a, b in zip(recs, ref):
+                for k in worst_d:
+                    x, y = np.asarray(a[k]), np.asarray(b[k])
+                    _require(bool(np.isfinite(x).all()),
+                             f"(d) mixed {k} not finite")
+                    _require(bool(np.allclose(x, y, rtol=MIXED_RTOL,
+                                              atol=MIXED_ATOL)),
+                             f"(d) mixed vs f32 {k}: max abs "
+                             f"{np.abs(x - y).max()}")
+                    worst_d[k] = max(worst_d[k], float(np.abs(x - y).max()))
+        bf16_err, bf16_errs, bf16_plans, bf16_t = _bf16_checks(
+            torch, FM, torch.Generator().manual_seed(5), dev)
+        out["d_mixed"] = {
+            "model": "DGCNN", "max_abs_diff_vs_f32": worst_d,
+            "rtol": MIXED_RTOL, "atol": MIXED_ATOL,
+            "launches": {m: v[2] for m, v in runs.items()},
+            "ticks": {m: _tick_stats(np, v[1].ms) for m, v in runs.items()},
+            "bf16_kernel": {"max_abs_err_by_rung": bf16_errs,
+                            "plans": bf16_plans, **bf16_t}}
+
+        # (e) the NaN-storm demotion, then drain and a mixed restart
+        vict = {sid: xs for sid, xs in list(streams.items())[:8]}
+
+        def storm(svc, t, now):
+            if t == 2:
+                for i in range(ELASTIC_POISONERS):
+                    svc.connect(sid=f"p{i}", now=now)
+            if 2 <= t <= 6:
+                for i in range(ELASTIC_POISONERS):
+                    svc.ingest(f"p{i}", np.full(C, np.nan, np.float32),
+                               now=now)
+
+        def demote_run(prm, device, mode, root_e=None):
+            svc = _TimedService(ServeService(
+                model, prm, root=root_e, capacity=CAPACITY, resume=False,
+                ladder="off", precision_mode=mode, device=device))
+            for sid in vict:
+                svc.connect(sid=sid, now=0.0)
+            res = chaos.drive(svc, vict, ticks=L + ANSWERED, chaos_fn=storm)
+            return res, svc
+
+        root_e = os.path.join(root, "e_mixed")
+        count_start()
+        res_m, svc_m = demote_run(params, "cuda", "mixed", root_e)
+        torch.cuda.synchronize()
+        launches_e = count_read("e")
+        _require(svc_m.engine.demoted, "(e) the storm did not demote")
+        svc_m.drain(now=10.0)
+        prec = [e for e in read_jsonl(root_e) if e["event"] == "precision"]
+        _require(len(prec) == 1 and prec[0]["kind"] == "demote",
+                 f"(e) precision events {prec}")
+        tick = prec[0]["ticks"]
+        root_c = os.path.join(root, "e_mixed_cpu")
+        res_c, svc_c = demote_run(dparams, "cpu", "mixed", root_c)
+        svc_c.stop()
+        prec_c = [e for e in read_jsonl(root_c) if e["event"] == "precision"]
+        _require(svc_c.engine.demoted and len(prec_c) == 1
+                 and prec_c[0]["ticks"] == tick,
+                 f"(e) demotion on the card at tick {tick}, on the CPU "
+                 f"{prec_c}")
+        res_f, svc_f = demote_run(params, "cuda", "f32")
+        svc_f.stop()
+        n_post = 0
+        for sid in vict:
+            post_m = [r for r in res_m[sid] if r.get("seq", 0) > tick + L]
+            post_f = res_f[sid][-len(post_m):] if post_m else []
+            ok, n, detail = chaos.outputs_identical({sid: post_m},
+                                                    {sid: post_f})
+            _require(ok and n == len(post_m) > 0,
+                     f"(e) {sid} after the demotion vs f32: {detail}")
+            n_post += n
+        _require(launches_e["bf16"] > 0 and launches_e["f32"] > 0,
+                 f"(e) launches {launches_e}")
+        count_start()
+        svc_r = ServeService(model, params, root=root_e, capacity=CAPACITY,
+                             ladder="off", precision_mode="mixed",
+                             device="cuda")
+        restarted = svc_r.engine.demoted
+        svc_r.stop()
+        count_read("e")
+        kinds = [e["kind"] for e in read_jsonl(root_e)
+                 if e["event"] == "precision"]
+        _require(restarted and kinds == ["demote", "resume_demoted"],
+                 f"(e) restart demoted {restarted}, events {kinds}")
+        out["e_demotion"] = {
+            "model": "DGCNN", "demote_tick": tick,
+            "demote_tick_cpu": prec_c[0]["ticks"],
+            "poisoned_lanes": ELASTIC_POISONERS,
+            "records_after_bitwise_vs_f32": True,
+            "records_after": n_post, "restart_demoted": restarted,
+            "precision_events": kinds, "launches": launches_e,
+            "mixed": _tick_stats(np, svc_m.ms)}
+
+        # (f) drain at capacity 64 on a low rung, resume at 32, Vanilla
+        xs = {f"r{i}": chaos.stream_samples(90 + i, L + 16, C)
+              for i in range(3)}
+        count_start()
+        ref = ServeService(vmodel, vparams, capacity=CAPACITY, resume=False,
+                           ladder="force", device="cuda")
+        for sid in xs:
+            ref.connect(sid=sid, now=0.0)
+        res_ref = chaos.drive(ref, xs, ticks=L + 20)
+        ref.stop()
+        root_f = os.path.join(root, "f_resume")
+        cut = L + 4
+        svc = ServeService(vmodel, vparams, root=root_f, capacity=CAPACITY,
+                           resume=False, ladder="force", device="cuda")
+        for sid in xs:
+            svc.connect(sid=sid, now=0.0)
+        res_a = chaos.drive(svc, {s: a[:cut] for s, a in xs.items()},
+                            ticks=cut)
+        width_drained = svc.engine.width
+        svc.drain(now=1.0)
+        svc2 = _TimedService(ServeService(
+            vmodel, vparams, root=root_f, capacity=ELASTIC_RESUME_CAPACITY,
+            ladder="force", device="cuda"))
+        width_resumed = svc2.engine.width
+        res_b = chaos.drive(svc2, {s: a[cut:] for s, a in xs.items()},
+                            ticks=20, now0=2.0)
+        svc2.stop()
+        launches_f = count_read("f")
+        joined = {sid: res_a[sid] + res_b[sid] for sid in xs}
+        same_f, n_f, detail = chaos.outputs_identical(joined, res_ref)
+        diffs_f = _elastic_diffs(np, joined, res_ref)
+        _require(n_f > 0 and diffs_f is not None
+                 and _elastic_close(np, joined, res_ref),
+                 f"(f) resumed vs uninterrupted: {diffs_f} ({detail})")
+        rp = [e for e in read_jsonl(root_f) if e["event"] == "serve_ladder"
+              and e["kind"] == "repack"]
+        _require(len(rp) == 1 and rp[0]["capacity"]
+                 == ELASTIC_RESUME_CAPACITY, f"(f) repack events {rp}")
+        out["f_resume"] = {
+            "model": "Vanilla_Embedder (hidden 100)", "streams": len(xs),
+            "drained": {"capacity": CAPACITY, "width": width_drained},
+            "resumed": {"capacity": ELASTIC_RESUME_CAPACITY,
+                        "width": width_resumed},
+            "records": n_f, "bitwise": same_f, "diffs": diffs_f,
+            "launches": launches_f, "resumed_ticks": _tick_stats(np,
+                                                                 svc2.ms)}
+
+        # (g) run_loop through the prefetch thread, then request_drain
+        streams = _streams(np, ELASTIC_LOOP_SAMPLES, C)
+        streams.pop(f"s{STREAMS - 1:02d}")
+        count_start()
+        svc = ServeService(model, params, root=os.path.join(root, "g_loop"),
+                           capacity=CAPACITY, resume=False, ladder="auto",
+                           device="cuda")
+        for sid in streams:
+            svc.connect(sid=sid)
+        accepted = {sid: 0 for sid in streams}
+        feed_err = []
+
+        def feeder():
+            try:
+                for t in range(ELASTIC_LOOP_SAMPLES):
+                    for sid, x in streams.items():
+                        accepted[sid] += bool(
+                            svc.ingest(sid, x[t])["accepted"])
+                    time.sleep(0.002)
+                while any(svc.pending.get(sid) for sid in streams):
+                    time.sleep(0.002)
+            except Exception as e:  # noqa: BLE001 — raised below
+                feed_err.append(repr(e))
+            finally:
+                svc.request_drain()
+
+        th = threading.Thread(target=feeder, name="elastic-feeder")
+        t0 = time.perf_counter()
+        th.start()
+        svc.run_loop(interval_s=0.0005)
+        th.join()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches_g = count_read("g")
+        _require(not feed_err, f"(g) feeder failed: {feed_err}")
+        answered = {sid: sum("scores" in r for r in svc.poll(sid))
+                    for sid in streams}
+        for sid, n_ok in accepted.items():
+            _require(answered[sid] == n_ok - L + 1,
+                     f"(g) {sid}: {answered[sid]} answered for {n_ok} "
+                     f"accepted")
+        _require(launches_g["f32"] == svc.dispatches + 2,
+                 f"(g) {launches_g} launches for {svc.dispatches} "
+                 f"dispatches")
+        lat = np.asarray(svc._lat_ms)
+        out["g_run_loop"] = {
+            "model": "DGCNN", "streams": len(streams),
+            "accepted": sum(accepted.values()),
+            "answered": sum(answered.values()), "ticks": svc.ticks,
+            "dispatches": svc.dispatches, "wall_s": wall,
+            "ticks_per_s": svc.ticks / wall,
+            "dispatches_per_s": svc.dispatches / wall,
+            "latency_p50_ms": float(np.percentile(lat, 50)),
+            "latency_p99_ms": float(np.percentile(lat, 99)),
+            "launches": launches_g}
+
+    out["launches"] = dict(mix)
+    out["wall_s"] = time.perf_counter() - t_phase
+    _emit(out)
+    return mix, bf16_err, bf16_t
+
+
 def _device_us(torch, prof, n):
     """Per-call device time (us) of each CUDA op in a profile of ``n``
     calls, and the total. User annotations on the device timeline (e.g.
@@ -5249,6 +5831,8 @@ def main():
     max_err, timing = phase_kernel(torch, FM, PX)
     serve_launches, smodel, sparams = phase_serve(torch, FM, PX)
     phase_check(torch, smodel, sparams)
+    el_mix, bf16_err, bf16_t = phase_serve_elastic(torch, FM, PX, smodel,
+                                                   sparams)
     mix_launches, prox_launches, tmodel, tparams, train_ds = phase_train(
         torch, FM, PX)
     phase_train_check(torch, tmodel, tparams, train_ds)
@@ -5290,7 +5874,8 @@ def main():
                     or m == "redcliff_tpu" or m.startswith("redcliff_tpu."))
     _require(not leaked, f"the port imported {leaked}")
 
-    mix_paths = {"serve": serve_launches, "train": mix_launches,
+    mix_paths = {"serve": serve_launches,
+                 "serve_elastic": el_mix["f32"], "train": mix_launches,
                  "grid": grid_mix,
                  "grid_stream": sum(v["factor_mix"] for v in stream.values()),
                  "grid_durable": dur_mix,
@@ -5307,7 +5892,8 @@ def main():
         timing["factor_mix"]["train"])
     fm["by_shape"] = {k: v for k, v in timing["factor_mix"].items()
                       if k != "train"}
-    prox_paths = {"serve": 0, "train": prox_launches, "grid": grid_prox,
+    prox_paths = {"serve": 0, "serve_elastic": 0, "train": prox_launches,
+                  "grid": grid_prox,
                   "grid_stream": sum(v["gl_prox"] for v in stream.values()),
                   "grid_durable": dur_prox, "array_task": task_prox,
                   "eval": eval_prox, "baselines": base_prox,
@@ -5322,7 +5908,13 @@ def main():
         timing["gl_prox"]["train"])
     px["by_shape"] = {k: v for k, v in timing["gl_prox"].items()
                       if k != "train"}
-    _emit({"kernels": [fm, px]})
+    bf = _kernel_entry(
+        "factor_mix_bf16", FM, "redcliff_tpu/ops/factor_mix.py:58",
+        el_mix["bf16"], {"serve_elastic": el_mix["bf16"]}, bf16_err, bf16_t)
+    bf.update(host_us=bf16_t["host_us"],
+              device_us_alone=bf16_t["device_us_alone"],
+              bytes=bf16_t["bytes"])
+    _emit({"kernels": [fm, px, bf]})
     print(smi, flush=True)
     _emit({"ok": True, "device": {"platform": "gpu",
                                   "kind": torch.cuda.get_device_name(0),

@@ -5,8 +5,8 @@ The package mirrors ``redcliff_tpu/``'s layout file for file, so
 ``redcliff_tpu/serve/engine.py``. It imports ``torch``, ``numpy``,
 ``scipy`` and the standard library only: never ``jax`` and never a module
 of ``redcliff_tpu``. What it needs from the JAX package's backend-free
-modules it keeps as its own copies: ``serve/session.py``,
-``runtime/{admission,checkpoint,preempt}.py``, ``utils/{metrics,misc}.py``,
+modules it keeps as its own copies: ``serve/{session,chaos}.py``,
+``obs/slo.py``, ``runtime/{admission,checkpoint,preempt}.py``, ``utils/{metrics,misc}.py``,
 ``train/tracking.py``, ``parallel/{policy,compaction}.py``,
 ``utils/config.py``, ``data/shards.py`` (without ``ShardedBatchDataset``),
 ``eval/*``, ``utils/{directed_spectrum,time_series,plotting}.py``,
@@ -18,7 +18,9 @@ core, built with g++ into ``build/host_native/`` at first use), and
 Ported so far:
 
 - serving: load a fitted REDCLIFF-S artifact and serve it to live streams
-  (``serve/``);
+  (``serve/``) on an elastic slot table: the occupancy ladder, fused
+  ticks, f32 or mixed precision (a bf16 form of the factor-mix kernel)
+  with the poisoned-lane-storm demotion, the prefetching run loop;
 - training: the per-point REDCLIFF-S fit (``train/redcliff_trainer.py``,
   with the GISTA group-lasso prox), the coefficient grid
   (``train/driver.py:run_coefficient_grid`` ->

@@ -15,6 +15,10 @@ is the model's Granger-graph estimate, read out transposed.
 :class:`DGCNNModel` is the supervised baseline: it predicts state labels
 from a signal window, fitted by the generic trainer; its adjacency is its
 one graph estimate.
+
+The forward's contractions (support propagation, graph convolution, fc1,
+fc2) go through ``utils/precision.py``: plain torch ops outside a bf16
+context, bf16-rounded operands inside one (the serve engine's mixed mode).
 """
 from __future__ import annotations
 
@@ -22,6 +26,8 @@ import math
 from dataclasses import dataclass
 
 import torch
+
+from redcliff_tpu_torch.utils import precision as _prec
 
 __all__ = ["DGCNNConfig", "DGCNNModel", "init_dgcnn_params",
            "dgcnn_forward", "dgcnn_gc"]
@@ -84,13 +90,14 @@ def dgcnn_forward(params, X, eps=1e-5):
     h = 0.0
     support = torch.eye(L.shape[0], dtype=X.dtype, device=X.device)
     for layer in params["gconv"]:
-        prop = torch.einsum("nm,bmf->bnf", support, Xn)
-        h = h + torch.einsum("bnf,fh->bnh", prop, layer["w"]) + layer["b"]
-        support = support @ L
+        prop = _prec.einsum("nm,bmf->bnf", support, Xn)
+        h = h + _prec.einsum("bnf,fh->bnh", prop, layer["w"]) + layer["b"]
+        support = _prec.matmul(support, L)
     h = torch.relu(h)
     flat = h.reshape(h.shape[0], -1)
-    z = torch.relu(flat @ params["fc1"]["w"] + params["fc1"]["b"])
-    return z @ params["fc2"]["w"] + params["fc2"]["b"]
+    z = torch.relu(_prec.matmul(flat, params["fc1"]["w"])
+                   + params["fc1"]["b"])
+    return _prec.matmul(z, params["fc2"]["w"]) + params["fc2"]["b"]
 
 
 def dgcnn_gc(params, cfg: DGCNNConfig, threshold=False,

@@ -12,6 +12,12 @@ signal window to (factor weightings, optional class logits).
 Each class bundles init/apply/gc: ``apply(params, X) -> (weightings (B, K),
 class_logits (B, n_classes) | None)``. The parameter layouts are those of
 the JAX package, so weights carry across unchanged (``interop.py``).
+
+The Vanilla trunk's and heads' contractions go through
+``utils/precision.py`` (:func:`~redcliff_tpu_torch.utils.precision.einsum`,
+:func:`~redcliff_tpu_torch.utils.precision.matmul`): the same ops as plain
+torch outside a bf16 context, bf16-rounded operands inside one (the serve
+engine's mixed mode).
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ import torch
 
 from redcliff_tpu_torch.models import cmlp as cmlp_mod
 from redcliff_tpu_torch.models import dgcnn as dgcnn_mod
+from redcliff_tpu_torch.utils import precision as _prec
 
 __all__ = [
     "VanillaSingleObjective",
@@ -73,8 +80,8 @@ def _apply_trunk(trunk, X, num_series, num_in_timesteps):
     xp = torch.nn.functional.pad(x, (pad, pad))
     Tout = T + 2 * pad - tkw + 1
     wins = torch.stack([xp[:, :, t: t + tkw] for t in range(Tout)], dim=1)
-    h = torch.relu(torch.einsum("btcw,hcw->bht", wins, trunk["conv1"]))
-    return torch.relu(torch.einsum("bht,ght->bg", h, trunk["conv2"]))
+    h = torch.relu(_prec.einsum("btcw,hcw->bht", wins, trunk["conv1"]))
+    return torch.relu(_prec.einsum("bht,ght->bg", h, trunk["conv2"]))
 
 
 @dataclass(frozen=True)
@@ -100,7 +107,7 @@ class VanillaSingleObjective:
     def apply(self, params, X, use_final_activation=True):
         emb = _apply_trunk(params["trunk"], X, self.num_series,
                            self.num_in_timesteps)
-        scores = emb @ params["head"]
+        scores = _prec.matmul(emb, params["head"])
         if self.use_sigmoid_restriction:
             scores = _sigmoid_restrict(scores,
                                        self.sigmoid_eccentricity_coeff)
@@ -136,7 +143,8 @@ class VanillaMultiObjective:
                            self.num_in_timesteps)
         sup = emb[:, : self.num_out_classes]
         if self.num_factor_scores - self.num_out_classes > 0:
-            unsup = emb[:, self.num_out_classes:] @ params["unsup_head"]
+            unsup = _prec.matmul(emb[:, self.num_out_classes:],
+                                 params["unsup_head"])
             scores = torch.cat([sup, unsup], dim=1)
         else:
             scores = sup

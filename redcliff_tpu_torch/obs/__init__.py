@@ -20,14 +20,15 @@
   (``REDCLIFF_QUALITY``);
 * :mod:`.costmodel` — the learned per-(shape, width) epoch and capture
   cost store the grid scores and folds, and the predictive scheduling
-  policy prices from.
+  policy prices from;
+* :mod:`.slo` — fleet and serve service-level objectives
+  (``compute_slo``, ``slo_for_root``, nearest-rank ``percentile``).
 
 Not ported yet (ROADMAP queue 1, item 11): the JAX package's ``report``,
-``watch``, ``trace_export``, ``regress`` and ``slo`` modules and their
-names (``build_report``, ``render_text``, ``build_snapshot``,
-``run_sentinel``, ``build_trace``, ``build_fleet_trace``,
-``validate_trace``, ``compute_slo``, ``slo_for_root``). Asking for one
-raises ``NotImplementedError``; none is silently absent.
+``watch``, ``trace_export`` and ``regress`` modules and their names
+(``build_report``, ``render_text``, ``build_snapshot``, ``run_sentinel``,
+``build_trace``, ``build_fleet_trace``, ``validate_trace``). Asking for
+one raises ``NotImplementedError``; none is silently absent.
 
 Import discipline: importing this package does no CUDA work; numpy and
 torch load with :mod:`.logging` and :mod:`.quality`, lazily, on first
@@ -46,7 +47,7 @@ __all__ = [
     "counters", "costmodel", "flight", "schema", "spans", "memory",
     "profiling",
     "quality", "MetricLogger", "jsonable", "read_jsonl", "jsonl_files",
-    "profiler_trace",
+    "profiler_trace", "compute_slo", "slo_for_root",
 ]
 
 _LAZY = {
@@ -55,8 +56,11 @@ _LAZY = {
     "read_jsonl": "redcliff_tpu_torch.obs.logging",
     "jsonl_files": "redcliff_tpu_torch.obs.logging",
     "profiler_trace": "redcliff_tpu_torch.obs.logging",
+    "compute_slo": "redcliff_tpu_torch.obs.slo",
+    "slo_for_root": "redcliff_tpu_torch.obs.slo",
 }
-_LAZY_MODULES = {"quality": "redcliff_tpu_torch.obs.quality"}
+_LAZY_MODULES = {"quality": "redcliff_tpu_torch.obs.quality",
+                 "slo": "redcliff_tpu_torch.obs.slo"}
 # the JAX package's names whose modules are not ported yet
 _UNPORTED = {
     "report": "report", "build_report": "report", "render_text": "report",
@@ -64,7 +68,6 @@ _UNPORTED = {
     "regress": "regress", "run_sentinel": "regress",
     "trace_export": "trace_export", "build_trace": "trace_export",
     "build_fleet_trace": "trace_export", "validate_trace": "trace_export",
-    "slo": "slo", "compute_slo": "slo", "slo_for_root": "slo",
 }
 
 

@@ -336,10 +336,15 @@ GL_PROX_THREADS = (128, 256, 512)     # multiples of 32, kMaxThreads 512
 _trials: dict = {}
 
 
-def mix_key(B, K, M, G=1):
+def mix_key(B, K, M, G=1, bf16=False):
     """``(kernel, shape_key, size)`` of a factor-mix launch: the single
     form by the batch's bucket, the lane form by the lanes' (its shape key
-    carries the batch's bucket)."""
+    carries the batch's bucket). The bf16 form (``bf16``, the serve blend
+    of the mixed mode) has a key of its own, ``factor_mix_bf16``: it never
+    takes an f32 plan, and no search fills it yet, so it runs the default
+    plan."""
+    if bf16:
+        return "factor_mix_bf16", f"k{int(K)}m{int(M)}", int(B)
     if G == 1:
         return "factor_mix", f"k{int(K)}m{int(M)}", int(B)
     return ("factor_mix_lanes",

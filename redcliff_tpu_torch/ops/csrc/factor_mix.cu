@@ -34,23 +34,52 @@
 // fmaf, k = 0 .. K-1 in order. No shared memory, tensor cores or TMA: K is
 // 2-9 and each p element is read once.
 //
+// The bf16 form (redcliff_factor_mix_bf16) is the same kernel on bf16 inputs:
+// the serve engine's mixed-precision blend, w (S, K) and the K static
+// graphs (K, C*C) both bf16, broadcast over S with stride_b = 0 (the JAX
+// package's mixed dispatch contracts bf16 operands on the MXU,
+// redcliff_tpu/serve/engine.py). Each operand is widened to f32 exactly
+// (the bf16 bits are the top half of the f32's), accumulated in f32 with
+// fmaf in K order, and the output is f32 (S, C*C). V bf16 values are one
+// 2V-byte load: a row of 100 bf16 is 200 bytes, 8- but not 16-byte aligned,
+// so the serve tick takes V = 4 (8-byte loads) and the wrapper's plan
+// (mix_plan with itemsize 2) checks alignment at 2V bytes. It moves half
+// the input bytes of the f32 form; at S = 64 the launch, not the bytes,
+// still bounds it.
+//
 // Plain C interface (no PyTorch headers), bound with ctypes. The launch
 // goes on the caller's stream, on the caller's device (set and restored
 // only when it is not the current one), and returns cudaGetLastError(),
 // which the Python wrapper checks.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kUnrollK = 16;
 
+// bf16 -> f32 is exact: the bf16 bits become the top half of the f32's
+__device__ __forceinline__ float widen_lo(unsigned int u) {
+  return __uint_as_float(u << 16);
+}
+__device__ __forceinline__ float widen_hi(unsigned int u) {
+  return __uint_as_float(u & 0xffff0000u);
+}
+__device__ __forceinline__ float load1(const float* src) { return __ldg(src); }
+__device__ __forceinline__ float load1(const __nv_bfloat16* src) {
+  return widen_lo(__ldg(reinterpret_cast<const unsigned short*>(src)));
+}
+
+// acc[j] += wk * src[j] for V consecutive inputs of type float or bf16 (one
+// vector load), and the store of V f32 outputs
 template <int V>
 struct Vec;
 template <>
 struct Vec<1> {
-  __device__ static void fma(float (&acc)[1], float wk, const float* src) {
-    acc[0] = fmaf(wk, __ldg(src), acc[0]);
+  template <typename T>
+  __device__ static void fma(float (&acc)[1], float wk, const T* src) {
+    acc[0] = fmaf(wk, load1(src), acc[0]);
   }
   __device__ static void store(float* dst, const float (&acc)[1]) {
     dst[0] = acc[0];
@@ -62,6 +91,12 @@ struct Vec<2> {
     const float2 v = __ldg(reinterpret_cast<const float2*>(src));
     acc[0] = fmaf(wk, v.x, acc[0]);
     acc[1] = fmaf(wk, v.y, acc[1]);
+  }
+  __device__ static void fma(float (&acc)[2], float wk,
+                             const __nv_bfloat16* src) {
+    const unsigned int u = __ldg(reinterpret_cast<const unsigned int*>(src));
+    acc[0] = fmaf(wk, widen_lo(u), acc[0]);
+    acc[1] = fmaf(wk, widen_hi(u), acc[1]);
   }
   __device__ static void store(float* dst, const float (&acc)[2]) {
     *reinterpret_cast<float2*>(dst) = make_float2(acc[0], acc[1]);
@@ -76,6 +111,14 @@ struct Vec<4> {
     acc[2] = fmaf(wk, v.z, acc[2]);
     acc[3] = fmaf(wk, v.w, acc[3]);
   }
+  __device__ static void fma(float (&acc)[4], float wk,
+                             const __nv_bfloat16* src) {
+    const uint2 u = __ldg(reinterpret_cast<const uint2*>(src));
+    acc[0] = fmaf(wk, widen_lo(u.x), acc[0]);
+    acc[1] = fmaf(wk, widen_hi(u.x), acc[1]);
+    acc[2] = fmaf(wk, widen_lo(u.y), acc[2]);
+    acc[3] = fmaf(wk, widen_hi(u.y), acc[3]);
+  }
   __device__ static void store(float* dst, const float (&acc)[4]) {
     *reinterpret_cast<float4*>(dst) =
         make_float4(acc[0], acc[1], acc[2], acc[3]);
@@ -86,9 +129,11 @@ struct Vec<4> {
 // checks B * M < 2**31, so 32-bit unsigned indices hold it); thread idx of
 // lane blockIdx.y owns outputs [idx * V, idx * V + V) of that lane's
 // row-major (B, M) output. A launch without lanes has gridDim.y = 1.
-template <int V, bool kSmallK>
+// T is the input type (float, or __nv_bfloat16 for the bf16 form); the
+// output and the sums are f32 either way.
+template <typename T, int V, bool kSmallK>
 __global__ void __launch_bounds__(256)
-    factor_mix_kernel(const float* __restrict__ w, const float* __restrict__ p,
+    factor_mix_kernel(const T* __restrict__ w, const T* __restrict__ p,
                       float* __restrict__ out, int K, unsigned m_vec,
                       unsigned n_vec, long long stride_k, long long stride_b,
                       long long stride_wg, long long stride_pg) {
@@ -97,8 +142,8 @@ __global__ void __launch_bounds__(256)
   const long long g = blockIdx.y;
   const unsigned b = idx / m_vec;
   const unsigned m = (idx - b * m_vec) * V;
-  const float* wb = w + g * stride_wg + (long long)b * K;
-  const float* pb = p + g * stride_pg + (long long)b * stride_b + m;
+  const T* wb = w + g * stride_wg + (long long)b * K;
+  const T* pb = p + g * stride_pg + (long long)b * stride_b + m;
   out += g * (long long)n_vec * V;
   float acc[V];
 #pragma unroll
@@ -106,27 +151,27 @@ __global__ void __launch_bounds__(256)
   if (kSmallK) {
 #pragma unroll
     for (int k = 0; k < kUnrollK; ++k) {
-      if (k < K) Vec<V>::fma(acc, __ldg(wb + k), pb + k * stride_k);
+      if (k < K) Vec<V>::fma(acc, load1(wb + k), pb + k * stride_k);
     }
   } else {
     for (int k = 0; k < K; ++k) {
-      Vec<V>::fma(acc, __ldg(wb + k), pb + k * stride_k);
+      Vec<V>::fma(acc, load1(wb + k), pb + k * stride_k);
     }
   }
   Vec<V>::store(out + (long long)idx * V, acc);
 }
 
-template <int V>
-void launch(const float* w, const float* p, float* out, int K, int M,
+template <typename T, int V>
+void launch(const T* w, const T* p, float* out, int K, int M,
             unsigned n_vec, long long stride_k, long long stride_b,
             long long stride_wg, long long stride_pg, int threads,
             dim3 blocks, cudaStream_t stream) {
   if (K <= kUnrollK) {
-    factor_mix_kernel<V, true><<<blocks, threads, 0, stream>>>(
+    factor_mix_kernel<T, V, true><<<blocks, threads, 0, stream>>>(
         w, p, out, K, M / V, n_vec, stride_k, stride_b, stride_wg,
         stride_pg);
   } else {
-    factor_mix_kernel<V, false><<<blocks, threads, 0, stream>>>(
+    factor_mix_kernel<T, V, false><<<blocks, threads, 0, stream>>>(
         w, p, out, K, M / V, n_vec, stride_k, stride_b, stride_wg,
         stride_pg);
   }
@@ -147,14 +192,17 @@ struct MixArgs {
   long long stride_wg, stride_pg;
 };
 
-// Lane g (0 <= g < G): w (B, K) contiguous at w + g*stride_wg; element
-// (k, b, m) of p at p[g*stride_pg + k*stride_k + b*stride_b + m]; out
-// (G, B, M) contiguous. The plan has checked that M % vec == 0 and that p,
-// its strides and out are aligned to 4 * vec bytes. Returns a cudaError_t
-// as int (0 = launched).
-extern "C" int redcliff_factor_mix_f32(const float* w, const float* p,
-                                       float* out, const MixArgs* args,
-                                       void* stream) {
+namespace {
+
+// The launch shared by both entry points. Lane g (0 <= g < G): w (B, K)
+// contiguous at w + g*stride_wg; element (k, b, m) of p at
+// p[g*stride_pg + k*stride_k + b*stride_b + m]; out (G, B, M) f32
+// contiguous. The plan has checked that M % vec == 0 and that p and its
+// strides are aligned to sizeof(T) * vec bytes and out to 4 * vec. Returns
+// a cudaError_t as int (0 = launched).
+template <typename T>
+int run(const T* w, const T* p, float* out, const MixArgs* args,
+        void* stream) {
   const int B = args->B, K = args->K, M = args->M, vec = args->vec;
   const int threads = args->threads, blocks = args->blocks;
   const int device = args->device, G = args->G;
@@ -176,16 +224,32 @@ extern "C" int redcliff_factor_mix_f32(const float* w, const float* p,
   const dim3 grid((unsigned)blocks, (unsigned)G);
   cudaStream_t s = (cudaStream_t)stream;
   if (vec == 4) {
-    launch<4>(w, p, out, K, M, n_vec, stride_k, stride_b, stride_wg,
-              stride_pg, threads, grid, s);
+    launch<T, 4>(w, p, out, K, M, n_vec, stride_k, stride_b, stride_wg,
+                 stride_pg, threads, grid, s);
   } else if (vec == 2) {
-    launch<2>(w, p, out, K, M, n_vec, stride_k, stride_b, stride_wg,
-              stride_pg, threads, grid, s);
+    launch<T, 2>(w, p, out, K, M, n_vec, stride_k, stride_b, stride_wg,
+                 stride_pg, threads, grid, s);
   } else {
-    launch<1>(w, p, out, K, M, n_vec, stride_k, stride_b, stride_wg,
-              stride_pg, threads, grid, s);
+    launch<T, 1>(w, p, out, K, M, n_vec, stride_k, stride_b, stride_wg,
+                 stride_pg, threads, grid, s);
   }
   err = cudaGetLastError();
   if (current != device) cudaSetDevice(current);
   return (int)err;
+}
+
+}  // namespace
+
+extern "C" int redcliff_factor_mix_f32(const float* w, const float* p,
+                                       float* out, const MixArgs* args,
+                                       void* stream) {
+  return run<float>(w, p, out, args, stream);
+}
+
+// The bf16 form: bf16 w and p, f32 out and sums; the same plan with vec
+// counting bf16 values.
+extern "C" int redcliff_factor_mix_bf16(const __nv_bfloat16* w,
+                                        const __nv_bfloat16* p, float* out,
+                                        const MixArgs* args, void* stream) {
+  return run<__nv_bfloat16>(w, p, out, args, stream);
 }

@@ -10,6 +10,14 @@
   hand-written kernel in ``csrc/factor_mix.cu``; on a CPU tensor they call
   the plain version. There is no fallback: a CUDA tensor the kernel does not
   take raises.
+* :func:`graph_mix_bf16` / :func:`graph_mix_bf16_reference` — the bf16
+  form of the serve blend (the serve engine's mixed mode): bf16 ``w (S,
+  K)`` and graphs ``(K, C, C)``, widened to f32, summed in f32, f32 out.
+  :func:`graph_mix` takes it when an operand is bf16. On CUDA operands it
+  launches ``redcliff_factor_mix_bf16`` (the same source and library), on
+  CPU operands the plain version. No backward (serve only): a bf16 operand
+  that wants a gradient raises. Its own count,
+  ``graph_mix_bf16.launches``, and its own autotune key.
 * :func:`factor_mix_lanes` / :func:`factor_mix_lanes_reference` — the lane
   form for the coefficient grid, ``out[g, b] = sum_k w[g, b, k] p[g, k, b]``:
   one launch of the same kernel for all G lanes (its second grid dimension)
@@ -24,7 +32,8 @@
   wanted (grad mode on and an operand that requires grad) or the operands
   are ``torch.func`` tensors; otherwise they launch the kernel directly.
 * :func:`mix_plan` — the kernel's launch plan (vector width, threads,
-  blocks), a pure function of the shapes, strides, alignment and, when
+  blocks), a pure function of the shapes, strides, alignment, the input's
+  element size (4, or 2 for the bf16 form) and, when
   ``ops/autotune.py`` holds a winner for the shape, its threads per block
   (read once per shape, when the plan cache is filled; never per launch).
 * ``factor_mix.launches`` — a plain int, one per execution of the kernel
@@ -61,8 +70,9 @@ from redcliff_tpu_torch.ops.cuda_build import build_library
 
 __all__ = ["factor_mix", "factor_mix_reference", "factor_mix_lanes",
            "factor_mix_lanes_reference", "graph_mix", "graph_mix_reference",
-           "FactorMixFn", "FactorMixLanesFn", "load_kernel", "mix_plan",
-           "launch_plan", "KERNEL_SOURCE"]
+           "graph_mix_bf16", "graph_mix_bf16_reference", "FactorMixFn",
+           "FactorMixLanesFn", "load_kernel", "mix_plan", "launch_plan",
+           "KERNEL_SOURCE"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 KERNEL_SOURCE = os.path.join(_HERE, "csrc", "factor_mix.cu")
@@ -74,8 +84,10 @@ _MAX_LANES = 65535
 _SMALL_BLOCK, _LARGE_BLOCK, _LARGE_FROM = 128, 256, 256 * 132 * 4
 
 _F32 = torch.float32
+_BF16 = torch.bfloat16
 _lib = None
 _fn = None
+_fn_bf16 = None
 _raw_stream = None
 _capturing = None
 _lib_lock = threading.Lock()
@@ -91,29 +103,41 @@ def graph_mix_reference(weightings, static_gc):
     return torch.einsum("sk,kij->sij", weightings, static_gc)
 
 
+def graph_mix_bf16_reference(weightings, static_gc):
+    """Plain bf16 blend: the operands widened to f32,
+    ``einsum("sk,kij->sij")``, f32 out."""
+    return torch.einsum("sk,kij->sij", weightings.float(), static_gc.float())
+
+
 def factor_mix_lanes_reference(weightings, preds):
     """Plain lane version: ``einsum("gbk,gkbtc->gbtc")``."""
     return torch.einsum("gbk,gkbtc->gbtc", weightings, preds)
 
 
-def mix_plan(B, M, stride_k, stride_b, p_offset, stride_g=0, threads=None):
+def mix_plan(B, M, stride_k, stride_b, p_offset, stride_g=0, threads=None,
+             itemsize=4):
     """``(vec, threads, blocks)`` for the kernel: each thread computes
     ``vec`` consecutive outputs of a lane's linear (b, m) index; ``blocks``
     covers one lane (the lanes are the grid's second dimension).
     ``threads`` (a tuned plan's threads per block) replaces the default
     rule: 128, or 256 once the grid would cover every SM several times.
 
-    ``p_offset`` is ``p.data_ptr() % 16``. ``vec`` is 4 when M and every
+    ``p_offset`` is ``p.data_ptr() % 16`` and ``itemsize`` p's element size
+    (4 for float32, 2 for the bf16 form). ``vec`` is 4 when M and every
     element stride of p (``stride_g`` is its lane stride) are multiples of
-    4 and p's base is 16-byte aligned (float4 loads and stores), 2 at
-    multiples of 2 and 8 bytes (float2), else 1. The launch passes 0 as the
-    stride of an axis of length 1, so such an axis (like the serve
-    broadcast's stride 0) never breaks the alignment. The output is a fresh
-    contiguous ``(G, B, M)`` tensor, so M % vec == 0 aligns its rows too."""
+    4 and p's base is aligned to ``4 * itemsize`` bytes (float4 loads, or
+    four bf16 in one 8-byte load), 2 at multiples of 2 and ``2 * itemsize``
+    bytes (float2, bf16x2), else 1. A bf16 row of 100 values is 200 bytes:
+    8- but not 16-byte aligned, which is why the bf16 form's widest load is
+    8 bytes. The launch passes 0 as the stride of an axis of length 1, so
+    such an axis (like the serve broadcast's stride 0) never breaks the
+    alignment. The output is a fresh contiguous float32 ``(G, B, M)``
+    tensor, so M % vec == 0 aligns its rows to ``4 * vec`` bytes too."""
     vec = 1
     for v in (4, 2):
-        if (M % v == 0 and p_offset % (4 * v) == 0 and stride_k % v == 0
-                and stride_b % v == 0 and stride_g % v == 0):
+        if (M % v == 0 and p_offset % (itemsize * v) == 0
+                and stride_k % v == 0 and stride_b % v == 0
+                and stride_g % v == 0):
             vec = v
             break
     n = B * (M // vec)
@@ -138,16 +162,19 @@ class _MixArgs(ctypes.Structure):
 
 @functools.lru_cache(maxsize=256)
 def _mix_args(B, K, M, stride_k, stride_b, p_offset, device, G=1,
-              stride_wg=0, stride_pg=0):
+              stride_wg=0, stride_pg=0, itemsize=4):
     """``(_MixArgs, its address)`` for one launch shape on ``device``;
     ``G`` lanes with lane strides ``stride_wg`` (w) and ``stride_pg`` (p),
-    one lane with zero lane strides by default. The plan's threads are the
-    autotuner's winner for the shape when it holds one."""
+    one lane with zero lane strides by default; ``itemsize`` 2 is the bf16
+    form. The plan's threads are the autotuner's winner for the shape
+    (under the form's own key) when it holds one."""
     from redcliff_tpu_torch.ops import autotune
 
-    threads = autotune.plan_threads(*autotune.mix_key(B, K, M, G))
+    threads = autotune.plan_threads(
+        *autotune.mix_key(B, K, M, G, bf16=itemsize == 2))
     args = _MixArgs(B, K, M, *mix_plan(B, M, stride_k, stride_b, p_offset,
-                                       stride_pg, threads=threads),
+                                       stride_pg, threads=threads,
+                                       itemsize=itemsize),
                     device, stride_k, stride_b, G, stride_wg, stride_pg)
     return args, ctypes.addressof(args)
 
@@ -155,30 +182,33 @@ def _mix_args(B, K, M, stride_k, stride_b, p_offset, device, G=1,
 def load_kernel():
     """Build (first call in a process; cached by content on disk) and bind
     the CUDA kernel. Returns the ctypes library."""
-    global _lib, _fn, _raw_stream, _capturing
+    global _lib, _fn, _fn_bf16, _raw_stream, _capturing
     with _lib_lock:
         if _lib is not None:
             return _lib
         lib = build_library("redcliff_factor_mix", KERNEL_SOURCE)
         fn = lib.redcliff_factor_mix_f32
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        fn_bf16 = lib.redcliff_factor_mix_bf16
+        for f in (fn, fn_bf16):
+            f.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                          ctypes.c_void_p, ctypes.c_void_p]
+            f.restype = ctypes.c_int
         # the current stream's cudaStream_t of a device, as an int
         _raw_stream = torch._C._cuda_getCurrentRawStream
         # whether the current stream is capturing a CUDA graph
         _capturing = torch._C._cuda_isCurrentStreamCapturing
-        _fn, _lib = fn, lib
+        _fn, _fn_bf16, _lib = fn, fn_bf16, lib
         return _lib
 
 
 def _run(w, p, B, K, M, stride_k, stride_b, out_shape, G=1, stride_wg=0,
-         stride_pg=0):
+         stride_pg=0, bf16=False):
     """Launch on checked operands: lane g's ``w (B, K)`` contiguous at
     ``w + g*stride_wg``, its element (k, b, m) of p at
-    ``p + g*stride_pg + k*stride_k + b*stride_b + m`` -> a new
-    ``out_shape`` tensor holding the ``(G, B, M)`` result."""
-    out = w.new_empty(out_shape)
+    ``p + g*stride_pg + k*stride_k + b*stride_b + m`` -> a new float32
+    ``out_shape`` tensor holding the ``(G, B, M)`` result. ``bf16`` runs
+    the bf16 form (bf16 operands) and counts it on ``graph_mix_bf16``."""
+    out = w.new_empty(out_shape, dtype=_F32)
     if B == 0 or M == 0 or G == 0:
         return out
     if _fn is None:
@@ -193,21 +223,24 @@ def _run(w, p, B, K, M, stride_k, stride_b, out_shape, G=1, stride_wg=0,
     p_ptr = p.data_ptr()
     dev = w.get_device()
     args = _mix_args(B, K, M, stride_k, stride_b, p_ptr % 16, dev, G,
-                     stride_wg, stride_pg)
-    rc = _fn(w.data_ptr(), p_ptr, out.data_ptr(), args[1], _raw_stream(dev))
+                     stride_wg, stride_pg, 2 if bf16 else 4)
+    rc = (_fn_bf16 if bf16 else _fn)(w.data_ptr(), p_ptr, out.data_ptr(),
+                                     args[1], _raw_stream(dev))
     if rc != 0:
         raise RuntimeError(f"factor_mix kernel launch failed: cudaError {rc}")
+    count = graph_mix_bf16 if bf16 else factor_mix
     if _capturing():
-        factor_mix.captured += 1
+        count.captured += 1
     else:
-        factor_mix.launches += 1
+        count.launches += 1
     return out
 
 
-def _operands_ok(w, a):
-    """Both on one CUDA device, float32, ``w`` contiguous."""
+def _operands_ok(w, a, dtype=_F32):
+    """Both on one CUDA device, of ``dtype`` (float32, or bfloat16 for the
+    bf16 form), ``w`` contiguous."""
     return (w.is_cuda and a.get_device() == w.get_device()
-            and w.dtype is _F32 and a.dtype is _F32 and w.is_contiguous())
+            and w.dtype is dtype and a.dtype is dtype and w.is_contiguous())
 
 
 def _mix_layout(w, p):
@@ -260,14 +293,16 @@ def _graph_layout(w, g):
     return None
 
 
-def _refuse(w, p, what):
+def _refuse(w, p, what, dtype=_F32):
     """Raise the error that says why the kernel does not take ``w``, ``p``
-    (``what`` names the operands' expected layouts)."""
+    (``what`` names the operands' expected layouts, ``dtype`` their type:
+    float32, or bfloat16 for the bf16 form)."""
     if not (w.is_cuda and p.is_cuda and w.device == p.device):
         raise ValueError(f"factor_mix kernel needs both operands on one CUDA "
                          f"device, got {w.device} and {p.device}")
-    if w.dtype != _F32 or p.dtype != _F32:
-        raise TypeError(f"factor_mix kernel takes float32, got {w.dtype} "
+    if w.dtype != dtype or p.dtype != dtype:
+        name = "float32" if dtype is _F32 else "bfloat16"
+        raise TypeError(f"factor_mix kernel takes {name}, got {w.dtype} "
                         f"and {p.dtype}")
     raise ValueError(f"factor_mix kernel wants {what} with w contiguous, the "
                      f"inner block of p contiguous and dimensions below "
@@ -312,7 +347,7 @@ def launch_plan(weightings, preds):
     args = _mix_args(B, K, M, 0 if K == 1 else stride_k,
                      0 if B == 1 else stride_b, p.data_ptr() % 16,
                      w.get_device(), G, 0 if G == 1 else stride_wg,
-                     0 if G == 1 else stride_pg)[0]
+                     0 if G == 1 else stride_pg, 4)[0]
     return args.vec, args.threads, args.blocks
 
 
@@ -425,8 +460,11 @@ def factor_mix_lanes(weightings, preds):
 def graph_mix(weightings, static_gc):
     """Serve-path graph blend: ``weightings (S, K)`` x ``static_gc
     (K, C, C)`` -> ``(S, C, C)``. On CUDA the K graphs reach the kernel with
-    ``stride_b = 0``; nothing of size (K, S, C, C) is made."""
+    ``stride_b = 0``; nothing of size (K, S, C, C) is made. A bf16 operand
+    takes the bf16 form (:func:`graph_mix_bf16`)."""
     w, g = weightings, static_gc
+    if w.dtype is _BF16 or g.dtype is _BF16:
+        return graph_mix_bf16(w, g)
     if not (w.is_cuda or g.is_cuda):
         return graph_mix_reference(w, g)
     if _wants_grad(w, g):
@@ -437,3 +475,27 @@ def graph_mix(weightings, static_gc):
     if args is None:
         _refuse(w, g, "w (S, K) and static_gc (K, C, C)")
     return _run(w, g, *args)
+
+
+def graph_mix_bf16(weightings, static_gc):
+    """The bf16 form of the serve blend: bf16 ``weightings (S, K)`` x bf16
+    ``static_gc (K, C, C)`` -> float32 ``(S, C, C)``, summed in f32 in K
+    order. CUDA operands launch ``redcliff_factor_mix_bf16`` (counted in
+    ``graph_mix_bf16.launches``), CPU operands take
+    :func:`graph_mix_bf16_reference`. Serve only: it has no backward, and
+    an operand that wants a gradient raises."""
+    w, g = weightings, static_gc
+    if not (w.is_cuda or g.is_cuda):
+        return graph_mix_bf16_reference(w, g)
+    if _wants_grad(w, g):
+        raise NotImplementedError(
+            "the bf16 factor mix has no backward yet (ROADMAP queue 1, item "
+            "18: mixed-precision training)")
+    args = _graph_layout(w, g) if _operands_ok(w, g, _BF16) else None
+    if args is None:
+        _refuse(w, g, "w (S, K) and static_gc (K, C, C)", _BF16)
+    return _run(w, g, *args, bf16=True)
+
+
+graph_mix_bf16.launches = 0
+graph_mix_bf16.captured = 0

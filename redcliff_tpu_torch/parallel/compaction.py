@@ -24,8 +24,11 @@ executes it:
 
 Results and failures are always reported under ORIGINAL point ids.
 
-numpy only. The serve twin of the ladder (``serve_rung``) comes with the
-serve ladder (ROADMAP queue 1, item 1).
+* **Serve rung** (:func:`serve_rung`) — the serving twin of the ladder:
+  the slot table's dispatch width for the live lanes
+  (``serve/service.py`` ``ServeLadder``).
+
+numpy only.
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ import numpy as np
 __all__ = [
     "bucket_width",
     "next_pow2",
+    "serve_rung",
     "ladder_widths",
     "plan_compaction",
     "assemble_plan",
@@ -81,6 +85,20 @@ def ladder_widths(n_lanes, n_devices=1, max_width=None):
         out.append(w)
         w = bucket_width(w + 1, n_devices)
     return out
+
+
+def serve_rung(n_live, capacity, min_rung=1):
+    """Slot-table dispatch width for ``n_live`` leased serve lanes.
+
+    The serving twin of :func:`bucket_width`: the smallest power-of-two
+    rung >= ``max(n_live, min_rung)``, clamped to ``capacity`` (the full
+    table is always a legal rung even when capacity is not itself a power
+    of two). The serve engine dispatches at this width and pads/slices its
+    slot table at tick boundaries; ``min_rung`` is the churn floor — below
+    it, saving another lane is not worth a cold program (serve/service.py
+    sets 4)."""
+    cap = max(int(capacity), 1)
+    return min(next_pow2(max(int(n_live), int(min_rung), 1)), cap)
 
 
 class CompactionPlan:

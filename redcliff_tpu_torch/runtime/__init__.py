@@ -17,9 +17,8 @@ right" and "the fit survives the machine".
 * :mod:`.faultinject` — the fault-injection hooks and the child fit;
 * :mod:`.compileobs` — compile observability (CUDA-graph captures).
 
-The exports are the JAX package's names, plus ``AsyncCheckpointWriter``;
-``BackpressureReject`` (the serve plane's admission error, ROADMAP queue
-1, item 1) raises ``NotImplementedError``. Names resolve lazily (the
+The exports are the JAX package's names, plus ``AsyncCheckpointWriter``.
+Names resolve lazily (the
 stdlib retry names at import), so importing this package imports neither
 torch nor anything CUDA-specific.
 """
@@ -36,7 +35,7 @@ from redcliff_tpu_torch.runtime.retry import (  # noqa: F401
 )
 
 __all__ = [
-    "AdmissionReject", "SlotsExhausted",
+    "AdmissionReject", "BackpressureReject", "SlotsExhausted",
     "CheckpointCorruptError", "CheckpointWriteError", "AsyncCheckpointWriter",
     "dataset_fingerprint", "load_checkpoint", "quarantine", "read_checkpoint",
     "write_checkpoint",
@@ -48,7 +47,8 @@ __all__ = [
 ]
 
 _MODULE_OF = {
-    "AdmissionReject": "admission", "SlotsExhausted": "admission",
+    "AdmissionReject": "admission", "BackpressureReject": "admission",
+    "SlotsExhausted": "admission",
     "CheckpointCorruptError": "checkpoint",
     "CheckpointWriteError": "checkpoint",
     "AsyncCheckpointWriter": "checkpoint",
@@ -61,8 +61,6 @@ _MODULE_OF = {
     "numerics_summary": "numerics", "scale_learning_rate": "numerics",
     "Preempted": "preempt", "PreemptionGuard": "preempt",
 }
-# the JAX package's names whose counterparts are not ported yet
-_UNPORTED = {"BackpressureReject": "item 1, the serve data plane"}
 
 
 def __getattr__(name):
@@ -72,8 +70,4 @@ def __getattr__(name):
     if mod is not None:
         return getattr(importlib.import_module(
             f"redcliff_tpu_torch.runtime.{mod}"), name)
-    if name in _UNPORTED:
-        raise NotImplementedError(
-            f"redcliff_tpu_torch.runtime.{name} is not ported yet (ROADMAP "
-            f"queue 1, {_UNPORTED[name]})")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

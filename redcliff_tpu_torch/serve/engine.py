@@ -12,6 +12,29 @@ come back to the host in one copy, as numpy.
 The port updates the ring state in place (the JAX engine rebuilds it each
 tick): the engine owns its state tensors and nothing else holds them.
 
+**Occupancy ladder.** The table's resident ``width`` rides the pow2 rungs
+of :func:`~redcliff_tpu_torch.parallel.compaction.serve_rung` (the
+service's ``ServeLadder`` decides); :meth:`resize` moves between rungs at
+tick boundaries: grow zero-pads fresh rows (zero is the reset state),
+shrink slices rows off the top. ``is_cold(width, depth)`` reports whether
+a (width, fuse depth) pair has not been dispatched since load or the last
+demotion — the ladder's pricing input, kept as in the JAX engine, where a
+cold pair compiles a program; the port runs eagerly and compiles nothing.
+
+**Tick fusion.** :meth:`step_fused` advances every lane through up to F
+backlogged samples in one call: F single-tick advances in order on the
+ring state, so element f equals the f-th sequential :meth:`step`.
+
+**Mixed precision.** ``precision_mode="mixed"`` runs the embedder's
+contractions on bf16-rounded operands with f32 sums
+(``utils/precision.py``) and blends the graphs through the bf16 form of
+the factor-mix kernel (:func:`~redcliff_tpu_torch.ops.factor_mix.
+graph_mix_bf16`): the K static graphs are copied to bf16 once at load,
+the scores are rounded to bf16 before the blend, and the ring, the state
+and the outputs stay f32. :meth:`demote` is the poisoned-lane-storm
+sentinel's lever: back to the f32 ops and the f32 graphs (kept since
+load); the rings are f32 already, so only the ops change.
+
 Isolation: ring scatter, gather and graph blend are row-independent along
 the slot axis. Non-finite samples are detected on the device and never
 written into a ring: the lane latches ``poisoned`` and the sample is
@@ -29,9 +52,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from redcliff_tpu_torch.obs.costmodel import platform_label
 from redcliff_tpu_torch.ops.factor_mix import graph_mix
 from redcliff_tpu_torch.utils.precision import (check_precision_mode,
-                                                resolve_device)
+                                                matmul_precision_ctx,
+                                                resolve_device,
+                                                resolve_matmul_precision)
 
 __all__ = ["StreamEngine"]
 
@@ -40,12 +66,14 @@ _STATE_DTYPES = {"window": torch.float32, "pos": torch.int32,
 
 
 class StreamEngine:
-    """Fixed-capacity slot table over a fitted REDCLIFF-S model.
+    """Elastic slot table over a fitted REDCLIFF-S model.
 
     ``step``/``step_fused`` are the hot paths: one call per tick, all
-    ``width`` lanes at once. State lives on the device between ticks;
-    ``export_state``/``import_state`` round-trip it through numpy for the
-    drain checkpoint.
+    resident lanes at once, at the current rung ``width <= capacity``.
+    State lives on the device between ticks; ``export_state``/
+    ``import_state`` round-trip it through numpy for the drain checkpoint
+    (``import_state`` re-packs lanes across rung geometries given a
+    ``slot_map``).
     """
 
     def __init__(self, model, params, capacity, precision_mode="f32",
@@ -60,7 +88,11 @@ class StreamEngine:
         self.num_factors = int(cfg.num_factors)
         self.window_len = int(cfg.embed_lag)
         self.params = params
-        self.precision_mode = check_precision_mode(precision_mode)
+        self.platform = platform_label(self.device)
+        self.precision_mode = check_precision_mode(precision_mode,
+                                                   serve=True)
+        self.demoted = False
+        self._matmul = resolve_matmul_precision(self.precision_mode)
 
         # static per-factor GC graphs, params-only for the fixed readout
         # modes readout_mode forces: one summary call at load covers every
@@ -70,9 +102,16 @@ class StreamEngine:
         with torch.no_grad():
             summ = _quality.make_summary_fn(model)(params, probe)
         self.static_gc = summ["gc"].to(torch.float32).contiguous()
+        # the mixed blend's operand, made once; the f32 graphs stay for
+        # demotion
+        self._static_gc_bf16 = (self.static_gc.to(torch.bfloat16)
+                                if self._matmul else None)
 
         self.width = self.capacity
         self.state = self._zero_state(self.width)
+        # (width, depth) pairs dispatched since load or the last demotion:
+        # the ladder's cold-rung oracle
+        self._programs = set()
 
     def _zero_state(self, width):
         L, C = self.window_len, self.num_chans
@@ -114,10 +153,16 @@ class StreamEngine:
         win = torch.gather(window, 1,
                            order[:, :, None].expand(W, L, self.num_chans))
 
-        weightings, _ = self.model._embed(self.params, win)      # (W, K)
+        with matmul_precision_ctx(self._matmul):
+            weightings, _ = self.model._embed(self.params, win)  # (W, K)
         scores = torch.where(ready[:, None], weightings,
                              torch.zeros_like(weightings)).contiguous()
-        blend = graph_mix(scores, self.static_gc)
+        if self._matmul:
+            # bf16 operands, f32 sums and output (the bf16 kernel form)
+            blend = graph_mix(scores.to(torch.bfloat16),
+                              self._static_gc_bf16)
+        else:
+            blend = graph_mix(scores, self.static_gc)
         graph = torch.where(ready[:, None, None], blend,
                             torch.zeros_like(blend))
         flags = torch.stack([ready, poison_hit, poisoned], dim=1)
@@ -165,6 +210,7 @@ class StreamEngine:
         """
         self._check_width(len(samples))
         s, a = self._to_device(samples, arrive)
+        self._programs.add((self.width, 1))
         with torch.no_grad():
             packed = self._advance(s, a)
         return self._unpack(packed.cpu().numpy())
@@ -176,10 +222,16 @@ class StreamEngine:
         sequential :meth:`step` returns."""
         self._check_width(len(samples))
         s, a = self._to_device(samples, arrive)
+        self._programs.add((self.width, int(s.shape[1])))
         with torch.no_grad():
             packed = torch.stack([self._advance(s[:, f], a[:, f])
                                   for f in range(s.shape[1])])
         return self._unpack(packed.cpu().numpy())
+
+    def is_cold(self, width, depth=1):
+        """True iff (width, depth) has not been dispatched since load or
+        the last demotion — the ladder's pricing input."""
+        return (int(width), int(depth)) not in self._programs
 
     # ------------------------------------------------------------ the table
     def resize(self, width):
@@ -198,6 +250,17 @@ class StreamEngine:
             self.state = {k: torch.cat([v, pad[k]], dim=0)
                           for k, v in self.state.items()}
         self.width = width
+
+    def demote(self):
+        """Mixed -> f32 (the poisoned-lane-storm sentinel's lever): every
+        later dispatch runs the f32 ops on the f32 graphs. The rings are
+        f32 already; returns True iff a demotion happened."""
+        if self.precision_mode != "mixed" or self.demoted:
+            return False
+        self.demoted = True
+        self._matmul = None
+        self._programs = set()
+        return True
 
     def reset_slot(self, slot):
         """Zero one lane's ring and flags (slot recycle). A slot at or

@@ -671,7 +671,8 @@ def test_grid_events_match_jax(tmp_path, monkeypatch):
 # ------------------------------------------------------ import discipline
 def test_obs_imports_with_jax_blocked_and_builds_nothing(tmp_path,
                                                          monkeypatch):
-    """The telemetry modules (the cost model and the watchdog among them)
+    """The telemetry modules (the cost model and the watchdog among them,
+    the SLO module, the serve chaos harness and the elastic service)
     import (and the spine writes and reads) in a process where importing
     jax fails; nothing under build/torch_kernels/ is built and no kernel
     module or Triton is loaded."""
@@ -686,7 +687,11 @@ from redcliff_tpu_torch.obs import (costmodel, flight, logging, memory,
 from redcliff_tpu_torch.runtime import (compileobs, faultinject, retry,
                                         watchdog)
 from redcliff_tpu_torch.utils import observability
+from redcliff_tpu_torch.obs import slo
+from redcliff_tpu_torch.serve import chaos, service
 assert O.costmodel is costmodel and callable(retry)
+assert O.slo is slo and O.compute_slo is slo.compute_slo
+assert service.ServeLadder and chaos.max_abs_difference
 with O.MetricLogger({str(tmp_path)!r}) as log:
     with O.span("grid.check_window", logger=log, emit=True, epoch=0):
         pass

@@ -282,17 +282,23 @@ def test_admission_lease_backlog_and_shape_contracts(monkeypatch):
 
 def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
     """Without device=..., the entry points ask for CUDA and raise when it
-    is absent instead of running on the CPU."""
+    is absent instead of running on the CPU: the engine, the service and
+    its run loop, the artifact loader, the ``ladder-smoke`` CLI."""
     from redcliff_tpu_torch.eval.model_io import load_model_for_eval
-    from redcliff_tpu_torch.serve.__main__ import _build_tiny_artifact
+    from redcliff_tpu_torch.serve.__main__ import _build_tiny_artifact, main
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     _, _, tm, tp = _models("Vanilla_Embedder")
     artifact = _build_tiny_artifact(str(tmp_path))
     for call in (lambda: StreamEngine(tm, tp, capacity=2),
                  lambda: ServeService(tm, tp, capacity=2),
+                 lambda: ServeService(tm, tp, capacity=2,
+                                      precision_mode="mixed",
+                                      ladder="force").run_loop(max_ticks=1),
                  lambda: ServeService.from_artifact(artifact),
-                 lambda: load_model_for_eval(artifact)):
+                 lambda: load_model_for_eval(artifact),
+                 lambda: main(["ladder-smoke", "--root",
+                               str(tmp_path / "ls")])):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
 
