@@ -245,12 +245,40 @@ Phases, one JSON line each:
    fits wrote the cost-model store (rows under platform ``cuda`` at widths
    32 and 16); a fit with ``REDCLIFF_PREDICTIVE=1`` logs ``policy`` and
    ``cost_model`` events: each decision and the MAPE.
+27. mixed_train: mixed precision on the training path. The bf16 training
+   form of the factor mix alone at the per-point (B=128 K=5 M=10) and the
+   lane shape (G=32): forward against its plain version, backward against
+   JAX's rule in float64, CUDA-event ms beside ``torch.einsum`` /
+   ``torch.bmm`` on the same bf16 operands, host us, device us alone,
+   floor and bound. The train phase's fit under ``"mixed"`` beside the
+   same fit under ``"f32"`` from the same weights (histories within the
+   bf16 bars; every forward on the bf16 kernel, none on the f32 one), a
+   window of combined steps of each (step wall, device busy, idle share);
+   a ``nan_batch`` storm over epoch 1 demotes the mixed fit at epoch 1,
+   the checkpoint records it, and resumes under "mixed" (demoted, no bf16
+   launch) and "f32" end bitwise equal; the cMLP-FM GISTA fit under
+   "mixed" beside "f32"; the published grid under "mixed" for 8 epochs
+   with every training window NaN in epoch 3 (a replayed epoch): the grid
+   demotes there for all 27 lanes, no lane is quarantined, its programs
+   are captured afresh at f32, no bf16 kernel runs after the demotion,
+   and the cost model scores replayed epochs only.
+28. obs_cli: ``python -m redcliff_tpu_torch.obs report --json``, ``watch
+   --once --json`` and ``trace -o`` as subprocesses over the telemetry
+   phase's and mixed_train's run dirs (one with jax and the JAX package
+   blocked): exit 0, every record valid, each trace valid, the mixed
+   runs' demotions in the report's precision section, the grid's cost
+   rows labelled ``mixed`` and ``f32``, its cost-model accuracy from the
+   scored epochs; ``python -m redcliff_tpu_torch.obs.schema --check``;
+   exit 2 with one line on a missing dir and for ``regress`` without a
+   trajectory.
 
 Launch counts are reset just before each main path (serve, train, grid,
 each grid_stream fit, grid_durable, array_task, eval, each baseline task
 and the GISTA fit, dcsfa, dynotears, data_gen, accuracy_synsys,
 accuracy_d4ic, discovery, analysis, ts_transformer, each telemetry fit,
-each runtime fit) and read just after;
+each runtime fit, each mixed_train fit) and read just after; the bf16
+form of the factor mix has its own count (``graph_mix_bf16.launches``,
+the kernels line's ``factor_mix_bf16``, serve and training alike);
 the kernel-phase launches do not count. A count is executions on the
 device: a launch captured into a CUDA graph counts at each replay of the
 graph (and the warm-up step before each capture ran and counts). Then a
@@ -5346,6 +5374,9 @@ def phase_telemetry(torch, smi):
 
 
 # ---------------------------------------------------------------------------
+# the predictive fit's epochs beyond the durable depth (replayed epochs to
+# score: the cost model leaves capture epochs out)
+RUNTIME_PREDICTIVE_EXTRA = 2
 # runtime: the production runtime (launch-plan autotuner, async checkpoint
 # writer, streaming shards and the watchdog, cost model and the predictive
 # policy)
@@ -5683,14 +5714,22 @@ def runtime_checks(root):
     buckets = (costmodel.load().buckets if store else {})
     widths_in_store = sorted(b["g_bucket"] for b in buckets.values()
                              if b["platform"] == "cuda")
-    _require(widths_in_store == [16, 32],
-             f"runtime: the store holds widths {widths_in_store}")
+    # the store learns the widths the fit replayed an epoch at without a
+    # capture (an epoch that captured is not a steady-state epoch)
+    replayed = sorted(int(w) for w in arun.dispatch_stats["epochs_by_width"])
+    _require(widths_in_store == replayed and replayed,
+             f"runtime: the store holds widths {widths_in_store}, the fit "
+             f"replayed without a capture at {replayed}")
     (srun, sres), s_launch, s_s = count("grid_sync", lambda: grid(
         os.path.join(root, "sync"), async_checkpointing=False))
     a_ck = ckpt.read_checkpoint(os.path.join(root, "async",
                                              RedcliffGridRunner.CHECKPOINT_NAME))
     s_ck = ckpt.read_checkpoint(os.path.join(root, "sync",
                                              RedcliffGridRunner.CHECKPOINT_NAME))
+    # the fit state; each checkpoint also carries its run's dispatch_stats
+    # for the obs report, whose wall-clock timings differ run to run
+    a_ck.pop("dispatch_stats")
+    s_ck.pop("dispatch_stats")
     res_eq, ck_eq = _grid_equal(np, ares, sres), _ckpt_equal(np, a_ck, s_ck)
     _require(res_eq and ck_eq and a_launch == s_launch,
              f"runtime: async against sync: results equal {res_eq} (max "
@@ -5733,9 +5772,12 @@ def runtime_checks(root):
     out["store"] = {"path": os.path.relpath(store, HERE) if store else None,
                     "buckets": costmodel.load().accuracy_rows()}
     run_dir = os.path.join(root, "predictive")
+    # two epochs past the durable depth: the last replayed epochs at
+    # width 16 are the ones a check window scores (capture epochs are not)
     with _Env(REDCLIFF_PREDICTIVE="1"):
         (prun, pres), p_launch, p_s = count("grid_predictive", lambda: grid(
-            os.path.join(run_dir, "ck"), log_dir=run_dir))
+            os.path.join(run_dir, "ck"), log_dir=run_dir,
+            max_iter=TRAIN_KNOBS["max_iter"] + RUNTIME_PREDICTIVE_EXTRA))
     recs = read_jsonl(run_dir)
     pol = [r for r in recs if r["event"] == "policy"]
     cms = [r for r in recs if r["event"] == "cost_model"]
@@ -5795,6 +5837,611 @@ def phase_runtime(torch, smi):
                      "points, width 32 -> 16)",
            "wall_s": time.perf_counter() - t0, **out})
     return out["launches"]["factor_mix"], out["launches"]["gl_prox"]
+
+
+# ---------------------------------------------------------------- mixed_train
+# mixed against f32: the bf16 contraction bars of the serve phases (the
+# JAX package's tests/test_serve_elastic.py)
+MIXED_RTOL, MIXED_ATOL = 2e-2, 1e-3
+# the bf16 training form's backward against its rule in float64: f32 sums
+# of bf16-exact products
+BF16_RULE_RTOL, BF16_RULE_ATOL = 1e-5, 1e-5
+# the mixed grid: lookback 5 (not the grid phase's 1) so that the lanes
+# ride out the storm epoch instead of early-stopping on its unchanged
+# losses; 8 epochs so that replayed epochs follow the recapture; the storm
+# (every training window NaN) hits the device-resident batches of epoch 3,
+# a replayed combined epoch, so the mixed era has a replayed epoch too. The
+# gen_lr 2e-3 lanes diverge at f32 from epoch 4 on, as in grid_stream
+MIXED_GRID_EPOCHS = 8
+MIXED_GRID_STORM = 3
+MIXED_PROFILE_STEPS = 8
+
+
+class _CountBf16:
+    """The three launch counts (f32 mix, GL prox, bf16 mix) at 0 on entry,
+    read on exit."""
+
+    def __init__(self, torch, FM, PX):
+        self.torch, self.FM, self.PX = torch, FM, PX
+
+    def __enter__(self):
+        self.FM.factor_mix.launches = 0
+        self.PX.gl_prox.launches = 0
+        self.FM.graph_mix_bf16.launches = 0
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.torch.cuda.synchronize()
+        self.wall_s = time.perf_counter() - self.t0
+        self.got = {"factor_mix": self.FM.factor_mix.launches,
+                    "gl_prox": self.PX.gl_prox.launches,
+                    "factor_mix_bf16": self.FM.graph_mix_bf16.launches}
+        return False
+
+
+def _bf16_train_checks(torch, FM, gen, dev):
+    """The bf16 training form alone at the per-point shape (B=128 K=5
+    M=10) and the grid's lane shape (G=32): forward against the plain
+    version, backward against JAX's rule in float64, CUDA-event ms beside
+    the library call on the same bf16 operands (``torch.einsum``, lanes
+    ``torch.bmm``), the plain version and the launch floor, host us per
+    call, device us alone, and the bound."""
+    from redcliff_tpu_torch.utils import precision as prec
+
+    K, M, B = K_TRAIN, C_TRAIN, TRAIN_KNOBS["batch_size"]
+    one = torch.zeros(1, device=dev)
+    out, errs = {}, {}
+    for name, G in (("train", None), ("lanes", 32)):
+        lead = () if G is None else (G,)
+        w = torch.rand(lead + (B, K), generator=gen).to(dev)
+        p = torch.randn(lead + (K, B, 1, M), generator=gen).to(dev)
+        wb, pb = w.to(torch.bfloat16), p.to(torch.bfloat16)
+        ref = (FM.factor_mix_bf16_reference if G is None
+               else FM.factor_mix_lanes_bf16_reference)
+        fwd = (FM.factor_mix_bf16 if G is None
+               else FM.factor_mix_lanes_bf16)
+        wg, pg = w.clone().requires_grad_(True), p.clone().requires_grad_(
+            True)
+        with prec.matmul_precision_ctx(prec.MIXED_MATMUL):
+            got = (FM.factor_mix(wg, pg) if G is None
+                   else torch.func.vmap(FM.factor_mix)(wg, pg))
+        want = ref(w, p)
+        torch.cuda.synchronize()
+        errs[f"{name}_fwd"] = _max_err(got, want)
+        _require(got.dtype == torch.float32 and errs[f"{name}_fwd"] <= ATOL,
+                 f"bf16 training form {name}: forward max abs err "
+                 f"{errs[f'{name}_fwd']} > {ATOL}")
+        cot = torch.randn(got.shape, generator=gen).to(dev)
+        gw, gp = torch.autograd.grad(got, (wg, pg), cot)
+        r = lambda t: t.detach().cpu().to(torch.bfloat16).double()  # noqa
+        w64, p64 = r(w).requires_grad_(True), r(p).requires_grad_(True)
+        eq = "bk,kbtc->btc" if G is None else "gbk,gkbtc->gbtc"
+        rw, rp = torch.autograd.grad(torch.einsum(eq, w64, p64), (w64, p64),
+                                     r(cot))
+        for key, a, b in (("dw", gw, rw), ("dp", gp, rp)):
+            e = float((a.detach().cpu().double() - b).abs().max())
+            errs[f"{name}_{key}"] = e
+            _require(bool(torch.allclose(a.detach().cpu().double(), b,
+                                         rtol=BF16_RULE_RTOL,
+                                         atol=BF16_RULE_ATOL)),
+                     f"bf16 training form {name}: {key} against the rule: "
+                     f"max abs err {e}")
+        if G is None:
+            lib = lambda: torch.einsum("bk,kbtc->btc", wb, pb)  # noqa
+        else:
+            # the library's batched GEMM on the same bf16 operands, laid
+            # out as it takes them: (G*B, 1, K) x (G*B, K, M)
+            wl = wb.reshape(G * B, 1, K)
+            pl = pb.permute(0, 2, 1, 3, 4).reshape(G * B, K, M).contiguous()
+            lib = lambda: torch.bmm(wl, pl)  # noqa
+        t = _time_turns(torch, {"kernel_ms": lambda: fwd(wb, pb),
+                                "library_ms": lib,
+                                "plain_ms": lambda: ref(wb, pb)})
+        t["floor_ms"] = _time_ms(torch, one.zero_)
+        t["host_us"] = _host_us(torch, lambda: fwd(wb, pb))
+        t["device_us_alone"] = _alone_us(torch, {
+            "kernel": lambda: fwd(wb, pb), "library": lib,
+            "floor": one.zero_})
+        g = G or 1
+        nbytes = g * (2 * B * K + 2 * K * B * M + 4 * B * M)
+        t["bound_ms"], t["bound_by"] = _bound(nbytes, 2.0 * g * B * K * M)
+        t["bytes"] = nbytes
+        t["plan"] = dict(zip(("vec", "threads", "blocks"),
+                             FM.launch_plan(wb, pb)))
+        t["shape"] = (f"B={B} K={K} M={M}" + ("" if G is None
+                                               else f" G={G}")
+                      + " bf16 in, f32 out (training form)")
+        out[name] = t
+    return max(errs.values()), errs, out
+
+
+def _profile_steps(torch, trainer, live, optA, optB, batches, nstate):
+    """Wall ms and device busy us per guarded combined step over a
+    profiled window, and the device's idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    n_warm = 4
+    batches = [(torch.from_numpy(X).to(trainer.device),
+                torch.from_numpy(Y).to(trainer.device)) for X, Y in batches]
+    for X, Y in batches[:n_warm]:
+        _, _, nstate, _ = trainer.train_step(live, optA, optB, X, Y,
+                                             "combined", nstate)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for X, Y in batches[n_warm:]:
+            _, _, nstate, _ = trainer.train_step(live, optA, optB, X, Y,
+                                                 "combined", nstate)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / (len(batches) - n_warm)
+    _, busy_us = _device_us(torch, prof, len(batches) - n_warm)
+    return {"step_wall_ms": wall_ms, "device_busy_us": busy_us,
+            "device_idle_share": 1.0 - busy_us / 1e3 / wall_ms}
+
+
+def mixed_train_checks(root):
+    """The mixed_train phase's fits and checks; returns its readings (the
+    launches of each main path under ``"launches"``, the run dirs under
+    ``"runs"``). Raises on a failed check."""
+    import math
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from redcliff_tpu_torch import interop
+    from redcliff_tpu_torch.data.datasets import ArrayDataset
+    from redcliff_tpu_torch.models.cmlp_fm import CMLPFM, CMLPFMConfig
+    from redcliff_tpu_torch.models.redcliff import (RedcliffSCMLP,
+                                                    RedcliffSCMLPConfig)
+    from redcliff_tpu_torch.obs.logging import read_jsonl
+    from redcliff_tpu_torch.ops import factor_mix as FM
+    from redcliff_tpu_torch.ops import pallas_prox as PX
+    from redcliff_tpu_torch.parallel import epoch_engine
+    from redcliff_tpu_torch.parallel.grid import GridSpec, RedcliffGridRunner
+    from redcliff_tpu_torch.runtime import numerics
+    from redcliff_tpu_torch.runtime.checkpoint import read_checkpoint
+    from redcliff_tpu_torch.train.redcliff_trainer import (
+        RedcliffTrainConfig, RedcliffTrainer)
+    from redcliff_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    root = str(root)
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    out = {"launches": {"factor_mix": 0, "gl_prox": 0,
+                        "factor_mix_bf16": 0}, "runs": {}}
+
+    def path(name, counter):
+        out["launches_by_path"] = out.get("launches_by_path", {})
+        out["launches_by_path"][name] = counter.got
+        for k, v in counter.got.items():
+            out["launches"][k] += v
+
+    def finite(hist):
+        return all(math.isfinite(v) for k in ("avg_combo_loss",
+                                              "avg_forecasting_loss")
+                   for v in hist[k])
+
+    gen = torch.Generator().manual_seed(11)
+    dev = torch.device("cuda")
+    # ---- 1. the bf16 training form alone (no main path: not counted)
+    err, errs, timing = _bf16_train_checks(torch, FM, gen, dev)
+    out["bf16_kernel"] = {"max_abs_err": err, "errs": errs, **timing}
+
+    # ---- 2. the per-point fit: mixed beside f32 from the same weights
+    train_ds, val_ds = _train_data(np)
+    model = RedcliffSCMLP(RedcliffSCMLPConfig(**TRAIN_CONFIG))
+    params = model.init(torch.Generator().manual_seed(0))
+    B = TRAIN_KNOBS["batch_size"]
+    n_tr, n_val = -(-len(train_ds) // B), -(-len(val_ds) // B)
+    fits = {}
+    for mode in ("f32", "mixed"):
+        tr = RedcliffTrainer(model, RedcliffTrainConfig(
+            **TRAIN_KNOBS, precision_mode=mode))
+        run = os.path.join(root, f"fit_{mode}")
+        with _CountBf16(torch, FM, PX) as c:
+            res = tr.fit(params, train_ds, val_ds, save_dir=run)
+        path(f"fit_{mode}", c)
+        fits[mode] = (res, c)
+        _require(res.aborted is None and res.numerics["skipped"] == 0
+                 and finite(res.histories),
+                 f"mixed_train {mode} fit: aborted {res.aborted}, "
+                 f"{res.histories['avg_combo_loss']}")
+    fwd = _redcliff_forwards(model.config, len(fits["mixed"][0].epochs),
+                             n_tr, n_val)
+    steps = sum(n_tr for e in fits["mixed"][0].epochs for p in e["phases"]
+                if p != "embedder_pretrain")
+    cm, cf = fits["mixed"][1].got, fits["f32"][1].got
+    _require(cm == {"factor_mix": 0, "gl_prox": steps,
+                    "factor_mix_bf16": fwd}
+             and cf == {"factor_mix": fwd, "gl_prox": steps,
+                        "factor_mix_bf16": 0},
+             f"mixed_train fits: launches mixed {cm}, f32 {cf}; {fwd} "
+             f"forwards, {steps} factor steps")
+    hist = {}
+    for k in ("avg_combo_loss", "avg_forecasting_loss", "avg_factor_loss"):
+        a = np.asarray(fits["mixed"][0].histories[k])
+        b = np.asarray(fits["f32"][0].histories[k])
+        hist[k] = float(np.max(np.abs(a - b) / np.maximum(np.abs(b),
+                                                          1e-12)))
+        _require(bool(np.allclose(a, b, rtol=MIXED_RTOL, atol=MIXED_ATOL)),
+                 f"mixed_train: {k} mixed {a.tolist()} vs f32 {b.tolist()}")
+    out["fit"] = {"wall_s": {m: fits[m][1].wall_s for m in fits},
+                  "epoch_ms": {m: [e["ms"] for e in fits[m][0].epochs]
+                               for m in fits},
+                  "max_rel_diff_vs_f32": hist,
+                  "val_combo_loss": {m: fits[m][0].histories[
+                      "avg_combo_loss"] for m in fits},
+                  "launches": {m: fits[m][1].got for m in fits}}
+
+    # the steps' wall and the device's idle share, mixed against f32
+    batches, rng = [], np.random.default_rng(5)
+    while len(batches) < 4 + MIXED_PROFILE_STEPS:
+        batches += [b for b in train_ds.batches(B, rng=rng)
+                    if len(b[0]) == B]
+    batches = batches[:4 + MIXED_PROFILE_STEPS]
+    prof = {}
+    for mode in ("f32", "mixed"):
+        tr = RedcliffTrainer(model, RedcliffTrainConfig(
+            **TRAIN_KNOBS, precision_mode=mode))
+        live = tr.live_params(interop.params_to_jax(params))
+        optA, optB = tr.make_optimizers(live)
+        prof[mode] = _profile_steps(torch, tr, live, optA, optB, batches,
+                                    numerics.init_numerics_state())
+    out["fit"]["step_profile"] = prof
+
+    # ---- 3. a nan_batch storm over epoch 1 demotes the mixed fit there;
+    # its resume comes up demoted and equals a resume under "f32" bitwise
+    storm = os.path.join(root, "fit_storm")
+    tr = RedcliffTrainer(model, RedcliffTrainConfig(
+        **TRAIN_KNOBS, precision_mode="mixed"))
+    with _Env(REDCLIFF_FAULT_INJECT=f"nan_batch:{n_tr}-{2 * n_tr - 1}"), \
+            _CountBf16(torch, FM, PX) as c:
+        res = tr.fit(params, train_ds, val_ds, save_dir=storm)
+    path("fit_storm", c)
+    recs = _records(storm)
+    pev = [r for r in recs if r["event"] == "precision"]
+    _require(tr._demoted and len(pev) == 1 and pev[0]["kind"] == "demote"
+             and pev[0]["epoch"] == 1 and pev[0]["cause"] == "nonfinite_grad"
+             and finite(res.histories),
+             f"mixed_train storm: demoted {tr._demoted}, events {pev}")
+    ck = read_checkpoint(os.path.join(storm, "trainer_checkpoint.pkl"))
+    _require(ck["precision_demoted"] is True,
+             "mixed_train storm: the checkpoint does not record the demotion")
+    resumed = {}
+    for mode in ("mixed", "f32"):
+        d = os.path.join(root, f"resume_{mode}")
+        shutil.copytree(storm, d)
+        rtr = RedcliffTrainer(model, RedcliffTrainConfig(
+            **dict(TRAIN_KNOBS, max_iter=TRAIN_KNOBS["max_iter"] + 2),
+            precision_mode=mode))
+        with _CountBf16(torch, FM, PX) as c:
+            rres = rtr.fit(params, train_ds, val_ds, save_dir=d)
+        path(f"resume_{mode}", c)
+        resumed[mode] = (rtr, rres, c.got)
+    kinds = [r["kind"] for r in _records(os.path.join(root, "resume_mixed"))
+             if r["event"] == "precision"]
+    same = all(bool(torch.equal(a, b)) for a, b in zip(
+        interop.tree_leaves(resumed["mixed"][1].params),
+        interop.tree_leaves(resumed["f32"][1].params)))
+    _require(resumed["mixed"][0]._demoted and kinds == ["demote",
+                                                        "resume_demoted"]
+             and same and resumed["mixed"][2]["factor_mix_bf16"] == 0,
+             f"mixed_train resume: events {kinds}, bitwise {same}, "
+             f"launches {resumed['mixed'][2]}")
+    out["storm"] = {"demote_event": {k: pev[0][k] for k in (
+        "epoch", "cause", "rollbacks", "skipped", "consecutive")},
+        "resume_bitwise_mixed_vs_f32": same,
+        "resume_launches": {m: resumed[m][2] for m in resumed}}
+    out["runs"]["fit"] = storm
+
+    # ---- 4. the generic trainer: the cMLP-FM GISTA fit under "mixed"
+    Xb, _, _ = _d4ic_like_data(np, N_TRAIN + N_VAL, seed=0, T=BASELINE_T)
+    args = BASELINE_ARGS["cMLP"]
+    lag = int(args["gen_lag_and_input_len"])
+    cmodel = CMLPFM(CMLPFMConfig(
+        num_chans=C_TRAIN, gen_lag=lag, gen_hidden=(50,), input_length=lag,
+        adj_l1_coeff=float(args["ADJ_L1_REG_COEFF"])))
+    cparams = cmodel.init(torch.Generator().manual_seed(0))
+    gista = {}
+    for mode in ("f32", "mixed"):
+        trainer = Trainer(cmodel, TrainConfig(
+            learning_rate=float(args["gen_lr"]), max_iter=4, lookback=1,
+            check_every=1, batch_size=B, seed=0, prox_penalty="GL",
+            prox_lam=PROX_LAM, precision_mode=mode))
+        with _CountBf16(torch, FM, PX) as c:
+            res = trainer.fit(cparams, ArrayDataset(Xb[:N_TRAIN]),
+                              ArrayDataset(Xb[N_TRAIN:]),
+                              save_dir=os.path.join(root, f"gista_{mode}"))
+        path(f"gista_{mode}", c)
+        applied = sum(e["steps"] for e in res.epochs)
+        _require(res.aborted is None and res.numerics["skipped"] == 0
+                 and all(math.isfinite(v)
+                         for v in res.histories["avg_combo_loss"])
+                 and c.got == {"factor_mix": 0, "gl_prox": applied,
+                               "factor_mix_bf16": 0} and applied > 0,
+                 f"mixed_train GISTA {mode}: aborted {res.aborted}, "
+                 f"launches {c.got}, {applied} steps")
+        gista[mode] = (res, c.wall_s)
+    a = np.asarray(gista["mixed"][0].histories["avg_combo_loss"])
+    b = np.asarray(gista["f32"][0].histories["avg_combo_loss"])
+    _require(bool(np.allclose(a, b, rtol=MIXED_RTOL, atol=MIXED_ATOL)),
+             f"mixed_train GISTA: mixed {a.tolist()} vs f32 {b.tolist()}")
+    out["gista"] = {"wall_s": {m: gista[m][1] for m in gista},
+                    "val_combo_loss": {m: gista[m][0].histories[
+                        "avg_combo_loss"] for m in gista},
+                    "max_rel_diff_vs_f32": float(np.max(
+                        np.abs(a - b) / np.abs(b)))}
+
+    # ---- 5. the published grid under "mixed": a storm demotes it, its
+    # programs are captured afresh at f32 and no bf16 kernel runs again
+    points, _ = _grid_points()
+    grid_dir = os.path.join(root, "grid")
+
+    def grid_fit(max_iter, storm, profile_at, store, mode="mixed"):
+        """A published grid fit under ``mode`` on the epoch engine, every
+        training window NaN in epoch ``storm`` (None: no storm), a
+        ``torch.profiler`` window around the train part of each epoch in
+        ``profile_at`` (its host wall, device busy and idle share)."""
+        runner = RedcliffGridRunner(model, RedcliffTrainConfig(
+            **dict(TRAIN_KNOBS, lookback=5, max_iter=max_iter),
+            precision_mode=mode), GridSpec(points=points))
+        real = epoch_engine.EpochEngine.train_epoch
+        calls, eprof = [], {}
+
+        def hooked(self, mode, phase, state, active, train_ds_, rng):
+            k = len(calls)
+            calls.append(k)
+            saved = None
+            if k == storm:
+                saved = self.Xd.clone()
+                self.Xd.fill_(float("nan"))
+            if k in profile_at:
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as p:
+                    t0 = time.perf_counter()
+                    real(self, mode, phase, state, active, train_ds_, rng)
+                    torch.cuda.synchronize()
+                    wall = (time.perf_counter() - t0) * 1e3
+                busy = _device_us(torch, p, 1)[1]
+                eprof[k] = {"precision": ("f32" if runner._precision
+                                          is None else "mixed"),
+                            "width": int(self.active.shape[0]),
+                            "train_wall_ms": wall, "device_busy_us": busy,
+                            "device_idle_share": 1.0 - busy / 1e3 / wall}
+            else:
+                real(self, mode, phase, state, active, train_ds_, rng)
+            if saved is not None:
+                self.Xd.copy_(saved)
+
+        epoch_engine.EpochEngine.train_epoch = hooked
+        try:
+            with _Env(REDCLIFF_COST_MODEL_DIR=os.path.join(root, store),
+                      REDCLIFF_PREDICTIVE=None), \
+                    _CountBf16(torch, FM, PX) as c:
+                res = runner.fit(None, train_ds, val_ds,
+                                 log_dir=(grid_dir if storm is not None
+                                          else None),
+                                 init_params=runner.init_grid_from(params))
+        finally:
+            epoch_engine.EpochEngine.train_epoch = real
+        return runner, res, eprof, c
+
+    # a profiler window lengthens its epoch, whose ms the cost model would
+    # learn: the storm grid is not profiled; a replayed epoch (epoch 3) is,
+    # in a short grid of its own under each mode
+    runner, gres, _, c = grid_fit(MIXED_GRID_EPOCHS, MIXED_GRID_STORM, (),
+                                  "cost_store")
+    eprof = {}
+    for mode in ("mixed", "f32"):
+        _, _, ep, cp = grid_fit(4, None, (3,), f"cost_store_{mode}", mode)
+        path(f"grid_profile_{mode}", cp)
+        eprof[mode] = ep[3]
+    path("grid", c)
+    stats = gres.dispatch_stats
+    grecs = _records(grid_dir)
+    pev = [r for r in grecs if r["event"] == "precision"]
+    eras = stats["precision_eras"]
+    progs = [p["precision"] for p in stats["programs"]]
+    _require(runner._demoted and len(pev) == 1
+             and pev[0]["epoch"] == MIXED_GRID_STORM
+             and pev[0]["cause"] == "precision_cliff"
+             and pev[0]["lanes"] == list(range(GRID_LANES)),
+             f"mixed_train grid: demoted {runner._demoted}, events {pev}")
+    # the demotion spares the storm's lanes: none is quarantined at the
+    # storm or in the f32 epoch after it. Later, the gen_lr 2e-3 lanes
+    # diverge at f32 as in grid_stream (the JAX grid quarantines the same
+    # points from these weights): any later failure is one of those
+    late = [f for f in gres.failures if f["epoch"] > MIXED_GRID_STORM + 1]
+    _require(late == gres.failures
+             and all(f["point"] in STREAM_QUARANTINED
+                     and f["cause"] == "nonfinite_grad" for f in late),
+             f"mixed_train grid: failures {gres.failures}")
+    live = [g for g in range(GRID_LANES)
+            if g not in {f["point"] for f in gres.failures}]
+    _require(bool(np.isfinite(gres.val_history[:, live]).all()),
+             f"mixed_train grid: non-finite validation of live lanes")
+    _require([(e["precision"], e["from_epoch"]) for e in eras]
+             == [("mixed", 0), ("f32", MIXED_GRID_STORM + 1)]
+             and eras[0]["bf16_launches"] > 0
+             and eras[1]["bf16_launches"] == 0
+             and c.got["factor_mix_bf16"] == eras[0]["bf16_launches"]
+             and c.got["factor_mix"] > 0,
+             f"mixed_train grid: eras {eras}, launches {c.got}")
+    # captured under bf16 until the demotion, afresh at f32 after it
+    n_mixed = progs.count("mixed")
+    _require(0 < n_mixed < len(progs)
+             and progs == ["mixed"] * n_mixed
+             + ["f32"] * (len(progs) - n_mixed),
+             f"mixed_train grid: programs by precision {progs}")
+    comp = sorted(r["epoch"] for r in grecs if r["event"] == "compile")
+    scored = [r for r in grecs if r["event"] == "cost_model"]
+    _require(scored and not set(r["epoch"] for r in scored) & set(comp),
+             f"mixed_train grid: cost_model epochs "
+             f"{[r['epoch'] for r in scored]} against capture epochs {comp}")
+    out["grid"] = {
+        "wall_s": c.wall_s, "demote_event": {k: pev[0][k] for k in (
+            "epoch", "cause", "grid_width")},
+        "failures": [(f["point"], f["epoch"], f["cause"])
+                     for f in gres.failures],
+        "precision_eras": eras, "programs_by_precision": progs,
+        "capture_epochs": comp,
+        "epoch_ms": [e["ms"] for e in gres.epochs],
+        "widths": [e["width"] for e in gres.epochs],
+        "cost_eras": stats["cost_eras"],
+        "cost_model": stats["cost_model"],
+        "cost_model_events": [(r["epoch"], r["grid_width"],
+                               r["predicted_epoch_ms"],
+                               r["actual_epoch_ms"], r["residual_pct"])
+                              for r in scored],
+        "epoch_profile": eprof, "launches": c.got}
+    out["runs"]["grid"] = grid_dir
+    _require(all(v > 0 for v in out["launches"].values()),
+             f"mixed_train: a kernel of the path never ran: "
+             f"{out['launches']}")
+    return out
+
+
+def phase_mixed_train(torch, smi):
+    """Mixed precision on the training path through the normal entry
+    points (see :func:`mixed_train_checks`): the per-point fit beside f32,
+    the storm's demotion and the demoted resume, the generic trainer's
+    GISTA fit, the published grid's demotion, and the bf16 training form
+    alone."""
+    root = os.path.join(HERE, "build", "chip_smoke", "mixed_train")
+    t0 = time.perf_counter()
+    out = mixed_train_checks(root)
+    _emit({"phase": "mixed_train", "device": torch.cuda.get_device_name(0),
+           "card": smi,
+           "config": "the train phase's D4IC REDCLIFF-S at full width, the "
+                     "baselines' cMLP-FM GISTA, the published D4IC grid "
+                     "(27 lanes, ladder 32, the epoch engine)",
+           "reduced": {"max_iter": "1000 -> 4 (the fits), 6 (the resumes), "
+                                   f"{MIXED_GRID_EPOCHS} (the grid)"},
+           "wall_s": time.perf_counter() - t0,
+           **{k: v for k, v in out.items() if k != "runs"}})
+    return out
+
+
+def _obs_cli(argv, block_jax=False, timeout=300):
+    """``python -m redcliff_tpu_torch.obs <argv>`` as a user runs it (with
+    ``block_jax`` the same entry under a process that cannot import jax or
+    the JAX package): ``(exit code, stdout, stderr)``."""
+    if block_jax:
+        cmd = [sys.executable, "-c",
+               "import runpy, sys\n"
+               "sys.modules['jax'] = None\n"
+               "sys.modules['redcliff_tpu'] = None\n"
+               f"sys.argv = ['obs'] + {list(argv)!r}\n"
+               "runpy.run_module('redcliff_tpu_torch.obs', "
+               "run_name='__main__', alter_sys=True)\n"]
+    else:
+        cmd = [sys.executable, "-m", "redcliff_tpu_torch.obs"] + list(argv)
+    env = dict(os.environ, PYTHONPATH=HERE)
+    r = subprocess.run(cmd, cwd=HERE, env=env, capture_output=True,
+                       text=True, timeout=timeout)
+    return r.returncode, r.stdout, r.stderr
+
+
+def obs_cli_checks(run_dirs, mixed_grid, scratch):
+    """The observability CLIs over ``run_dirs`` (each report, watch and
+    trace; exit 0, every record valid, the trace valid), the mixed runs'
+    precision and cost views, the schema lint, and the exit-2 contract.
+    Returns the phase's readings. Raises on a failed check."""
+    from redcliff_tpu_torch.obs import schema
+    from redcliff_tpu_torch.obs.trace_export import validate_trace
+
+    shutil.rmtree(scratch, ignore_errors=True)
+    os.makedirs(scratch)
+    out = {"runs": {}}
+    reports = {}
+    for name, run in run_dirs.items():
+        t0 = time.perf_counter()
+        rc, so, se = _obs_cli(["report", run, "--json"],
+                              block_jax=name == "mixed_grid")
+        _require(rc == 0, f"obs report {name}: exit {rc}: {se[-2000:]}")
+        rep = json.loads(so)
+        _require(not rep["read_audit"]["schema_errors"]
+                 and rep["tpu_bench_cache"] is None,
+                 f"obs report {name}: schema errors "
+                 f"{rep['read_audit']['schema_errors'][:3]}")
+        rc, so, se = _obs_cli(["watch", run, "--once", "--json"])
+        _require(rc == 0, f"obs watch {name}: exit {rc}: {se[-2000:]}")
+        snap = json.loads(so)
+        bad = schema.validate_record(snap)
+        _require(not bad and snap["ok"], f"obs watch {name}: {bad}")
+        trace = os.path.join(scratch, f"{name}.trace.json")
+        rc, so, se = _obs_cli(["trace", run, "-o", trace])
+        _require(rc == 0, f"obs trace {name}: exit {rc}: {se[-2000:]}")
+        with open(trace) as f:
+            tr = json.load(f)
+        bad = validate_trace(tr)
+        _require(not bad, f"obs trace {name}: {bad[:3]}")
+        reports[name] = rep
+        out["runs"][name] = {
+            "records": rep["read_audit"]["metrics"].get("records"),
+            "trace_events": len(tr["traceEvents"]),
+            "precision": rep["precision"],
+            "cost_table": rep["cost_table"],
+            "cost_model_accuracy": rep["cost_model"]["accuracy"],
+            "wall_s": time.perf_counter() - t0}
+    # the mixed runs: the demotion in the precision section; the grid's
+    # cost rows labelled by era; its accuracy rows from scored (replayed)
+    # epochs only
+    for name in ("mixed_fit", "mixed_grid"):
+        kinds = [p.get("kind") for p in reports[name]["precision"]]
+        _require("demote" in kinds,
+                 f"obs report {name}: precision section {kinds}")
+    rows = reports["mixed_grid"]["cost_table"]
+    labels = sorted({r.get("precision") for r in rows})
+    _require(labels == ["f32", "mixed"],
+             f"obs report mixed_grid: cost rows labelled {labels}")
+    acc = reports["mixed_grid"]["cost_model"]["accuracy"]
+    scored = mixed_grid["cost_model_events"]
+    _require(acc and sum(a["samples"] for a in acc) == len(scored) > 0,
+             f"obs report mixed_grid: accuracy {acc} against {len(scored)} "
+             f"scored epochs")
+    out["mixed_grid_mape_pct"] = [a["mape_pct"] for a in acc]
+    # the schema lint over the port's sources
+    r = subprocess.run([sys.executable, "-m", "redcliff_tpu_torch.obs.schema",
+                        "--check"], cwd=HERE,
+                       env=dict(os.environ, PYTHONPATH=HERE),
+                       capture_output=True, text=True, timeout=300)
+    _require(r.returncode == 0 and " 0 violation" in r.stdout,
+             f"schema --check: exit {r.returncode}: {r.stdout[-500:]} "
+             f"{r.stderr[-1000:]}")
+    out["schema_check"] = r.stdout.strip().splitlines()[-1]
+    # a missing dir and regress without a trajectory exit 2, one line
+    for argv in (["report", os.path.join(scratch, "missing")],
+                 ["watch", os.path.join(scratch, "missing"), "--once"],
+                 ["trace", os.path.join(scratch, "missing")],
+                 ["regress"]):
+        rc, so, se = _obs_cli(argv)
+        _require(rc == 2 and "Traceback" not in se
+                 and len(se.strip().splitlines()) == 1,
+                 f"obs {argv[0]} on nothing: exit {rc}, {se[-500:]}")
+    out["exit2"] = "report, watch, trace on a missing dir; regress without " \
+                   "--bench-dir"
+    return out
+
+
+def phase_obs_cli(torch, telemetry_root, mixed):
+    """The observability CLIs over the telemetry phase's and mixed_train's
+    run dirs (see :func:`obs_cli_checks`)."""
+    runs = {"telemetry_fit": os.path.join(telemetry_root, "fit"),
+            "telemetry_grid": os.path.join(telemetry_root, "grid_replay32"),
+            "mixed_fit": mixed["runs"]["fit"],
+            "mixed_grid": mixed["runs"]["grid"]}
+    t0 = time.perf_counter()
+    out = obs_cli_checks(runs, mixed["grid"],
+                         os.path.join(HERE, "build", "chip_smoke",
+                                      "obs_cli"))
+    _emit({"phase": "obs_cli", "device": torch.cuda.get_device_name(0),
+           "wall_s": time.perf_counter() - t0, **out})
+    return out
 
 
 def _kernel_entry(name, mod, replaces, launches, by_path, max_err, t):
@@ -5862,6 +6509,9 @@ def main():
                                              smi)
     tel_mix, tel_prox = phase_telemetry(torch, smi)
     rt_mix, rt_prox = phase_runtime(torch, smi)
+    mixed = phase_mixed_train(torch, smi)
+    phase_obs_cli(torch, os.path.join(HERE, "build", "chip_smoke",
+                                      "telemetry"), mixed)
     if "--profile" in sys.argv[1:]:
         phase_profile(torch, FM)
         phase_profile_train(torch, FM, PX, tmodel, tparams, train_ds)
@@ -5885,7 +6535,8 @@ def main():
                  "accuracy_synsys": syn_mix, "accuracy_d4ic": d4_mix,
                  "discovery": disc_mix, "analysis": an_mix,
                  "ts_transformer": tst_mix, "telemetry": tel_mix,
-                 "runtime": rt_mix}
+                 "runtime": rt_mix,
+                 "mixed_train": mixed["launches"]["factor_mix"]}
     fm = _kernel_entry(
         "factor_mix", FM, "redcliff_tpu/ops/factor_mix.py:58",
         sum(mix_paths.values()), mix_paths, max_err["factor_mix"],
@@ -5901,19 +6552,25 @@ def main():
                   "data_gen": gen_prox, "accuracy_synsys": syn_prox,
                   "accuracy_d4ic": d4_prox, "discovery": disc_prox,
                   "analysis": an_prox, "ts_transformer": tst_prox,
-                  "telemetry": tel_prox, "runtime": rt_prox}
+                  "telemetry": tel_prox, "runtime": rt_prox,
+                  "mixed_train": mixed["launches"]["gl_prox"]}
     px = _kernel_entry(
         "gl_prox", PX, "redcliff_tpu/ops/pallas_prox.py:47",
         sum(prox_paths.values()), prox_paths, max_err["gl_prox"],
         timing["gl_prox"]["train"])
     px["by_shape"] = {k: v for k, v in timing["gl_prox"].items()
                       if k != "train"}
+    bf_paths = {"serve_elastic": el_mix["bf16"],
+                "mixed_train": mixed["launches"]["factor_mix_bf16"]}
     bf = _kernel_entry(
         "factor_mix_bf16", FM, "redcliff_tpu/ops/factor_mix.py:58",
-        el_mix["bf16"], {"serve_elastic": el_mix["bf16"]}, bf16_err, bf16_t)
+        sum(bf_paths.values()), bf_paths,
+        max(bf16_err, mixed["bf16_kernel"]["max_abs_err"]), bf16_t)
     bf.update(host_us=bf16_t["host_us"],
               device_us_alone=bf16_t["device_us_alone"],
-              bytes=bf16_t["bytes"])
+              bytes=bf16_t["bytes"],
+              by_shape={k: mixed["bf16_kernel"][k]
+                        for k in ("train", "lanes")})
     _emit({"kernels": [fm, px, bf]})
     print(smi, flush=True)
     _emit({"ok": True, "device": {"platform": "gpu",

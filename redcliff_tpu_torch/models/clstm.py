@@ -20,6 +20,10 @@ an input with its own leading axes; the einsums broadcast over them.
 The Granger-causal readout is the column norm of ``w_ih`` over the gate
 axis; the proximal update soft-thresholds the same column groups. Both are
 plain PyTorch here, as they are plain ``jnp`` in the JAX package.
+
+The contractions go through ``utils/precision.py`` (``_prec.einsum``):
+``torch.einsum`` itself outside a bf16 matmul context, bf16-rounded
+operands with float32 sums inside one (``precision_mode="mixed"``).
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ import torch
 
 from redcliff_tpu_torch.models import cmlp as cmlp_mod
 from redcliff_tpu_torch.ops.prox import soft_threshold_by_group_norm
+from redcliff_tpu_torch.utils import precision as _prec
 
 __all__ = ["init_clstm_params", "lstm_recurrence", "clstm_forward",
            "clstm_gc", "clstm_prox_update"]
@@ -69,7 +74,7 @@ def lstm_recurrence(zx, w_hh, hidden=None):
         h, c = hidden
     hs = []
     for t in range(zx.shape[-4]):
-        z = zx[..., t, :, :, :] + torch.einsum("...bsh,...sgh->...bsg",
+        z = zx[..., t, :, :, :] + _prec.einsum("...bsh,...sgh->...bsg",
                                                h, w_hh)
         zi, zf, zg, zo = torch.chunk(z, 4, dim=-1)
         c = torch.sigmoid(zf) * c + torch.sigmoid(zi) * torch.tanh(zg)
@@ -85,11 +90,11 @@ def clstm_forward(params, X, hidden=None):
     Leading axes of the parameters and of ``X`` broadcast."""
     w_ih, w_hh, b = params["w_ih"], params["w_hh"], params["b"]
     # the input contributions of every series and step: (..., T, B, S, 4H)
-    zx = torch.einsum("...btc,...sgc->...tbsg", X, w_ih) \
+    zx = _prec.einsum("...btc,...sgc->...tbsg", X, w_ih) \
         + b.unsqueeze(-3).unsqueeze(-3)
     hs, (h, c) = lstm_recurrence(zx, w_hh, hidden)    # (..., T, B, S, H)
     head = params["head"]
-    preds = torch.einsum("...tbsh,...sh->...bts", hs, head["w"]) \
+    preds = _prec.einsum("...tbsh,...sh->...bts", hs, head["w"]) \
         + head["b"].unsqueeze(-2).unsqueeze(-2)
     return preds, (h, c)
 

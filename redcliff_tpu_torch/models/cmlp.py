@@ -13,6 +13,10 @@ einsums broadcast over them.
 
 Lag-axis convention: weight index l multiplies input timestep t+l within a
 window, so l == 0 touches the MOST-lagged value.
+
+The contractions go through ``utils/precision.py`` (``_prec.einsum``):
+``torch.einsum`` itself outside a bf16 matmul context, bf16-rounded
+operands with float32 sums inside one (``precision_mode="mixed"``).
 """
 from __future__ import annotations
 
@@ -21,6 +25,8 @@ from typing import Sequence
 
 import numpy as np
 import torch
+
+from redcliff_tpu_torch.utils import precision as _prec
 
 __all__ = [
     "init_cmlp_params",
@@ -85,11 +91,11 @@ def cmlp_forward(params, X):
     w0 = params[0]["w"]
     lag = w0.shape[-1]
     Xw = lagged_windows(X, lag)                       # (..., B, T', C_in, L)
-    h = torch.einsum("...btcl,...ohcl->...btoh", Xw, w0) \
+    h = _prec.einsum("...btcl,...ohcl->...btoh", Xw, w0) \
         + params[0]["b"].unsqueeze(-3).unsqueeze(-3)
     for layer in params[1:]:
         h = torch.relu(h)
-        h = torch.einsum("...btoh,...ogh->...btog", h, layer["w"]) \
+        h = _prec.einsum("...btoh,...ogh->...btog", h, layer["w"]) \
             + layer["b"].unsqueeze(-3).unsqueeze(-3)
     return h[..., 0]
 

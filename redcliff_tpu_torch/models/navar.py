@@ -15,6 +15,10 @@ cannot reproduce. Here a mask comes from a ``torch.Generator`` on the
 data's device that the trainer hands ``loss`` each step (``rng``); the
 keep rate and the ``1/keep`` scaling are the JAX package's. ``rng=None``
 is eval mode. Parity with JAX holds at dropout 0, the published value.
+
+The contractions go through ``utils/precision.py`` (``_prec.einsum``):
+``torch.einsum`` itself outside a bf16 matmul context, bf16-rounded
+operands with float32 sums inside one (``precision_mode="mixed"``).
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ from dataclasses import dataclass
 import torch
 
 from redcliff_tpu_torch.models.clstm import lstm_recurrence
+from redcliff_tpu_torch.utils import precision as _prec
 
 __all__ = ["NAVARConfig", "NAVAR", "NAVARLSTMConfig", "NAVARLSTM"]
 
@@ -88,16 +93,16 @@ class NAVAR:
         contributions (B, N_src, N_tgt))."""
         keep = 1.0 - self.config.dropout
         drop = self.config.dropout > 0.0 and rng is not None
-        h = torch.relu(torch.einsum("bln,nhl->bnh", Xw, params["w1"])
+        h = torch.relu(_prec.einsum("bln,nhl->bnh", Xw, params["w1"])
                        + params["b1"])
         if drop:
             h = _dropout(h, keep, rng)
         for layer in params["hidden"]:
-            h = torch.relu(torch.einsum("bnh,ngh->bng", h, layer["w"])
+            h = torch.relu(_prec.einsum("bnh,ngh->bng", h, layer["w"])
                            + layer["b"])
             if drop:
                 h = _dropout(h, keep, rng)
-        contributions = torch.einsum("bnh,nmh->bnm", h, params["wc"]) \
+        contributions = _prec.einsum("bnh,nmh->bnm", h, params["wc"]) \
             + params["bc"]
         return torch.sum(contributions, dim=1) + params["bias"], \
             contributions
@@ -197,12 +202,12 @@ class NAVARLSTM:
         x = Xw.transpose(0, 1)[..., None]                 # (T, B, N, 1)
         n_layers = len(params["lstm"])
         for li, layer in enumerate(params["lstm"]):
-            zx = torch.einsum("tbnd,ngd->tbng", x, layer["w_ih"]) \
+            zx = _prec.einsum("tbnd,ngd->tbng", x, layer["w_ih"]) \
                 + layer["b"]
             x, _ = lstm_recurrence(zx, layer["w_hh"])     # (T, B, N, H)
             if cfg.dropout > 0.0 and rng is not None and li < n_layers - 1:
                 x = _dropout(x, keep, rng)
-        contributions = torch.einsum("tbnh,nhm->btnm", x,
+        contributions = _prec.einsum("tbnh,nhm->btnm", x,
                                      params["fc"]["w"]) + params["fc"]["b"]
         return torch.sum(contributions, dim=2) + params["bias"], \
             contributions

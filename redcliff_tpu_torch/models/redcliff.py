@@ -24,6 +24,12 @@ as the JAX grid vmaps it: every op here is functional and data-independent
 in its control flow (the factor mix reaches the kernel's lane form through
 the vmap rule of ``FactorMixFn``). ``apply_prox_lanes_`` is the grid's
 prox over the stacked block.
+
+The contractions (the GC outer products and their weightings) go through
+``utils/precision.py`` (``_prec.einsum``): ``torch.einsum`` itself
+outside a bf16 matmul context, bf16-rounded operands with float32 sums
+inside one (``precision_mode="mixed"``), where the factor mix takes its
+bf16 training form (``ops/factor_mix.py factor_mix_bf16``).
 """
 from __future__ import annotations
 
@@ -40,6 +46,7 @@ from redcliff_tpu_torch.models.embedders import (CEmbedder, DGCNNEmbedder,
 from redcliff_tpu_torch.ops import losses as L
 from redcliff_tpu_torch.ops.factor_mix import factor_mix
 from redcliff_tpu_torch.ops.pallas_prox import gl_prox, gl_prox_, gl_prox_lanes_
+from redcliff_tpu_torch.utils import precision as _prec
 
 __all__ = ["RedcliffSCMLPConfig", "RedcliffSCMLP", "TRAINING_MODES",
            "GC_EST_MODES", "FORWARD_PASS_MODES", "phase_schedule"]
@@ -367,7 +374,7 @@ class RedcliffSCMLP:
         R = self._raw_embedder_gc(params, **kw)
         if isinstance(self.embedder, DGCNNEmbedder):
             return R
-        return torch.einsum("kal,kbl->abl", R, R)
+        return _prec.einsum("kal,kbl->abl", R, R)
 
     def _conditional_embedder_gc(self, params, X, **kw):
         """(B, K, C, C, Le): per-sample per-factor outer products weighted by
@@ -377,8 +384,8 @@ class RedcliffSCMLP:
                              "supported for DGCNN embedders")
         R = self._raw_embedder_gc(params, **kw)
         weightings, _ = self._embed(params, X)
-        outer = torch.einsum("kal,kcl->kacl", R, R)  # (K, C, C, Le)
-        return torch.einsum("bk,kacl->bkacl", weightings, outer)
+        outer = _prec.einsum("kal,kcl->kacl", R, R)  # (K, C, C, Le)
+        return _prec.einsum("bk,kacl->bkacl", weightings, outer)
 
     def gc(self, params, gc_est_mode=None, X=None, threshold=False,
            ignore_lag=True, combine_wavelet_representations=False,
@@ -406,7 +413,7 @@ class RedcliffSCMLP:
             return self._fixed_embedder_gc(params, **kw)[None, None]
         if mode == "conditional_factor_exclusive":
             weightings, _ = self._embed(params, X)
-            return torch.einsum("bk,kacl->bkacl", weightings, factor_g())
+            return _prec.einsum("bk,kacl->bkacl", weightings, factor_g())
         if mode == "conditional_embedder_exclusive":
             return self._conditional_embedder_gc(params, X, **kw)
         if mode == "fixed_factor_fixed_embedder":
@@ -418,7 +425,7 @@ class RedcliffSCMLP:
             return (G + E[None])[None]
         if mode == "conditional_factor_fixed_embedder":
             weightings, _ = self._embed(params, X)
-            G = torch.einsum("bk,kacl->bkacl", weightings, factor_g())
+            G = _prec.einsum("bk,kacl->bkacl", weightings, factor_g())
             E = self._fixed_embedder_gc(params, **kw)
             if not ignore_lag:
                 return G[..., -lag_clip:] + E[None, None, :, :, -lag_clip:]
@@ -431,7 +438,7 @@ class RedcliffSCMLP:
             return Ec + G[None]
         if mode == "conditional_factor_conditional_embedder":
             weightings, _ = self._embed(params, X)
-            G = torch.einsum("bk,kacl->bkacl", weightings, factor_g())
+            G = _prec.einsum("bk,kacl->bkacl", weightings, factor_g())
             Ec = self._conditional_embedder_gc(params, X, **kw)
             if not ignore_lag:
                 return G[..., -lag_clip:] + Ec[..., -lag_clip:]

@@ -24,11 +24,14 @@
 * :mod:`.slo` — fleet and serve service-level objectives
   (``compute_slo``, ``slo_for_root``, nearest-rank ``percentile``).
 
-Not ported yet (ROADMAP queue 1, item 11): the JAX package's ``report``,
-``watch``, ``trace_export`` and ``regress`` modules and their names
-(``build_report``, ``render_text``, ``build_snapshot``, ``run_sentinel``,
-``build_trace``, ``build_fleet_trace``, ``validate_trace``). Asking for
-one raises ``NotImplementedError``; none is silently absent.
+* :mod:`.report`, :mod:`.watch`, :mod:`.trace_export`, :mod:`.regress` —
+  the observability CLIs over a run directory
+  (``python -m redcliff_tpu_torch.obs {report,watch,trace,regress}``),
+  host-only copies of the JAX modules; their names (``build_report``,
+  ``render_text``, ``build_snapshot``, ``run_sentinel``, ``build_trace``,
+  ``build_fleet_trace``, ``validate_trace``) load lazily. The fleet parts
+  (``build_fleet_trace``, a fleet root) raise or exit 2 until the fleet is
+  ported (ROADMAP queue 1, item 12).
 
 Import discipline: importing this package does no CUDA work; numpy and
 torch load with :mod:`.logging` and :mod:`.quality`, lazily, on first
@@ -48,6 +51,9 @@ __all__ = [
     "profiling",
     "quality", "MetricLogger", "jsonable", "read_jsonl", "jsonl_files",
     "profiler_trace", "compute_slo", "slo_for_root",
+    "report", "watch", "regress", "trace_export", "build_report",
+    "render_text", "build_snapshot", "run_sentinel", "build_trace",
+    "build_fleet_trace", "validate_trace",
 ]
 
 _LAZY = {
@@ -58,17 +64,20 @@ _LAZY = {
     "profiler_trace": "redcliff_tpu_torch.obs.logging",
     "compute_slo": "redcliff_tpu_torch.obs.slo",
     "slo_for_root": "redcliff_tpu_torch.obs.slo",
+    "build_report": "redcliff_tpu_torch.obs.report",
+    "render_text": "redcliff_tpu_torch.obs.report",
+    "build_snapshot": "redcliff_tpu_torch.obs.watch",
+    "run_sentinel": "redcliff_tpu_torch.obs.regress",
+    "build_trace": "redcliff_tpu_torch.obs.trace_export",
+    "build_fleet_trace": "redcliff_tpu_torch.obs.trace_export",
+    "validate_trace": "redcliff_tpu_torch.obs.trace_export",
 }
 _LAZY_MODULES = {"quality": "redcliff_tpu_torch.obs.quality",
-                 "slo": "redcliff_tpu_torch.obs.slo"}
-# the JAX package's names whose modules are not ported yet
-_UNPORTED = {
-    "report": "report", "build_report": "report", "render_text": "report",
-    "watch": "watch", "build_snapshot": "watch",
-    "regress": "regress", "run_sentinel": "regress",
-    "trace_export": "trace_export", "build_trace": "trace_export",
-    "build_fleet_trace": "trace_export", "validate_trace": "trace_export",
-}
+                 "slo": "redcliff_tpu_torch.obs.slo",
+                 "report": "redcliff_tpu_torch.obs.report",
+                 "watch": "redcliff_tpu_torch.obs.watch",
+                 "regress": "redcliff_tpu_torch.obs.regress",
+                 "trace_export": "redcliff_tpu_torch.obs.trace_export"}
 
 
 def __getattr__(name):
@@ -80,8 +89,4 @@ def __getattr__(name):
     mod = _LAZY.get(name)
     if mod is not None:
         return getattr(importlib.import_module(mod), name)
-    if name in _UNPORTED:
-        raise NotImplementedError(
-            f"redcliff_tpu_torch.obs.{name} (obs/{_UNPORTED[name]}.py) is "
-            f"not ported yet (ROADMAP queue 1, item 11)")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -32,11 +32,11 @@ The grid scores the store's prediction against each check window's epoch
 epoch times and captures into the store at the fit's end; the predictive
 scheduling policy (``parallel/policy.py``) steers widths and compactions by
 it. The report-fed entry points, :func:`fit_from_report` and
-:func:`update_store_from_report`, wait for ``obs/report.py`` (ROADMAP queue
-1, item 11) and raise until then.
+:func:`update_store_from_report`, train it from an obs report's cost table
+(``obs/report.py``), whose rows a mixed grid labels by precision era.
 
 The code is the JAX module's, bit for bit, but for :func:`platform_label`
-and the two report-fed entry points. stdlib only.
+(the port's labels, ``cuda`` and ``torch_<type>``). stdlib only.
 """
 from __future__ import annotations
 
@@ -324,17 +324,17 @@ def platform_label(device):
     return "cuda" if kind == "cuda" else f"torch_{kind}"
 
 
-def _report_not_ported(name):
-    raise NotImplementedError(
-        f"redcliff_tpu_torch.obs.costmodel.{name} reads an obs report "
-        f"(obs/report.py), which is not ported yet (ROADMAP queue 1, item "
-        f"11)")
-
-
 def fit_from_report(report, platform="any", precision="f32"):
-    """In-memory model fit from one obs-report dict's ``cost_table``:
-    raises until ``obs/report.py`` is ported."""
-    _report_not_ported("fit_from_report")
+    """In-memory model fit from one obs-report dict's ``cost_table`` (no
+    persistence) — offline training / tests. ``precision`` labels the
+    report's epochs (a row's own ``precision`` wins: a mixed grid's report
+    labels its eras). ``platform`` is one of the port's labels
+    (:func:`platform_label`)."""
+    model = CostModel(_empty_store())
+    _merge_rows(model._store,
+                _rows_from_cost_table(report, precision=precision),
+                platform, now=time.time())
+    return model
 
 
 # ---------------------------------------------------------------------------
@@ -492,6 +492,11 @@ def update_store(base_dir, rows, platform, now=None):
 
 def update_store_from_report(base_dir, report, platform, now=None,
                              precision="f32"):
-    """Fold one obs-report's cost table into the persistent store: raises
-    until ``obs/report.py`` is ported."""
-    _report_not_ported("update_store_from_report")
+    """Fold one obs-report's cost table into the persistent store — the
+    offline "train the model from a finished run's telemetry" path.
+    ``precision`` labels the report's unlabelled rows (read it off the
+    run's ``fit_start.precision_mode``); ``platform`` is one of the port's
+    labels (:func:`platform_label`)."""
+    return update_store(base_dir,
+                        _rows_from_cost_table(report, precision=precision),
+                        platform, now=now)

@@ -1,8 +1,9 @@
 """Fleet service-level objectives from the request-lifecycle ledger
-(the port's copy of ``redcliff_tpu/obs/slo.py``, function for function; the one
-difference is :func:`_read_history`, the ledger reader of
+(the port's copy of ``redcliff_tpu/obs/slo.py``, function for function; the
+differences are :func:`_read_history`, the ledger reader of
 ``fleet/history.py`` that :func:`slo_for_root` calls, kept here because the
-fleet is not ported yet).
+fleet is not ported yet, and :func:`percentiles`, several nearest ranks
+from one sort, which the serve tick event uses).
 
 A multi-tenant queue lives or dies by numbers no single run dir holds:
 how long tenants WAIT (queue-wait percentiles), how fast submitted work
@@ -82,7 +83,7 @@ from __future__ import annotations
 import math
 import os
 
-__all__ = ["percentile", "compute_slo", "slo_for_root",
+__all__ = ["percentile", "percentiles", "compute_slo", "slo_for_root",
            "thresholds_from_env", "ENV_QUEUE_P99_S", "ENV_TTFA_P99_S",
            "ENV_DEADLINE_PCT", "ENV_DEADLETTER_PCT",
            "compute_serve_slo", "serve_thresholds_from_env",
@@ -111,6 +112,17 @@ def percentile(values, p):
     rank = min(max(int(math.ceil(p / 100.0 * len(ordered))), 1),
                len(ordered))
     return ordered[rank - 1]
+
+
+def percentiles(values, ps):
+    """:func:`percentile` at each of ``ps``, from one sort of ``values``
+    (a list, one entry per p; None each on an empty population)."""
+    if not values:
+        return [None] * len(ps)
+    ordered = sorted(values)
+    n = len(ordered)
+    return [ordered[min(max(int(math.ceil(p / 100.0 * n)), 1), n) - 1]
+            for p in ps]
 
 
 def _env_float(name):

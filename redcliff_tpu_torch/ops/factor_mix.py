@@ -15,9 +15,20 @@
   K)`` and graphs ``(K, C, C)``, widened to f32, summed in f32, f32 out.
   :func:`graph_mix` takes it when an operand is bf16. On CUDA operands it
   launches ``redcliff_factor_mix_bf16`` (the same source and library), on
-  CPU operands the plain version. No backward (serve only): a bf16 operand
-  that wants a gradient raises. Its own count,
-  ``graph_mix_bf16.launches``, and its own autotune key.
+  CPU operands the plain version. Its own autotune key.
+* :func:`factor_mix_bf16` / :func:`factor_mix_bf16_reference` and their
+  lane twins :func:`factor_mix_lanes_bf16` /
+  :func:`factor_mix_lanes_bf16_reference` — the bf16 training form: both
+  operands cast to bf16, the same ``redcliff_factor_mix_bf16`` kernel,
+  f32 out. :func:`factor_mix` takes it inside a ``"bfloat16"`` matmul
+  context (``utils/precision.py``, ``precision_mode="mixed"``), the
+  mixed per-point fit and, through the ``vmap`` rule, the mixed grid.
+  :class:`FactorMixBf16Fn` (and :class:`FactorMixLanesBf16Fn`) give it
+  JAX's backward: ``_mix_bwd``'s two contractions, each on the
+  bf16-rounded cotangent and the bf16-rounded other operand with f32
+  sums, as the transpose of a bf16-precision contraction is in JAX. Every
+  launch of the bf16 kernel, serve blend and training form alike, counts
+  in ``graph_mix_bf16.launches``.
 * :func:`factor_mix_lanes` / :func:`factor_mix_lanes_reference` — the lane
   form for the coefficient grid, ``out[g, b] = sum_k w[g, b, k] p[g, k, b]``:
   one launch of the same kernel for all G lanes (its second grid dimension)
@@ -67,12 +78,15 @@ import threading
 import torch
 
 from redcliff_tpu_torch.ops.cuda_build import build_library
+from redcliff_tpu_torch.utils import precision as _prec
 
 __all__ = ["factor_mix", "factor_mix_reference", "factor_mix_lanes",
            "factor_mix_lanes_reference", "graph_mix", "graph_mix_reference",
-           "graph_mix_bf16", "graph_mix_bf16_reference", "FactorMixFn",
-           "FactorMixLanesFn", "load_kernel", "mix_plan", "launch_plan",
-           "KERNEL_SOURCE"]
+           "graph_mix_bf16", "graph_mix_bf16_reference", "factor_mix_bf16",
+           "factor_mix_bf16_reference", "factor_mix_lanes_bf16",
+           "factor_mix_lanes_bf16_reference", "FactorMixFn",
+           "FactorMixLanesFn", "FactorMixBf16Fn", "FactorMixLanesBf16Fn",
+           "load_kernel", "mix_plan", "launch_plan", "KERNEL_SOURCE"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 KERNEL_SOURCE = os.path.join(_HERE, "csrc", "factor_mix.cu")
@@ -112,6 +126,20 @@ def graph_mix_bf16_reference(weightings, static_gc):
 def factor_mix_lanes_reference(weightings, preds):
     """Plain lane version: ``einsum("gbk,gkbtc->gbtc")``."""
     return torch.einsum("gbk,gkbtc->gbtc", weightings, preds)
+
+
+def factor_mix_bf16_reference(weightings, preds):
+    """Plain bf16 training form: both operands rounded to bf16 and widened
+    to f32, ``einsum("bk,kbtc->btc")``, f32 out."""
+    return torch.einsum("bk,kbtc->btc", _prec.bf16_round(weightings),
+                        _prec.bf16_round(preds))
+
+
+def factor_mix_lanes_bf16_reference(weightings, preds):
+    """Plain bf16 lane form: ``einsum("gbk,gkbtc->gbtc")`` on
+    bf16-rounded operands, f32 out."""
+    return torch.einsum("gbk,gkbtc->gbtc", _prec.bf16_round(weightings),
+                        _prec.bf16_round(preds))
 
 
 def mix_plan(B, M, stride_k, stride_b, p_offset, stride_g=0, threads=None,
@@ -207,7 +235,8 @@ def _run(w, p, B, K, M, stride_k, stride_b, out_shape, G=1, stride_wg=0,
     ``w + g*stride_wg``, its element (k, b, m) of p at
     ``p + g*stride_pg + k*stride_k + b*stride_b + m`` -> a new float32
     ``out_shape`` tensor holding the ``(G, B, M)`` result. ``bf16`` runs
-    the bf16 form (bf16 operands) and counts it on ``graph_mix_bf16``."""
+    the bf16 form (bf16 operands) and counts it on ``graph_mix_bf16``,
+    serve blend and training form alike."""
     out = w.new_empty(out_shape, dtype=_F32)
     if B == 0 or M == 0 or G == 0:
         return out
@@ -310,44 +339,48 @@ def _refuse(w, p, what, dtype=_F32):
                      f"p {tuple(p.shape)} strides {p.stride()}")
 
 
-def _launch(weightings, preds):
+def _launch(weightings, preds, dtype=_F32):
     """Run the kernel: ``weightings (B, K)``, ``preds (K, B, T, C)`` ->
-    ``(B, T, C)`` (layout as :func:`_mix_layout`)."""
+    ``(B, T, C)`` (layout as :func:`_mix_layout`); ``dtype`` bfloat16
+    runs the bf16 form on bf16 operands."""
     w, p = weightings, preds
-    args = _mix_layout(w, p) if _operands_ok(w, p) else None
+    args = _mix_layout(w, p) if _operands_ok(w, p, dtype) else None
     if args is None:
-        _refuse(w, p, "w (B, K) and p (K, B, T, C)")
-    return _run(w, p, *args)
+        _refuse(w, p, "w (B, K) and p (K, B, T, C)", dtype)
+    return _run(w, p, *args, bf16=dtype is _BF16)
 
 
-def _launch_lanes(weightings, preds):
+def _launch_lanes(weightings, preds, dtype=_F32):
     """Run the kernel once for every lane: ``weightings (G, B, K)``,
     ``preds (G, K, B, T, C)`` -> ``(G, B, T, C)`` (layout as
-    :func:`_lanes_layout`)."""
+    :func:`_lanes_layout`); ``dtype`` as :func:`_launch`."""
     w, p = weightings, preds
-    args = _lanes_layout(w, p) if _operands_ok(w, p) else None
+    args = _lanes_layout(w, p) if _operands_ok(w, p, dtype) else None
     if args is None:
         _refuse(w, p, f"w (G, B, K) and p (G, K, B, T, C) with G <= "
-                      f"{_MAX_LANES}")
-    return _run(w, p, *args)
+                      f"{_MAX_LANES}", dtype)
+    return _run(w, p, *args, bf16=dtype is _BF16)
 
 
 def launch_plan(weightings, preds):
     """``(vec, threads, blocks)`` of the cached plan a launch on these CUDA
     operands takes: ``w (B, K)`` and ``p (K, B, T, C)``, or the lane form's
-    ``w (G, B, K)`` and ``p (G, K, B, T, C)``."""
+    ``w (G, B, K)`` and ``p (G, K, B, T, C)``; float32, or bfloat16 for the
+    bf16 form."""
     w, p = weightings, preds
+    dtype = _BF16 if w.dtype is _BF16 else _F32
     lay = ((_lanes_layout if w.dim() == 3 else _mix_layout)(w, p)
-           if _operands_ok(w, p) else None)
+           if _operands_ok(w, p, dtype) else None)
     if lay is None:
-        _refuse(w, p, "the single or lane form's operands")
+        _refuse(w, p, "the single or lane form's operands", dtype)
     B, K, M, stride_k, stride_b, _, *lanes = lay
     G, stride_wg, stride_pg = lanes or (1, 0, 0)
     # as _run passes them: the stride of an axis of length 1 is 0
     args = _mix_args(B, K, M, 0 if K == 1 else stride_k,
                      0 if B == 1 else stride_b, p.data_ptr() % 16,
                      w.get_device(), G, 0 if G == 1 else stride_wg,
-                     0 if G == 1 else stride_pg, 4)[0]
+                     0 if G == 1 else stride_pg,
+                     2 if dtype is _BF16 else 4)[0]
     return args.vec, args.threads, args.blocks
 
 
@@ -421,6 +454,64 @@ class FactorMixLanesFn(torch.autograd.Function):
         return _mix_lanes_bwd(weightings, preds, g)
 
 
+def _mix_bf16_bwd(weightings, preds, g, lanes=False):
+    """JAX's backward of the mixed mix: :func:`_mix_bwd`'s contractions on
+    the bf16-rounded cotangent and operands, f32 sums and out."""
+    r = _prec.bf16_round
+    return (_mix_lanes_bwd if lanes else _mix_bwd)(r(weightings), r(preds),
+                                                   r(g))
+
+
+class FactorMixBf16Fn(torch.autograd.Function):
+    """The bf16 training form: kernel forward on both operands cast to
+    bf16 (the plain version on CPU tensors), JAX's bf16 backward; under
+    ``torch.func.vmap`` the bf16 lane form."""
+
+    @staticmethod
+    def forward(weightings, preds):
+        if weightings.is_cuda or preds.is_cuda:
+            return _launch(weightings.to(_BF16), preds.to(_BF16), _BF16)
+        return factor_mix_bf16_reference(weightings, preds)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+
+    @staticmethod
+    def backward(ctx, g):
+        weightings, preds = ctx.saved_tensors
+        return _mix_bf16_bwd(weightings, preds, g)
+
+    @staticmethod
+    def vmap(info, in_dims, weightings, preds):
+        w = _lane_operand(weightings, in_dims[0], info.batch_size)
+        p = _lane_operand(preds, in_dims[1], info.batch_size)
+        return factor_mix_lanes_bf16(w, p), 0
+
+
+class FactorMixLanesBf16Fn(torch.autograd.Function):
+    """The bf16 lane form with autograd: kernel forward, JAX's bf16
+    backward."""
+
+    @staticmethod
+    def forward(weightings, preds):
+        if weightings.is_cuda or preds.is_cuda:
+            w, p = weightings.to(_BF16), preds.to(_BF16)
+            if _lanes_layout(w, p) is None:
+                w, p = w.contiguous(), p.contiguous()
+            return _launch_lanes(w, p, _BF16)
+        return factor_mix_lanes_bf16_reference(weightings, preds)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+
+    @staticmethod
+    def backward(ctx, g):
+        weightings, preds = ctx.saved_tensors
+        return _mix_bf16_bwd(weightings, preds, g, lanes=True)
+
+
 def _wants_grad(a, b):
     return torch.is_grad_enabled() and (a.requires_grad or b.requires_grad)
 
@@ -432,7 +523,10 @@ def factor_mix(weightings, preds):
     """``weightings (B, K)``, ``preds (K, B, T, C)`` -> ``(B, T, C)``: the
     CUDA kernel for CUDA tensors, the plain version for CPU tensors. Under
     ``torch.func.vmap`` the lane form of the kernel runs once for all
-    lanes."""
+    lanes. Inside a ``"bfloat16"`` matmul context the bf16 training form
+    (:func:`factor_mix_bf16`)."""
+    if _prec.bf16_active():
+        return factor_mix_bf16(weightings, preds)
     if weightings.is_cuda or preds.is_cuda:
         if (_wants_grad(weightings, preds) or _is_transformed(weightings)
                 or _is_transformed(preds)):
@@ -455,6 +549,32 @@ def factor_mix_lanes(weightings, preds):
             return FactorMixLanesFn.apply(weightings, preds)
         return _launch_lanes(weightings, preds)
     return factor_mix_lanes_reference(weightings, preds)
+
+
+def factor_mix_bf16(weightings, preds):
+    """The bf16 training form: ``weightings (B, K)``, ``preds (K, B, T,
+    C)`` (float32 or bf16) cast to bf16 -> float32 ``(B, T, C)``, summed in
+    f32 in K order. CUDA operands launch ``redcliff_factor_mix_bf16``
+    (counted in ``graph_mix_bf16.launches``), CPU operands take
+    :func:`factor_mix_bf16_reference`. Differentiated (or under
+    ``torch.func``) through :class:`FactorMixBf16Fn`."""
+    w, p = weightings, preds
+    if (_wants_grad(w, p) or _is_transformed(w) or _is_transformed(p)):
+        return FactorMixBf16Fn.apply(w, p)
+    if w.is_cuda or p.is_cuda:
+        return _launch(w.to(_BF16), p.to(_BF16), _BF16)
+    return factor_mix_bf16_reference(w, p)
+
+
+def factor_mix_lanes_bf16(weightings, preds):
+    """The bf16 lane form: ``weightings (G, B, K)``, ``preds (G, K, B, T,
+    C)`` cast to bf16 -> float32 ``(G, B, T, C)``, one launch for every
+    lane on CUDA tensors, :func:`factor_mix_lanes_bf16_reference` on CPU
+    tensors; through :class:`FactorMixLanesBf16Fn` when differentiated."""
+    w, p = weightings, preds
+    if _wants_grad(w, p):
+        return FactorMixLanesBf16Fn.apply(w, p)
+    return FactorMixLanesBf16Fn.forward(w, p)
 
 
 def graph_mix(weightings, static_gc):
@@ -482,15 +602,15 @@ def graph_mix_bf16(weightings, static_gc):
     ``static_gc (K, C, C)`` -> float32 ``(S, C, C)``, summed in f32 in K
     order. CUDA operands launch ``redcliff_factor_mix_bf16`` (counted in
     ``graph_mix_bf16.launches``), CPU operands take
-    :func:`graph_mix_bf16_reference`. Serve only: it has no backward, and
-    an operand that wants a gradient raises."""
+    :func:`graph_mix_bf16_reference`. Differentiated, it is the bf16
+    training form on the graphs broadcast over S."""
     w, g = weightings, static_gc
     if not (w.is_cuda or g.is_cuda):
         return graph_mix_bf16_reference(w, g)
     if _wants_grad(w, g):
-        raise NotImplementedError(
-            "the bf16 factor mix has no backward yet (ROADMAP queue 1, item "
-            "18: mixed-precision training)")
+        K, S = g.shape[0], w.shape[0]
+        return FactorMixBf16Fn.apply(
+            w, g.contiguous()[:, None].expand((K, S) + tuple(g.shape[1:])))
     args = _graph_layout(w, g) if _operands_ok(w, g, _BF16) else None
     if args is None:
         _refuse(w, g, "w (S, K) and static_gc (K, C, C)", _BF16)

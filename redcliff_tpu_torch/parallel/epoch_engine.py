@@ -35,7 +35,9 @@ each run the program checks that every one of them is still the tensor it
 was first run on (``data_ptr``) and raises if one has moved. Programs are
 cached per compaction era, keyed by (kind, phase, steps, rows), and share
 one graph memory pool within the era; :meth:`EpochEngine.new_era` drops
-them (compaction gathers fresh leaves; a resume loads new ones).
+them (compaction gathers fresh leaves; a resume loads new ones), and so
+does :meth:`EpochEngine.drop_programs` at a precision demotion (a graph
+captured under the bf16 matmul context has its casts baked in).
 
 Kernel launch counts (``factor_mix.launches``, ``gl_prox.launches``) keep
 meaning executions on the device: a launch made while the stream is
@@ -67,8 +69,10 @@ from redcliff_tpu_torch.runtime import watchdog as _watchdog
 
 __all__ = ["Program", "EpochEngine", "COUNTED"]
 
-# the launch-counted kernel wrappers (their ``launches`` and ``captured``)
-COUNTED = (_factor_mix.factor_mix, _pallas_prox.gl_prox)
+# the launch-counted kernel wrappers (their ``launches`` and ``captured``):
+# the f32 factor mix, the GL prox and every form of the bf16 factor mix
+COUNTED = (_factor_mix.factor_mix, _pallas_prox.gl_prox,
+           _factor_mix.graph_mix_bf16)
 
 
 class Program:
@@ -226,22 +230,40 @@ class EpochEngine:
         self.programs = {}
         self.active = None
         self.pool = None
+        self._stale = False
 
     def new_era(self, width):
         """Drop the programs of the previous era (their leaves are gone)
         and make the gate buffer and the graph pool of this one."""
+        self._stale = False
         self.programs = {}
         self.active = torch.zeros((width,), dtype=torch.bool,
                                   device=self.device)
         self.pool = (torch.cuda.graph_pool_handle()
                      if self.stream is not None else None)
 
+    def drop_programs(self):
+        """Drop every program of the era and start a fresh graph pool
+        before the next dispatch: the grid demoted to f32, and a graph
+        captured under the bf16 context must never be replayed. The next
+        run of each program captures it afresh (at f32). Freeing the
+        graphs waits for that dispatch, so their teardown is paid by the
+        epoch that captures anyway, not by the one that demoted."""
+        self._stale = True
+
+    def _fresh(self):
+        if self._stale:
+            self.programs = {}
+            self.pool = (torch.cuda.graph_pool_handle()
+                         if self.stream is not None else None)
+            self._stale = False
+
     def holds(self, width):
         """Whether running at ``width`` needs no capture: this engine
         captures nothing (the CPU, or the per-batch stream), or it already
         holds programs of this era at ``width``."""
         return self.stream is None or bool(
-            self.programs and self.active is not None
+            not self._stale and self.programs and self.active is not None
             and int(self.active.shape[0]) == int(width))
 
     def _reads(self, *data):
@@ -256,6 +278,7 @@ class EpochEngine:
         """Load ``batches`` into the program ``key`` = (kind, phase, steps,
         rows), made by ``make()`` at its first use in the era, run it once
         on ``state`` and count the dispatch; returns its outputs."""
+        self._fresh()
         prog = self.programs.get(key)
         if prog is None:
             prog = self.programs[key] = make()
@@ -279,8 +302,12 @@ class EpochEngine:
                 "kind": kind, "phase": phase, "steps": steps, "rows": rows,
                 "width": int(self.active.shape[0]),
                 "capture_ms": prog.capture_ms,
-                "launches_per_replay": {fn.__name__: n
-                                        for fn, n in prog.tally}})
+                "precision": "f32" if self.runner._precision is None
+                else "mixed",
+                # the f32 kernels always, the bf16 mix when it ran
+                "launches_per_replay": {
+                    fn.__name__: n for fn, n in prog.tally
+                    if n or fn is not _factor_mix.graph_mix_bf16}})
         return out
 
     # ------------------------------------------------------------- training

@@ -112,8 +112,34 @@ The production runtime, as the JAX grid runs it
   both kernels' lane forms at every ladder width the grid can run at,
   before any capture, its records logged as ``autotune`` events.
 
-Not ported yet (ROADMAP queue 1): mixed precision and the device mesh;
-asking for either raises ``NotImplementedError``.
+Mixed precision, as the JAX grid runs it (``redcliff_tpu/parallel/
+grid.py:362-401,1308-1313,1566-1611,1834-1909,2097,2314,2441-2482``):
+``GridSpec.precision_mode`` (else the train config's) ``"mixed"`` runs
+each step's loss and gradients, the validation pass and the Freeze step
+inside a ``"bfloat16"`` matmul context (``utils/precision.py``; the factor
+mix's bf16 lane form on the card, in the eager steps and in the captured
+programs alike). The precision-cliff watch reads one flag a epoch, in
+mixed fits only: a lane stuck on ``max_consecutive_skips`` non-finite
+gradient steps in an epoch that skipped demotes the whole grid to f32 (a
+``precision`` event, ``cause="precision_cliff"``, with the lanes) and gets
+one f32 epoch instead of quarantine; the epoch engine drops every captured
+program, so the f32 programs are captured afresh and no replay runs a
+bf16 graph again (``dispatch_stats["precision_eras"]`` counts the bf16
+launches of each era). The demotion is checkpointed
+(``precision_demoted``) and a resume honours it; the fingerprint rejects a
+different ``precision_mode``. The cost rows carry the mode's label
+(``utils/precision.py precision_label``), and the store folds the mixed
+and the f32 era apart.
+
+The cost model learns steady-state epochs only: an epoch in which the
+epoch engine captured a CUDA graph is left out of ``epoch_ms_by_width`` /
+``epochs_by_width``, of the ``cost_model`` scoring and of the store fold
+(its capture cost is in the compile accumulators);
+``first_epoch_ms_by_width`` keeps each width's first epoch as JAX keeps
+it. The CPU captures nothing, so its events are JAX's.
+
+Not ported yet (ROADMAP queue 1): the device mesh; asking for it raises
+``NotImplementedError``.
 
 Entry points run on ``cuda`` unless the caller passes ``device=``.
 """
@@ -141,6 +167,7 @@ from redcliff_tpu_torch.obs import schema as _schema
 from redcliff_tpu_torch.obs import spans as _spans
 from redcliff_tpu_torch.obs.logging import MetricLogger
 from redcliff_tpu_torch.ops import autotune as _autotune
+from redcliff_tpu_torch.ops import factor_mix as _factor_mix
 from redcliff_tpu_torch.ops.pallas_prox import lane_thresholds
 from redcliff_tpu_torch.parallel import compaction
 from redcliff_tpu_torch.parallel import policy as gridpolicy
@@ -154,7 +181,10 @@ from redcliff_tpu_torch.runtime.preempt import (DeadlineExceeded, Preempted,
 from redcliff_tpu_torch.train.freeze import apply_freeze_lanes
 from redcliff_tpu_torch.utils.misc import factor_alignment_order
 from redcliff_tpu_torch.utils.precision import (check_precision_mode,
-                                                resolve_device)
+                                                matmul_precision_ctx,
+                                                precision_label,
+                                                resolve_device,
+                                                resolve_matmul_precision)
 
 __all__ = ["GridSpec", "GridResult", "RedcliffGridRunner",
            "group_configs_by_shape", "COEFF_AXES", "OPT_AXES", "STOP_AXES"]
@@ -196,7 +226,9 @@ class GridSpec:
     fit_deadline_s: Any = None   # scalar | per-point sequence | None
     grid_deadline_s: float | None = None
     lane_seeds: Sequence[int] | None = None
-    # None inherits RedcliffTrainConfig.precision_mode; "mixed" raises
+    # None inherits RedcliffTrainConfig.precision_mode; "mixed" runs bf16
+    # contractions under the precision-cliff watch (a skip storm demotes
+    # the whole grid to f32). Part of the resume fingerprint
     precision_mode: str | None = None
 
     def __post_init__(self):
@@ -354,6 +386,16 @@ class RedcliffGridRunner:
         self.policy = (policy if policy is not None
                        else GridSchedulingPolicy.from_train_config(
                            train_config))
+        # the precision mode (the spec's, else the train config's) and the
+        # effective matmul precision; "mixed" fits are demotable: a
+        # sentinel skip storm runs every later step at f32
+        self._precision_mode = (spec.precision_mode
+                                or getattr(train_config, "precision_mode",
+                                           "f32"))
+        self._precision = resolve_matmul_precision(
+            self._precision_mode,
+            getattr(train_config, "matmul_precision", None))
+        self._demoted = False
         # the epoch engine of the running fit (the predictive policy asks
         # it which widths need no capture)
         self._engine = None
@@ -370,7 +412,7 @@ class RedcliffGridRunner:
                     compaction=self.policy.compaction, cost_model=cm,
                     shape_key=self._shape_key(),
                     platform=_costmodel.platform_label(self.device),
-                    precision="f32",
+                    precision=self._precision_label0(),
                     epochs=getattr(train_config, "max_iter", None),
                     max_width=(int(max_w) if max_w and max_w.isdigit()
                                else None),
@@ -404,6 +446,8 @@ class RedcliffGridRunner:
         self._guard = tc.numerics is not None and tc.numerics.enabled
         self._numerics_k = (tc.numerics.max_consecutive_skips
                             if self._guard else 0)
+        self._demotable = (self._precision_mode == "mixed" and self._guard
+                           and self._precision is not None)
         self._prox_pen = tc.prox_penalty
         # the per-lane GL thresholds, a float32 product on the device as
         # the JAX grid forms lr * lam under vmap
@@ -434,6 +478,29 @@ class RedcliffGridRunner:
             _autotune.tune_for_model(cfg, tc.batch_size,
                                      prox_penalty=tc.prox_penalty,
                                      device=self.device, lanes=width)
+
+    def _precision_label0(self):
+        """The cost-model label of this fit's mode before any demotion."""
+        return precision_label(self._precision_mode,
+                               getattr(self.tc, "matmul_precision", None))
+
+    def _demote_to_f32(self):
+        """The sentinel-triggered precision demotion: every later step,
+        validation pass and capture runs at f32. The caller logs the
+        ``precision`` event and resets the consecutive-skip counters."""
+        self._precision = None
+        self._demoted = True
+        # the predictive policy prices the f32 programs from f32 evidence
+        if hasattr(self.policy, "precision"):
+            self.policy.precision = "f32"
+        # a graph captured under the bf16 context has its casts baked in:
+        # no replay may run one again
+        if self._engine is not None:
+            self._engine.drop_programs()
+
+    def _ctx(self):
+        """The fit's matmul-precision context (none at f32)."""
+        return matmul_precision_ctx(self._precision)
 
     def _cost_model_base(self):
         """The cost-model store's base directory, resolved as
@@ -539,7 +606,13 @@ class RedcliffGridRunner:
                 fsc > 0, fsc, torch.ones_like(fsc))
             return combo, fo, fa
 
-        self._val = torch.func.vmap(point_val, in_dims=(0, 0, None, None))
+        vval = torch.func.vmap(point_val, in_dims=(0, 0, None, None))
+
+        def val(params, coeffs, X, Y):
+            with self._ctx():
+                return vval(params, coeffs, X, Y)
+
+        self._val = val
 
         # supervised pairwise-cosine stopping term: mean cosine between
         # max-normalized lag-summed supervised GC estimates on the first
@@ -629,8 +702,9 @@ class RedcliffGridRunner:
         on fixed storage; JAX rebinds donated buffers instead). Returns
         ``(nstate, per-lane loss)``."""
         c = self._ex_coeffs
-        grads, (combo, _) = self._grads[phase](params, self._ex_loss_coeffs,
-                                               X, Y)
+        with self._ctx():
+            grads, (combo, _) = self._grads[phase](
+                params, self._ex_loss_coeffs, X, Y)
         combo = combo.detach()
         if self._guard:
             gnorm = numerics.lane_global_norm(grads)
@@ -744,7 +818,7 @@ class RedcliffGridRunner:
             "prefetch_batches": tc.prefetch_batches,
             "max_iter": tc.max_iter,
             "matmul_precision": tc.matmul_precision,
-            "precision_mode": self.spec.precision_mode or tc.precision_mode,
+            "precision_mode": self._precision_mode,
             "prox": {"penalty": tc.prox_penalty, "lam": tc.prox_lam},
             "numerics": (None if tc.numerics is None
                          else asdict(tc.numerics)),
@@ -757,7 +831,10 @@ class RedcliffGridRunner:
         loss rows expanded to the original point width (a resumed fit may
         land in another era than the one that wrote a row)."""
         host = {k: numerics.to_host(v) for k, v in state.items()
-                if k not in ("val_history", "val_eras", "eras")}
+                if k not in ("val_history", "val_eras", "eras",
+                             "dispatch_stats")}
+        # the telemetry snapshot the obs report reads (obs/report.py)
+        host["dispatch_stats"] = state.get("dispatch_stats")
         rows = [numerics.to_host(v) for v in state["val_history"]]
         host["val_history"] = list(compaction.expand_history(
             rows, state["val_eras"], state["eras"], self._g_real))
@@ -948,7 +1025,11 @@ class RedcliffGridRunner:
             # the cost model's scoring (obs/costmodel.py): the remaining
             # fit's ETA and the running residual summary, refreshed at each
             # check window that resolves an epoch
-            "eta": None, "cost_model": None}
+            "eta": None, "cost_model": None,
+            # per precision era, from its first epoch: the bf16 factor-mix
+            # kernel's executions (ops/factor_mix.py graph_mix_bf16), so a
+            # demoted fit shows none after the demotion
+            "precision_eras": []}
         ckpt = ck_meta = ck_src = None
         if checkpoint_dir is not None:
             t0 = time.perf_counter()
@@ -978,6 +1059,11 @@ class RedcliffGridRunner:
             rng.bit_generator.state = ckpt["rng_state"]
             start_it = ckpt["epoch"] + 1
             stats["resumed_from_epoch"] = ckpt["epoch"]
+            if ckpt.get("precision_demoted") and self._demotable \
+                    and not self._demoted:
+                # the checkpointed fit demoted mixed -> f32: the resume
+                # runs at f32 from its first step (never re-promotes)
+                self._demote_to_f32()
         else:
             if init_params is not None:
                 def own(x):
@@ -1047,6 +1133,9 @@ class RedcliffGridRunner:
         cm_platform = _costmodel.platform_label(dev)
         cost_model = _costmodel.load(cm_base) if cm_base else None
         cm_shape_key = self._shape_key()
+        # the precision half of the cost bucket: bf16 and f32 epochs are
+        # different costs; a demoted fit folds and predicts under "f32"
+        cm_precision0 = self._precision_label0()
         cm_n = 0          # residual samples scored this fit
         cm_abs_pct = 0.0  # running sum of |residual_pct|
         # epochs whose ms is not resolved yet: on the card a CUDA event
@@ -1054,13 +1143,30 @@ class RedcliffGridRunner:
         # syncs there anyway) so the folded ms covers the device work
         ev_timing = dev.type == "cuda"
         pending = []
+        # each width's first FOLDED epoch when it is also the width's first
+        # epoch (the compile/cache skew JAX leaves out; on the card the
+        # first epoch captures and is not folded at all), and the same per
+        # precision era for the store fold: the first epoch after a
+        # demotion carries the f32 rebuild, as JAX's demote_first_f32
+        fold_first = {}
+        eras_acc = {}
+        # the compile accumulators at a mid-fit demotion (split as JAX
+        # splits them: the f32 recaptures belong to the f32 era)
+        demote_compile = None
+
+        def fold(acc, key, ms):
+            acc["epoch_ms_by_width"][key] = (
+                acc["epoch_ms_by_width"].get(key, 0.0) + ms)
+            acc["epochs_by_width"][key] = (
+                acc["epochs_by_width"].get(key, 0) + 1)
 
         def resolve(wait=False):
             """Fold the pending epochs whose end event has run into the
-            per-width accumulators; returns the last one folded."""
+            per-width accumulators, leaving out the epochs that captured a
+            CUDA graph; returns the last one folded."""
             last = None
             while pending:
-                p_it, p_w, p_ms, ev0, ev1 = pending[0]
+                p_it, p_w, p_ms, ev0, ev1, p_caps, p_prec = pending[0]
                 if ev1 is not None:
                     if wait:
                         ev1.synchronize()
@@ -1069,11 +1175,23 @@ class RedcliffGridRunner:
                     p_ms = max(p_ms, ev0.elapsed_time(ev1))
                 pending.pop(0)
                 key = str(p_w)
-                stats["epoch_ms_by_width"][key] = (
-                    stats["epoch_ms_by_width"].get(key, 0.0) + p_ms)
-                stats["epochs_by_width"][key] = (
-                    stats["epochs_by_width"].get(key, 0) + 1)
+                first = key not in stats["first_epoch_ms_by_width"]
                 stats["first_epoch_ms_by_width"].setdefault(key, p_ms)
+                era = eras_acc.setdefault(p_prec, {
+                    "epochs_by_width": {}, "epoch_ms_by_width": {},
+                    "first_epoch_ms_by_width": {}, "seen": set()})
+                era_first = key not in era["seen"]
+                era["seen"].add(key)
+                if p_caps:
+                    # a capture epoch: its cost is the capture's, which the
+                    # compile accumulators carry; not a steady-state epoch
+                    continue
+                if first:
+                    fold_first[key] = p_ms
+                if era_first:
+                    era["first_epoch_ms_by_width"][key] = p_ms
+                fold(stats, key, p_ms)
+                fold(era, key, p_ms)
                 last = (p_it, p_w, p_ms)
             return last
 
@@ -1096,6 +1214,14 @@ class RedcliffGridRunner:
             logger.log("policy", epoch=start_it - 1, grid_width=Gx,
                        **self._policy_init_decision)
             self._policy_init_decision = None
+        if self._demoted and start_it > 0:
+            logger.log("precision", kind="resume_demoted",
+                       epoch=start_it - 1, mode_from="mixed",
+                       mode_to="f32", grid_width=Gx)
+        bf16_t0 = _factor_mix.graph_mix_bf16.launches
+        stats["precision_eras"].append({
+            "precision": "f32" if self._demoted else cm_precision0,
+            "from_epoch": start_it, "bf16_launches": 0})
         # the predicted footprint of this fit's width, from shapes only,
         # and the headroom verdict on its device
         mem_poll = _obsmem.polling_enabled()
@@ -1133,6 +1259,8 @@ class RedcliffGridRunner:
             _watchdog.stamp("epoch_engine")
             pw.on_epoch_start(it)
             epoch_compile_t0 = compileobs.snapshot()
+            epoch_caps0 = stats["graph_captures"]
+            epoch_prec = "f32" if self._demoted else cm_precision0
             t_epoch0 = time.perf_counter()
             ev0 = None
             if ev_timing:
@@ -1192,6 +1320,41 @@ class RedcliffGridRunner:
                 grad_implicated = (nstate["skipped"] - epoch_skip_base) > 0
             else:
                 grad_implicated = torch.zeros_like(active)
+            if self._demotable and not self._demoted:
+                # the precision-cliff watch (mixed fits only; one host read
+                # an epoch): a lane stuck on a skip storm in an epoch that
+                # skipped blames bf16 before the lane. The whole grid
+                # demotes to f32 and the stuck lanes get one f32 epoch
+                # before quarantine can judge them again; a lane that
+                # storms on at f32 quarantines within max_consecutive_skips
+                # further epochs. A validation blow-up with finite steps
+                # quarantines as usual: it carries no bf16 evidence
+                hit = (active & grad_implicated
+                       & (nstate["consecutive"] >= self._numerics_k)
+                       ).cpu().numpy()
+                if hit.any():
+                    nhost = numerics.numerics_summary(
+                        numerics.to_host(nstate))
+                    self._demote_to_f32()
+                    nstate["consecutive"].zero_()
+                    demote_compile = compileobs.delta(compile_t0)
+                    era = stats["precision_eras"][-1]
+                    era["bf16_launches"] = (
+                        _factor_mix.graph_mix_bf16.launches - bf16_t0)
+                    bf16_t0 = _factor_mix.graph_mix_bf16.launches
+                    stats["precision_eras"].append({
+                        "precision": "f32", "from_epoch": it + 1,
+                        "bf16_launches": 0})
+                    logger.log(
+                        "precision", kind="demote", epoch=it,
+                        cause="precision_cliff", mode_from="mixed",
+                        mode_to="f32", grid_width=Gx,
+                        lanes=[int(orig_ids[g])
+                               for g in np.flatnonzero(hit)],
+                        skipped=nhost["skipped"],
+                        consecutive=nhost["consecutive"])
+                    bad = torch.zeros_like(bad)
+                    grad_implicated = torch.zeros_like(active)
             newly_failed = active & bad
             failed_epoch = torch.where(newly_failed,
                                        torch.full_like(failed_epoch, it),
@@ -1339,16 +1502,21 @@ class RedcliffGridRunner:
                     skey = str(s_w)
                     pred_ms = cm_src = None
                     n_w = stats["epochs_by_width"].get(skey, 0)
-                    if n_w > 1 and cost_model is not None:
+                    # a width's first epoch is never scored: folded, it is
+                    # the cache-priming one; on the card it captured and
+                    # is not folded
+                    steady = n_w > (1 if skey in fold_first else 0)
+                    if steady and cost_model is not None:
                         pred_ms = cost_model.predict_epoch_ms(
                             cm_shape_key, s_w, platform=cm_platform,
-                            precision="f32")
+                            precision=("f32" if self._demoted
+                                       else cm_precision0))
                         if pred_ms is not None:
                             cm_src = "store"
                     if pred_ms is None:
                         tot_prior = stats["epoch_ms_by_width"][skey] - s_ms
                         n_prior = n_w - 1
-                        first = stats["first_epoch_ms_by_width"].get(skey)
+                        first = fold_first.get(skey)
                         if first is not None and n_prior >= 1:
                             tot_prior -= first
                             n_prior -= 1
@@ -1399,7 +1567,9 @@ class RedcliffGridRunner:
             if ev_timing:
                 ev1 = torch.cuda.Event(enable_timing=True)
                 ev1.record()
-            pending.append((it, epoch_width, epoch_ms, ev0, ev1))
+            pending.append((it, epoch_width, epoch_ms, ev0, ev1,
+                            stats["graph_captures"] - epoch_caps0,
+                            epoch_prec))
             epochs.append({"epoch": it, "phases": list(phases),
                            "width": epoch_width, "ms": epoch_ms,
                            "mode": mode})
@@ -1491,6 +1661,10 @@ class RedcliffGridRunner:
                         "eras": eras, "orig_ids": orig_ids,
                         "retired": retired, "aligned": aligned,
                         "rng_state": rng.bit_generator.state, "epoch": it,
+                        "precision_demoted": self._demoted,
+                        # a copy: the live dict keeps changing under an
+                        # asynchronous writer
+                        "dispatch_stats": copy.deepcopy(stats),
                     }, ck_meta, writer=writer)
                     # the loop thread's stall: the whole write, or the
                     # snapshot hand-off to the writer (ring-only)
@@ -1535,6 +1709,14 @@ class RedcliffGridRunner:
             # the last generation is durable before results return
             writer.wait()
         resolve(wait=True)
+        stats["precision_eras"][-1]["bf16_launches"] = (
+            _factor_mix.graph_mix_bf16.launches - bf16_t0)
+        # the folded epochs per precision era, for the obs report's cost
+        # rows (labelled when an era is not f32)
+        stats["cost_eras"] = {
+            label: {k: dict(era[k]) for k in ("epochs_by_width",
+                                              "epoch_ms_by_width")}
+            for label, era in eras_acc.items()}
         # a last watermark sample, so fits shorter than a check window
         # still record a measured peak on a card
         if mem_poll:
@@ -1553,10 +1735,22 @@ class RedcliffGridRunner:
         # store (advisory: a store failure never fails the fit)
         if cm_base:
             try:
-                _costmodel.update_store(
-                    cm_base, _costmodel.rows_from_dispatch_stats(
-                        cm_shape_key, stats, precision="f32"),
-                    platform=cm_platform)
+                # one fold per precision era, the compile accumulators
+                # split at a mid-fit demotion
+                compile_keys = ("compiles", "compile_ms", "cache_hits",
+                                "cache_misses")
+                rows = []
+                for label, era in eras_acc.items():
+                    part = {k: stats.get(k, 0) for k in compile_keys}
+                    if demote_compile is not None:
+                        part = ({k: demote_compile.get(k, 0)
+                                 for k in compile_keys}
+                                if label != "f32" else
+                                {k: stats.get(k, 0) - demote_compile.get(k, 0)
+                                 for k in compile_keys})
+                    rows += _costmodel.rows_from_dispatch_stats(
+                        cm_shape_key, {**part, **era}, precision=label)
+                _costmodel.update_store(cm_base, rows, platform=cm_platform)
             except Exception as e:  # noqa: BLE001 — best-effort fold
                 warnings.warn(f"cost-model store fold failed: {e!r}",
                               RuntimeWarning)
@@ -1626,7 +1820,7 @@ class RedcliffGridRunner:
         """One Freeze accept/revert round over every lane: the merged
         candidates go back into the live params (in place); returns
         ``(params, new accepted)``."""
-        with torch.no_grad():
+        with torch.no_grad(), self._ctx():
             candidate, accepted = apply_freeze_lanes(
                 self.model, self.model.config.training_mode, params,
                 accepted)

@@ -131,8 +131,39 @@ class PortUnpickler(pickle.Unpickler):
             f"{sorted(_CONFIG_CLASSES)})")
 
 
-def _loads(data):
-    return PortUnpickler(io.BytesIO(data)).load()
+class Opaque:
+    """What :class:`ReaderUnpickler` makes of a class the port does not
+    unpickle: the pickled arguments and state, kept as data and never
+    run."""
+
+    def __new__(cls, *args, **kwargs):
+        obj = super().__new__(cls)
+        obj.args, obj.state = args, None
+        return obj
+
+    def __init__(self, *args, **kwargs):
+        pass
+
+    def __setstate__(self, state):
+        self.state = state
+
+
+class ReaderUnpickler(PortUnpickler):
+    """:class:`PortUnpickler` for readers that want a checkpoint's plain
+    fields (the obs report's ``dispatch_stats``): a class it would refuse
+    becomes :class:`Opaque`, so a JAX-written grid checkpoint (optax
+    state) reads without importing or running anything of it."""
+
+    def find_class(self, module, name):
+        try:
+            return super().find_class(module, name)
+        except ForbiddenClassError:
+            return Opaque
+
+
+def _loads(data, opaque=False):
+    cls = ReaderUnpickler if opaque else PortUnpickler
+    return cls(io.BytesIO(data)).load()
 
 
 def write_checkpoint(path, obj):
@@ -182,16 +213,17 @@ def write_checkpoint(path, obj):
         raise CheckpointWriteError(path, e) from e
 
 
-def read_checkpoint(path):
+def read_checkpoint(path, opaque=False):
     """Read + verify one checkpoint file. Raises FileNotFoundError if absent,
-    :class:`ForbiddenClassError` for a class the port does not unpickle,
+    :class:`ForbiddenClassError` for a class the port does not unpickle
+    (with ``opaque`` such a class is read as :class:`Opaque` instead),
     :class:`CheckpointCorruptError` on any other validation failure."""
     with open(path, "rb") as f:
         head = f.read(_HEADER.size)
         if head[:4] != MAGIC:
             # legacy headerless pickle: no CRC to check; unpickle IS the test
             try:
-                return _loads(head + f.read())
+                return _loads(head + f.read(), opaque)
             except ForbiddenClassError:
                 raise
             except Exception as e:
@@ -214,7 +246,7 @@ def read_checkpoint(path):
         if zlib.crc32(payload) & 0xFFFFFFFF != crc:
             raise CheckpointCorruptError(f"{path}: CRC mismatch")
         try:
-            return _loads(payload)
+            return _loads(payload, opaque)
         except ForbiddenClassError:
             raise
         except Exception as e:
@@ -236,17 +268,23 @@ def quarantine(path, reason):
     return bad
 
 
-def load_checkpoint(path):
+def load_checkpoint(path, allow_quarantine=True, opaque=False):
     """Load the newest usable generation of ``path`` (``path``, then
     ``path + '.prev'``). Returns ``(obj, source_path)`` or ``(None, None)``
-    when no usable generation exists."""
+    when no usable generation exists. A corrupt generation is moved to
+    ``*.bad`` (when ``allow_quarantine``; a reader passes False and it is
+    skipped with a warning); ``opaque`` as :func:`read_checkpoint`."""
     for cand in (path, path + ".prev"):
         try:
-            return read_checkpoint(cand), cand
+            return read_checkpoint(cand, opaque), cand
         except FileNotFoundError:
             continue
         except CheckpointCorruptError as e:
-            quarantine(cand, str(e))
+            if allow_quarantine:
+                quarantine(cand, str(e))
+            else:
+                warnings.warn(f"corrupt checkpoint {cand}: {e} (skipped)",
+                              RuntimeWarning, stacklevel=2)
     return None, None
 
 

@@ -186,20 +186,26 @@ def guarded_update(grads, loss, apply_fn, numerics_state):
 
 
 def numerics_summary(numerics_state):
-    """The counters as plain Python numbers, with grad-norm mean and std
-    over the applied steps."""
+    """The counters as plain Python numbers (scalars for a trainer's state,
+    lists for the grid's per-lane state), with grad-norm mean and std over
+    the applied steps."""
     host = {k: np.asarray(v) for k, v in numerics_state.items()}
     checked = np.maximum(host["checked"] - host["skipped"], 1)
     mean = host["grad_norm_sum"] / checked
     var = np.maximum(host["grad_norm_sq_sum"] / checked - mean ** 2, 0.0)
+
+    def py(v):
+        v = np.asarray(v)
+        return v.item() if v.ndim == 0 else v.tolist()
+
     return {
-        "skipped": int(host["skipped"]),
-        "consecutive": int(host["consecutive"]),
-        "checked": int(host["checked"]),
-        "grad_norm_last": float(host["grad_norm_last"]),
-        "grad_norm_mean": float(np.float64(mean)),
-        "grad_norm_std": float(np.sqrt(var).astype(np.float64)),
-        "grad_norm_max": float(host["grad_norm_max"]),
+        "skipped": py(host["skipped"]),
+        "consecutive": py(host["consecutive"]),
+        "checked": py(host["checked"]),
+        "grad_norm_last": py(host["grad_norm_last"].astype(np.float64)),
+        "grad_norm_mean": py(np.asarray(mean).astype(np.float64)),
+        "grad_norm_std": py(np.sqrt(var).astype(np.float64)),
+        "grad_norm_max": py(host["grad_norm_max"].astype(np.float64)),
     }
 
 

@@ -89,8 +89,7 @@ class StreamEngine:
         self.window_len = int(cfg.embed_lag)
         self.params = params
         self.platform = platform_label(self.device)
-        self.precision_mode = check_precision_mode(precision_mode,
-                                                   serve=True)
+        self.precision_mode = check_precision_mode(precision_mode)
         self.demoted = False
         self._matmul = resolve_matmul_precision(self.precision_mode)
 

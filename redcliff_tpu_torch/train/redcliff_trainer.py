@@ -63,9 +63,22 @@ the checkpoint writer's); the constructor tunes both kernels' launch plans
 at the fit's shapes (``ops/autotune.py tune_for_model``; a no-op without a
 card or a store) and the fit logs the drained ``autotune`` events.
 
-Not ported (ROADMAP): ``factor_mesh``, ``matmul_precision`` and mixed
-precision, which raise ``NotImplementedError``. The factors are cMLPs or
-cLSTMs (a cLSTM fit takes no prox, as in the JAX package).
+Mixed precision, as the JAX trainer runs it (``redcliff_tpu/train/
+redcliff_trainer.py:199-226,443-448,522-523,655-670,951-953``):
+``precision_mode="mixed"`` (or ``matmul_precision="bfloat16"``) runs each
+step's loss and gradients, the validation loss, the confusion forward and
+the Freeze step inside a ``"bfloat16"`` matmul context
+(``utils/precision.py``: bf16-rounded operands, float32 sums, JAX's
+transpose rule for the gradients; the factor mix's bf16 training form on
+the card). A mixed fit whose numerics sentinel rolls back demotes to f32
+(a ``precision`` event, ``kind="demote"``); the demotion is written into
+``trainer_checkpoint.pkl`` as ``precision_demoted`` and a resume honours
+it (``kind="resume_demoted"``). Params, Adam state and the prox stay
+float32 in both modes.
+
+Not ported (ROADMAP): ``factor_mesh``, which raises
+``NotImplementedError``. The factors are cMLPs or cLSTMs (a cLSTM fit
+takes no prox, as in the JAX package).
 """
 from __future__ import annotations
 
@@ -96,8 +109,11 @@ from redcliff_tpu_torch.train.live import (LiveTreeMixin, assign_tree,
                                            copy_tree)
 from redcliff_tpu_torch.train.tracking import GCProgressTracker
 from redcliff_tpu_torch.utils.misc import factor_alignment_order
-from redcliff_tpu_torch.utils.precision import (check_precision_mode,
-                                                resolve_device)
+from redcliff_tpu_torch.utils.precision import (check_matmul_precision,
+                                                check_precision_mode,
+                                                matmul_precision_ctx,
+                                                resolve_device,
+                                                resolve_matmul_precision)
 
 __all__ = ["RedcliffTrainConfig", "RedcliffTrainer", "RedcliffFitResult"]
 
@@ -131,9 +147,12 @@ class RedcliffTrainConfig:
     # window (epoch 1)
     profile_dir: str | None = None
     profile_window: str | None = None
-    # not ported: must stay None
+    # the expert matmul-precision knob: None or "bfloat16" (wins over
+    # precision_mode when set; other JAX strings have no port and raise)
     matmul_precision: str | None = None
-    # "f32" only ("mixed" raises)
+    # "f32" (default: no precision context at all) or "mixed" (bf16
+    # contractions, f32 params and reductions; a sentinel rollback demotes
+    # the fit to f32 and the demotion persists in the checkpoint)
     precision_mode: str = "f32"
     # GISTA prox after each factor step: "GL" | "GSGL" | "H" | None
     prox_penalty: str | None = None
@@ -172,10 +191,7 @@ class RedcliffTrainConfig:
 
     def __post_init__(self):
         check_precision_mode(self.precision_mode)
-        if self.matmul_precision is not None:
-            raise NotImplementedError(
-                "matmul_precision is not ported yet (ROADMAP queue 1, item "
-                "18, mixed precision of the training path)")
+        check_matmul_precision(self.matmul_precision)
         if self.prox_penalty not in (None, "GL", "GSGL", "H"):
             raise ValueError(
                 f"prox_penalty must be one of None/'GL'/'GSGL'/'H', got "
@@ -207,12 +223,31 @@ class RedcliffTrainer(LiveTreeMixin):
         self.config = config
         self.device = resolve_device(device)
         self._guard = config.numerics is not None and config.numerics.enabled
+        # the effective matmul precision: the expert knob wins, else
+        # precision_mode resolves it. "mixed" fits are demotable: a
+        # sentinel rollback runs every later step at f32 and the demotion
+        # persists in the checkpoint
+        self._precision = resolve_matmul_precision(config.precision_mode,
+                                                   config.matmul_precision)
+        self._demotable = (config.precision_mode == "mixed"
+                           and self._guard and self._precision is not None)
+        self._demoted = False
         # both kernels' launch plans tuned at this fit's shapes, before any
         # launch (a no-op without a card, a store or with
         # REDCLIFF_AUTOTUNE=0); the records land as `autotune` events
         _autotune.tune_for_model(model.config, config.batch_size,
                                  prox_penalty=config.prox_penalty,
                                  device=self.device)
+
+    def _demote_to_f32(self):
+        """Run every later step at f32 (the sentinel-triggered precision
+        demotion). Idempotent; the caller logs the ``precision`` event."""
+        self._precision = None
+        self._demoted = True
+
+    def _ctx(self):
+        """The fit's matmul-precision context (none at f32)."""
+        return matmul_precision_ctx(self._precision)
 
     # ------------------------------------------------------------------ phases
     def phase_for_epoch(self, epoch):
@@ -238,8 +273,9 @@ class RedcliffTrainer(LiveTreeMixin):
         ``(combo, parts, nstate, applied)``."""
         tc = self.config
         leaves = tree_leaves(live)
-        combo, parts = self.model.loss_for_phase(live, X, Y, phase)
-        grads = torch.autograd.grad(combo, leaves, allow_unused=True)
+        with self._ctx():
+            combo, parts = self.model.loss_for_phase(live, X, Y, phase)
+            grads = torch.autograd.grad(combo, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for g, p in zip(grads, leaves)]
 
@@ -383,6 +419,11 @@ class RedcliffTrainer(LiveTreeMixin):
             if ck.get("rng_state") is not None:
                 rng.bit_generator.state = ck["rng_state"]
             prior_log = list(ck.get("epoch_log", []))
+            if ck.get("precision_demoted") and self._demotable \
+                    and not self._demoted:
+                # the checkpointed fit already demoted to f32: a resume
+                # never silently re-promotes to bf16
+                self._demote_to_f32()
 
         # the quality observatory (obs/quality.py): one graph-summary
         # readout of the live params on the check cadence, on the first
@@ -424,6 +465,10 @@ class RedcliffTrainer(LiveTreeMixin):
             # the launch-plan searches/lookups of the constructor
             for atrec in _autotune.drain_records():
                 logger.log("autotune", **atrec)
+            if self._demoted and iter_start > 0:
+                logger.log("precision", kind="resume_demoted",
+                           epoch=iter_start - 1, mode_from="mixed",
+                           mode_to="f32")
             # the predicted footprint from shapes: live params + best and
             # accepted copies + both Adams' two moments + the datasets
             mp = _obsmem.trainer_footprint(live, (live, live),
@@ -541,6 +586,16 @@ class RedcliffTrainer(LiveTreeMixin):
                             learning_rates=numerics.current_learning_rates(
                                 (optA.state_dict(), optB.state_dict())),
                             rollbacks=monitor.rollbacks)
+                        if self._demotable and not self._demoted:
+                            # the precision cliff: a mixed fit whose
+                            # sentinel just rolled back demotes to f32; the
+                            # restored snapshot continues under f32 steps
+                            # and every later checkpoint records it
+                            self._demote_to_f32()
+                            logger.log("precision", kind="demote", epoch=it,
+                                       cause=action.cause,
+                                       mode_from="mixed", mode_to="f32",
+                                       rollbacks=monitor.rollbacks, **nhost)
                         rolled_back = True
                     elif action.kind == "abort":
                         aborted = action.cause
@@ -667,7 +722,7 @@ class RedcliffTrainer(LiveTreeMixin):
     def _apply_freeze(self, live, accepted):
         """Accept/revert per-factor updates: the merged candidate goes back
         into the live leaves; returns the new accepted tree."""
-        with torch.no_grad():
+        with torch.no_grad(), self._ctx():
             candidate, accepted = apply_freeze(
                 self.model, self.model.config.training_mode, live, accepted)
         assign_tree(live, candidate)
@@ -677,7 +732,7 @@ class RedcliffTrainer(LiveTreeMixin):
         cfg = self.model.config
         S = cfg.num_supervised_factors
         W = cfg.max_lag
-        with torch.no_grad():
+        with torch.no_grad(), self._ctx():
             preds = self.model.forward(params, X[:, :W, :])[3][0]
         preds = preds.cpu().numpy()
         Y = Y.cpu().numpy()
@@ -746,7 +801,7 @@ class RedcliffTrainer(LiveTreeMixin):
                     if cfg.num_supervised_factors > 0
                     and histories is not None else None)
         for X, Y in self._batches(val_ds):
-            with torch.no_grad():
+            with torch.no_grad(), self._ctx():
                 combo, parts = self.model.loss_for_phase(params, X, Y,
                                                          "combined")
             names = list(parts)
@@ -778,12 +833,13 @@ class RedcliffTrainer(LiveTreeMixin):
         trees, which the next step updates in place, and deep copies of the
         host state the loop keeps appending to) and the writer thread
         writes the same files from the snapshot."""
+        demoted = self._demoted
         if writer is None:
             self._write_checkpoint_files(
                 save_dir, it, best_params, accepted, live,
                 optA.state_dict(), optB.state_dict(), histories, best_it,
                 best_loss, tracker.as_dict(), dict(tracker.__dict__),
-                aligned, rng.bit_generator.state, epoch_log)
+                aligned, rng.bit_generator.state, epoch_log, demoted)
             return
         trees, ready = durable_ckpt.host_snapshot(
             (best_params, accepted, live, optA.state_dict(),
@@ -796,14 +852,15 @@ class RedcliffTrainer(LiveTreeMixin):
             ready()
             self._write_checkpoint_files(
                 save_dir, it, *trees, host[0], best_it,
-                best_loss, host[1], host[2], aligned, host[3], host[4])
+                best_loss, host[1], host[2], aligned, host[3], host[4],
+                demoted)
         writer.submit(write)
 
     def _write_checkpoint_files(self, save_dir, it, best_params, accepted,
                                 live, optA_state, optB_state, histories,
                                 best_it, best_loss, tracker_meta,
                                 tracker_state, aligned, rng_state,
-                                epoch_log):
+                                epoch_log, demoted=False):
         os.makedirs(save_dir, exist_ok=True)
         durable_ckpt.write_checkpoint(
             os.path.join(save_dir, "final_best_model.bin"),
@@ -827,6 +884,9 @@ class RedcliffTrainer(LiveTreeMixin):
                 "best_it": best_it,
                 "best_loss": float(best_loss),
                 "aligned": aligned,
+                # the sentinel's precision demotion (mixed -> f32): a
+                # resume runs its steps at f32 from the first one
+                "precision_demoted": demoted,
                 "tracker_state": tracker_state,
                 "rng_state": rng_state,
                 "epoch_log": epoch_log,

@@ -57,8 +57,15 @@ synchronous ones), and with ``REDCLIFF_WATCHDOG`` set a liveness watchdog
 (``runtime/watchdog.py``) watches the ``epoch_engine`` and ``batch_loop``
 heartbeats the loop stamps.
 
-Not ported (ROADMAP): mixed precision; ``precision_mode="mixed"`` raises
-``NotImplementedError``.
+Mixed precision, as the JAX trainer runs it (``redcliff_tpu/train/
+trainer.py:86-95,151-163,305-309,469-478,621-622``): under
+``precision_mode="mixed"`` each step's loss and gradients and the
+validation loss run inside a ``"bfloat16"`` matmul context
+(``utils/precision.py``: bf16-rounded operands, float32 sums, JAX's
+transpose rule for the gradients); a sentinel rollback demotes the fit to
+f32 (a ``precision`` event, ``kind="demote"``), ``precision_demoted`` is
+written into ``trainer_checkpoint.pkl`` and a resume runs at f32 from its
+first step. Params, Adam state and the prox stay float32.
 """
 from __future__ import annotations
 
@@ -88,6 +95,8 @@ from redcliff_tpu_torch.train.live import (LiveTreeMixin, assign_tree,
                                            copy_tree)
 from redcliff_tpu_torch.train.tracking import GCProgressTracker
 from redcliff_tpu_torch.utils.precision import (check_precision_mode,
+                                                matmul_precision_ctx,
+                                                resolve_matmul_precision,
                                                 resolve_device)
 
 __all__ = ["TrainConfig", "Trainer", "FitResult", "save_model", "load_model",
@@ -126,7 +135,9 @@ class TrainConfig:
     compile_cache_dir: str | None = None
     # None disables the guard and the divergence monitor
     numerics: NumericsPolicy | None = field(default_factory=NumericsPolicy)
-    # "f32" only ("mixed" raises)
+    # "f32" (default: no precision context) or "mixed" (bf16
+    # contractions; a sentinel rollback demotes the fit to f32 and the
+    # demotion persists in the checkpoint)
     precision_mode: str = "f32"
 
     def __post_init__(self):
@@ -186,6 +197,17 @@ class Trainer(LiveTreeMixin):
         self.device = resolve_device(device)
         self.wants_rng = bool(getattr(model, "wants_rng", False))
         self._guard = config.numerics is not None and config.numerics.enabled
+        # the effective matmul precision; "mixed" fits are demotable: a
+        # sentinel rollback runs every later step at f32
+        self._precision = resolve_matmul_precision(config.precision_mode)
+        self._demotable = (config.precision_mode == "mixed" and self._guard
+                           and self._precision is not None)
+        self._demoted = False
+
+    def _demote_to_f32(self):
+        """Run every later step at f32 (the sentinel-triggered demotion)."""
+        self._precision = None
+        self._demoted = True
 
     def make_optimizer(self, live):
         """Adam over every live leaf, as optax's adam."""
@@ -214,8 +236,9 @@ class Trainer(LiveTreeMixin):
         nstate, applied)``."""
         cfg = self.config
         leaves = tree_leaves(live)
-        combo, parts = self.loss(live, X, Y, rng)
-        grads = torch.autograd.grad(combo, leaves, allow_unused=True)
+        with matmul_precision_ctx(self._precision):
+            combo, parts = self.loss(live, X, Y, rng)
+            grads = torch.autograd.grad(combo, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for g, p in zip(grads, leaves)]
 
@@ -247,7 +270,7 @@ class Trainer(LiveTreeMixin):
         combo_sum = 0.0
         n = 0
         for X, Y in self._batches(val_ds):
-            with torch.no_grad():
+            with torch.no_grad(), matmul_precision_ctx(self._precision):
                 combo, parts = self.loss(params, X, Y)
             names = list(parts)
             host = torch.stack([combo] + [parts[k] for k in names]).tolist()
@@ -346,6 +369,11 @@ class Trainer(LiveTreeMixin):
             if step_rng is not None:
                 step_rng.set_state(torch.from_numpy(ck["step_rng_state"]))
             prior_log = list(ck.get("epoch_log", []))
+            if ck.get("precision_demoted") and self._demotable \
+                    and not self._demoted:
+                # the checkpointed fit demoted mixed -> f32: a resume stays
+                # f32 (never silently re-promotes)
+                self._demote_to_f32()
 
         # the quality observatory rides the host twin of the family's GC
         # readout (entropy None: no factor scores on this path); built
@@ -494,6 +522,15 @@ class Trainer(LiveTreeMixin):
                             learning_rates=numerics.current_learning_rates(
                                 opt.state_dict()),
                             rollbacks=monitor.rollbacks)
+                        if self._demotable and not self._demoted:
+                            # the precision cliff: a mixed rollback demotes
+                            # the fit to f32
+                            self._demote_to_f32()
+                            logger.log("precision", kind="demote",
+                                       epoch=it, cause=action.cause,
+                                       mode_from="mixed", mode_to="f32",
+                                       rollbacks=monitor.rollbacks,
+                                       **nhost)
                         continue
 
                     if criteria < best_loss:
@@ -574,11 +611,12 @@ class Trainer(LiveTreeMixin):
                          else dict(tracker.__dict__))
         step_state = (None if step_rng is None
                       else step_rng.get_state().numpy())
+        demoted = self._demoted
         if writer is None:
             self._write_checkpoint_files(
                 save_dir, it, best_params, opt.state_dict(), live,
                 histories, best_it, best_loss, tracker_meta, tracker_state,
-                rng.bit_generator.state, step_state, epoch_log)
+                rng.bit_generator.state, step_state, epoch_log, demoted)
             return
         trees, ready = durable_ckpt.host_snapshot(
             (best_params, opt.state_dict(), live))
@@ -589,13 +627,14 @@ class Trainer(LiveTreeMixin):
         def write():
             ready()
             self._write_checkpoint_files(
-                save_dir, it, *trees, host[0], best_it, best_loss, *host[1:])
+                save_dir, it, *trees, host[0], best_it, best_loss, *host[1:],
+                demoted)
         writer.submit(write)
 
     def _write_checkpoint_files(self, save_dir, it, best_params, opt_state,
                                 live, histories, best_it, best_loss,
                                 tracker_meta, tracker_state, rng_state,
-                                step_state, epoch_log):
+                                step_state, epoch_log, demoted=False):
         save_model(save_dir, self.model, best_params)
         meta = {"epoch": it, "best_loss": float(best_loss),
                 "best_it": best_it, **histories}
@@ -618,4 +657,6 @@ class Trainer(LiveTreeMixin):
                 "rng_state": rng_state,
                 "step_rng_state": step_state,
                 "epoch_log": epoch_log,
+                # the sentinel's precision demotion (mixed -> f32)
+                "precision_demoted": demoted,
             })

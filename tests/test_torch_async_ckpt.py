@@ -219,8 +219,11 @@ def _grid(tmp_path, name, max_iter=None, **knobs):
     ck = str(tmp_path / name)
     res = runner.fit(2, ds, ds, max_iter=max_iter, checkpoint_dir=ck,
                      checkpoint_every=1)
-    return runner, res, tck.read_checkpoint(
-        os.path.join(ck, runner.CHECKPOINT_NAME))
+    state = tck.read_checkpoint(os.path.join(ck, runner.CHECKPOINT_NAME))
+    # the fit state; the checkpoint also carries the run's dispatch_stats
+    # for the obs report, whose wall-clock timings differ run to run
+    assert isinstance(state.pop("dispatch_stats"), dict)
+    return runner, res, state
 
 
 def _results_equal(a, b):

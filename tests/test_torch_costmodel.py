@@ -147,15 +147,26 @@ def test_store_path_resolution_matches_jax(tmp_path, monkeypatch):
     assert tcm.update_store(None, [], "cuda") is None
 
 
-def test_platform_label_and_report_entry_points():
+def test_platform_label_and_report_entry_points(tmp_path):
     assert tcm.platform_label(torch.device("cuda", 0)) == "cuda"
     assert tcm.platform_label("cuda:1") == "cuda"
     assert tcm.platform_label(torch.device("cpu")) == "torch_cpu"
     assert tcm.platform_label("cpu") not in ("cpu", "gpu", "tpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tcm.fit_from_report({"cost_table": []})
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tcm.update_store_from_report("/nowhere", {}, "cuda")
+    # the report-fed entry points are ported (obs/report.py): a report's
+    # cost table trains the model in memory and folds into a store under
+    # the port's labels; a row's own precision label wins
+    report = {"cost_table": [
+        {"shape": SHAPE, "g_bucket": 8, "epochs": 4,
+         "total_epoch_ms": 40.0, "compiles": 1, "compile_ms": 5.0},
+        {"shape": SHAPE, "g_bucket": 8, "epochs": 2,
+         "total_epoch_ms": 60.0, "precision": "mixed"}]}
+    m = tcm.fit_from_report(report, platform="cuda")
+    assert m.predict_epoch_ms(SHAPE, 8, "cuda") == 10.0
+    assert m.predict_epoch_ms(SHAPE, 8, "cuda", precision="mixed") == 30.0
+    assert tcm.fit_from_report({"cost_table": []}).runs == 0
+    path = tcm.update_store_from_report(str(tmp_path), report, "cuda")
+    assert path and tcm.load(str(tmp_path)).predict_epoch_ms(
+        SHAPE, 8, "cuda") == 10.0
 
 
 def test_grid_scores_logs_and_folds_into_the_store(tmp_path, monkeypatch):

@@ -421,8 +421,12 @@ def test_what_is_not_ported_raises(tmp_path, monkeypatch):
     pred = tpolicy.PredictiveSchedulingPolicy()
     assert pred.initial_width(27) == tpolicy.GridSchedulingPolicy() \
         .initial_width(27) and pred.take_decision() is None
-    with pytest.raises(NotImplementedError):
-        tgrid.GridSpec([{}], precision_mode="mixed")
+    # mixed precision is ported (tests/test_torch_mixed.py); an unknown
+    # mode still raises
+    assert tgrid.GridSpec([{}], precision_mode="mixed").precision_mode \
+        == "mixed"
+    with pytest.raises(ValueError, match="precision_mode"):
+        tgrid.GridSpec([{}], precision_mode="fp8")
     with pytest.raises(NotImplementedError):
         tdriver.run_coefficient_grid(tm, tc, [{}, {}], ds, ds,
                                      device="cpu", mesh="auto")

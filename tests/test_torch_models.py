@@ -298,9 +298,11 @@ def test_config_validation_and_unported_parts_raise():
     # as in the JAX package
     with pytest.raises(ValueError, match="cMLP factor"):
         model.apply_prox(params, 1.0, 0.1)
+    # mixed precision is ported everywhere: an unknown mode still raises
     from redcliff_tpu_torch.utils.precision import check_precision_mode
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        check_precision_mode("mixed")
+    assert check_precision_mode("mixed") == "mixed"
+    with pytest.raises(ValueError, match="precision_mode"):
+        check_precision_mode("fp8")
 
 
 # ---------------------------------------------------------------- interop

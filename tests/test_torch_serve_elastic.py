@@ -410,17 +410,22 @@ def test_mixed_against_f32_and_jax(embedder, store):
 
 
 def test_mixed_is_serve_only(monkeypatch):
-    """The trainers and the grid still refuse "mixed", citing item 18;
-    the env knob reaches the service."""
+    """"mixed" is no longer serve-only: the trainers and the grid take it
+    (tests/test_torch_mixed.py fits them), an unknown ``matmul_precision``
+    raises at config time naming it; the env knob reaches the service."""
     from redcliff_tpu_torch.parallel import grid as tgrid
     from redcliff_tpu_torch.train import redcliff_trainer as trt
     from redcliff_tpu_torch.train import trainer as ttr
+    from redcliff_tpu_torch.utils import precision
 
     for make in (lambda: trt.RedcliffTrainConfig(precision_mode="mixed"),
                  lambda: ttr.TrainConfig(precision_mode="mixed"),
                  lambda: tgrid.GridSpec([{}], precision_mode="mixed")):
-        with pytest.raises(NotImplementedError, match="item 18"):
-            make()
+        assert make().precision_mode == "mixed"
+    with pytest.raises(ValueError, match="'tf32'"):
+        trt.RedcliffTrainConfig(matmul_precision="tf32")
+    with pytest.raises(ValueError, match="'tf32'"):
+        precision.matmul_precision_ctx("tf32")
     monkeypatch.setenv("REDCLIFF_SERVE_PRECISION", "mixed")
     assert _port(capacity=2).engine.precision_mode == "mixed"
 
@@ -792,8 +797,14 @@ def test_bf16_kernel_matches_plain_on_card():
         FM.graph_mix_bf16(w, g.float())
     with pytest.raises(ValueError):
         FM.graph_mix_bf16(w.t(), g)
-    with pytest.raises(NotImplementedError, match="item 18"):
-        FM.graph_mix_bf16(w.clone().requires_grad_(True), g)
+    # the bf16 form takes a gradient now: JAX's bf16 backward, the
+    # transposed contraction on the bf16-rounded cotangent and operand
+    wg = w.float().requires_grad_(True)
+    out = FM.graph_mix_bf16(wg, g)
+    cot = torch.randn_like(out)
+    dw, = torch.autograd.grad(out, (wg,), cot)
+    want = torch.einsum("sij,kij->sk", cot.bfloat16().float(), g.float())
+    torch.testing.assert_close(dw, want, rtol=1e-5, atol=1e-5)
 
 
 # ------------------------------------------------------------- telemetry

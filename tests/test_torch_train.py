@@ -672,8 +672,12 @@ def test_resume_is_bit_identical_to_uninterrupted_fit(tmp_path):
 
 def test_unported_knobs_raise_and_default_device_is_cuda(monkeypatch,
                                                           tmp_path):
-    with pytest.raises(NotImplementedError, match="matmul_precision"):
-        ttr.RedcliffTrainConfig(matmul_precision="bfloat16")
+    # the expert precision knob takes bf16 (mixed precision is ported);
+    # a JAX precision string with no port raises at config time, naming it
+    assert ttr.RedcliffTrainConfig(
+        matmul_precision="bfloat16").matmul_precision == "bfloat16"
+    with pytest.raises(ValueError, match="'highest'"):
+        ttr.RedcliffTrainConfig(matmul_precision="highest")
     # the telemetry knobs are ported: they construct and resolve a window
     from redcliff_tpu_torch.obs import profiling
 
@@ -682,8 +686,10 @@ def test_unported_knobs_raise_and_default_device_is_cuda(monkeypatch,
                                  compile_cache_dir=str(tmp_path))
     win = profiling.window_for(tc, max_iter=3, device="cpu")
     assert (win.first_epoch, win.last_epoch, win.cuda) == (1, 1, False)
-    with pytest.raises(NotImplementedError, match="mixed"):
-        ttr.RedcliffTrainConfig(precision_mode="mixed")
+    assert ttr.RedcliffTrainConfig(
+        precision_mode="mixed").precision_mode == "mixed"
+    with pytest.raises(ValueError, match="precision_mode"):
+        ttr.RedcliffTrainConfig(precision_mode="fp8")
     with pytest.raises(ValueError, match="prox_penalty"):
         ttr.RedcliffTrainConfig(prox_penalty="L1")
     _, tm, jp = _slice_models()

@@ -316,8 +316,10 @@ def test_unported_knobs_raise_and_default_device_is_cuda(monkeypatch,
                          compile_cache_dir=str(tmp_path))
     win = profiling.window_for(tc, max_iter=3, device="cpu")
     assert (win.first_epoch, win.last_epoch) == (0, 1)
-    with pytest.raises(NotImplementedError, match="mixed"):
-        ttr.TrainConfig(precision_mode="mixed")
+    # mixed precision is ported; an unknown mode raises
+    assert ttr.TrainConfig(precision_mode="mixed").precision_mode == "mixed"
+    with pytest.raises(ValueError, match="precision_mode"):
+        ttr.TrainConfig(precision_mode="fp8")
     # the async checkpoint writer is ported: the JAX knob and its default
     assert ttr.TrainConfig().async_checkpointing \
         is jtr.TrainConfig().async_checkpointing is True
