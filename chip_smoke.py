@@ -271,6 +271,28 @@ Phases, one JSON line each:
    scored epochs; ``python -m redcliff_tpu_torch.obs.schema --check``;
    exit 2 with one line on a missing dir and for ``regress`` without a
    trajectory.
+29. fleet: the fleet sweep service through its CLI. The train phase's
+   D4IC-shaped windows as an npz; three tenants submit the published
+   grid's points 0-8, 9-17 and 18-26 with one spec (the train phase's
+   model and knobs, GL prox λ=4, data kind ``npz``, 4 epochs) through
+   ``python -m redcliff_tpu_torch.fleet submit``; ``work --drain`` (a
+   subprocess, no ``--device``: the child's default, the card) plans ONE
+   batch of the 27 points at width 32 and runs it under the crash-loop
+   supervisor as a ``fleet.run_batch`` child with ``REDCLIFF_PROFILE``
+   over a replayed epoch. Checks: every request ``done`` with 9 points and
+   a stream whose last row per point is final (or an early-retired
+   quarantine), ``failures.json`` attributing each quarantined point to
+   its owner, the child's records valid, and its Chrome trace showing both
+   kernels executing on the card as often as the window's forwards and
+   factor steps. Then the same requests on a second root: worker 1 (a 3 s
+   lease, its own process group) is SIGKILLed once the run dir holds a
+   checkpoint, worker 2's ``--drain`` reclaims and resumes it, and each
+   request's results are held to the first root's (bitwise, or the largest
+   difference at the grid bars with equal decisions). Then ``obs report``
+   of the root (three tenants) and of the batch, ``watch --once --json``
+   and ``trace --fleet -o`` as subprocesses. One line: the card, each
+   leg's wall, the child's startup and fit wall, the replayed epoch's ms,
+   the batch's width, the window's executions.
 
 Launch counts are reset just before each main path (serve, train, grid,
 each grid_stream fit, grid_durable, array_task, eval, each baseline task
@@ -279,7 +301,10 @@ accuracy_d4ic, discovery, analysis, ts_transformer, each telemetry fit,
 each runtime fit, each mixed_train fit) and read just after; the bf16
 form of the factor mix has its own count (``graph_mix_bf16.launches``,
 the kernels line's ``factor_mix_bf16``, serve and training alike);
-the kernel-phase launches do not count. A count is executions on the
+the kernel-phase launches do not count. The fleet path's run_batch child
+is another process: its counts are the kernels' executions in the
+child's ``torch.profiler`` trace over the window (a replayed epoch). A
+count is executions on the
 device: a launch captured into a CUDA graph counts at each replay of the
 graph (and the warm-up step before each capture ran and counts). Then a
 ``kernels`` line, the ``nvidia-smi`` name/power line, and as the last line
@@ -6444,6 +6469,353 @@ def phase_obs_cli(torch, telemetry_root, mixed):
     return out
 
 
+# the fleet phase: three tenants' requests over the published grid's 27
+# points (9 each) under one spec — the train phase's model and knobs, its
+# D4IC-shaped windows as an npz, the grid phase's depth — merged by the
+# planner into one batch at width 32 and fitted by a run_batch child
+FLEET_TENANTS = ("tenant-a", "tenant-b", "tenant-c")
+FLEET_PER_TENANT = 9
+FLEET_WIDTH = 32
+# the profiler window: epochs 0-2 capture their phases' programs, epoch 3
+# replays the combined ones
+FLEET_WINDOW = 3
+# the killed worker's lease: short, so the reclaim waits seconds
+FLEET_LEASE_S = 3.0
+FLEET_TIMEOUT_S = 400
+FLEET_RESULT_KEYS = ("best_criteria", "best_epoch", "val_history", "active",
+                     "failures")
+
+
+def _fleet_cli(argv, env, timeout=FLEET_TIMEOUT_S):
+    """``python -m redcliff_tpu_torch.fleet <argv>`` as a user runs it;
+    a non-zero exit fails the phase."""
+    r = subprocess.run([sys.executable, "-m", "redcliff_tpu_torch.fleet",
+                        *argv], cwd=HERE, env=env, capture_output=True,
+                       text=True, timeout=timeout)
+    _require(r.returncode == 0,
+             f"fleet {argv[0]}: exit {r.returncode}: {r.stderr[-3000:]}")
+    return r
+
+
+def _fleet_submit(root, spec_file, env):
+    """The three tenants' requests, points 0-8, 9-17 and 18-26."""
+    points, _ = _grid_points()
+    rids = {}
+    for i, tenant in enumerate(FLEET_TENANTS):
+        pts = points[i * FLEET_PER_TENANT:(i + 1) * FLEET_PER_TENANT]
+        r = _fleet_cli(["submit", "--root", root, "--spec-file", spec_file,
+                        "--tenant", tenant, "--points", json.dumps(pts)],
+                       env)
+        rids[tenant] = r.stdout.split()[-1]
+    return rids
+
+
+def _fleet_settled(root, rids):
+    """Every request ``done``; their result records, by tenant."""
+    from redcliff_tpu_torch.fleet.queue import FleetQueue
+
+    q = FleetQueue(root, create=False)
+    states = {t: q.terminal_state(rid) for t, rid in rids.items()}
+    _require(all(s == "done" for s in states.values()),
+             f"fleet {root}: request states {states}")
+    return {t: q.result(rid)["result"] for t, rid in rids.items()}
+
+
+def _fleet_batch(root):
+    """The root's one batch: its ``batch_start`` event and run dir."""
+    from redcliff_tpu_torch.fleet.queue import FleetQueue
+
+    recs = _records(root)
+    starts = [r for r in recs if r.get("event") == "fleet"
+              and r.get("kind") == "batch_start"]
+    _require(len({s["batch_id"] for s in starts}) == 1,
+             f"fleet {root}: batches {[s['batch_id'] for s in starts]}")
+    return recs, starts[0], FleetQueue(root, create=False).batch_dir(
+        starts[0]["batch_id"])
+
+
+def _fleet_result_diff(np, a, b):
+    """Largest abs difference of two result records' numbers (None where
+    either is None), and whether they are equal as written."""
+    equal = all(a[k] == b[k] for k in FLEET_RESULT_KEYS)
+    diffs = [0.0]
+    for k in ("best_criteria", "val_history"):
+        x = np.array(a[k], dtype=np.float64)
+        y = np.array(b[k], dtype=np.float64)
+        if x.shape == y.shape and x.size:
+            both = np.isfinite(x) & np.isfinite(y)
+            if both.any():
+                diffs.append(float(np.abs(x[both] - y[both]).max()))
+    return equal, max(diffs)
+
+
+def fleet_checks(root, device=None):
+    """The fleet phase's legs (see :func:`phase_fleet`); ``device`` is
+    handed to the workers (``work --device``; None: the child's default,
+    ``cuda``). Returns the phase's readings; raises on a failed check."""
+    import glob
+    import math
+    import signal
+
+    import numpy as np
+
+    from redcliff_tpu_torch.fleet.queue import FleetQueue
+    from redcliff_tpu_torch.obs import schema
+    from redcliff_tpu_torch.obs.trace_export import validate_trace
+
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    dev = ["--device", device] if device else []
+    env = dict(os.environ, PYTHONPATH=HERE,
+               REDCLIFF_COST_MODEL_DIR=os.path.join(root, "cost"))
+    for k in ("REDCLIFF_PROFILE", "REDCLIFF_FAULT_INJECT",
+              "REDCLIFF_FLEET_PACKING", "REDCLIFF_PREDICTIVE"):
+        env.pop(k, None)
+    out = {"tenants": list(FLEET_TENANTS), "walls_s": {}}
+
+    # ---- 1. submit: the train phase's windows as an npz, one spec
+    train_ds, val_ds = _train_data(np)
+    npz = os.path.join(root, "d4ic_windows.npz")
+    np.savez(npz, X=train_ds.X, Y=train_ds.Y, X_val=val_ds.X,
+             Y_val=val_ds.Y)
+    spec = {"model": "RedcliffSCMLP",
+            "model_config": json.loads(json.dumps(TRAIN_CONFIG)),
+            "train_config": dict(TRAIN_KNOBS),
+            "data": {"kind": "npz", "path": npz},
+            "epochs": TRAIN_KNOBS["max_iter"]}
+    spec_file = os.path.join(root, "spec.json")
+    with open(spec_file, "w") as f:
+        json.dump(spec, f)
+    root1 = os.path.join(root, "fleet")
+    t0 = time.perf_counter()
+    rids = _fleet_submit(root1, spec_file, env)
+    out["walls_s"]["submit"] = time.perf_counter() - t0
+
+    # ---- 2. drain: the worker plans, merges and supervises the child;
+    # a profiler window over a replayed epoch in the child
+    t0 = time.perf_counter()
+    _fleet_cli(["work", "--root", root1, "--drain", "--lease-s", "60",
+                "--poll-s", "0.2", *dev],
+               dict(env, REDCLIFF_PROFILE=f"epoch:{FLEET_WINDOW}"))
+    out["walls_s"]["drain"] = time.perf_counter() - t0
+    res1 = _fleet_settled(root1, rids)
+    recs, start, run_dir = _fleet_batch(root1)
+    _require(start["n_points"] == len(FLEET_TENANTS) * FLEET_PER_TENANT
+             and start["g_bucket"] == FLEET_WIDTH
+             and sorted(start["requests"]) == sorted(rids.values())
+             and start["tenants"] == sorted(FLEET_TENANTS),
+             f"fleet: the planner's batch {start}")
+    plans = [r for r in recs if r.get("event") == "fleet"
+             and r.get("kind") == "plan"]
+    out["plan"] = {k: plans[0].get(k) for k in
+                   ("queue_depth", "batches", "unschedulable",
+                    "utilization_pct")} if plans else None
+    # per request: 9 points, finite where not quarantined; its stream's
+    # last row per point final unless the lane retired early
+    owner = {}
+    for t, res in res1.items():
+        failed = {f["point"] for f in res["failures"]}
+        _require(res["n_points"] == FLEET_PER_TENANT
+                 and all(c is not None and math.isfinite(c)
+                         for i, c in enumerate(res["best_criteria"])
+                         if i not in failed),
+                 f"fleet {t}: result {res['n_points']} points, criteria "
+                 f"{res['best_criteria']}")
+        with open(os.path.join(run_dir, "results",
+                               f"{rids[t]}.partial.jsonl")) as f:
+            last = {}
+            for line in f:
+                row = json.loads(line)
+                last[row["point"]] = row
+        _require(sorted(last) == list(range(FLEET_PER_TENANT))
+                 and all(r["final"] or r["failed"] for r in last.values()),
+                 f"fleet {t}: streamed rows {last}")
+        for f_ in res["failures"]:
+            owner[f_["merged_point"]] = rids[t]
+    with open(os.path.join(run_dir, "failures.json")) as f:
+        fails = json.load(f)["failures"]
+    _require(all(owner.get(f_["point"]) == f_["request_id"]
+                 and FLEET_TENANTS.index(f_["tenant"])
+                 == f_["point"] // FLEET_PER_TENANT for f_ in fails)
+             and len(fails) == len(owner),
+             f"fleet: failures.json attribution {fails} against {owner}")
+    out["quarantined"] = sorted(f_["point"] for f_ in fails)
+    # the child: its records valid, the batch at width 32, one profiler
+    # window over a replayed epoch whose trace shows both kernels executing
+    # on the card as often as that epoch's forwards and factor steps
+    crecs = _records(run_dir)
+    fs = next(r for r in crecs if r["event"] == "fit_start")
+    fe = [r for r in crecs if r["event"] == "fit_end"][-1]
+    epochs = {r["epoch"]: r for r in crecs if r["event"] == "epoch"}
+    _require(fs.get("grid_width") == FLEET_WIDTH
+             and fs.get("grid_size") == start["n_points"]
+             and sorted(epochs) == list(range(TRAIN_KNOBS["max_iter"])),
+             f"fleet child: fit_start {fs}, epochs {sorted(epochs)}")
+    B = TRAIN_KNOBS["batch_size"]
+    n_tr, n_val = -(-len(train_ds) // B), -(-len(val_ds) // B)
+    phases = epochs[FLEET_WINDOW].get("phases") or ["combined"]
+    want = {"factor_mix": n_tr * len(phases) + n_val,
+            "gl_prox": n_tr * sum(p != "embedder_pretrain" for p in phases)}
+    prof = [r for r in crecs if r["event"] == "profile"]
+    _require(len(prof) == 1 and os.path.isfile(prof[0]["path"])
+             and not prof[0]["truncated"], f"fleet child: profile {prof}")
+    counts, by_launch = _trace_kernels(prof[0]["path"])
+    _require(counts == want,
+             f"fleet child: trace kernel executions {counts} against the "
+             f"window's forwards and factor steps {want}")
+    ledger = [json.loads(line) for line in
+              open(os.path.join(run_dir, "run_ledger.jsonl"))]
+    attempts = [r for r in ledger if r.get("event") == "attempt"]
+    _require(len(attempts) == 1 and attempts[0]["classification"] == "clean"
+             and attempts[0]["cmd"][2] == "redcliff_tpu_torch.fleet.run_batch"
+             and attempts[0]["cmd"][4:] == dev,
+             f"fleet: supervised attempts {attempts}")
+    out["child"] = {
+        "cmd": attempts[0]["cmd"][1:],
+        "startup_s": fs["wall_time"] - attempts[0]["started_at"],
+        "fit_wall_s": fe["wall_time"] - fs["wall_time"],
+        "attempt_s": attempts[0]["duration_s"],
+        "grid_width": fs["grid_width"], "grid_size": fs["grid_size"],
+        "epoch_ms": [epochs[e].get("epoch_ms") for e in sorted(epochs)],
+        "replayed_epoch_ms": epochs[FLEET_WINDOW].get("epoch_ms"),
+        "window": {"epoch": FLEET_WINDOW, "phases": phases,
+                   "executions": counts, "dur_ms": prof[0]["dur_ms"],
+                   "kernels_us_by_launch": by_launch}}
+    out["launches"] = counts
+
+    # ---- 3. kill and reclaim: the same requests on a second root; worker
+    # 1 (a short lease, its own process group) is SIGKILLed with its child
+    # once the run dir holds a checkpoint; worker 2 reclaims and resumes
+    root2 = os.path.join(root, "fleet_kill")
+    rids2 = _fleet_submit(root2, spec_file, env)
+    t0 = time.perf_counter()
+    log1 = open(os.path.join(root, "worker1.err"), "w")
+    w1 = subprocess.Popen(
+        [sys.executable, "-m", "redcliff_tpu_torch.fleet", "work", "--root",
+         root2, "--max-batches", "1", "--lease-s", str(FLEET_LEASE_S),
+         "--poll-s", "0.2", *dev], cwd=HERE, env=env,
+        start_new_session=True, stdout=subprocess.DEVNULL, stderr=log1)
+    try:
+        ckpt = os.path.join(root2, "work", "*", "grid_checkpoint.pkl")
+        deadline = time.time() + FLEET_TIMEOUT_S
+        while not glob.glob(ckpt):
+            _require(time.time() < deadline and w1.poll() is None,
+                     f"fleet worker 1 exited ({w1.poll()}) or timed out "
+                     f"before a checkpoint")
+            time.sleep(0.05)
+        os.killpg(w1.pid, signal.SIGKILL)
+    finally:
+        if w1.poll() is None:
+            os.killpg(w1.pid, signal.SIGKILL)
+        w1.wait()
+        log1.close()
+    out["walls_s"]["to_checkpoint"] = time.perf_counter() - t0
+    q2 = FleetQueue(root2, create=False)
+    leases = [q2.lease_of(rid) for rid in rids2.values()]
+    _require(all(lz is not None and lz.get("batch_id") for lz in leases),
+             f"fleet: the killed worker's leases {leases}")
+    t0 = time.perf_counter()
+    while time.time() < max(float(lz["expires_at"]) for lz in leases):
+        time.sleep(0.05)
+    _fleet_cli(["work", "--root", root2, "--drain", "--lease-s", "60",
+                "--poll-s", "0.2", *dev], env)
+    out["walls_s"]["reclaim_drain"] = time.perf_counter() - t0
+    res2 = _fleet_settled(root2, rids2)
+    recs2, _, run_dir2 = _fleet_batch(root2)
+    _require(any(r.get("kind") == "reclaim" for r in recs2
+                 if r.get("event") == "fleet"),
+             "fleet: no reclaim event on the killed root")
+    crecs2 = _records(run_dir2)
+    starts = [r for r in crecs2 if r["event"] == "fit_start"]
+    fresh = [r for r in starts if r.get("resumed_from_epoch") is None]
+    resumed = [r.get("resumed_from_epoch") for r in starts
+               if r.get("resumed_from_epoch") is not None]
+    _require(len(fresh) == 1 and resumed,
+             f"fleet: the killed batch's fits {starts}")
+    cmp = {}
+    for t in FLEET_TENANTS:
+        equal, diff = _fleet_result_diff(np, res2[t], res1[t])
+        cmp[t] = {"bitwise": equal, "max_abs_diff": diff}
+        if not equal:
+            for k in ("best_epoch", "active", "failures"):
+                _require(res2[t][k] == res1[t][k],
+                         f"fleet {t}: {k} after the reclaim "
+                         f"{res2[t][k]} against {res1[t][k]}")
+            for k in ("best_criteria", "val_history"):
+                a = np.array(res2[t][k], dtype=np.float64)
+                b = np.array(res1[t][k], dtype=np.float64)
+                _require(bool(np.allclose(a, b, equal_nan=True,
+                                          **STREAM_HIST)),
+                         f"fleet {t}: {k} after the reclaim beyond the "
+                         f"grid bars {STREAM_HIST}: {diff}")
+    # the resumed fit's epochs (no profiler): its last is a replay
+    out["reclaim"] = {"resumed_from_epoch": resumed,
+                      "epoch_ms": {r["epoch"]: r.get("epoch_ms")
+                                   for r in crecs2 if r["event"] == "epoch"},
+                      "by_tenant": cmp,
+                      "bitwise": all(c["bitwise"] for c in cmp.values())}
+
+    # ---- 4. read the root: report (root and batch), watch, fleet trace
+    t0 = time.perf_counter()
+    rc, so, se = _obs_cli(["report", root1, "--json"])
+    _require(rc == 0, f"obs report fleet root: exit {rc}: {se[-2000:]}")
+    rep = json.loads(so)
+    slo_tenants = sorted((rep.get("fleet_slo") or {}).get("tenants") or {})
+    _require(slo_tenants == sorted(FLEET_TENANTS)
+             and rep["fleet_containment"]["counts"]["done"] == 3
+             and not rep["read_audit"]["schema_errors"],
+             f"obs report fleet root: tenants {slo_tenants}, containment "
+             f"{rep.get('fleet_containment')}")
+    rc, so, se = _obs_cli(["report", run_dir, "--json"])
+    _require(rc == 0 and sorted(json.loads(so)["tenants"])
+             == sorted(FLEET_TENANTS),
+             f"obs report fleet batch: exit {rc}: {se[-2000:]}")
+    rc, so, se = _obs_cli(["watch", root1, "--once", "--json"])
+    _require(rc == 0, f"obs watch fleet root: exit {rc}: {se[-2000:]}")
+    snap = json.loads(so)
+    bad = schema.validate_record(snap)
+    _require(not bad and snap["fleet"]["counts"]["done"] == 3,
+             f"obs watch fleet root: {bad}, {snap.get('fleet')}")
+    trace = os.path.join(root, "fleet.trace.json")
+    rc, so, se = _obs_cli(["trace", "--fleet", root1, "-o", trace])
+    _require(rc == 0, f"obs trace --fleet: exit {rc}: {se[-2000:]}")
+    with open(trace) as f:
+        tr = json.load(f)
+    bad = validate_trace(tr)
+    _require(not bad, f"obs trace --fleet: {bad[:3]}")
+    out["walls_s"]["obs"] = time.perf_counter() - t0
+    out["obs"] = {"report_tenants": slo_tenants,
+                  "trace_events": len(tr["traceEvents"])}
+    return out
+
+
+def phase_fleet(torch, smi, grid_epoch_ms=None):
+    """The fleet sweep service on the card: three tenants submit the
+    published grid's points through ``python -m redcliff_tpu_torch.fleet
+    submit``; ``work --drain`` merges them into one batch of width 32 and
+    runs it under the crash-loop supervisor as a ``fleet.run_batch``
+    child on the card (both kernels counted in the child's trace over a
+    replayed epoch); a worker SIGKILLed after the first checkpoint is
+    reclaimed and its batch resumed against the uninterrupted one; the
+    observability CLIs read the root. ``grid_epoch_ms``: the grid phase's
+    epoch ms in this run, printed beside the merged grid's."""
+    root = os.path.join(HERE, "build", "chip_smoke", "fleet")
+    t0 = time.perf_counter()
+    out = fleet_checks(root)
+    _emit({"phase": "fleet", "device": torch.cuda.get_device_name(0),
+           "card": smi,
+           "config": "the train phase's D4IC REDCLIFF-S and knobs (GL prox "
+                     "lambda 4) on the published D4IC grid's 27 points, 9 "
+                     "per tenant, data kind npz (2,000 / 500 windows of "
+                     "(17, 10)), the grid phase's depth",
+           "reduced": {"num_pretrain_epochs": "50 -> 1",
+                       "num_acclimation_epochs": "15 -> 1",
+                       "max_iter": "1000 -> 4"},
+           "grid_phase_epoch_ms": grid_epoch_ms,
+           "wall_s": time.perf_counter() - t0, **out})
+    return out["launches"]
+
+
 def _kernel_entry(name, mod, replaces, launches, by_path, max_err, t):
     return {"name": name, "route": "cuda",
             "source": os.path.relpath(mod.KERNEL_SOURCE, HERE),
@@ -6512,6 +6884,7 @@ def main():
     mixed = phase_mixed_train(torch, smi)
     phase_obs_cli(torch, os.path.join(HERE, "build", "chip_smoke",
                                       "telemetry"), mixed)
+    fleet = phase_fleet(torch, smi, [e["ms"] for e in gres.epochs])
     if "--profile" in sys.argv[1:]:
         phase_profile(torch, FM)
         phase_profile_train(torch, FM, PX, tmodel, tparams, train_ds)
@@ -6536,7 +6909,8 @@ def main():
                  "discovery": disc_mix, "analysis": an_mix,
                  "ts_transformer": tst_mix, "telemetry": tel_mix,
                  "runtime": rt_mix,
-                 "mixed_train": mixed["launches"]["factor_mix"]}
+                 "mixed_train": mixed["launches"]["factor_mix"],
+                 "fleet": fleet["factor_mix"]}
     fm = _kernel_entry(
         "factor_mix", FM, "redcliff_tpu/ops/factor_mix.py:58",
         sum(mix_paths.values()), mix_paths, max_err["factor_mix"],
@@ -6553,7 +6927,8 @@ def main():
                   "accuracy_d4ic": d4_prox, "discovery": disc_prox,
                   "analysis": an_prox, "ts_transformer": tst_prox,
                   "telemetry": tel_prox, "runtime": rt_prox,
-                  "mixed_train": mixed["launches"]["gl_prox"]}
+                  "mixed_train": mixed["launches"]["gl_prox"],
+                  "fleet": fleet["gl_prox"]}
     px = _kernel_entry(
         "gl_prox", PX, "redcliff_tpu/ops/pallas_prox.py:47",
         sum(prox_paths.values()), prox_paths, max_err["gl_prox"],

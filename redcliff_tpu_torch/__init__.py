@@ -13,7 +13,9 @@ modules it keeps as its own copies: ``serve/{session,chaos}.py``,
 ``models/{dynotears,pcmci}.py``, ``tidybench/*`` (with the C++ SELVAR
 core, built with g++ into ``build/host_native/`` at first use), and
 ``data/{curation,dream4,lfp}.py`` with the host half of
-``data/synthetic.py``.
+``data/synthetic.py``, and the fleet's control plane: ``fleet/*`` but
+``run_batch.py``, ``runtime/supervisor.py``, ``supervise.py`` and
+``parallel/packing.py``.
 
 Ported so far:
 
@@ -42,7 +44,12 @@ Ported so far:
 - the paper's synSys and D4IC accuracy studies as twins of the JAX
   package's scripts (``experiments/``);
 - the time-series transformer (``models/ts_transformer.py``, plain
-  PyTorch on the card).
+  PyTorch on the card);
+- the fleet sweep service (``fleet/``): a durable multi-tenant queue, the
+  admission planner, a worker that runs each merged batch under the
+  crash-loop supervisor as a ``fleet.run_batch`` child fitting one grid on
+  the card, containment, autoscaling and the CLI
+  (``python -m redcliff_tpu_torch.fleet``).
 
 The two TPU kernels on those paths are hand-written CUDA kernels, each with
 a lane form for the grid: the factor mix (``ops/csrc/factor_mix.cu``) and

@@ -29,9 +29,8 @@
   (``python -m redcliff_tpu_torch.obs {report,watch,trace,regress}``),
   host-only copies of the JAX modules; their names (``build_report``,
   ``render_text``, ``build_snapshot``, ``run_sentinel``, ``build_trace``,
-  ``build_fleet_trace``, ``validate_trace``) load lazily. The fleet parts
-  (``build_fleet_trace``, a fleet root) raise or exit 2 until the fleet is
-  ported (ROADMAP queue 1, item 12).
+  ``build_fleet_trace``, ``validate_trace``) load lazily; they read a
+  run directory or a fleet root (``fleet/``) alike.
 
 Import discipline: importing this package does no CUDA work; numpy and
 torch load with :mod:`.logging` and :mod:`.quality`, lazily, on first

@@ -29,10 +29,9 @@ wrote — ``metrics.jsonl`` (rotation chain, torn lines tolerated),
 The port's differences from the JAX module: the checkpointed
 ``dispatch_stats`` are read through the port's checkpoint reader
 (``runtime/checkpoint.py``, on the host, no card; a JAX-written grid
-checkpoint's optimizer state is read as opaque objects, never run); the
-fleet sections (tenants, containment, fleet SLO, autoscale) report none,
-and a fleet sweep-service root exits 2, since the fleet is not ported yet
-(ROADMAP queue 1, item 12).
+checkpoint's optimizer state is read as opaque objects, never run). A
+fleet sweep-service root (the port's ``fleet/``) gets the JAX module's
+sections: per-tenant, containment, fleet SLO, autoscale and packing.
 
 ``--json`` prints the full report as one JSON object; ``-o PATH`` writes it.
 The report is importable (:func:`build_report`) for tests and services.
@@ -142,9 +141,16 @@ def build_report(run_dir):
     fits = []
     cur = None            # current fit context: {"shape_key", "shape", ...}
     manifest = {}         # request_id -> {tenant, start, stop} (fleet runs)
+    fleet_kind_counts = {}  # fleet-event lifecycle counts (fleet roots)
     packing_counts = {}     # packing-event kind tallies
     packing_last_plan = None  # newest priced packed-vs-serial verdict
     partial_streamed = partial_final = 0  # partial_result rows seen
+    autoscale_counts = {}   # autoscale decision-kind counts
+    last_autoscale = None
+    qos_last = {}           # tenant -> newest qos demote/restore event
+    qos_demotes = 0
+    bp_rejects = 0
+    bp_last = None
     cost = {}             # (shape_key, g_bucket) -> accumulators
     cm_acc = {}           # (shape_key, g_bucket) -> residual-event accuracy
     run_cache_dir = None  # the versioned compile-cache dir fit_start logs
@@ -279,10 +285,28 @@ def build_report(run_dir):
         elif ev == "fleet":
             # tenant manifest (fleet/run_batch.py): request id -> merged
             # point range; restart attempts re-log it, latest wins
-            if rec.get("kind") == "manifest":
+            kind = rec.get("kind")
+            fleet_kind_counts[str(kind)] = \
+                fleet_kind_counts.get(str(kind), 0) + 1
+            if kind == "manifest":
                 for row in rec.get("requests") or []:
                     if isinstance(row, dict) and row.get("request_id"):
                         manifest[row["request_id"]] = row
+        elif ev == "autoscale":
+            # the SLO-driven control loop's decision stream
+            kind = str(rec.get("kind"))
+            autoscale_counts[kind] = autoscale_counts.get(kind, 0) + 1
+            # headline = the newest POOL decision; start/stop are loop
+            # lifecycle markers, holds are steady-state noise
+            if kind not in ("hold", "start", "stop"):
+                last_autoscale = rec
+        elif ev == "qos":
+            if rec.get("tenant") is not None:
+                qos_last[str(rec["tenant"])] = rec
+            qos_demotes += rec.get("kind") == "demote"
+        elif ev == "backpressure":
+            bp_rejects += rec.get("kind") == "reject"
+            bp_last = rec
         elif ev == "profile":
             profiles.append({k: rec.get(k) for k in
                              ("path", "spec", "first_epoch", "last_epoch",
@@ -611,12 +635,70 @@ def build_report(run_dir):
                     q[cause] = q.get(cause, 0) + 1
                     break
 
-    # the fleet sections (containment, fleet SLO, autoscale) read a fleet
-    # sweep-service root, which the port does not have yet (ROADMAP queue
-    # 1, item 12): none
+    # fleet containment section (fleet ROOTS only, docs/ARCHITECTURE.md
+    # "Fleet failure containment"): dead-letter dossiers, per-request
+    # attempt budgets, and the containment-lifecycle event counts (bisect /
+    # deadletter / cancel / requeue / renew_error)
     containment = None
     fleet_slo = None
     fleet_autoscale = None
+    if os.path.exists(os.path.join(run_dir, "requests.jsonl")) \
+            or os.path.isdir(os.path.join(run_dir, "leases")):
+        from redcliff_tpu_torch.fleet import autoscale as _as
+        from redcliff_tpu_torch.fleet.queue import FleetQueue
+        from redcliff_tpu_torch.obs import slo as _slo
+
+        # fleet-SLO section: per-tenant queue-wait percentiles,
+        # time-to-first-attempt, deadline hit-rate, attempts-per-request,
+        # dead-letter rate from the durable lifecycle ledger, with
+        # REDCLIFF_SLO_* breach flags
+        fleet_slo = _slo.slo_for_root(run_dir)
+        q = FleetQueue(run_dir, create=False)  # pure reader
+        st = q.status()
+        containment = {
+            "counts": st["counts"],
+            "deadletters": [{
+                "request_id": rec.get("request_id"),
+                "deadlettered_at": rec.get("deadlettered_at"),
+                "dossier": rec.get("dossier"),
+            } for rec in q.deadletters()],
+            "attempt_records": q.attempt_records(),
+            "events": {k: fleet_kind_counts[k] for k in sorted(
+                fleet_kind_counts)
+                if k in ("deadletter", "bisect", "cancel", "requeue",
+                         "renew_error", "lease_lost", "reclaim")},
+        }
+        # autoscale section: decision-kind tallies from the
+        # metrics chain, the last non-hold decision, the durable published
+        # control state, active QoS rungs, and admission-gate rejects
+        auto_state = _as.load_state(run_dir)
+        qos_rungs = _as.active_qos(run_dir)
+        if autoscale_counts or auto_state is not None or qos_rungs \
+                or bp_rejects or qos_last:
+            fleet_autoscale = {
+                "decisions": {k: autoscale_counts[k]
+                              for k in sorted(autoscale_counts)},
+                "last_decision": ({k: last_autoscale.get(k) for k in
+                                   ("kind", "reason", "workers", "target",
+                                    "queue_depth", "drain_eta_s",
+                                    "breaches", "wall_time")}
+                                  if last_autoscale else None),
+                "state": auto_state,
+                "qos": {t: {"rung": r.get("rung"), "reason": r.get("reason")}
+                        for t, r in sorted(qos_rungs.items())},
+                "qos_demotes": int(qos_demotes),
+                "qos_last_events": {t: {k: e.get(k) for k in
+                                        ("kind", "rung", "from_rung",
+                                         "reason")}
+                                    for t, e in sorted(qos_last.items())},
+                "backpressure": {
+                    "rejects": int(bp_rejects),
+                    "last": ({k: bp_last.get(k) for k in
+                              ("tenant", "eta_s", "threshold_s",
+                               "queue_depth", "workers")}
+                             if bp_last else None),
+                },
+            }
 
     # spatial-packing section: slot-lifecycle tallies, the
     # newest priced verdict, and the partial-result streaming progress.

@@ -24,7 +24,9 @@ and later slices find their events here. The differences:
   package's two import lists (``NO_JAX_MODULES``, ``LAZY_JAX_MODULES``)
   become one, :data:`NO_CUDA_AT_IMPORT_MODULES`: the observability and
   fault modules, which must import with no CUDA work (no kernel module or
-  Triton at module scope) and never synchronize the device.
+  Triton at module scope) and never synchronize the device; and the fleet's
+  control modules, :data:`NO_BACKEND_MODULES`, import no torch at all
+  (the JAX list's fleet half).
 
 Run the source tripwires as a lint step with ``python -m
 redcliff_tpu_torch.obs.schema --check``.
@@ -553,8 +555,19 @@ NO_CUDA_AT_IMPORT_MODULES = (
     "obs/costmodel.py", "obs/slo.py", "runtime/admission.py",
     "runtime/compileobs.py", "runtime/faultinject.py", "runtime/watchdog.py",
     "runtime/retry.py", "serve/chaos.py", "utils/observability.py")
+# the fleet's control processes (the CLI, queue scans, admission planning,
+# the worker loop, the autoscaler, the chaos harness, the crash-loop
+# supervisor and the slot table): they may not import torch at all, at any
+# scope — a control process never initializes a backend; only the
+# supervised ``fleet/run_batch.py`` child does
+NO_BACKEND_MODULES = (
+    "fleet/__init__.py", "fleet/__main__.py", "fleet/autoscale.py",
+    "fleet/chaos.py", "fleet/history.py", "fleet/planner.py",
+    "fleet/queue.py", "fleet/worker.py", "parallel/packing.py",
+    "runtime/supervisor.py", "supervise.py", "utils/precision_modes.py")
 # module-scope imports these modules may not make
 _CUDA_AT_IMPORT = ("triton", "redcliff_tpu_torch.ops")
+_BACKENDS = ("torch", "triton")
 _DEVICE_SYNCS = ("synchronize", "block_until_ready")
 
 
@@ -605,10 +618,12 @@ def _check_name_literals(tree, path, events, errors):
 
 def _check_host_sync(tree, path, rel, errors):
     """The import and no-sync discipline: no module of the port imports
-    ``jax`` or ``redcliff_tpu``; the :data:`NO_CUDA_AT_IMPORT_MODULES`
-    import no kernel module or Triton at module scope and never call
+    ``jax`` or ``redcliff_tpu``; the :data:`NO_BACKEND_MODULES` import no
+    torch at any scope; the :data:`NO_CUDA_AT_IMPORT_MODULES` import no
+    kernel module or Triton at module scope and never call
     ``synchronize``."""
     scoped = rel.endswith(NO_CUDA_AT_IMPORT_MODULES)
+    no_backend = rel in NO_BACKEND_MODULES
     in_func = set()
     if scoped:
         for fn in ast.walk(tree):
@@ -629,6 +644,9 @@ def _check_host_sync(tree, path, rel, errors):
         for n in names:
             if n.split(".")[0] in ("jax", "redcliff_tpu"):
                 errors.append(f"{path}:{node.lineno}: imports {n}")
+            elif no_backend and n.split(".")[0] in _BACKENDS:
+                errors.append(f"{path}:{node.lineno}: imports {n} in a "
+                              f"fleet control module (a backend)")
             elif scoped and id(node) not in in_func and any(
                     n == m or n.startswith(m + ".")
                     for m in _CUDA_AT_IMPORT):

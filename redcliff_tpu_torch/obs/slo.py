@@ -1,9 +1,7 @@
 """Fleet service-level objectives from the request-lifecycle ledger
 (the port's copy of ``redcliff_tpu/obs/slo.py``, function for function; the
-differences are :func:`_read_history`, the ledger reader of
-``fleet/history.py`` that :func:`slo_for_root` calls, kept here because the
-fleet is not ported yet, and :func:`percentiles`, several nearest ranks
-from one sort, which the serve tick event uses).
+one addition is :func:`percentiles`, several nearest ranks from one sort,
+which the serve tick event uses).
 
 A multi-tenant queue lives or dies by numbers no single run dir holds:
 how long tenants WAIT (queue-wait percentiles), how fast submitted work
@@ -404,28 +402,9 @@ def compute_serve_slo(records, thresholds=None):
 def slo_for_root(root, thresholds=None, stats=None, window_s=None):
     """The SLO view for a fleet root (reads ``<root>/history.jsonl``), or
     None when the root holds no lifecycle ledger yet."""
-    records = _read_history(root, stats=stats)
+    from redcliff_tpu_torch.fleet.history import read_history
+
+    records = read_history(root, stats=stats)
     if not records:
         return None
     return compute_slo(records, thresholds=thresholds, window_s=window_s)
-
-
-# fleet/history.py's ledger name and event (the port has no fleet yet)
-_HISTORY_NAME = "history.jsonl"
-_LIFECYCLE_EVENT = "fleet_lifecycle"
-
-
-def _read_history(root, stats=None):
-    """Every parseable lifecycle record of ``<root>/history.jsonl``, oldest
-    first (``fleet/history.py`` ``read_history``); ``[]`` on a root with
-    no history yet."""
-    from redcliff_tpu_torch.obs.logging import read_jsonl
-
-    try:
-        records = read_jsonl(os.path.join(str(root), _HISTORY_NAME),
-                             stats=stats)
-    except FileNotFoundError:
-        if stats is not None:
-            stats.update(files=[], records=0, torn_lines=0)
-        return []
-    return [r for r in records if r.get("event") == _LIFECYCLE_EVENT]

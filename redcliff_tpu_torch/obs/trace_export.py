@@ -27,9 +27,15 @@ Mapping (the trace-event format's vocabulary):
 * every other registered event lands as an instant (``ph="i"``) carrying
   its fields in ``args``.
 
-Fleet mode (``--fleet``, :func:`build_fleet_trace`) reads a fleet
-sweep-service root, which the port does not have yet (ROADMAP queue 1,
-item 12): it raises, and the CLI exits 2.
+**Fleet mode** (``obs trace --fleet <root>``): pointed at a
+fleet sweep-service root (fleet/queue.py layout), :func:`build_fleet_trace`
+joins the root's own metrics chain, the request-lifecycle ledger
+(``history.jsonl``, fleet/history.py), and every ``work/<batch_id>`` run
+dir + supervisor ledger into ONE timeline: per-worker / per-child
+(host, pid) process lanes, a ``fleet-requests`` process with one track
+per request spanning submit -> settle across every process that touched
+it (under its submit-minted ``trace_id``), and queue-depth / in-flight /
+dead-letter-depth counter tracks replayed from the ledger.
 
 stdlib + the spine's jsonl reader only — no torch, never a device; the
 export runs post-mortem on any machine holding the run dir.
@@ -248,14 +254,197 @@ def build_trace(run_dir):
     }
 
 
-FLEET_NOT_PORTED = ("fleet trace export reads a fleet sweep-service root, "
-                    "which is not ported yet (ROADMAP queue 1, item 12)")
+def _request_track_events(history, ids, ts, events):
+    """Per-request tracks from the lifecycle ledger: one thread per
+    request on a synthetic ``fleet-requests`` process, holding one ``X``
+    event spanning submit -> settle (the whole cross-process lifetime
+    under one trace_id) plus an instant per transition (claimed / attempt
+    / settled ...). Batch-scoped transitions (planned / bisected) land on
+    a ``fleet-batches`` thread."""
+    per_req = {}
+    batch_events = []
+    for rec in history:
+        if rec.get("request_id") is not None:
+            per_req.setdefault(rec["request_id"], []).append(rec)
+        elif rec.get("kind") in ("planned", "bisected"):
+            batch_events.append(rec)
+    if not per_req and not batch_events:
+        return
+    pid = ids.pid("fleet-requests", 0)
+    for rid in sorted(per_req):
+        recs = sorted(per_req[rid],
+                      key=lambda r: (_num(r.get("wall_time")) or 0.0,
+                                     r.get("seq") or 0))
+        tenant = next((r.get("tenant") for r in recs
+                       if r.get("tenant") is not None), "?")
+        trace_id = next((r.get("trace_id") for r in recs
+                         if r.get("trace_id") is not None), None)
+        walls = [w for r in recs for w in (_num(r.get("wall_time")),)
+                 if w is not None]
+        if not walls:
+            continue
+        sub = next((_num(r.get("submitted_at")) or _num(r.get("wall_time"))
+                    for r in recs if r.get("kind") == "submitted"),
+                   min(walls))
+        settled = next((r for r in recs if r.get("kind") == "settled"),
+                       None)
+        end = (_num(settled.get("wall_time")) if settled is not None
+               else None)
+        tid = ids.tid(pid, rid)
+        args = {"request_id": rid, "tenant": tenant}
+        if trace_id is not None:
+            args["trace_id"] = trace_id
+        args["state"] = (settled.get("state") if settled is not None
+                         else "live")
+        events.append({"ph": "X", "name": f"{tenant}/{rid}",
+                       "cat": "request", "ts": ts(min(sub, min(walls))),
+                       "dur": round(max((end if end is not None
+                                         else max(walls)) - sub, 0.0) * 1e6,
+                                    1),
+                       "pid": pid, "tid": tid, "args": args})
+        for r in recs:
+            wall = _num(r.get("wall_time"))
+            if wall is None:
+                continue
+            events.append({"ph": "i", "name": str(r.get("kind")),
+                           "cat": "fleet_lifecycle", "s": "t",
+                           "ts": ts(wall), "pid": pid, "tid": tid,
+                           "args": _args_of(r)})
+    if batch_events:
+        tid = ids.tid(pid, "fleet-batches")
+        for r in batch_events:
+            wall = _num(r.get("wall_time"))
+            if wall is None:
+                continue
+            events.append({"ph": "i", "name": str(r.get("kind")),
+                           "cat": "fleet_lifecycle", "s": "t",
+                           "ts": ts(wall), "pid": pid, "tid": tid,
+                           "args": _args_of(r)})
+
+
+def _queue_counter_events(history, ids, ts, events):
+    """Replay the lifecycle ledger into queue-depth / in-flight /
+    dead-letter-depth counter tracks (one sample per transition)."""
+    ordered = sorted((r for r in history if r.get("request_id") is not None),
+                     key=lambda r: (_num(r.get("wall_time")) or 0.0,
+                                    r.get("seq") or 0))
+    if not ordered:
+        return
+    pid = ids.pid("fleet-queue", 0)
+    tid = ids.tid(pid, "counters")
+    state = {}  # request_id -> "queued" | "running" | terminal state
+    queued = in_flight = deadletter = 0
+    for rec in ordered:
+        kind, rid = rec.get("kind"), rec["request_id"]
+        wall = _num(rec.get("wall_time"))
+        if wall is None:
+            continue
+        prev = state.get(rid)
+        if kind == "submitted" and prev is None:
+            state[rid] = "queued"
+            queued += 1
+        elif kind == "claimed" and prev == "queued":
+            state[rid] = "running"
+            queued -= 1
+            in_flight += 1
+        elif kind == "released" and prev == "running":
+            # a lease release (budget-route, bisection, all-or-nothing
+            # claim rollback) returns the request to the queue — without
+            # this the in-flight curve would stay high through exactly the
+            # crash-loop incidents the counters exist to diagnose
+            state[rid] = "queued"
+            in_flight -= 1
+            queued += 1
+        elif kind == "settled" and prev in ("queued", "running"):
+            if prev == "queued":
+                queued -= 1
+            else:
+                in_flight -= 1
+            state[rid] = str(rec.get("state") or "settled")
+            if state[rid] == "deadletter":
+                deadletter += 1
+        elif kind == "requeued" and prev not in ("queued", "running"):
+            if prev == "deadletter":
+                deadletter -= 1
+            state[rid] = "queued"
+            queued += 1
+        else:
+            continue
+        events.append({"ph": "C", "name": "queue_depth", "ts": ts(wall),
+                       "pid": pid, "tid": tid, "args": {"queued": queued}})
+        events.append({"ph": "C", "name": "in_flight", "ts": ts(wall),
+                       "pid": pid, "tid": tid,
+                       "args": {"in_flight": in_flight}})
+        events.append({"ph": "C", "name": "deadletter_depth",
+                       "ts": ts(wall), "pid": pid, "tid": tid,
+                       "args": {"deadletter": deadletter}})
 
 
 def build_fleet_trace(root):
-    """The JAX module's fleet-root export: raises until the fleet is
-    ported."""
-    raise NotImplementedError(FLEET_NOT_PORTED)
+    """Export a FLEET ROOT (fleet/queue.py layout) as one joined Chrome
+    trace: the root's own metrics chain (worker fleet events + spans), the
+    lifecycle ledger's per-request tracks and queue/in-flight/dead-letter
+    counter curves, and every ``work/<batch_id>`` run dir's records +
+    supervisor ledger — each writing (host, pid) its own process lane, so
+    one request's track visibly spans submit CLI -> worker -> supervised
+    torch child (and any reclaiming worker after a SIGKILL) under one
+    trace_id."""
+    from redcliff_tpu_torch.fleet.history import read_history
+
+    hstats = {}
+    root_records, _ledger, rstats, _ = _read_run_dir(root)
+    # the root chain never has a run_ledger; fleet_lifecycle records ride
+    # history.jsonl, not metrics.jsonl
+    history = read_history(root, stats=hstats)
+    work_dir = os.path.join(root, "work")
+    try:
+        batch_dirs = sorted(
+            os.path.join(work_dir, d) for d in os.listdir(work_dir)
+            if os.path.isdir(os.path.join(work_dir, d)))
+    except OSError:
+        batch_dirs = []
+    runs = []
+    torn = rstats.get("torn_lines", 0) + hstats.get("torn_lines", 0)
+    n_records = rstats.get("records", 0) + hstats.get("records", 0)
+    for d in batch_dirs:
+        records, ledger, mstats, lstats = _read_run_dir(d)
+        runs.append((d, records, ledger))
+        torn += mstats.get("torn_lines", 0) + lstats.get("torn_lines", 0)
+        n_records += mstats.get("records", 0)
+
+    walls = _walls_of(root_records, [])
+    walls += [w for r in history
+              for w in (_num(r.get("wall_time")),
+                        _num(r.get("submitted_at")),
+                        _num(r.get("started_at"))) if w is not None]
+    for _d, records, ledger in runs:
+        walls += _walls_of(records, ledger)
+    t0 = min(walls) if walls else 0.0
+    ts = lambda wall: round((wall - t0) * 1e6, 1)
+
+    ids = _Ids()
+    events = []
+    _metric_events(root_records, ids, ts, events)
+    for d, records, ledger in runs:
+        _metric_events(records, ids, ts, events)
+        _ledger_events(ledger, ids, ts, events,
+                       proc_name=f"supervisor:{os.path.basename(d)}")
+    _request_track_events(history, ids, ts, events)
+    _queue_counter_events(history, ids, ts, events)
+
+    events.sort(key=lambda e: e.get("ts", 0.0))
+    return {
+        "traceEvents": ids.meta + events,
+        "displayTimeUnit": "ms",
+        "otherData": {
+            "fleet_root": os.path.abspath(root),
+            "t0_wall": t0,
+            "records": n_records,
+            "history_records": hstats.get("records", 0),
+            "batch_run_dirs": len(runs),
+            "torn_lines": torn,
+        },
+    }
 
 
 _VALID_PH = {"X", "B", "E", "i", "I", "C", "M", "b", "e", "n", "s", "t",
@@ -327,11 +516,12 @@ def main(argv=None):
                          "every batch run dir into one timeline "
                          "(per-request tracks + queue counter tracks)")
     args = ap.parse_args(argv)
-    from redcliff_tpu_torch.obs.watch import diagnose_run_dir
+    from redcliff_tpu_torch.obs.watch import diagnose_run_dir, is_fleet_root
 
     diag = diagnose_run_dir(args.run_dir)
-    if diag is None and args.fleet:
-        diag = FLEET_NOT_PORTED
+    if diag is None and args.fleet and not is_fleet_root(args.run_dir):
+        diag = (f"not a fleet root (no requests.jsonl / leases/): "
+                f"{args.run_dir}")
     if diag is not None:
         print(f"obs trace: {diag}", file=sys.stderr)
         return 2

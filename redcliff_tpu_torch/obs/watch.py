@@ -35,10 +35,8 @@ a watcher on another host only sees what reached disk.
 
 The port's differences from the JAX module: the ``hbm:`` line reads the
 ``memory`` events the port's ``obs/memory.py`` writes (the allocator's
-watermark on a card, none on the CPU); the fleet section and the fleet
-half of the packing section read a fleet sweep-service root, which the
-port does not have yet (ROADMAP queue 1, item 12): they are None, and a
-fleet root exits 2.
+watermark on a card, none on the CPU). A fleet sweep-service root (the
+port's ``fleet/``) gets the JAX module's fleet and packing sections.
 """
 from __future__ import annotations
 
@@ -54,13 +52,10 @@ __all__ = ["build_snapshot", "render_text", "diagnose_run_dir", "run_watch",
            "is_fleet_root"]
 
 
-FLEET_NOT_PORTED = ("a fleet sweep-service root, which the port does not "
-                    "read yet (ROADMAP queue 1, item 12)")
-
-
 def is_fleet_root(path):
-    """Whether ``path`` is a fleet sweep-service root (the JAX fleet's
-    queue layout) rather than a single-run directory."""
+    """Whether ``path`` is a fleet sweep-service root (fleet/queue.py
+    layout) rather than a single-run directory — flips the watch into
+    FLEET mode (queue depth, per-tenant in-flight, planner decisions)."""
     return (os.path.exists(os.path.join(path, "requests.jsonl"))
             or os.path.isdir(os.path.join(path, "leases")))
 
@@ -72,14 +67,13 @@ def diagnose_run_dir(run_dir):
         return f"run dir does not exist: {run_dir}"
     if not os.path.isdir(run_dir):
         return f"not a directory: {run_dir}"
-    if is_fleet_root(run_dir):
-        return f"{run_dir} is {FLEET_NOT_PORTED}"
     if (not jsonl_files(os.path.join(run_dir, "metrics.jsonl"))
             and not os.path.exists(os.path.join(run_dir,
-                                                "run_ledger.jsonl"))):
+                                                "run_ledger.jsonl"))
+            and not is_fleet_root(run_dir)):
         return (f"no telemetry in {run_dir}: neither metrics.jsonl (or its "
-                f"rotation chain) nor run_ledger.jsonl — is this a run "
-                f"directory?")
+                f"rotation chain) nor run_ledger.jsonl nor a fleet queue "
+                f"(requests.jsonl) — is this a run directory?")
     return None
 
 
@@ -170,6 +164,31 @@ def _checkpoint_stalls(run_dir):
     return out
 
 
+# follow-mode cache for the fleet-SLO view: slo_for_root re-reads and
+# re-aggregates the WHOLE lifecycle ledger, which only grows — so a busy
+# root would pay an ever-larger parse on every refresh tick even when no
+# request moved. Cached on the ledger head file's (mtime, size) signature
+# (appends grow it, rotation replaces it — either invalidates).
+_fleet_slo_cache = {}
+
+
+def _fleet_slo(root):
+    from redcliff_tpu_torch.fleet import history as _history
+    from redcliff_tpu_torch.obs import slo as _slo
+
+    try:
+        st = os.stat(_history.history_path(root))
+        sig = (st.st_mtime_ns, st.st_size)
+    except OSError:
+        sig = None
+    cached = _fleet_slo_cache.get(str(root))
+    if cached is not None and cached[0] == sig:
+        return cached[1]
+    out = _slo.slo_for_root(root)
+    _fleet_slo_cache[str(root)] = (sig, out)
+    return out
+
+
 def build_snapshot(run_dir, now=None):
     """One watch snapshot as a plain dict (``event="watch"`` — validates
     against the registered schema; importable for services and tests)."""
@@ -186,6 +205,12 @@ def build_snapshot(run_dir, now=None):
 
     fits, incidents = [], []
     cur = None
+    fleet_last_plan = None   # newest planner packing decision (fleet event)
+    fleet_workers = {}       # worker id -> last fleet-event wall time
+    last_autoscale = None    # newest autoscaler decision
+    last_qos = {}            # tenant -> newest qos demote/restore event
+    last_backpressure = None  # newest admission-gate reject
+    backpressure_rejects = 0
     mem_pred = mem_meas = None  # newest memory events (obs/memory.py)
     last_quality = None      # newest quality event (obs/quality.py)
     last_policy = None       # newest predictive-policy decision
@@ -267,6 +292,12 @@ def build_snapshot(run_dir, now=None):
         elif ev in ("compaction", "remesh") and cur is not None:
             if rec.get("to_width") is not None:
                 cur["grid_width"] = rec["to_width"]
+        elif ev == "fleet":
+            if rec.get("kind") == "plan":
+                fleet_last_plan = rec
+            w = rec.get("worker")
+            if w and isinstance(wt, (int, float)):
+                fleet_workers[str(w)] = wt
         elif ev == "packing":
             # spatial mesh packing: the newest priced
             # packed-vs-serial verdict + slot lifecycle counters become
@@ -280,6 +311,16 @@ def build_snapshot(run_dir, now=None):
         elif ev == "partial_result":
             partial_points += 1
             last_partial = rec
+        elif ev == "autoscale":
+            # the SLO-driven control loop's decision stream:
+            # the newest decision becomes the fleet section's headline
+            last_autoscale = rec
+        elif ev == "qos":
+            if rec.get("tenant") is not None:
+                last_qos[str(rec["tenant"])] = rec
+        elif ev == "backpressure":
+            last_backpressure = rec
+            backpressure_rejects += rec.get("kind") == "reject"
         elif ev == "anomaly":
             anomalies += 1
         elif ev == "numerics":
@@ -421,12 +462,31 @@ def build_snapshot(run_dir, now=None):
         serve["quarantines"] = serve_quarantines
         serve["age_s"] = (round(now - swt, 3)
                           if isinstance(swt, (int, float)) else None)
-    # the fleet half of the packing section (the worker-published
-    # occupancy state, the partial-result files of a fleet root) and the
-    # fleet section read a fleet root: not ported (ROADMAP queue 1, item
-    # 12); the tailed packing/partial_result events still count
+    # fleet mode (fleet/queue.py roots): queue depth + per-tenant counts
+    # from the authoritative file queue, live in-flight claims from the
+    # lease files, and the planner's newest packing decision from the
+    # rotation-chain-tailed `fleet` events above
+    # spatial-packing section: the worker-published occupancy
+    # state file is authoritative (it outlives the metrics tail); the
+    # tailed packing/partial_result events supply the newest verdict and
+    # streaming progress. None (section omitted) on roots that never packed
     packing_sec = None
     pack_state = None
+    if is_fleet_root(run_dir):
+        from redcliff_tpu_torch.parallel import packing as _fpacking
+        pack_state = _fpacking.load_state(run_dir, now=now)
+        # partial_result rows stream into the per-batch run-dir chains,
+        # not the root chain — count the durable partial files instead
+        # (bounded: tiny one-line-per-point files, capped at 256)
+        import glob as _glob
+        for path in _glob.glob(os.path.join(
+                run_dir, "work", "*", "results",
+                "*.partial.jsonl"))[:256]:
+            try:
+                with open(path, encoding="utf-8") as fh:
+                    partial_points += sum(1 for _ in fh)
+            except OSError:
+                continue
     if (pack_state is not None or last_pack_event is not None
             or partial_points):
         packing_sec = {
@@ -451,6 +511,12 @@ def build_snapshot(run_dir, now=None):
         packing_sec["age_s"] = (round(now - pwt, 3)
                                 if isinstance(pwt, (int, float)) else None)
     fleet = None
+    if is_fleet_root(run_dir):
+        fleet = _fleet_section(
+            run_dir, fleet_last_plan, fleet_workers, now,
+            last_autoscale=last_autoscale, last_qos=last_qos,
+            last_backpressure=last_backpressure,
+            backpressure_rejects=backpressure_rejects)
     return {
         "event": "watch",
         "wall_time": now,
@@ -482,6 +548,131 @@ def build_snapshot(run_dir, now=None):
                        "torn_lines": (mstats.get("torn_lines", 0)
                                       + lstats.get("torn_lines", 0)),
                        "files": [os.path.basename(p) for p in files]},
+    }
+
+
+def _fleet_section(root, last_plan, workers, now, last_autoscale=None,
+                   last_qos=None, last_backpressure=None,
+                   backpressure_rejects=0):
+    """The fleet-mode snapshot body: queue/tenant counts (file queue =
+    authoritative), live in-flight claims (lease files), the planner's
+    newest packing decision, worker liveness ages, and the autoscaler's
+    control state (published ``autoscale.json`` = authoritative pool view;
+    the tailed ``autoscale``/``qos``/``backpressure`` events supply the
+    newest decisions)."""
+    from redcliff_tpu_torch.fleet import autoscale as _as
+    from redcliff_tpu_torch.fleet.queue import FleetQueue
+
+    # create=False: a watcher is a pure reader — it must neither mkdir
+    # under the service root nor crash on a read-only/archived one
+    q = FleetQueue(root, create=False)
+    st = q.status(now=now)
+    in_flight = [{
+        "request_id": l.get("request_id"),
+        "tenant": l.get("tenant"),
+        "worker": l.get("worker"),
+        "batch_id": l.get("batch_id"),
+        "expires_in_s": round(float(l.get("expires_at") or 0.0) - now, 3),
+    } for l in q.live_leases(now=now)]
+    plan = None
+    if last_plan is not None:
+        plan = {k: last_plan.get(k) for k in
+                ("queue_depth", "batches", "unschedulable", "plan_ms",
+                 "utilization_pct", "decisions", "worker")}
+        wt = last_plan.get("wall_time")
+        plan["age_s"] = (round(now - wt, 3)
+                         if isinstance(wt, (int, float)) else None)
+    # containment view: dead-letter depth + dossier headlines,
+    # and every request's durable attempt/reclaim counts (the retry-budget
+    # state a release/reclaim updates). One terminal_ids() batch view for
+    # the whole tick — a follow-mode watcher re-renders this every tick,
+    # so no per-request stat probes and only the rendered dossiers read
+    term = q.terminal_ids()
+    terminal_rids = set().union(*term.values())
+    deadletters = []
+    for rid in sorted(term["deadletter"])[:16]:
+        rec = q.deadletter_record(rid)
+        if rec is None:
+            continue  # raced a requeue; depth still counts the listing
+        deadletters.append({
+            "request_id": rec.get("request_id"),
+            "tenant": (rec.get("dossier") or {}).get("tenant"),
+            "reason": (rec.get("dossier") or {}).get("reason"),
+            "attempts": (rec.get("dossier") or {}).get("attempts"),
+            "last_classification": (rec.get("dossier") or {}).get(
+                "last_classification"),
+        })
+    # live requests only (a terminal request's budget lives in its
+    # dossier), bounded like the dead-letter list so snapshot size never
+    # grows with root history
+    attempts = {}
+    for rec in q.attempt_records():
+        rid = rec.get("request_id")
+        if not rid or rid in terminal_rids:
+            continue
+        if not (rec.get("attempts") or rec.get("reclaims")
+                or rec.get("suspect")):
+            continue
+        attempts[rid] = {
+            "attempts": int(rec.get("attempts") or 0),
+            "reclaims": int(rec.get("reclaims") or 0),
+            "last": (rec.get("last") or {}).get("classification"),
+        }
+        if len(attempts) >= 64:
+            break
+    # fleet-SLO headline (obs/slo.py): per-tenant queue-wait
+    # percentiles / deadline hit-rate / dead-letter rate from the durable
+    # lifecycle ledger, with REDCLIFF_SLO_* threshold breach flags — the
+    # service-level numbers a follow-mode operator steers by
+    slo = _fleet_slo(root)
+    # autoscale view: durable state file + qos rung files are
+    # authoritative (they outlive the metrics tail); the tailed events
+    # carry the newest decision/reject headline
+    auto_state = _as.load_state(root)
+    qos_rungs = _as.active_qos(root)
+    autoscale = None
+    if auto_state is not None or qos_rungs or last_autoscale is not None \
+            or last_backpressure is not None or last_qos:
+        last_dec = (auto_state or {}).get("last_decision") or last_autoscale
+        awt = (auto_state or {}).get("wall_time")
+        autoscale = {
+            "workers": (auto_state or {}).get("workers"),
+            "target": (auto_state or {}).get("target"),
+            "max_workers": (auto_state or {}).get("max_workers"),
+            "pending": (auto_state or {}).get("pending"),
+            "drain_eta_s": (auto_state or {}).get("drain_eta_s"),
+            "state_age_s": (round(now - awt, 3)
+                            if isinstance(awt, (int, float)) else None),
+            "last_decision": ({k: last_dec.get(k) for k in
+                               ("kind", "reason", "workers", "target",
+                                "queue_depth", "drain_eta_s", "breaches")}
+                              if last_dec else None),
+            "qos": {t: {"rung": r.get("rung"), "reason": r.get("reason")}
+                    for t, r in sorted(qos_rungs.items())},
+            "last_qos_events": {t: {k: e.get(k) for k in
+                                    ("kind", "rung", "from_rung", "reason")}
+                                for t, e in sorted((last_qos or {}).items())},
+            "backpressure": {
+                "rejects": int(backpressure_rejects),
+                "last": ({k: last_backpressure.get(k) for k in
+                          ("tenant", "eta_s", "threshold_s", "queue_depth",
+                           "workers")}
+                         if last_backpressure else None),
+            },
+        }
+    return {
+        "counts": st["counts"],
+        "by_tenant": st["by_tenant"],
+        "torn_spool_lines": st["torn_spool_lines"],
+        "in_flight": in_flight,
+        "last_plan": plan,
+        "deadletter": {"depth": len(term["deadletter"]),
+                       "requests": deadletters},
+        "attempts": attempts,
+        "slo": slo,
+        "autoscale": autoscale,
+        "worker_age_s": {w: round(now - t, 3)
+                         for w, t in sorted(workers.items())},
     }
 
 

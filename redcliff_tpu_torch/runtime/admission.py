@@ -11,9 +11,9 @@
 * :class:`TenantQuotaExceeded` — the fleet admission planner's fair-share
   refusal (the batch is deferred, not dropped).
 
-The fleet that raises the two fleet rejects is not ported yet (ROADMAP);
-the types are here so that callers and the serve chaos harness share one
-taxonomy with the JAX package. stdlib only.
+The fleet (``fleet/queue.py``, ``fleet/planner.py``) raises the two fleet
+rejects; the serve chaos harness shares the one taxonomy with the JAX
+package. stdlib only.
 """
 from __future__ import annotations
 

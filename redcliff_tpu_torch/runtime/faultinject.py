@@ -30,12 +30,17 @@ comma-separated list of ``name:arg``, as in JAX:
   semantics of the numerics guard's skip: a fit with ``nan_batch:K`` ends
   bit-identical to one with ``skip_update:K``.
 
-Not ported (their fault points come with multi-GPU re-meshing and the
-fleet): ``host_drop``, ``device_lost``, ``coordinator_loss`` (ROADMAP
-queue 1, item 15) and ``fleet_poison`` (item 12). Arming one raises
-``NotImplementedError`` at the first fault point the process reaches; it
-is never ignored. So is the JAX module's random schedule composer, which
-draws from them.
+The fleet fault point, as in JAX: ``fleet_poison`` arms the ``__chaos__``
+poison sentinels in fleet grid points (:func:`fleet_poison_armed`): the
+batch driver (``fleet/run_batch.py``) detonates them (SIGKILL / exit N /
+hang, ``fleet/chaos.py``) before the fit. Unarmed, it strips them and fits
+the healthy points.
+
+Not ported (their fault points come with multi-GPU re-meshing):
+``host_drop``, ``device_lost``, ``coordinator_loss`` (ROADMAP queue 1,
+item 15). Arming one raises ``NotImplementedError`` at the first fault
+point the process reaches; it is never ignored. So is the JAX module's
+random schedule composer, which draws from them.
 
 The child fit (``python -m redcliff_tpu_torch.runtime.faultinject``) is
 one small deterministic port grid fit, identical in-process and as a
@@ -59,17 +64,17 @@ import sys
 from redcliff_tpu_torch.runtime.watchdog import (EXIT_DEADLINE,
                                                  EXIT_PREEMPTED)
 
-__all__ = ["armed", "crash_point", "ckpt_write_point", "poison_batch",
-           "skip_update", "hang_point", "io_point", "io_error_point",
-           "corrupt_checkpoint", "flaky", "tiny_grid_fit",
+__all__ = ["armed", "fleet_poison_armed", "crash_point",
+           "ckpt_write_point", "poison_batch", "skip_update", "hang_point",
+           "io_point", "io_error_point", "corrupt_checkpoint", "flaky",
+           "tiny_grid_fit",
            "tiny_sharded_fit", "EXIT_PREEMPTED",
            "EXIT_DEADLINE", "UNPORTED_FAULTS"]
 
 ENV_SPEC = "REDCLIFF_FAULT_INJECT"
 ENV_MARKER = "REDCLIFF_FAULT_MARKER"
 # fault kinds of the JAX grammar whose fault points the port lacks
-UNPORTED_FAULTS = ("host_drop", "device_lost", "coordinator_loss",
-                   "fleet_poison")
+UNPORTED_FAULTS = ("host_drop", "device_lost", "coordinator_loss")
 
 
 def _active_faults():
@@ -82,8 +87,7 @@ def _active_faults():
         if name in UNPORTED_FAULTS:
             raise NotImplementedError(
                 f"{ENV_SPEC} arms {name!r}, whose fault point is not ported "
-                f"yet (ROADMAP queue 1: item 15, re-meshing; item 12, the "
-                f"fleet)")
+                f"yet (ROADMAP queue 1, item 15: re-meshing)")
         if name:
             out.append((name, arg))
     return tuple(out)
@@ -92,6 +96,13 @@ def _active_faults():
 def armed():
     """True when ANY fault is armed."""
     return bool(os.environ.get(ENV_SPEC))
+
+
+def fleet_poison_armed():
+    """True when the fleet chaos grammar's ``fleet_poison`` fault is armed:
+    the fleet batch driver then ACTS on ``__chaos__`` poison sentinels in
+    grid points (fleet/chaos.py) instead of only stripping them."""
+    return any(name == "fleet_poison" for name, _ in _active_faults())
 
 
 def ckpt_write_point(stage, path=None):

@@ -8,7 +8,8 @@ guard's skip is the reference semantics), through the per-point trainer,
 the generic trainer and the per-batch grid. The port skips the steps JAX
 skips under the same spec (tests/test_torch_obs.py::
 test_redcliff_trainer_events_match_jax holds the ``anomaly`` records).
-A fault kind whose fault point is not ported raises; a corrupt checkpoint
+A fault kind whose fault point is not ported raises, and ``fleet_poison``
+is armed as in JAX; a corrupt checkpoint
 is quarantined and the fit falls back to ``.prev`` or restarts; the child
 fit, SIGKILLed after its epoch-1 checkpoint and resumed, equals the
 uninterrupted fit bit for bit.
@@ -96,6 +97,23 @@ def test_unported_fault_points_raise(monkeypatch, kind):
         fi.skip_update(0)
     with pytest.raises(NotImplementedError, match="item 1[25]"):
         fi.poison_batch(torch.zeros(2), 1)
+
+
+@pytest.mark.parametrize("spec", ["", "fleet_poison", "nan_batch:1",
+                                  "nan_batch:1,fleet_poison",
+                                  "fleet_poison:1,skip_update:2"])
+def test_fleet_poison_armed_matches_jax(monkeypatch, spec):
+    """``fleet_poison`` is ported (the fleet batch driver's sentinel gate,
+    tests/test_torch_fleet_run_batch.py detonates it): armed exactly when
+    JAX's is, and it leaves the step points inert."""
+    from redcliff_tpu.runtime import faultinject as jfi
+
+    monkeypatch.setenv(fi.ENV_SPEC, spec)
+    assert fi.fleet_poison_armed() == jfi.fleet_poison_armed() \
+        == ("fleet_poison" in spec)
+    assert "fleet_poison" not in fi.UNPORTED_FAULTS
+    X = torch.ones(2, 2)
+    assert (fi.poison_batch(X, 0) is X) and not fi.skip_update(0)
 
 
 def test_step_points_and_probes(monkeypatch):

@@ -222,10 +222,10 @@ def test_cost_model_from_report_equals_jax(runs, tmp_path):
 # ------------------------------------------------------------ the CLI entry
 def test_module_entry_exit_codes_with_jax_blocked(runs, tmp_path):
     """``python -m redcliff_tpu_torch.obs`` with jax and the JAX package
-    blocked: report/watch/trace/regress on the run dirs exit 0 with valid
-    output; a missing dir, a fleet root and ``regress`` without
-    ``--bench-dir`` exit 2 with one line and no traceback; the schema
-    lint passes."""
+    blocked: report/watch/trace/regress on the run dirs and report and
+    ``trace --fleet`` on a fleet root exit 0 with valid output; a missing
+    dir and ``regress`` without ``--bench-dir`` exit 2 with one line and
+    no traceback; the schema lint passes."""
     jrun, trun = runs
     fleet = tmp_path / "fleet"
     fleet.mkdir()
@@ -239,8 +239,8 @@ def test_module_entry_exit_codes_with_jax_blocked(runs, tmp_path):
         (["report", str(tmp_path / "missing")], 2),
         (["watch", str(tmp_path / "missing"), "--once"], 2),
         (["trace", str(tmp_path / "missing")], 2),
-        (["report", str(fleet)], 2),
-        (["trace", trun, "--fleet"], 2),
+        (["report", str(fleet)], 0),
+        (["trace", str(fleet), "--fleet"], 0),
         (["regress"], 2),
     ]
     code = f"""
@@ -274,7 +274,8 @@ print(json.dumps({{"out": out, "bad": bad}}))
         if want == 2:
             assert "Traceback" not in err and len(err.strip().splitlines()) \
                 == 1, (argv, err)
-    assert "item 12" in res["out"][7][2] and "item 12" in res["out"][8][2]
+    assert "fleet containment" in res["out"][7][1]
+    assert not ttrace.validate_trace(json.loads(res["out"][8][1]))
     assert "no port benchmark trajectory" in res["out"][9][2]
     rep = json.loads(res["out"][0][1])
     assert rep["tpu_bench_cache"] is None
