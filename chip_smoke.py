@@ -8,8 +8,9 @@ fitted models through the evaluation layer, fitting the paper's
 baseline families as array tasks, DCSFA-NMF and DYNOTEARS among them,
 generating synthetic data on the card, running the paper's two
 accuracy flows from curation to scores, the Table-2 discovery flow and
-the analysis layer on the host, and the time-series transformer on the
-card — and holds every kernel on them against its plain PyTorch version.
+the analysis layer on the host, the time-series transformer on the
+card, the fleet sweep service and the device mesh — and holds every
+kernel on them against its plain PyTorch version.
 Phases, one JSON line each:
 
 1. build: the factor-mix and GL-prox CUDA kernels from
@@ -293,12 +294,47 @@ Phases, one JSON line each:
    and ``trace --fleet -o`` as subprocesses. One line: the card, each
    leg's wall, the child's startup and fit wall, the replayed epoch's ms,
    the batch's width, the window's executions.
+30. mesh: the device mesh (``parallel/{mesh,remesh,distributed,
+   sequence}.py``) on meshes that name the one card several times — a
+   simulated larger mesh, as the JAX package's forced CPU device count —
+   and on the distinct cards. First both kernels at the mesh's shapes
+   against their plain versions, timed in turns (the shard's lanes, G=8;
+   the factor slice, K=1; their prox blocks). (a) The grid phase's 27
+   points, model, data, weights and depth on ``[cuda:0] * 4`` (width 32,
+   8 lanes a shard, the epoch engine: each shard's programs captured on
+   its own stream and pool) against the unsharded grid phase's fit at the
+   grid bars, decisions exact (the nine diverging gen_lr 2e-3 points'
+   params after 8 steps from one state: rounding from cuBLAS at another
+   lane count grows on them over the fit); both kernels' executions per
+   shard over the
+   fit and over a replayed epoch, whose ``torch.profiler`` trace counts
+   what the shards' counters count; the replayed epoch's ms beside the
+   unsharded one's; then the same fit on the distinct cards
+   (``grid_mesh()``). (b) The faultinject child under ``python -m
+   redcliff_tpu_torch.supervise --mesh-devices 8 --n-hosts 4`` on 8
+   entries of the card with ``host_drop:3:1``: exit 21 classified
+   ``host_lost``, the ledger's re-mesh 8 -> 6, the child's ``remesh``
+   event from width 8 to 12, and its result against an uninterrupted run
+   on 6 entries; then the published grid dropping host 3 of 8 entries and
+   resuming on 6 in this process (eager steps, 3 epochs): the widths, the
+   plan's ms, the resumed fit's wall. (c) The train phase's fit with
+   ``factor_mesh`` over ``[cuda:0] * 5`` (the factor mix at K=1 and the GL
+   prox on each block) against the unsharded fit: losses and 8 steps from
+   one state at rtol 2e-4, atol 1e-5, the fit's params at the grid
+   phase's 5e-4; each block's launches. (d) The transformer at mvts defaults on one
+   synSys-shaped recording of T 4096 with ring attention over
+   ``[cuda:0] * 4`` against the dense path, LayerNorm and BatchNorm at
+   rtol 5e-5, atol 5e-6: ms per forward and peak memory of each. (e)
+   ``initialize_distributed`` with one process per card (NCCL), a
+   ``put_along_mesh`` / ``gather_to_host`` round trip, and (a)'s grid over
+   the group's mesh, bit for bit the one-process fit.
 
 Launch counts are reset just before each main path (serve, train, grid,
 each grid_stream fit, grid_durable, array_task, eval, each baseline task
 and the GISTA fit, dcsfa, dynotears, data_gen, accuracy_synsys,
 accuracy_d4ic, discovery, analysis, ts_transformer, each telemetry fit,
-each runtime fit, each mixed_train fit) and read just after; the bf16
+each runtime fit, each mixed_train fit, each mesh fit in this process)
+and read just after; the bf16
 form of the factor mix has its own count (``graph_mix_bf16.launches``,
 the kernels line's ``factor_mix_bf16``, serve and training alike);
 the kernel-phase launches do not count. The fleet path's run_batch child
@@ -2418,11 +2454,14 @@ def _leaves_np(tree):
 
 
 def _train_steps(torch, np, model, host_params, batches, device,
-                 prox=True):
+                 prox=True, factor_mesh=None):
     """Guarded combined steps on ``device``, one per batch (with the
-    train phase's prox unless ``prox`` is False); returns the losses and
-    the params after them."""
+    train phase's prox unless ``prox`` is False; the factors split over
+    ``factor_mesh`` when given, as ``fit(factor_mesh=)`` splits them);
+    returns the losses and the params after them."""
     from redcliff_tpu_torch import interop
+    from redcliff_tpu_torch.parallel.mesh import (shard_factor_axis,
+                                                  unshard_factor_axis)
     from redcliff_tpu_torch.runtime import numerics
     from redcliff_tpu_torch.train.redcliff_trainer import (
         RedcliffTrainConfig, RedcliffTrainer)
@@ -2431,6 +2470,11 @@ def _train_steps(torch, np, model, host_params, batches, device,
     trainer = RedcliffTrainer(model, RedcliffTrainConfig(**knobs),
                               device=device)
     live = trainer.live_params(host_params)
+    if factor_mesh is not None:
+        live = interop.tree_map(
+            lambda x: x.detach().requires_grad_(True),
+            shard_factor_axis(interop.tree_map(lambda x: x.detach(), live),
+                              factor_mesh))
     optA, optB = trainer.make_optimizers(live)
     nstate = numerics.init_numerics_state()
     losses = []
@@ -2440,7 +2484,8 @@ def _train_steps(torch, np, model, host_params, batches, device,
             torch.from_numpy(Y).to(trainer.device), "combined", nstate)
         _require(ok, f"train_check: a step on {device} was skipped")
         losses.append(float(combo.detach()))
-    return np.asarray(losses), interop.params_to_jax(live)
+    return np.asarray(losses), interop.params_to_jax(
+        unshard_factor_axis(live))
 
 
 def phase_train_check(torch, model, params, train_ds):
@@ -6816,6 +6861,707 @@ def phase_fleet(torch, smi, grid_epoch_ms=None):
     return out["launches"]
 
 
+# mesh (the device mesh): the published D4IC grid and model of the grid
+# phase at its depth, TF32 off, on meshes that name the one card several
+# times (a simulated mesh, as JAX's forced CPU device count) and on the
+# distinct cards
+MESH_SHARDS = 4
+# leg (a): each shard's GEMMs meet cuBLAS at another lane count than the
+# unsharded grid's, so the fits differ by rounding (bitwise on the CPU and
+# on a one-entry mesh). Over the fit's 64 steps the nine gen_lr 2e-3
+# points (STREAM_QUARANTINED: they diverge and are quarantined by epoch 9
+# in both packages) amplify it in their params; their params are held at
+# the grid bars after MESH_CHECK_STEPS steps from the same state, every
+# other lane's over the whole fit as well
+MESH_CHECK_STEPS = 8
+# leg (a)'s trace window: the first replayed epoch (0-2 capture one phase
+# each)
+MESH_REPLAY_EPOCH = 3
+# leg (b): a 4-host x 2-device simulated mesh, host 3 dropped at epoch 1
+MESH_SIM_DEVICES = 8
+MESH_SIM_HOSTS = 4
+MESH_SURVIVORS = 6
+MESH_HOST_DROP = "host_drop:3:1"
+# leg (b) at the published grid: depth cut 4 -> 3 epochs (the resume runs
+# the combined epoch), eager steps (the 8- and 6-shard captures would
+# cost more than the leg)
+MESH_PUBLISHED_MAX_ITER = 3
+MESH_CHILD_TIMEOUT_S = 300
+# leg (c): one factor per shard; JAX's bar for another sum order than the
+# K loop (tests/test_parallel_grid.py:473-491, a 2-epoch fit), held on
+# MESH_CHECK_STEPS steps from one state and on the fit's loss histories.
+# Over the 64-step fit the params are held at the grid phase's bar for
+# the same arithmetic in another program over the whole fit
+# (GRID_LANE_PARAM_ATOL): the per-block partial mixtures add in f32 where
+# the kernel fuses its K products, and two Adams and the prox carry that
+# rounding through 64 steps
+MESH_FACTOR = dict(rtol=2e-4, atol=1e-5)
+# leg (d): a long synSys-shaped recording (6 channels) through the
+# transformer at mvts defaults; the encoder bar of
+# tests/test_sequence_parallel.py:89-104
+MESH_SEQ_T = 4096
+MESH_SEQ_B = 1
+MESH_SEQ = dict(rtol=5e-5, atol=5e-6)
+MESH_SEQ_TIMED = 10
+
+
+def _mesh_grid_parts(torch):
+    """The grid phase's model, seed-0 params (on the host), data and
+    points."""
+    import numpy as np
+
+    from redcliff_tpu_torch.models.redcliff import (RedcliffSCMLP,
+                                                    RedcliffSCMLPConfig)
+
+    points, _ = _grid_points()
+    train_ds, val_ds = _train_data(np)
+    model = RedcliffSCMLP(RedcliffSCMLPConfig(**TRAIN_CONFIG))
+    params = model.init(torch.Generator().manual_seed(0))
+    return model, params, points, train_ds, val_ds
+
+
+def _grid_bars(np, got, want, what, param_lanes=None):
+    """A grid result against another at the grid bars (ROADMAP): val
+    history and best criteria rtol 1e-4 / atol 1e-5, decisions exact, best
+    params rtol 1e-4 / atol 1e-4 on ``param_lanes`` (default all). Returns
+    the max abs differences, the params' per lane."""
+    from redcliff_tpu_torch import interop
+
+    G = got.val_history.shape[1]
+    lanes = list(range(G)) if param_lanes is None else list(param_lanes)
+    per_lane = np.max(np.stack([
+        np.abs(np.asarray(a) - np.asarray(b)).reshape(G, -1).max(1)
+        for a, b in zip(interop.tree_leaves(got.best_params),
+                        interop.tree_leaves(want.best_params))]), 0)
+    diffs = {
+        "val_history": float(np.max(np.abs(got.val_history
+                                           - want.val_history))),
+        "val_history_rel": float(np.max(
+            np.abs(got.val_history - want.val_history)
+            / np.abs(want.val_history))),
+        "best_criteria": float(np.max(np.abs(got.best_criteria
+                                             - want.best_criteria))),
+        "best_params": float(per_lane[lanes].max()),
+        "best_params_by_lane": per_lane.tolist()}
+    ok = (np.allclose(got.val_history, want.val_history, **STREAM_HIST)
+          and np.allclose(got.best_criteria, want.best_criteria,
+                          **STREAM_HIST)
+          and all(np.allclose(np.asarray(a)[lanes], np.asarray(b)[lanes],
+                              **STREAM_PARAMS) for a, b in zip(
+              interop.tree_leaves(got.best_params),
+              interop.tree_leaves(want.best_params)))
+          and np.array_equal(got.best_epoch, want.best_epoch)
+          and np.array_equal(got.active, want.active)
+          and got.failures == want.failures)
+    _require(bool(ok), f"{what}: outside the grid bars or other decisions "
+                       f"({diffs})")
+    return diffs
+
+
+def _mesh_steps(torch, np, model, params, train_ds, dev, mesh):
+    """``MESH_CHECK_STEPS`` guarded combined grid steps of the published
+    grid from ``params`` replicated over the lanes, on ``mesh`` (None: one
+    device), on the same batches: the stacked params after them (host)."""
+    from redcliff_tpu_torch import interop
+    from redcliff_tpu_torch.parallel.grid import GridSpec, RedcliffGridRunner
+    from redcliff_tpu_torch.runtime import numerics
+    from redcliff_tpu_torch.train.redcliff_trainer import RedcliffTrainConfig
+
+    points, _ = _grid_points()
+    tc = RedcliffTrainConfig(**TRAIN_KNOBS, stream_mode="per_batch")
+    runner = RedcliffGridRunner(model, tc, GridSpec(points), mesh=mesh,
+                                device=None if mesh is not None else dev)
+    P, A, B = (runner._split(t) for t in runner.pad_to_width(
+        runner.init_grid_from(params)))
+    Gx = runner._g_exec0
+    N = runner._split(numerics.init_numerics_state(lanes=Gx,
+                                                   device=runner.device))
+    acts = runner._split_vec(torch.from_numpy(runner._orig_ids0 >= 0).to(
+        runner.device))
+    for i, (X, Y) in enumerate(train_ds.batches(TRAIN_KNOBS["batch_size"],
+                                                 device=runner.device)):
+        if i >= MESH_CHECK_STEPS:
+            break
+        for j, sh in enumerate(runner._shards):
+            sh._step("combined", P[j], A[j], B[j], N[j], acts[j],
+                     X.to(sh.device), Y.to(sh.device))
+    return [np.asarray(x)[:len(points)] for x in interop.tree_leaves(
+        interop.params_to_jax(runner._gather(P)))]
+
+
+def _mesh_fit(torch, model, tc, points, params, train_ds, val_ds, mesh,
+              log_dir=None, dev=None):
+    """One grid fit on ``mesh`` (None: unsharded, on ``dev``) from
+    ``params`` replicated over the lanes (the grid phase's init); returns
+    (result, wall s)."""
+    from redcliff_tpu_torch.parallel.grid import GridSpec, RedcliffGridRunner
+
+    runner = RedcliffGridRunner(model, tc, GridSpec(points), mesh=mesh,
+                                device=None if mesh is not None else dev)
+    t0 = time.perf_counter()
+    res = runner.fit(None, train_ds, val_ds,
+                     init_params=runner.init_grid_from(params),
+                     copy_init=False, log_dir=log_dir)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def _mesh_grid_leg(torch, FM, PX, gres, root, dev):
+    """Leg (a): the published grid on [cuda:0] * 4 (8 lanes a shard, the
+    epoch engine) against the unsharded fit, a replayed epoch traced; then
+    on the distinct cards."""
+    import numpy as np
+
+    from redcliff_tpu_torch.parallel.mesh import grid_mesh
+    from redcliff_tpu_torch.train.redcliff_trainer import RedcliffTrainConfig
+
+    model, params, points, train_ds, val_ds = _mesh_grid_parts(torch)
+    tc = RedcliffTrainConfig(**TRAIN_KNOBS)
+    launches = {"factor_mix": 0, "gl_prox": 0}
+
+    def count(fn):
+        FM.factor_mix.launches = 0
+        PX.gl_prox.launches = 0
+        out = fn()
+        launches["factor_mix"] += FM.factor_mix.launches
+        launches["gl_prox"] += PX.gl_prox.launches
+        return out
+
+    if gres is None:  # the phase alone: the grid phase's fit, unsharded
+        gres, _ = count(lambda: _mesh_fit(torch, model, tc, points, params,
+                                          train_ds, val_ds, None, dev=dev))
+    run_dir = os.path.join(root, "grid4")
+    ptc = RedcliffTrainConfig(**TRAIN_KNOBS,
+                              profile_window=f"epoch:{MESH_REPLAY_EPOCH}")
+    mesh = grid_mesh(devices=[dev] * MESH_SHARDS)
+    with _WindowCounters(FM, PX) as wc:
+        res, wall = count(lambda: _mesh_fit(torch, model, ptc, points,
+                                            params, train_ds, val_ds, mesh,
+                                            log_dir=run_dir))
+    stats = res.dispatch_stats
+    stable = [g for g in range(GRID_LANES) if g not in STREAM_QUARANTINED]
+    diffs = _grid_bars(np, res, gres, "mesh grid on 4 shards",
+                       param_lanes=stable)
+    # every lane's params after MESH_CHECK_STEPS steps from one state
+    one = _mesh_steps(torch, np, model, params, train_ds, dev, None)
+    four = _mesh_steps(torch, np, model, params, train_ds, dev, mesh)
+    step_err = max(float(np.max(np.abs(a - b))) for a, b in zip(one, four))
+    _require(all(np.allclose(b, a, **STREAM_PARAMS)
+                 for a, b in zip(one, four)),
+             f"mesh grid: {MESH_CHECK_STEPS} steps on 4 shards against one "
+             f"device, max abs param err {step_err}")
+    # each shard's programs at its lanes: 8 of the first era's 32, then a
+    # compacted era's share (a width below 4 runs on a sub-mesh, 1 each)
+    shard_w = {max(e["width"] // MESH_SHARDS, 1) for e in res.epochs}
+    _require(stats["mode"] == "epoch" and res.epochs[0]["width"] == 32
+             and stats["programs"]
+             and {p["width"] for p in stats["programs"]} <= shard_w,
+             f"mesh grid: mode {stats['mode']}, widths "
+             f"{[e['width'] for e in res.epochs]}, program widths "
+             f"{[p['width'] for p in stats['programs']]}")
+    by_shard = stats["launches_by_shard"]
+    _require(sorted(by_shard) == [str(i) for i in range(MESH_SHARDS)]
+             and all(by[k] > 0 for by in by_shard.values()
+                     for k in ("factor_mix", "gl_prox")),
+             f"mesh grid: a shard launched no kernel: {by_shard}")
+    ep = res.epochs[MESH_REPLAY_EPOCH]
+    recs = _records(run_dir)
+    trace_counts = {}
+    prof, by_launch = _profiled(recs, trace_counts, wc.window_launches(),
+                                "mesh_grid")
+    epoch_sum = {k: sum(by[k] for by in ep["launches_by_shard"].values())
+                 for k in KERNEL_NAMES}
+    _require(epoch_sum == trace_counts["mesh_grid"]
+             and all(by[k] > 0 for by in ep["launches_by_shard"].values()
+                     for k in KERNEL_NAMES),
+             f"mesh grid: epoch {MESH_REPLAY_EPOCH}'s per-shard launches "
+             f"{ep['launches_by_shard']} against its trace "
+             f"{trace_counts['mesh_grid']}")
+    # the distinct cards (one on a one-card machine)
+    distinct = grid_mesh() if dev.type == "cuda" else grid_mesh(
+        devices=[dev])
+    dres, dwall = count(lambda: _mesh_fit(torch, model, tc, points, params,
+                                          train_ds, val_ds, distinct))
+    ddiffs = _grid_bars(np, dres, gres, "mesh grid on the distinct cards")
+    _require(distinct.size > 1
+             or np.array_equal(dres.val_history, gres.val_history),
+             "a one-entry mesh differs from the unsharded grid")
+    out = {
+        "shards": MESH_SHARDS, "lanes_per_shard": 32 // MESH_SHARDS,
+        "fit_wall_s": wall, "vs_unsharded": diffs,
+        "param_lanes_held_over_the_fit": stable,
+        "steps_vs_one_device": {"steps": MESH_CHECK_STEPS,
+                                "max_abs_param_err": step_err},
+        "launches_by_shard": by_shard,
+        "replayed_epoch": {
+            "epoch": MESH_REPLAY_EPOCH,
+            "launches_by_shard": ep["launches_by_shard"],
+            "trace": trace_counts["mesh_grid"],
+            "kernels_us_by_launch": by_launch,
+            "ms_sharded_profiled": ep["ms"],
+            "ms_unsharded": gres.epochs[MESH_REPLAY_EPOCH]["ms"],
+            "ms_distinct_cards": dres.epochs[MESH_REPLAY_EPOCH]["ms"]},
+        "epoch_ms_sharded": [e["ms"] for e in res.epochs],
+        "epoch_ms_unsharded": [e["ms"] for e in gres.epochs],
+        "graph_captures": stats["graph_captures"],
+        "capture_ms": stats["capture_ms"],
+        "distinct_cards": distinct.size, "distinct_fit_wall_s": dwall,
+        "distinct_vs_unsharded": ddiffs}
+    return out, launches, dres
+
+
+def _mesh_child(torch, dev, ck, env, ledger, result, grid_size,
+                max_iter):
+    """The supervised faultinject child on ``MESH_SIM_DEVICES`` entries of
+    the card, as tests/test_remesh.py:623-686 runs it."""
+    cmd = [sys.executable, "-m", "redcliff_tpu_torch.supervise",
+           "--ledger", ledger, "--max-restarts", "3",
+           "--base-delay-s", "0.05",
+           "--mesh-devices", str(MESH_SIM_DEVICES),
+           "--n-hosts", str(MESH_SIM_HOSTS),
+           "--device-kind", torch.cuda.get_device_name(dev), "--",
+           sys.executable, "-m", "redcliff_tpu_torch.runtime.faultinject",
+           "--checkpoint-dir", ck, "--mesh", "--sim-devices",
+           str(MESH_SIM_DEVICES), "--device", str(dev),
+           "--grid-size", str(grid_size), "--max-iter", str(max_iter),
+           "--result", result]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, env=env, cwd=HERE, capture_output=True,
+                          text=True, timeout=MESH_CHILD_TIMEOUT_S)
+    return proc, time.perf_counter() - t0
+
+
+def _mesh_host_loss_leg(torch, FM, PX, root, dev):
+    """Leg (b): the supervised host loss of the faultinject child on the
+    card (8 simulated devices, host 3 of 4 dropped at epoch 1), held to an
+    uninterrupted run on the 6 survivors; then the same loss and resume at
+    the published grid, in this process."""
+    import pickle
+
+    import numpy as np
+
+    from redcliff_tpu_torch.obs.logging import read_jsonl
+    from redcliff_tpu_torch.parallel import remesh
+    from redcliff_tpu_torch.parallel.grid import GridSpec, RedcliffGridRunner
+    from redcliff_tpu_torch.runtime import faultinject as fi
+    from redcliff_tpu_torch.train.redcliff_trainer import RedcliffTrainConfig
+
+    base = os.path.join(root, "host_loss")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    ck = os.path.join(base, "ck")
+    ledger = os.path.join(base, "run_ledger.jsonl")
+    result = os.path.join(base, "res.pkl")
+    env = dict(os.environ, PYTHONPATH=HERE,
+               REDCLIFF_FAULT_MARKER=os.path.join(base, "fault.marker"),
+               REDCLIFF_FAULT_INJECT=MESH_HOST_DROP)
+    for k in (remesh.ENV_MESH_DEVICES, "REDCLIFF_WATCHDOG"):
+        env.pop(k, None)
+    proc, child_wall = _mesh_child(torch, dev, ck, env, ledger, result, 8,
+                                   3)
+    _require(proc.returncode == 0,
+             f"mesh host loss: supervised child rc {proc.returncode}: "
+             f"{proc.stderr[-2000:]}")
+    recs = [json.loads(line) for line in open(ledger)]
+    attempts = [r for r in recs if r["event"] == "attempt"]
+    remeshes = [(r["from_devices"], r["to_devices"]) for r in recs
+                if r["event"] == "remesh"]
+    rem = read_jsonl(ck, event="remesh")
+    _require(attempts[0]["rc"] == 21
+             and attempts[0]["classification"] == "host_lost"
+             and attempts[-1]["classification"] == "clean"
+             and remeshes == [(MESH_SIM_DEVICES, MESH_SURVIVORS)]
+             and len(rem) == 1 and (rem[0]["from_width"],
+                                    rem[0]["to_width"]) == (8, 12),
+             f"mesh host loss: attempts {attempts}, ledger remesh "
+             f"{remeshes}, metrics remesh {rem}")
+    # the uninterrupted run on the 6 survivors, in this process
+    with _Env(**{remesh.ENV_MESH_DEVICES: str(MESH_SURVIVORS),
+                 "REDCLIFF_FAULT_INJECT": None,
+                 "REDCLIFF_FAULT_MARKER": None}):
+        want = fi._result_blob(fi.tiny_grid_fit(
+            os.path.join(base, "ref"), max_iter=3, grid_size=8,
+            use_mesh=True, device=str(dev), sim_devices=MESH_SIM_DEVICES))
+    with open(result, "rb") as f:
+        got = pickle.load(f)
+    same = (np.array_equal(got["best_epoch"], want["best_epoch"])
+            and np.array_equal(got["active"], want["active"])
+            and got["failures"] == want["failures"]
+            and np.allclose(got["val_history"], want["val_history"],
+                            **STREAM_HIST)
+            and np.allclose(got["best_criteria"], want["best_criteria"],
+                            **STREAM_HIST)
+            and all(np.allclose(a, b, **STREAM_PARAMS) for a, b in zip(
+                got["best_params_leaves"], want["best_params_leaves"])))
+    tiny_diff = float(np.max(np.abs(got["val_history"]
+                                    - want["val_history"])))
+    _require(same, f"mesh host loss: the resumed child against the "
+                   f"uninterrupted degraded run (val diff {tiny_diff})")
+
+    # the published grid: 8 -> 6 simulated devices in this process
+    model, params, points, train_ds, val_ds = _mesh_grid_parts(torch)
+    tc = RedcliffTrainConfig(**{**TRAIN_KNOBS,
+                                "max_iter": MESH_PUBLISHED_MAX_ITER},
+                             stream_mode="per_batch")
+    pool = [dev] * MESH_SIM_DEVICES
+    pck = os.path.join(base, "published")
+    launches = {"factor_mix": 0, "gl_prox": 0}
+
+    def fit(env):
+        with _Env(**env):
+            mesh = remesh.visible_mesh(devices=pool, n_lanes=len(points))
+            runner = RedcliffGridRunner(model, tc, GridSpec(points),
+                                        mesh=mesh)
+            FM.factor_mix.launches = 0
+            PX.gl_prox.launches = 0
+            t0 = time.perf_counter()
+            try:
+                res = runner.fit(None, train_ds, val_ds,
+                                 init_params=runner.init_grid_from(params),
+                                 copy_init=False, checkpoint_dir=pck,
+                                 checkpoint_every=1, log_dir=pck)
+            except remesh.HostLostError as e:
+                res = e
+            torch.cuda.synchronize()
+            launches["factor_mix"] += FM.factor_mix.launches
+            launches["gl_prox"] += PX.gl_prox.launches
+            return mesh, runner, res, time.perf_counter() - t0
+
+    marker = os.path.join(base, "published.marker")
+    mesh8, _, lost, lost_wall = fit({
+        "REDCLIFF_FAULT_INJECT": MESH_HOST_DROP,
+        "REDCLIFF_FAULT_MARKER": marker, remesh.ENV_MESH_DEVICES: None})
+    _require(isinstance(lost, remesh.HostLostError)
+             and lost.reason == "host_drop" and lost.host == 3,
+             f"mesh published host loss: {lost!r}")
+    mesh6, runner6, res, wall = fit({
+        "REDCLIFF_FAULT_INJECT": None, "REDCLIFF_FAULT_MARKER": None,
+        remesh.ENV_MESH_DEVICES: str(MESH_SURVIVORS)})
+    info = res.dispatch_stats["remesh"]
+    _require(mesh8.size == MESH_SIM_DEVICES and mesh6.size == MESH_SURVIVORS
+             and info is not None and info["from_width"] == 32
+             and info["to_width"] == res.dispatch_stats["grid_width"]
+             and res.val_history.shape[0] == MESH_PUBLISHED_MAX_ITER
+             and bool(np.isfinite(res.val_history).all()),
+             f"mesh published resume: {info}, widths "
+             f"{res.dispatch_stats['grid_width']}")
+    return {"child": {"wall_s": child_wall,
+                      "attempts": [{k: a.get(k) for k in (
+                          "rc", "classification", "action", "mesh")}
+                          for a in attempts],
+                      "ledger_remesh": remeshes, "metrics_remesh": rem[0],
+                      "vs_uninterrupted_val_diff": tiny_diff},
+            "published": {"devices": [mesh8.size, mesh6.size],
+                          "widths": [info["from_width"], info["to_width"]],
+                          "plan_ms": info["plan_ms"],
+                          "lanes_migrated": info["lanes_migrated"],
+                          "lost_fit_wall_s": lost_wall,
+                          "resumed_fit_wall_s": wall,
+                          "launches_by_shard": res.dispatch_stats[
+                              "launches_by_shard"]}}, launches
+
+
+def _mesh_factor_leg(torch, FM, PX, dev):
+    """Leg (c): the train phase's per-point fit with its K=5 factors over
+    [cuda:0] * 5 (the factor mix at K=1 per shard) against the unsharded
+    fit."""
+    import numpy as np
+
+    from redcliff_tpu_torch import interop
+    from redcliff_tpu_torch.models import redcliff as R
+    from redcliff_tpu_torch.parallel.mesh import grid_mesh
+    from redcliff_tpu_torch.train.redcliff_trainer import (
+        RedcliffTrainConfig, RedcliffTrainer)
+
+    train_ds, val_ds = _train_data(np)
+    model = R.RedcliffSCMLP(R.RedcliffSCMLPConfig(**TRAIN_CONFIG))
+    params = model.init(torch.Generator().manual_seed(0))
+    tc = RedcliffTrainConfig(**TRAIN_KNOBS)
+    t0 = time.perf_counter()
+    plain = RedcliffTrainer(model, tc, device=dev).fit(params, train_ds,
+                                                       val_ds)
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    mesh = grid_mesh(devices=[dev] * K_TRAIN)
+    for by in R.FACTOR_BLOCK_LAUNCHES.values():
+        by.clear()
+    FM.factor_mix.launches = 0
+    PX.gl_prox.launches = 0
+    t0 = time.perf_counter()
+    trainer = RedcliffTrainer(model, tc, device=dev)
+    sharded = trainer.fit(params, train_ds, val_ds, factor_mesh=mesh)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"factor_mix": FM.factor_mix.launches,
+                "gl_prox": PX.gl_prox.launches}
+    blocks = {k: dict(v) for k, v in R.FACTOR_BLOCK_LAUNCHES.items()}
+    _require(all(sorted(blocks[k]) == list(range(K_TRAIN))
+                 and min(blocks[k].values()) > 0 for k in blocks)
+             and sum(blocks["gl_prox"].values()) == launches["gl_prox"],
+             f"factor mesh: per-shard launches {blocks} of {launches}")
+    pa = interop.tree_leaves(interop.params_to_jax(plain.params))
+    pb = interop.tree_leaves(interop.params_to_jax(sharded.params))
+    fit_err = max(float(np.max(np.abs(np.asarray(a) - np.asarray(b))))
+                  for a, b in zip(pa, pb))
+    ha = np.asarray(plain.histories["avg_combo_loss"])
+    hb = np.asarray(sharded.histories["avg_combo_loss"])
+    hist_rel = float(np.max(np.abs(hb - ha) / np.abs(ha)))
+    _require(bool(np.allclose(hb, ha, **MESH_FACTOR))
+             and fit_err <= GRID_LANE_PARAM_ATOL
+             and trainer.factor_placement == [str(dev)] * K_TRAIN,
+             f"factor mesh against the unsharded fit: loss histories max "
+             f"rel err {hist_rel}, params max abs err {fit_err}, placement "
+             f"{trainer.factor_placement}")
+    # JAX's factor-mesh bar on steps from one state
+    B = TRAIN_KNOBS["batch_size"]
+    batches = [b for _, b in zip(range(MESH_CHECK_STEPS),
+                                 train_ds.batches(B))]
+    la, sa = _train_steps(torch, np, model, params, batches, dev)
+    lb, sb = _train_steps(torch, np, model, params, batches, dev,
+                          factor_mesh=mesh)
+    step_err = max(float(np.max(np.abs(np.asarray(a) - np.asarray(b))))
+                   for a, b in zip(interop.tree_leaves(sa),
+                                   interop.tree_leaves(sb)))
+    _require(bool(np.allclose(lb, la, **MESH_FACTOR))
+             and all(np.allclose(np.asarray(b), np.asarray(a),
+                                 **MESH_FACTOR)
+                     for a, b in zip(interop.tree_leaves(sa),
+                                     interop.tree_leaves(sb))),
+             f"factor mesh: {MESH_CHECK_STEPS} steps against one device, "
+             f"max abs param err {step_err}")
+    return {"shards": K_TRAIN, "factors_per_shard": 1,
+            "launches_by_shard": blocks, "fit_max_abs_param_err": fit_err,
+            "fit_loss_history_max_rel_err": hist_rel,
+            "steps_vs_one_device": {"steps": MESH_CHECK_STEPS,
+                                    "max_abs_param_err": step_err},
+            "fit_wall_s": wall, "unsharded_fit_wall_s": plain_wall,
+            "tolerance": {"steps_and_histories": MESH_FACTOR,
+                          "fit_params_atol": GRID_LANE_PARAM_ATOL}}, launches
+
+
+def _mesh_seq_leg(torch, dev):
+    """Leg (d): the transformer's encoder at mvts defaults on one long
+    synSys-shaped recording (T 4096, 6 channels) with ring attention over
+    [cuda:0] * 4 against the dense path, LayerNorm and BatchNorm."""
+    import numpy as np
+
+    from redcliff_tpu_torch.models import ts_transformer as TT
+    from redcliff_tpu_torch.parallel.sequence import seq_mesh
+
+    mesh = seq_mesh(devices=[dev] * MESH_SHARDS)
+    X = torch.from_numpy(np.random.default_rng(4).normal(
+        size=(MESH_SEQ_B, MESH_SEQ_T, TST_CONFIG["feat_dim"])).astype(
+        np.float32)).to(dev)
+    out = {}
+    for norm in ("LayerNorm", "BatchNorm"):
+        cfg = TT.TSTransformerConfig(**{**TST_CONFIG, "max_len": MESH_SEQ_T,
+                                        "norm": norm})
+        enc = TT.TSTransformerEncoder(cfg)
+        params = enc.init(torch.Generator().manual_seed(0), device=dev)
+        row, ys = {}, {}
+        with torch.no_grad():
+            for name, kw in (("dense", {}), ("ring", {"seq_mesh": mesh})):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                ys[name] = enc.forward(params, X, **kw)
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated() - base
+                row[name] = {"ms": _time_ms(
+                    torch, lambda kw=kw: enc.forward(params, X, **kw),
+                    iters=MESH_SEQ_TIMED, warmup=2),
+                    "peak_bytes_above_inputs": int(peak)}
+        row["max_abs_err"] = _max_err(ys["ring"], ys["dense"])
+        _require(bool(torch.allclose(ys["ring"], ys["dense"], **MESH_SEQ)),
+                 f"ring attention encoder ({norm}) against dense: max abs "
+                 f"err {row['max_abs_err']}")
+        out[norm] = row
+    return {"T": MESH_SEQ_T, "B": MESH_SEQ_B, "shards": MESH_SHARDS,
+            "tolerance": MESH_SEQ, "by_norm": out}
+
+
+def _mesh_pg_leg(torch, FM, PX, dres, dev):
+    """Leg (e): one process per distinct card in an NCCL process group,
+    a put_along_mesh / gather_to_host round trip, then leg (a)'s grid over
+    the group's mesh, bit for bit the same fit in one process (``dres``)."""
+    import socket
+
+    import numpy as np
+
+    from redcliff_tpu_torch import interop
+    from redcliff_tpu_torch.parallel import distributed
+    from redcliff_tpu_torch.parallel.mesh import grid_mesh
+    from redcliff_tpu_torch.train.redcliff_trainer import RedcliffTrainConfig
+
+    n = torch.cuda.device_count()
+    _require(n == 1, f"leg (e) runs one process per card in this process: "
+                     f"{n} cards need one process each")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    _require(distributed.initialize_distributed(f"localhost:{port}", 1, 0,
+                                                devices=[dev]),
+             "initialize_distributed did not join")
+    try:
+        import torch.distributed as dist
+
+        backend = dist.get_backend()
+        world = dist.get_world_size()
+        mesh = grid_mesh()
+        x = np.arange(mesh.size * 3, dtype=np.float32).reshape(mesh.size, 3)
+        back = distributed.gather_to_host(distributed.put_along_mesh(x, mesh))
+        want = "nccl" if dev.type == "cuda" else "gloo"
+        _require(backend == want and np.array_equal(back, x),
+                 f"process group: backend {backend}, round trip {back}")
+        model, params, points, train_ds, val_ds = _mesh_grid_parts(torch)
+        tc = RedcliffTrainConfig(**TRAIN_KNOBS)
+        FM.factor_mix.launches = 0
+        PX.gl_prox.launches = 0
+        res, wall = _mesh_fit(torch, model, tc, points, params, train_ds,
+                              val_ds, mesh)
+        launches = {"factor_mix": FM.factor_mix.launches,
+                    "gl_prox": PX.gl_prox.launches}
+    finally:
+        distributed.shutdown_distributed()
+    same = (np.array_equal(res.val_history, dres.val_history)
+            and np.array_equal(res.best_criteria, dres.best_criteria)
+            and all(np.array_equal(a, b) for a, b in zip(
+                interop.tree_leaves(res.best_params),
+                interop.tree_leaves(dres.best_params))))
+    _require(same, "the grid over the process group differs from the same "
+                   "fit in one process")
+    return {"world_size": world, "backend": backend, "mesh": mesh.size,
+            "fit_wall_s": wall, "bitwise_equal_one_process": same}, launches
+
+
+def _mesh_kernel_rows(torch, FM, PX, errs, dev):
+    """Both kernels at the mesh's shapes, against their plain versions and
+    timed in turns: the shard's lanes (G=8 of the 32-wide grid on 4
+    shards), the factor slice (K=1 of 5) and their prox blocks."""
+    gen = torch.Generator().manual_seed(5)
+    B = TRAIN_KNOBS["batch_size"]
+    G = 32 // MESH_SHARDS
+    one = torch.zeros(1, device=dev)
+    floor_ms = _time_ms(torch, one.zero_)
+    lam, lr = PROX_LAM, TRAIN_KNOBS["gen_lr"]
+    rows = {"factor_mix": {}, "gl_prox": {}}
+    wg = torch.rand((G, B, K_TRAIN), generator=gen).to(dev)
+    pg = torch.randn((G, K_TRAIN, B, 1, C_TRAIN), generator=gen).to(dev)
+    w1 = torch.rand((B, 1), generator=gen).to(dev)
+    p1 = torch.randn((1, B, 1, C_TRAIN), generator=gen).to(dev)
+    block = (K_TRAIN, C_TRAIN, 25, C_TRAIN, 4)
+    Wg = (0.05 * torch.randn((G,) + block, generator=gen)).to(dev)
+    W1 = (0.05 * torch.randn((1,) + block[1:], generator=gen)).to(dev)
+    tg = PX.lane_thresholds(torch.full((G,), lr, device=dev), lam)
+    on = torch.ones(G, dtype=torch.bool, device=dev)
+    _check_close(torch, f"factor_mix_lanes(G={G}) mesh shard",
+                 FM.factor_mix_lanes(wg, pg),
+                 FM.factor_mix_lanes_reference(wg, pg), errs["factor_mix"])
+    _check_close(torch, "factor_mix(K=1) factor shard",
+                 FM.factor_mix(w1, p1), FM.factor_mix_reference(w1, p1),
+                 errs["factor_mix"])
+    _check_close(torch, f"gl_prox_lanes(G={G}) mesh shard",
+                 PX.gl_prox_lanes_(Wg.clone(), tg, on),
+                 PX.gl_prox_lanes_reference(Wg, tg, on), errs["gl_prox"])
+    _check_close(torch, "gl_prox(K=1) factor shard",
+                 PX.gl_prox_(W1.clone(), lam, lr),
+                 PX.gl_prox_reference(W1, lam, lr), errs["gl_prox"])
+    Wgi, W1i = Wg.clone(), W1.clone()
+    for kernel, key, shape, fns, bound in (
+            ("factor_mix", "mesh_shard",
+             f"G={G} B={B} K={K_TRAIN} M={C_TRAIN} (factor_mix_lanes: one "
+             f"shard of the 32-wide grid on {MESH_SHARDS}); library_ms: "
+             f"torch.matmul on permuted operands",
+             {"kernel_ms": lambda: FM.factor_mix_lanes(wg, pg),
+              "library_ms": lambda: _mix_lanes_library(torch, wg, pg),
+              "plain_ms": lambda: FM.factor_mix_lanes_reference(wg, pg)},
+             _bound_ms(G * B, K_TRAIN, C_TRAIN, G * B)),
+            ("factor_mix", "factor_shard",
+             f"B={B} K=1 M={C_TRAIN} (factor_mix: one factor block's slice "
+             f"of the factor mesh)",
+             {"kernel_ms": lambda: FM.factor_mix(w1, p1),
+              "library_ms": lambda: torch.bmm(
+                  w1[:, None, :], p1.reshape(1, B, C_TRAIN).transpose(0, 1)),
+              "plain_ms": lambda: FM.factor_mix_reference(w1, p1)},
+             _bound_ms(B, 1, C_TRAIN, B)),
+            ("gl_prox", "mesh_shard",
+             f"({G}, 5, 10, 25, 10, 4): one shard's lanes, all gated on; in "
+             f"place (gl_prox_lanes_)",
+             {"kernel_ms": lambda: PX.gl_prox_lanes_(Wgi, tg, on),
+              "plain_ms": lambda: PX.gl_prox_lanes_reference(Wg, tg, on)},
+             _prox_bound_ms(Wg.numel())),
+            ("gl_prox", "factor_shard",
+             "(1, 10, 25, 10, 4): one factor block; in place (gl_prox_)",
+             {"kernel_ms": lambda: PX.gl_prox_(W1i, lam, lr),
+              "plain_ms": lambda: PX.gl_prox_reference(W1, lam, lr)},
+             _prox_bound_ms(W1.numel()))):
+        t = rows[kernel][key] = {"shape": shape, **_time_turns(torch, fns)}
+        t.setdefault("library_ms", None)
+        t["bound_ms"], t["bound_by"] = bound
+        t["floor_ms"] = floor_ms
+        t["device_us_alone"] = _alone_us(torch, {
+            **{k.replace("_ms", ""): f for k, f in fns.items()},
+            "floor": one.zero_})
+    return rows
+
+
+def phase_mesh(torch, FM, PX, smi, gres=None, dev=None):
+    """The device mesh on the card (legs a-e of the module docstring's
+    mesh paragraph); ``gres``: the grid phase's result, leg (a)'s
+    unsharded fit (run here when None); ``dev``: the card (cuda:0; the CPU
+    only to rehearse the phase's control flow). Returns the main paths'
+    kernel launches, the kernels' errors at the mesh's shapes and their
+    rows."""
+    dev = torch.device("cuda", 0) if dev is None else torch.device(dev)
+    root = os.path.join(HERE, "build", "chip_smoke", "mesh")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    t_phase = time.perf_counter()
+    errs = {"factor_mix": {}, "gl_prox": {}}
+    rows = _mesh_kernel_rows(torch, FM, PX, errs, dev)
+    walls = {}
+    total = {"factor_mix": 0, "gl_prox": 0}
+
+    def add(launches):
+        for k in total:
+            total[k] += launches[k]
+
+    t0 = time.perf_counter()
+    grid, launches, dres = _mesh_grid_leg(torch, FM, PX, gres, root, dev)
+    add(launches)
+    walls["a_grid"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host_loss, launches = _mesh_host_loss_leg(torch, FM, PX, root, dev)
+    add(launches)
+    walls["b_host_loss"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    factor, launches = _mesh_factor_leg(torch, FM, PX, dev)
+    add(launches)
+    walls["c_factor"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    seq = _mesh_seq_leg(torch, dev)
+    walls["d_ring"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pg, launches = _mesh_pg_leg(torch, FM, PX, dres, dev)
+    add(launches)
+    walls["e_process_group"] = time.perf_counter() - t0
+    _emit({"phase": "mesh", "device": torch.cuda.get_device_name(dev),
+           "card": smi,
+           "config": "the grid phase's D4IC REDCLIFF-S (gen_hidden 25, "
+                     "DGCNN 3x100, batch 128, GL prox lambda 4) and "
+                     "published D4IC grid (experiments/d4ic_grid_search.py:"
+                     "70-72, 27 points); meshes naming the one card several "
+                     "times simulate larger ones; TF32 off",
+           "reduced": {"num_pretrain_epochs": "50 -> 1",
+                       "num_acclimation_epochs": "15 -> 1",
+                       "max_iter": "1000 -> 4 (the published host loss: 3)"},
+           "walls_s": walls, "wall_s": time.perf_counter() - t_phase,
+           "launches": total, "errors": errs, "kernel_rows": rows,
+           "a_grid": grid, "b_host_loss": host_loss, "c_factor": factor,
+           "d_ring_attention": seq, "e_process_group": pg})
+    return total, {k: max(v.values()) for k, v in errs.items()}, rows
+
+
 def _kernel_entry(name, mod, replaces, launches, by_path, max_err, t):
     return {"name": name, "route": "cuda",
             "source": os.path.relpath(mod.KERNEL_SOURCE, HERE),
@@ -6885,6 +7631,8 @@ def main():
     phase_obs_cli(torch, os.path.join(HERE, "build", "chip_smoke",
                                       "telemetry"), mixed)
     fleet = phase_fleet(torch, smi, [e["ms"] for e in gres.epochs])
+    mesh_launches, mesh_err, mesh_rows = phase_mesh(torch, FM, PX, smi,
+                                                    gres)
     if "--profile" in sys.argv[1:]:
         phase_profile(torch, FM)
         phase_profile_train(torch, FM, PX, tmodel, tparams, train_ds)
@@ -6910,13 +7658,15 @@ def main():
                  "ts_transformer": tst_mix, "telemetry": tel_mix,
                  "runtime": rt_mix,
                  "mixed_train": mixed["launches"]["factor_mix"],
-                 "fleet": fleet["factor_mix"]}
+                 "fleet": fleet["factor_mix"],
+                 "mesh": mesh_launches["factor_mix"]}
     fm = _kernel_entry(
         "factor_mix", FM, "redcliff_tpu/ops/factor_mix.py:58",
-        sum(mix_paths.values()), mix_paths, max_err["factor_mix"],
+        sum(mix_paths.values()), mix_paths,
+        max(max_err["factor_mix"], mesh_err["factor_mix"]),
         timing["factor_mix"]["train"])
-    fm["by_shape"] = {k: v for k, v in timing["factor_mix"].items()
-                      if k != "train"}
+    fm["by_shape"] = {**{k: v for k, v in timing["factor_mix"].items()
+                         if k != "train"}, **mesh_rows["factor_mix"]}
     prox_paths = {"serve": 0, "serve_elastic": 0, "train": prox_launches,
                   "grid": grid_prox,
                   "grid_stream": sum(v["gl_prox"] for v in stream.values()),
@@ -6928,13 +7678,14 @@ def main():
                   "analysis": an_prox, "ts_transformer": tst_prox,
                   "telemetry": tel_prox, "runtime": rt_prox,
                   "mixed_train": mixed["launches"]["gl_prox"],
-                  "fleet": fleet["gl_prox"]}
+                  "fleet": fleet["gl_prox"], "mesh": mesh_launches["gl_prox"]}
     px = _kernel_entry(
         "gl_prox", PX, "redcliff_tpu/ops/pallas_prox.py:47",
-        sum(prox_paths.values()), prox_paths, max_err["gl_prox"],
+        sum(prox_paths.values()), prox_paths,
+        max(max_err["gl_prox"], mesh_err["gl_prox"]),
         timing["gl_prox"]["train"])
-    px["by_shape"] = {k: v for k, v in timing["gl_prox"].items()
-                      if k != "train"}
+    px["by_shape"] = {**{k: v for k, v in timing["gl_prox"].items()
+                         if k != "train"}, **mesh_rows["gl_prox"]}
     bf_paths = {"serve_elastic": el_mix["bf16"],
                 "mixed_train": mixed["launches"]["factor_mix_bf16"]}
     bf = _kernel_entry(

@@ -1,6 +1,7 @@
 """Fleet batch driver: one merged multi-tenant grid fit, supervised.
 
-``python -m redcliff_tpu_torch.fleet.run_batch <batch.json> [--device D]``
+``python -m redcliff_tpu_torch.fleet.run_batch <batch.json> [--device D]
+[--sim-devices N]``
 is the torch-side child the fleet worker runs under the crash-loop
 supervisor (port of ``redcliff_tpu/fleet/run_batch.py``). The batch file
 (written by fleet/worker.py from the claimed composition) holds the merged
@@ -42,10 +43,9 @@ crash-looping.
 
 Exit codes follow the watchdog taxonomy (runtime/watchdog.py) exactly like
 the faultinject child: preempted 17, deadline 20 — so the supervisor's
-restart/stop classification applies unchanged. The JAX child also exits
-21 on a ``HostLostError``; that error comes from the multi-device
-re-meshing (``parallel/remesh.py``), which the port does not have yet
-(ROADMAP queue 1, item 15), and the port's child raises none.
+restart/stop classification applies unchanged, and host_lost 21 on a
+``parallel.remesh.HostLostError`` (part of the batch's mesh is gone: the
+supervisor re-meshes and the restart re-shards the checkpoint).
 
 This is the ONE fleet module that imports torch; the queue, planner, and
 worker stay backend-free by design. The port's differences from the JAX
@@ -55,10 +55,11 @@ module:
   given). Without CUDA and without a device the child raises before it
   writes anything, and the supervisor classifies that exit as any crash:
   it never fits on the CPU unasked;
-* the mesh: ``spec["mesh"] == "auto"`` (and with it a packed worker's
-  sub-mesh ``slot``) needs the device mesh, which the port does not have
-  yet (ROADMAP queue 1, item 15): it raises ``NotImplementedError``. A
-  slot without ``mesh`` fits on the one device, as in JAX;
+* the mesh: ``spec["mesh"] == "auto"`` meshes over the visible cards,
+  or over a packed worker's sub-mesh ``slot`` of them, as in JAX;
+  ``--sim-devices N`` makes the visible devices N entries of ``--device``
+  (one device simulating a pool, as the faultinject child's flag does).
+  A slot without ``mesh`` fits on the one device, as in JAX;
 * the grid's seed is the int ``train_config.seed`` (JAX: a PRNG key made
   from it); each lane's init still comes from its content seed.
 """
@@ -120,9 +121,10 @@ def _build_dataset(data_spec, cfg):
     raise ValueError(f"unknown fleet data kind {kind!r}")
 
 
-def run_batch_file(batch_file, device=None):
+def run_batch_file(batch_file, device=None, sim_devices=None):
     """Run one batch file end-to-end on ``device`` (``cuda`` when None);
-    returns the GridResult."""
+    returns the GridResult. ``sim_devices``: the device pool of a mesh
+    "auto" batch is this many entries of ``device``."""
     from redcliff_tpu_torch.models.redcliff import (RedcliffSCMLP,
                                                     RedcliffSCMLPConfig)
     from redcliff_tpu_torch.obs.logging import MetricLogger, jsonable
@@ -192,16 +194,31 @@ def run_batch_file(batch_file, device=None):
         # worker's bisection must corner without attribution
         _chaos.detonate(chaos_specs[0])
 
-    # sub-mesh slot: the JAX child meshes a packed batch over its slot's
-    # device interval, or over every visible device for mesh "auto". Both
-    # need the device mesh (parallel/mesh.py, parallel/remesh.py), which
-    # the port does not have yet; a slot without mesh "auto" fits on the
-    # one device, as in JAX
+    # sub-mesh slot: a PACKED worker assigned this batch a disjoint device
+    # interval of the pool — mesh over exactly those devices so co-resident
+    # batches never share one. Device ids are stable
+    # (remesh.visible_devices), so a reclaimed batch meshes over the SAME
+    # devices its checkpoint was fitted on. A slot that no longer fits the
+    # visible pool (devices lost since the claim) degrades to the auto-mesh
+    # recipe rather than crash-looping the batch
+    mesh = None
+    slot = batch.get("slot")
     if spec0.get("mesh") == "auto":
-        raise NotImplementedError(
-            f"{batch_file}: spec mesh 'auto' (a packed slot "
-            f"{batch.get('slot')!r}) needs the device mesh, which is not "
-            f"ported yet (ROADMAP queue 1, item 15, multi-GPU)")
+        from redcliff_tpu_torch.parallel import remesh as _remesh
+        from redcliff_tpu_torch.parallel.mesh import grid_mesh
+
+        pool = [device] * int(sim_devices) if sim_devices else None
+        if isinstance(slot, dict):
+            try:
+                lo, width = int(slot["lo"]), int(slot["width"])
+            except (KeyError, TypeError, ValueError):
+                lo = width = None
+            if width:
+                devs = _remesh.visible_devices(pool)[lo:lo + width]
+                if len(devs) == width:
+                    mesh = grid_mesh(devices=devs, axis_name="grid")
+        if mesh is None:
+            mesh = _remesh.visible_mesh(devices=pool, n_lanes=len(merged))
 
     # predictive-policy widening ceiling (parallel/policy.py
     # ENV_POLICY_MAX_WIDTH): the admission planner's HBM gate and
@@ -273,7 +290,7 @@ def run_batch_file(batch_file, device=None):
             model, tc,
             GridSpec(points=merged,
                      lane_seeds=[lane_seed(p) for p in merged]),
-            device=device)
+            mesh=mesh, device=None if mesh is not None else device)
         result = runner.fit(tc.seed, train_ds, val_ds,
                             checkpoint_dir=run_dir,
                             checkpoint_every=int(
@@ -372,20 +389,33 @@ def run_batch_file(batch_file, device=None):
 
 def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
-    device = None
-    if len(argv) == 3 and argv[1] == "--device":
-        argv, device = argv[:1], argv[2]
-    if len(argv) != 1 or argv[0].startswith("-"):
+    opts = {"--device": None, "--sim-devices": None}
+    rest = []
+    while argv:
+        a = argv.pop(0)
+        if a in opts and argv:
+            opts[a] = argv.pop(0)
+        else:
+            rest.append(a)
+    if len(rest) != 1 or rest[0].startswith("-"):
         print("usage: python -m redcliff_tpu_torch.fleet.run_batch "
-              "<batch.json> [--device D]", file=sys.stderr)
+              "<batch.json> [--device D] [--sim-devices N]",
+              file=sys.stderr)
         return 2
+    from redcliff_tpu_torch.parallel.remesh import HostLostError
     from redcliff_tpu_torch.runtime.preempt import (DeadlineExceeded,
                                                     Preempted)
     from redcliff_tpu_torch.runtime.watchdog import (EXIT_DEADLINE,
+                                                     EXIT_HOST_LOST,
                                                      EXIT_PREEMPTED)
 
+    sim = opts["--sim-devices"]
     try:
-        run_batch_file(argv[0], device=device)
+        run_batch_file(rest[0], device=opts["--device"],
+                       sim_devices=int(sim) if sim else None)
+    except HostLostError as e:
+        print(f"fleet run_batch: {e}", file=sys.stderr)
+        return EXIT_HOST_LOST
     except Preempted as e:
         print(f"fleet run_batch: {e}", file=sys.stderr)
         return EXIT_PREEMPTED

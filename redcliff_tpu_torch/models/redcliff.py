@@ -30,6 +30,16 @@ The contractions (the GC outer products and their weightings) go through
 outside a bf16 matmul context, bf16-rounded operands with float32 sums
 inside one (``precision_mode="mixed"``), where the factor mix takes its
 bf16 training form (``ops/factor_mix.py factor_mix_bf16``).
+
+Factor parallelism (``RedcliffTrainer.fit(factor_mesh=)``, as JAX's
+``shard_factor_axis``): a params tree whose ``"factors"`` is a
+``parallel.mesh.FactorShards`` holds K/n factors per mesh entry on that
+entry's device. Each block computes its factors' one-step predictions on
+its device, the factor-mix kernel mixes the block's K slice there (the
+weightings' slice made contiguous: the wrapper refuses a strided ``w``),
+and the partial outputs are summed on the first block's device in mesh
+order — the psum of JAX's mesh. The GC readouts join the blocks' per-factor
+graphs on the first device, and the GL prox runs on each block's leaves.
 """
 from __future__ import annotations
 
@@ -46,10 +56,24 @@ from redcliff_tpu_torch.models.embedders import (CEmbedder, DGCNNEmbedder,
 from redcliff_tpu_torch.ops import losses as L
 from redcliff_tpu_torch.ops.factor_mix import factor_mix
 from redcliff_tpu_torch.ops.pallas_prox import gl_prox, gl_prox_, gl_prox_lanes_
+from redcliff_tpu_torch.parallel.mesh import (FactorShards, factor_slices,
+                                              shard_factor_axis,
+                                              unshard_factor_axis)
 from redcliff_tpu_torch.utils import precision as _prec
 
 __all__ = ["RedcliffSCMLPConfig", "RedcliffSCMLP", "TRAINING_MODES",
-           "GC_EST_MODES", "FORWARD_PASS_MODES", "phase_schedule"]
+           "GC_EST_MODES", "FORWARD_PASS_MODES", "phase_schedule",
+           "FACTOR_BLOCK_LAUNCHES"]
+
+# each factor block's kernel launches (block index -> count) in
+# factor-sharded fits on the card, counted where the wrappers count theirs
+FACTOR_BLOCK_LAUNCHES = {"factor_mix": {}, "gl_prox": {}}
+
+
+def _block_launch(kernel, block, t):
+    if t.is_cuda:
+        by = FACTOR_BLOCK_LAUNCHES[kernel]
+        by[block] = by.get(block, 0) + 1
 
 TRAINING_MODES = (
     "pretrain_embedder_then_acclimate_factors_then_combined",
@@ -250,7 +274,14 @@ class RedcliffSCMLP:
         """The stacked factors' one-step predictions on ``window``
         ((B, lag, C), shared, or (K, B, lag, C), one per factor):
         (K, B, 1, C). cLSTM factors consume the window step by step and
-        emit the last step's forecast."""
+        emit the last step's forecast. Factor blocks give one
+        prediction per block, on its device (``window`` a shared tensor
+        or one per block)."""
+        if isinstance(factors, FactorShards):
+            wins = (window if isinstance(window, list)
+                    else [window] * len(factors))
+            return [self._factors_apply(f, w.to(_block_device(f)))
+                    for f, w in zip(factors, wins)]
         if self.config.factor_network_type == "cLSTM":
             preds, _ = clstm_mod.clstm_forward(factors, window)
             return preds[..., -1:, :]
@@ -268,9 +299,35 @@ class RedcliffSCMLP:
 
     def _factor_step(self, params, window):
         """All K factors' one-step predictions on the last gen_lag steps:
-        (K, B, 1, C)."""
+        (K, B, 1, C) (one per block for factor blocks)."""
         w = window[:, -self.config.gen_lag:, :]
         return self._factors_apply(params["factors"], w)
+
+    @staticmethod
+    def _mix(weightings, preds, factors):
+        """The factor mix of ``preds`` by ``weightings`` (B, K): one kernel
+        launch, or for factor blocks one launch per block on the block's
+        K slice and device, the partial sums added on the first block's
+        device in mesh order."""
+        if not isinstance(factors, FactorShards):
+            return factor_mix(weightings.contiguous(), preds.contiguous())
+        out = None
+        home = preds[0].device
+        for b, ((lo, hi), p) in enumerate(zip(factor_slices(factors),
+                                               preds)):
+            w = weightings[:, lo:hi].to(p.device).contiguous()
+            part = factor_mix(w, p.contiguous()).to(home)
+            _block_launch("factor_mix", b, p)
+            out = part if out is None else out + part
+        return out
+
+    @staticmethod
+    def _joined(preds):
+        """Per-block predictions joined along K on the first block's
+        device (the unsharded layout)."""
+        if not isinstance(preds, list):
+            return preds
+        return torch.cat([p.to(preds[0].device) for p in preds])
 
     def forward(self, params, X, factor_weightings=None):
         """Returns (x_sims (B, num_sims, C), factor_preds, factor_weighting
@@ -290,10 +347,10 @@ class RedcliffSCMLP:
                 weightings = fixed_weightings
             label_preds.append(logits if logits is not None else weightings)
             preds = self._factor_step(params, window)  # (K, B, 1, C)
-            combined = factor_mix(weightings.contiguous(), preds.contiguous())
+            combined = self._mix(weightings, preds, params["factors"])
             sims.append(combined)
             fw_preds.append(weightings)
-            factor_preds.append(preds)
+            factor_preds.append(self._joined(preds))
             window = torch.cat([window[:, combined.shape[1]:, :], combined],
                                dim=1)
         return torch.cat(sims, dim=1), factor_preds, fw_preds, label_preds
@@ -309,24 +366,50 @@ class RedcliffSCMLP:
             logits = weightings
         label_preds = [logits for _ in range(cfg.num_sims)]
 
-        K = cfg.num_factors
         last = X[:, -cfg.gen_lag:, :]
-        win = last[None].expand((K,) + tuple(last.shape))
-        per_factor_sims = []
-        for _ in range(cfg.num_sims):
-            preds = self._factors_apply(params["factors"], win)
-            per_factor_sims.append(preds)                 # (K, B, 1, C)
-            win = torch.cat([win[:, :, preds.shape[2]:, :], preds], dim=2)
-        factor_sims = torch.cat(per_factor_sims, dim=2)   # (K, B, S, C)
+        factors = params["factors"]
+        if isinstance(factors, FactorShards):
+            # each block rolls out its own factors on its device
+            per_block = [self._roll_out(f, last.to(_block_device(f)))
+                         for f in factors]
+            x_sims = self._mix(weightings, [fs for fs, _ in per_block],
+                               factors)
+            per_factor_sims = [self._joined([steps[i] for _, steps
+                                             in per_block])
+                               for i in range(cfg.num_sims)]
+            return x_sims, per_factor_sims, [weightings], label_preds
+        factor_sims, per_factor_sims = self._roll_out(factors, last)
         x_sims = factor_mix(weightings.contiguous(), factor_sims.contiguous())
         return x_sims, per_factor_sims, [weightings], label_preds
+
+    def _roll_out(self, factors, last):
+        """Every factor of ``factors`` simulates ``num_sims`` steps from
+        ``last`` (B, gen_lag, C) on its own predictions: the stacked
+        (K, B, S, C) simulations and the per-step (K, B, 1, C) list."""
+        K = tree_leaves(factors)[0].shape[0]
+        win = last[None].expand((K,) + tuple(last.shape))
+        per_factor_sims = []
+        for _ in range(self.config.num_sims):
+            preds = self._factors_apply(factors, win)
+            per_factor_sims.append(preds)                 # (K, B, 1, C)
+            win = torch.cat([win[:, :, preds.shape[2]:, :], preds], dim=2)
+        return torch.cat(per_factor_sims, dim=2), per_factor_sims
 
     # ---------------------------------------------------------------------- GC
     def factor_gc(self, params, threshold=False, ignore_lag=True,
                   combine_wavelet_representations=False, rank_wavelets=False):
         """(K, C, C[, L]) per-factor readouts; cLSTM factors read the
-        input-weight column norms (a singleton lag axis when lagged)."""
+        input-weight column norms (a singleton lag axis when lagged).
+        Factor blocks read each block on its device and join the graphs
+        on the first block's."""
         cfg = self.config
+        if isinstance(params["factors"], FactorShards):
+            kw = dict(threshold=threshold, ignore_lag=ignore_lag,
+                      combine_wavelet_representations=
+                      combine_wavelet_representations,
+                      rank_wavelets=rank_wavelets)
+            return self._joined([self.factor_gc({"factors": f}, **kw)
+                                 for f in params["factors"]])
         mask = None
         if rank_wavelets and cfg.wavelet_level is not None:
             mask = cmlp_mod.build_wavelet_ranking_mask(
@@ -605,6 +688,10 @@ class RedcliffSCMLP:
         block to group."""
         self._require_cmlp_factors()
         factors = params["factors"]
+        if isinstance(factors, FactorShards):
+            return dict(params, factors=FactorShards(
+                self.apply_prox({"factors": f}, lam, lr, penalty)["factors"]
+                for f in factors))
         new_w = gl_prox(factors[0]["w"], lam, lr, penalty)
         new_factors = [dict(factors[0], w=new_w)] + list(factors[1:])
         return dict(params, factors=new_factors)
@@ -617,7 +704,14 @@ class RedcliffSCMLP:
         its storage (the trainer keeps every other tree as a copy). Call
         under ``torch.no_grad()``. Returns ``params``."""
         self._require_cmlp_factors()
-        gl_prox_(params["factors"][0]["w"], lam, lr, penalty)
+        factors = params["factors"]
+        if not isinstance(factors, FactorShards):
+            gl_prox_(factors[0]["w"], lam, lr, penalty)
+            return params
+        # one launch per factor block, each on its block's device
+        for b, f in enumerate(factors):
+            gl_prox_(f[0]["w"], lam, lr, penalty)
+            _block_launch("gl_prox", b, f[0]["w"])
         return params
 
     def apply_prox_lanes_(self, params, thresholds, gate, penalty="GL"):
@@ -640,7 +734,15 @@ class RedcliffSCMLP:
 
     # -------------------------------------------------------- factor alignment
     def permute_factors(self, params, order):
-        """Reorder the stacked factor params along K."""
+        """Reorder the stacked factor params along K (factor blocks are
+        joined, reordered and split again over their devices)."""
+        if isinstance(params["factors"], FactorShards):
+            from redcliff_tpu_torch.parallel.mesh import DeviceMesh
+
+            mesh = DeviceMesh([_block_device(f) for f in params["factors"]])
+            joined = unshard_factor_axis(params)
+            return shard_factor_axis(self.permute_factors(joined, order),
+                                     mesh)
         idx = torch.as_tensor(list(order), dtype=torch.long)
         factors = tree_map(lambda v: v[idx.to(v.device)], params["factors"])
         return dict(params, factors=factors)
@@ -655,3 +757,8 @@ class RedcliffSCMLP:
             "fw_smoothing_penalty": cfg.factor_weight_smoothing_penalty_coeff,
             "adj_l1_penalty": cfg.adj_l1_reg_coeff,
         }
+
+
+def _block_device(factors):
+    """The device a factor block lives on."""
+    return tree_leaves(factors)[0].device

@@ -20,8 +20,13 @@ across unchanged:
 - the padding mask fills masked attention logits with ``finfo.min``.
 
 Attention is plain PyTorch (``einsum`` and ``softmax``), as the JAX
-module's is plain jnp: no TPU kernel is on this path. The sequence-parallel
-ring attention (``seq_mesh``) is ROADMAP item 15 and raises here.
+module's is plain jnp: no TPU kernel is on this path. With ``seq_mesh``
+(``parallel/sequence.py``, as in JAX) the time axis splits into one block
+per mesh entry: attention runs as ring attention, the time-local layers
+(projections, feed-forward, LayerNorm) run on each block's device, and
+the mvts BatchNorm's batch × time statistics are summed over the blocks
+on the first one, as the JAX mesh psums them; the output is joined on the
+input's device. Padding masks are refused under ``seq_mesh``, as in JAX.
 
 ``init`` takes a ``torch.Generator`` and draws from the JAX init's
 distributions; it places the params on ``cuda`` unless ``device`` is given,
@@ -47,10 +52,6 @@ __all__ = [
     "init_ts_transformer_params",
     "ts_transformer_encode",
 ]
-
-_SEQ_MESH = ("seq_mesh (sequence-parallel ring attention) is not ported "
-             "yet: ROADMAP queue 1, item 15")
-
 
 @dataclass(frozen=True)
 class TSTransformerConfig:
@@ -175,12 +176,95 @@ def _attention(layer, x, pad_mask, n_heads):
     return out @ layer["wo"]
 
 
+def _block_norm(xs, scale, shift, kind, eps=1e-5):
+    """:func:`_norm` over time blocks ``xs`` (one per mesh entry, each on
+    its device): LayerNorm is per position; the mvts BatchNorm's mean and
+    (population) variance over batch x time are sums of per-block partial
+    sums, added on the first block's device in mesh order."""
+    if kind == "LayerNorm":
+        return [_norm(x, scale.to(x.device), shift.to(x.device), kind, eps)
+                for x in xs]
+    home = xs[0].device
+    count = sum(x.shape[0] * x.shape[1] for x in xs)
+
+    def total(parts):
+        out = None
+        for p in parts:
+            p = p.to(home)
+            out = p if out is None else out + p
+        return out
+    mean = total(x.sum(dim=(0, 1), keepdim=True) for x in xs) / count
+    var = total(((x - mean.to(x.device)) ** 2).sum(dim=(0, 1), keepdim=True)
+                for x in xs) / count
+    return [(x - mean.to(x.device)) / torch.sqrt(var.to(x.device) + eps)
+            * scale.to(x.device) + shift.to(x.device) for x in xs]
+
+
+def _encode_blocks(params, cfg, X, mesh):
+    """The encoder under sequence parallelism: X split into time blocks
+    over ``mesh``, each block's time-local layers on its device, attention
+    as ring attention; the blocks joined on X's device."""
+    from redcliff_tpu_torch.interop import tree_map
+    from redcliff_tpu_torch.parallel.sequence import (ring_attention,
+                                                      sequence_gathered,
+                                                      sequence_sharded)
+
+    blocks = sequence_sharded(X, mesh)
+    T_loc = blocks[0].shape[1]
+    local = mesh.local_indices()
+    # the params on every distinct device of the blocks
+    on = {}
+    for b in blocks:
+        if str(b.device) not in on:
+            on[str(b.device)] = tree_map(lambda t, _d=b.device: t.to(_d),
+                                         params)
+    P = [on[str(b.device)] for b in blocks]
+    pos = (None if cfg.pos_encoding == "learnable"
+           else _fixed_pos_encoding(cfg.max_len, cfg.d_model, X.device))
+    xs = []
+    for j, (i, b) in enumerate(zip(local, blocks)):
+        p = P[j]
+        x = (b @ p["project_inp"]["w"] + p["project_inp"]["b"]) \
+            * math.sqrt(cfg.d_model)
+        lo = i * T_loc
+        if cfg.pos_encoding == "learnable":
+            x = x + p["pos"][None, lo:lo + T_loc]
+        else:
+            x = x + pos[lo:lo + T_loc].to(b.device)[None]
+        xs.append(x)
+    B = X.shape[0]
+    H = cfg.n_heads
+    hd = cfg.d_model // H
+    for li in range(len(params["layers"])):
+        L = [p["layers"][li] for p in P]
+        q = [(x @ l["wq"]).reshape(B, T_loc, H, hd) for x, l in zip(xs, L)]
+        k = [(x @ l["wk"]).reshape(B, T_loc, H, hd) for x, l in zip(xs, L)]
+        v = [(x @ l["wv"]).reshape(B, T_loc, H, hd) for x, l in zip(xs, L)]
+        att = ring_attention(q, k, v, mesh)
+        a = [o.reshape(B, T_loc, cfg.d_model) @ l["wo"]
+             for o, l in zip(att, L)]
+        xs = _block_norm([x + y for x, y in zip(xs, a)],
+                         params["layers"][li]["norm1_scale"],
+                         params["layers"][li]["norm1_shift"], cfg.norm)
+        h = [_act(cfg, x @ l["ff1"]["w"] + l["ff1"]["b"]) @ l["ff2"]["w"]
+             + l["ff2"]["b"] for x, l in zip(xs, L)]
+        xs = _block_norm([x + y for x, y in zip(xs, h)],
+                         params["layers"][li]["norm2_scale"],
+                         params["layers"][li]["norm2_shift"], cfg.norm)
+    return sequence_gathered([_act(cfg, x) for x in xs], mesh, X.device)
+
+
 def ts_transformer_encode(params, cfg: TSTransformerConfig, X,
                           padding_masks=None, seq_mesh=None):
     """(B, T, feat_dim) -> (B, T, d_model) encoder embeddings
-    (ref TSTransformerEncoder.forward :169-190 up to the output head)."""
+    (ref TSTransformerEncoder.forward :169-190 up to the output head).
+
+    ``seq_mesh`` turns on sequence parallelism for long recordings (see the
+    module docstring); T must divide by the mesh size."""
     if seq_mesh is not None:
-        raise NotImplementedError(_SEQ_MESH)
+        assert padding_masks is None, \
+            "padding_masks unsupported under sequence parallelism"
+        return _encode_blocks(params, cfg, X, seq_mesh)
     T = X.shape[1]
     x = (X @ params["project_inp"]["w"] + params["project_inp"]["b"]) \
         * math.sqrt(cfg.d_model)

@@ -44,6 +44,15 @@ meaning executions on the device: a launch made while the stream is
 capturing is recorded by the program, and each replay adds the program's
 captured launches.
 
+With a device mesh the grid runs one engine per lane shard
+(``parallel/grid.py``): each shard's programs are captured on the shard's
+own device, under ``torch.cuda.device``, on a side stream and into a
+graph pool of that device, so two shards on one card hold two pools and
+two streams. :meth:`EpochEngine.train_epoch` (given the other shards as
+``peers``) and :func:`validate` drive every shard's engine from one batch
+plan (one draw of the epoch's shuffle), launching each shard's program in
+mesh order before anything is read back.
+
 Every program run and eager step is a ring-only ``grid.dispatch`` span
 (host enqueue time), and every capture counts into
 ``runtime/compileobs.py`` (the grid's ``compile`` events) and runs under
@@ -67,12 +76,25 @@ from redcliff_tpu_torch.ops import pallas_prox as _pallas_prox
 from redcliff_tpu_torch.runtime import compileobs
 from redcliff_tpu_torch.runtime import watchdog as _watchdog
 
-__all__ = ["Program", "EpochEngine", "COUNTED"]
+__all__ = ["Program", "EpochEngine", "COUNTED", "validate", "counted"]
 
 # the launch-counted kernel wrappers (their ``launches`` and ``captured``):
 # the f32 factor mix, the GL prox and every form of the bf16 factor mix
 COUNTED = (_factor_mix.factor_mix, _pallas_prox.gl_prox,
            _factor_mix.graph_mix_bf16)
+
+
+def counted(stats, shard, fn):
+    """``fn()``, its kernel executions (the counted wrappers' deltas: the
+    launches of an eager call, a capture's warm-up step and a replay's
+    captured ones) added to ``stats["launches_by_shard"][shard]``."""
+    before = [c.launches for c in COUNTED]
+    out = fn()
+    by = stats.setdefault("launches_by_shard", {}).setdefault(
+        str(shard), {c.__name__: 0 for c in COUNTED})
+    for c, b in zip(COUNTED, before):
+        by[c.__name__] += c.launches - b
+    return out
 
 
 class Program:
@@ -131,7 +153,8 @@ class Program:
         if self.pointers is None:
             self.pointers = ptrs
             if self.device.type == "cuda":
-                self._capture(state)
+                with torch.cuda.device(self.device):
+                    self._capture(state)
         elif ptrs != self.pointers:
             raise RuntimeError(
                 "a tensor the captured program reads or writes has moved "
@@ -140,7 +163,8 @@ class Program:
                 "update them in place or start a new era")
         if self.device.type != "cuda":
             return self.body(self.inputs, self.steps, state)
-        self.graph.replay()
+        with torch.cuda.device(self.device):
+            self.graph.replay()
         for fn, n in self.tally:
             fn.launches += n
         return self.out
@@ -239,8 +263,7 @@ class EpochEngine:
         self.programs = {}
         self.active = torch.zeros((width,), dtype=torch.bool,
                                   device=self.device)
-        self.pool = (torch.cuda.graph_pool_handle()
-                     if self.stream is not None else None)
+        self.pool = self._new_pool()
 
     def drop_programs(self):
         """Drop every program of the era and start a fresh graph pool
@@ -251,11 +274,18 @@ class EpochEngine:
         epoch that captures anyway, not by the one that demoted."""
         self._stale = True
 
+    def _new_pool(self):
+        """A graph memory pool of this engine's device (the handle follows
+        the current device)."""
+        if self.stream is None:
+            return None
+        with torch.cuda.device(self.device):
+            return torch.cuda.graph_pool_handle()
+
     def _fresh(self):
         if self._stale:
             self.programs = {}
-            self.pool = (torch.cuda.graph_pool_handle()
-                         if self.stream is not None else None)
+            self.pool = self._new_pool()
             self._stale = False
 
     def holds(self, width):
@@ -291,7 +321,8 @@ class EpochEngine:
                  else contextlib.nullcontext())
         with self.runner._dispatch_span(kind, cold=fresh), scope:
             prog.load(**batches)
-            out = prog.run(state)
+            out = counted(self.stats, getattr(self.runner, "index", 0),
+                          lambda: prog.run(state))
         self.stats["val_dispatches" if kind == "val"
                    else "train_dispatches"] += 1
         if fresh and prog.capture_ms is not None:
@@ -358,41 +389,21 @@ class EpochEngine:
 
     def _eager_step(self, phase, state, X, Y):
         with self.runner._dispatch_span("step"):
-            self.runner._step(phase, *state, self.active, X, Y)
+            counted(self.stats, getattr(self.runner, "index", 0), lambda: self.runner._step(
+                phase, *state, self.active, X, Y))
         self.stats["train_dispatches"] += 1
 
-    def train_epoch(self, mode, phase, state, active, train_ds, rng):
+    def train_epoch(self, mode, phase, state, active, train_ds, rng,
+                    peers=()):
         """One single-phase epoch of ``phase`` in ``mode`` ("epoch" or
         "kscan") on ``state = (params, optA, optB, nstate)``, in place,
         gated by ``active``. Consumes ``rng`` exactly as the per-batch
-        loop does."""
-        self.active.copy_(active)
-        B = self.batch_size
-        if mode == "epoch":
-            full, rem = pipeline.epoch_batch_plan(len(train_ds), B, rng=rng)
-            self._indexed(phase, full, state)
-            if len(rem):
-                self._indexed(phase, rem[None], state)
-            return
-        # kscan: full groups of k replay; a short or label-less batch first
-        # flushes the partial group eagerly, in order
-        k = self.scan_batches
-        group = []
-        for X, Y in self.runner._batches(train_ds, rng=rng):
-            _watchdog.stamp("batch_loop")
-            if Y is None or X.shape[0] != B:
-                for Xg, Yg in group:
-                    self._eager_step(phase, state, Xg, Yg)
-                group = []
-                self._eager_step(phase, state, X, Y)
-                continue
-            group.append((X, Y))
-            if len(group) == k:
-                self._staged(phase, group, state)
-                group = []
-        for Xg, Yg in group:
-            self._eager_step(phase, state, Xg, Yg)
-        _watchdog.retire("batch_loop")
+        loop does. ``peers``: the other lane shards' ``(engine, state,
+        active)``, run on the same batch plan after this one, in mesh
+        order."""
+        _train_epoch([self] + [p[0] for p in peers], mode, phase,
+                     [state] + [p[1] for p in peers],
+                     [active] + [p[2] for p in peers], train_ds, rng)
 
     # ----------------------------------------------------------- validation
     def _val_body(self):
@@ -424,32 +435,89 @@ class EpochEngine:
         # the replayed graph owns its outputs: the next replay rewrites them
         return tuple(t.clone() for t in out)
 
-    def validate(self, params, val_ds):
-        """``(combo_sum, forecast_sum, factor_sum, n)`` over the validation
-        set: per-batch sums from zero, in batch order, as ``(G,)``
-        tensors, and the batch count."""
-        runner = self.runner
-        if self.val_plan is not None:
-            full, rem = self.val_plan
-            sums = self._val_program(full, params)
-            n = len(full)
-            if len(rem):
-                # (0 + c_rem) is c_rem: the sums stay the per-batch ones
-                sums = tuple(a + b for a, b in zip(
-                    sums, self._val_program(rem[None], params)))
-                n += 1
-            return sums + (n,)
-        zero = torch.zeros(self.active.shape, device=self.device)
-        combo_sum, forecast_sum, factor_sum = zero, zero, zero
-        n = 0
-        with torch.no_grad():
-            for X, Y in runner._batches(val_ds):
-                with runner._dispatch_span("val"):
-                    combo, fo, fa = runner._val(params,
-                                                runner._ex_loss_coeffs, X, Y)
-                self.stats["val_dispatches"] += 1
-                combo_sum = combo_sum + combo
-                forecast_sum = forecast_sum + fo
-                factor_sum = factor_sum + fa
-                n += 1
-        return combo_sum, forecast_sum, factor_sum, n
+
+
+def _train_epoch(engines, mode, phase, states, actives, train_ds, rng):
+    """:meth:`EpochEngine.train_epoch` on every shard: ``engines[i]`` runs
+    ``states[i]`` gated by ``actives[i]``. The batch plan is drawn once and
+    every shard's program is launched in mesh order."""
+    for eng, active in zip(engines, actives):
+        eng.active.copy_(active)
+    first = engines[0]
+    B = first.batch_size
+    if mode == "epoch":
+        full, rem = pipeline.epoch_batch_plan(len(train_ds), B, rng=rng)
+        for eng, state in zip(engines, states):
+            eng._indexed(phase, full, state)
+        if len(rem):
+            for eng, state in zip(engines, states):
+                eng._indexed(phase, rem[None], state)
+        return
+    # kscan: full groups of k replay; a short or label-less batch first
+    # flushes the partial group eagerly, in order
+    k = first.scan_batches
+
+    def eager(group):
+        for Xg, Yg in group:
+            for eng, state in zip(engines, states):
+                eng._eager_step(phase, state, *_on(eng.device, Xg, Yg))
+
+    group = []
+    for X, Y in first.runner._batches(train_ds, rng=rng):
+        _watchdog.stamp("batch_loop")
+        if Y is None or X.shape[0] != B:
+            eager(group + [(X, Y)])
+            group = []
+            continue
+        group.append((X, Y))
+        if len(group) == k:
+            for eng, state in zip(engines, states):
+                eng._staged(phase, group, state)
+            group = []
+    eager(group)
+    _watchdog.retire("batch_loop")
+
+
+def _on(device, X, Y):
+    """A batch on ``device`` (a no-op where it already is)."""
+    return X.to(device), (None if Y is None else Y.to(device))
+
+
+def validate(engines, params_list, val_ds):
+    """``([(combo_sum, forecast_sum, factor_sum)] per shard, n)``: each
+    shard's per-batch validation sums from zero, in batch order, as
+    tensors on its device, and the batch count. A device-resident
+    validation set runs each shard's validation program; otherwise the
+    batches are read once and every shard's pass runs on each."""
+    if engines[0].val_plan is not None:
+        full, rem = engines[0].val_plan
+        out = [eng._val_program(full, params)
+               for eng, params in zip(engines, params_list)]
+        n = len(full)
+        if len(rem):
+            # (0 + c_rem) is c_rem: the sums stay the per-batch ones
+            out = [tuple(a + b for a, b in zip(
+                sums, eng._val_program(rem[None], params)))
+                for sums, eng, params in zip(out, engines, params_list)]
+            n += 1
+        return out, n
+    runner = engines[0].runner
+    out = []
+    for eng in engines:
+        zero = torch.zeros(eng.active.shape, device=eng.device)
+        out.append((zero, zero, zero))
+    n = 0
+    with torch.no_grad():
+        for X, Y in runner._batches(val_ds):
+            for j, (eng, params) in enumerate(zip(engines, params_list)):
+                Xs, Ys = _on(eng.device, X, Y)
+                with eng.runner._dispatch_span("val"):
+                    combo, fo, fa = counted(
+                        eng.stats, getattr(eng.runner, "index", 0),
+                        lambda: eng.runner._val(
+                            params, eng.runner._ex_loss_coeffs, Xs, Ys))
+                eng.stats["val_dispatches"] += 1
+                c, f, a = out[j]
+                out[j] = (c + combo, f + fo, a + fa)
+            n += 1
+    return out, n

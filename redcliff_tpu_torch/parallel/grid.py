@@ -138,10 +138,35 @@ epoch engine captured a CUDA graph is left out of ``epoch_ms_by_width`` /
 ``first_epoch_ms_by_width`` keeps each width's first epoch as JAX keeps
 it. The CPU captures nothing, so its events are JAX's.
 
-Not ported yet (ROADMAP queue 1): the device mesh; asking for it raises
-``NotImplementedError``.
+The device mesh, as the JAX grid shards it (``redcliff_tpu/parallel/
+grid.py:273-335,674-690,885-914,1186-1272,1511-1515,1547-1550,1614-1659``):
+``mesh`` (``parallel/mesh.py``) is the full device capacity and splits the
+lane axis into contiguous shards, shard ``i`` on ``mesh.devices[i]``; a
+width below the device count runs on the first ``width`` devices (the
+sub-mesh rule), and the bucket ladder rounds widths to fit the mesh
+(``compaction.bucket_width(n, n_devices)``). Every shard holds its lanes'
+params, Adam states, numerics counters and best params on its device,
+and runs the step, the epoch engine's programs, validation, the cosine
+term, the Freeze round and the quality readout itself: both kernels'
+lane forms launch per shard, on the shard's device and stream, each
+shard launched in mesh order before anything is read back. The per-lane
+decision vectors (active, best criteria, failures) live on the first
+device and are formed once from the gathered per-lane values, so the
+host loop makes one set of decisions. A compaction gathers the survivors,
+takes their rows and re-splits them over the new width's mesh. The
+checkpoint holds gathered host state plus the mesh's shape (``mesh``,
+audit only: the resume fingerprint stays mesh-agnostic), and a resume on
+a different device count re-shards the checkpointed lanes onto the
+survivors (``parallel/remesh.py``: a ``grid.remesh`` span, a ``remesh``
+event, ``dispatch_stats["remeshes"/"remesh"]``). A dispatch dying with a
+device-loss, collective-timeout or coordinator-loss signature surfaces as
+``remesh.HostLostError`` (drivers exit 21). In a process group
+(``parallel/distributed.py``) each process holds its own shards, every
+host read is an all-gather, compaction is off and process 0 writes the
+checkpoint, as in JAX.
 
-Entry points run on ``cuda`` unless the caller passes ``device=``.
+Entry points run on ``cuda`` unless the caller passes ``device=``; with a
+mesh the fit's first device is the mesh's first local entry.
 """
 from __future__ import annotations
 
@@ -169,9 +194,12 @@ from redcliff_tpu_torch.obs.logging import MetricLogger
 from redcliff_tpu_torch.ops import autotune as _autotune
 from redcliff_tpu_torch.ops import factor_mix as _factor_mix
 from redcliff_tpu_torch.ops.pallas_prox import lane_thresholds
-from redcliff_tpu_torch.parallel import compaction
+from redcliff_tpu_torch.parallel import compaction, distributed, remesh
 from redcliff_tpu_torch.parallel import policy as gridpolicy
+from redcliff_tpu_torch.parallel import epoch_engine as _engines
 from redcliff_tpu_torch.parallel.epoch_engine import EpochEngine
+from redcliff_tpu_torch.parallel.mesh import (DeviceMesh, canonical,
+                                              lane_bounds)
 from redcliff_tpu_torch.parallel.policy import GridSchedulingPolicy
 from redcliff_tpu_torch.runtime import checkpoint as durable_ckpt
 from redcliff_tpu_torch.runtime import compileobs, faultinject, numerics
@@ -201,11 +229,6 @@ STOP_AXES = ("stopping_criteria_forecast_coeff",
              "stopping_criteria_cosSim_coeff")
 
 _BETA1, _BETA2 = 0.9, 0.999
-
-
-def _not_ported(what, where):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1, "
-                              f"{where})")
 
 
 @dataclass
@@ -307,9 +330,10 @@ class GridResult:
     # the rest of the grid keeps training
     failures: list = field(default_factory=list)
     # the port's additions, as RedcliffFitResult carries them: per epoch
-    # run by this call {"epoch", "phases", "width", "ms", "mode"} (host
-    # wall ms, read after the epoch's check window; the stream mode its
-    # steps ran in), the numerics guard's per-point counters at the end of
+    # run by this call {"epoch", "phases", "width", "ms", "mode",
+    # "launches_by_shard"} (host wall ms, read after the epoch's check
+    # window; the stream mode its steps ran in; each lane shard's kernel
+    # executions), the numerics guard's per-point counters at the end of
     # the fit ({"skipped": [...], ...}), and the runner's dispatch_stats
     # (what ran: stream mode, dispatches, CUDA graphs) for callers that
     # never see the runner
@@ -360,6 +384,45 @@ def _take(tree, rows):
     return tree_map(lambda x: x.index_select(0, rows), tree)
 
 
+class _Shard:
+    """One lane shard of the current era: lanes ``[lo, hi)`` on
+    ``device``. The runner's step, batch and validation helpers run on it
+    through this view, with the era's coefficients, learning rates and
+    prox thresholds sliced to its lanes; everything else is the
+    runner's."""
+
+    def __init__(self, runner, index, lo, hi, device):
+        self._runner = runner
+        self.index, self.lo, self.hi = index, lo, hi
+        self.device = device
+
+        def part(v):
+            return v[lo:hi].to(device)
+        self._ex_coeffs = {k: part(v) for k, v in runner._ex_coeffs.items()}
+        self._ex_loss_coeffs = {k: self._ex_coeffs[k] for k in COEFF_AXES}
+        self._ex_lr64 = {k: part(v) for k, v in runner._ex_lr64.items()}
+        self._ex_prox_t = (part(runner._ex_prox_t)
+                           if runner._ex_prox_t is not None else None)
+
+    @property
+    def width(self):
+        return self.hi - self.lo
+
+    def __getattr__(self, name):
+        return getattr(self._runner, name)
+
+    # the runner's per-lane helpers, run on this shard's lanes and device
+    # (looked up on the runner's class at each call)
+    def _step(self, *args):
+        return type(self._runner)._step(self, *args)
+
+    def _adam_(self, *args):
+        return type(self._runner)._adam_(self, *args)
+
+    def _batches(self, *args, **kw):
+        return type(self._runner)._batches(self, *args, **kw)
+
+
 class RedcliffGridRunner:
     """Trains G REDCLIFF-S configurations at once (see the module
     docstring)."""
@@ -373,8 +436,9 @@ class RedcliffGridRunner:
 
     def __init__(self, model, train_config, spec: GridSpec, mesh=None,
                  policy=None, device=None):
-        if mesh is not None:
-            _not_ported("a device mesh for the grid", "item 15, multi-GPU")
+        if mesh is not None and not isinstance(mesh, DeviceMesh):
+            raise TypeError(f"mesh must be a parallel.mesh.DeviceMesh, got "
+                            f"{type(mesh).__name__}")
         if spec.precision_mode is not None:
             check_precision_mode(spec.precision_mode)
         if len(spec.points) == 0:
@@ -382,6 +446,21 @@ class RedcliffGridRunner:
         self.model = model
         self.tc = train_config
         self.spec = spec
+        # elastic scheduling, as the JAX grid: ``mesh`` is the FULL device
+        # capacity, ``self.mesh`` the active mesh (a sub-mesh once the
+        # execution width drops below the device count)
+        self._mesh_full = self.mesh = mesh
+        if mesh is not None:
+            local = mesh.local_indices()
+            if not local:
+                raise ValueError("this process owns no entry of the mesh")
+            first = mesh.devices[local[0]]
+            if device is not None and canonical(device) != first:
+                raise ValueError(
+                    f"device={device!r} disagrees with the mesh's first "
+                    f"local device {first}")
+            device = first
+        self._n_proc = distributed.process_count() if mesh is not None else 1
         self.device = resolve_device(device)
         self.policy = (policy if policy is not None
                        else GridSchedulingPolicy.from_train_config(
@@ -396,9 +475,11 @@ class RedcliffGridRunner:
             self._precision_mode,
             getattr(train_config, "matmul_precision", None))
         self._demoted = False
-        # the epoch engine of the running fit (the predictive policy asks
-        # it which widths need no capture)
-        self._engine = None
+        # the epoch engines of the running fit, one per local lane shard
+        # (the predictive policy asks them which widths need no capture),
+        # and the current era's shards
+        self._engines = []
+        self._shards = []
         # predictive scheduling (REDCLIFF_PREDICTIVE, parallel/policy.py):
         # with a readable cost-model store, the predictive policy replaces
         # the heuristic before the initial-width decision; with no usable
@@ -418,7 +499,10 @@ class RedcliffGridRunner:
                                else None),
                     warm=self._width_warm)
         self._g_real = G = len(spec.points)
-        self._g_exec0 = self.policy.initial_width(G)
+        n_dev = mesh.size if mesh is not None else 1
+        self._g_exec0 = self.policy.initial_width(G, n_dev)
+        if mesh is not None:
+            self.mesh = self._mesh_for(self._g_exec0)
         # the initial-width decision record (predictive policy only),
         # logged as a `policy` event once a fit has its log
         self._policy_init_decision = (
@@ -471,13 +555,19 @@ class RedcliffGridRunner:
         store)."""
         cfg, tc = self.model.config, self.tc
         widths = [self._g_exec0]
+        n_dev = self._mesh_full.size if self._mesh_full is not None else 1
         if self.policy.g_bucket and self.policy.compaction:
             while widths[-1] > 2:
-                widths.append(compaction.bucket_width(widths[-1] // 2))
+                w = compaction.bucket_width(widths[-1] // 2, n_dev)
+                if w >= widths[-1]:
+                    break
+                widths.append(w)
         for width in widths:
+            n = (self._mesh_for(width).size
+                 if self._mesh_full is not None else 1)
             _autotune.tune_for_model(cfg, tc.batch_size,
                                      prox_penalty=tc.prox_penalty,
-                                     device=self.device, lanes=width)
+                                     device=self.device, lanes=width // n)
 
     def _precision_label0(self):
         """The cost-model label of this fit's mode before any demotion."""
@@ -495,8 +585,8 @@ class RedcliffGridRunner:
             self.policy.precision = "f32"
         # a graph captured under the bf16 context has its casts baked in:
         # no replay may run one again
-        if self._engine is not None:
-            self._engine.drop_programs()
+        for engine in self._engines:
+            engine.drop_programs()
 
     def _ctx(self):
         """The fit's matmul-precision context (none at f32)."""
@@ -517,7 +607,10 @@ class RedcliffGridRunner:
         """Whether moving to ``width`` needs no CUDA-graph capture: the
         running fit's epoch engine holds that width's programs or captures
         nothing (the predictive policy's "warm")."""
-        return self._engine is not None and self._engine.holds(width)
+        if not self._engines:
+            return False
+        n = self._mesh_for(width).size if self._mesh_full is not None else 1
+        return all(e.holds(width // n) for e in self._engines)
 
     # ------------------------------------------------------------------ init
     def _adam_state(self, tree):
@@ -656,6 +749,85 @@ class RedcliffGridRunner:
                          for k, v in self._lr64.items()}
         self._ex_prox_t = (self._prox_t.index_select(0, ix)
                            if self._prox_t is not None else None)
+        self._shards = self._layout(ids.size)
+
+    # ------------------------------------------------------------------ mesh
+    def _mesh_for(self, width):
+        """The mesh an execution grid of ``width`` lanes shards over: the
+        full mesh when the width is a multiple of its device count, a
+        SUB-mesh over the first ``width`` devices when the width divides
+        it. Bucket-ladder widths always satisfy one of the two."""
+        mesh = self._mesh_full
+        if mesh is None:
+            return None
+        n_dev = mesh.size
+        if width % n_dev == 0:
+            return mesh
+        if n_dev % width == 0:
+            return mesh.sub(width)
+        raise ValueError(
+            f"grid width {width} cannot shard over the {n_dev}-device mesh "
+            f"(neither a multiple nor a divisor of the device count)")
+
+    def _layout(self, width):
+        """This process's lane shards of a ``width``-lane era: one shard on
+        the runner's device without a mesh, else one per local entry of
+        the width's (sub-)mesh."""
+        if self._mesh_full is None:
+            return [_Shard(self, 0, 0, width, self.device)]
+        self.mesh = mesh = self._mesh_for(width)
+        bounds = lane_bounds(width, mesh.size)
+        return [_Shard(self, i, *bounds[i], mesh.devices[i])
+                for i in mesh.local_indices()]
+
+    def _split(self, tree):
+        """A full-width tree on the runner's device -> this process's shard
+        trees, each a fresh contiguous copy on its shard's device (the one
+        shard of an unmeshed fit is the tree itself)."""
+        if self._mesh_full is None:
+            return [tree]
+        return [tree_map(lambda x, _s=sh: x[_s.lo:_s.hi].to(
+            _s.device, copy=True), tree) for sh in self._shards]
+
+    def _split_vec(self, v):
+        """A ``(width,)`` per-lane tensor -> each shard's lanes on its
+        device (views where the device is the runner's)."""
+        if self._mesh_full is None:
+            return [v]
+        return [v[sh.lo:sh.hi].to(sh.device) for sh in self._shards]
+
+    def _gather(self, parts):
+        """Shard trees (this process's, mesh order) -> the full-width tree
+        on the runner's device: concatenated in one process, all-gathered
+        across a process group (a collective: every process calls it)."""
+        if self._mesh_full is None:
+            return parts[0]
+        if self._n_proc > 1:
+            arrays = tree_map(lambda *xs: distributed.ShardedArray(
+                (), {sh.index: x for sh, x in zip(self._shards, xs)},
+                self.mesh), *parts)
+            host = distributed.gather_to_host(arrays)
+            return tree_map(lambda a: torch.from_numpy(a).to(self.device),
+                            host)
+        if len(parts) == 1 and self._shards[0].device == self.device:
+            return parts[0]
+        return tree_map(lambda *xs: torch.cat(
+            [x.to(self.device) for x in xs]), *parts)
+
+    def _new_engines(self, mode, train_ds, val_ds, stats, old=()):
+        """One epoch engine per shard of the current era, reusing the
+        engine of ``old`` that already runs on the shard's mesh entry;
+        each starts a fresh era at its shard's width."""
+        out = []
+        for j, sh in enumerate(self._shards):
+            if j < len(old) and old[j].device == sh.device:
+                eng = old[j]
+                eng.runner = sh
+            else:
+                eng = EpochEngine(sh, mode, train_ds, val_ds, stats)
+            eng.new_era(sh.width)
+            out.append(eng)
+        return out
 
     def _exec_deadlines(self, orig_ids):
         """Per-execution-lane wall-clock budgets for the current era
@@ -734,11 +906,12 @@ class RedcliffGridRunner:
                                                  gate, self._prox_pen)
         return nstate, combo
 
-    def _select_best(self, best_params, best_crit, best_epoch, params, crit,
-                     epoch):
-        better = crit < best_crit
-        return (_where(better, params, best_params),
-                torch.where(better, crit, best_crit),
+    @staticmethod
+    def _select_best(best_crit, best_epoch, crit, better, epoch):
+        """The per-lane best criteria and epochs after an epoch whose
+        criteria ``crit`` improved the lanes of ``better``; each shard
+        selects its best params with its lanes of ``better``."""
+        return (torch.where(better, crit, best_crit),
                 torch.where(better, torch.full_like(best_epoch, epoch),
                             best_epoch))
 
@@ -758,12 +931,12 @@ class RedcliffGridRunner:
                                          depth=self.tc.prefetch_batches,
                                          put=put)
 
-    def _align_all_points(self, params, train_ds):
+    def _align_all_points(self, P, train_ds):
         """Per-lane Hungarian alignment of factors to supervised labels at
-        the pretrain->train transition: one vmapped forward gives every
-        lane's first factor weightings, each lane's permutation is solved
-        on the host and applied as a per-lane gather along the factor
-        axis (in place)."""
+        the pretrain->train transition: one vmapped forward per shard gives
+        every lane's first factor weightings, each lane's permutation is
+        solved on the host and applied as a per-lane gather along the
+        factor axis (in place, on every shard)."""
         cfg = self.model.config
         tc = self.tc
         fw = torch.func.vmap(lambda p, X: self.model.forward(p, X)[2][0],
@@ -773,8 +946,10 @@ class RedcliffGridRunner:
             for b, (X, Y) in enumerate(self._batches(train_ds)):
                 if b >= tc.max_factor_prior_batches:
                     break
-                preds.append(fw(params, X[:, : cfg.max_lag, :]).cpu()
-                             .numpy())
+                Xw = X[:, : cfg.max_lag, :]
+                preds.append(numerics.to_host(self._gather(
+                    [fw(p, Xw.to(sh.device))
+                     for sh, p in zip(self._shards, P)])))
                 Y = Y.cpu().numpy()
                 if Y.ndim == 3:
                     col = cfg.max_lag if Y.shape[2] > cfg.max_lag else 0
@@ -788,12 +963,14 @@ class RedcliffGridRunner:
             preds[g], lab, K,
             unsupervised_start_index=tc.unsupervised_start_index))
             for g in range(preds.shape[0])])
-        idx = torch.as_tensor(orders, dtype=torch.long, device=self.device)
         with torch.no_grad():
-            for leaf in tree_leaves(params["factors"]):
-                ix = idx.reshape(idx.shape + (1,) * (leaf.dim() - 2))
-                leaf.copy_(torch.gather(leaf, 1, ix.expand(leaf.shape)))
-        return params
+            for sh, params in zip(self._shards, P):
+                idx = torch.as_tensor(orders[sh.lo:sh.hi], dtype=torch.long,
+                                      device=sh.device)
+                for leaf in tree_leaves(params["factors"]):
+                    ix = idx.reshape(idx.shape + (1,) * (leaf.dim() - 2))
+                    leaf.copy_(torch.gather(leaf, 1, ix.expand(leaf.shape)))
+        return P
 
     # ------------------------------------------------------------ checkpoint
     def _checkpoint_meta(self, train_ds, val_ds):
@@ -855,6 +1032,10 @@ class RedcliffGridRunner:
         stats = self.dispatch_stats
         stats["ckpt_saves"] += 1
         if writer is None:
+            # in a process group the state is already gathered on every
+            # process; process 0 writes
+            if distributed.process_index() != 0:
+                return
             durable_ckpt.write_checkpoint(path, self._hostify(state, meta))
             stats["ckpt_bytes"] = os.path.getsize(path)
         else:
@@ -949,7 +1130,7 @@ class RedcliffGridRunner:
         # clean exit and is warned while another exception propagates)
         writer = (durable_ckpt.AsyncCheckpointWriter()
                   if checkpoint_dir is not None and self.tc.async_checkpointing
-                  else None)
+                  and self._n_proc == 1 else None)
         try:
             # the guard wraps the whole fit, so a signal during set-up is
             # latched too; the epoch loop polls it. The env-armed watchdog
@@ -961,12 +1142,25 @@ class RedcliffGridRunner:
                         guard=guard if guard.enabled else None) as wd:
                 if wd is not None:
                     wd.bind(logger=logger)
-                return self._fit(key, train_ds, val_ds, max_iter,
-                                 init_params, copy_init, checkpoint_dir,
-                                 checkpoint_every, on_lane_retire, guard,
-                                 logger, pw, true_gc, writer)
+                try:
+                    return self._fit(key, train_ds, val_ds, max_iter,
+                                     init_params, copy_init, checkpoint_dir,
+                                     checkpoint_every, on_lane_retire, guard,
+                                     logger, pw, true_gc, writer)
+                except (Preempted, DeadlineExceeded, remesh.HostLostError):
+                    raise
+                except Exception as e:
+                    # a dispatch dying with a device-loss, collective-timeout
+                    # or coordinator-loss signature means the mesh lost
+                    # capacity, not that the fit is wrong: the typed failure
+                    # makes drivers exit host_lost (21) and the supervisor
+                    # re-mesh instead of restarting at the same shape
+                    tag = remesh.classify_device_error(e)
+                    if tag is not None:
+                        raise remesh.HostLostError(tag, detail=str(e)) from e
+                    raise
         finally:
-            self._engine = None
+            self._engines = []
             _watchdog.retire("epoch_engine")
             _watchdog.retire("batch_loop")
             # a window the epochs never closed (an early exit inside it, a
@@ -1029,7 +1223,11 @@ class RedcliffGridRunner:
             # per precision era, from its first epoch: the bf16 factor-mix
             # kernel's executions (ops/factor_mix.py graph_mix_bf16), so a
             # demoted fit shows none after the demotion
-            "precision_eras": []}
+            "precision_eras": [],
+            # the port's: each lane shard's kernel executions (its steps,
+            # replays, capture warm-ups and validation passes), by mesh
+            # index; an unmeshed fit is shard "0"
+            "launches_by_shard": {}}
         ckpt = ck_meta = ck_src = None
         if checkpoint_dir is not None:
             t0 = time.perf_counter()
@@ -1037,11 +1235,46 @@ class RedcliffGridRunner:
             ckpt, ck_src = self._load_checkpoint(checkpoint_dir, ck_meta)
             if ckpt is not None:
                 stats["ckpt_load_ms"] = (time.perf_counter() - t0) * 1e3
+        remesh_info = None
         if ckpt is not None:
             # resume at the checkpoint's own era and width
-            to_dev = lambda t: numerics.to_torch(t, dev)  # noqa: E731
             orig_ids = np.asarray(ckpt["orig_ids"], np.int32)
             retired = dict(ckpt["retired"])
+            # elastic re-meshing (parallel/remesh.py): a checkpoint written
+            # on another device count, or whose width cannot shard over the
+            # mesh visible now, re-shards its lanes onto this mesh on the
+            # host before any tensor exists: survivors ride the bucket
+            # ladder at the new device count, frozen lanes retire to the
+            # host store, results keep their original point ids
+            n_dev = self._mesh_full.size if self._mesh_full is not None \
+                else 1
+            ck_mesh = ckpt.get("mesh") or {}
+            mesh_changed = (ck_mesh.get("n_devices") is not None
+                            and int(ck_mesh["n_devices"]) != n_dev)
+            incompatible = (self._mesh_full is not None
+                            and not remesh.width_fits(orig_ids.size, n_dev))
+            if mesh_changed or incompatible:
+                t_plan = time.perf_counter()
+                with _spans.span("grid.remesh", component="remesh",
+                                 from_width=int(orig_ids.size),
+                                 to_devices=n_dev):
+                    plan = remesh.plan_resharding(
+                        np.asarray(ckpt["active"], bool), orig_ids,
+                        retired.keys(), n_dev,
+                        compact=self.policy.compaction)
+                    if plan is not None:
+                        migrated = remesh.apply_reshard(ckpt, retired, plan)
+                        remesh_info = {
+                            "from_width": int(orig_ids.size),
+                            "to_width": int(plan.new_width),
+                            "from_devices": ck_mesh.get("n_devices"),
+                            "to_devices": n_dev, "lanes_migrated": migrated,
+                            "lanes_retired": [int(p)
+                                              for p in plan.retire_ids],
+                            "plan_ms": round(
+                                (time.perf_counter() - t_plan) * 1e3, 3)}
+                        orig_ids = np.asarray(plan.orig_ids, np.int32)
+            to_dev = lambda t: numerics.to_torch(t, dev)  # noqa: E731
             params, optA, optB = (to_dev(ckpt[k]) for k in (
                 "params", "optA_state", "optB_state"))
             best_params = to_dev(ckpt["best_params"])
@@ -1092,10 +1325,22 @@ class RedcliffGridRunner:
         Gx = int(orig_ids.size)
         width_nominal = Gx
         eras, era_cur = [orig_ids], 0
+        stats["remeshes"] = 1 if remesh_info else 0
+        stats["remesh"] = remesh_info
+        # the era's lanes, split over the mesh: each shard holds its lanes'
+        # params, both Adam states, numerics counters, best and accepted
+        # params on its device; the per-lane decision vectors stay whole
+        # on the first device
         self._set_era(orig_ids)
-        engine = self._engine = EpochEngine(self, base_stream, train_ds,
-                                            val_ds, stats)
-        engine.new_era(Gx)
+        P, A, B, N, BP = (self._split(t) for t in (
+            params, optA, optB, nstate, best_params))
+        ACC = self._split(accepted) if accepted is not None else None
+        del params, optA, optB, nstate, best_params, accepted
+        self._engines = engines = self._new_engines(base_stream, train_ds,
+                                                    val_ds, stats)
+        # the full-capacity mesh's shape, in every checkpoint and in
+        # fit_start (audit metadata, not the resume fingerprint)
+        mesh_desc = remesh.mesh_shape(self._mesh_full)
         stats["grid_width"] = Gx
         # per-execution-lane deadlines, remapped per era; dl_done keeps the
         # per-epoch check a host compare
@@ -1199,7 +1444,7 @@ class RedcliffGridRunner:
                    grid_width=Gx, lanes_padded=int((orig_ids < 0).sum()),
                    training_mode=cfg.training_mode,
                    shape=_schema.shape_desc(cfg), max_iter=max_iter,
-                   stream_mode=base_stream, mesh=None,
+                   stream_mode=base_stream, mesh=mesh_desc,
                    compile_cache_dir=self._compile_cache_dir,
                    resumed_from_epoch=start_it - 1 if ckpt else None,
                    resumed_from=ck_src,
@@ -1218,6 +1463,10 @@ class RedcliffGridRunner:
             logger.log("precision", kind="resume_demoted",
                        epoch=start_it - 1, mode_from="mixed",
                        mode_to="f32", grid_width=Gx)
+        if remesh_info is not None:
+            # which mesh the checkpoint came from, which it landed on, how
+            # many lanes migrated, the plan's latency
+            logger.log("remesh", epoch=start_it - 1, **remesh_info)
         bf16_t0 = _factor_mix.graph_mix_bf16.launches
         stats["precision_eras"].append({
             "precision": "f32" if self._demoted else cm_precision0,
@@ -1228,8 +1477,14 @@ class RedcliffGridRunner:
         mem_pred = _obsmem.grid_footprint(
             self.model, tc, Gx, train_ds=train_ds, val_ds=val_ds,
             stream_mode=base_stream, freeze=self._freeze)
+        # the headroom over every distinct device of the mesh (entries that
+        # name one card share its memory)
+        mem_devices = list(dict.fromkeys(
+            self._mesh_full.devices if self._mesh_full is not None
+            else [dev]))
         headroom = _obsmem.check_headroom(mem_pred["total_bytes"],
-                                          devices=[dev])
+                                          devices=mem_devices,
+                                          n_devices=len(mem_devices))
         stats["memory"] = {
             "predicted_bytes": mem_pred["total_bytes"],
             "per_lane_bytes": mem_pred["per_lane_bytes"],
@@ -1249,7 +1504,7 @@ class RedcliffGridRunner:
             fits=headroom["fits"], bytes_limit=headroom["bytes_limit"],
             budget_bytes=headroom["budget_bytes"],
             headroom_bytes=headroom["headroom_bytes"],
-            backend=headroom["backend"], n_devices=1)
+            backend=headroom["backend"], n_devices=len(mem_devices))
         # the fault points' step index on the per-batch path, as JAX's
         fi_step = 0
         epochs = []
@@ -1260,6 +1515,7 @@ class RedcliffGridRunner:
             pw.on_epoch_start(it)
             epoch_compile_t0 = compileobs.snapshot()
             epoch_caps0 = stats["graph_captures"]
+            launches0 = copy.deepcopy(stats["launches_by_shard"])
             epoch_prec = "f32" if self._demoted else cm_precision0
             t_epoch0 = time.perf_counter()
             ev0 = None
@@ -1270,12 +1526,15 @@ class RedcliffGridRunner:
             if (not aligned and "pretrain_factor" in cfg.training_mode
                     and it == cfg.num_pretrain_epochs
                     and cfg.num_supervised_factors > 0):
-                params = self._align_all_points(params, train_ds)
+                P = self._align_all_points(P, train_ds)
                 aligned = True
             phases = self.phase_for_epoch(it)
             # per-epoch skip baseline for quarantine-cause attribution
-            epoch_skip_base = nstate["skipped"].clone()
+            epoch_skip_base = self._gather(
+                [n["skipped"] for n in N]).clone()
             mode = base_stream if len(phases) == 1 else "per_batch"
+            # each shard's lanes of the gate, read by its steps
+            acts = self._split_vec(active)
             if mode == "per_batch":
                 for X, Y in self._batches(train_ds, rng=rng):
                     _watchdog.stamp("batch_loop")
@@ -1287,22 +1546,36 @@ class RedcliffGridRunner:
                     if skip:
                         continue
                     for phase in phases:
-                        with self._dispatch_span("step"):
-                            self._step(phase, params, optA, optB, nstate,
-                                       active, X, Y)
-                        stats["train_dispatches"] += 1
+                        # every shard's step, in mesh order, before any
+                        # read back
+                        for j, sh in enumerate(self._shards):
+                            with self._dispatch_span("step"):
+                                _engines.counted(
+                                    stats, sh.index,
+                                    lambda: sh._step(
+                                        phase, P[j], A[j], B[j], N[j],
+                                        acts[j],
+                                        *_engines._on(sh.device, X, Y)))
+                            stats["train_dispatches"] += 1
                     if self._freeze_by_batch:
-                        params, accepted = self._freeze_step(params, accepted)
+                        for j in range(len(P)):
+                            P[j], ACC[j] = self._freeze_step(P[j], ACC[j])
                 _watchdog.retire("batch_loop")
             else:
-                engine.train_epoch(mode, phases[0],
-                                   (params, optA, optB, nstate), active,
-                                   train_ds, rng)
+                # the first shard's engine drives the others (``peers``,
+                # given only when there are others) on its batch plan
+                peers = [(engines[j], (P[j], A[j], B[j], N[j]), acts[j])
+                         for j in range(1, len(P))]
+                engines[0].train_epoch(
+                    mode, phases[0], (P[0], A[0], B[0], N[0]), acts[0],
+                    train_ds, rng, **({"peers": peers} if peers else {}))
             t_val0 = time.perf_counter()
             stats["train_time_ms"] += (t_val0 - t_epoch0) * 1e3
-            # validation: ordered per-batch sums from zero
-            combo_sum, forecast_sum, factor_sum, n = engine.validate(params,
-                                                                     val_ds)
+            # validation: ordered per-batch sums from zero, per shard, then
+            # gathered into whole per-lane vectors
+            sums, n = _engines.validate(engines, P, val_ds)
+            combo_sum, forecast_sum, factor_sum = (
+                self._gather([t[i] for t in sums]) for i in range(3))
             stats["val_time_ms"] += (time.perf_counter() - t_val0) * 1e3
             if n == 0:
                 raise ValueError(
@@ -1316,8 +1589,10 @@ class RedcliffGridRunner:
             # epoch skipped steps, else nonfinite_val
             bad = ~torch.isfinite(val_now)
             if self._guard:
-                bad = bad | (nstate["consecutive"] >= self._numerics_k)
-                grad_implicated = (nstate["skipped"] - epoch_skip_base) > 0
+                consecutive = self._gather([n["consecutive"] for n in N])
+                bad = bad | (consecutive >= self._numerics_k)
+                grad_implicated = (self._gather([n["skipped"] for n in N])
+                                   - epoch_skip_base) > 0
             else:
                 grad_implicated = torch.zeros_like(active)
             if self._demotable and not self._demoted:
@@ -1330,13 +1605,14 @@ class RedcliffGridRunner:
                 # further epochs. A validation blow-up with finite steps
                 # quarantines as usual: it carries no bf16 evidence
                 hit = (active & grad_implicated
-                       & (nstate["consecutive"] >= self._numerics_k)
+                       & (consecutive >= self._numerics_k)
                        ).cpu().numpy()
                 if hit.any():
                     nhost = numerics.numerics_summary(
-                        numerics.to_host(nstate))
+                        numerics.to_host(self._gather(N)))
                     self._demote_to_f32()
-                    nstate["consecutive"].zero_()
+                    for nst in N:
+                        nst["consecutive"].zero_()
                     demote_compile = compileobs.delta(compile_t0)
                     era = stats["precision_eras"][-1]
                     era["bf16_launches"] = (
@@ -1380,17 +1656,24 @@ class RedcliffGridRunner:
                         * (factor_sum / n)
                 if self._cos is not None:
                     with torch.no_grad():
+                        cos = self._gather([
+                            self._cos(p, cos_Xw.to(sh.device))
+                            for sh, p in zip(self._shards, P)])
                         crit = crit + c["stopping_criteria_cosSim_coeff"] \
-                            * self._cos(params, cos_Xw)
+                            * cos
+                better = crit < best_crit
                 if self._freeze:
                     if not self._freeze_by_batch:
-                        params, accepted = self._freeze_step(params, accepted)
-                    _, best_crit, best_epoch = self._select_best(
-                        best_params, best_crit, best_epoch, params, crit, it)
-                    best_params = _clone(accepted)
+                        for j in range(len(P)):
+                            P[j], ACC[j] = self._freeze_step(P[j], ACC[j])
+                    best_crit, best_epoch = self._select_best(
+                        best_crit, best_epoch, crit, better, it)
+                    BP = [_clone(acc) for acc in ACC]
                 else:
-                    best_params, best_crit, best_epoch = self._select_best(
-                        best_params, best_crit, best_epoch, params, crit, it)
+                    best_crit, best_epoch = self._select_best(
+                        best_crit, best_epoch, crit, better, it)
+                    BP = [_where(b, p, bp) for b, p, bp in zip(
+                        self._split_vec(better), P, BP)]
                 # lookback early stop: no improvement for
                 # lookback*check_every epochs freezes the lane
                 active = active & ((it - best_epoch) < stop_after)
@@ -1398,7 +1681,8 @@ class RedcliffGridRunner:
                 # pretrain/acclimation epochs track the live params as best
                 # for healthy lanes; a quarantined lane keeps its last
                 # finite snapshot
-                best_params = _where(active, params, best_params)
+                BP = [_where(a, p, bp) for a, p, bp in zip(
+                    self._split_vec(active), P, BP)]
                 best_epoch = torch.where(active,
                                          torch.full_like(best_epoch, it),
                                          best_epoch)
@@ -1452,7 +1736,8 @@ class RedcliffGridRunner:
                         host = numerics.to_host({
                             "val": val_now, "best": best_crit,
                             "failed": failed_epoch,
-                            "skipped": nstate["skipped"]})
+                            "skipped": self._gather(
+                                [n["skipped"] for n in N])})
                         logger.log(
                             "epoch", epoch=it, phases=list(phases),
                             val_combo_loss=host["val"],
@@ -1466,7 +1751,9 @@ class RedcliffGridRunner:
                                 (time.perf_counter() - t_epoch0) * 1e3, 3))
                     if qmon is not None:
                         with torch.no_grad(), self._dispatch_span("quality"):
-                            qdev = qual_fn(params, qual_Xw)
+                            qdev = self._gather([
+                                qual_fn(p, qual_Xw.to(sh.device))
+                                for sh, p in zip(self._shards, P)])
                         # the (G, K, C, C) graphs are read only to score
                         # them against the truth
                         qhost = {k: v.cpu().numpy() for k, v in qdev.items()
@@ -1478,7 +1765,7 @@ class RedcliffGridRunner:
                 # the measured watermark (allocator counters; none on the
                 # CPU)
                 if mem_poll:
-                    wm = _obsmem.poll_watermark([dev])
+                    wm = _obsmem.poll_watermark(mem_devices)
                     if wm is not None:
                         sm = stats["memory"]
                         sm["polls"] += 1
@@ -1553,6 +1840,9 @@ class RedcliffGridRunner:
                 else:
                     plan = self.policy.compaction_plan(
                         act_host, orig_ids, retired.keys(),
+                        self._mesh_full.size
+                        if self._mesh_full is not None else 1,
+                        n_processes=self._n_proc,
                         epochs_remaining=max(max_iter - it - 1, 0))
                     # the predictive policy's pricing of this window's
                     # ladder move (compact / hold / fallback)
@@ -1570,9 +1860,14 @@ class RedcliffGridRunner:
             pending.append((it, epoch_width, epoch_ms, ev0, ev1,
                             stats["graph_captures"] - epoch_caps0,
                             epoch_prec))
-            epochs.append({"epoch": it, "phases": list(phases),
-                           "width": epoch_width, "ms": epoch_ms,
-                           "mode": mode})
+            epochs.append({
+                "epoch": it, "phases": list(phases), "width": epoch_width,
+                "ms": epoch_ms, "mode": mode,
+                # each shard's kernel executions in this epoch
+                "launches_by_shard": {
+                    sh: {k: n - launches0.get(sh, {}).get(k, 0)
+                         for k, n in by.items()}
+                    for sh, by in stats["launches_by_shard"].items()}})
             stats["epochs"] += 1
             stats["lane_epochs"] += epoch_width
             stats["lane_epochs_nominal"] += width_nominal
@@ -1582,6 +1877,9 @@ class RedcliffGridRunner:
                 t_comp = time.perf_counter()
                 # retire the frozen lanes' results to the host before
                 # their rows are dropped
+                # the survivors are gathered whole, their rows taken and
+                # re-split over the new width's mesh below
+                best_params, nstate = self._gather(BP), self._gather(N)
                 if plan.retire_rows.size:
                     rows = torch.as_tensor(plan.retire_rows,
                                            dtype=torch.long, device=dev)
@@ -1618,10 +1916,11 @@ class RedcliffGridRunner:
                 old_width = Gx
                 sel = torch.as_tensor(plan.sel, dtype=torch.long, device=dev)
                 params, optA, optB, nstate, best_params = (
-                    _take(t, sel) for t in (params, optA, optB, nstate,
+                    _take(t, sel) for t in (self._gather(P), self._gather(A),
+                                            self._gather(B), nstate,
                                             best_params))
-                if accepted is not None:
-                    accepted = _take(accepted, sel)
+                accepted = (_take(self._gather(ACC), sel)
+                            if ACC is not None else None)
                 best_crit, best_epoch, failed_epoch, failed_cause = (
                     t.index_select(0, sel) for t in (
                         best_crit, best_epoch, failed_epoch, failed_cause))
@@ -1629,7 +1928,13 @@ class RedcliffGridRunner:
                 orig_ids = plan.orig_ids
                 Gx = plan.new_width
                 self._set_era(orig_ids)
-                engine.new_era(Gx)
+                P, A, B, N, BP = (self._split(t) for t in (
+                    params, optA, optB, nstate, best_params))
+                ACC = (self._split(accepted) if accepted is not None
+                       else None)
+                del params, optA, optB, nstate, best_params, accepted
+                self._engines = engines = self._new_engines(
+                    base_stream, train_ds, val_ds, stats, old=engines)
                 lane_deadline = self._exec_deadlines(orig_ids)
                 dl_done = dl_done[plan.sel]
                 eras.append(orig_ids)
@@ -1639,7 +1944,8 @@ class RedcliffGridRunner:
                 logger.log("compaction", epoch=it, from_width=old_width,
                            to_width=Gx, lanes_live=stats["lanes_live"],
                            retired=[int(p) for p in plan.retire_ids],
-                           mesh_devices=None)
+                           mesh_devices=(self.mesh.size
+                                         if self.mesh is not None else None))
                 _spans.record_span(
                     "grid.compaction", (time.perf_counter() - t_comp) * 1e3,
                     component="compaction", logger=logger, emit=True,
@@ -1651,12 +1957,20 @@ class RedcliffGridRunner:
                 if due:
                     t_save = time.perf_counter()
                     self._save_checkpoint(checkpoint_dir, {
-                        "params": params, "optA_state": optA,
-                        "optB_state": optB, "best_params": best_params,
+                        "params": self._gather(P),
+                        "optA_state": self._gather(A),
+                        "optB_state": self._gather(B),
+                        "best_params": self._gather(BP),
                         "best_crit": best_crit, "best_epoch": best_epoch,
-                        "active": active, "accepted": accepted,
+                        "active": active,
+                        "accepted": (self._gather(ACC) if ACC is not None
+                                     else None),
                         "failed_epoch": failed_epoch,
-                        "failed_cause": failed_cause, "nstate": nstate,
+                        "failed_cause": failed_cause,
+                        "nstate": self._gather(N),
+                        # the mesh shape this attempt ran on: audit only,
+                        # not part of the resume fingerprint
+                        "mesh": mesh_desc,
                         "val_history": val_history, "val_eras": val_eras,
                         "eras": eras, "orig_ids": orig_ids,
                         "retired": retired, "aligned": aligned,
@@ -1720,7 +2034,7 @@ class RedcliffGridRunner:
         # a last watermark sample, so fits shorter than a check window
         # still record a measured peak on a card
         if mem_poll:
-            wm = _obsmem.poll_watermark([dev])
+            wm = _obsmem.poll_watermark(mem_devices)
             if wm is not None:
                 stats["memory"]["polls"] += 1
                 stats["memory"]["peak_bytes"] = max(
@@ -1771,7 +2085,7 @@ class RedcliffGridRunner:
         host = numerics.to_host({
             "best_crit": best_crit, "best_epoch": best_epoch,
             "active": active, "failed_epoch": failed_epoch,
-            "failed_cause": failed_cause, "nstate": nstate})
+            "failed_cause": failed_cause, "nstate": self._gather(N)})
         final_crit = full_of(host["best_crit"], np.inf)
         final_epoch = full_of(host["best_epoch"], 0)
         final_active = full_of(host["active"], False)
@@ -1779,7 +2093,7 @@ class RedcliffGridRunner:
         final_cause = full_of(host["failed_cause"], 0)
         final_numerics = {k: full_of(v, 0) for k, v in host["nstate"].items()}
         best_full = tree_map(lambda leaf: full_of(leaf, 0),
-                             params_to_jax(best_params))
+                             params_to_jax(self._gather(BP)))
         for pid, rec in retired.items():
             final_crit[pid] = rec["best_crit"]
             final_epoch[pid] = rec["best_epoch"]
@@ -1826,3 +2140,4 @@ class RedcliffGridRunner:
                 accepted)
             tree_map(lambda dst, src: dst.copy_(src), params, candidate)
         return params, accepted
+

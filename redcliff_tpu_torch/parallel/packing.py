@@ -33,9 +33,9 @@ concurrency without warming a cost store first).
 
 stdlib only, no torch and no jax (obs/schema.py ``--check`` enforces
 it): packing decisions run in the worker control process, which must never
-initialize a backend. The sub-mesh construction would live in
-fleet/run_batch.py; it needs the device mesh, which the port does not have
-yet (ROADMAP queue 1, item 15), so ``run_batch`` refuses a packed slot.
+initialize a backend. The sub-mesh construction lives in
+``fleet/run_batch.py``: a packed batch meshes over its slot ``[lo, lo +
+width)`` of ``parallel.remesh.visible_devices()``.
 
 Port of ``redcliff_tpu/parallel/packing.py``, a copy: it computes and
 writes what the JAX module does.

@@ -53,11 +53,10 @@ class GridSchedulingPolicy:
     """Bucket-ladder scheduling policy with check-window compaction.
 
     ``g_bucket``: draw execution widths from the power-of-two bucket ladder,
-    padding with masked filler lanes (off: exact width). ``compaction``:
-    gather surviving lanes down the ladder at check-window boundaries. The
-    port's grid runs in one process on one device; the JAX policy's mesh
-    and multi-process arguments wait for the mesh (ROADMAP queue 1, item
-    15).
+    padding with masked filler lanes (off: exact width, which must then
+    divide the mesh). ``compaction``: gather surviving lanes down the
+    ladder at check-window boundaries (single-process only, as in JAX: a
+    grid spanning processes would have to re-span them mid-fit).
     """
 
     def __init__(self, g_bucket=True, compaction=True):
@@ -74,9 +73,19 @@ class GridSchedulingPolicy:
     # width decisions
     # ------------------------------------------------------------------
     def initial_width(self, g_real, n_devices=1):
-        """Execution width for a fresh ``g_real``-point grid on one device:
-        the bucket-ladder width (``g_bucket``), or the exact width."""
-        return compaction.bucket_width(g_real) if self.g_bucket else g_real
+        """Execution width for a fresh ``g_real``-point grid on an
+        ``n_devices`` mesh: the bucket-ladder width (``g_bucket``), or the
+        exact width — which must then divide the mesh evenly."""
+        n_devices = int(n_devices or 1)
+        if self.g_bucket:
+            return compaction.bucket_width(g_real, n_devices)
+        if n_devices > 1 and g_real % n_devices != 0:
+            raise ValueError(
+                f"grid size {g_real} must be a multiple of the mesh "
+                f"device count {n_devices} (pad the grid with duplicate "
+                f"points or shrink the mesh, or enable g_bucket to pad "
+                f"with masked filler lanes)")
+        return g_real
 
     def ladder(self, n_lanes, n_devices=1, max_width=None):
         """The candidate bucket-ladder rungs for ``n_lanes`` lanes."""
@@ -87,15 +96,15 @@ class GridSchedulingPolicy:
     # check-window compaction decision
     # ------------------------------------------------------------------
     def compaction_plan(self, active_host, orig_ids, retired_ids,
-                        epochs_remaining=None):
+                        n_devices=1, n_processes=1, epochs_remaining=None):
         """Plan a live-lane compaction for this check window, or None (the
-        current width is already the right bucket, or compaction is
-        disabled). ``epochs_remaining`` is the predictive subclass's
-        pricing input; the heuristic ignores it."""
-        if not self.compaction:
+        current width is already the right bucket, compaction is disabled,
+        or the run spans several processes). ``epochs_remaining`` is the
+        predictive subclass's pricing input; the heuristic ignores it."""
+        if not self.compaction or n_processes != 1:
             return None
         return compaction.plan_compaction(active_host, orig_ids, retired_ids,
-                                          1)
+                                          int(n_devices or 1))
 
     # ------------------------------------------------------------------
     # wall-clock deadline decisions
@@ -226,12 +235,13 @@ class PredictiveSchedulingPolicy(GridSchedulingPolicy):
         return chosen
 
     def compaction_plan(self, active_host, orig_ids, retired_ids,
-                        epochs_remaining=None):
+                        n_devices=1, n_processes=1, epochs_remaining=None):
         """The heuristic plan, priced: compact only when the predicted
         saving over the surviving epochs exceeds the predicted capture +
         gather cost of moving; hold (return None) otherwise. Unpriceable
         inputs fall back bit-identically to the heuristic."""
-        plan = super().compaction_plan(active_host, orig_ids, retired_ids)
+        plan = super().compaction_plan(active_host, orig_ids, retired_ids,
+                                       n_devices, n_processes=n_processes)
         self._last_decision = None
         if plan is None:
             return None

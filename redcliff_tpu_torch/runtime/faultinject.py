@@ -36,11 +36,14 @@ batch driver (``fleet/run_batch.py``) detonates them (SIGKILL / exit N /
 hang, ``fleet/chaos.py``) before the fit. Unarmed, it strips them and fits
 the healthy points.
 
-Not ported (their fault points come with multi-GPU re-meshing):
-``host_drop``, ``device_lost``, ``coordinator_loss`` (ROADMAP queue 1,
-item 15). Arming one raises ``NotImplementedError`` at the first fault
-point the process reaches; it is never ignored. So is the JAX module's
-random schedule composer, which draws from them.
+The host faults, as in JAX (``redcliff_tpu/runtime/faultinject.py:
+181-211``), fire at the grid's ``epoch_end`` (default epoch 1, after that
+epoch's checkpoint), once per marker file: ``host_drop:H[:E]`` raises
+``parallel.remesh.HostLostError`` for host H, ``device_lost[:E]`` and
+``coordinator_loss[:E]`` raise the backend-shaped errors that the grid
+maps onto it (``remesh.classify_device_error``);
+:func:`random_host_fault_schedule` composes a seeded one. The JAX
+module's ``random_fault_schedule`` has no caller here and is not copied.
 
 The child fit (``python -m redcliff_tpu_torch.runtime.faultinject``) is
 one small deterministic port grid fit, identical in-process and as a
@@ -49,8 +52,15 @@ with ``--sharded`` it streams its data from on-disk shards
 (:func:`tiny_sharded_fit`), so every heartbeat of the watchdog beats. It
 runs on ``--device`` (``cuda`` unless given) and exits with the
 watchdog taxonomy's codes (``runtime/watchdog.py``): 17 after a
-preemption's final checkpoint, 20 after a grid deadline's, and 19 when
-an armed watchdog (``REDCLIFF_WATCHDOG``) hard-exits a hang.
+preemption's final checkpoint, 20 after a grid deadline's, 21 when part
+of its mesh is lost (``HostLostError``), and 19 when an armed watchdog
+(``REDCLIFF_WATCHDOG``) hard-exits a hang. ``--grid-size`` and ``--mesh``
+are JAX's: more points, sharded over the largest viable mesh of the
+visible devices (``remesh.visible_mesh``, so the supervisor's
+``REDCLIFF_MESH_DEVICES`` cap applies). ``--sim-devices N`` is the port's
+own: the visible devices are N entries of ``--device``, the counterpart
+of the forced host device count the JAX child inherits from
+``XLA_FLAGS`` (one card, or the CPU, simulating an N-device mesh).
 """
 from __future__ import annotations
 
@@ -58,23 +68,25 @@ import argparse
 import errno as _errno
 import os
 import pickle
+import random
 import signal
 import sys
 
 from redcliff_tpu_torch.runtime.watchdog import (EXIT_DEADLINE,
+                                                 EXIT_HOST_LOST,
                                                  EXIT_PREEMPTED)
 
 __all__ = ["armed", "fleet_poison_armed", "crash_point",
            "ckpt_write_point", "poison_batch", "skip_update", "hang_point",
            "io_point", "io_error_point", "corrupt_checkpoint", "flaky",
-           "tiny_grid_fit",
-           "tiny_sharded_fit", "EXIT_PREEMPTED",
-           "EXIT_DEADLINE", "UNPORTED_FAULTS"]
+           "tiny_grid_fit", "tiny_sharded_fit",
+           "random_host_fault_schedule", "HOST_FAULT_KINDS",
+           "EXIT_PREEMPTED", "EXIT_DEADLINE", "EXIT_HOST_LOST"]
 
 ENV_SPEC = "REDCLIFF_FAULT_INJECT"
 ENV_MARKER = "REDCLIFF_FAULT_MARKER"
-# fault kinds of the JAX grammar whose fault points the port lacks
-UNPORTED_FAULTS = ("host_drop", "device_lost", "coordinator_loss")
+# the host-fault grammar (all once per marker; all raise out of epoch_end)
+HOST_FAULT_KINDS = ("host_drop", "device_lost", "coordinator_loss")
 
 
 def _active_faults():
@@ -84,10 +96,6 @@ def _active_faults():
     out = []
     for part in spec.split(","):
         name, _, arg = part.strip().partition(":")
-        if name in UNPORTED_FAULTS:
-            raise NotImplementedError(
-                f"{ENV_SPEC} arms {name!r}, whose fault point is not ported "
-                f"yet (ROADMAP queue 1, item 15: re-meshing)")
         if name:
             out.append((name, arg))
     return tuple(out)
@@ -136,6 +144,53 @@ def crash_point(stage, epoch=None):
             if marker and not os.path.exists(marker):
                 with open(marker, "w") as f:
                     f.write(str(epoch))
+        if name in HOST_FAULT_KINDS and stage == "epoch_end":
+            _host_fault(name, arg, epoch)
+
+
+def _host_fault(name, arg, epoch):
+    """Raise the armed host fault when its epoch matches (default: the end
+    of epoch 1, after that epoch's checkpoint, so durable state exists as
+    it would at a real host loss). Once per marker file: the re-meshed
+    restart runs clean."""
+    if name == "host_drop":
+        host_s, _, ep_s = arg.partition(":")
+        host = int(host_s) if host_s else 0
+    else:
+        host, ep_s = None, arg
+    if epoch != (int(ep_s) if ep_s else 1) or not _once_guard(f".{name}"):
+        return
+    if name == "host_drop":
+        from redcliff_tpu_torch.parallel.remesh import HostLostError
+
+        raise HostLostError("host_drop", host=host,
+                            detail=f"injected at epoch {epoch}")
+    if name == "device_lost":
+        # a backend-shaped device-loss text: the grid maps it through
+        # remesh.classify_device_error to "device_lost"
+        raise RuntimeError(
+            f"INTERNAL: device lost: local device vanished mid-dispatch "
+            f"(injected host fault, epoch {epoch})")
+    raise RuntimeError(
+        f"DEADLINE_EXCEEDED: coordinator heartbeat timed out; distributed "
+        f"runtime service unavailable (injected host fault, epoch {epoch})")
+
+
+def random_host_fault_schedule(seed, max_epoch=1, n_hosts=4):
+    """One seeded host-fault schedule: a host drop, device loss or
+    coordinator loss at a random epoch, sometimes with degraded-storage
+    latency. Deterministic in ``seed`` (the JAX module's draws)."""
+    r = random.Random(seed)
+    kind = r.choice(HOST_FAULT_KINDS)
+    ep = r.randint(0, max_epoch)
+    if kind == "host_drop":
+        fault = f"host_drop:{r.randrange(max(n_hosts, 1))}:{ep}"
+    else:
+        fault = f"{kind}:{ep}"
+    faults = [fault]
+    if r.random() < 0.5:
+        faults.append(f"slow_io:{r.randint(1, 20)}")
+    return ",".join(faults)
 
 
 def _step_match(spec, step):
@@ -273,9 +328,14 @@ def flaky(n_failures, value=True, exc=None):
 # in-process or as a subprocess
 # ---------------------------------------------------------------------------
 def _tiny_runner(max_iter, bad_point=False, fit_deadline_s=None,
-                 grid_deadline_s=None, device=None):
+                 grid_deadline_s=None, device=None, grid_size=2,
+                 use_mesh=False, sim_devices=None):
     """The harness's small grid runner (the JAX harness's model, points and
-    train config) and its deterministic data arrays."""
+    train config) and its deterministic data arrays. ``grid_size`` > 2
+    gives the JAX harness's larger grid; ``use_mesh`` shards it over the
+    largest viable mesh of the visible devices — ``sim_devices`` entries of
+    ``device`` when given (one device simulating a mesh), else the visible
+    cards — capped by ``REDCLIFF_MESH_DEVICES``."""
     import numpy as np
 
     from redcliff_tpu_torch.models.redcliff import (RedcliffSCMLP,
@@ -293,14 +353,27 @@ def _tiny_runner(max_iter, bad_point=False, fit_deadline_s=None,
         training_mode="combined"))
     # 1e20: Adam bounds the step to ~lr, so the poison lr must push params
     # past sqrt(f32 max) for the squared error to overflow within an epoch
-    points = [{"gen_lr": 1e-3},
-              ({"gen_lr": 1e20, "embed_lr": 1e20} if bad_point
-               else {"gen_lr": 3e-3})]
+    if grid_size == 2:
+        points = [{"gen_lr": 1e-3},
+                  ({"gen_lr": 1e20, "embed_lr": 1e20} if bad_point
+                   else {"gen_lr": 3e-3})]
+    else:
+        points = [{"gen_lr": 1e-3 * (1 + 0.5 * i)} for i in range(grid_size)]
+        if bad_point:
+            points[-1] = {"gen_lr": 1e20, "embed_lr": 1e20}
     tc = RedcliffTrainConfig(max_iter=max_iter, batch_size=16, check_every=1,
                              seed=0)
     spec = GridSpec(points=points, fit_deadline_s=fit_deadline_s,
                     grid_deadline_s=grid_deadline_s)
-    runner = RedcliffGridRunner(model, tc, spec, device=device)
+    mesh = None
+    if use_mesh:
+        from redcliff_tpu_torch.parallel import remesh
+
+        devices = ([device or "cuda"] * int(sim_devices)
+                   if sim_devices else None)
+        mesh = remesh.visible_mesh(devices=devices, n_lanes=len(points))
+        device = None
+    runner = RedcliffGridRunner(model, tc, spec, mesh=mesh, device=device)
     cfg = model.config
     rng = np.random.default_rng(0)
     T = cfg.max_lag + cfg.num_sims
@@ -311,18 +384,21 @@ def _tiny_runner(max_iter, bad_point=False, fit_deadline_s=None,
 
 def tiny_grid_fit(checkpoint_dir, max_iter=4, checkpoint_every=1,
                   bad_point=False, fit_deadline_s=None, grid_deadline_s=None,
-                  device=None):
+                  device=None, grid_size=2, use_mesh=False, sim_devices=None):
     """Run the harness's small grid fit (seed 2, as the JAX harness's key)
     and return its GridResult; ``checkpoint_dir`` is also the fit's log
     dir. ``bad_point`` gives the last point an absurd learning rate that
-    drives it non-finite within an epoch. Two calls with the same
-    arguments give bit-identical results on the same device."""
+    drives it non-finite within an epoch; ``grid_size`` / ``use_mesh`` /
+    ``sim_devices``: see :func:`_tiny_runner` (the mesh-sharded child of
+    the host-fault tests). Two calls with the same arguments give
+    bit-identical results on the same device."""
     from redcliff_tpu_torch.data.datasets import ArrayDataset
 
     runner, X, Y = _tiny_runner(max_iter, bad_point=bad_point,
                                 fit_deadline_s=fit_deadline_s,
                                 grid_deadline_s=grid_deadline_s,
-                                device=device)
+                                device=device, grid_size=grid_size,
+                                use_mesh=use_mesh, sim_devices=sim_devices)
     ds = ArrayDataset(X, Y)
     return runner.fit(2, ds, ds, checkpoint_dir=checkpoint_dir,
                       checkpoint_every=checkpoint_every,
@@ -396,6 +472,17 @@ def _child_main(argv):
     ap.add_argument("--sharded", action="store_true",
                     help="stream the data from on-disk shards (runs the "
                          "prefetch and shard-loader heartbeats)")
+    ap.add_argument("--grid-size", type=int, default=2,
+                    help="number of grid points (2 = the small fit; larger "
+                         "= the mesh-shaped host-fault child)")
+    ap.add_argument("--mesh", action="store_true",
+                    help="shard the grid over the largest viable mesh of the "
+                         "visible devices (REDCLIFF_MESH_DEVICES-capped: the "
+                         "supervisor's re-mesh decisions apply)")
+    ap.add_argument("--sim-devices", type=int, default=None,
+                    help="with --mesh: the visible devices are this many "
+                         "entries of --device (one device simulating a "
+                         "mesh)")
     ap.add_argument("--fit-deadline-s", default=None,
                     help="per-lane wall-clock budget(s), comma separated")
     ap.add_argument("--grid-deadline-s", type=float, default=None)
@@ -405,6 +492,7 @@ def _child_main(argv):
                     help="the fit's device (default cuda)")
     args = ap.parse_args(argv)
 
+    from redcliff_tpu_torch.parallel.remesh import HostLostError
     from redcliff_tpu_torch.runtime.preempt import DeadlineExceeded, Preempted
 
     kw = dict(max_iter=args.max_iter,
@@ -416,7 +504,16 @@ def _child_main(argv):
             result = tiny_sharded_fit(args.checkpoint_dir, **kw)
         else:
             result = tiny_grid_fit(args.checkpoint_dir,
-                                   bad_point=args.bad_point, **kw)
+                                   bad_point=args.bad_point,
+                                   grid_size=args.grid_size,
+                                   use_mesh=args.mesh,
+                                   sim_devices=args.sim_devices, **kw)
+    except HostLostError as e:
+        # part of the mesh is gone: the durable checkpoint holds gathered
+        # host state, so the supervisor's answer is a smaller
+        # REDCLIFF_MESH_DEVICES and a restart
+        print(f"faultinject child: {e}", file=sys.stderr)
+        raise SystemExit(EXIT_HOST_LOST)
     except Preempted as e:
         print(f"faultinject child: {e}", file=sys.stderr)
         import json

@@ -102,8 +102,10 @@ def global_norm(tree):
     """Global L2 norm over every tensor of a gradient tree (f32
     accumulate), as a 0-d tensor on the leaves' device. A non-finite leaf
     makes the norm non-finite."""
-    total = sum(torch.sum(torch.square(g.float()))
-                for g in tree_leaves(tree))
+    leaves = tree_leaves(tree)
+    # leaves on several devices (a factor-sharded fit) sum on the first's
+    home = leaves[0].device
+    total = sum(torch.sum(torch.square(g.float())).to(home) for g in leaves)
     return torch.sqrt(total)
 
 

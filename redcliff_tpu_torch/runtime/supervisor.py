@@ -48,10 +48,10 @@ stdlib only (the supervisor parent must never initialize a device
 backend: no torch, no jax).
 
 Port of ``redcliff_tpu/runtime/supervisor.py``, a copy: it computes and
-writes what the JAX module does. The mesh budget (``mesh_devices``,
-``n_hosts``, ``min_devices``) stays as bookkeeping: a ``host_lost`` exit
-(code 21) can only come from the multi-device re-meshing the port does not
-have yet (ROADMAP queue 1, item 15).
+writes what the JAX module does. A ``host_lost`` exit (code 21) comes
+from the grid's mesh (``parallel/remesh.HostLostError``): with a declared
+mesh budget the next attempt's ``REDCLIFF_MESH_DEVICES`` shrinks and its
+grid re-shards the checkpoint onto the survivors.
 """
 from __future__ import annotations
 

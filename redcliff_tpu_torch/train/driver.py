@@ -199,18 +199,32 @@ def run_coefficient_grid(model, train_config, grid_points, train_ds, val_ds,
     ``dispatch_stats["quality"]``). As in JAX, no ``log_dir`` is taken
     here: drive :class:`RedcliffGridRunner` for a metrics log.
 
-    Not ported yet, and raising when asked for: a device mesh (``mesh``,
-    ROADMAP item 15)."""
+    ``mesh``: None (one device), a ``parallel.mesh.DeviceMesh`` over
+    which the lane axis shards, or ``"auto"``: the largest viable mesh of
+    the visible cards for this many points (the CPU when ``device`` is
+    the CPU), honoring the supervisor's ``REDCLIFF_MESH_DEVICES`` cap
+    (``parallel/remesh.py visible_mesh``). Any other string raises
+    ``ValueError``."""
     from redcliff_tpu_torch.parallel.grid import GridSpec, RedcliffGridRunner
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "a device mesh for the grid is not ported yet (ROADMAP queue 1, "
-            "item 15, multi-GPU); pass mesh=None")
     grid_points = list(grid_points)
+    if isinstance(mesh, str):
+        if mesh != "auto":
+            raise ValueError(f"mesh must be a Mesh, None, or 'auto'; "
+                             f"got {mesh!r}")
+        import torch
+
+        from redcliff_tpu_torch.parallel import remesh
+
+        # the visible cards; a fit asked onto the CPU meshes that device
+        cpu = device is not None and torch.device(device).type == "cpu"
+        mesh = remesh.visible_mesh(devices=[device] if cpu else None,
+                                   n_lanes=len(grid_points))
+        device = None
     spec = GridSpec(points=grid_points, fit_deadline_s=fit_deadline_s,
                     grid_deadline_s=grid_deadline_s)
-    runner = RedcliffGridRunner(model, train_config, spec, device=device)
+    runner = RedcliffGridRunner(model, train_config, spec, mesh=mesh,
+                                device=device)
     init = (runner.init_grid_from(init_point_params)
             if init_point_params is not None else None)
     # the stacked init is built here solely for this fit: hand ownership

@@ -12,7 +12,8 @@ from __future__ import annotations
 
 import torch
 
-from redcliff_tpu_torch.interop import tree_map
+from redcliff_tpu_torch.interop import tree_leaves, tree_map
+from redcliff_tpu_torch.parallel.mesh import FactorShards, factor_slices
 
 __all__ = ["factor_decision_stats", "freeze_accept_vector", "swap_factors",
            "apply_freeze", "apply_freeze_lanes"]
@@ -54,12 +55,24 @@ def swap_factors(candidate, accepted, accept_vec):
     candidate factor to the accepted one. The accepted tree's embedder
     follows the candidate only on rounds where some factor was accepted."""
 
-    def pick(c_leaf, a_leaf):
-        m = accept_vec.reshape((-1,) + (1,) * (c_leaf.dim() - 1))
-        return torch.where(m, c_leaf, a_leaf)
+    def pick(vec):
+        def leaf(c_leaf, a_leaf):
+            m = vec.reshape((-1,) + (1,) * (c_leaf.dim() - 1))
+            return torch.where(m, c_leaf, a_leaf)
+        return leaf
 
     any_accept = torch.any(accept_vec)
-    merged = tree_map(pick, candidate["factors"], accepted["factors"])
+    if isinstance(candidate["factors"], FactorShards):
+        # factor blocks: each block takes its K slice of the decision
+        merged = FactorShards(
+            tree_map(pick(accept_vec[lo:hi].to(tree_leaves(c)[0].device)),
+                     c, a)
+            for (lo, hi), c, a in zip(factor_slices(candidate["factors"]),
+                                      candidate["factors"],
+                                      accepted["factors"]))
+    else:
+        merged = tree_map(pick(accept_vec), candidate["factors"],
+                          accepted["factors"])
     emb = tree_map(lambda c, a: torch.where(any_accept, c, a),
                     candidate["embedder"], accepted["embedder"])
     return (dict(candidate, factors=merged),

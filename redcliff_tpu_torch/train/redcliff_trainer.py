@@ -76,9 +76,20 @@ the card). A mixed fit whose numerics sentinel rolls back demotes to f32
 it (``kind="resume_demoted"``). Params, Adam state and the prox stay
 float32 in both modes.
 
-Not ported (ROADMAP): ``factor_mesh``, which raises
-``NotImplementedError``. The factors are cMLPs or cLSTMs (a cLSTM fit
-takes no prox, as in the JAX package).
+``fit(factor_mesh=)`` shards the K factor networks over a mesh like
+experts, as JAX's ``shard_factor_axis`` (``redcliff_tpu/train/
+redcliff_trainer.py:347-379,449-462``): factor k's leaves, their Adam
+moments and the best and accepted copies live on ``devices[k // (K/n)]``,
+the embedder on ``devices[0]`` (the trainer's device). Each block computes
+its factors' predictions and launches the factor-mix kernel on its K slice
+on its own device; the partial mixtures are summed on the first device in
+mesh order, and the GL prox runs on each block's leaves
+(``models/redcliff.py``). K must divide by the mesh size. The sum order
+differs from the unsharded fit, so the two agree at JAX's bar (rtol 2e-4,
+atol 1e-5), not bitwise. Checkpoints hold the joined, mesh-agnostic trees
+and Adam state; a resume re-places every one of them on the mesh. The
+factors are cMLPs or cLSTMs (a cLSTM fit takes no prox, as in the JAX
+package).
 """
 from __future__ import annotations
 
@@ -92,6 +103,9 @@ import numpy as np
 import torch
 
 from redcliff_tpu_torch.interop import params_to_jax, tree_leaves, tree_map
+from redcliff_tpu_torch.parallel.mesh import (canonical, factor_slices,
+                                              shard_factor_axis,
+                                              unshard_factor_axis)
 from redcliff_tpu_torch.models.redcliff import RedcliffSCMLP, phase_schedule
 from redcliff_tpu_torch.obs import flight as _flight
 from redcliff_tpu_torch.obs import memory as _obsmem
@@ -339,8 +353,15 @@ class RedcliffTrainer(LiveTreeMixin):
         ``save_dir`` the fit writes its checkpoints and ``metrics.jsonl``
         there."""
         if factor_mesh is not None:
-            raise NotImplementedError(
-                "factor_mesh is not ported yet (ROADMAP queue 1, multi-GPU)")
+            K = self.model.config.num_factors
+            assert K % factor_mesh.size == 0, (
+                f"num_factors {K} must divide by the factor mesh size "
+                f"{factor_mesh.size}")
+            if factor_mesh.devices[0] != canonical(self.device):
+                raise ValueError(
+                    f"the factor mesh's first device {factor_mesh.devices[0]}"
+                    f" must be the trainer's device {self.device} (the "
+                    f"embedder and the mixture sum live there)")
         pw = _profiling.window_for(self.config, run_dir=save_dir,
                                    max_iter=self.config.max_iter,
                                    device=self.device)
@@ -349,15 +370,28 @@ class RedcliffTrainer(LiveTreeMixin):
         # hard-exit rung
         with _watchdog.maybe_start() as wd:
             return self._fit(params, train_ds, val_ds, true_GC, save_dir,
-                             resume, pw, wd)
+                             resume, pw, wd, factor_mesh)
 
     def _fit(self, params, train_ds, val_ds, true_GC, save_dir, resume, pw,
-             wd=None):
+             wd=None, factor_mesh=None):
         cfg = self.model.config
         tc = self.config
         self._true_GC = true_GC
         rng = np.random.default_rng(tc.seed)
         live = self.live_params(params)
+        # factor parallelism: the factor leaves split over the mesh before
+        # the optimizers see them (their moments are born on each block's
+        # device); `place` re-places a joined tree (a resume, a rollback)
+        place = (lambda t: t) if factor_mesh is None else (
+            lambda t: shard_factor_axis(t, factor_mesh))
+        if factor_mesh is not None:
+            live = tree_map(lambda x: x.detach().requires_grad_(True),
+                            place(tree_map(lambda x: x.detach(), live)))
+        self._factor_blocks = (factor_mesh.size
+                               if factor_mesh is not None else 1)
+        self.factor_placement = [
+            str(tree_leaves(f)[0].device) for f in live["factors"]] \
+            if factor_mesh is not None else None
         optA, optB = self.make_optimizers(live)
         mode = cfg.training_mode
         freeze_by_batch = "FreezeByBatch" in mode
@@ -405,11 +439,12 @@ class RedcliffTrainer(LiveTreeMixin):
                 ) from e
         if ck is not None:
             to_dev = lambda t: numerics.to_torch(t, self.device)  # noqa: E731
-            assign_tree(live, to_dev(ck["params"]))
-            best_params = to_dev(ck["best_params"])
-            accepted = to_dev(ck["accepted"])
+            assign_tree(live, place(to_dev(ck["params"])))
+            best_params = place(to_dev(ck["best_params"]))
+            accepted = place(to_dev(ck["accepted"]))
             optA.load_state_dict(numerics.to_torch(ck["optA_state"]))
-            optB.load_state_dict(numerics.to_torch(ck["optB_state"]))
+            optB.load_state_dict(_shard_opt_state(
+                numerics.to_torch(ck["optB_state"]), live["factors"]))
             histories = ck["histories"]
             best_it, best_loss = ck["best_it"], ck["best_loss"]
             iter_start = ck["epoch"] + 1
@@ -573,8 +608,8 @@ class RedcliffTrainer(LiveTreeMixin):
                     if action.kind == "rollback":
                         snap = monitor.rollback()
                         assign_tree(live, snap["params"])
-                        accepted = tree_map(lambda x: x.to(self.device),
-                                            snap["accepted"])
+                        accepted = tree_map(lambda x, ref: x.to(ref.device),
+                                            snap["accepted"], accepted)
                         optA.load_state_dict(snap["optA_state"])
                         optB.load_state_dict(snap["optB_state"])
                         nstate = numerics.reset_consecutive(nstate)
@@ -712,7 +747,7 @@ class RedcliffTrainer(LiveTreeMixin):
             if writer is not None:
                 writer.wait()  # the final state is durable on return
         return RedcliffFitResult(
-            params=best_params,
+            params=unshard_factor_axis(best_params, self.device),
             best_it=best_it if best_it is not None else 0,
             best_loss=float(best_loss), histories=histories, tracker=tracker,
             final_val_loss=final_val["combo_loss"], aborted=aborted,
@@ -834,16 +869,21 @@ class RedcliffTrainer(LiveTreeMixin):
         host state the loop keeps appending to) and the writer thread
         writes the same files from the snapshot."""
         demoted = self._demoted
+        # checkpoints hold the joined trees and Adam state (mesh-agnostic,
+        # as JAX's): a factor-sharded fit joins its blocks here
+        best_params, accepted, live = (unshard_factor_axis(t, self.device)
+                                       for t in (best_params, accepted, live))
+        optB_state = _join_opt_state(optB.state_dict(),
+                                     self._factor_blocks, self.device)
         if writer is None:
             self._write_checkpoint_files(
                 save_dir, it, best_params, accepted, live,
-                optA.state_dict(), optB.state_dict(), histories, best_it,
+                optA.state_dict(), optB_state, histories, best_it,
                 best_loss, tracker.as_dict(), dict(tracker.__dict__),
                 aligned, rng.bit_generator.state, epoch_log, demoted)
             return
         trees, ready = durable_ckpt.host_snapshot(
-            (best_params, accepted, live, optA.state_dict(),
-             optB.state_dict()))
+            (best_params, accepted, live, optA.state_dict(), optB_state))
         host = copy.deepcopy((histories, tracker.as_dict(),
                               dict(tracker.__dict__),
                               rng.bit_generator.state, epoch_log))
@@ -891,3 +931,51 @@ class RedcliffTrainer(LiveTreeMixin):
                 "rng_state": rng_state,
                 "epoch_log": epoch_log,
             })
+
+
+def _join_opt_state(sd, n, device):
+    """A factor Adam's ``state_dict`` over ``n`` factor blocks (n blocks of
+    L leaves, block-major) -> the unsharded one over L leaves: the moments
+    joined along K on ``device``, the step of the first block (every block
+    steps together). Unsharded state (n = 1) passes through."""
+    if n == 1:
+        return sd
+    ids = sd["param_groups"][0]["params"]
+    L = len(ids) // n
+    state = {}
+    for j in range(L):
+        parts = [sd["state"].get(ids[b * L + j]) for b in range(n)]
+        if parts[0] is None:
+            continue
+        state[j] = dict(parts[0])
+        for key in ("exp_avg", "exp_avg_sq"):
+            state[j][key] = torch.cat([p[key].to(device) for p in parts])
+    return {"state": state,
+            "param_groups": [dict(sd["param_groups"][0],
+                                  params=list(range(L)))]}
+
+
+def _shard_opt_state(sd, blocks):
+    """The inverse of :func:`_join_opt_state` for a factor Adam over the
+    blocks ``blocks`` (a ``FactorShards`` of the live factors). An
+    unsharded fit passes through."""
+    from redcliff_tpu_torch.parallel.mesh import FactorShards
+
+    if not isinstance(blocks, FactorShards):
+        return sd
+    n = len(blocks)
+    ids = sd["param_groups"][0]["params"]
+    L = len(ids)
+    state = {}
+    for j in range(L):
+        st = sd["state"].get(ids[j])
+        if st is None:
+            continue
+        for b, (lo, hi) in enumerate(factor_slices(blocks)):
+            # every entry owns its step: the optimizer counts each one
+            state[b * L + j] = dict(st, step=st["step"].clone(), **{
+                key: st[key][lo:hi].clone()
+                for key in ("exp_avg", "exp_avg_sq")})
+    return {"state": state,
+            "param_groups": [dict(sd["param_groups"][0],
+                                  params=list(range(n * L)))]}

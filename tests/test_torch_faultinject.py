@@ -90,13 +90,29 @@ def test_nan_batch_equals_skip_update(monkeypatch, path):
                for a, b in zip(nan_leaves, clean_leaves))
 
 
-@pytest.mark.parametrize("kind", fi.UNPORTED_FAULTS)
-def test_unported_fault_points_raise(monkeypatch, kind):
-    monkeypatch.setenv(fi.ENV_SPEC, f"nan_batch:1,{kind}:1")
-    with pytest.raises(NotImplementedError, match=kind):
-        fi.skip_update(0)
-    with pytest.raises(NotImplementedError, match="item 1[25]"):
-        fi.poison_batch(torch.zeros(2), 1)
+@pytest.mark.parametrize("kind", fi.HOST_FAULT_KINDS)
+def test_host_fault_points_armed(monkeypatch, kind):
+    """The host faults are ported (tests/test_torch_remesh.py runs them
+    through the grid and the supervisor): armed beside a step fault they
+    leave the step points to it and fire at the grid's epoch_end, at their
+    epoch only, as the JAX module's do."""
+    from redcliff_tpu.runtime import faultinject as jfi
+    from redcliff_tpu_torch.parallel import remesh
+
+    arg = "2:1" if kind == "host_drop" else "1"
+    monkeypatch.setenv(fi.ENV_SPEC, f"nan_batch:1,{kind}:{arg}")
+    monkeypatch.delenv(fi.ENV_MARKER, raising=False)
+    assert fi.HOST_FAULT_KINDS == jfi.HOST_FAULT_KINDS
+    assert not fi.skip_update(0)
+    assert torch.isnan(fi.poison_batch(torch.zeros(2), 1)).all()
+    fi.crash_point("epoch_end", epoch=0)  # not its epoch
+    with pytest.raises((remesh.HostLostError, RuntimeError)) as ei:
+        fi.crash_point("epoch_end", epoch=1)
+    err = ei.value
+    if kind == "host_drop":
+        assert isinstance(err, remesh.HostLostError) and err.host == 2
+    else:
+        assert remesh.classify_device_error(err) == kind
 
 
 @pytest.mark.parametrize("spec", ["", "fleet_poison", "nan_batch:1",
@@ -111,7 +127,7 @@ def test_fleet_poison_armed_matches_jax(monkeypatch, spec):
     monkeypatch.setenv(fi.ENV_SPEC, spec)
     assert fi.fleet_poison_armed() == jfi.fleet_poison_armed() \
         == ("fleet_poison" in spec)
-    assert "fleet_poison" not in fi.UNPORTED_FAULTS
+    assert "fleet_poison" not in fi.HOST_FAULT_KINDS
     X = torch.ones(2, 2)
     assert (fi.poison_batch(X, 0) is X) and not fi.skip_update(0)
 

@@ -10,8 +10,9 @@ wrapped to start from it. The per-request results agree at the grid bars
 of tests/test_torch_grid.py (rtol 1e-4, atol 1e-5; epochs exact); the
 manifest, the attributed ``failures.json`` and the final streamed rows
 are equal. Within the port a request fits bit for bit the same alone and
-merged (content-derived lane seeds); ``mesh: "auto"`` raises naming the
-multi-device item; an armed ``fleet_poison`` sentinel exits with JAX's
+merged (content-derived lane seeds); ``mesh: "auto"`` fits a batch on a
+simulated pool of two CPU entries, whole and through a packed slot, bit
+for bit as the unmeshed child; an armed ``fleet_poison`` sentinel exits with JAX's
 code; without a device and without CUDA the child fails before it writes.
 """
 import json
@@ -210,13 +211,36 @@ def test_request_fits_bitwise_alone_and_merged(tmp_path):
         assert a[key] == m[key], key
 
 
-def test_mesh_auto_raises_naming_the_multi_device_item(tmp_path):
-    run_dir = str(tmp_path / "mesh")
-    path = _write_batch(run_dir, [("req-a", "alice", POINTS_A)],
-                        spec=_spec(mesh="auto"))
-    with pytest.raises(NotImplementedError, match="item 15"):
-        trb.run_batch_file(path, device="cpu")
-    assert not os.path.exists(os.path.join(run_dir, "results"))
+def test_mesh_auto_fits_a_batch_on_a_simulated_pool(tmp_path):
+    """``mesh: "auto"`` over a pool of two CPU entries (``sim_devices``),
+    and a packed slot of that pool, each fit the batch bit for bit as the
+    unmeshed child does (a sharded port grid is the unsharded one's
+    arithmetic on fewer lanes)."""
+    results = {}
+    for name, spec, slot, sim in (
+            ("plain", _spec(), None, None),
+            ("auto", _spec(mesh="auto"), None, 2),
+            ("slot", _spec(mesh="auto"), {"lo": 0, "width": 2}, 2)):
+        run_dir = str(tmp_path / name)
+        path = _write_batch(run_dir, [("req-a", "alice", POINTS_A)],
+                            spec=spec)
+        with open(path) as f:
+            batch = json.load(f)
+        batch["slot"] = slot
+        with open(path, "w") as f:
+            json.dump(batch, f)
+        res = trb.run_batch_file(path, device="cpu", sim_devices=sim)
+        results[name] = (_results(run_dir), res.dispatch_stats)
+    assert [e["event"] for e in read_jsonl(
+        str(tmp_path / "auto"), event="fit_start")] == ["fit_start"]
+    assert read_jsonl(str(tmp_path / "auto"), event="fit_start")[0][
+        "mesh"]["n_devices"] == 2
+    want = results["plain"][0]["req-a.json"]
+    for name in ("auto", "slot"):
+        got = results[name][0]["req-a.json"]
+        for key in ("best_criteria", "best_epoch", "val_history", "active",
+                    "failures"):
+            assert got[key] == want[key], (name, key)
 
 
 def test_merge_key_mismatch_refused_as_in_jax(tmp_path):

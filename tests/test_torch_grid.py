@@ -397,8 +397,9 @@ def test_driver_helpers_match_jax():
 
 
 def test_what_is_not_ported_raises(tmp_path, monkeypatch):
-    """Mesh, mixed precision and a default CUDA device without a card
-    raise; nothing is quietly ignored. The telemetry knobs (``log_dir``,
+    """A mesh that is not a DeviceMesh, an unknown precision mode, an
+    unknown mesh string and a default CUDA device without a card raise;
+    nothing is quietly ignored. The mesh works. The telemetry knobs (``log_dir``,
     ``true_gc``) and the predictive policy work."""
     from redcliff_tpu_torch.obs.logging import read_jsonl
     from redcliff_tpu_torch.parallel import policy as tpolicy
@@ -414,7 +415,14 @@ def test_what_is_not_ported_raises(tmp_path, monkeypatch):
                true_gc=[np.eye(4)] * tm.config.num_factors)
     q, = read_jsonl(str(tmp_path), event="quality")
     assert q["lanes"] == [0, 1] and len(q["auroc"]) == 2
-    with pytest.raises(NotImplementedError):
+    # the mesh is ported (tests/test_torch_mesh.py): one that is not a
+    # DeviceMesh raises
+    from redcliff_tpu_torch.parallel.mesh import grid_mesh
+
+    meshed = tgrid.RedcliffGridRunner(tm, tc, spec,
+                                      mesh=grid_mesh(devices=["cpu"] * 2))
+    assert (meshed.mesh.size, meshed._g_exec0) == (2, 2)
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tgrid.RedcliffGridRunner(tm, tc, spec, mesh=object(), device="cpu")
     # the predictive policy is ported: without a cost model it is the
     # heuristic and records no decision
@@ -427,9 +435,14 @@ def test_what_is_not_ported_raises(tmp_path, monkeypatch):
         == "mixed"
     with pytest.raises(ValueError, match="precision_mode"):
         tgrid.GridSpec([{}], precision_mode="fp8")
-    with pytest.raises(NotImplementedError):
+    # mesh "auto" meshes the fit's device when it is the CPU; another
+    # string raises JAX's ValueError
+    auto = tdriver.run_coefficient_grid(tm, tc, [{}, {}], ds, ds,
+                                        device="cpu", mesh="auto")
+    assert auto.val_history.shape == (1, 2)
+    with pytest.raises(ValueError, match="mesh must be"):
         tdriver.run_coefficient_grid(tm, tc, [{}, {}], ds, ds,
-                                     device="cpu", mesh="auto")
+                                     device="cpu", mesh="all")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             tgrid.RedcliffGridRunner(tm, tc, spec)

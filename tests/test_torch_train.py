@@ -693,10 +693,19 @@ def test_unported_knobs_raise_and_default_device_is_cuda(monkeypatch,
     with pytest.raises(ValueError, match="prox_penalty"):
         ttr.RedcliffTrainConfig(prox_penalty="L1")
     _, tm, jp = _slice_models()
-    with pytest.raises(NotImplementedError, match="factor_mesh"):
+    # factor_mesh is ported (tests/test_torch_mesh.py): K must divide by
+    # the mesh size, and the mesh must start at the trainer's device
+    from redcliff_tpu_torch.parallel.mesh import grid_mesh
+
+    K = tm.config.num_factors
+    with pytest.raises(AssertionError, match="must divide"):
         ttr.RedcliffTrainer(tm, ttr.RedcliffTrainConfig(),
-                            device="cpu").fit(jp, None, None,
-                                              factor_mesh=object())
+                            device="cpu").fit(
+            jp, None, None, factor_mesh=grid_mesh(devices=["cpu"] * (K + 1)))
+    with pytest.raises(ValueError, match="trainer's device"):
+        ttr.RedcliffTrainer(tm, ttr.RedcliffTrainConfig(),
+                            device="cpu").fit(
+            jp, None, None, factor_mesh=grid_mesh(devices=["meta"] * K))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ttr.RedcliffTrainer(tm, ttr.RedcliffTrainConfig())

@@ -200,8 +200,16 @@ def test_init_and_errors():
     X = torch.zeros((B, STEPS, FEAT))
     enc = T.TSTransformerEncoder(T.TSTransformerConfig(**SMALL))
     params = enc.init(torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        enc.forward(params, X, seq_mesh=object())
+    # seq_mesh is ported (tests/test_torch_sequence.py): ring attention
+    # over time blocks reproduces the dense encoder
+    from redcliff_tpu_torch.parallel.sequence import seq_mesh
+
+    Xr = torch.from_numpy(np.random.default_rng(2).normal(
+        size=(B, STEPS, FEAT)).astype(np.float32))
+    n = next(d for d in (4, 2, 1) if STEPS % d == 0)
+    np.testing.assert_allclose(
+        enc.forward(params, Xr, seq_mesh=seq_mesh(devices=["cpu"] * n)),
+        enc.forward(params, Xr), rtol=5e-5, atol=5e-6)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             enc.init(torch.Generator())
