@@ -248,21 +248,26 @@ Phases, one JSON line each:
    ``cost_model`` events: each decision and the MAPE.
 27. mixed_train: mixed precision on the training path. The bf16 training
    form of the factor mix alone at the per-point (B=128 K=5 M=10) and the
-   lane shape (G=32): forward against its plain version, backward against
-   JAX's rule in float64, CUDA-event ms beside ``torch.einsum`` /
-   ``torch.bmm`` on the same bf16 operands, host us, device us alone,
-   floor and bound. The train phase's fit under ``"mixed"`` beside the
-   same fit under ``"f32"`` from the same weights (histories within the
-   bf16 bars; every forward on the bf16 kernel, none on the f32 one), a
-   window of combined steps of each (step wall, device busy, idle share);
-   a ``nan_batch`` storm over epoch 1 demotes the mixed fit at epoch 1,
-   the checkpoint records it, and resumes under "mixed" (demoted, no bf16
-   launch) and "f32" end bitwise equal; the cMLP-FM GISTA fit under
-   "mixed" beside "f32"; the published grid under "mixed" for 8 epochs
-   with every training window NaN in epoch 3 (a replayed epoch): the grid
-   demotes there for all 27 lanes, no lane is quarantined, its programs
-   are captured afresh at f32, no bf16 kernel runs after the demotion,
-   and the cost model scores replayed epochs only.
+   lane shape (G=32), on the f32 operands the mixed forward holds: forward
+   against its plain version, backward against JAX's rule in float64, each
+   call (direct, under the bf16 context, under ``vmap``) one launch and one
+   device kernel, bit for bit the former path (each operand cast to bf16,
+   then the bf16 entry) on random and crafted values; CUDA-event ms of the
+   call, the former path, the library call from the same operands (the
+   casts, then ``torch.einsum`` / ``torch.bmm``) and the plain version,
+   host us a call beside the f32 kernel's, device us and kernels per call,
+   floor and bound; the earlier row on bf16 operands beside it. The train
+   phase's fit under ``"mixed"`` beside the same fit under ``"f32"`` from
+   the same weights (histories within the bf16 bars; every forward on the
+   bf16 kernel, none on the f32 one), a window of combined steps of each
+   (step wall, device busy, idle share); a ``nan_batch`` storm over epoch 1
+   demotes the mixed fit at epoch 1, the checkpoint records it, and resumes
+   under "mixed" (demoted, no bf16 launch) and "f32" end bitwise equal; the
+   cMLP-FM GISTA fit under "mixed" beside "f32"; the published grid under
+   "mixed" for 8 epochs with every training window NaN in epoch 3 (a
+   replayed epoch): the grid demotes there for all 27 lanes, no lane is
+   quarantined, its programs are captured afresh at f32, no bf16 kernel
+   runs after the demotion, and the cost model scores replayed epochs only.
 28. obs_cli: ``python -m redcliff_tpu_torch.obs report --json``, ``watch
    --once --json`` and ``trace -o`` as subprocesses over the telemetry
    phase's and mixed_train's run dirs (one with jax and the JAX package
@@ -1176,7 +1181,7 @@ def _mix_host_breakdown(torch, FM, w, p, gc=None):
         "new_empty": lambda: w.new_empty((B, T, C)),
         "raw stream handle": lambda: raw(idx),
         "ctypes call + launch + raw stream handle":
-            lambda: FM._fn(*args, raw(idx)),
+            lambda: FM._FORM_F32.fn(*args, raw(idx)),
         "data_ptr x3": lambda: (w.data_ptr(), p.data_ptr(), out.data_ptr()),
         # dropped
         "FactorMixFn.apply (whole call)": lambda: FM.FactorMixFn.apply(w, p),
@@ -1711,31 +1716,146 @@ def _elastic_storm_run(torch, model, params, device, ladder, root=None,
     return res, svc
 
 
+# f32 bit patterns that pin the rounding to bf16 (the CPU test
+# tests/test_torch_factor_mix_bf16.py holds the same set against JAX):
+# ties to even down and up (both signs) and just off a tie; subnormals that
+# vanish, stay exact, or tie down and up; the largest finite bf16, the next
+# f32 above it, the last f32 that rounds down to it, the tie that goes to
+# inf, the f32 maximum; +-inf, NaNs, +-0
+BF16_CRAFTED_BITS = (
+    0x3F808000, 0x3F818000, 0xBF808000, 0xBF818000, 0x3F808001, 0x3F807FFF,
+    0x00000001, 0x80000001, 0x00010000, 0x00018000, 0x00028000, 0x00400000,
+    0x807FFFFF,
+    0x7F7F0000, 0x7F7F0001, 0x7F7F7FFF, 0x7F7F8000, 0x7F7FFFFF, 0xFF7F0000,
+    0xFF7F8000,
+    0x7F800000, 0xFF800000, 0x7FC00000, 0xFFC00001, 0x7F800001, 0x00000000,
+    0x80000000)
+
+
+def _crafted(torch, n, dev):
+    """``n`` f32 values cycling through :data:`BF16_CRAFTED_BITS`."""
+    bits = [BF16_CRAFTED_BITS[i % len(BF16_CRAFTED_BITS)] for i in range(n)]
+    signed = [b - (1 << 32) if b >= 1 << 31 else b for b in bits]
+    return torch.tensor(signed, dtype=torch.int32).view(
+        torch.float32).to(dev)
+
+
+def _bits_equal(torch, a, b):
+    """Bit for bit, NaNs included: ``torch.equal`` on the int32 views."""
+    return (a.dtype == b.dtype == torch.float32 and a.shape == b.shape
+            and bool(torch.equal(a.contiguous().view(torch.int32),
+                                 b.contiguous().view(torch.int32))))
+
+
+def _kernels_per_call(torch, fn, n=200):
+    """``fn``'s device us per call, all its kernels summed, its device
+    kernels per call and their names (``torch.profiler``, ``n`` calls back
+    to back). The profiler can drop some of a window's kernel records (up
+    to a fifth seen on the card), so the count is the recorded kernels
+    over ``n``, and the time is the recorded kernels' mean times the
+    kernels of one call (that count rounded)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    total = _device_us(torch, prof, 1)[1]
+    per = len(names) / n
+    us = total / len(names) * max(round(per), 1) if names else 0.0
+    return us, per, sorted({x[:60] for x in names})
+
+
+def _one_kernel(t, key, what):
+    """Require that the call ``key`` of :func:`_form_timing`'s readings
+    ``t`` ran one device kernel a call, the factor mix's, and nothing
+    else (no cast, no copy)."""
+    names = t["kernel_names"][key]
+    _require(round(t["kernels_per_call"][key]) == 1 and len(names) == 1
+             and "factor_mix_kernel" in names[0],
+             f"{what}: {t['kernels_per_call'][key]} device kernels a call "
+             f"({names}), want the factor mix's alone")
+
+
+def _form_timing(torch, calls, nbytes, flops, one):
+    """The bf16 form's readings from the operands its caller holds.
+    ``calls``: ``kernel`` (the call the path makes: one launch),
+    ``cast_path`` (each f32 operand cast with ``.to(torch.bfloat16)``,
+    then the bf16 entry: the path before the rounding entries),
+    ``library`` (the casts, then one PyTorch contraction), ``plain`` (the
+    plain version) and ``f32_kernel`` (the f32 kernel at the same shape).
+    CUDA-event ms per call in turns, the floor, host us a call, device us
+    summed over the call's kernels and its kernels per call
+    (``torch.profiler``), and the bound of the new call."""
+    t = _time_turns(torch, {f"{k}_ms": calls[k] for k in (
+        "kernel", "cast_path", "library", "plain")})
+    t["floor_ms"] = _time_ms(torch, one.zero_)
+    host = {k: _host_us(torch, calls[k])
+            for k in ("kernel", "cast_path", "library", "f32_kernel")}
+    dev, per, names = {}, {}, {}
+    for k in ("kernel", "cast_path", "library", "f32_kernel", "floor"):
+        fn = one.zero_ if k == "floor" else calls[k]
+        dev[k], per[k], names[k] = _kernels_per_call(torch, fn)
+    t.update(host_us=host["kernel"], host_us_by_call=host,
+             device_us_alone=dev["kernel"], device_us_by_call=dev,
+             kernels_per_call=per, kernel_names=names, bytes=nbytes)
+    t["bound_ms"], t["bound_by"] = _bound(nbytes, flops)
+    return t
+
+
 def _bf16_checks(torch, FM, gen, dev):
-    """The bf16 form against its plain version at every rung of the serve
-    table (S = 4 .. 64, K = 5, M = 100, graphs broadcast over S), its launch
-    plan, its CUDA-event time beside the library call on the same bf16
-    operands, the plain version and the launch floor, its device us alone
-    (torch.profiler) and its bound."""
+    """The bf16 form of the serve blend as the mixed engine calls it (f32
+    scores, the bf16 graphs made at load; S = 4 .. 64, K = 5, M = 100,
+    graphs broadcast over S): at every rung one launch, bit for bit the
+    former path (scores cast to bf16, then the bf16 entry) and within
+    ATOL of the plain version, and its plan; the crafted values; then at
+    S = 64 the readings of :func:`_form_timing` (``kernels_per_call`` of
+    the new call must be 1) and, for continuity, the earlier row on bf16
+    operands (CUDA-event ms beside ``torch.einsum`` on them, the plain
+    version, device us alone)."""
+    bf16 = torch.bfloat16
     K, C = CONFIG["num_factors"], CONFIG["num_chans"]
     M = C * C
-    gb = torch.randn((K, C, C), generator=gen).to(dev).to(torch.bfloat16)
+    gb = torch.randn((K, C, C), generator=gen).to(dev).to(bf16)
     errs, plans = {}, {}
     for S in ELASTIC_RUNGS:
-        wb = torch.rand((S, K), generator=gen).to(dev).to(torch.bfloat16)
-        got = FM.graph_mix(wb, gb)
-        want = FM.graph_mix_bf16_reference(wb, gb)
+        w = torch.rand((S, K), generator=gen).to(dev)
+        before = FM.graph_mix_bf16.launches
+        got = FM.graph_mix(w, gb)
+        _require(FM.graph_mix_bf16.launches == before + 1,
+                 f"bf16 mix S={S}: {FM.graph_mix_bf16.launches - before} "
+                 f"launches a call")
+        old = FM.graph_mix(w.to(bf16), gb)
+        want = FM.graph_mix_bf16_reference(w, gb)
         torch.cuda.synchronize()
         _require(got.dtype == torch.float32 and got.shape == (S, C, C),
                  f"bf16 mix output {got.dtype} {tuple(got.shape)}")
+        _require(_bits_equal(torch, got, old),
+                 f"bf16 mix S={S}: f32 scores not bit for bit the cast "
+                 f"path (max abs {_max_err(got, old)})")
         errs[f"S={S}"] = _max_err(got, want)
         _require(errs[f"S={S}"] <= ATOL,
                  f"bf16 mix S={S}: max abs err {errs[f'S={S}']} > {ATOL}")
         args = FM._mix_args(S, K, M, M, 0, gb.data_ptr() % 16,
-                            wb.get_device(), 1, 0, 0, 2)[0]
+                            w.get_device(), 1, 0, 0, "round_w")[0]
         plans[f"S={S}"] = {"vec": args.vec, "threads": args.threads,
                            "blocks": args.blocks}
-    # an operand the kernel does not take raises: no fallback
+    # the crafted values as scores against unit graphs (each output is one
+    # rounded score) and mixed into random graphs
+    S = CAPACITY
+    cw = _crafted(torch, S * K, dev).view(S, K)
+    unit = torch.zeros((K, C, C), device=dev, dtype=bf16)
+    unit[0] = 1
+    for g in (unit, gb):
+        _require(_bits_equal(torch, FM.graph_mix(cw, g),
+                             FM.graph_mix(cw.to(bf16), g)),
+                 "bf16 mix: crafted scores not bit for bit the cast path")
+    # an operand pair no caller uses raises: no fallback
+    wb = w.to(bf16)
     for bad in (lambda: FM.graph_mix_bf16(wb, gb.float()),
                 lambda: FM.graph_mix_bf16(wb.t(), gb)):
         try:
@@ -1743,26 +1863,34 @@ def _bf16_checks(torch, FM, gen, dev):
         except (TypeError, ValueError):
             continue
         raise SmokeFailure("bf16 mix took an operand it does not take")
-    S = CAPACITY
     w = torch.rand((S, K), generator=gen).to(dev)
-    wb = w.to(torch.bfloat16)
+    wb = w.to(bf16)
+    g32 = gb.float()
     one = torch.zeros(1, device=dev)
-    t = _time_turns(torch, {
+    nbytes = 4 * S * K + 2 * K * M + 4 * S * M
+    t = _form_timing(torch, {
+        "kernel": lambda: FM.graph_mix(w, gb),
+        "cast_path": lambda: FM.graph_mix(w.to(bf16), gb),
+        "library": lambda: torch.einsum("sk,kij->sij", w.to(bf16), gb),
+        "plain": lambda: FM.graph_mix_bf16_reference(w, gb),
+        "f32_kernel": lambda: FM.graph_mix(w, g32)}, nbytes,
+        2.0 * S * K * M, one)
+    _one_kernel(t, "kernel", "bf16 mix, serve blend")
+    old = _time_turns(torch, {
         "kernel_ms": lambda: FM.graph_mix(wb, gb),
         "library_ms": lambda: torch.einsum("sk,kij->sij", wb, gb),
         "plain_ms": lambda: FM.graph_mix_bf16_reference(wb, gb)})
-    t["floor_ms"] = _time_ms(torch, one.zero_)
-    t["host_us"] = _host_us(torch, lambda: FM.graph_mix(wb, gb))
-    alone = _alone_us(torch, {
-        "kernel": lambda: FM.graph_mix(wb, gb),
-        "library": lambda: torch.einsum("sk,kij->sij", wb, gb),
-        "floor": one.zero_})
-    nbytes = 2 * S * K + 2 * K * M + 4 * S * M
-    bound, by = _bound(nbytes, 2.0 * S * K * M)
-    t.update({"bound_ms": bound, "bound_by": by, "bytes": nbytes,
-              "device_us_alone": alone,
-              "shape": f"S={S} K={K} M={M} bf16 in, f32 out (graph_mix, "
-                       f"graphs broadcast over S)"})
+    old["host_us"] = _host_us(torch, lambda: FM.graph_mix(wb, gb))
+    old["device_us_alone"] = {
+        k: _kernels_per_call(torch, fn)[0] for k, fn in (
+            ("kernel", lambda: FM.graph_mix(wb, gb)),
+            ("library", lambda: torch.einsum("sk,kij->sij", wb, gb)))}
+    old["bytes"] = 2 * S * K + 2 * K * M + 4 * S * M
+    old["bound_ms"], old["bound_by"] = _bound(old["bytes"],
+                                              2.0 * S * K * M)
+    t.update(bf16_operands=old,
+             shape=f"S={S} K={K} M={M} f32 scores rounded in the kernel, "
+                   f"bf16 graphs broadcast over S, f32 out (graph_mix)")
     return max(errs.values()), errs, plans, t
 
 
@@ -5952,13 +6080,19 @@ class _CountBf16:
 
 def _bf16_train_checks(torch, FM, gen, dev):
     """The bf16 training form alone at the per-point shape (B=128 K=5
-    M=10) and the grid's lane shape (G=32): forward against the plain
-    version, backward against JAX's rule in float64, CUDA-event ms beside
-    the library call on the same bf16 operands (``torch.einsum``, lanes
-    ``torch.bmm``), the plain version and the launch floor, host us per
-    call, device us alone, and the bound."""
+    M=10) and the grid's lane shape (G=32), on the f32 operands the mixed
+    forward holds: forward against the plain version, backward against
+    JAX's rule in float64; each call (direct, under the bf16 context, and
+    for the lanes under ``vmap``) one launch and one device kernel, bit for
+    bit the former path (both operands cast to bf16, then the bf16 entry),
+    on random and crafted values; the readings of :func:`_form_timing`
+    beside the f32 kernel at the same shape; and for continuity the
+    earlier row on bf16 operands (CUDA-event ms beside the library call on
+    them, ``torch.einsum``, lanes ``torch.bmm``, the plain version, host
+    us, device us alone)."""
     from redcliff_tpu_torch.utils import precision as prec
 
+    bf16 = torch.bfloat16
     K, M, B = K_TRAIN, C_TRAIN, TRAIN_KNOBS["batch_size"]
     one = torch.zeros(1, device=dev)
     out, errs = {}, {}
@@ -5966,22 +6100,55 @@ def _bf16_train_checks(torch, FM, gen, dev):
         lead = () if G is None else (G,)
         w = torch.rand(lead + (B, K), generator=gen).to(dev)
         p = torch.randn(lead + (K, B, 1, M), generator=gen).to(dev)
-        wb, pb = w.to(torch.bfloat16), p.to(torch.bfloat16)
+        wb, pb = w.to(bf16), p.to(bf16)
         ref = (FM.factor_mix_bf16_reference if G is None
                else FM.factor_mix_lanes_bf16_reference)
         fwd = (FM.factor_mix_bf16 if G is None
                else FM.factor_mix_lanes_bf16)
+        f32 = FM.factor_mix if G is None else FM.factor_mix_lanes
+
+        def mixed(a, b, G=G):
+            with prec.matmul_precision_ctx(prec.MIXED_MATMUL):
+                return (FM.factor_mix(a, b) if G is None
+                        else torch.func.vmap(FM.factor_mix)(a, b))
+
         wg, pg = w.clone().requires_grad_(True), p.clone().requires_grad_(
             True)
-        with prec.matmul_precision_ctx(prec.MIXED_MATMUL):
-            got = (FM.factor_mix(wg, pg) if G is None
-                   else torch.func.vmap(FM.factor_mix)(wg, pg))
+        got = mixed(wg, pg)
         want = ref(w, p)
+        old = fwd(wb, pb)
         torch.cuda.synchronize()
         errs[f"{name}_fwd"] = _max_err(got, want)
         _require(got.dtype == torch.float32 and errs[f"{name}_fwd"] <= ATOL,
                  f"bf16 training form {name}: forward max abs err "
                  f"{errs[f'{name}_fwd']} > {ATOL}")
+        for what, new in (("autograd", got.detach()), ("direct", fwd(w, p)),
+                          ("context", mixed(w, p))):
+            _require(_bits_equal(torch, new, old),
+                     f"bf16 training form {name} ({what}): not bit for bit "
+                     f"the cast path (max abs {_max_err(new, old)})")
+        for what, call in (("direct", lambda: fwd(w, p)),
+                           ("context", lambda: mixed(w, p))):
+            before = FM.graph_mix_bf16.launches
+            call()
+            _require(FM.graph_mix_bf16.launches == before + 1,
+                     f"bf16 training form {name} ({what}): "
+                     f"{FM.graph_mix_bf16.launches - before} launches")
+        # crafted values: as p against unit weights (each output one
+        # rounded p), as w against unit p, and both at random positions
+        cp = _crafted(torch, p.numel(), dev).view(p.shape)
+        cw = _crafted(torch, w.numel(), dev).view(w.shape)
+        uw = torch.zeros_like(w)
+        uw[..., 0] = 1
+        up = torch.zeros_like(p)
+        up[..., 0, :, :, :] = 1
+        perm = torch.randperm(p.numel(), generator=gen).to(dev)
+        for a, b in ((uw, cp), (cw, up), (cw.flip(-1), cp.flatten()[perm]
+                                          .view(p.shape))):
+            _require(_bits_equal(torch, fwd(a, b),
+                                 fwd(a.to(bf16), b.to(bf16))),
+                     f"bf16 training form {name}: crafted values not bit "
+                     f"for bit the cast path")
         cot = torch.randn(got.shape, generator=gen).to(dev)
         gw, gp = torch.autograd.grad(got, (wg, pg), cot)
         r = lambda t: t.detach().cpu().to(torch.bfloat16).double()  # noqa
@@ -5999,29 +6166,49 @@ def _bf16_train_checks(torch, FM, gen, dev):
                      f"max abs err {e}")
         if G is None:
             lib = lambda: torch.einsum("bk,kbtc->btc", wb, pb)  # noqa
+            lib32 = lambda: torch.einsum(  # noqa
+                "bk,kbtc->btc", w.to(bf16), p.to(bf16))
         else:
-            # the library's batched GEMM on the same bf16 operands, laid
-            # out as it takes them: (G*B, 1, K) x (G*B, K, M)
+            # the library's batched GEMM, laid out as it takes them:
+            # (G*B, 1, K) x (G*B, K, M)
             wl = wb.reshape(G * B, 1, K)
             pl = pb.permute(0, 2, 1, 3, 4).reshape(G * B, K, M).contiguous()
             lib = lambda: torch.bmm(wl, pl)  # noqa
-        t = _time_turns(torch, {"kernel_ms": lambda: fwd(wb, pb),
-                                "library_ms": lib,
-                                "plain_ms": lambda: ref(wb, pb)})
-        t["floor_ms"] = _time_ms(torch, one.zero_)
-        t["host_us"] = _host_us(torch, lambda: fwd(wb, pb))
-        t["device_us_alone"] = _alone_us(torch, {
-            "kernel": lambda: fwd(wb, pb), "library": lib,
-            "floor": one.zero_})
+            lib32 = lambda: torch.bmm(  # noqa
+                w.to(bf16).reshape(G * B, 1, K),
+                p.to(bf16).permute(0, 2, 1, 3, 4).reshape(G * B, K, M))
         g = G or 1
-        nbytes = g * (2 * B * K + 2 * K * B * M + 4 * B * M)
-        t["bound_ms"], t["bound_by"] = _bound(nbytes, 2.0 * g * B * K * M)
-        t["bytes"] = nbytes
+        t = _form_timing(torch, {
+            "kernel": lambda: fwd(w, p),
+            "cast_path": lambda: fwd(w.to(bf16), p.to(bf16)),
+            "library": lib32, "plain": lambda: ref(w, p),
+            "f32_kernel": lambda: f32(w, p)},
+            g * 4 * (B * K + K * B * M + B * M), 2.0 * g * B * K * M, one)
+        # the path's own call: under the context (and vmap for the lanes)
+        (t["device_us_by_call"]["context"], t["kernels_per_call"]["context"],
+         t["kernel_names"]["context"]) = _kernels_per_call(
+            torch, lambda: mixed(w, p))
+        t["host_us_by_call"]["context"] = _host_us(torch,
+                                                   lambda: mixed(w, p))
+        for k in ("kernel", "context"):
+            _one_kernel(t, k, f"bf16 training form {name} ({k})")
+        old = _time_turns(torch, {"kernel_ms": lambda: fwd(wb, pb),
+                                  "library_ms": lib,
+                                  "plain_ms": lambda: ref(wb, pb)})
+        old["host_us"] = _host_us(torch, lambda: fwd(wb, pb))
+        old["device_us_alone"] = {
+            k: _kernels_per_call(torch, fn)[0]
+            for k, fn in (("kernel", lambda: fwd(wb, pb)), ("library", lib))}
+        old["bytes"] = g * (2 * B * K + 2 * K * B * M + 4 * B * M)
+        old["bound_ms"], old["bound_by"] = _bound(old["bytes"],
+                                                  2.0 * g * B * K * M)
+        t["bf16_operands"] = old
         t["plan"] = dict(zip(("vec", "threads", "blocks"),
-                             FM.launch_plan(wb, pb)))
+                             FM.launch_plan(w, p, bf16=True)))
         t["shape"] = (f"B={B} K={K} M={M}" + ("" if G is None
                                                else f" G={G}")
-                      + " bf16 in, f32 out (training form)")
+                      + " f32 in, rounded to bf16 in the kernel, f32 out "
+                        "(training form)")
         out[name] = t
     return max(errs.values()), errs, out
 
@@ -7694,6 +7881,7 @@ def main():
         max(bf16_err, mixed["bf16_kernel"]["max_abs_err"]), bf16_t)
     bf.update(host_us=bf16_t["host_us"],
               device_us_alone=bf16_t["device_us_alone"],
+              kernels_per_call=bf16_t["kernels_per_call"],
               bytes=bf16_t["bytes"],
               by_shape={k: mixed["bf16_kernel"][k]
                         for k in ("train", "lanes")})

@@ -339,16 +339,20 @@ _trials: dict = {}
 def mix_key(B, K, M, G=1, bf16=False):
     """``(kernel, shape_key, size)`` of a factor-mix launch: the single
     form by the batch's bucket, the lane form by the lanes' (its shape key
-    carries the batch's bucket). The bf16 form (``bf16``, the serve blend
-    of the mixed mode) has a key of its own, ``factor_mix_bf16``: it never
-    takes an f32 plan, and no search fills it yet, so it runs the default
-    plan."""
+    carries the batch's bucket). ``bf16`` names the bf16 form's input form
+    (``ops/factor_mix.py``): False for the f32 kernel, True for bf16 w and
+    p, ``"round"`` for f32 w and p rounded to bf16 in registers (the mixed
+    training forward), ``"round_w"`` for f32 w rounded and bf16 p (the
+    mixed serve blend). Each input form, single and lanes, has a key of
+    its own (``factor_mix_bf16``, ``factor_mix_lanes_bf16_round``, ...):
+    no form takes another's plan. No search fills the bf16 keys yet, so
+    they run the default plan."""
+    name = "factor_mix" if G == 1 else "factor_mix_lanes"
     if bf16:
-        return "factor_mix_bf16", f"k{int(K)}m{int(M)}", int(B)
+        name += "_bf16" if bf16 is True else f"_bf16_{bf16}"
     if G == 1:
-        return "factor_mix", f"k{int(K)}m{int(M)}", int(B)
-    return ("factor_mix_lanes",
-            f"k{int(K)}m{int(M)}b{_pow2_bucket(B)}", int(G))
+        return name, f"k{int(K)}m{int(M)}", int(B)
+    return name, f"k{int(K)}m{int(M)}b{_pow2_bucket(B)}", int(G)
 
 
 def prox_key(lead, H, C, L, slabs_per_lane=0):

@@ -11,24 +11,33 @@
   the plain version. There is no fallback: a CUDA tensor the kernel does not
   take raises.
 * :func:`graph_mix_bf16` / :func:`graph_mix_bf16_reference` — the bf16
-  form of the serve blend (the serve engine's mixed mode): bf16 ``w (S,
-  K)`` and graphs ``(K, C, C)``, widened to f32, summed in f32, f32 out.
-  :func:`graph_mix` takes it when an operand is bf16. On CUDA operands it
-  launches ``redcliff_factor_mix_bf16`` (the same source and library), on
-  CPU operands the plain version. Its own autotune key.
+  form of the serve blend (the serve engine's mixed mode): f32 or bf16
+  ``w (S, K)`` and bf16 graphs ``(K, C, C)``, each rounded to bf16 and
+  widened to f32, summed in f32, f32 out. :func:`graph_mix` takes it when
+  an operand is bf16. On CUDA operands it launches the same source and
+  library, on CPU operands the plain version.
 * :func:`factor_mix_bf16` / :func:`factor_mix_bf16_reference` and their
   lane twins :func:`factor_mix_lanes_bf16` /
   :func:`factor_mix_lanes_bf16_reference` — the bf16 training form: both
-  operands cast to bf16, the same ``redcliff_factor_mix_bf16`` kernel,
-  f32 out. :func:`factor_mix` takes it inside a ``"bfloat16"`` matmul
-  context (``utils/precision.py``, ``precision_mode="mixed"``), the
-  mixed per-point fit and, through the ``vmap`` rule, the mixed grid.
-  :class:`FactorMixBf16Fn` (and :class:`FactorMixLanesBf16Fn`) give it
-  JAX's backward: ``_mix_bwd``'s two contractions, each on the
-  bf16-rounded cotangent and the bf16-rounded other operand with f32
-  sums, as the transpose of a bf16-precision contraction is in JAX. Every
-  launch of the bf16 kernel, serve blend and training form alike, counts
-  in ``graph_mix_bf16.launches``.
+  operands rounded to bf16, f32 sums, f32 out. :func:`factor_mix` takes
+  it inside a ``"bfloat16"`` matmul context (``utils/precision.py``,
+  ``precision_mode="mixed"``), the mixed per-point fit and, through the
+  ``vmap`` rule, the mixed grid. :class:`FactorMixBf16Fn` (and
+  :class:`FactorMixLanesBf16Fn`) give it JAX's backward: ``_mix_bwd``'s
+  two contractions, each on the bf16-rounded cotangent and the
+  bf16-rounded other operand with f32 sums, as the transpose of a
+  bf16-precision contraction is in JAX.
+* The bf16 form's input forms: the kernel reads each operand as the
+  caller holds it. f32 w and p go to ``redcliff_factor_mix_bf16_round``,
+  which rounds both to bf16 in registers (the training form and its
+  lanes); f32 w with bf16 p to ``redcliff_factor_mix_bf16_round_w`` (the
+  serve blend against the bf16 graphs made at load); bf16 w and p to
+  ``redcliff_factor_mix_bf16``. Each is one launch and gives bit for bit
+  what casting the f32 operands to bf16 and launching the bf16 entry
+  gives; other type pairs raise ``TypeError``. Every launch of a bf16
+  entry, serve blend and training form alike, counts in
+  ``graph_mix_bf16.launches``, and each input form has its own autotune
+  key (``autotune.mix_key``).
 * :func:`factor_mix_lanes` / :func:`factor_mix_lanes_reference` — the lane
   form for the coefficient grid, ``out[g, b] = sum_k w[g, b, k] p[g, k, b]``:
   one launch of the same kernel for all G lanes (its second grid dimension)
@@ -43,8 +52,8 @@
   wanted (grad mode on and an operand that requires grad) or the operands
   are ``torch.func`` tensors; otherwise they launch the kernel directly.
 * :func:`mix_plan` — the kernel's launch plan (vector width, threads,
-  blocks), a pure function of the shapes, strides, alignment, the input's
-  element size (4, or 2 for the bf16 form) and, when
+  blocks), a pure function of the shapes, strides, alignment, p's
+  element size (4 for f32 storage, 2 for bf16) and, when
   ``ops/autotune.py`` holds a winner for the shape, its threads per block
   (read once per shape, when the plan cache is filled; never per launch).
 * ``factor_mix.launches`` — a plain int, one per execution of the kernel
@@ -100,8 +109,6 @@ _SMALL_BLOCK, _LARGE_BLOCK, _LARGE_FROM = 128, 256, 256 * 132 * 4
 _F32 = torch.float32
 _BF16 = torch.bfloat16
 _lib = None
-_fn = None
-_fn_bf16 = None
 _raw_stream = None
 _capturing = None
 _lib_lock = threading.Lock()
@@ -118,9 +125,10 @@ def graph_mix_reference(weightings, static_gc):
 
 
 def graph_mix_bf16_reference(weightings, static_gc):
-    """Plain bf16 blend: the operands widened to f32,
-    ``einsum("sk,kij->sij")``, f32 out."""
-    return torch.einsum("sk,kij->sij", weightings.float(), static_gc.float())
+    """Plain bf16 blend: the operands rounded to bf16 (a bf16 operand as it
+    is) and widened to f32, ``einsum("sk,kij->sij")``, f32 out."""
+    return torch.einsum("sk,kij->sij", _prec.bf16_round(weightings),
+                        _prec.bf16_round(static_gc))
 
 
 def factor_mix_lanes_reference(weightings, preds):
@@ -151,13 +159,13 @@ def mix_plan(B, M, stride_k, stride_b, p_offset, stride_g=0, threads=None,
     rule: 128, or 256 once the grid would cover every SM several times.
 
     ``p_offset`` is ``p.data_ptr() % 16`` and ``itemsize`` p's element size
-    (4 for float32, 2 for the bf16 form). ``vec`` is 4 when M and every
-    element stride of p (``stride_g`` is its lane stride) are multiples of
-    4 and p's base is aligned to ``4 * itemsize`` bytes (float4 loads, or
-    four bf16 in one 8-byte load), 2 at multiples of 2 and ``2 * itemsize``
-    bytes (float2, bf16x2), else 1. A bf16 row of 100 values is 200 bytes:
-    8- but not 16-byte aligned, which is why the bf16 form's widest load is
-    8 bytes. The launch passes 0 as the stride of an axis of length 1, so
+    (4 for float32 storage, rounded or not, 2 for bf16). ``vec`` is 4 when
+    M and every element stride of p (``stride_g`` is its lane stride) are
+    multiples of 4 and p's base is aligned to ``4 * itemsize`` bytes
+    (float4 loads, or four bf16 in one 8-byte load), 2 at multiples of 2
+    and ``2 * itemsize`` bytes (float2, bf16x2), else 1. A bf16 row of 100
+    values is 200 bytes: 8- but not 16-byte aligned, which is why the bf16
+    form's widest load is 8 bytes. The launch passes 0 as the stride of an axis of length 1, so
     such an axis (like the serve broadcast's stride 0) never breaks the
     alignment. The output is a fresh contiguous float32 ``(G, B, M)``
     tensor, so M % vec == 0 aligns its rows to ``4 * vec`` bytes too."""
@@ -188,21 +196,58 @@ class _MixArgs(ctypes.Structure):
                 ("stride_pg", ctypes.c_longlong)]
 
 
+class _Form:
+    """An input form of the kernel: the operand types it takes, its C
+    entry (bound to ``fn`` when the library loads), p's element size (the
+    plan's alignment unit) and ``key``, the form's name in
+    ``autotune.mix_key`` (False for the f32 kernel, the bf16 form's input
+    form otherwise)."""
+
+    __slots__ = ("name", "w", "p", "entry", "itemsize", "key", "fn")
+
+    def __init__(self, name, w, p, entry, itemsize, key):
+        self.name, self.w, self.p, self.entry = name, w, p, entry
+        self.itemsize, self.key, self.fn = itemsize, key, None
+
+
+_FORM_F32 = _Form("f32", _F32, _F32, "redcliff_factor_mix_f32", 4, False)
+_FORM_BF16 = _Form("bf16", _BF16, _BF16, "redcliff_factor_mix_bf16", 2,
+                   True)
+_FORM_ROUND = _Form("round", _F32, _F32, "redcliff_factor_mix_bf16_round",
+                    4, "round")
+_FORM_ROUND_W = _Form("round_w", _F32, _BF16,
+                      "redcliff_factor_mix_bf16_round_w", 2, "round_w")
+_FORMS = {f.name: f for f in (_FORM_F32, _FORM_BF16, _FORM_ROUND,
+                              _FORM_ROUND_W)}
+# the bf16 form's entry for each (w, p) type pair its callers hold
+_BF16_FORMS = {(f.w, f.p): f for f in (_FORM_BF16, _FORM_ROUND,
+                                       _FORM_ROUND_W)}
+
+
+def _bf16_form(w, p):
+    """The bf16 form's input form for ``w`` and ``p``'s types; a pair no
+    entry takes gets the bf16 entry, whose type check then refuses it."""
+    return _BF16_FORMS.get((w.dtype, p.dtype), _FORM_BF16)
+
+
 @functools.lru_cache(maxsize=256)
 def _mix_args(B, K, M, stride_k, stride_b, p_offset, device, G=1,
-              stride_wg=0, stride_pg=0, itemsize=4):
+              stride_wg=0, stride_pg=0, form="f32"):
     """``(_MixArgs, its address)`` for one launch shape on ``device``;
     ``G`` lanes with lane strides ``stride_wg`` (w) and ``stride_pg`` (p),
-    one lane with zero lane strides by default; ``itemsize`` 2 is the bf16
-    form. The plan's threads are the autotuner's winner for the shape
-    (under the form's own key) when it holds one."""
+    one lane with zero lane strides by default; ``form`` names the input
+    form (``"f32"``, or the bf16 form's ``"bf16"``, ``"round"``,
+    ``"round_w"``), whose p storage sets the plan's alignment. The plan's
+    threads are the autotuner's winner for the shape (under the form's own
+    key) when it holds one."""
     from redcliff_tpu_torch.ops import autotune
 
-    threads = autotune.plan_threads(
-        *autotune.mix_key(B, K, M, G, bf16=itemsize == 2))
+    f = _FORMS[form]
+    threads = autotune.plan_threads(*autotune.mix_key(B, K, M, G,
+                                                      bf16=f.key))
     args = _MixArgs(B, K, M, *mix_plan(B, M, stride_k, stride_b, p_offset,
                                        stride_pg, threads=threads,
-                                       itemsize=itemsize),
+                                       itemsize=f.itemsize),
                     device, stride_k, stride_b, G, stride_wg, stride_pg)
     return args, ctypes.addressof(args)
 
@@ -210,14 +255,14 @@ def _mix_args(B, K, M, stride_k, stride_b, p_offset, device, G=1,
 def load_kernel():
     """Build (first call in a process; cached by content on disk) and bind
     the CUDA kernel. Returns the ctypes library."""
-    global _lib, _fn, _fn_bf16, _raw_stream, _capturing
+    global _lib, _raw_stream, _capturing
     with _lib_lock:
         if _lib is not None:
             return _lib
         lib = build_library("redcliff_factor_mix", KERNEL_SOURCE)
-        fn = lib.redcliff_factor_mix_f32
-        fn_bf16 = lib.redcliff_factor_mix_bf16
-        for f in (fn, fn_bf16):
+        fns = {}
+        for form in _FORMS.values():
+            f = fns[form.name] = getattr(lib, form.entry)
             f.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                           ctypes.c_void_p, ctypes.c_void_p]
             f.restype = ctypes.c_int
@@ -225,23 +270,28 @@ def load_kernel():
         _raw_stream = torch._C._cuda_getCurrentRawStream
         # whether the current stream is capturing a CUDA graph
         _capturing = torch._C._cuda_isCurrentStreamCapturing
-        _fn, _fn_bf16, _lib = fn, fn_bf16, lib
+        # bound last: _run takes a bound entry as the sign that all is set
+        for form in _FORMS.values():
+            form.fn = fns[form.name]
+        _lib = lib
         return _lib
 
 
 def _run(w, p, B, K, M, stride_k, stride_b, out_shape, G=1, stride_wg=0,
-         stride_pg=0, bf16=False):
+         stride_pg=0, form=_FORM_F32):
     """Launch on checked operands: lane g's ``w (B, K)`` contiguous at
     ``w + g*stride_wg``, its element (k, b, m) of p at
     ``p + g*stride_pg + k*stride_k + b*stride_b + m`` -> a new float32
-    ``out_shape`` tensor holding the ``(G, B, M)`` result. ``bf16`` runs
-    the bf16 form (bf16 operands) and counts it on ``graph_mix_bf16``,
-    serve blend and training form alike."""
+    ``out_shape`` tensor holding the ``(G, B, M)`` result. ``form`` is the
+    operands' input form; a bf16 one counts on ``graph_mix_bf16``, serve
+    blend and training form alike."""
     out = w.new_empty(out_shape, dtype=_F32)
     if B == 0 or M == 0 or G == 0:
         return out
-    if _fn is None:
+    fn = form.fn
+    if fn is None:
         load_kernel()
+        fn = form.fn
     # the stride of an axis of length 1 is never stepped
     if K == 1:
         stride_k = 0
@@ -252,12 +302,11 @@ def _run(w, p, B, K, M, stride_k, stride_b, out_shape, G=1, stride_wg=0,
     p_ptr = p.data_ptr()
     dev = w.get_device()
     args = _mix_args(B, K, M, stride_k, stride_b, p_ptr % 16, dev, G,
-                     stride_wg, stride_pg, 2 if bf16 else 4)
-    rc = (_fn_bf16 if bf16 else _fn)(w.data_ptr(), p_ptr, out.data_ptr(),
-                                     args[1], _raw_stream(dev))
+                     stride_wg, stride_pg, form.name)
+    rc = fn(w.data_ptr(), p_ptr, out.data_ptr(), args[1], _raw_stream(dev))
     if rc != 0:
         raise RuntimeError(f"factor_mix kernel launch failed: cudaError {rc}")
-    count = graph_mix_bf16 if bf16 else factor_mix
+    count = graph_mix_bf16 if form.key else factor_mix
     if _capturing():
         count.captured += 1
     else:
@@ -265,11 +314,12 @@ def _run(w, p, B, K, M, stride_k, stride_b, out_shape, G=1, stride_wg=0,
     return out
 
 
-def _operands_ok(w, a, dtype=_F32):
-    """Both on one CUDA device, of ``dtype`` (float32, or bfloat16 for the
-    bf16 form), ``w`` contiguous."""
+def _operands_ok(w, a, form=_FORM_F32):
+    """Both on one CUDA device, of the types ``form`` takes, ``w``
+    contiguous."""
     return (w.is_cuda and a.get_device() == w.get_device()
-            and w.dtype is dtype and a.dtype is dtype and w.is_contiguous())
+            and w.dtype is form.w and a.dtype is form.p
+            and w.is_contiguous())
 
 
 def _mix_layout(w, p):
@@ -322,16 +372,18 @@ def _graph_layout(w, g):
     return None
 
 
-def _refuse(w, p, what, dtype=_F32):
+def _refuse(w, p, what, form=_FORM_F32):
     """Raise the error that says why the kernel does not take ``w``, ``p``
-    (``what`` names the operands' expected layouts, ``dtype`` their type:
-    float32, or bfloat16 for the bf16 form)."""
+    (``what`` names the operands' expected layouts, ``form`` the input
+    form they were checked against)."""
     if not (w.is_cuda and p.is_cuda and w.device == p.device):
         raise ValueError(f"factor_mix kernel needs both operands on one CUDA "
                          f"device, got {w.device} and {p.device}")
-    if w.dtype != dtype or p.dtype != dtype:
-        name = "float32" if dtype is _F32 else "bfloat16"
-        raise TypeError(f"factor_mix kernel takes {name}, got {w.dtype} "
+    if w.dtype is not form.w or p.dtype is not form.p:
+        takes = ("float32 w and p" if not form.key else
+                 "bfloat16 w and p, float32 w and p, or float32 w with "
+                 "bfloat16 p (its bf16 form)")
+        raise TypeError(f"factor_mix kernel takes {takes}, got {w.dtype} "
                         f"and {p.dtype}")
     raise ValueError(f"factor_mix kernel wants {what} with w contiguous, the "
                      f"inner block of p contiguous and dimensions below "
@@ -339,48 +391,56 @@ def _refuse(w, p, what, dtype=_F32):
                      f"p {tuple(p.shape)} strides {p.stride()}")
 
 
-def _launch(weightings, preds, dtype=_F32):
+def _launch(weightings, preds, form=_FORM_F32):
     """Run the kernel: ``weightings (B, K)``, ``preds (K, B, T, C)`` ->
-    ``(B, T, C)`` (layout as :func:`_mix_layout`); ``dtype`` bfloat16
-    runs the bf16 form on bf16 operands."""
+    ``(B, T, C)`` (layout as :func:`_mix_layout`) on operands of the input
+    form ``form``."""
     w, p = weightings, preds
-    args = _mix_layout(w, p) if _operands_ok(w, p, dtype) else None
+    args = _mix_layout(w, p) if _operands_ok(w, p, form) else None
     if args is None:
-        _refuse(w, p, "w (B, K) and p (K, B, T, C)", dtype)
-    return _run(w, p, *args, bf16=dtype is _BF16)
+        _refuse(w, p, "w (B, K) and p (K, B, T, C)", form)
+    return _run(w, p, *args, form=form)
 
 
-def _launch_lanes(weightings, preds, dtype=_F32):
+def _launch_lanes(weightings, preds, form=_FORM_F32, copy=False):
     """Run the kernel once for every lane: ``weightings (G, B, K)``,
     ``preds (G, K, B, T, C)`` -> ``(G, B, T, C)`` (layout as
-    :func:`_lanes_layout`); ``dtype`` as :func:`_launch`."""
+    :func:`_lanes_layout`); ``form`` as :func:`_launch`. With ``copy``,
+    operands in a layout the kernel does not take are made contiguous
+    first (a ``vmap`` rule's operands); a launch in a layout it takes is
+    checked once and copies nothing."""
     w, p = weightings, preds
-    args = _lanes_layout(w, p) if _operands_ok(w, p, dtype) else None
+    ok = _operands_ok(w, p, form)
+    args = _lanes_layout(w, p) if ok else None
+    if args is None and ok and copy:
+        w, p = w.contiguous(), p.contiguous()
+        args = _lanes_layout(w, p)
     if args is None:
         _refuse(w, p, f"w (G, B, K) and p (G, K, B, T, C) with G <= "
-                      f"{_MAX_LANES}", dtype)
-    return _run(w, p, *args, bf16=dtype is _BF16)
+                      f"{_MAX_LANES}", form)
+    return _run(w, p, *args, form=form)
 
 
-def launch_plan(weightings, preds):
+def launch_plan(weightings, preds, bf16=False):
     """``(vec, threads, blocks)`` of the cached plan a launch on these CUDA
     operands takes: ``w (B, K)`` and ``p (K, B, T, C)``, or the lane form's
-    ``w (G, B, K)`` and ``p (G, K, B, T, C)``; float32, or bfloat16 for the
-    bf16 form."""
+    ``w (G, B, K)`` and ``p (G, K, B, T, C)``; the f32 kernel on float32
+    operands, the bf16 form's input form for their types when ``bf16`` or
+    an operand is bfloat16."""
     w, p = weightings, preds
-    dtype = _BF16 if w.dtype is _BF16 else _F32
+    form = (_bf16_form(w, p) if bf16 or _BF16 in (w.dtype, p.dtype)
+            else _FORM_F32)
     lay = ((_lanes_layout if w.dim() == 3 else _mix_layout)(w, p)
-           if _operands_ok(w, p, dtype) else None)
+           if _operands_ok(w, p, form) else None)
     if lay is None:
-        _refuse(w, p, "the single or lane form's operands", dtype)
+        _refuse(w, p, "the single or lane form's operands", form)
     B, K, M, stride_k, stride_b, _, *lanes = lay
     G, stride_wg, stride_pg = lanes or (1, 0, 0)
     # as _run passes them: the stride of an axis of length 1 is 0
     args = _mix_args(B, K, M, 0 if K == 1 else stride_k,
                      0 if B == 1 else stride_b, p.data_ptr() % 16,
                      w.get_device(), G, 0 if G == 1 else stride_wg,
-                     0 if G == 1 else stride_pg,
-                     2 if dtype is _BF16 else 4)[0]
+                     0 if G == 1 else stride_pg, form.name)[0]
     return args.vec, args.threads, args.blocks
 
 
@@ -463,14 +523,16 @@ def _mix_bf16_bwd(weightings, preds, g, lanes=False):
 
 
 class FactorMixBf16Fn(torch.autograd.Function):
-    """The bf16 training form: kernel forward on both operands cast to
-    bf16 (the plain version on CPU tensors), JAX's bf16 backward; under
-    ``torch.func.vmap`` the bf16 lane form."""
+    """The bf16 training form: one kernel launch on the operands as they
+    are, the f32 ones rounded to bf16 in registers (the plain version on
+    CPU tensors), JAX's bf16 backward; under ``torch.func.vmap`` the bf16
+    lane form."""
 
     @staticmethod
     def forward(weightings, preds):
         if weightings.is_cuda or preds.is_cuda:
-            return _launch(weightings.to(_BF16), preds.to(_BF16), _BF16)
+            return _launch(weightings, preds,
+                           _bf16_form(weightings, preds))
         return factor_mix_bf16_reference(weightings, preds)
 
     @staticmethod
@@ -490,16 +552,15 @@ class FactorMixBf16Fn(torch.autograd.Function):
 
 
 class FactorMixLanesBf16Fn(torch.autograd.Function):
-    """The bf16 lane form with autograd: kernel forward, JAX's bf16
-    backward."""
+    """The bf16 lane form with autograd: one kernel launch on the operands
+    as they are (made contiguous only where the lane layout is not one the
+    kernel takes), JAX's bf16 backward."""
 
     @staticmethod
     def forward(weightings, preds):
         if weightings.is_cuda or preds.is_cuda:
-            w, p = weightings.to(_BF16), preds.to(_BF16)
-            if _lanes_layout(w, p) is None:
-                w, p = w.contiguous(), p.contiguous()
-            return _launch_lanes(w, p, _BF16)
+            return _launch_lanes(weightings, preds,
+                                 _bf16_form(weightings, preds), copy=True)
         return factor_mix_lanes_bf16_reference(weightings, preds)
 
     @staticmethod
@@ -553,22 +614,23 @@ def factor_mix_lanes(weightings, preds):
 
 def factor_mix_bf16(weightings, preds):
     """The bf16 training form: ``weightings (B, K)``, ``preds (K, B, T,
-    C)`` (float32 or bf16) cast to bf16 -> float32 ``(B, T, C)``, summed in
-    f32 in K order. CUDA operands launch ``redcliff_factor_mix_bf16``
-    (counted in ``graph_mix_bf16.launches``), CPU operands take
+    C)`` rounded to bf16 -> float32 ``(B, T, C)``, summed in f32 in K
+    order. CUDA operands launch the kernel once as they are (f32 ones
+    rounded in registers by ``redcliff_factor_mix_bf16_round``; counted in
+    ``graph_mix_bf16.launches``), CPU operands take
     :func:`factor_mix_bf16_reference`. Differentiated (or under
     ``torch.func``) through :class:`FactorMixBf16Fn`."""
     w, p = weightings, preds
     if (_wants_grad(w, p) or _is_transformed(w) or _is_transformed(p)):
         return FactorMixBf16Fn.apply(w, p)
     if w.is_cuda or p.is_cuda:
-        return _launch(w.to(_BF16), p.to(_BF16), _BF16)
+        return _launch(w, p, _bf16_form(w, p))
     return factor_mix_bf16_reference(w, p)
 
 
 def factor_mix_lanes_bf16(weightings, preds):
     """The bf16 lane form: ``weightings (G, B, K)``, ``preds (G, K, B, T,
-    C)`` cast to bf16 -> float32 ``(G, B, T, C)``, one launch for every
+    C)`` rounded to bf16 -> float32 ``(G, B, T, C)``, one launch for every
     lane on CUDA tensors, :func:`factor_mix_lanes_bf16_reference` on CPU
     tensors; through :class:`FactorMixLanesBf16Fn` when differentiated."""
     w, p = weightings, preds
@@ -598,9 +660,11 @@ def graph_mix(weightings, static_gc):
 
 
 def graph_mix_bf16(weightings, static_gc):
-    """The bf16 form of the serve blend: bf16 ``weightings (S, K)`` x bf16
-    ``static_gc (K, C, C)`` -> float32 ``(S, C, C)``, summed in f32 in K
-    order. CUDA operands launch ``redcliff_factor_mix_bf16`` (counted in
+    """The bf16 form of the serve blend: float32 or bf16 ``weightings (S,
+    K)`` x bf16 ``static_gc (K, C, C)`` -> float32 ``(S, C, C)``, f32
+    weightings rounded to bf16, summed in f32 in K order. CUDA operands
+    launch the kernel once (``redcliff_factor_mix_bf16_round_w`` for f32
+    weightings, ``redcliff_factor_mix_bf16`` for bf16 ones; counted in
     ``graph_mix_bf16.launches``), CPU operands take
     :func:`graph_mix_bf16_reference`. Differentiated, it is the bf16
     training form on the graphs broadcast over S."""
@@ -611,10 +675,11 @@ def graph_mix_bf16(weightings, static_gc):
         K, S = g.shape[0], w.shape[0]
         return FactorMixBf16Fn.apply(
             w, g.contiguous()[:, None].expand((K, S) + tuple(g.shape[1:])))
-    args = _graph_layout(w, g) if _operands_ok(w, g, _BF16) else None
+    form = _bf16_form(w, g)
+    args = _graph_layout(w, g) if _operands_ok(w, g, form) else None
     if args is None:
-        _refuse(w, g, "w (S, K) and static_gc (K, C, C)", _BF16)
-    return _run(w, g, *args, bf16=True)
+        _refuse(w, g, "w (S, K) and static_gc (K, C, C)", form)
+    return _run(w, g, *args, form=form)
 
 
 graph_mix_bf16.launches = 0

@@ -30,8 +30,8 @@ contractions on bf16-rounded operands with f32 sums
 (``utils/precision.py``) and blends the graphs through the bf16 form of
 the factor-mix kernel (:func:`~redcliff_tpu_torch.ops.factor_mix.
 graph_mix_bf16`): the K static graphs are copied to bf16 once at load,
-the scores are rounded to bf16 before the blend, and the ring, the state
-and the outputs stay f32. :meth:`demote` is the poisoned-lane-storm
+the f32 scores are rounded to bf16 inside the blend's one launch, and the
+ring, the state and the outputs stay f32. :meth:`demote` is the poisoned-lane-storm
 sentinel's lever: back to the f32 ops and the f32 graphs (kept since
 load); the rings are f32 already, so only the ops change.
 
@@ -157,9 +157,9 @@ class StreamEngine:
         scores = torch.where(ready[:, None], weightings,
                              torch.zeros_like(weightings)).contiguous()
         if self._matmul:
-            # bf16 operands, f32 sums and output (the bf16 kernel form)
-            blend = graph_mix(scores.to(torch.bfloat16),
-                              self._static_gc_bf16)
+            # the bf16 kernel form: the f32 scores rounded to bf16 in the
+            # kernel, the bf16 graphs, f32 sums and output; one launch
+            blend = graph_mix(scores, self._static_gc_bf16)
         else:
             blend = graph_mix(scores, self.static_gc)
         graph = torch.where(ready[:, None, None], blend,

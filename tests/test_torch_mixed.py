@@ -233,12 +233,35 @@ def test_bf16_factor_mix_training_form_and_lanes():
     assert torch.equal(gwl, dw) and torch.equal(gpl, dp)
 
 
+def _one_kernel_a_call(fn, n=20):
+    """Whether each of ``n`` calls of ``fn`` runs one device kernel on the
+    card, the factor mix's (``torch.profiler``, CUDA activity only; a cast
+    or a copy is a kernel of its own, and the profiler may drop an event
+    of the window, hence the rounded mean)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (round(len(names) / n) == 1
+            and all("factor_mix_kernel" in x for x in names))
+
+
 @pytest.mark.gpu
 def test_bf16_training_form_on_the_card():
     """On the card the bf16 training form launches the hand-written kernel
     (one count in ``graph_mix_bf16.launches`` per call), forward and
     lanes, at the per-point (B=128 K=5 M=10) and lane (G=32) shapes,
-    against the plain version; the backward against the rule."""
+    against the plain version; the backward against the rule. On the f32
+    operands the caller holds, each forward (single, lanes, lanes under
+    ``vmap``) is one device kernel that gives bit for bit what casting
+    both operands to bf16 and launching the bf16 entry gives, and a lane
+    operand with strides the kernel takes is not copied."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda")
@@ -264,6 +287,38 @@ def test_bf16_training_form_on_the_card():
         rw, rp = _rule(eq, w.cpu(), p.cpu(), cot.cpu())
         torch.testing.assert_close(gw.cpu().double(), rw, **RULE_TOL)
         torch.testing.assert_close(gp.cpu().double(), rp, **RULE_TOL)
+
+        wd, pd = w.detach(), p.detach()
+        direct = FM.factor_mix_bf16 if G is None else FM.factor_mix_lanes_bf16
+        precast = direct(wd.bfloat16(), pd.bfloat16())
+        assert torch.equal(out.detach(), precast)
+
+        def mixed():
+            with P.matmul_precision_ctx(BF16):
+                return (FM.factor_mix(wd, pd) if G is None
+                        else torch.func.vmap(FM.factor_mix)(wd, pd))
+
+        for call in (mixed, lambda: direct(wd, pd)):
+            assert torch.equal(call(), precast)
+            assert _one_kernel_a_call(call)
+    # lane operands in strided layouts the kernel takes: p a slice of a
+    # wider buffer (lane stride 6*B*M), and under vmap p's lanes on its
+    # second axis; each is still one kernel, no copy
+    w = torch.rand((32, 128, 5), generator=gen).to(dev)
+    wide = torch.randn((32, 6, 128, 1, 10), generator=gen).to(dev)
+    p = wide[:, :5]
+    assert not p.is_contiguous() and FM._lanes_layout(w, p) is not None
+    want = FM.factor_mix_lanes_bf16(w.bfloat16(),
+                                    p.contiguous().bfloat16())
+    pk = p.transpose(0, 1).contiguous()
+
+    def vmapped():
+        with P.matmul_precision_ctx(BF16):
+            return torch.func.vmap(FM.factor_mix, in_dims=(0, 1))(w, pk)
+
+    for call in (lambda: FM.factor_mix_lanes_bf16(w, p), vmapped):
+        assert torch.equal(call(), want)
+        assert _one_kernel_a_call(call)
 
 
 # -------------------------------------------------------------- demotion

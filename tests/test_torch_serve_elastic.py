@@ -725,8 +725,9 @@ def test_graph_mix_bf16_plain_version_and_plan():
 
 
 def test_mixed_engine_blends_in_bf16(monkeypatch):
-    """The mixed engine hands the blend bf16 scores and the bf16 copy of
-    the static graphs made at load (the f32 graphs kept for demotion), and
+    """The mixed engine hands the blend its f32 scores, which the bf16 form
+    rounds in its one launch, and the bf16 copy of the static graphs made
+    at load (the f32 graphs kept for demotion), and
     its embedder contractions see bf16-rounded operands; after demote()
     the f32 path runs again."""
     from redcliff_tpu_torch.serve import engine as eng_mod
@@ -756,7 +757,7 @@ def test_mixed_engine_blends_in_bf16(monkeypatch):
     eng.step(x, np.ones(3, bool))
     assert eng.demote() and not eng.demote() and eng.is_cold(3)
     eng.step(x, np.ones(3, bool))
-    assert seen == [(torch.bfloat16, torch.bfloat16),
+    assert seen == [(torch.float32, torch.bfloat16),
                     (torch.float32, torch.float32)]
 
 
