@@ -176,7 +176,23 @@ Phases, one JSON line each:
    mixture, the array tasks of both REDCLIFF-S variants, cMLP, cLSTM,
    DGCNN and DCSFA-NMF, the battery; the same checks (factor-mix
    executions = both REDCLIFF tasks' forwards).
-22. discovery: the Table-2 flow on the host
+22. d4ic_grid_search: the coefficient-selection twin
+   (``redcliff_tpu_torch/experiments/d4ic_grid_search.py``) at the full
+   BSCgs1 width. (a) Its ``main`` with the JAX script's ``--smoke`` and
+   one fold: 4 points, 24 / 8 recordings a network, 12 epochs, the
+   winner re-trained on HSNR fold 0. Checks the JSON under the work dir's
+   ``_smoke`` twin and its key set, 4 finite criteria, the selection as
+   the argmin of the criteria and the oracle as the argmax of the F1s, a
+   finite winner row, every run dir's reload with finite params, and
+   factor-mix executions = the grid's forwards and warm-up steps + the
+   winner fit's forwards (from its meta data); no GL prox (the flow sets
+   none). (b) Its setup and grid stage on all 27 published points at the
+   published 120 / 30 recordings a network, epochs capped at
+   ``D4GS_MAX_ITER`` through the flow's own ``max_iter``: 27 finite
+   criteria, factor-mix executions = the grid's forwards and warm-up
+   steps, no GL prox; the grid wall, epochs, ms per replayed epoch by
+   width and wall per point per epoch.
+23. discovery: the Table-2 flow on the host
    (``eval/supervised_discovery.py``): one synSys 6-2-2 fold curated at the
    study's size by the port's data layer, its held-out split (240
    recordings of (100, 6), two states, OneHot) through
@@ -189,13 +205,13 @@ Phases, one JSON line each:
    recordings from the device generator (150 of (48, 10)). Wall per
    algorithm, optimal F1 and ROC-AUC per regime factor; neither kernel
    launches.
-23. analysis: the analysis layer on the host over the accuracy_synsys
+24. analysis: the analysis layer on the host over the accuracy_synsys
    phase's ``evals/`` tree (``run_cross_experiment_analysis`` without
    figures, ``summarize_off_diag_f1``, ``write_cross_experiment_report``,
    ``factor_selection_table`` over its REDCLIFF-S runs): the condensed
    off-diagonal F1 means equal the twin's JSON, no figure is written;
    neither kernel launches.
-24. ts_transformer: the time-series transformer at mvts_transformer's
+25. ts_transformer: the time-series transformer at mvts_transformer's
    published defaults (d_model 64, 8 heads, 3 layers, feed-forward 256,
    fixed positions, gelu, BatchNorm) on 128 synSys windows (T 100, 6
    features): the encoder and the 2-class classiregressor, forwards card
@@ -203,7 +219,7 @@ Phases, one JSON line each:
    padding mask), 20 Adam steps of the classifier loss on each (loss
    histories at the trainer bars); ms per forward and per step, peak
    device memory; neither kernel launches.
-25. telemetry: the telemetry spine through the normal entry points, on
+26. telemetry: the telemetry spine through the normal entry points, on
    the train phase's model, data, knobs and weights. (1) A per-point fit
    through ``RedcliffTrainer.fit`` with a ``save_dir``,
    ``profile_window="epoch:2"``, ``REDCLIFF_QUALITY=1`` and the truth
@@ -220,7 +236,7 @@ Phases, one JSON line each:
    and ``skip_update:40`` end bitwise equal. The earlier phases run with
    ``REDCLIFF_QUALITY=0`` (their counts are their fits' forwards; the
    quality readout adds one per check window).
-26. runtime: the production runtime, on the train phase's model, data and
+27. runtime: the production runtime, on the train phase's model, data and
    weights, under a fresh autotune store and cost-model store
    (``REDCLIFF_AUTOTUNE_DIR``, ``REDCLIFF_COST_MODEL_DIR``). (1) The
    launch-plan autotuner (``ops/autotune.py``): each kernel's threads-per-
@@ -246,7 +262,7 @@ Phases, one JSON line each:
    fits wrote the cost-model store (rows under platform ``cuda`` at widths
    32 and 16); a fit with ``REDCLIFF_PREDICTIVE=1`` logs ``policy`` and
    ``cost_model`` events: each decision and the MAPE.
-27. mixed_train: mixed precision on the training path. The bf16 training
+28. mixed_train: mixed precision on the training path. The bf16 training
    form of the factor mix alone at the per-point (B=128 K=5 M=10) and the
    lane shape (G=32), on the f32 operands the mixed forward holds: forward
    against its plain version, backward against JAX's rule in float64, each
@@ -268,7 +284,7 @@ Phases, one JSON line each:
    replayed epoch): the grid demotes there for all 27 lanes, no lane is
    quarantined, its programs are captured afresh at f32, no bf16 kernel
    runs after the demotion, and the cost model scores replayed epochs only.
-28. obs_cli: ``python -m redcliff_tpu_torch.obs report --json``, ``watch
+29. obs_cli: ``python -m redcliff_tpu_torch.obs report --json``, ``watch
    --once --json`` and ``trace -o`` as subprocesses over the telemetry
    phase's and mixed_train's run dirs (one with jax and the JAX package
    blocked): exit 0, every record valid, each trace valid, the mixed
@@ -277,7 +293,7 @@ Phases, one JSON line each:
    scored epochs; ``python -m redcliff_tpu_torch.obs.schema --check``;
    exit 2 with one line on a missing dir and for ``regress`` without a
    trajectory.
-29. fleet: the fleet sweep service through its CLI. The train phase's
+30. fleet: the fleet sweep service through its CLI. The train phase's
    D4IC-shaped windows as an npz; three tenants submit the published
    grid's points 0-8, 9-17 and 18-26 with one spec (the train phase's
    model and knobs, GL prox λ=4, data kind ``npz``, 4 epochs) through
@@ -299,7 +315,7 @@ Phases, one JSON line each:
    and ``trace --fleet -o`` as subprocesses. One line: the card, each
    leg's wall, the child's startup and fit wall, the replayed epoch's ms,
    the batch's width, the window's executions.
-30. mesh: the device mesh (``parallel/{mesh,remesh,distributed,
+31. mesh: the device mesh (``parallel/{mesh,remesh,distributed,
    sequence}.py``) on meshes that name the one card several times — a
    simulated larger mesh, as the JAX package's forced CPU device count —
    and on the distinct cards. First both kernels at the mesh's shapes
@@ -337,9 +353,9 @@ Phases, one JSON line each:
 Launch counts are reset just before each main path (serve, train, grid,
 each grid_stream fit, grid_durable, array_task, eval, each baseline task
 and the GISTA fit, dcsfa, dynotears, data_gen, accuracy_synsys,
-accuracy_d4ic, discovery, analysis, ts_transformer, each telemetry fit,
-each runtime fit, each mixed_train fit, each mesh fit in this process)
-and read just after; the bf16
+accuracy_d4ic, each d4ic_grid_search leg, discovery, analysis,
+ts_transformer, each telemetry fit, each runtime fit, each mixed_train
+fit, each mesh fit in this process) and read just after; the bf16
 form of the factor mix has its own count (``graph_mix_bf16.launches``,
 the kernels line's ``factor_mix_bf16``, serve and training alike);
 the kernel-phase launches do not count. The fleet path's run_batch child
@@ -695,6 +711,18 @@ GEN_LABEL_ATOL = 1e-6
 # algorithm set; D4IC one fold without NAVAR / DYNOTEARS
 ACC_SYNSYS_ARGV = ["--smoke", "--folds", "1", "--dynamic", "--algs", "ref"]
 ACC_D4IC_ARGV = ["--smoke", "--folds", "1", "--algs", "core"]
+# the coefficient-selection twin: leg (a) its main with the JAX script's
+# --smoke and one fold; leg (b) its published 27-point grid stage at the
+# published recordings, epochs capped 1000 -> 100 (50 pretrain + 15
+# acclimation + 35 combined: every phase and the combined check windows)
+D4GS_ARGV = ["--smoke", "--folds", "1"]
+D4GS_MAX_ITER = 100
+# the key set of the JSON experiments/d4ic_grid_search.py writes
+D4GS_JSON_KEYS = (
+    "dataset", "architecture", "smoke", "axes_raw", "grid_size",
+    "grid_wall_clock_s", "grid_epochs_run", "per_point",
+    "selected_by_criteria", "selected_optf1_fold0", "oracle_point",
+    "oracle_optf1_fold0", "transcribed_round4_baseline", "winner_rows")
 # run_dynamic_readout_evaluation's default: recordings read out per fold,
 # one graph_mix each for a REDCLIFF run
 ACC_DYNAMIC_RECORDINGS = 16
@@ -2858,13 +2886,14 @@ def _warmup_launches(stats):
     return out
 
 
-def _stream_budget(stats, res, n_train, n_val, scan_batches=0):
+def _stream_budget(stats, res, n_train, n_val, scan_batches=0, batch=None):
     """The train and validation dispatches the fit's epochs may make
     (``data/pipeline.py dispatch_budget``; multi-phase epochs step per
-    batch and phase), against the counted ones."""
+    batch and phase) at ``batch`` (the train phase's unless given),
+    against the counted ones."""
     from redcliff_tpu_torch.data.pipeline import dispatch_budget
 
-    B = TRAIN_KNOBS["batch_size"]
+    B = batch or TRAIN_KNOBS["batch_size"]
     tr, vl = (n_train // B, int(n_train % B > 0)), (n_val // B,
                                                      int(n_val % B > 0))
     train = sum(dispatch_budget(*tr, scan_batches, e["mode"])
@@ -4640,6 +4669,253 @@ def phase_accuracy_d4ic(torch, FM, PX):
     return mix, prox
 
 
+def _d4gs_grid(name, res, n_train, n_val, batch, points):
+    """The checks both legs make of the twin's grid: one finite criterion
+    a point, dispatches within the stream's budget. Returns the factor-mix
+    executions its records imply (one forward per step for all lanes and
+    one per validation batch, each counted at its replay, plus the warm-up
+    step before each capture), the warm-up launches and the budget."""
+    import numpy as np
+
+    _require(len(res.best_criteria) == points
+             and bool(np.isfinite(res.best_criteria).all()),
+             f"{name}: best criteria {res.best_criteria}")
+    stats = res.dispatch_stats
+    budget = _stream_budget(stats, res, n_train, n_val, batch=batch)
+    _require(budget["train"] == budget["train_budget"]
+             and budget["val"] == budget["val_budget"],
+             f"{name}: stream {stats['mode']}, dispatches {budget}")
+    warm = _warmup_launches(stats)
+    _require(warm["gl_prox"] == 0, f"{name}: GL prox in a warm-up {warm}")
+    n_tr, n_vl = -(-n_train // batch), -(-n_val // batch)
+    forwards = sum(n_tr * len(e["phases"]) + n_vl for e in res.epochs)
+    return forwards + warm["factor_mix"], warm, budget
+
+
+def _d4gs_loads(name, run_dirs):
+    """Every run dir's artifact loads with finite params."""
+    import numpy as np
+
+    from redcliff_tpu_torch.eval.model_io import load_artifact
+    from redcliff_tpu_torch.interop import tree_leaves
+
+    for run_dir in run_dirs:
+        payload = load_artifact(run_dir)
+        _require(payload["model_class"] == "RedcliffSCMLP"
+                 and all(bool(np.isfinite(np.asarray(x)).all())
+                         for x in tree_leaves(payload["params"])),
+                 f"{name}: artifact of {run_dir}")
+
+
+def _d4gs_kernel_rows(torch, FM, K, M):
+    """The lane mix at the shapes the twin's grids add to the table (the
+    published fold's train and validation remainders at ladder width 32,
+    the smoke's 4 lanes at its 120 / 40 recordings), against the plain
+    version and timed in turns. Returns the rows and the errors."""
+    gen = torch.Generator().manual_seed(6)
+    dev = torch.device("cuda", 0)
+    one = torch.zeros(1, device=dev)
+    floor_ms = _time_ms(torch, one.zero_)
+    rows, errs = {}, {}
+    for key, G, B, what in (
+            ("d4gs_remainder", 32, 88, "the published fold's train "
+             "remainder, 600 = 4 x 128 + 88"),
+            ("d4gs_val_remainder", 32, 22, "its validation remainder, "
+             "150 = 128 + 22"),
+            ("d4gs_smoke", 4, 120, "the smoke's 4 lanes, its 120 train "
+             "recordings"),
+            ("d4gs_smoke_val", 4, 40, "the smoke's 40 validation "
+             "recordings")):
+        w = torch.rand((G, B, K), generator=gen).to(dev)
+        p = torch.randn((G, K, B, 1, M), generator=gen).to(dev)
+        _check_close(torch, f"factor_mix_lanes(G={G}, B={B}) {key}",
+                     FM.factor_mix_lanes(w, p),
+                     FM.factor_mix_lanes_reference(w, p), errs)
+        fns = {"kernel_ms": lambda w=w, p=p: FM.factor_mix_lanes(w, p),
+               "library_ms": lambda w=w, p=p: _mix_lanes_library(torch, w,
+                                                                 p),
+               "plain_ms": lambda w=w, p=p: FM.factor_mix_lanes_reference(
+                   w, p)}
+        t = rows[key] = {"shape": f"G={G} B={B} K={K} M={M} "
+                                  f"(factor_mix_lanes: {what}); "
+                                  f"library_ms: torch.matmul on permuted "
+                                  f"operands", **_time_turns(torch, fns)}
+        t["bound_ms"], t["bound_by"] = _bound_ms(G * B, K, M, G * B)
+        t["floor_ms"] = floor_ms
+        t["device_us_alone"] = _alone_us(torch, {
+            **{k.replace("_ms", ""): f for k, f in fns.items()},
+            "floor": one.zero_})
+    return rows, errs
+
+
+def phase_d4ic_grid_search(torch, FM, PX):
+    """The coefficient-selection twin on the card at the full BSCgs1
+    width: (a) its ``main`` with the JAX script's ``--smoke`` and one fold;
+    (b) its setup and grid stage on the 27 published points at the
+    published recordings, epochs capped at ``D4GS_MAX_ITER``. Counts at 0
+    just before each leg, read just after. Returns the launches of both
+    legs."""
+    import math
+
+    import numpy as np
+
+    from redcliff_tpu_torch.experiments import d4ic_grid_search as TG
+    from redcliff_tpu_torch.runtime.checkpoint import read_checkpoint
+
+    root = os.path.join(HERE, "build", "chip_smoke", "d4ic_grid_search")
+    shutil.rmtree(root, ignore_errors=True)
+    t_phase = time.perf_counter()
+    batch = int(TG.REDCLIFF_ARGS["batch_size"])
+
+    # ---- leg (a): the flow end to end at the JAX script's smoke cuts
+    wd = os.path.join(root, "smoke")
+    records = {}
+    FM.factor_mix.launches = 0
+    PX.gl_prox.launches = 0
+    t0 = time.perf_counter()
+    out = TG.main([wd] + D4GS_ARGV, device="cuda", records=records)
+    torch.cuda.synchronize()
+    a_wall = time.perf_counter() - t0
+    a_mix, a_prox = FM.factor_mix.launches, PX.gl_prox.launches
+    dest = os.path.join(wd + "_smoke", "D4IC_GRID_SEARCH_smoke.json")
+    _require(os.path.isfile(dest), f"d4ic_grid_search: no {dest}")
+    with open(dest) as f:
+        written = json.load(f)
+    _require(set(written) == set(D4GS_JSON_KEYS) == set(out),
+             f"d4ic_grid_search: JSON keys {sorted(written)}")
+    per_point = written["per_point"]
+    crit = [p["best_criteria"] for p in per_point]
+    f1 = [p["optf1_fold0"] for p in per_point]
+    _require(written["grid_size"] == len(per_point) == 4
+             and all(math.isfinite(c) for c in crit)
+             and all(math.isfinite(x) for x in f1),
+             f"d4ic_grid_search: smoke points {per_point}")
+    _require(written["selected_by_criteria"]
+             == per_point[int(np.argmin(crit))]["raw"]
+             and written["oracle_point"]
+             == per_point[int(np.argmax(f1))]["raw"],
+             f"d4ic_grid_search: selection {written['selected_by_criteria']}"
+             f", oracle {written['oracle_point']} for criteria {crit} and "
+             f"F1s {f1}")
+    row = written["winner_rows"].get("HSNR", {})
+    _require(set(written["winner_rows"]) == {"HSNR"}
+             and all(math.isfinite(v) for v in row.values()),
+             f"d4ic_grid_search: winner rows {written['winner_rows']}")
+    n_train, n_val = (k * TG.NUM_NETWORKS for k in TG.SAMPLES[True])
+    res = records["grid"]
+    _require(written["grid_epochs_run"] == len(res.epochs),
+             f"d4ic_grid_search: {written['grid_epochs_run']} epochs in the "
+             f"JSON, {len(res.epochs)} in the grid's records")
+    grid_mix, a_warm, a_budget = _d4gs_grid(
+        "d4ic_grid_search (a)", res, len(records["train_ds"]),
+        len(records["val_ds"]), batch, 4)
+    points_dir = os.path.join(wd + "_smoke", "runs_grid")
+    _d4gs_loads("d4ic_grid_search (a)",
+                [os.path.join(points_dir, f"grid_point{i}")
+                 for i in range(4)] + records["winner_runs"])
+    winner_mix = 0
+    for run_dir in records["winner_runs"]:
+        meta = read_checkpoint(os.path.join(
+            run_dir, "training_meta_data_and_hyper_parameters.pkl"))
+        cfg = read_checkpoint(os.path.join(
+            run_dir, "final_best_model.bin"))["config"]
+        winner_mix += _redcliff_forwards(cfg, meta["epoch"] + 1,
+                                         -(-n_train // batch),
+                                         -(-n_val // batch))
+    _require(a_mix == grid_mix + winner_mix and a_prox == 0,
+             f"d4ic_grid_search (a): {a_mix} factor_mix executions for "
+             f"{grid_mix} grid forwards and warm-up steps + {winner_mix} "
+             f"winner forwards (scoring launches none), {a_prox} gl_prox")
+
+    # ---- leg (b): the published grid stage at the published recordings
+    base = os.path.join(root, "published")
+    os.makedirs(base)
+    n_tr_net, n_val_net = TG.SAMPLES[False]
+    t0 = time.perf_counter()
+    dargs = TG.curate_tier_fold(base, "HSNR", 0, n_tr_net, n_val_net,
+                                device="cuda")
+    model_type, margs = TG.arch_args("bscgs1", smoke=False)
+    raw = TG.raw_points(*TG.search_axes(False))
+    args_dict, model, train_ds, val_ds, tc = TG.selection_setup(
+        base, model_type, margs, dargs, device="cuda")
+    points = TG.engine_points(raw, args_dict["num_factors"],
+                              args_dict["num_channels"])
+    setup_s = time.perf_counter() - t0
+    FM.factor_mix.launches = 0
+    PX.gl_prox.launches = 0
+    gres, grid_wall = TG.fit_grid(model, tc, points, train_ds, val_ds,
+                                  max_iter=D4GS_MAX_ITER, device="cuda")
+    torch.cuda.synchronize()
+    b_mix, b_prox = FM.factor_mix.launches, PX.gl_prox.launches
+    b_expected, b_warm, b_budget = _d4gs_grid(
+        "d4ic_grid_search (b)", gres, len(train_ds), len(val_ds), batch,
+        len(raw))
+    _require(len(train_ds) == n_tr_net * TG.NUM_NETWORKS
+             and len(val_ds) == n_val_net * TG.NUM_NETWORKS,
+             f"d4ic_grid_search (b): {len(train_ds)} / {len(val_ds)} "
+             f"recordings")
+    _require(b_mix == b_expected and b_prox == 0,
+             f"d4ic_grid_search (b): {b_mix} factor_mix executions for "
+             f"{b_expected} grid forwards and warm-up steps, {b_prox} "
+             f"gl_prox")
+    stats = gres.dispatch_stats
+    epochs = len(gres.epochs)
+    replayed_ms = {w: stats["epoch_ms_by_width"][w] / n
+                   for w, n in stats["epochs_by_width"].items() if n}
+    legs_s = time.perf_counter() - t_phase
+    # the lane mix at the shapes these grids add, outside the counted legs
+    rows, errs = _d4gs_kernel_rows(torch, FM, model.config.num_factors,
+                                   model.config.num_chans)
+    wall = time.perf_counter() - t_phase
+    _emit({"phase": "d4ic_grid_search",
+           "device": torch.cuda.get_device_name(0),
+           "config": "experiments/d4ic_grid_search.py --arch bscgs1 "
+                     "(REDCLIFF_ARGS of accuracy_parity_d4ic.py: gen_hidden "
+                     "25, DGCNN 3x100, embed_lag 16, K 5, 10 channels, "
+                     "batch 128) through the port twin",
+           "reduced": {"a_smoke": "the JAX script's own --smoke cuts; "
+                                  "folds 3 -> 1",
+                       "b_published_grid": f"max_iter 1000 -> "
+                                           f"{D4GS_MAX_ITER}; no scoring, "
+                                           f"no winner stage"},
+           "a_smoke": {"argv": D4GS_ARGV, "wall_s": a_wall,
+                       "train_recordings": n_train, "val_recordings": n_val,
+                       "stream_mode": res.dispatch_stats["mode"],
+                       "grid_epochs": len(res.epochs),
+                       "dispatches": a_budget, "warmup_launches": a_warm,
+                       "per_point": per_point,
+                       "selected_by_criteria":
+                           written["selected_by_criteria"],
+                       "oracle_point": written["oracle_point"],
+                       "winner_rows": written["winner_rows"],
+                       "factor_mix_launches": a_mix,
+                       "expected_factor_mix": {"grid": grid_mix,
+                                               "winner": winner_mix},
+                       "gl_prox_launches": a_prox},
+           "b_published_grid": {
+               "points": len(raw), "train_recordings": len(train_ds),
+               "val_recordings": len(val_ds), "setup_s": setup_s,
+               "grid_wall_s": grid_wall, "epochs_run": epochs,
+               "stream_mode": stats["mode"],
+               "widths": [e["width"] for e in gres.epochs],
+               "graph_captures": stats["graph_captures"],
+               "capture_ms": stats["capture_ms"],
+               "replayed_epoch_ms_by_width": replayed_ms,
+               "wall_per_point_per_epoch_ms":
+                   1e3 * grid_wall / (len(raw) * epochs),
+               "dispatches": b_budget, "warmup_launches": b_warm,
+               "active_lanes": int(gres.active.sum()),
+               "best_criteria": gres.best_criteria.tolist(),
+               "best_epoch": gres.best_epoch.tolist(),
+               "factor_mix_launches": b_mix,
+               "expected_factor_mix": b_expected,
+               "gl_prox_launches": b_prox},
+           "errors": errs, "kernel_rows": rows, "legs_wall_s": legs_s,
+           "wall_s": wall})
+    print(f"d4ic_grid_search wall_s {wall:.1f}", flush=True)
+    return a_mix + b_mix, a_prox + b_prox, max(errs.values()), rows
+
+
 def phase_discovery(torch, FM, PX):
     """The Table-2 discovery flow on the host. One synSys 6-2-2 fold is
     curated at the study's size with the port's data layer, and its
@@ -5210,22 +5486,35 @@ TELEMETRY_GRID_FITS = (("capture32", 1, None), ("replay32", 3, None),
 # ops/csrc/factor_mix.cu and ops/csrc/gl_prox.cu)
 KERNEL_NAMES = {"factor_mix": "factor_mix_kernel",
                 "gl_prox": "gl_prox_kernel"}
+# each traced window's primer kernels that the trace recorded, by window
+PRIMER_RECORDED = {}
 # the small width of the gpu-marked test's run of the same checks
 TELEMETRY_SMALL = dict(gen_hidden=(8,), dgcnn_num_hidden_nodes=16)
 TELEMETRY_SMALL_N = (384, 128)
 
 
 def _trace_kernels(path):
-    """Each kernel's executions in a ``torch.profiler`` Chrome trace, and
-    its device time by launch configuration ("grid x,y,z block x"): count
-    and mean µs."""
+    """Each kernel's executions in a ``torch.profiler`` Chrome trace, its
+    device time by launch configuration ("grid x,y,z block x"): count and
+    mean µs, and the kernels recorded under the trace's first CUDA-graph
+    launch: a capture window's primer (obs/profiling.py), which takes the
+    records that a session's first graph launch loses."""
     with open(path) as f:
         trace = json.load(f)
     counts = {k: 0 for k in KERNEL_NAMES}
     by_launch = {k: {} for k in KERNEL_NAMES}
+    launches = sorted((ev["ts"], ev.get("args", {}).get("correlation"))
+                      for ev in trace.get("traceEvents", [])
+                      if ev.get("cat") == "cuda_runtime"
+                      and "GraphLaunch" in ev.get("name", ""))
+    first = launches[0][1] if launches else None
+    primer = 0
     for ev in trace.get("traceEvents", []):
         if ev.get("cat") != "kernel":
             continue
+        if first is not None and ev.get("args", {}).get("correlation") \
+                == first:
+            primer += 1
         for k, name in KERNEL_NAMES.items():
             if name in ev.get("name", ""):
                 counts[k] += 1
@@ -5236,7 +5525,7 @@ def _trace_kernels(path):
                 by_launch[k][key] = (n + 1, tot + float(ev.get("dur", 0)))
     return counts, {k: {key: {"n": n, "mean_us": tot / n}
                         for key, (n, tot) in v.items()}
-                    for k, v in by_launch.items()}
+                    for k, v in by_launch.items()}, primer
 
 
 class _WindowCounters:
@@ -5330,11 +5619,12 @@ def _profiled(recs, trace_counts, window_counts, what):
     _require(len(prof) == 1 and os.path.isfile(prof[0]["path"])
              and not prof[0]["truncated"],
              f"{what}: profile events {prof}")
-    counts, by_launch = _trace_kernels(prof[0]["path"])
+    counts, by_launch, primer = _trace_kernels(prof[0]["path"])
     _require(counts == window_counts,
              f"{what}: trace kernel counts {counts} against the wrappers' "
              f"{window_counts} over the window")
     trace_counts[what] = counts
+    PRIMER_RECORDED[what] = primer
     return prof[0], by_launch
 
 
@@ -6891,7 +7181,8 @@ def fleet_checks(root, device=None):
     prof = [r for r in crecs if r["event"] == "profile"]
     _require(len(prof) == 1 and os.path.isfile(prof[0]["path"])
              and not prof[0]["truncated"], f"fleet child: profile {prof}")
-    counts, by_launch = _trace_kernels(prof[0]["path"])
+    counts, by_launch, PRIMER_RECORDED["fleet_child"] = _trace_kernels(
+        prof[0]["path"])
     _require(counts == want,
              f"fleet child: trace kernel executions {counts} against the "
              f"window's forwards and factor steps {want}")
@@ -7745,8 +8036,16 @@ def phase_mesh(torch, FM, PX, smi, gres=None, dev=None):
            "walls_s": walls, "wall_s": time.perf_counter() - t_phase,
            "launches": total, "errors": errs, "kernel_rows": rows,
            "a_grid": grid, "b_host_loss": host_loss, "c_factor": factor,
-           "d_ring_attention": seq, "e_process_group": pg})
+           "d_ring_attention": seq, "e_process_group": pg,
+           "primer_kernels_recorded": {
+               "of": _primer_kernels(), **PRIMER_RECORDED}})
     return total, {k: max(v.values()) for k, v in errs.items()}, rows
+
+
+def _primer_kernels():
+    from redcliff_tpu_torch.obs.profiling import PRIMER_KERNELS
+
+    return PRIMER_KERNELS
 
 
 def _kernel_entry(name, mod, replaces, launches, by_path, max_err, t):
@@ -7807,6 +8106,8 @@ def main():
     syn_mix, syn_prox, syn_wd, syn_out, syn_runs = phase_accuracy_synsys(
         torch, FM, PX)
     d4_mix, d4_prox = phase_accuracy_d4ic(torch, FM, PX)
+    gs_mix, gs_prox, gs_err, gs_rows = phase_d4ic_grid_search(torch, FM,
+                                                              PX)
     disc_mix, disc_prox, tst_X, tst_y = phase_discovery(torch, FM, PX)
     an_mix, an_prox = phase_analysis(torch, FM, PX, syn_wd, syn_out,
                                      syn_runs)
@@ -7841,6 +8142,7 @@ def main():
                  "baselines": base_mix, "dcsfa": dc_mix,
                  "dynotears": dy_mix, "data_gen": gen_mix,
                  "accuracy_synsys": syn_mix, "accuracy_d4ic": d4_mix,
+                 "d4ic_grid_search": gs_mix,
                  "discovery": disc_mix, "analysis": an_mix,
                  "ts_transformer": tst_mix, "telemetry": tel_mix,
                  "runtime": rt_mix,
@@ -7850,10 +8152,11 @@ def main():
     fm = _kernel_entry(
         "factor_mix", FM, "redcliff_tpu/ops/factor_mix.py:58",
         sum(mix_paths.values()), mix_paths,
-        max(max_err["factor_mix"], mesh_err["factor_mix"]),
+        max(max_err["factor_mix"], mesh_err["factor_mix"], gs_err),
         timing["factor_mix"]["train"])
     fm["by_shape"] = {**{k: v for k, v in timing["factor_mix"].items()
-                         if k != "train"}, **mesh_rows["factor_mix"]}
+                         if k != "train"}, **mesh_rows["factor_mix"],
+                      **gs_rows}
     prox_paths = {"serve": 0, "serve_elastic": 0, "train": prox_launches,
                   "grid": grid_prox,
                   "grid_stream": sum(v["gl_prox"] for v in stream.values()),
@@ -7861,7 +8164,8 @@ def main():
                   "eval": eval_prox, "baselines": base_prox,
                   "dcsfa": dc_prox, "dynotears": dy_prox,
                   "data_gen": gen_prox, "accuracy_synsys": syn_prox,
-                  "accuracy_d4ic": d4_prox, "discovery": disc_prox,
+                  "accuracy_d4ic": d4_prox,
+                  "d4ic_grid_search": gs_prox, "discovery": disc_prox,
                   "analysis": an_prox, "ts_transformer": tst_prox,
                   "telemetry": tel_prox, "runtime": rt_prox,
                   "mixed_train": mixed["launches"]["gl_prox"],

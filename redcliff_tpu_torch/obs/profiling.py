@@ -28,9 +28,23 @@ at the last epoch's end (JAX: ``jax.profiler.start_trace`` /
 
 Windows open and close at epoch boundaries only, so the fit's numbers are
 the same with profiling on or off. Stopping a capture waits for the
-device to finish the window's work (the profiler flushes its records);
-nothing else here touches the device. torch is imported inside the
-start/stop methods only.
+device to finish the window's work (the profiler flushes its records).
+torch is imported inside the start/stop methods only.
+
+The first CUDA-graph launch of a capture session loses the records of
+its first kernels: on an H100 (torch 2.11, CUDA 12.8) the loss mostly
+grows with every traced grid fit in the process, up to 362 kernels in one
+fit, always at the head of the window's first replay
+(``tools/trace_primer_probe.py --no-primer`` counts it), and
+neither a host sleep nor larger CUPTI device buffers moved it. So a CUDA
+capture opens with a *primer*: a captured graph of :data:`PRIMER_KERNELS`
+one-element adds per card that holds memory in this process, replayed on
+the card's current stream right after the profiler starts. The primer
+takes the loss and runs ahead of the window's work in stream order, so
+the window's own kernels are recorded whole; the trace opens with the
+primer's adds (``vectorized_elementwise_kernel``), which touch only their
+own tensor. Nothing here calls a device sync (the profiler waits
+for the card when it stops).
 """
 from __future__ import annotations
 
@@ -41,6 +55,10 @@ __all__ = ["ENV_PROFILE", "parse_window", "CaptureWindow", "NOOP",
            "window_for"]
 
 ENV_PROFILE = "REDCLIFF_PROFILE"
+# kernels in a capture's primer graph, several times the largest loss seen
+PRIMER_KERNELS = 2048
+# card index -> (primer graph, the tensor it adds to), captured once
+_PRIMERS = {}
 
 
 def parse_window(spec):
@@ -132,11 +150,16 @@ class CaptureWindow:
             import torch
 
             acts = [torch.profiler.ProfilerActivity.CPU]
+            primers = []
             if self.cuda:
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
+                primers = _primers(torch)
             os.makedirs(self.out_dir, exist_ok=True)
             self._prof = torch.profiler.profile(activities=acts)
             self._prof.start()
+            for i, graph in primers:
+                with torch.cuda.device(i):
+                    graph.replay()
             self._started_epoch = epoch
             self._t0 = time.perf_counter()
 
@@ -185,6 +208,34 @@ class CaptureWindow:
         # escaping the loop): close the capture so the trace is written
         self.finish()
         return False
+
+
+def _primers(torch):
+    """``[(index, graph)]``: the primer of every card that holds memory in
+    this process, each captured on its first use, before the profiler
+    starts."""
+    return [_primer(torch, i) for i in range(torch.cuda.device_count())
+            if torch.cuda.memory_reserved(i)]
+
+
+def _primer(torch, index):
+    """``(index, graph)``: card ``index``'s primer, captured once."""
+    if index not in _PRIMERS:
+        with torch.cuda.device(index):
+            x = torch.zeros(1, device=f"cuda:{index}")
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                x.add_(1.0)  # the add's first launch, outside the capture
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            # thread_local: a fit's background threads (the checkpoint
+            # writer) may touch the card while the primer is captured
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                for _ in range(PRIMER_KERNELS):
+                    x.add_(1.0)
+        _PRIMERS[index] = (graph, x)
+    return index, _PRIMERS[index][0]
 
 
 def window_for(config, run_dir=None, max_iter=None, device=None):

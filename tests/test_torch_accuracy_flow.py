@@ -193,8 +193,9 @@ def test_d4ic_twin_runs_end_to_end_on_cpu(tmp_path, monkeypatch):
 
 
 def test_twins_import_and_curate_with_jax_blocked(tmp_path):
-    """``redcliff_tpu_torch.data`` and both twins import, and a tiny fold
-    and one D4IC network are curated, in a process where importing jax
+    """``redcliff_tpu_torch.data`` and the three twins import, a tiny fold
+    and one D4IC network are curated, and the grid-search twin curates its
+    selection fold and builds its setup, in a process where importing jax
     fails; nothing of the JAX package loads."""
     code = f"""
 import sys
@@ -212,6 +213,18 @@ assert len(graphs) == 2 and os.path.isfile(os.path.join(
 g = TD.curate_network(os.path.join({str(tmp_path)!r}, "nets"), 0, 0, 3, 2,
                       device="cpu")
 assert g.shape == (10, 10, 2) and D.make_d4ic_fold and TS.main
+from redcliff_tpu_torch.experiments import d4ic_grid_search as TG
+base = os.path.join({str(tmp_path)!r}, "gs")
+dargs = TG.curate_tier_fold(base, "HSNR", 0, 3, 2, device="cpu")
+model_type, margs = TG.arch_args("bscgs1", smoke=True)
+margs.update(gen_hidden="[4]", batch_size="8", embed_num_hidden_nodes="8",
+             embed_num_graph_conv_layers="1")
+args_dict, model, train_ds, val_ds, tc = TG.selection_setup(
+    base, model_type, margs, dargs, device="cpu")
+points = TG.engine_points(TG.raw_points(*TG.search_axes(True)),
+                          args_dict["num_factors"], args_dict["num_channels"])
+assert len(train_ds) == 15 and len(val_ds) == 10 and len(points) == 4
+assert tc.max_iter == 12 and model.config.num_factors == 5
 leaked = sorted(m for m in sys.modules
                 if (m == "jax" or m.startswith("jax.")) and sys.modules[m]
                 or m == "redcliff_tpu" or m.startswith("redcliff_tpu."))
