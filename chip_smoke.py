@@ -131,11 +131,12 @@ Phases, one JSON line each:
 15. dcsfa: DCSFA-NMF from the published d4IC cached-args (10 nodes, 500
    ``vanilla`` directed-spectrum features, 5 components, h 256, batch
    128, AdamW; depth cut to 2 encoder-pretrain and 4 joint epochs) as
-   array task 1 through ``set_up_and_run_experiments`` on the baselines
-   phase's recordings: the features are host work inside the task, the
-   NMF pretrain and every step run on the card. Checks the fit log's
-   steps, finite histories, the artifact's reload (``(model, params,
-   state)``), the 5 component graphs from ``get_model_gc_estimates``,
+   array task 1 through ``set_up_and_run_experiments`` on 512 / 128
+   recordings of the baselines phase's generator (``DCSFA_N``, cut from
+   2,000 / 500 for the smoke's time): the features are host work inside
+   the task, the NMF pretrain and every step run on the card. Checks the
+   fit log's steps, finite histories, the artifact's reload (``(model,
+   params, state)``), the 5 component graphs from ``get_model_gc_estimates``,
    scored against the 5 true graphs by ``evaluate_algorithm_on_fold``;
    neither kernel launches. Prints the NMF pretrain ms, encoder-pretrain
    and joint steps/s and epoch ms.
@@ -192,7 +193,28 @@ Phases, one JSON line each:
    criteria, factor-mix executions = the grid's forwards and warm-up
    steps, no GL prox; the grid wall, epochs, ms per replayed epoch by
    width and wall per point per epoch.
-23. discovery: the Table-2 flow on the host
+23. d4ic_smooth_searched: the Smooth-searched twin
+   (``redcliff_tpu_torch/experiments/d4ic_smooth_searched.py``) with the
+   JAX script's ``--smoke`` and one fold: the Smooth "Parsim"
+   architecture (gen_hidden 100, a 2 x 30 DGCNN, embed_lag 20) with the
+   searched coefficients, 24 / 8 recordings a network, 12 epochs, through
+   the array task on HSNR fold 0. Checks the JSON's key set, a finite
+   HSNR row, every run dir's reload with finite params, factor-mix
+   executions = the fit's forwards (from its meta data), no GL prox.
+24. grid_science_parity: the grid-vs-array-task twin
+   (``redcliff_tpu_torch/experiments/grid_science_parity.py``) with the
+   JAX script's ``--smoke`` and one fold of synSys 6-2-2 (240 / 96
+   recordings, 12 epochs): four array tasks and the 4-lane grid from the
+   same init. Checks the JSON's and the fold record's key sets, 4 finite
+   per-point best losses and grid criteria, ``same_winner`` against the
+   two argmins, the Spearman correlation in [-1, 1], every run dir's
+   reload, factor-mix executions = the tasks' forwards + the grid's
+   forwards and warm-up steps, no GL prox; then a second ``main`` that
+   reuses the four runs (``resumed``, none trained, the wall carried
+   forward) and launches only the grid's. The lane mix at the shapes the
+   grid adds (G=4, K=2, M=6 at B=128, 112 and 96) against its plain
+   version, timed in turns.
+25. discovery: the Table-2 flow on the host
    (``eval/supervised_discovery.py``): one synSys 6-2-2 fold curated at the
    study's size by the port's data layer, its held-out split (240
    recordings of (100, 6), two states, OneHot) through
@@ -205,13 +227,13 @@ Phases, one JSON line each:
    recordings from the device generator (150 of (48, 10)). Wall per
    algorithm, optimal F1 and ROC-AUC per regime factor; neither kernel
    launches.
-24. analysis: the analysis layer on the host over the accuracy_synsys
+26. analysis: the analysis layer on the host over the accuracy_synsys
    phase's ``evals/`` tree (``run_cross_experiment_analysis`` without
    figures, ``summarize_off_diag_f1``, ``write_cross_experiment_report``,
    ``factor_selection_table`` over its REDCLIFF-S runs): the condensed
    off-diagonal F1 means equal the twin's JSON, no figure is written;
    neither kernel launches.
-25. ts_transformer: the time-series transformer at mvts_transformer's
+27. ts_transformer: the time-series transformer at mvts_transformer's
    published defaults (d_model 64, 8 heads, 3 layers, feed-forward 256,
    fixed positions, gelu, BatchNorm) on 128 synSys windows (T 100, 6
    features): the encoder and the 2-class classiregressor, forwards card
@@ -219,7 +241,7 @@ Phases, one JSON line each:
    padding mask), 20 Adam steps of the classifier loss on each (loss
    histories at the trainer bars); ms per forward and per step, peak
    device memory; neither kernel launches.
-26. telemetry: the telemetry spine through the normal entry points, on
+28. telemetry: the telemetry spine through the normal entry points, on
    the train phase's model, data, knobs and weights. (1) A per-point fit
    through ``RedcliffTrainer.fit`` with a ``save_dir``,
    ``profile_window="epoch:2"``, ``REDCLIFF_QUALITY=1`` and the truth
@@ -236,7 +258,7 @@ Phases, one JSON line each:
    and ``skip_update:40`` end bitwise equal. The earlier phases run with
    ``REDCLIFF_QUALITY=0`` (their counts are their fits' forwards; the
    quality readout adds one per check window).
-27. runtime: the production runtime, on the train phase's model, data and
+29. runtime: the production runtime, on the train phase's model, data and
    weights, under a fresh autotune store and cost-model store
    (``REDCLIFF_AUTOTUNE_DIR``, ``REDCLIFF_COST_MODEL_DIR``). (1) The
    launch-plan autotuner (``ops/autotune.py``): each kernel's threads-per-
@@ -262,7 +284,7 @@ Phases, one JSON line each:
    fits wrote the cost-model store (rows under platform ``cuda`` at widths
    32 and 16); a fit with ``REDCLIFF_PREDICTIVE=1`` logs ``policy`` and
    ``cost_model`` events: each decision and the MAPE.
-28. mixed_train: mixed precision on the training path. The bf16 training
+30. mixed_train: mixed precision on the training path. The bf16 training
    form of the factor mix alone at the per-point (B=128 K=5 M=10) and the
    lane shape (G=32), on the f32 operands the mixed forward holds: forward
    against its plain version, backward against JAX's rule in float64, each
@@ -284,7 +306,7 @@ Phases, one JSON line each:
    replayed epoch): the grid demotes there for all 27 lanes, no lane is
    quarantined, its programs are captured afresh at f32, no bf16 kernel
    runs after the demotion, and the cost model scores replayed epochs only.
-29. obs_cli: ``python -m redcliff_tpu_torch.obs report --json``, ``watch
+31. obs_cli: ``python -m redcliff_tpu_torch.obs report --json``, ``watch
    --once --json`` and ``trace -o`` as subprocesses over the telemetry
    phase's and mixed_train's run dirs (one with jax and the JAX package
    blocked): exit 0, every record valid, each trace valid, the mixed
@@ -293,7 +315,7 @@ Phases, one JSON line each:
    scored epochs; ``python -m redcliff_tpu_torch.obs.schema --check``;
    exit 2 with one line on a missing dir and for ``regress`` without a
    trajectory.
-30. fleet: the fleet sweep service through its CLI. The train phase's
+32. fleet: the fleet sweep service through its CLI. The train phase's
    D4IC-shaped windows as an npz; three tenants submit the published
    grid's points 0-8, 9-17 and 18-26 with one spec (the train phase's
    model and knobs, GL prox λ=4, data kind ``npz``, 4 epochs) through
@@ -315,7 +337,7 @@ Phases, one JSON line each:
    and ``trace --fleet -o`` as subprocesses. One line: the card, each
    leg's wall, the child's startup and fit wall, the replayed epoch's ms,
    the batch's width, the window's executions.
-31. mesh: the device mesh (``parallel/{mesh,remesh,distributed,
+33. mesh: the device mesh (``parallel/{mesh,remesh,distributed,
    sequence}.py``) on meshes that name the one card several times — a
    simulated larger mesh, as the JAX package's forced CPU device count —
    and on the distinct cards. First both kernels at the mesh's shapes
@@ -353,7 +375,8 @@ Phases, one JSON line each:
 Launch counts are reset just before each main path (serve, train, grid,
 each grid_stream fit, grid_durable, array_task, eval, each baseline task
 and the GISTA fit, dcsfa, dynotears, data_gen, accuracy_synsys,
-accuracy_d4ic, each d4ic_grid_search leg, discovery, analysis,
+accuracy_d4ic, each d4ic_grid_search leg, d4ic_smooth_searched, each
+grid_science_parity call, discovery, analysis,
 ts_transformer, each telemetry fit, each runtime fit, each mixed_train
 fit, each mesh fit in this process) and read just after; the bf16
 form of the factor mix has its own count (``graph_mix_bf16.launches``,
@@ -639,8 +662,9 @@ BASELINE_CHECK_STEPS = 8
 # Hz, the "vanilla" layout of 10 x 10 x 5 = 500 features, 5 components all
 # supervised, h 256, batch 128, AdamW lr 1e-3, 20 NMF iterations) and the
 # published DYNOTEARS_Vanilla args (experiments/accuracy_parity_synsys.py:
-# 101-106), as array tasks on the baselines phase's 2,000 / 500 recordings
-# of 48 steps with one-hot state labels; depth cut only
+# 101-106), as array tasks on the baselines phase's recordings of 48 steps
+# with one-hot state labels (DYNOTEARS on its 2,000 / 500, DCSFA on
+# DCSFA_N); depth cut only
 DCSFA_MODEL = "DCSFANMF"
 DCSFA_ARGS = {
     "batch_size": "128", "num_high_level_node_features": "5",
@@ -653,6 +677,11 @@ DCSFA_ARGS = {
     "n_pre_epochs": "50", "nmf_max_iter": "20",
 }
 DCSFA_CUTS = {"n_epochs": "4", "n_pre_epochs": "2"}
+# the DCSFA task's recordings from the baselines' generator (same seed and
+# state VARs), cut from 2,000 / 500 to 512 / 128 (dcsfa_check reads the
+# first 512): the directed-spectrum features are host work that grows with
+# the count, ~100 s of the smoke at the full count on the H100 machine's host
+DCSFA_N = (512, 128)
 DCSFA_FEATURES = 5 * C_TRAIN * C_TRAIN
 DCSFA_CHECK_STEPS = 8
 # AdamW turns the rounding noise of a gradient that is zero in exact
@@ -717,12 +746,51 @@ ACC_D4IC_ARGV = ["--smoke", "--folds", "1", "--algs", "core"]
 # acclimation + 35 combined: every phase and the combined check windows)
 D4GS_ARGV = ["--smoke", "--folds", "1"]
 D4GS_MAX_ITER = 100
+# the lane mix at the shapes the selection twin's grids add to the table,
+# (key, G, B, what): the published fold's train and validation remainders
+# at ladder width 32, the smoke's 4 lanes at its 120 / 40 recordings
+D4GS_LANE_SHAPES = (
+    ("d4gs_remainder", 32, 88, "the published fold's train remainder, "
+     "600 = 4 x 128 + 88"),
+    ("d4gs_val_remainder", 32, 22, "its validation remainder, "
+     "150 = 128 + 22"),
+    ("d4gs_smoke", 4, 120, "the smoke's 4 lanes, its 120 train recordings"),
+    ("d4gs_smoke_val", 4, 40, "the smoke's 40 validation recordings"))
 # the key set of the JSON experiments/d4ic_grid_search.py writes
 D4GS_JSON_KEYS = (
     "dataset", "architecture", "smoke", "axes_raw", "grid_size",
     "grid_wall_clock_s", "grid_epochs_run", "per_point",
     "selected_by_criteria", "selected_optf1_fold0", "oracle_point",
     "oracle_optf1_fold0", "transcribed_round4_baseline", "winner_rows")
+# the Smooth-searched twin and the grid-vs-array-task twin: each main with
+# its JAX script's --smoke and one fold (grid_science_parity on its default
+# system, synSys 6-2-2)
+SS_ARGV = ["--smoke", "--folds", "1"]
+GSP_ARGV = ["--smoke", "--folds", "1"]
+# the key sets of the JSONs experiments/d4ic_smooth_searched.py and
+# experiments/grid_science_parity.py write, and of the latter's fold record
+SS_JSON_KEYS = (
+    "description", "coefficients", "folds", "smoke", "rows",
+    "round4_smooth_transcribed", "round5_nonsmooth_searched")
+GSP_JSON_KEYS = (
+    "system", "axes", "smoke", "num_folds", "folds", "same_winner_by_fold",
+    "spearman_rank_correlation_by_fold", "spearman_rank_correlation_mean",
+    "winner_science_delta_optf1_by_fold", "winner_science_delta_optf1_mean",
+    "wall_clock_s_by_fold")
+GSP_FOLD_KEYS = (
+    "fold", "per_point", "grid", "selected_point_per_point_driver",
+    "selected_point_grid_engine", "same_winner", "spearman_rank_correlation",
+    "winner_science_delta_optf1", "per_config_science",
+    "winner_stats_per_point_driver", "winner_stats_grid_engine",
+    "grid_selection_rankings", "wall_clock_s")
+# the lane mix at the shapes the science check's 4-lane grid adds: the
+# smoke fold's full train batch, its 112 train remainder and its 96
+# validation recordings (K = 2, M = 6)
+GSP_LANE_SHAPES = (
+    ("gsp_batch", 4, 128, "the science check's 4 lanes, a full batch of "
+     "its 240 train recordings"),
+    ("gsp_remainder", 4, 112, "its train remainder, 240 = 128 + 112"),
+    ("gsp_val", 4, 96, "its 96 validation recordings"))
 # run_dynamic_readout_evaluation's default: recordings read out per fold,
 # one graph_mix each for a REDCLIFF run
 ACC_DYNAMIC_RECORDINGS = 16
@@ -2331,20 +2399,70 @@ def _device_us(torch, prof, n):
     return per, sum(per.values())
 
 
-def _kernel_us(torch, prof):
-    """Each hand-written kernel's device us per launch in a profile, and
-    its launches there: ``{name: {"us_per_launch", "launches"}}``."""
-    out = {}
-    for name in ("factor_mix_kernel", "gl_prox_kernel"):
-        total, count = 0.0, 0
-        for e in prof.key_averages():
-            if (name in e.key
-                    and e.device_type == torch.autograd.DeviceType.CUDA):
-                total += getattr(e, "self_device_time_total", 0.0) or 0.0
-                count += e.count
-        out[name] = {"us_per_launch": total / count if count else None,
-                     "launches": count}
-    return out
+class _PrimedProfile:
+    """A ``torch.profiler`` session over CPU and CUDA activity opened with
+    ``obs/profiling.py``'s primer: its graph of adds, replayed right after
+    the profiler starts, takes the records that a session's first graph
+    launch loses, so the window's own kernels are recorded whole. Read
+    it with :meth:`device_us`, which leaves the primer's kernels out."""
+
+    def __init__(self, torch, name):
+        from torch.profiler import ProfilerActivity, profile
+
+        from redcliff_tpu_torch.obs.profiling import _primers
+
+        self.torch = torch
+        self.path = os.path.join(HERE, "build", "chip_smoke",
+                                 "profile_traces", f"{name}.json")
+        self._primers = _primers(torch)
+        self.prof = profile(activities=[ProfilerActivity.CPU,
+                                        ProfilerActivity.CUDA])
+
+    def __enter__(self):
+        self.prof.__enter__()
+        for i, graph in self._primers:
+            with self.torch.cuda.device(i):
+                graph.replay()
+        return self
+
+    def __exit__(self, *exc):
+        return self.prof.__exit__(*exc)
+
+    def device_us(self, n):
+        """From the session's Chrome trace, the primer's kernels (those of
+        its first graph launch) left out: each device op's us per call over
+        ``n`` calls, their total, each hand-written kernel's us per launch
+        and launches (``{name: {"us_per_launch", "launches"}}``), and the
+        primer's kernels that were recorded."""
+        os.makedirs(os.path.dirname(self.path), exist_ok=True)
+        self.prof.export_chrome_trace(self.path)
+        with open(self.path) as f:
+            events = json.load(f).get("traceEvents", [])
+        launches = sorted((ev["ts"], ev.get("args", {}).get("correlation"))
+                          for ev in events
+                          if ev.get("cat") == "cuda_runtime"
+                          and "GraphLaunch" in ev.get("name", ""))
+        first = launches[0][1] if launches else None
+        per, primer = {}, 0
+        kernels = {name: [0.0, 0] for name in KERNEL_NAMES.values()}
+        for ev in events:
+            if ev.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
+                continue
+            if (first is not None
+                    and ev.get("args", {}).get("correlation") == first):
+                primer += 1
+                continue
+            us = float(ev.get("dur", 0.0))
+            key = ev.get("name", "")[:60]
+            per[key] = per.get(key, 0.0) + us / n
+            for name, acc in kernels.items():
+                if name in ev.get("name", ""):
+                    acc[0] += us
+                    acc[1] += 1
+        return per, sum(per.values()), {
+            name: {"us_per_launch": tot / count if count else None,
+                   "launches": count}
+            for name, (tot, count) in kernels.items()}, primer
 
 
 def _alone_us(torch, fns, n=200):
@@ -3303,7 +3421,6 @@ def phase_profile_grid(torch, FM, PX, model, params, train_ds):
     device busy per step, the device's idle share, and the top device
     ops."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
 
     from redcliff_tpu_torch import interop
     from redcliff_tpu_torch.parallel.epoch_engine import EpochEngine
@@ -3376,14 +3493,13 @@ def phase_profile_grid(torch, FM, PX, model, params, train_ds):
     for X, Y in batches[:n_warm]:
         nstate = step(X, Y)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with _PrimedProfile(torch, "profile_grid_steps") as prof:
         t0 = time.perf_counter()
         for X, Y in batches[n_warm:n_warm + n_prof]:
             nstate = step(X, Y)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n_prof
-    per, busy_us = _device_us(torch, prof, n_prof)
+    per, busy_us, step_kernels, step_primer = prof.device_us(n_prof)
     top = sorted(per.items(), key=lambda kv: -kv[1])[:12]
 
     # one combined epoch replayed by the epoch engine (its programs
@@ -3400,15 +3516,14 @@ def phase_profile_grid(torch, FM, PX, model, params, train_ds):
     first_ms = (time.perf_counter() - t0) * 1e3
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as eprof:
+    with _PrimedProfile(torch, "profile_grid_epoch") as eprof:
         t0 = time.perf_counter()
         start.record()
         engine.train_epoch("epoch", "combined", state, active, train_ds, rng)
         end.record()
         torch.cuda.synchronize()
         epoch_wall_ms = (time.perf_counter() - t0) * 1e3
-    eper, ebusy_us = _device_us(torch, eprof, 1)
+    eper, ebusy_us, epoch_kernels, epoch_primer = eprof.device_us(1)
     etop = sorted(eper.items(), key=lambda kv: -kv[1])[:12]
     n_steps = -(-len(train_ds) // B)
     _emit({"phase": "profile_grid", "device": torch.cuda.get_device_name(0),
@@ -3419,7 +3534,10 @@ def phase_profile_grid(torch, FM, PX, model, params, train_ds):
                                  if busy_us else None),
            "device_ops_per_step": len(per),
            "top_device_us_per_step": dict(top),
-           "kernels_in_eager_steps": _kernel_us(torch, prof),
+           "kernels_in_eager_steps": step_kernels,
+           "primer_kernels_recorded": {"of": _primer_kernels(),
+                                       "steps": step_primer,
+                                       "replayed_epoch": epoch_primer},
            "replayed_epoch": {
                "steps": n_steps, "replays": 2,
                "first_epoch_ms_with_capture": first_ms,
@@ -3432,7 +3550,7 @@ def phase_profile_grid(torch, FM, PX, model, params, train_ds):
                                      if ebusy_us else None),
                "device_ops": len(eper),
                "top_device_us": dict(etop),
-               "kernels_in_replay": _kernel_us(torch, eprof),
+               "kernels_in_replay": epoch_kernels,
                "eager_step_wall_ms_x_steps": wall_ms * n_steps}})
 
 
@@ -3441,8 +3559,6 @@ def _width_profile(torch, np, FM, PX, model, params, train_ds, points,
     """Host wall ms, device busy us and kernel launches per combined step
     of the grid engine at the bucket-ladder width of ``live`` of the
     points (filler lanes gated off), from ``torch.profiler``."""
-    from torch.profiler import ProfilerActivity, profile
-
     from redcliff_tpu_torch.parallel.grid import GridSpec, RedcliffGridRunner
     from redcliff_tpu_torch.runtime import numerics
     from redcliff_tpu_torch.train.redcliff_trainer import RedcliffTrainConfig
@@ -3467,16 +3583,17 @@ def _width_profile(torch, np, FM, PX, model, params, train_ds, points,
         nstate = step(X, Y)
     torch.cuda.synchronize()
     mix0, prox0 = FM.factor_mix.launches, PX.gl_prox.launches
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with _PrimedProfile(torch, f"width_profile_{width}") as prof:
         t0 = time.perf_counter()
         for X, Y in batches[2:2 + n]:
             nstate = step(X, Y)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
-    per, busy_us = _device_us(torch, prof, n)
+    _, busy_us, kernels, primer = prof.device_us(n)
     return {"width": width, "live": live, "steps": n,
             "step_host_ms": wall_ms, "step_device_us": busy_us,
+            "kernels_recorded": kernels,
+            "primer_kernels_recorded": primer,
             "device_idle_share": (1.0 - busy_us / 1e3 / wall_ms
                                   if busy_us else None),
             "factor_mix_launches_per_step": (FM.factor_mix.launches
@@ -3808,16 +3925,17 @@ def phase_array_task(torch, FM, PX):
     return mix_launches, prox_launches, runs
 
 
-def _write_fold(np, root, name, T):
-    """The train phase's windows at T steps as a fold written by the port's
-    ``save_cv_split``, and its data cached-args file (the 5 true graphs).
-    Returns the cached-args path and the numpy windows."""
+def _write_fold(np, root, name, T, n_train=N_TRAIN, n_val=N_VAL):
+    """The train phase's windows at T steps (``n_train`` / ``n_val`` of
+    them) as a fold written by the port's ``save_cv_split``, and its data
+    cached-args file (the 5 true graphs). Returns the cached-args path and
+    the numpy windows."""
     from redcliff_tpu_torch.data.shards import save_cv_split
     from redcliff_tpu_torch.utils.config import serialize_tensor_to_string
 
-    X, Y, graphs = _d4ic_like_data(np, N_TRAIN + N_VAL, seed=0, T=T)
+    X, Y, graphs = _d4ic_like_data(np, n_train + n_val, seed=0, T=T)
     pairs = [[x, y] for x, y in zip(X, Y)]
-    save_cv_split(pairs[:N_TRAIN], pairs[N_TRAIN:], 0,
+    save_cv_split(pairs[:n_train], pairs[n_train:], 0,
                   os.path.join(root, "data"))
     data_args = os.path.join(root, f"{name}_cached_args.txt")
     with open(data_args, "w") as f:
@@ -4119,7 +4237,9 @@ def phase_dcsfa(torch, FM, PX):
 
     root = os.path.join(HERE, "build", "chip_smoke", "dcsfa")
     shutil.rmtree(root, ignore_errors=True)
-    data_args, _ = _write_fold(np, root, BASELINE_DATA, BASELINE_T)
+    n_train, n_val = DCSFA_N
+    data_args, _ = _write_fold(np, root, BASELINE_DATA, BASELINE_T, n_train,
+                               n_val)
     margs = os.path.join(root, f"{DCSFA_MODEL}_d4IC_OBPgs1_cached_args.txt")
     with open(margs, "w") as f:
         json.dump({**DCSFA_ARGS, **DCSFA_CUTS}, f)
@@ -4149,9 +4269,9 @@ def phase_dcsfa(torch, FM, PX):
     log = read_checkpoint(os.path.join(run_dir, FIT_LOG_NAME))
     hist = log["histories"]
     B = int(DCSFA_ARGS["batch_size"])
-    n_tr = -(-N_TRAIN // B)
+    n_tr = -(-n_train // B)
     _require(log["device"].startswith("cuda"), f"dcsfa: fit on {log['device']}")
-    _require(log["dim_in"] == DCSFA_FEATURES and log["n"] == N_TRAIN,
+    _require(log["dim_in"] == DCSFA_FEATURES and log["n"] == n_train,
              f"dcsfa: {log['n']} x {log['dim_in']} features")
     _require(log["pre_steps"] == int(DCSFA_CUTS["n_pre_epochs"]) * n_tr
              and log["joint_steps"] == int(DCSFA_CUTS["n_epochs"]) * n_tr,
@@ -4185,8 +4305,10 @@ def phase_dcsfa(torch, FM, PX):
            "model": type(model).__name__,
            "config": "published d4IC DCSFA cached-args "
                      "(experiments/accuracy_parity_d4ic.py:132-141)",
-           "reduced": DCSFA_CUTS, "run_dir": os.path.relpath(run_dir, HERE),
-           "train_recordings": N_TRAIN, "val_recordings": N_VAL,
+           "reduced": {**DCSFA_CUTS,
+                       "recordings": "2,000 / 500 -> 512 / 128"},
+           "run_dir": os.path.relpath(run_dir, HERE),
+           "train_recordings": n_train, "val_recordings": n_val,
            "features": log["dim_in"], "task_wall_s": task_s,
            # the task's wall outside the fit and the fold's load: the host
            # features, most of it (dcsfa_check times them alone)
@@ -4707,25 +4829,16 @@ def _d4gs_loads(name, run_dirs):
                  f"{name}: artifact of {run_dir}")
 
 
-def _d4gs_kernel_rows(torch, FM, K, M):
-    """The lane mix at the shapes the twin's grids add to the table (the
-    published fold's train and validation remainders at ladder width 32,
-    the smoke's 4 lanes at its 120 / 40 recordings), against the plain
-    version and timed in turns. Returns the rows and the errors."""
+def _lane_rows(torch, FM, K, M, shapes):
+    """The lane mix at ``shapes`` (``(key, G, B, what)`` each), against
+    the plain version and timed in turns. Returns the rows and the
+    errors."""
     gen = torch.Generator().manual_seed(6)
     dev = torch.device("cuda", 0)
     one = torch.zeros(1, device=dev)
     floor_ms = _time_ms(torch, one.zero_)
     rows, errs = {}, {}
-    for key, G, B, what in (
-            ("d4gs_remainder", 32, 88, "the published fold's train "
-             "remainder, 600 = 4 x 128 + 88"),
-            ("d4gs_val_remainder", 32, 22, "its validation remainder, "
-             "150 = 128 + 22"),
-            ("d4gs_smoke", 4, 120, "the smoke's 4 lanes, its 120 train "
-             "recordings"),
-            ("d4gs_smoke_val", 4, 40, "the smoke's 40 validation "
-             "recordings")):
+    for key, G, B, what in shapes:
         w = torch.rand((G, B, K), generator=gen).to(dev)
         p = torch.randn((G, K, B, 1, M), generator=gen).to(dev)
         _check_close(torch, f"factor_mix_lanes(G={G}, B={B}) {key}",
@@ -4760,7 +4873,6 @@ def phase_d4ic_grid_search(torch, FM, PX):
     import numpy as np
 
     from redcliff_tpu_torch.experiments import d4ic_grid_search as TG
-    from redcliff_tpu_torch.runtime.checkpoint import read_checkpoint
 
     root = os.path.join(HERE, "build", "chip_smoke", "d4ic_grid_search")
     shutil.rmtree(root, ignore_errors=True)
@@ -4813,15 +4925,8 @@ def phase_d4ic_grid_search(torch, FM, PX):
     _d4gs_loads("d4ic_grid_search (a)",
                 [os.path.join(points_dir, f"grid_point{i}")
                  for i in range(4)] + records["winner_runs"])
-    winner_mix = 0
-    for run_dir in records["winner_runs"]:
-        meta = read_checkpoint(os.path.join(
-            run_dir, "training_meta_data_and_hyper_parameters.pkl"))
-        cfg = read_checkpoint(os.path.join(
-            run_dir, "final_best_model.bin"))["config"]
-        winner_mix += _redcliff_forwards(cfg, meta["epoch"] + 1,
-                                         -(-n_train // batch),
-                                         -(-n_val // batch))
+    winner_mix = _task_forwards(records["winner_runs"], n_train, n_val,
+                                batch)
     _require(a_mix == grid_mix + winner_mix and a_prox == 0,
              f"d4ic_grid_search (a): {a_mix} factor_mix executions for "
              f"{grid_mix} grid forwards and warm-up steps + {winner_mix} "
@@ -4864,8 +4969,8 @@ def phase_d4ic_grid_search(torch, FM, PX):
                    for w, n in stats["epochs_by_width"].items() if n}
     legs_s = time.perf_counter() - t_phase
     # the lane mix at the shapes these grids add, outside the counted legs
-    rows, errs = _d4gs_kernel_rows(torch, FM, model.config.num_factors,
-                                   model.config.num_chans)
+    rows, errs = _lane_rows(torch, FM, model.config.num_factors,
+                            model.config.num_chans, D4GS_LANE_SHAPES)
     wall = time.perf_counter() - t_phase
     _emit({"phase": "d4ic_grid_search",
            "device": torch.cuda.get_device_name(0),
@@ -4914,6 +5019,224 @@ def phase_d4ic_grid_search(torch, FM, PX):
            "wall_s": wall})
     print(f"d4ic_grid_search wall_s {wall:.1f}", flush=True)
     return a_mix + b_mix, a_prox + b_prox, max(errs.values()), rows
+
+
+def _task_forwards(run_dirs, n_train, n_val, batch):
+    """The factor-mix executions of per-point fits: each run's forwards
+    from its meta data and config (scoring launches none)."""
+    from redcliff_tpu_torch.runtime.checkpoint import read_checkpoint
+
+    forwards = 0
+    for run_dir in run_dirs:
+        meta = read_checkpoint(os.path.join(
+            run_dir, "training_meta_data_and_hyper_parameters.pkl"))
+        cfg = read_checkpoint(os.path.join(
+            run_dir, "final_best_model.bin"))["config"]
+        forwards += _redcliff_forwards(cfg, meta["epoch"] + 1,
+                                       -(-n_train // batch),
+                                       -(-n_val // batch))
+    return forwards
+
+
+def phase_d4ic_smooth_searched(torch, FM, PX):
+    """The Smooth-searched twin's ``main`` with the JAX script's
+    ``--smoke`` and one fold on the card (``SS_ARGV``): HSNR fold 0
+    curated, the Smooth architecture trained with the searched
+    coefficients through the array task, scored. Counts at 0 just before,
+    read just after."""
+    import math
+
+    from redcliff_tpu_torch.experiments import d4ic_grid_search as TG
+    from redcliff_tpu_torch.experiments import d4ic_smooth_searched as SS
+    from redcliff_tpu_torch.runtime.checkpoint import read_checkpoint
+
+    name = "d4ic_smooth_searched"
+    wd = os.path.join(HERE, "build", "chip_smoke", name)
+    shutil.rmtree(wd + "_smoke", ignore_errors=True)
+    records = {}
+    FM.factor_mix.launches = 0
+    PX.gl_prox.launches = 0
+    t0 = time.perf_counter()
+    out = SS.main([wd] + SS_ARGV, device="cuda", records=records)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    mix, prox = FM.factor_mix.launches, PX.gl_prox.launches
+    dest = os.path.join(wd + "_smoke", "D4IC_SMOOTH_SEARCHED_smoke.json")
+    _require(os.path.isfile(dest), f"{name}: no {dest}")
+    with open(dest) as f:
+        written = json.load(f)
+    _require(set(written) == set(SS_JSON_KEYS) == set(out),
+             f"{name}: JSON keys {sorted(written)}")
+    row = written["rows"].get("HSNR", {})
+    _require(set(written["rows"]) == {"HSNR"} and row
+             and all(math.isfinite(v) for v in row.values())
+             and written["coefficients"] == SS.COEFFICIENTS,
+             f"{name}: rows {written['rows']}, coefficients "
+             f"{written['coefficients']}")
+    run_dirs = records["run_dirs"]
+    _require(len(run_dirs) == 1, f"{name}: run dirs {run_dirs}")
+    _d4gs_loads(name, run_dirs)
+    cfg = read_checkpoint(os.path.join(run_dirs[0],
+                                       "final_best_model.bin"))["config"]
+    arch = {"gen_hidden": tuple(cfg.gen_hidden), "embed_lag": cfg.embed_lag,
+            "dgcnn": (cfg.dgcnn_num_graph_conv_layers,
+                      cfg.dgcnn_num_hidden_nodes)}
+    _require(arch == {"gen_hidden": (100,), "embed_lag": 20,
+                      "dgcnn": (2, 30)},
+             f"{name}: trained architecture {arch}, not the Smooth one")
+    n_train, n_val = (k * TG.NUM_NETWORKS for k in SS.SAMPLES[True])
+    batch = int(SS.SEARCHED["batch_size"])
+    expected = _task_forwards(run_dirs, n_train, n_val, batch)
+    _require(mix == expected and prox == 0,
+             f"{name}: {mix} factor_mix executions for {expected} forwards "
+             f"of the fit (scoring launches none), {prox} gl_prox")
+    meta = read_checkpoint(os.path.join(
+        run_dirs[0], "training_meta_data_and_hyper_parameters.pkl"))
+    _emit({"phase": name, "device": torch.cuda.get_device_name(0),
+           "config": "experiments/d4ic_smooth_searched.py --smoke (its own "
+                     "smoke cuts): SMOOTH_ARGS of accuracy_parity_d4ic.py "
+                     "(gen_hidden 100, DGCNN 2x30, embed_lag 20, K 5, 10 "
+                     "channels, batch 128) with gen_lr 2e-3, ADJ_L1 0.1, "
+                     "COS_SIM 0.1, through the port twin",
+           "argv": SS_ARGV, "reduced": {"folds": "3 -> 1"},
+           "train_recordings": n_train, "val_recordings": n_val,
+           "epochs_run": meta["epoch"] + 1, "best_it": meta["best_it"],
+           "wall_s": wall, "rows": written["rows"],
+           "factor_mix_launches": mix, "expected_factor_mix": expected,
+           "gl_prox_launches": prox})
+    print(f"{name} wall_s {wall:.1f}", flush=True)
+    return mix, prox
+
+
+def phase_grid_science_parity(torch, FM, PX):
+    """The grid-vs-array-task twin's ``main`` with the JAX script's
+    ``--smoke`` and one fold on the card (``GSP_ARGV``), twice: the first
+    call trains the four array tasks and the 4-lane grid, the second
+    reuses the tasks and refits the grid. Counts at 0 just before each
+    call, read just after. Returns the launches of both calls, the lane
+    rows' largest error and the rows."""
+    import math
+
+    import numpy as np
+
+    from redcliff_tpu_torch.experiments import grid_science_parity as GP
+    from redcliff_tpu_torch.runtime.checkpoint import read_checkpoint
+
+    name = "grid_science_parity"
+    root = os.path.join(HERE, "build", "chip_smoke", name)
+    shutil.rmtree(root, ignore_errors=True)
+    wd = os.path.join(root, "gsp")
+    base = wd + "_6-2-2_smoke"
+    dest = os.path.join(base, "GRID_SCIENCE_PARITY_smoke.json")
+    batch = int(GP.REDCLIFF_ARGS["batch_size"])
+    n_train, n_val = GP.SAMPLES[True]
+    t_phase = time.perf_counter()
+
+    def call(records):
+        FM.factor_mix.launches = 0
+        PX.gl_prox.launches = 0
+        t0 = time.perf_counter()
+        out = GP.main([wd] + GSP_ARGV, device="cuda", records=records)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        mix, prox = FM.factor_mix.launches, PX.gl_prox.launches
+        _require(os.path.isfile(dest), f"{name}: no {dest}")
+        with open(dest) as f:
+            written = json.load(f)
+        _require(set(written) == set(GSP_JSON_KEYS) == set(out)
+                 and len(written["folds"]) == len(records) == 1
+                 and set(written["folds"][0]) == set(GSP_FOLD_KEYS),
+                 f"{name}: JSON keys {sorted(written)}, fold keys "
+                 f"{[sorted(f) for f in written['folds']]}")
+        rec = records[0]
+        _require(len(rec["train_ds"]) == n_train
+                 and len(rec["val_ds"]) == n_val,
+                 f"{name}: {len(rec['train_ds'])} / {len(rec['val_ds'])} "
+                 f"recordings")
+        grid_mix, warm, budget = _d4gs_grid(name, rec["grid"], n_train,
+                                            n_val, batch, 4)
+        _d4gs_loads(name, rec["per_point_runs"] + rec["grid_runs"])
+        return written, rec, wall, mix, prox, grid_mix, warm, budget
+
+    # ---- call 1: both legs trained
+    rec1 = []
+    written, rec, wall1, mix1, prox1, grid1, warm1, budget1 = call(rec1)
+    fold = written["folds"][0]
+    losses = [p["best_loss"] for p in fold["per_point"]]
+    crit = [g["best_criteria"] for g in fold["grid"]]
+    _require(len(losses) == len(crit) == 4
+             and all(math.isfinite(x) for x in losses + crit),
+             f"{name}: per-point best losses {losses}, grid criteria {crit}")
+    same = int(np.argmin(losses)) == int(np.argmin(crit))
+    rho = fold["spearman_rank_correlation"]
+    _require(fold["same_winner"] == same and -1.0 <= rho <= 1.0
+             and math.isfinite(fold["winner_science_delta_optf1"]),
+             f"{name}: same_winner {fold['same_winner']} for argmins "
+             f"{int(np.argmin(losses))} / {int(np.argmin(crit))}, Spearman "
+             f"{rho}, winner delta {fold['winner_science_delta_optf1']}")
+    walls1 = fold["wall_clock_s"]
+    _require(walls1["points_trained"] == 4 and walls1["per_point_trained"]
+             and not any(p["resumed"] for p in fold["per_point"]),
+             f"{name}: first call's per-point leg {walls1}")
+    tasks1 = _task_forwards(rec["per_point_runs"], n_train, n_val, batch)
+    _require(mix1 == tasks1 + grid1 and prox1 == 0,
+             f"{name} (call 1): {mix1} factor_mix executions for {tasks1} "
+             f"task forwards + {grid1} grid forwards and warm-up steps, "
+             f"{prox1} gl_prox")
+
+    # ---- call 2: the tasks reused, the wall carried forward
+    rec2 = []
+    written2, rec_b, wall2, mix2, prox2, grid2, warm2, budget2 = call(rec2)
+    fold2 = written2["folds"][0]
+    walls2 = fold2["wall_clock_s"]
+    _require(all(p["resumed"] for p in fold2["per_point"])
+             and walls2["points_trained"] == 0
+             and walls2.get("carried_forward") is True
+             and walls2["per_point_trained"]
+             and walls2["per_point_total"] == walls1["per_point_total"]
+             and [p["best_loss"] for p in fold2["per_point"]] == losses
+             and rec_b["per_point_runs"] == rec["per_point_runs"],
+             f"{name}: second call's per-point leg {walls2}, resumed "
+             f"{[p['resumed'] for p in fold2['per_point']]}")
+    _require(mix2 == grid2 and prox2 == 0,
+             f"{name} (call 2): {mix2} factor_mix executions for {grid2} "
+             f"grid forwards and warm-up steps, {prox2} gl_prox")
+    legs_s = time.perf_counter() - t_phase
+    cfg = read_checkpoint(os.path.join(rec["grid_runs"][0],
+                                       "final_best_model.bin"))["config"]
+    rows, errs = _lane_rows(torch, FM, cfg.num_factors, cfg.num_chans,
+                            GSP_LANE_SHAPES)
+    wall = time.perf_counter() - t_phase
+    stats = rec["grid"].dispatch_stats
+    _emit({"phase": name, "device": torch.cuda.get_device_name(0),
+           "config": "experiments/grid_science_parity.py --smoke (its own "
+                     "smoke cuts): REDCLIFF_ARGS of "
+                     "accuracy_parity_synsys.py (gen_hidden 25, DGCNN "
+                     "3x100, embed_lag 16, K 2, 6 channels, batch 128) on "
+                     "synSys 6-2-2, gen_lr x ADJ_L1 2 x 2, through the "
+                     "port twin",
+           "argv": GSP_ARGV, "reduced": {"folds": "3 -> 1"},
+           "train_recordings": n_train, "val_recordings": n_val,
+           "call_wall_s": [wall1, wall2],
+           "wall_clock_s": [walls1, walls2],
+           "per_point": fold["per_point"], "grid": fold["grid"],
+           "same_winner": fold["same_winner"],
+           "spearman_rank_correlation": rho,
+           "winner_science_delta_optf1":
+               fold["winner_science_delta_optf1"],
+           "grid_stream_mode": stats["mode"],
+           "grid_epochs": len(rec["grid"].epochs),
+           "graph_captures": stats["graph_captures"],
+           "dispatches": [budget1, budget2],
+           "warmup_launches": [warm1, warm2],
+           "factor_mix_launches": [mix1, mix2],
+           "expected_factor_mix": [{"tasks": tasks1, "grid": grid1},
+                                   {"tasks": 0, "grid": grid2}],
+           "gl_prox_launches": [prox1, prox2],
+           "errors": errs, "kernel_rows": rows, "legs_wall_s": legs_s,
+           "wall_s": wall})
+    print(f"{name} wall_s {wall:.1f}", flush=True)
+    return mix1 + mix2, prox1 + prox2, max(errs.values()), rows
 
 
 def phase_discovery(torch, FM, PX):
@@ -8108,6 +8431,9 @@ def main():
     d4_mix, d4_prox = phase_accuracy_d4ic(torch, FM, PX)
     gs_mix, gs_prox, gs_err, gs_rows = phase_d4ic_grid_search(torch, FM,
                                                               PX)
+    ss_mix, ss_prox = phase_d4ic_smooth_searched(torch, FM, PX)
+    gsp_mix, gsp_prox, gsp_err, gsp_rows = phase_grid_science_parity(
+        torch, FM, PX)
     disc_mix, disc_prox, tst_X, tst_y = phase_discovery(torch, FM, PX)
     an_mix, an_prox = phase_analysis(torch, FM, PX, syn_wd, syn_out,
                                      syn_runs)
@@ -8143,6 +8469,8 @@ def main():
                  "dynotears": dy_mix, "data_gen": gen_mix,
                  "accuracy_synsys": syn_mix, "accuracy_d4ic": d4_mix,
                  "d4ic_grid_search": gs_mix,
+                 "d4ic_smooth_searched": ss_mix,
+                 "grid_science_parity": gsp_mix,
                  "discovery": disc_mix, "analysis": an_mix,
                  "ts_transformer": tst_mix, "telemetry": tel_mix,
                  "runtime": rt_mix,
@@ -8152,11 +8480,12 @@ def main():
     fm = _kernel_entry(
         "factor_mix", FM, "redcliff_tpu/ops/factor_mix.py:58",
         sum(mix_paths.values()), mix_paths,
-        max(max_err["factor_mix"], mesh_err["factor_mix"], gs_err),
+        max(max_err["factor_mix"], mesh_err["factor_mix"], gs_err,
+            gsp_err),
         timing["factor_mix"]["train"])
     fm["by_shape"] = {**{k: v for k, v in timing["factor_mix"].items()
                          if k != "train"}, **mesh_rows["factor_mix"],
-                      **gs_rows}
+                      **gs_rows, **gsp_rows}
     prox_paths = {"serve": 0, "serve_elastic": 0, "train": prox_launches,
                   "grid": grid_prox,
                   "grid_stream": sum(v["gl_prox"] for v in stream.values()),
@@ -8165,7 +8494,9 @@ def main():
                   "dcsfa": dc_prox, "dynotears": dy_prox,
                   "data_gen": gen_prox, "accuracy_synsys": syn_prox,
                   "accuracy_d4ic": d4_prox,
-                  "d4ic_grid_search": gs_prox, "discovery": disc_prox,
+                  "d4ic_grid_search": gs_prox,
+                  "d4ic_smooth_searched": ss_prox,
+                  "grid_science_parity": gsp_prox, "discovery": disc_prox,
                   "analysis": an_prox, "ts_transformer": tst_prox,
                   "telemetry": tel_prox, "runtime": rt_prox,
                   "mixed_train": mixed["launches"]["gl_prox"],

@@ -194,18 +194,18 @@ def engine_points(points_raw, num_factors, num_channels):
 
 
 def selection_setup(base, model_type, margs, dargs_file, arch_tag="",
-                    device=None):
-    """The grid's base setup on the selection fold, through the driver's
-    own read/rescale path, so the base config matches what a per-job run
-    builds. Returns ``(args_dict, model, train_ds, val_ds, train
-    config)``."""
+                    device=None, fold=0):
+    """The grid's base setup on the selection fold (``data_fold<fold>``),
+    through the driver's own read/rescale path, so the base config
+    matches what a per-job run builds. Returns ``(args_dict, model,
+    train_ds, val_ds, train config)``."""
     margs_file = os.path.join(base, f"{model_type}_gs_cached_args.txt")
     with open(margs_file, "w") as f:
         json.dump(margs, f)
     args_dict = {"save_root_path": os.path.join(base, f"runs_grid{arch_tag}"),
                  "model_type": model_type,
                  "model_cached_args_file": margs_file,
-                 "data_set_name": "data_fold0",
+                 "data_set_name": f"data_fold{fold}",
                  "data_cached_args_file": dargs_file}
     read_in_model_args(args_dict)
     read_in_data_args(args_dict)
@@ -249,23 +249,28 @@ def fit_grid(model, tc, grid_points, train_ds, val_ds, max_iter=None,
     return res, time.time() - t0
 
 
+def write_point(base, arch_tag, model, res, i):
+    """Point ``i``'s best params as the headerless pickle
+    ``runs_grid<tag>/grid_point<i>/final_best_model.bin``. Returns the
+    run dir."""
+    run_dir = os.path.join(base, f"runs_grid{arch_tag}", f"grid_point{i}")
+    os.makedirs(run_dir, exist_ok=True)
+    pt_params = interop.tree_map(lambda x: np.asarray(x)[i], res.best_params)
+    with open(os.path.join(run_dir, "final_best_model.bin"), "wb") as f:
+        pickle.dump({"model_class": "RedcliffSCMLP",
+                     "config": model.config, "params": pt_params}, f)
+    return run_dir
+
+
 def score_points(base, arch_tag, model, res, points_raw, grid_points,
                  true_gcs, device=None):
-    """Each point's best params as the headerless pickle
-    ``runs_grid<tag>/grid_point<i>/final_best_model.bin``, scored with the
-    off-diagonal optimal-F1 battery on ``device``. Returns the per-point
-    records of the JSON."""
+    """Each point's best params written by :func:`write_point`, scored
+    with the off-diagonal optimal-F1 battery on ``device``. Returns the
+    per-point records of the JSON."""
     criteria = np.asarray(res.best_criteria, dtype=np.float64)
     per_point = []
     for i, (raw, gp) in enumerate(zip(points_raw, grid_points)):
-        run_dir = os.path.join(base, f"runs_grid{arch_tag}",
-                               f"grid_point{i}")
-        os.makedirs(run_dir, exist_ok=True)
-        pt_params = interop.tree_map(lambda x, i=i: np.asarray(x)[i],
-                                     res.best_params)
-        with open(os.path.join(run_dir, "final_best_model.bin"), "wb") as f:
-            pickle.dump({"model_class": "RedcliffSCMLP",
-                         "config": model.config, "params": pt_params}, f)
+        run_dir = write_point(base, arch_tag, model, res, i)
         stats = evaluate_algorithm_on_fold(run_dir, "REDCLIFF_S_CMLP",
                                            true_gcs, device=device)
         s = stats[OFFDIAG]

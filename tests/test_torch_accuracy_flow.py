@@ -193,10 +193,11 @@ def test_d4ic_twin_runs_end_to_end_on_cpu(tmp_path, monkeypatch):
 
 
 def test_twins_import_and_curate_with_jax_blocked(tmp_path):
-    """``redcliff_tpu_torch.data`` and the three twins import, a tiny fold
-    and one D4IC network are curated, and the grid-search twin curates its
-    selection fold and builds its setup, in a process where importing jax
-    fails; nothing of the JAX package loads."""
+    """``redcliff_tpu_torch.data`` and the five twins import, a tiny fold
+    and one D4IC network are curated, the grid-search twin curates its
+    selection fold and builds its setup, and the science check curates
+    its fold, in a process where importing jax fails; nothing of the JAX
+    package loads."""
     code = f"""
 import sys
 sys.modules["jax"] = None
@@ -225,6 +226,14 @@ points = TG.engine_points(TG.raw_points(*TG.search_axes(True)),
                           args_dict["num_factors"], args_dict["num_channels"])
 assert len(train_ds) == 15 and len(val_ds) == 10 and len(points) == 4
 assert tc.max_iter == 12 and model.config.num_factors == 5
+from redcliff_tpu_torch.experiments import d4ic_smooth_searched as SS
+from redcliff_tpu_torch.experiments import grid_science_parity as GP
+assert SS.MODEL_TYPE == "REDCLIFF_S_CMLP_Smooth_searched" and SS.main
+assert GP.spearman([1.0, 2.0, 3.0], [2.0, 4.0, 9.0]) == 1.0 and GP.main
+GP.SAMPLES = {{True: (4, 2), False: (4, 2)}}
+gp_dargs = GP.curate_fold(os.path.join({str(tmp_path)!r}, "gsp"), 0, True,
+                          "4-1-2")
+assert os.path.isfile(gp_dargs)
 leaked = sorted(m for m in sys.modules
                 if (m == "jax" or m.startswith("jax.")) and sys.modules[m]
                 or m == "redcliff_tpu" or m.startswith("redcliff_tpu."))
