@@ -214,7 +214,24 @@ Phases, one JSON line each:
    forward) and launches only the grid's. The lane mix at the shapes the
    grid adds (G=4, K=2, M=6 at B=128, 112 and 96) against its plain
    version, timed in turns.
-25. discovery: the Table-2 flow on the host
+25. wavelet_flow: the wavelet-decomposed flow's twin
+   (``redcliff_tpu_torch/experiments/wavelet_flow.py``) with the JAX
+   script's ``--smoke`` and one fold of the LFP analog (6 channels, 3
+   states, 24 / 8 recordings of T 128): REDCLIFF-S Smooth (K 9) and cMLP at
+   ``wavelet_level`` 3 (24 series) and the Smooth control on the raw
+   channels, through the array task. Checks the JSON's key set, finite
+   rows, the ranked rows on the two wavelet runs only, every run dir's
+   reload with its wavelet level and series, factor-mix executions = the
+   two REDCLIFF fits' forwards (the cMLP run mixes nothing), no GL prox.
+26. factor_count_selection: the factor-count twin
+   (``redcliff_tpu_torch/experiments/factor_count_selection.py``) with the
+   JAX script's ``--smoke``, synSys 3-1-2 and one fold (240 / 96
+   recordings, 12 epochs): REDCLIFF-S at K = 2-6 through five array
+   tasks, ``factor_selection_table`` and the selection. Checks the JSON's
+   and the record's key sets, five table entries with both criteria, the
+   selected K the argmin of the criteria sums, each run's ``num_factors``,
+   factor-mix executions = the five fits' forwards, no GL prox.
+27. discovery: the Table-2 flow on the host
    (``eval/supervised_discovery.py``): one synSys 6-2-2 fold curated at the
    study's size by the port's data layer, its held-out split (240
    recordings of (100, 6), two states, OneHot) through
@@ -227,13 +244,17 @@ Phases, one JSON line each:
    recordings from the device generator (150 of (48, 10)). Wall per
    algorithm, optimal F1 and ROC-AUC per regime factor; neither kernel
    launches.
-26. analysis: the analysis layer on the host over the accuracy_synsys
+28. analysis: the analysis layer on the host over the accuracy_synsys
    phase's ``evals/`` tree (``run_cross_experiment_analysis`` without
    figures, ``summarize_off_diag_f1``, ``write_cross_experiment_report``,
    ``factor_selection_table`` over its REDCLIFF-S runs): the condensed
    off-diagonal F1 means equal the twin's JSON, no figure is written;
-   neither kernel launches.
-27. ts_transformer: the time-series transformer at mvts_transformer's
+   then the banded condenser's twin
+   (``redcliff_tpu_torch/experiments/banded_condense.py``) over the same
+   tree: its per-system F1 means equal the twin's JSON and its dynamic
+   aggregate each metric of the tree's dynamic-readout summary; neither
+   kernel launches.
+29. ts_transformer: the time-series transformer at mvts_transformer's
    published defaults (d_model 64, 8 heads, 3 layers, feed-forward 256,
    fixed positions, gelu, BatchNorm) on 128 synSys windows (T 100, 6
    features): the encoder and the 2-class classiregressor, forwards card
@@ -241,7 +262,7 @@ Phases, one JSON line each:
    padding mask), 20 Adam steps of the classifier loss on each (loss
    histories at the trainer bars); ms per forward and per step, peak
    device memory; neither kernel launches.
-28. telemetry: the telemetry spine through the normal entry points, on
+30. telemetry: the telemetry spine through the normal entry points, on
    the train phase's model, data, knobs and weights. (1) A per-point fit
    through ``RedcliffTrainer.fit`` with a ``save_dir``,
    ``profile_window="epoch:2"``, ``REDCLIFF_QUALITY=1`` and the truth
@@ -258,7 +279,7 @@ Phases, one JSON line each:
    and ``skip_update:40`` end bitwise equal. The earlier phases run with
    ``REDCLIFF_QUALITY=0`` (their counts are their fits' forwards; the
    quality readout adds one per check window).
-29. runtime: the production runtime, on the train phase's model, data and
+31. runtime: the production runtime, on the train phase's model, data and
    weights, under a fresh autotune store and cost-model store
    (``REDCLIFF_AUTOTUNE_DIR``, ``REDCLIFF_COST_MODEL_DIR``). (1) The
    launch-plan autotuner (``ops/autotune.py``): each kernel's threads-per-
@@ -284,7 +305,7 @@ Phases, one JSON line each:
    fits wrote the cost-model store (rows under platform ``cuda`` at widths
    32 and 16); a fit with ``REDCLIFF_PREDICTIVE=1`` logs ``policy`` and
    ``cost_model`` events: each decision and the MAPE.
-30. mixed_train: mixed precision on the training path. The bf16 training
+32. mixed_train: mixed precision on the training path. The bf16 training
    form of the factor mix alone at the per-point (B=128 K=5 M=10) and the
    lane shape (G=32), on the f32 operands the mixed forward holds: forward
    against its plain version, backward against JAX's rule in float64, each
@@ -306,7 +327,7 @@ Phases, one JSON line each:
    replayed epoch): the grid demotes there for all 27 lanes, no lane is
    quarantined, its programs are captured afresh at f32, no bf16 kernel
    runs after the demotion, and the cost model scores replayed epochs only.
-31. obs_cli: ``python -m redcliff_tpu_torch.obs report --json``, ``watch
+33. obs_cli: ``python -m redcliff_tpu_torch.obs report --json``, ``watch
    --once --json`` and ``trace -o`` as subprocesses over the telemetry
    phase's and mixed_train's run dirs (one with jax and the JAX package
    blocked): exit 0, every record valid, each trace valid, the mixed
@@ -315,7 +336,7 @@ Phases, one JSON line each:
    scored epochs; ``python -m redcliff_tpu_torch.obs.schema --check``;
    exit 2 with one line on a missing dir and for ``regress`` without a
    trajectory.
-32. fleet: the fleet sweep service through its CLI. The train phase's
+34. fleet: the fleet sweep service through its CLI. The train phase's
    D4IC-shaped windows as an npz; three tenants submit the published
    grid's points 0-8, 9-17 and 18-26 with one spec (the train phase's
    model and knobs, GL prox λ=4, data kind ``npz``, 4 epochs) through
@@ -337,7 +358,7 @@ Phases, one JSON line each:
    and ``trace --fleet -o`` as subprocesses. One line: the card, each
    leg's wall, the child's startup and fit wall, the replayed epoch's ms,
    the batch's width, the window's executions.
-33. mesh: the device mesh (``parallel/{mesh,remesh,distributed,
+35. mesh: the device mesh (``parallel/{mesh,remesh,distributed,
    sequence}.py``) on meshes that name the one card several times — a
    simulated larger mesh, as the JAX package's forced CPU device count —
    and on the distinct cards. First both kernels at the mesh's shapes
@@ -376,7 +397,8 @@ Launch counts are reset just before each main path (serve, train, grid,
 each grid_stream fit, grid_durable, array_task, eval, each baseline task
 and the GISTA fit, dcsfa, dynotears, data_gen, accuracy_synsys,
 accuracy_d4ic, each d4ic_grid_search leg, d4ic_smooth_searched, each
-grid_science_parity call, discovery, analysis,
+grid_science_parity call, wavelet_flow, factor_count_selection,
+discovery, analysis,
 ts_transformer, each telemetry fit, each runtime fit, each mixed_train
 fit, each mesh fit in this process) and read just after; the bf16
 form of the factor mix has its own count (``graph_mix_bf16.launches``,
@@ -387,7 +409,7 @@ child's ``torch.profiler`` trace over the window (a replayed epoch). A
 count is executions on the
 device: a launch captured into a CUDA graph counts at each replay of the
 graph (and the warm-up step before each capture ran and counts). Then a
-``kernels`` line, the ``nvidia-smi`` name/power line, and as the last line
+``phase_walls_s`` line (each phase's wall in seconds), a ``kernels`` line, the ``nvidia-smi`` name/power line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises: the script
 exits non-zero and prints no ``ok`` line. It also refuses to run without
 CUDA or outside a checkout of the repository.
@@ -783,6 +805,33 @@ GSP_FOLD_KEYS = (
     "winner_science_delta_optf1", "per_config_science",
     "winner_stats_per_point_driver", "winner_stats_grid_engine",
     "grid_selection_rankings", "wall_clock_s")
+# the wavelet flow and the factor-count selection twins: each main with
+# its JAX script's --smoke and one fold (the factor-count sweep on synSys
+# 3-1-2 alone: K = 2-6, five array tasks)
+WAV_ARGV = ["--smoke", "--folds", "1"]
+FCS_ARGV = ["--smoke", "--systems", "3-1-2", "--folds", "1"]
+# the key sets of the JSONs experiments/wavelet_flow.py and
+# experiments/factor_count_selection.py write, and of the latter's system
+# record
+WAV_JSON_KEYS = ("dataset", "wavelet_level", "folds", "smoke", "algorithms")
+WAV_RANKED_KEYS = ("ranked_offdiag_optimal_f1_mean",
+                   "ranked_offdiag_optimal_f1_sem")
+FCS_JSON_KEYS = ("folds", "smoke", "systems")
+FCS_RECORD_KEYS = (
+    "system", "num_labeled_states", "selection_table", "criteria_sum_by_k",
+    "selected_num_factors", "science_by_num_factors",
+    "banded_study_default_k", "banded_study_redcliff_optf1")
+# the factor mix at the shapes those flows add (batch 128): the wavelet
+# Smooth runs' K = 9 (past the exact-K unroll: the blocked loop) at M = 24
+# (6 channels x 4 bands, float4) and the raw control's M = 6 (float2), at
+# the smoke's 24 / 8 recordings and the published 1,040 / 240 (8 x 128 +
+# 16; 128 + 112); the factor-count runs' K = 3, 4 and 6 (their own exact
+# instantiations) at M = 3 on 3-1-2 (scalar), at 128, the smoke's train
+# remainder 112 (240 = 128 + 112) and its 96 validation recordings
+WAV_K = 9
+WAV_BATCHES = (24, 8, 128, 112, 16)
+FCS_K = (3, 4, 6)
+FCS_BATCHES = (128, 112, 96)
 # the lane mix at the shapes the science check's 4-lane grid adds: the
 # smoke fold's full train batch, its 112 train remainder and its 96
 # validation recordings (K = 2, M = 6)
@@ -997,6 +1046,11 @@ def _mix_checks(torch, FM, gen, dev, errs):
     # published remainders
     cases += [((B, 2, 1, 6), False) for B in SYNSYS_BATCHES]
     cases += [((B, K_TRAIN, 1, C_TRAIN), False) for B in D4IC_BATCHES]
+    # the wavelet flow (K = 9 at M = 24 and 6) and the factor-count sweep
+    # (K = 3, 4, 6 at M = 3)
+    cases += [((B, WAV_K, 1, M), False) for M in (24, 6)
+              for B in WAV_BATCHES]
+    cases += [((B, K, 1, 3), False) for K in FCS_K for B in FCS_BATCHES]
     for (B, K, T, C), offset in cases:
         w = torch.rand((B, K), generator=gen).to(dev)
         p = torch.randn((K, B, T, C), generator=gen).to(dev)
@@ -1027,14 +1081,19 @@ def _mix_checks(torch, FM, gen, dev, errs):
              and plans["graph_mix(S=240)"] == "float4"
              and plans["factor_mix(128, 5, 1, 10)"] == "float2"
              and plans["graph_mix(S=64) gc+1 float"] == "scalar"
-             and plans["factor_mix(64, 5, 10, 10) p+1 float"] == "scalar",
+             and plans["factor_mix(64, 5, 10, 10) p+1 float"] == "scalar"
+             and plans[f"factor_mix(128, {WAV_K}, 1, 24)"] == "float4"
+             and plans[f"factor_mix(128, {WAV_K}, 1, 6)"] == "float2"
+             and all(plans[f"factor_mix(128, {K}, 1, 3)"] == "scalar"
+                     for K in FCS_K),
              f"factor_mix launch plans {plans}")
     # autograd, kernel forward + einsum backward vs the plain version: the
     # serve-test shape, the training batch and an odd remainder batch; and
     # the same forward with no gradient wanted (the direct launch)
     for B, K, C in ((64, K_TRAIN, C_TRAIN), (128, K_TRAIN, C_TRAIN),
                     (117, K_TRAIN, C_TRAIN), (120, K_TRAIN, C_TRAIN),
-                    (128, 2, 6), (112, 2, 6), (16, 2, 6)):
+                    (128, 2, 6), (112, 2, 6), (16, 2, 6),
+                    (128, WAV_K, 24), (128, 6, 3)):
         w0 = torch.rand((B, K), generator=gen).to(dev)
         p0 = torch.randn((K, B, 1, C), generator=gen).to(dev)
         got = _mix_grads(torch, FM.factor_mix, w0, p0)
@@ -1411,6 +1470,35 @@ def phase_kernel(torch, FM, PX):
             t["device_us_alone"] = _alone_us(torch, {
                 "kernel": fns["kernel_ms"], "library": fns["library_ms"],
                 "plain": fns["plain_ms"], "floor": one.zero_})
+    # the wavelet flow's training batches (K = 9: the blocked K loop; M =
+    # 24 float4, the raw control's M = 6 float2) and the factor-count
+    # sweep's (K = 3, 4, 6 at M = 3: scalar), each with its device time
+    # alone
+    flow_rows = [("wavelet_train", WAV_K, 24,
+                  f"B={B} K={WAV_K} M=24 (factor_mix forward, the wavelet "
+                  f"Smooth runs' training batch: 6 channels x 4 bands; the "
+                  f"blocked K loop, float4)"),
+                 ("wavelet_control_train", WAV_K, 6,
+                  f"B={B} K={WAV_K} M=6 (factor_mix forward, the raw Smooth "
+                  f"control's training batch; the blocked K loop, float2)")]
+    flow_rows += [(f"fcs_train_k{K}", K, 3,
+                   f"B={B} K={K} M=3 (factor_mix forward, the factor-count "
+                   f"sweep's training batch on synSys 3-1-2; scalar)")
+                  for K in FCS_K]
+    for key, K, M, shape in flow_rows:
+        wf = torch.rand((B, K), generator=gen).to(dev)
+        pf = torch.randn((K, B, 1, M), generator=gen).to(dev)
+        fns = {"kernel_ms": lambda w=wf, p=pf: FM.factor_mix(w, p),
+               "library_ms": lambda w=wf, p=pf, K=K, M=M: torch.bmm(
+                   w[:, None, :], p.reshape(K, B, M).transpose(0, 1)),
+               "plain_ms": lambda w=wf, p=pf: FM.factor_mix_reference(w, p)}
+        t = timing["factor_mix"][key] = {"shape": shape,
+                                         **_time_turns(torch, fns)}
+        t["bound_ms"], t["bound_by"] = _bound_ms(B, K, M, B)
+        t["floor_ms"] = floor_ms
+        t["device_us_alone"] = _alone_us(torch, {
+            "kernel": fns["kernel_ms"], "library": fns["library_ms"],
+            "plain": fns["plain_ms"], "floor": one.zero_})
     # the grid's lane form: 27 lanes at the training batch and at the
     # remainder batch, one launch each; the library call is torch.matmul on
     # the permuted operands
@@ -2467,18 +2555,18 @@ class _PrimedProfile:
 
 def _alone_us(torch, fns, n=200):
     """Device us per call of each of ``fns`` (name -> fn) run alone:
-    ``torch.profiler`` device time of ``n`` back-to-back calls."""
-    from torch.profiler import ProfilerActivity, profile
-
+    ``torch.profiler`` device time of ``n`` back-to-back calls, in a
+    session opened with the primer (:class:`_PrimedProfile`), so no record
+    of the calls is lost to the session's first launch."""
     alone = {}
     for name, fn in fns.items():
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with _PrimedProfile(torch, f"alone_{name}") as session:
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        alone[name] = _device_us(torch, prof, n)[1]
+        alone[name] = session.device_us(n)[1]
     return alone
 
 
@@ -4814,19 +4902,23 @@ def _d4gs_grid(name, res, n_train, n_val, batch, points):
     return forwards + warm["factor_mix"], warm, budget
 
 
-def _d4gs_loads(name, run_dirs):
-    """Every run dir's artifact loads with finite params."""
+def _d4gs_loads(name, run_dirs, model_class="RedcliffSCMLP"):
+    """Every run dir's artifact is a ``model_class`` one and loads with
+    finite params. Returns the runs' configs."""
     import numpy as np
 
     from redcliff_tpu_torch.eval.model_io import load_artifact
     from redcliff_tpu_torch.interop import tree_leaves
 
+    configs = []
     for run_dir in run_dirs:
         payload = load_artifact(run_dir)
-        _require(payload["model_class"] == "RedcliffSCMLP"
+        _require(payload["model_class"] == model_class
                  and all(bool(np.isfinite(np.asarray(x)).all())
                          for x in tree_leaves(payload["params"])),
                  f"{name}: artifact of {run_dir}")
+        configs.append(payload["config"])
+    return configs
 
 
 def _lane_rows(torch, FM, K, M, shapes):
@@ -5239,6 +5331,164 @@ def phase_grid_science_parity(torch, FM, PX):
     return mix1 + mix2, prox1 + prox2, max(errs.values()), rows
 
 
+def phase_wavelet_flow(torch, FM, PX):
+    """The wavelet flow's twin ``main`` with the JAX script's ``--smoke``
+    and one fold on the card (``WAV_ARGV``): the LFP analog's fold (24 / 8
+    recordings of T = 128) curated on the host; the wavelet Smooth
+    REDCLIFF-S (K 9, 24 series), the wavelet cMLP and the raw Smooth
+    control trained through the array task; the battery and the
+    wavelet-ranked readout. Counts at 0 just before, read just after."""
+    import math
+
+    from redcliff_tpu_torch.experiments import wavelet_flow as WF
+
+    name = "wavelet_flow"
+    wd = os.path.join(HERE, "build", "chip_smoke", name)
+    shutil.rmtree(wd + "_smoke", ignore_errors=True)
+    records = {}
+    FM.factor_mix.launches = 0
+    PX.gl_prox.launches = 0
+    t0 = time.perf_counter()
+    out = WF.main([wd] + WAV_ARGV, device="cuda", records=records)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    mix, prox = FM.factor_mix.launches, PX.gl_prox.launches
+    dest = os.path.join(wd + "_smoke", "ACCURACY_WAVELET_smoke.json")
+    _require(os.path.isfile(dest), f"{name}: no {dest}")
+    with open(dest) as f:
+        written = json.load(f)
+    _require(set(written) == set(WAV_JSON_KEYS) == set(out)
+             and written["wavelet_level"] == WF.WAVELET_LEVEL,
+             f"{name}: JSON keys {sorted(written)}")
+    rows = written["algorithms"]
+    aliases = [alias for _, _, alias in WF.MODELS]
+    _require(list(rows) == aliases
+             and all(math.isfinite(v) for r in rows.values()
+                     for v in r.values()),
+             f"{name}: rows {rows}")
+    run_dirs = records["run_dirs"]
+    forwards_of = []
+    for model_type, margs, alias in WF.MODELS:
+        wavelet = margs["wavelet_level"] != "None"
+        ranked = set(WAV_RANKED_KEYS) <= set(rows[alias])
+        _require(ranked == wavelet,
+                 f"{name}: {alias} ranked rows {sorted(rows[alias])}")
+        _require(len(run_dirs[alias]) == 1,
+                 f"{name}: {alias} run dirs {run_dirs[alias]}")
+        (cfg,) = _d4gs_loads(name, run_dirs[alias], "RedcliffSCMLP"
+                             if "REDCLIFF" in model_type else "CMLPFM")
+        want = (WF.WAVELET_LEVEL, 4 * WF.NUM_NODES) if wavelet else (
+            None, WF.NUM_NODES)
+        _require((cfg.wavelet_level, cfg.num_series) == want,
+                 f"{name}: {alias} trained wavelet_level "
+                 f"{cfg.wavelet_level}, {cfg.num_series} series; want "
+                 f"{want}")
+        if "REDCLIFF" in model_type:
+            _require(cfg.num_factors == 9
+                     and cfg.factor_weight_smoothing_penalty_coeff > 0,
+                     f"{name}: {alias} config {cfg}")
+            forwards_of += run_dirs[alias]
+    n_train, n_val = WF.SAMPLES[True]
+    batch = int(WF.SMOOTH_WAVELET_ARGS["batch_size"])
+    expected = _task_forwards(forwards_of, n_train, n_val, batch)
+    _require(mix == expected and prox == 0,
+             f"{name}: {mix} factor_mix executions for {expected} forwards "
+             f"of the two REDCLIFF fits (cMLP mixes nothing, scoring "
+             f"launches none), {prox} gl_prox")
+    _emit({"phase": name, "device": torch.cuda.get_device_name(0),
+           "config": "experiments/wavelet_flow.py --smoke (its own smoke "
+                     "cuts): the synSys REDCLIFF_ARGS with K 9 / 3 "
+                     "supervised, wavelet_level 3 (24 series), Smooth "
+                     "25.0; the synSys CMLP_ARGS at wavelet_level 3; the "
+                     "Smooth config on the raw 6 channels; T 128, through "
+                     "the port twin",
+           "argv": WAV_ARGV, "reduced": {"folds": "2 -> 1"},
+           "train_recordings": n_train, "val_recordings": n_val,
+           "wall_s": wall, "algorithms": rows,
+           "factor_mix_launches": mix, "expected_factor_mix": expected,
+           "gl_prox_launches": prox})
+    print(f"{name} wall_s {wall:.1f}", flush=True)
+    return mix, prox
+
+
+def phase_factor_count_selection(torch, FM, PX):
+    """The factor-count twin's ``main`` with the JAX script's ``--smoke``,
+    synSys 3-1-2 and one fold on the card (``FCS_ARGV``): the fold (240 /
+    96 recordings) curated on the host; REDCLIFF-S at K = 2-6 through five
+    array tasks, scored; ``factor_selection_table`` over the runs; K
+    selected by the summed criteria. Counts at 0 just before, read just
+    after."""
+    import math
+
+    from redcliff_tpu_torch.experiments import factor_count_selection as FC
+
+    name = "factor_count_selection"
+    wd = os.path.join(HERE, "build", "chip_smoke", name)
+    shutil.rmtree(wd, ignore_errors=True)
+    system = FCS_ARGV[FCS_ARGV.index("--systems") + 1]
+    records = {}
+    FM.factor_mix.launches = 0
+    PX.gl_prox.launches = 0
+    t0 = time.perf_counter()
+    out = FC.main([wd] + FCS_ARGV, device="cuda", records=records)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    mix, prox = FM.factor_mix.launches, PX.gl_prox.launches
+    dest = os.path.join(wd, "FACTOR_COUNT_SELECTION_smoke.json")
+    _require(os.path.isfile(dest), f"{name}: no {dest}")
+    with open(dest) as f:
+        written = json.load(f)
+    _require(set(written) == set(FCS_JSON_KEYS) == set(out)
+             and list(written["systems"]) == [system]
+             and set(written["systems"][system]) == set(FCS_RECORD_KEYS),
+             f"{name}: JSON keys {sorted(written)}, systems "
+             f"{list(written['systems'])}")
+    rec = written["systems"][system]
+    ks = [str(K) for K in FC.K_CANDIDATES]
+    table = rec["selection_table"]
+    _require(list(table) == ks and all(
+        math.isfinite(table[k].get("avg_forecasting_loss_mean", math.nan))
+        and math.isfinite(table[k].get("avg_factor_loss_mean", math.nan))
+        for k in ks), f"{name}: selection table {table}")
+    sums = [rec["criteria_sum_by_k"][k] for k in ks]
+    argmin = FC.K_CANDIDATES[sums.index(min(sums))]
+    _require(rec["selected_num_factors"] == argmin,
+             f"{name}: selected K {rec['selected_num_factors']} for sums "
+             f"{sums}")
+    run_dirs = records["run_dirs"][system]
+    states = int(system.split("-")[2])
+    all_runs = []
+    for K in FC.K_CANDIDATES:
+        _require(len(run_dirs[K]) == 1, f"{name}: K={K} runs {run_dirs[K]}")
+        (cfg,) = _d4gs_loads(name, run_dirs[K])
+        _require(cfg.num_factors == K
+                 and cfg.num_supervised_factors == states,
+                 f"{name}: K={K} trained num_factors {cfg.num_factors}, "
+                 f"{cfg.num_supervised_factors} supervised")
+        all_runs += run_dirs[K]
+    n_train, n_val = FC.SAMPLES[True]
+    batch = int(FC.REDCLIFF_ARGS["batch_size"])
+    expected = _task_forwards(all_runs, n_train, n_val, batch)
+    _require(mix == expected and prox == 0,
+             f"{name}: {mix} factor_mix executions for {expected} forwards "
+             f"of the five fits (scoring launches none), {prox} gl_prox")
+    _emit({"phase": name, "device": torch.cuda.get_device_name(0),
+           "config": "experiments/factor_count_selection.py --smoke (its "
+                     "own smoke cuts): REDCLIFF_ARGS of "
+                     "accuracy_parity_synsys.py at num_factors 2-6, 2 "
+                     "supervised, on synSys 3-1-2, through the port twin",
+           "argv": FCS_ARGV,
+           "reduced": {"folds": "3 -> 1", "systems": "3-1-2,6-4-2 -> 3-1-2"},
+           "train_recordings": n_train, "val_recordings": n_val,
+           "wall_s": wall, "selected_num_factors": argmin,
+           "criteria_sum_by_k": rec["criteria_sum_by_k"],
+           "science_by_num_factors": rec["science_by_num_factors"],
+           "factor_mix_launches": mix, "expected_factor_mix": expected,
+           "gl_prox_launches": prox})
+    print(f"{name} wall_s {wall:.1f}", flush=True)
+    return mix, prox
+
+
 def phase_discovery(torch, FM, PX):
     """The Table-2 discovery flow on the host. One synSys 6-2-2 fold is
     curated at the study's size with the port's data layer, and its
@@ -5372,14 +5622,19 @@ def phase_analysis(torch, FM, PX, synsys_wd, synsys_out, synsys_runs):
     accuracy_synsys phase wrote: ``run_cross_experiment_analysis`` (no
     figures: ``plot=False``), ``summarize_off_diag_f1``,
     ``write_cross_experiment_report`` and ``factor_selection_table`` over
-    that phase's REDCLIFF-S run directories. Checks that the condensed
-    off-diagonal F1 means equal the twin's own JSON, and that no figure
-    is written (matplotlib is absent on the card's machine, and the
-    analysis draws nothing without it). Launches neither kernel."""
+    that phase's REDCLIFF-S run directories, then the banded condenser
+    twin (``experiments/banded_condense.py``'s ``main``) over the same
+    tree. Checks that the condensed off-diagonal F1 means, and the
+    condenser's per-system means, equal the twin's own JSON; that the
+    condenser's dynamic aggregate is each metric of the tree's
+    ``dynamic_readout_summary.json`` files; and that no figure is written
+    (matplotlib is absent on the card's machine, and the analysis draws
+    nothing without it). Launches neither kernel."""
     import importlib.util
 
     from redcliff_tpu_torch.eval import analysis as AN
     from redcliff_tpu_torch.eval import summaries as SM
+    from redcliff_tpu_torch.experiments import banded_condense as BC
 
     evals = os.path.join(synsys_wd, "evals")
     save = os.path.join(HERE, "build", "chip_smoke", "analysis")
@@ -5394,6 +5649,10 @@ def phase_analysis(torch, FM, PX, synsys_wd, synsys_out, synsys_runs):
     selection = AN.factor_selection_table(
         {2: synsys_runs["REDCLIFF_S_CMLP"]})
     wall_s = time.perf_counter() - t0
+    banded_json = os.path.join(save, "BANDED_SYNSYS.json")
+    t0 = time.perf_counter()
+    banded = BC.main([synsys_wd, "--out", banded_json])
+    banded_s = time.perf_counter() - t0
     mix, prox = FM.factor_mix.launches, PX.gl_prox.launches
     (sys_key,) = cross["condensed"]
     condensed = cross["condensed"][sys_key]["alg_stats"]
@@ -5403,6 +5662,38 @@ def phase_analysis(torch, FM, PX, synsys_wd, synsys_out, synsys_runs):
                  and table["mean"][sys_key][alg] == want,
                  f"analysis: {alg} condensed F1 {condensed[alg]['mean']} / "
                  f"table {table['mean'][sys_key][alg]} vs the twin's {want}")
+    with open(banded_json) as f:
+        _require(json.load(f) == json.loads(json.dumps(banded)),
+                 "analysis: the condenser's JSON is not what it returned")
+    per_system = banded["per_system"][sys_key]["alg_optf1"]
+    for alg, stats in synsys_out["algorithms"].items():
+        _require(per_system[alg]["mean"] == stats["offdiag_optimal_f1_mean"],
+                 f"analysis: the condenser's {alg} F1 "
+                 f"{per_system[alg]['mean']} vs the twin's "
+                 f"{stats['offdiag_optimal_f1_mean']}")
+    dyn_file = os.path.join(evals, sys_key, "dynamic",
+                            "dynamic_readout_summary.json")
+    dyn_checked = 0
+    if os.path.isfile(dyn_file):
+        with open(dyn_file) as f:
+            dyn = json.load(f)
+        _require(banded["dynamic_readouts_by_system"] == {sys_key: dyn},
+                 f"analysis: dynamic summaries "
+                 f"{sorted(banded['dynamic_readouts_by_system'])}")
+        agg = banded["dynamic_readouts_aggregate"]
+        for alg, metrics in dyn.items():
+            if alg.startswith("_") or not isinstance(metrics, dict):
+                continue
+            for metric, st in metrics.items():
+                if not isinstance(st, dict) or st.get("mean") is None:
+                    continue
+                got = agg[alg][metric]
+                _require(got["mean"] == st["mean"] and got["n_systems"] == 1
+                         and got["sem"] == 0.0,
+                         f"analysis: aggregate {alg} {metric} {got} vs the "
+                         f"summary's {st}")
+                dyn_checked += 1
+        _require(dyn_checked > 0, f"analysis: no dynamic metric in {dyn}")
     figures = [f for _, _, files in os.walk(save) for f in files
                if f.endswith(".png")]
     has_mpl = importlib.util.find_spec("matplotlib") is not None
@@ -5417,7 +5708,10 @@ def phase_analysis(torch, FM, PX, synsys_wd, synsys_out, synsys_runs):
            "off_diag_f1_mean": table["mean"][sys_key],
            "matches_twin_json": True,
            "factor_selection": selection, "matplotlib": has_mpl,
-           "figures": len(figures),
+           "figures": len(figures), "banded_wall_s_host": banded_s,
+           "banded_by_category": banded["by_category"],
+           "banded_improvement": banded["banded_improvement"],
+           "banded_dynamic_metrics_checked": dyn_checked,
            "factor_mix_launches": mix, "gl_prox_launches": prox})
     return mix, prox
 
@@ -8401,52 +8695,86 @@ def main():
     # window; the phases before telemetry count their fits' forwards
     # without it, and the telemetry phase turns it on for its own fits
     os.environ["REDCLIFF_QUALITY"] = "0"
-    smi = phase_build(torch, {"factor_mix": FM, "gl_prox": PX})
-    max_err, timing = phase_kernel(torch, FM, PX)
-    serve_launches, smodel, sparams = phase_serve(torch, FM, PX)
-    phase_check(torch, smodel, sparams)
-    el_mix, bf16_err, bf16_t = phase_serve_elastic(torch, FM, PX, smodel,
-                                                   sparams)
-    mix_launches, prox_launches, tmodel, tparams, train_ds = phase_train(
-        torch, FM, PX)
-    phase_train_check(torch, tmodel, tparams, train_ds)
-    grid_mix, grid_prox, gmodel, gparams, gtrain, gres = phase_grid(
-        torch, FM, PX)
-    phase_grid_check(torch, gmodel, gparams, gtrain)
-    stream = phase_grid_stream(torch, FM, PX, gparams)
-    dur_mix, dur_prox = phase_grid_durable(torch, FM, PX, gparams)
-    task_mix, task_prox, task_runs = phase_array_task(torch, FM, PX)
-    eval_mix, eval_prox = phase_eval(torch, FM, PX, gmodel, gres, task_runs,
-                                     timing["factor_mix"]["readout"])
-    base_mix, base_prox, base_models, base_train = phase_baselines(
-        torch, FM, PX)
-    phase_baselines_check(torch, PX, base_models, base_train)
-    dc_mix, dc_prox, dc_model, dc_root, dc_margs = phase_dcsfa(torch, FM, PX)
-    dc_check = phase_dcsfa_check(torch, dc_model, dc_root, dc_margs)
-    dy_mix, dy_prox = phase_dynotears(torch, FM, PX)
-    gen_mix, gen_prox = phase_data_gen(torch, FM, PX)
-    phase_data_gen_check(torch)
-    syn_mix, syn_prox, syn_wd, syn_out, syn_runs = phase_accuracy_synsys(
-        torch, FM, PX)
-    d4_mix, d4_prox = phase_accuracy_d4ic(torch, FM, PX)
-    gs_mix, gs_prox, gs_err, gs_rows = phase_d4ic_grid_search(torch, FM,
-                                                              PX)
-    ss_mix, ss_prox = phase_d4ic_smooth_searched(torch, FM, PX)
-    gsp_mix, gsp_prox, gsp_err, gsp_rows = phase_grid_science_parity(
-        torch, FM, PX)
-    disc_mix, disc_prox, tst_X, tst_y = phase_discovery(torch, FM, PX)
-    an_mix, an_prox = phase_analysis(torch, FM, PX, syn_wd, syn_out,
-                                     syn_runs)
-    tst_mix, tst_prox = phase_ts_transformer(torch, FM, PX, tst_X, tst_y,
-                                             smi)
-    tel_mix, tel_prox = phase_telemetry(torch, smi)
-    rt_mix, rt_prox = phase_runtime(torch, smi)
-    mixed = phase_mixed_train(torch, smi)
-    phase_obs_cli(torch, os.path.join(HERE, "build", "chip_smoke",
-                                      "telemetry"), mixed)
-    fleet = phase_fleet(torch, smi, [e["ms"] for e in gres.epochs])
-    mesh_launches, mesh_err, mesh_rows = phase_mesh(torch, FM, PX, smi,
-                                                    gres)
+    walls = {}
+
+    def run(name, fn, *args):
+        """``fn(*args)``, its wall in seconds kept under ``name``."""
+        t0 = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            walls[name] = time.perf_counter() - t0
+
+    try:
+        smi = run("build", phase_build, torch,
+                  {"factor_mix": FM, "gl_prox": PX})
+        max_err, timing = run("kernel", phase_kernel, torch, FM, PX)
+        serve_launches, smodel, sparams = run("serve", phase_serve, torch,
+                                              FM, PX)
+        run("check", phase_check, torch, smodel, sparams)
+        el_mix, bf16_err, bf16_t = run("serve_elastic", phase_serve_elastic,
+                                       torch, FM, PX, smodel, sparams)
+        mix_launches, prox_launches, tmodel, tparams, train_ds = run(
+            "train", phase_train, torch, FM, PX)
+        run("train_check", phase_train_check, torch, tmodel, tparams,
+            train_ds)
+        grid_mix, grid_prox, gmodel, gparams, gtrain, gres = run(
+            "grid", phase_grid, torch, FM, PX)
+        run("grid_check", phase_grid_check, torch, gmodel, gparams, gtrain)
+        stream = run("grid_stream", phase_grid_stream, torch, FM, PX,
+                     gparams)
+        dur_mix, dur_prox = run("grid_durable", phase_grid_durable, torch,
+                                FM, PX, gparams)
+        task_mix, task_prox, task_runs = run("array_task", phase_array_task,
+                                             torch, FM, PX)
+        eval_mix, eval_prox = run("eval", phase_eval, torch, FM, PX, gmodel,
+                                  gres, task_runs,
+                                  timing["factor_mix"]["readout"])
+        base_mix, base_prox, base_models, base_train = run(
+            "baselines", phase_baselines, torch, FM, PX)
+        run("baselines_check", phase_baselines_check, torch, PX, base_models,
+            base_train)
+        dc_mix, dc_prox, dc_model, dc_root, dc_margs = run(
+            "dcsfa", phase_dcsfa, torch, FM, PX)
+        dc_check = run("dcsfa_check", phase_dcsfa_check, torch, dc_model,
+                       dc_root, dc_margs)
+        dy_mix, dy_prox = run("dynotears", phase_dynotears, torch, FM, PX)
+        gen_mix, gen_prox = run("data_gen", phase_data_gen, torch, FM, PX)
+        run("data_gen_check", phase_data_gen_check, torch)
+        syn_mix, syn_prox, syn_wd, syn_out, syn_runs = run(
+            "accuracy_synsys", phase_accuracy_synsys, torch, FM, PX)
+        d4_mix, d4_prox = run("accuracy_d4ic", phase_accuracy_d4ic, torch,
+                              FM, PX)
+        gs_mix, gs_prox, gs_err, gs_rows = run(
+            "d4ic_grid_search", phase_d4ic_grid_search, torch, FM, PX)
+        ss_mix, ss_prox = run("d4ic_smooth_searched",
+                              phase_d4ic_smooth_searched, torch, FM, PX)
+        gsp_mix, gsp_prox, gsp_err, gsp_rows = run(
+            "grid_science_parity", phase_grid_science_parity, torch, FM, PX)
+        wav_mix, wav_prox = run("wavelet_flow", phase_wavelet_flow, torch,
+                                FM, PX)
+        fcs_mix, fcs_prox = run("factor_count_selection",
+                                phase_factor_count_selection, torch, FM, PX)
+        disc_mix, disc_prox, tst_X, tst_y = run("discovery", phase_discovery,
+                                                torch, FM, PX)
+        an_mix, an_prox = run("analysis", phase_analysis, torch, FM, PX,
+                              syn_wd, syn_out, syn_runs)
+        tst_mix, tst_prox = run("ts_transformer", phase_ts_transformer,
+                                torch, FM, PX, tst_X, tst_y, smi)
+        tel_mix, tel_prox = run("telemetry", phase_telemetry, torch, smi)
+        rt_mix, rt_prox = run("runtime", phase_runtime, torch, smi)
+        mixed = run("mixed_train", phase_mixed_train, torch, smi)
+        run("obs_cli", phase_obs_cli, torch,
+            os.path.join(HERE, "build", "chip_smoke", "telemetry"), mixed)
+        fleet = run("fleet", phase_fleet, torch, smi,
+                    [e["ms"] for e in gres.epochs])
+        mesh_launches, mesh_err, mesh_rows = run("mesh", phase_mesh, torch,
+                                                 FM, PX, smi, gres)
+    except BaseException:
+        # where the time went up to the phase that failed
+        print(json.dumps({"phase_walls_s": walls}), file=sys.stderr,
+              flush=True)
+        raise
     if "--profile" in sys.argv[1:]:
         phase_profile(torch, FM)
         phase_profile_train(torch, FM, PX, tmodel, tparams, train_ds)
@@ -8471,6 +8799,8 @@ def main():
                  "d4ic_grid_search": gs_mix,
                  "d4ic_smooth_searched": ss_mix,
                  "grid_science_parity": gsp_mix,
+                 "wavelet_flow": wav_mix,
+                 "factor_count_selection": fcs_mix,
                  "discovery": disc_mix, "analysis": an_mix,
                  "ts_transformer": tst_mix, "telemetry": tel_mix,
                  "runtime": rt_mix,
@@ -8496,7 +8826,10 @@ def main():
                   "accuracy_d4ic": d4_prox,
                   "d4ic_grid_search": gs_prox,
                   "d4ic_smooth_searched": ss_prox,
-                  "grid_science_parity": gsp_prox, "discovery": disc_prox,
+                  "grid_science_parity": gsp_prox,
+                  "wavelet_flow": wav_prox,
+                  "factor_count_selection": fcs_prox,
+                  "discovery": disc_prox,
                   "analysis": an_prox, "ts_transformer": tst_prox,
                   "telemetry": tel_prox, "runtime": rt_prox,
                   "mixed_train": mixed["launches"]["gl_prox"],
@@ -8520,6 +8853,7 @@ def main():
               bytes=bf16_t["bytes"],
               by_shape={k: mixed["bf16_kernel"][k]
                         for k in ("train", "lanes")})
+    _emit({"phase_walls_s": walls})
     _emit({"kernels": [fm, px, bf]})
     print(smi, flush=True)
     _emit({"ok": True, "device": {"platform": "gpu",

@@ -64,7 +64,8 @@
 // The K loop is what sets a launch's device time at these shapes: a wave
 // of a few blocks whose threads each wait for their loads, then run K
 // dependent fmaf. K is a template argument for K <= 8 (the launch picks
-// the instantiation; the port's models have K = 1, 2 and 5), so the loop
+// the instantiation; the port's paths launch K = 1, 2, 3, 4, 5, 6 and 9,
+// the last through the blocked loop below), so the loop
 // unrolls exactly and has no branch: all K loads of a thread are issued
 // before the first product, one memory round trip in all. A loop unrolled
 // to a fixed bound behind `if (k < K)` guards would put a branch before

@@ -193,11 +193,12 @@ def test_d4ic_twin_runs_end_to_end_on_cpu(tmp_path, monkeypatch):
 
 
 def test_twins_import_and_curate_with_jax_blocked(tmp_path):
-    """``redcliff_tpu_torch.data`` and the five twins import, a tiny fold
+    """``redcliff_tpu_torch.data`` and the eight twins import, a tiny fold
     and one D4IC network are curated, the grid-search twin curates its
-    selection fold and builds its setup, and the science check curates
-    its fold, in a process where importing jax fails; nothing of the JAX
-    package loads."""
+    selection fold and builds its setup, the science check and the
+    wavelet flow curate their folds, and the factor-count selection and
+    the banded condenser run their host functions, in a process where
+    importing jax fails; nothing of the JAX package loads."""
     code = f"""
 import sys
 sys.modules["jax"] = None
@@ -234,7 +235,14 @@ GP.SAMPLES = {{True: (4, 2), False: (4, 2)}}
 gp_dargs = GP.curate_fold(os.path.join({str(tmp_path)!r}, "gsp"), 0, True,
                           "4-1-2")
 assert os.path.isfile(gp_dargs)
-leaked = sorted(m for m in sys.modules
+from redcliff_tpu_torch.experiments import banded_condense as BC
+from redcliff_tpu_torch.experiments import factor_count_selection as FC
+from redcliff_tpu_torch.experiments import wavelet_flow as WF
+wf_dargs = WF.curate_fold(os.path.join({str(tmp_path)!r}, "wav"), 0, 3, 2)
+assert os.path.isfile(wf_dargs) and WF.main and WF.MODELS[1][0] == "cMLP"
+assert FC.select_k({{K: {{}} for K in FC.K_CANDIDATES}})[1] == 2 and FC.main
+assert BC.aggregate_dynamic({{}}) == {{}} and BC.main
+leaked =sorted(m for m in sys.modules
                 if (m == "jax" or m.startswith("jax.")) and sys.modules[m]
                 or m == "redcliff_tpu" or m.startswith("redcliff_tpu."))
 print("LEAKED", leaked)
