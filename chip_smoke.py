@@ -34,8 +34,10 @@ Phases, one JSON line each:
    launch plan each case took; CUDA-event times of the kernel, one library
    call where one exists and the plain version, in turns, beside the bound
    and the launch floor (one ``x.zero_()``), and at the synSys flow's two
-   shapes (B=128 K=2 M=6, S=85 K=2 M=36) each one's device time alone
-   (``torch.profiler``); the host cost of each piece of the factor mix's
+   shapes (B=128 K=2 M=6, S=85 K=2 M=36) and the later flows' (the
+   wavelet, factor-count and High-band training batches, the High-band
+   readout at S=85 K=4-6 M=36, the scaling step's lane shards G=16/8/4/2
+   at B=32) each one's device time alone (``torch.profiler``); the host cost of each piece of the factor mix's
    launch path.
 3. serve: a REDCLIFF-S model at the D4IC headline widths (10 channels,
    gen_lag 4, embed_lag 16, 5 factors, DGCNN embedder with 3 graph-conv
@@ -231,7 +233,28 @@ Phases, one JSON line each:
    and the record's key sets, five table entries with both criteria, the
    selected K the argmin of the criteria sums, each run's ``num_factors``,
    factor-mix executions = the five fits' forwards, no GL prox.
-27. discovery: the Table-2 flow on the host
+27. highband_readout_sweep: the High-band readout sweep's twin
+   (``redcliff_tpu_torch/experiments/highband_readout_sweep.py``) with the
+   JAX script's ``--smoke``, synSys 6-2-4 and one fold (240 / 96
+   recordings): REDCLIFF-S (K 4, 12 epochs), cMLP and DGCNN (8 each)
+   through three array tasks, then the dynamic readouts under the four
+   conditions (the round-4 convention; a common window grid x label
+   anchor last, center, majority). Checks the JSON's, each condition's
+   and the aggregate's key sets, finite REDCLIFF readouts, the REDCLIFF
+   entries of ``round4_convention`` and ``common_grid_last`` equal (both
+   score at history 16, anchored last), every run dir's reload,
+   factor-mix executions = the REDCLIFF fit's forwards + one
+   ``graph_mix`` per readout recording and condition (16 x 4), no GL
+   prox.
+28. sharded_grid_scaling: the scaling twin
+   (``redcliff_tpu_torch/experiments/sharded_grid_scaling.py``) at its
+   defaults: one G = 16, B = 32 grid step of the ``combined`` phase on
+   ``[cuda:0] * n``, n = 1, 2, 4, 8 (a simulated mesh: sharding overhead,
+   not speedup), one warm and 8 timed steps each. Checks the JSON's and
+   the rows' key sets, four rows with steps/s, the JAX script's
+   fingerprint bar (spread under 1e-5 of the largest) and each shard's
+   lane-mix launches (num_sims a step), no GL prox.
+29. discovery: the Table-2 flow on the host
    (``eval/supervised_discovery.py``): one synSys 6-2-2 fold curated at the
    study's size by the port's data layer, its held-out split (240
    recordings of (100, 6), two states, OneHot) through
@@ -244,7 +267,7 @@ Phases, one JSON line each:
    recordings from the device generator (150 of (48, 10)). Wall per
    algorithm, optimal F1 and ROC-AUC per regime factor; neither kernel
    launches.
-28. analysis: the analysis layer on the host over the accuracy_synsys
+30. analysis: the analysis layer on the host over the accuracy_synsys
    phase's ``evals/`` tree (``run_cross_experiment_analysis`` without
    figures, ``summarize_off_diag_f1``, ``write_cross_experiment_report``,
    ``factor_selection_table`` over its REDCLIFF-S runs): the condensed
@@ -254,7 +277,7 @@ Phases, one JSON line each:
    tree: its per-system F1 means equal the twin's JSON and its dynamic
    aggregate each metric of the tree's dynamic-readout summary; neither
    kernel launches.
-29. ts_transformer: the time-series transformer at mvts_transformer's
+31. ts_transformer: the time-series transformer at mvts_transformer's
    published defaults (d_model 64, 8 heads, 3 layers, feed-forward 256,
    fixed positions, gelu, BatchNorm) on 128 synSys windows (T 100, 6
    features): the encoder and the 2-class classiregressor, forwards card
@@ -262,7 +285,7 @@ Phases, one JSON line each:
    padding mask), 20 Adam steps of the classifier loss on each (loss
    histories at the trainer bars); ms per forward and per step, peak
    device memory; neither kernel launches.
-30. telemetry: the telemetry spine through the normal entry points, on
+32. telemetry: the telemetry spine through the normal entry points, on
    the train phase's model, data, knobs and weights. (1) A per-point fit
    through ``RedcliffTrainer.fit`` with a ``save_dir``,
    ``profile_window="epoch:2"``, ``REDCLIFF_QUALITY=1`` and the truth
@@ -279,7 +302,7 @@ Phases, one JSON line each:
    and ``skip_update:40`` end bitwise equal. The earlier phases run with
    ``REDCLIFF_QUALITY=0`` (their counts are their fits' forwards; the
    quality readout adds one per check window).
-31. runtime: the production runtime, on the train phase's model, data and
+33. runtime: the production runtime, on the train phase's model, data and
    weights, under a fresh autotune store and cost-model store
    (``REDCLIFF_AUTOTUNE_DIR``, ``REDCLIFF_COST_MODEL_DIR``). (1) The
    launch-plan autotuner (``ops/autotune.py``): each kernel's threads-per-
@@ -305,7 +328,7 @@ Phases, one JSON line each:
    fits wrote the cost-model store (rows under platform ``cuda`` at widths
    32 and 16); a fit with ``REDCLIFF_PREDICTIVE=1`` logs ``policy`` and
    ``cost_model`` events: each decision and the MAPE.
-32. mixed_train: mixed precision on the training path. The bf16 training
+34. mixed_train: mixed precision on the training path. The bf16 training
    form of the factor mix alone at the per-point (B=128 K=5 M=10) and the
    lane shape (G=32), on the f32 operands the mixed forward holds: forward
    against its plain version, backward against JAX's rule in float64, each
@@ -327,7 +350,7 @@ Phases, one JSON line each:
    replayed epoch): the grid demotes there for all 27 lanes, no lane is
    quarantined, its programs are captured afresh at f32, no bf16 kernel
    runs after the demotion, and the cost model scores replayed epochs only.
-33. obs_cli: ``python -m redcliff_tpu_torch.obs report --json``, ``watch
+35. obs_cli: ``python -m redcliff_tpu_torch.obs report --json``, ``watch
    --once --json`` and ``trace -o`` as subprocesses over the telemetry
    phase's and mixed_train's run dirs (one with jax and the JAX package
    blocked): exit 0, every record valid, each trace valid, the mixed
@@ -336,7 +359,7 @@ Phases, one JSON line each:
    scored epochs; ``python -m redcliff_tpu_torch.obs.schema --check``;
    exit 2 with one line on a missing dir and for ``regress`` without a
    trajectory.
-34. fleet: the fleet sweep service through its CLI. The train phase's
+36. fleet: the fleet sweep service through its CLI. The train phase's
    D4IC-shaped windows as an npz; three tenants submit the published
    grid's points 0-8, 9-17 and 18-26 with one spec (the train phase's
    model and knobs, GL prox λ=4, data kind ``npz``, 4 epochs) through
@@ -358,7 +381,7 @@ Phases, one JSON line each:
    and ``trace --fleet -o`` as subprocesses. One line: the card, each
    leg's wall, the child's startup and fit wall, the replayed epoch's ms,
    the batch's width, the window's executions.
-35. mesh: the device mesh (``parallel/{mesh,remesh,distributed,
+37. mesh: the device mesh (``parallel/{mesh,remesh,distributed,
    sequence}.py``) on meshes that name the one card several times — a
    simulated larger mesh, as the JAX package's forced CPU device count —
    and on the distinct cards. First both kernels at the mesh's shapes
@@ -398,7 +421,7 @@ each grid_stream fit, grid_durable, array_task, eval, each baseline task
 and the GISTA fit, dcsfa, dynotears, data_gen, accuracy_synsys,
 accuracy_d4ic, each d4ic_grid_search leg, d4ic_smooth_searched, each
 grid_science_parity call, wavelet_flow, factor_count_selection,
-discovery, analysis,
+highband_readout_sweep, sharded_grid_scaling, discovery, analysis,
 ts_transformer, each telemetry fit, each runtime fit, each mixed_train
 fit, each mesh fit in this process) and read just after; the bf16
 form of the factor mix has its own count (``graph_mix_bf16.launches``,
@@ -840,6 +863,32 @@ GSP_LANE_SHAPES = (
      "its 240 train recordings"),
     ("gsp_remainder", 4, 112, "its train remainder, 240 = 128 + 112"),
     ("gsp_val", 4, 96, "its 96 validation recordings"))
+# the High-band readout sweep's twin: its main with the JAX script's
+# --smoke on synSys 6-2-4 alone, one fold (REDCLIFF-S, cMLP and DGCNN, the
+# four readout conditions); the sharded-grid scaling twin at its defaults
+# (G = 16, B = 32, 8 timed steps on [cuda:0] * 1, 2, 4, 8)
+HBS_ARGV = ["--smoke", "--systems", "6-2-4", "--folds", "1"]
+# the key sets of the JSON experiments/highband_readout_sweep.py writes
+# and of each condition's readout summary
+HBS_JSON_KEYS = ("folds", "smoke", "conditions", "systems",
+                 "redcliff_aggregate_by_condition")
+HBS_CONDITION_KEYS = ("REDCLIFF_S_CMLP", "CMLP", "DGCNN", "_conventions")
+# the key sets of the JSON experiments/sharded_grid_scaling.py writes and
+# of its rows
+SGS_JSON_KEYS = ("config", "rows", "output_fingerprint_spread")
+SGS_ROW_KEYS = ("n_devices", "step_s", "steps_per_s", "fingerprint",
+                "wall_s", "step_time_vs_1dev")
+# the factor mix at the shapes those flows add: the High-band systems'
+# REDCLIFF-S at K = 4, 5, 6 (each its exact instantiation) and M = 6
+# (float2), at batch 128, the published remainders 16 (1,040 = 8 x 128 +
+# 16) and 112 (240 = 128 + 112) and the smoke's 96 validation recordings;
+# the readout's graph_mix at S = 85 windows (T 100 - embed_lag 16 + 1), K =
+# 4, 5, 6, M = 36; the scaling step's lane form at 16 / n lanes a shard
+# (G = 16, 8, 4, 2), B = 32, K = 5, M = 10
+HBS_K = (4, 5, 6)
+HBS_BATCHES = (128, 112, 16, 96)
+SGS_LANES = (16, 8, 4, 2)
+SGS_BATCH = 32
 # run_dynamic_readout_evaluation's default: recordings read out per fold,
 # one graph_mix each for a REDCLIFF run
 ACC_DYNAMIC_RECORDINGS = 16
@@ -1387,6 +1436,124 @@ def _prox_host_breakdown(torch, PX, W, lam, lr):
     return {k: _host_us(torch, f) for k, f in pieces.items()}
 
 
+def _slice21_kernel(torch, FM, dev, errs, floor_ms, one):
+    """The factor mix at the shapes the High-band sweep and the scaling
+    step add, on inputs of their own generator (the earlier checks keep
+    their draws): forward against the plain version and the plan taken;
+    gradients on a fixed cotangent (the backward held to the plain
+    backward, apart from the forward's rounding); each shape timed in
+    turns beside its library call, its bound and its device time alone.
+    Returns the plans and the timing rows."""
+    gen = torch.Generator().manual_seed(24)
+    plans, rows = {}, {}
+
+    def fixed_grads(mix, w0, p0, r):
+        w = w0.clone().requires_grad_(True)
+        p = p0.clone().requires_grad_(True)
+        (r * mix(w, p)).sum().backward()
+        return w.grad, p.grad
+
+    def timed(key, shape, fns, bound):
+        t = rows[key] = {"shape": shape, **_time_turns(torch, fns)}
+        t["bound_ms"], t["bound_by"] = bound
+        t["floor_ms"] = floor_ms
+        t["device_us_alone"] = _alone_us(torch, {
+            "kernel": fns["kernel_ms"], "library": fns["library_ms"],
+            "plain": fns["plain_ms"], "floor": one.zero_})
+
+    # the High-band REDCLIFF-S batches: K = 4, 5, 6 at M = 6 (float2)
+    for K in HBS_K:
+        for B in HBS_BATCHES:
+            w = torch.rand((B, K), generator=gen).to(dev)
+            p = torch.randn((K, B, 1, 6), generator=gen).to(dev)
+            r = torch.randn((B, 1, 6), generator=gen).to(dev)
+            name = f"factor_mix{(B, K, 1, 6)}"
+            _check_close(torch, name, FM.factor_mix(w, p),
+                         FM.factor_mix_reference(w, p), errs)
+            plans[name] = _VEC[FM.mix_plan(B, 6, p.stride(0), p.stride(1),
+                                           p.data_ptr() % 16)[0]]
+            for what, a, b in zip(
+                    ("dw", "dp"), fixed_grads(FM.factor_mix, w, p, r),
+                    fixed_grads(FM.factor_mix_reference, w, p, r)):
+                _check_close(torch, f"factor_mix autograd {what} (B={B} "
+                                    f"K={K} M=6)", a, b, errs)
+        B = HBS_BATCHES[0]
+        w = torch.rand((B, K), generator=gen).to(dev)
+        p = torch.randn((K, B, 1, 6), generator=gen).to(dev)
+        timed(f"hbs_train_k{K}",
+              f"B={B} K={K} M=6 (factor_mix forward, the High-band sweep's "
+              f"REDCLIFF-S training batch on synSys 6-2-{K}; float2)",
+              {"kernel_ms": lambda w=w, p=p: FM.factor_mix(w, p),
+               "library_ms": lambda w=w, p=p, K=K, B=B: torch.bmm(
+                   w[:, None, :], p.reshape(K, B, 6).transpose(0, 1)),
+               "plain_ms": lambda w=w, p=p: FM.factor_mix_reference(w, p)},
+              _bound_ms(B, K, 6, B))
+    # its readout: S = 85 windows, the K graphs of 6 x 6 broadcast (float4)
+    S = SYNSYS_READOUT_S
+    for K in HBS_K:
+        w = torch.rand((S, K), generator=gen).to(dev)
+        g = torch.randn((K, 6, 6), generator=gen).to(dev)
+        name = f"graph_mix(S={S} K={K} M=36)"
+        _check_close(torch, name, FM.graph_mix(w, g),
+                     FM.graph_mix_reference(w, g), errs)
+        plans[name] = _VEC[FM.mix_plan(S, 36, g.stride(0), 0,
+                                       g.data_ptr() % 16)[0]]
+        timed(f"hbs_readout_k{K}",
+              f"S={S} K={K} M=36 (graph_mix, the High-band readout's factor "
+              f"sum on synSys 6-2-{K}, graphs broadcast over S)",
+              {"kernel_ms": lambda w=w, g=g: FM.graph_mix(w, g),
+               "library_ms": lambda w=w, g=g, K=K: torch.mm(w,
+                                                           g.view(K, -1)),
+               "plain_ms": lambda w=w, g=g: FM.graph_mix_reference(w, g)},
+              _bound_ms(S, K, 36, 1))
+    # the scaling step's shards: 16 / n lanes at B = 32 (K = 5, M = 10),
+    # one launch a call; the vmap rule's gradients (as the grid step takes
+    # them) and autograd through the lane form, on a fixed cotangent
+    K, C, B = K_TRAIN, C_TRAIN, SGS_BATCH
+    for Gs in SGS_LANES:
+        w = torch.rand((Gs, B, K), generator=gen).to(dev)
+        p = torch.randn((Gs, K, B, 1, C), generator=gen).to(dev)
+        r = torch.randn((Gs, B, 1, C), generator=gen).to(dev)
+        name = f"factor_mix_lanes(G={Gs}, B={B})"
+        before = FM.factor_mix.launches
+        got = FM.factor_mix_lanes(w, p)
+        _require(FM.factor_mix.launches == before + 1,
+                 f"{name}: not one launch for all lanes")
+        _check_close(torch, name, got, FM.factor_mix_lanes_reference(w, p),
+                     errs)
+        plans[name] = _VEC[FM.mix_plan(B, C, p.stride(1), p.stride(2),
+                                       p.data_ptr() % 16, p.stride(0))[0]]
+
+        def vmap_grads(mix, w=w, p=p, r=r):
+            return torch.func.vmap(torch.func.grad(
+                lambda a, b, c: (c * mix(a, b)).sum(), argnums=(0, 1)))(
+                    w, p, r)
+        for what, a, b in zip(("dw", "dp"),
+                              vmap_grads(FM.FactorMixFn.apply),
+                              vmap_grads(FM.factor_mix_reference)):
+            _check_close(torch, f"factor_mix vmap rule {what} (G={Gs}, "
+                                f"B={B})", a, b, errs)
+        for what, a, b in zip(
+                ("dw", "dp"), fixed_grads(FM.factor_mix_lanes, w, p, r),
+                fixed_grads(FM.factor_mix_lanes_reference, w, p, r)):
+            _check_close(torch, f"factor_mix_lanes autograd {what} "
+                                f"(G={Gs}, B={B})", a, b, errs)
+        timed(f"sgs_lanes_g{Gs}",
+              f"G={Gs} B={B} K={K} M={C} (factor_mix_lanes: a shard of the "
+              f"scaling step's 16 lanes on {16 // Gs} entries); library_ms: "
+              f"torch.matmul on permuted operands",
+              {"kernel_ms": lambda w=w, p=p: FM.factor_mix_lanes(w, p),
+               "library_ms": lambda w=w, p=p: _mix_lanes_library(torch, w,
+                                                                 p),
+               "plain_ms": lambda w=w, p=p: FM.factor_mix_lanes_reference(
+                   w, p)},
+              _bound_ms(Gs * B, K, C, Gs * B))
+    _require(all(v == ("float4" if "graph_mix" in k else "float2")
+                 for k, v in plans.items()),
+             f"factor_mix launch plans at the slice's shapes {plans}")
+    return plans, rows
+
+
 def phase_kernel(torch, FM, PX):
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
@@ -1617,6 +1784,10 @@ def phase_kernel(torch, FM, PX):
             "library_ms": None}
         t["bound_ms"], t["bound_by"] = _prox_bound_ms(Wl[:live].numel())
         t["floor_ms"] = floor_ms
+    plans21, rows21 = _slice21_kernel(torch, FM, dev, errs["factor_mix"],
+                                      floor_ms, one)
+    mix_plans.update(plans21)
+    timing["factor_mix"].update(rows21)
     host_us = {"factor_mix_tick": _mix_host_breakdown(
         torch, FM, w, gc[:, None].expand(5, CAPACITY, 10, 10), gc),
         "factor_mix_train": _mix_host_breakdown(torch, FM, wt, pt),
@@ -5489,6 +5660,171 @@ def phase_factor_count_selection(torch, FM, PX):
     return mix, prox
 
 
+def phase_highband_readout_sweep(torch, FM, PX):
+    """The High-band readout sweep's twin ``main`` with the JAX script's
+    ``--smoke``, synSys 6-2-4 and one fold on the card (``HBS_ARGV``): the
+    fold (240 / 96 recordings) curated on the host; REDCLIFF-S (K 4),
+    cMLP and DGCNN through three array tasks; the dynamic readouts under
+    the four conditions. Counts at 0 just before, read just after."""
+    import math
+
+    from redcliff_tpu_torch.experiments import highband_readout_sweep as HB
+
+    name = "highband_readout_sweep"
+    wd = os.path.join(HERE, "build", "chip_smoke", name)
+    shutil.rmtree(wd, ignore_errors=True)
+    system = HBS_ARGV[HBS_ARGV.index("--systems") + 1]
+    folds = int(HBS_ARGV[HBS_ARGV.index("--folds") + 1])
+    records = {}
+    FM.factor_mix.launches = 0
+    PX.gl_prox.launches = 0
+    t0 = time.perf_counter()
+    out = HB.main([wd] + HBS_ARGV, device="cuda", records=records)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    mix, prox = FM.factor_mix.launches, PX.gl_prox.launches
+    dest = os.path.join(wd, "HIGHBAND_READOUT_SWEEP_smoke.json")
+    _require(os.path.isfile(dest), f"{name}: no {dest}")
+    with open(dest) as f:
+        written = json.load(f)
+    conds = [c["name"] for c in HB.CONDITIONS]
+    res = written["systems"].get(system, {})
+    _require(set(written) == set(HBS_JSON_KEYS) == set(out)
+             and list(written["systems"]) == [system]
+             and written["conditions"] == conds == list(res)
+             and list(written["redcliff_aggregate_by_condition"]) == conds
+             and all(set(res[c]) == set(HBS_CONDITION_KEYS) for c in conds),
+             f"{name}: JSON keys {sorted(written)}, systems "
+             f"{list(written['systems'])}, conditions "
+             f"{ {c: sorted(v) for c, v in res.items()} }")
+    for c in conds:
+        red = res[c]["REDCLIFF_S_CMLP"]
+        _require(all(red[m] is None or math.isfinite(red[m]["mean"])
+                     for m in HB.METRICS)
+                 and red["dynamic_optimal_f1"] is not None
+                 and red["dominant_state_acc"] is not None,
+                 f"{name}: {c} REDCLIFF readout {red}")
+    # both score REDCLIFF-S at its history (16) with the last-step anchor
+    _require(res["round4_convention"]["REDCLIFF_S_CMLP"]
+             == res["common_grid_last"]["REDCLIFF_S_CMLP"],
+             f"{name}: round4_convention and common_grid_last differ for "
+             f"REDCLIFF-S")
+    roots = records["roots"][system]
+    runs = {alias: [os.path.join(root, d) for d in sorted(os.listdir(root))]
+            for alias, root in roots.items()}
+    configs = {}
+    for alias, cls in (("REDCLIFF_S_CMLP", "RedcliffSCMLP"),
+                       ("CMLP", "CMLPFM"), ("DGCNN", "DGCNNModel")):
+        _require(len(runs[alias]) == folds,
+                 f"{name}: {alias} runs {runs[alias]}")
+        configs[alias] = _d4gs_loads(name, runs[alias], cls)
+    states = int(system.split("-")[2])
+    _require(all(cfg.num_factors == cfg.num_supervised_factors == states
+                 for cfg in configs["REDCLIFF_S_CMLP"]),
+             f"{name}: REDCLIFF-S configs {configs['REDCLIFF_S_CMLP']}")
+    n_train, n_val = HB.SAMPLES[True]
+    batch = int(HB.REDCLIFF_ARGS["batch_size"])
+    forwards = _task_forwards(runs["REDCLIFF_S_CMLP"], n_train, n_val, batch)
+    readouts = ACC_DYNAMIC_RECORDINGS * folds * len(conds)
+    expected = forwards + readouts
+    _require(mix == expected and prox == 0,
+             f"{name}: {mix} factor_mix executions for {forwards} "
+             f"REDCLIFF forwards + {readouts} graph_mix readouts (cMLP and "
+             f"DGCNN mix nothing), {prox} gl_prox")
+    _emit({"phase": name, "device": torch.cuda.get_device_name(0),
+           "config": "experiments/highband_readout_sweep.py --smoke (its "
+                     "own smoke cuts): the synSys REDCLIFF_ARGS at K 4 "
+                     "(all supervised), CMLP_ARGS and DGCNN_ARGS (4 "
+                     "classes) of accuracy_parity_synsys.py on synSys "
+                     "6-2-4, the four readout conditions, through the port "
+                     "twin",
+           "argv": HBS_ARGV,
+           "reduced": {"folds": "3 -> 1",
+                       "systems": "6-2-4,6-2-5,6-2-6 -> 6-2-4"},
+           "train_recordings": n_train, "val_recordings": n_val,
+           "wall_s": wall,
+           "redcliff_by_condition": {c: res[c]["REDCLIFF_S_CMLP"]
+                                     for c in conds},
+           "baselines_dynamic_optimal_f1": {
+               c: {a: res[c][a]["dynamic_optimal_f1"]
+                   for a in ("CMLP", "DGCNN")} for c in conds},
+           "factor_mix_launches": mix, "expected_factor_mix": expected,
+           "redcliff_forwards": forwards, "graph_mix_readouts": readouts,
+           "gl_prox_launches": prox})
+    print(f"{name} wall_s {wall:.1f}", flush=True)
+    return mix, prox
+
+
+def phase_sharded_grid_scaling(torch, FM, PX):
+    """The sharded-grid scaling twin's ``main`` at its defaults on the
+    card: G = 16 points, B = 32, one warm and 8 timed ``combined`` steps
+    on ``[cuda:0] * n``, n = 1, 2, 4, 8 (a simulated mesh). Checks the
+    JSON's and the rows' key sets, the four rows, the fingerprint bar
+    (the JAX script's: spread under 1e-5 of the largest) and each shard's
+    lane-mix launches: one per simulated step (num_sims) of each of its 9
+    steps, no GL prox (no point sets a prox). Counts at 0 just before,
+    read just after."""
+    import math
+
+    from redcliff_tpu_torch.experiments import sharded_grid_scaling as SG
+
+    name = "sharded_grid_scaling"
+    wd = os.path.join(HERE, "build", "chip_smoke", name)
+    shutil.rmtree(wd, ignore_errors=True)
+    args = SG.parse_args([wd])
+    records = {}
+    FM.factor_mix.launches = 0
+    PX.gl_prox.launches = 0
+    t0 = time.perf_counter()
+    out = SG.main([wd], device="cuda", records=records)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    mix, prox = FM.factor_mix.launches, PX.gl_prox.launches
+    dest = os.path.join(wd, "SHARDED_GRID_SCALING.json")
+    _require(os.path.isfile(dest), f"{name}: no {dest}")
+    with open(dest) as f:
+        written = json.load(f)
+    rows = written["rows"]
+    _require(set(written) == set(SGS_JSON_KEYS) == set(out)
+             and [r["n_devices"] for r in rows] == list(SG.DEVICE_COUNTS)
+             and all(set(r) == set(SGS_ROW_KEYS) for r in rows)
+             and all(math.isfinite(r["steps_per_s"]) and r["steps_per_s"] > 0
+                     for r in rows),
+             f"{name}: JSON keys {sorted(written)}, rows {rows}")
+    fps = [r["fingerprint"] for r in rows]
+    spread = max(fps) - min(fps)
+    _require(spread == written["output_fingerprint_spread"]
+             and spread < 1e-5 * max(abs(f) for f in fps),
+             f"{name}: fingerprints {fps}")
+    _require("simulated mesh" in written["config"]["note"],
+             f"{name}: note {written['config']['note']}")
+    per_shard = SG.MODEL_CONFIG["num_sims"] * (args.steps + 1)
+    by_count = records["launches_by_shard"]
+    for n in SG.DEVICE_COUNTS:
+        by = by_count[n]
+        _require(sorted(by, key=int) == [str(i) for i in range(n)]
+                 and all(by[str(i)]["factor_mix"] == per_shard
+                         and by[str(i)]["gl_prox"] == 0 for i in range(n)),
+                 f"{name}: {n} entries, launches by shard {by}; want "
+                 f"{per_shard} factor_mix each")
+    expected = per_shard * sum(SG.DEVICE_COUNTS)
+    _require(mix == expected and prox == 0,
+             f"{name}: {mix} factor_mix executions for {expected}, {prox} "
+             f"gl_prox")
+    _emit({"phase": name, "device": torch.cuda.get_device_name(0),
+           "config": "experiments/sharded_grid_scaling.py defaults: the "
+                     "D4IC headline model (chip_smoke CONFIG), G 16, B 32, "
+                     "8 timed combined steps, through the port twin",
+           "note": written["config"]["note"], "wall_s": wall,
+           "rows": rows, "output_fingerprint_spread": spread,
+           "launches_by_shard": {str(n): by_count[n]
+                                 for n in SG.DEVICE_COUNTS},
+           "factor_mix_launches": mix, "expected_factor_mix": expected,
+           "gl_prox_launches": prox})
+    print(f"{name} wall_s {wall:.1f}", flush=True)
+    return mix, prox
+
+
 def phase_discovery(torch, FM, PX):
     """The Table-2 discovery flow on the host. One synSys 6-2-2 fold is
     curated at the study's size with the port's data layer, and its
@@ -8755,6 +9091,10 @@ def main():
                                 FM, PX)
         fcs_mix, fcs_prox = run("factor_count_selection",
                                 phase_factor_count_selection, torch, FM, PX)
+        hbs_mix, hbs_prox = run("highband_readout_sweep",
+                                phase_highband_readout_sweep, torch, FM, PX)
+        sgs_mix, sgs_prox = run("sharded_grid_scaling",
+                                phase_sharded_grid_scaling, torch, FM, PX)
         disc_mix, disc_prox, tst_X, tst_y = run("discovery", phase_discovery,
                                                 torch, FM, PX)
         an_mix, an_prox = run("analysis", phase_analysis, torch, FM, PX,
@@ -8801,6 +9141,8 @@ def main():
                  "grid_science_parity": gsp_mix,
                  "wavelet_flow": wav_mix,
                  "factor_count_selection": fcs_mix,
+                 "highband_readout_sweep": hbs_mix,
+                 "sharded_grid_scaling": sgs_mix,
                  "discovery": disc_mix, "analysis": an_mix,
                  "ts_transformer": tst_mix, "telemetry": tel_mix,
                  "runtime": rt_mix,
@@ -8829,6 +9171,8 @@ def main():
                   "grid_science_parity": gsp_prox,
                   "wavelet_flow": wav_prox,
                   "factor_count_selection": fcs_prox,
+                  "highband_readout_sweep": hbs_prox,
+                  "sharded_grid_scaling": sgs_prox,
                   "discovery": disc_prox,
                   "analysis": an_prox, "ts_transformer": tst_prox,
                   "telemetry": tel_prox, "runtime": rt_prox,

@@ -22,6 +22,7 @@ __all__ = [
     "parse_input_list_of_ints",
     "parse_tensor_string_representation",
     "serialize_tensor_to_string",
+    "read_in_data_adjacency_matrices",
     "read_in_model_args",
     "read_in_data_args",
     "load_true_gc_factors",
@@ -85,6 +86,47 @@ def _factor_index(key):
     """'net<i>_adjacency_tensor' -> i-1, parsing the full integer."""
     assert key.startswith("net"), key
     return int(key[3: key.index("_")]) - 1
+
+
+def _fill_gc_views(args_dict, lagged_by_index):
+    """Per-factor lagged + nontemporal views and their sums
+    (ref :51-93 read_in_data_adjacency_matrices semantics).  The factor list
+    keeps the reference's minimum of 4 slots but grows with the data.
+    A copy of ``redcliff_tpu/utils/config.py:98 _fill_gc_views``."""
+    n_slots = max(4, max(lagged_by_index, default=-1) + 1)
+    args_dict["true_lagged_GC_tensor"] = None
+    args_dict["true_nontemporal_GC_tensor"] = None
+    args_dict["true_lagged_GC_tensor_factors"] = [None] * n_slots
+    args_dict["true_nontemporal_GC_tensor_factors"] = [None] * n_slots
+    for idx in sorted(lagged_by_index):
+        lagged = lagged_by_index[idx]
+        nontemporal = lagged.sum(axis=2)
+        args_dict["true_lagged_GC_tensor_factors"][idx] = lagged
+        args_dict["true_nontemporal_GC_tensor_factors"][idx] = nontemporal
+        if args_dict["true_lagged_GC_tensor"] is None:
+            args_dict["true_lagged_GC_tensor"] = lagged
+            args_dict["true_nontemporal_GC_tensor"] = nontemporal
+        else:
+            args_dict["true_lagged_GC_tensor"] = \
+                args_dict["true_lagged_GC_tensor"] + lagged
+            args_dict["true_nontemporal_GC_tensor"] = \
+                args_dict["true_nontemporal_GC_tensor"] + nontemporal
+    return args_dict
+
+
+def read_in_data_adjacency_matrices(args_dict, cached_args_file_path):
+    """Load per-factor true GC tensors from a data cached-args file
+    (ref :51-93, minus the plotting side effects).  Lagged tensors are stored
+    reverse-lag-major and corrected here (ref :62). A copy of
+    ``redcliff_tpu/utils/config.py:123 read_in_data_adjacency_matrices``."""
+    with open(cached_args_file_path, "r") as f:
+        data_args = json.load(f)
+    lagged_by_index = {
+        _factor_index(key):
+            parse_tensor_string_representation(val)[:, :, ::-1].copy()
+        for key, val in data_args.items() if "adjacency_tensor" in key
+    }
+    return _fill_gc_views(args_dict, lagged_by_index)
 
 
 def _opt(value, cast=str):
@@ -362,13 +404,16 @@ def read_in_model_args(args_dict):
     return args_dict
 
 
-def read_in_data_args(args_dict, read_in_gc_factors_for_eval=False):
-    """Data cached-args reader: fills data_root_path / num_channels and
-    the true graphs — for cMLP/REDCLIFF the per-factor lagged tensors
-    (``true_GC_factors``) and their sum, for the lag-collapsing families
-    the summed nontemporal view. ``read_in_gc_factors_for_eval=True``
-    returns the per-factor lagged tensors whatever the family (the eval
-    drivers read them)."""
+def read_in_data_args(args_dict, include_gc_views_for_eval=False,
+                      read_in_gc_factors_for_eval=False):
+    """Data cached-args reader (``redcliff_tpu/utils/config.py:412``, its
+    signature): fills data_root_path / num_channels and the true graphs —
+    for cMLP/REDCLIFF the per-factor lagged tensors (``true_GC_factors``)
+    and their sum, for the lag-collapsing families the summed nontemporal
+    view. ``read_in_gc_factors_for_eval=True`` returns the per-factor
+    lagged tensors whatever the family (the eval drivers read them);
+    ``include_gc_views_for_eval=True`` adds the per-factor lagged and
+    nontemporal views and their sums (:func:`_fill_gc_views`)."""
     with open(args_dict["data_cached_args_file"], "r") as f:
         a = json.load(f)
     args_dict["data_root_path"] = a["data_root_path"]
@@ -402,6 +447,12 @@ def read_in_data_args(args_dict, read_in_gc_factors_for_eval=False):
             nt = lagged_tensors[k].sum(axis=2)
             total = nt if total is None else total + nt
         args_dict["true_GC_tensor"] = [total] if total is not None else None
+
+    if include_gc_views_for_eval:
+        # lagged + nontemporal per-factor views (ref :644-660), derived from
+        # the tensors already parsed above
+        _fill_gc_views(args_dict, {_factor_index(k): lagged_tensors[k]
+                                   for k in keys_sorted})
 
     for extra in ("num_samples", "num_folds", "num_states",
                   "sample_recording_len"):

@@ -12,6 +12,8 @@ for scoring Granger-causal graph estimates against ground truth:
 - Deltaffinity / path-length MSE                   (ref metrics.py:218,235)
 - Hungarian graph matching                         (ref metrics.py:274)
 - cosine similarity / MSE / fixed-edge F1          (ref metrics.py:321-430)
+- pairwise cosine sims / L1-norm difference         (ref metrics.py:372-393)
+- the numpy acyclicity score                       (ref metrics.py:433-443)
 - connected components of a graph                  (ref metrics.py:303-319)
 
 The training path (``train/tracking.py``, ``utils/misc.py``), the
@@ -42,8 +44,11 @@ __all__ = [
     "path_length_mse",
     "solve_linear_sum_assignment_between_graph_options",
     "compute_cosine_similarity",
+    "pairwise_cosine_similarities",
     "compute_mse",
+    "l1_norm_difference",
     "get_f1_score",
+    "dagness_penalty",
     "get_symmetric_graph_laplacian",
     "get_number_of_connected_components",
 ]
@@ -312,8 +317,41 @@ def compute_cosine_similarity(A, B, epsilon=1e-8):
     return float(A @ B / (max(a_norm, epsilon) * max(b_norm, epsilon)))
 
 
+def pairwise_cosine_similarities(tensors, include_diag=True):
+    """Upper-triangle pairwise cosine sims within a set of same-shape arrays
+    (ref metrics.py:372-381). With include_diag=False, identity is subtracted
+    from each (per lag slice for 3-D inputs) before comparison. A copy of
+    ``redcliff_tpu/utils/metrics.py:328 pairwise_cosine_similarities``."""
+    if len(tensors) <= 1:
+        return None
+    prepped = []
+    for T in tensors:
+        T = np.asarray(T, dtype=np.float64)
+        if not include_diag:
+            if T.ndim == 2:
+                T = T - np.eye(T.shape[0])
+            elif T.ndim == 3:
+                T = T - np.eye(T.shape[0])[:, :, None]
+            else:
+                raise NotImplementedError(T.shape)
+        prepped.append(T.ravel())
+    sims = []
+    for i in range(len(prepped)):
+        for j in range(i + 1, len(prepped)):
+            a, b = prepped[i], prepped[j]
+            denom = max(np.linalg.norm(a), 1e-8) * max(np.linalg.norm(b), 1e-8)
+            sims.append(float(a @ b / denom))
+    return np.asarray(sims)
+
+
 def compute_mse(A, B):
     return float(((np.asarray(A) - np.asarray(B)) ** 2).mean())
+
+
+def l1_norm_difference(A_hat, A):
+    """|  ||A_hat||_1 - ||A||_1 | over flattened entries (ref metrics.py:387-393).
+    A copy of ``redcliff_tpu/utils/metrics.py:358 l1_norm_difference``."""
+    return float(abs(np.abs(np.asarray(A_hat)).sum() - np.abs(np.asarray(A)).sum()))
 
 
 def get_f1_score(A_hat, A):
@@ -330,6 +368,22 @@ def get_f1_score(A_hat, A):
     if not np.isfinite(precision) or not np.isfinite(recall) or (precision + recall) == 0.0:
         return 0.0
     return float(2.0 * precision * recall / (precision + recall))
+
+
+def dagness_penalty(W0):
+    """(tr(exp(W∘W)) - N)^2 acyclicity score (ref metrics.py:433-443).
+
+    Matches the reference's literal computation: elementwise exp of the squared
+    weights, so the trace reduces to sum_i exp(W_ii^2). Host/numpy version, a
+    copy of ``redcliff_tpu/utils/metrics.py:379 dagness_penalty``; the
+    differentiable torch version lives in ``redcliff_tpu_torch.ops.losses``.
+    """
+    W0 = np.asarray(W0, dtype=np.float64)
+    if W0.ndim == 3 and W0.shape[2] == 1:
+        W0 = W0[:, :, 0]
+    assert W0.ndim == 2 and W0.shape[0] == W0.shape[1]
+    n = W0.shape[0]
+    return float((np.trace(np.exp(W0 * W0)) - n) ** 2.0)
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,9 @@
-"""Small host-side helpers (a copy of the part of the JAX package's
-``utils/misc.py`` that the trainer, the evaluation layer and the DCSFA-NMF
-features use; numpy on the host): normalization and diagonal masking,
-Hungarian alignment of unsupervised factor estimates and of factor indices
-to supervised labels, the directed-spectrum feature (un)flattening, and
-the sequential k-fold splits of the DREAM4 curation."""
+"""Small host-side helpers (a copy of the JAX package's ``utils/misc.py``;
+numpy on the host): top-k edge filters, normalization and diagonal
+masking, min-max rescaling, Hungarian alignment of unsupervised factor
+estimates and of factor indices to supervised labels, the flattening of
+lagged GC tensors and of directed-spectrum features, and the sequential
+k-fold splits of the DREAM4 curation."""
 from __future__ import annotations
 
 import numpy as np
@@ -14,14 +14,34 @@ from redcliff_tpu_torch.utils.metrics import (
 )
 
 __all__ = [
+    "apply_top_k_filter_to_edges",
     "normalize_array",
     "mask_diag_elements",
+    "place_on_zero_to_one_scale",
     "sort_unsupervised_estimates",
     "factor_alignment_order",
+    "get_avg_cosine_similarity_between_combos",
+    "get_topk_graph_mask",
+    "get_preds_from_masked_normalized_matrix",
+    "flatten_gc_with_lags",
+    "unflatten_gc_with_lags",
     "flatten_directed_spectrum_features",
     "unflatten_directed_spectrum_features",
     "make_kfolds_cv_splits",
 ]
+
+
+def apply_top_k_filter_to_edges(A, k=None):
+    """Zero all but the k largest entries (ref misc.py:21-37). A copy of
+    ``redcliff_tpu/utils/misc.py:35 apply_top_k_filter_to_edges``."""
+    if k is None:
+        return A
+    A = np.asarray(A)
+    flat = A.ravel()
+    # k may exceed the entry count; the reference's list slice [-k:] then keeps
+    # every entry, so clamp rather than raise
+    kth_largest = np.sort(flat)[-min(k, flat.size)]
+    return np.where(A >= kth_largest, A, 0.0)
 
 
 def normalize_array(A):
@@ -36,6 +56,14 @@ def mask_diag_elements(A):
     assert A.ndim == 2 and A.shape[0] == A.shape[1]
     np.fill_diagonal(A, 0.0)
     return A
+
+
+def place_on_zero_to_one_scale(elements):
+    """Min-max rescale a list of scalars (ref misc.py:50-55). A copy of
+    ``redcliff_tpu/utils/misc.py:61 place_on_zero_to_one_scale``."""
+    lo = np.min(elements)
+    hi = np.max(elements)
+    return [float((x - lo) / (hi - lo)) for x in elements]
 
 
 def sort_unsupervised_estimates(
@@ -91,6 +119,57 @@ def factor_alignment_order(preds, labels, num_factors, unsupervised_start_index=
     order = list(range(usi)) + [o for o in order_tail if o is not None] + unmatched
     order = order + [k for k in range(K) if k not in order]
     return order[:K]
+
+
+def get_avg_cosine_similarity_between_combos(elements):
+    """Mean pairwise cosine similarity after per-element max-normalization
+    (ref misc.py:93-104). A copy of ``redcliff_tpu/utils/misc.py:123
+    get_avg_cosine_similarity_between_combos``."""
+    total, count = 0.0, 0
+    for i in range(len(elements)):
+        for j in range(i + 1, len(elements)):
+            a = np.asarray(elements[i]) / np.max(elements[i])
+            b = np.asarray(elements[j]) / np.max(elements[j])
+            total += compute_cosine_similarity(a, b)
+            count += 1
+    return total / count
+
+
+def get_topk_graph_mask(A, k, for_no_lag=True):
+    """Keep entries >= the k-th largest value; optionally lag-summed first
+    (ref misc.py:106-112). A copy of ``redcliff_tpu/utils/misc.py:136
+    get_topk_graph_mask``."""
+    A = np.asarray(A)
+    if for_no_lag:
+        A = A.sum(axis=2)
+    kth = np.sort(A.ravel())[-k]
+    return (A >= kth) * A, kth
+
+
+def get_preds_from_masked_normalized_matrix(matrix, pred_scale, mask_thresh):
+    """Max-normalize, threshold-mask, rescale (ref misc.py:114-122). A copy
+    of ``redcliff_tpu/utils/misc.py:146
+    get_preds_from_masked_normalized_matrix``."""
+    matrix = np.asarray(matrix, dtype=np.float64)
+    matrix = matrix / np.max(matrix)
+    return pred_scale * matrix * (matrix >= mask_thresh)
+
+
+def flatten_gc_with_lags(GC):
+    """(m, n, L) -> (m, n*L) with lag-major column blocks (ref misc.py:131-138).
+    A copy of ``redcliff_tpu/utils/misc.py:153 flatten_gc_with_lags``."""
+    GC = np.asarray(GC)
+    m, n, L = GC.shape
+    return np.transpose(GC, (0, 2, 1)).reshape(m, n * L)
+
+
+def unflatten_gc_with_lags(GC):
+    """(m, m*L) -> (m, m, L) inverse of flatten_gc_with_lags (ref misc.py:140-146).
+    A copy of ``redcliff_tpu/utils/misc.py:160 unflatten_gc_with_lags``."""
+    GC = np.asarray(GC)
+    m = GC.shape[0]
+    L = GC.shape[1] // m
+    return np.transpose(GC.reshape(m, L, m), (0, 2, 1))
 
 
 def flatten_directed_spectrum_features(x):
