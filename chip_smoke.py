@@ -1054,11 +1054,13 @@ def phase_build(torch, kernels):
     return smi
 
 
-def _mix_grads(torch, mix, w0, p0):
+def _mix_grads(torch, mix, w0, p0, r):
+    """The forward and the gradients of ``(r * mix(w, p)).sum()``: a fixed
+    cotangent ``r``, so the backward sees no rounding of the forward."""
     w = w0.clone().requires_grad_(True)
     p = p0.clone().requires_grad_(True)
     out = mix(w, p)
-    torch.sin(out).sum().backward()
+    (r * out).sum().backward()
     return out.detach(), w.grad, p.grad
 
 
@@ -1138,15 +1140,19 @@ def _mix_checks(torch, FM, gen, dev, errs):
              f"factor_mix launch plans {plans}")
     # autograd, kernel forward + einsum backward vs the plain version: the
     # serve-test shape, the training batch and an odd remainder batch; and
-    # the same forward with no gradient wanted (the direct launch)
+    # the same forward with no gradient wanted (the direct launch). The
+    # cotangents come from a generator of their own, so w and p keep the
+    # draws of ``gen``
+    cot_gen = torch.Generator().manual_seed(29)
     for B, K, C in ((64, K_TRAIN, C_TRAIN), (128, K_TRAIN, C_TRAIN),
                     (117, K_TRAIN, C_TRAIN), (120, K_TRAIN, C_TRAIN),
                     (128, 2, 6), (112, 2, 6), (16, 2, 6),
                     (128, WAV_K, 24), (128, 6, 3)):
         w0 = torch.rand((B, K), generator=gen).to(dev)
         p0 = torch.randn((K, B, 1, C), generator=gen).to(dev)
-        got = _mix_grads(torch, FM.factor_mix, w0, p0)
-        want = _mix_grads(torch, FM.factor_mix_reference, w0, p0)
+        r = torch.randn((B, 1, C), generator=cot_gen).to(dev)
+        got = _mix_grads(torch, FM.factor_mix, w0, p0, r)
+        want = _mix_grads(torch, FM.factor_mix_reference, w0, p0, r)
         tag = (f"B={B}" if (K, C) == (K_TRAIN, C_TRAIN)
                else f"B={B} K={K} M={C}")
         for what, a, b in zip(("forward", "dw", "dp"), got, want):

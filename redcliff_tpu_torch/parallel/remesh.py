@@ -23,12 +23,27 @@ planning (port of ``redcliff_tpu/parallel/remesh.py``).
 The host halves are copies of the JAX module's, line for line:
 ``HostLostError``, the detection signature tuples and
 :func:`classify_device_error` (``redcliff_tpu/parallel/remesh.py:
-78-158``), :func:`width_fits`, :func:`choose_mesh_devices` and
+78-158``; its CUDA and NCCL routes below are the port's own),
+:func:`width_fits`, :func:`choose_mesh_devices` and
 :func:`plan_resharding` (``:223-311``) and :func:`apply_reshard`
 (``:323-366``, walking its trees with the port's ``interop.tree_map``).
 As in JAX, a single process simulates hosts as partitions of its mesh
 (``REDCLIFF_SIM_HOSTS`` declares the partition count) and a host drop is
 a typed exit plus a smaller ``REDCLIFF_MESH_DEVICES`` on the next attempt.
+
+Differences from JAX's signatures: the JAX texts are XLA's and PJRT's, so
+the copy adds the texts a CUDA device or an NCCL peer gives when it is
+gone. They are tried only where JAX's signatures find nothing, so every
+text JAX routes is routed as JAX routes it:
+
+- an Xid-79 "GPU has fallen off the bus" and
+  ``cudaErrorDevicesUnavailable`` are ``device_lost``;
+- an NCCL communicator aborted because its "remote process exited" is
+  ``collective_timeout``, the route JAX gives a peer that stopped
+  taking part.
+
+``CUDA error: unspecified launch failure`` stays None: a faulty kernel
+raises it too, and re-meshing would hide the fault behind a smaller mesh.
 
 numpy and the stdlib at module scope; torch is imported where a device is
 named.
@@ -109,6 +124,10 @@ _TIMEOUT_SIGS = ("timed out", "timeout", "deadline exceeded")
 _COORD_TIMEOUT_SIGS = _TIMEOUT_SIGS + ("unavailable",)
 _COLLECTIVE_SIGS = ("collective", "all-reduce", "allreduce", "all-gather",
                     "allgather", "psum", "nccl", "cross-host")
+# the port's own: what CUDA and NCCL say when a card or a peer is gone
+_CUDA_DEVICE_LOST_SIGS = ("fallen off the bus", "cudaerrordevicesunavailable")
+_NCCL_ABORT_SIGS = ("communicator was aborted", "communicator aborted")
+_PEER_EXIT_SIGS = ("remote process exited",)
 
 
 def classify_device_error(exc):
@@ -130,6 +149,11 @@ def classify_device_error(exc):
         return "coordinator_loss"
     if any(s in text for s in _COLLECTIVE_SIGS) \
             and any(s in text for s in _TIMEOUT_SIGS):
+        return "collective_timeout"
+    if any(s in text for s in _CUDA_DEVICE_LOST_SIGS):
+        return "device_lost"
+    if "nccl" in text and any(s in text for s in _NCCL_ABORT_SIGS) \
+            and any(s in text for s in _PEER_EXIT_SIGS):
         return "collective_timeout"
     return None
 

@@ -120,12 +120,12 @@ def set_up_and_run_experiments(args_dict, files_of_cached_model_args,
                                files_of_cached_data_args,
                                possible_model_types, possible_data_sets,
                                shuffle_seed=0, task_id=None,
-                               grid_search=False, device=None):
+                               grid_search=False, device=None, seed=0):
     """Array-task entry point: pick one (model_type, dataset) from the
     shuffled cartesian product by task id (1-based, from
     ``SLURM_ARRAY_TASK_ID`` when not given), read its cached-args files,
-    rescale the coefficients, and run it on ``device``. Returns the task
-    id."""
+    rescale the coefficients, and run it on ``device`` from the init of a
+    generator seeded with ``seed``. Returns the task id."""
     from redcliff_tpu_torch.utils.config import (read_in_data_args,
                                                  read_in_model_args)
 
@@ -155,7 +155,7 @@ def set_up_and_run_experiments(args_dict, files_of_cached_model_args,
         rescale_dataset_dependent_coefficients(args_dict)
 
     kick_off_model_training_experiment(args_dict, grid_search=grid_search,
-                                       device=device)
+                                       seed=seed, device=device)
     return task_id
 
 

@@ -44,6 +44,8 @@ from redcliff_tpu_torch.experiments import accuracy_parity_synsys as TSYN  # noq
 from redcliff_tpu_torch.interop import tree_leaves  # noqa: E402
 from redcliff_tpu_torch.utils.config import load_true_gc_factors  # noqa: E402
 
+import torch_depth_parity as DP  # noqa: E402
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # the published cached-args cut to a tiny width and depth for the CPU
@@ -317,12 +319,9 @@ def test_load_artifact_prev_and_bad_are_not_candidates_in_the_port(
 
 # ----------------------------------------------- the synSys fold at depth
 
-# each family's array-task name and classes by package (the JAX model's
-# ``init`` is recorded and handed to the port's)
-_DEPTH = {"CLSTM": ("cLSTM", "redcliff_tpu.models.clstm_fm:CLSTMFM",
-                    "redcliff_tpu_torch.models.clstm_fm:CLSTMFM"),
-          "DCSFA": ("DCSFANMF", "redcliff_tpu.models.dcsfa_nmf:DcsfaNmf",
-                    "redcliff_tpu_torch.models.dcsfa_nmf:DcsfaNmf")}
+# each family's array-task name (the JAX model's ``init`` is recorded and
+# handed to the port's, as the parity harness does)
+_DEPTH = {"CLSTM": "cLSTM", "DCSFA": "DCSFANMF"}
 HIST = dict(rtol=1e-4, atol=1e-5)
 # cLSTM's early-stopping criterion is the L1 of its GC estimate; it falls
 # from ~40 to Adam's noise floor, where the first-layer weights hover at
@@ -350,13 +349,6 @@ def _parting_epoch(drift):
     return int(np.argmax(beyond)) if beyond.any() else drift.shape[1]
 
 
-def _cls(path):
-    import importlib
-
-    mod, name = path.split(":")
-    return getattr(importlib.import_module(mod), name)
-
-
 def fit_synsys_fold_at_depth(alias, workdir, **kw):
     """:func:`_fit_at_depth` with its own patches, undone when it returns
     (so a later fit wraps the models' own methods, not these)."""
@@ -378,14 +370,13 @@ def _fit_at_depth(alias, workdir, monkeypatch, fold=0, overrides=None,
     ``W_nmf`` (DCSFA)}} and the JAX init under "init"."""
     import time
 
-    from redcliff_tpu_torch import interop
     from redcliff_tpu_torch.data.curation import curate_synthetic_fold
     from redcliff_tpu_torch.eval import gc_estimates as tge
     from redcliff_tpu_torch.eval import model_io as tio
     from redcliff_tpu_torch.runtime.checkpoint import read_checkpoint
     from redcliff_tpu_torch.train import driver as tdriver
 
-    model_type, jpath, tpath = _DEPTH[alias]
+    model_type = _DEPTH[alias]
     fold_dir, _ = curate_synthetic_fold(
         os.path.join(workdir, "data"), fold_id=fold, num_nodes=6, num_lags=2,
         num_factors=2, num_supervised_factors=2, num_edges_per_graph=2,
@@ -399,28 +390,9 @@ def _fit_at_depth(alias, workdir, monkeypatch, fold=0, overrides=None,
         json.dump(dict(TSYN.model_args_for(TSYN.MODELS, 6, 2, False)[
             model_type], **(overrides or {})), f)
 
-    jcls, tcls = _cls(jpath), _cls(tpath)
-    recorded, fits, pre = {"init": init}, {}, {}
-    jinit = jcls.init
-
-    def moved():
-        tree = recorded["init"]
-        if ulp:
-            tree = jax.tree.map(
-                lambda x: np.nextafter(x, ulp * np.inf, dtype=x.dtype)
-                if np.issubdtype(x.dtype, np.floating) else x, tree)
-        return tree
-
-    def record_init(self, *a, **kw):
-        if init is not None:
-            return jax.tree.map(jax.numpy.asarray, moved())
-        out = jinit(self, *a, **kw)
-        recorded["init"] = jax.tree.map(np.asarray, out)
-        return out
-
-    def copied_init(self, *a):
-        # (generator, device) or (generator, dim_in, device)
-        return interop.params_from_jax(moved(), a[-1])
+    jcls, tcls = DP.model_classes(model_type)
+    recorded = DP.patch_inits(monkeypatch, model_type, init=init, ulp=ulp)
+    fits, pre = {}, {}
 
     def keep(name, fit):
         def wrapped(self, *a, **kw):
@@ -435,8 +407,6 @@ def _fit_at_depth(alias, workdir, monkeypatch, fold=0, overrides=None,
             return value
         return wrapped
 
-    monkeypatch.setattr(jcls, "init", record_init)
-    monkeypatch.setattr(tcls, "init", copied_init)
     # neither the DCSFA fit's histories nor cLSTM's criterion history is in
     # the run dir
     if alias == "DCSFA":

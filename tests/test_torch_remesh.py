@@ -172,36 +172,48 @@ def test_host_fault_schedule_equals_jax(seed):
         == jfi.random_host_fault_schedule(seed)
 
 
-# what torch and NCCL raise when a card or a peer is gone, and the route
-# the JAX signatures give each; None falls back to the same-shape restart
-# (ROADMAP queue 3 records the misses)
+# what torch and NCCL raise when a card or a peer is gone, the route the
+# port gives each and the route the JAX signatures give it; None falls back
+# to the same-shape restart
 TORCH_ERRORS = [
     ("[Rank 0] Watchdog caught collective operation timeout: WorkNCCL("
      "SeqNum=7, OpType=ALLREDUCE, NumelIn=1, NumelOut=1, Timeout(ms)="
      "600000) ran for 600013 milliseconds before timing out.",
-     "collective_timeout"),
+     "collective_timeout", "collective_timeout"),
     ("NCCL communicator was aborted on rank 1. Original reason for "
      "failure was: NCCL error: remote process exited or there was a "
-     "network error", None),
+     "network error", "collective_timeout", None),
     ("CUDA error: unspecified launch failure\nCUDA kernel errors might be "
-     "asynchronously reported at some other API call", None),
+     "asynchronously reported at some other API call", None, None),
     ("CUDA error: CUDA-capable device(s) is/are busy or unavailable "
-     "(cudaErrorDevicesUnavailable)", None),
+     "(cudaErrorDevicesUnavailable)", "device_lost", None),
     ("NVRM: Xid (PCI:0000:18:00): 79, pid=1234, GPU has fallen off the "
-     "bus.", None),
-    ("CUDA error: an illegal memory access was encountered", None),
+     "bus.", "device_lost", None),
+    ("CUDA error: an illegal memory access was encountered", None, None),
 ]
 
 
-@pytest.mark.parametrize("text,route", TORCH_ERRORS)
-def test_classify_torch_device_errors(text, route):
-    """The copy classifies the texts torch raises exactly as the JAX module
-    does: an NCCL watchdog timeout is a collective timeout; a launch
-    failure, an unavailable device and an Xid-79 "fallen off the bus" are
-    not recognized as device losses (ROADMAP queue 3)."""
+@pytest.mark.parametrize("text,route,jax_route", TORCH_ERRORS)
+def test_classify_torch_device_errors(text, route, jax_route):
+    """The texts torch raises: an NCCL watchdog timeout is a collective
+    timeout in both packages. The port alone routes an unavailable device
+    and an Xid-79 "fallen off the bus" to ``device_lost`` and an NCCL
+    communicator aborted by a peer's exit to ``collective_timeout``; a
+    launch failure stays None (a faulty kernel raises it too)."""
     err = RuntimeError(text)
     assert trm.classify_device_error(err) == route
-    assert jrm.classify_device_error(err) == route
+    assert jrm.classify_device_error(err) == jax_route
+
+
+@pytest.mark.parametrize("err", ERRORS + [
+    RuntimeError(text) for text, route, jax_route in TORCH_ERRORS
+    if jax_route is not None])
+def test_classify_jax_routed_texts_as_jax_does(err):
+    """Every text the JAX signatures route (``redcliff_tpu/parallel/
+    remesh.py:126``), and every text of theirs that routes nowhere, maps in
+    the port as it maps in JAX: the port's own routes add to JAX's only
+    texts JAX leaves at None."""
+    assert trm.classify_device_error(err) == jrm.classify_device_error(err)
 
 
 # ------------------------------------------------- degraded-mesh resume
